@@ -1,0 +1,222 @@
+"""Bitset primitives: boolean matrices packed 32 columns to a 32-bit word.
+
+Layout (the "standard" layout, shared with ``core/engine.py``'s wire
+form): logical column ``c`` lives in word ``c >> 5``, bit ``c & 31``
+(little-endian within the word).
+
+Words are stored as ``torch.int32`` carrying the uint32 bit pattern:
+PyTorch has no shifts for ``torch.uint32`` on every backend, while
+``(w >> p) & 1`` is exact on int32 for every ``p`` up to 31 (the
+arithmetic shift's sign fill is masked away).  Cross into numpy with
+``.numpy().view(np.uint32)``.
+
+All functions take and return tensors on the caller's device; none of
+them synchronises with the device.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+_ONE = 1
+
+
+def to_words(a: np.ndarray, device=None) -> torch.Tensor:
+    """uint32 numpy words → int32 tensor with the same bits."""
+    a = np.ascontiguousarray(np.asarray(a, np.uint32))
+    return torch.from_numpy(a.view(np.int32)).to(device, copy=True)
+
+
+def from_words(t: torch.Tensor) -> np.ndarray:
+    """int32 tensor words → uint32 numpy array with the same bits."""
+    return t.detach().cpu().contiguous().numpy().view(np.uint32)
+
+
+def pack_bool_columns(x: torch.Tensor) -> torch.Tensor:
+    """bool [N, M] (M % 32 == 0) → int32 [N, M/32], standard layout."""
+    b = x.reshape(x.shape[0], -1, 32)
+    out = torch.zeros(b.shape[:2], dtype=torch.int32, device=x.device)
+    for p in range(32):
+        out |= b[:, :, p].to(torch.int32) << p
+    return out
+
+
+def unpack_words(p: torch.Tensor, m: int, dtype=torch.bool) -> torch.Tensor:
+    """int32 [N, W] → ``dtype`` [N, m] (m <= 32*W), standard layout."""
+    shifts = torch.arange(32, dtype=torch.int32, device=p.device)
+    bits = ((p[:, :, None] >> shifts) & _ONE).to(dtype)
+    return bits.reshape(p.shape[0], -1)[:, :m]
+
+
+def unpack_words_planes(p: torch.Tensor, dtype=torch.int8) -> torch.Tensor:
+    """int32 [N, W] → ``dtype`` [N, 32*W] in **bit-plane-major** order:
+    output position ``pl*W + w`` holds bit ``pl`` of word ``w`` (logical
+    column ``32*w + pl``).  Each plane narrows to ``dtype`` at once, so
+    no [N, W, 32] int32 intermediate exists."""
+    return torch.cat([((p >> pl) & _ONE).to(dtype) for pl in range(32)], dim=1)
+
+
+def pack_planes(bits: torch.Tensor) -> torch.Tensor:
+    """Inverse of :func:`unpack_words_planes`: bool/int [N, 32*W] in
+    bit-plane-major order → int32 [N, W]."""
+    n, m = bits.shape
+    w = m // 32
+    out = torch.zeros((n, w), dtype=torch.int32, device=bits.device)
+    for pl in range(32):
+        out |= bits[:, pl * w : (pl + 1) * w].to(torch.int32) << pl
+    return out
+
+
+def bit_lookup_from(subt: torch.Tensor, cols, *, dtype=torch.bool) -> torch.Tensor:
+    """``out[j, i] = bit(subt[cols[j] >> 5, i] >> (cols[j] & 31))`` —
+    the column-lookup half of :func:`bit_lookup` over a precomputed
+    transposed row gather ``subt`` [W, R]."""
+    cols = torch.as_tensor(cols).to(device=subt.device, dtype=torch.int64)
+    words = subt[cols >> 5]                               # [C, R] row gather
+    shifts = (cols & 31).to(torch.int32)[:, None]
+    return ((words >> shifts) & _ONE).to(dtype)
+
+
+def bit_lookup(p: torch.Tensor, rows, cols, *, dtype=torch.bool) -> torch.Tensor:
+    """``out[j, i] = bit(p[rows[i], cols[j]])`` — TRANSPOSED output
+    [len(cols), len(rows)] in ``dtype``: contiguous row gather →
+    transpose → row gather on the word axis → per-row shift, linear in
+    the output size."""
+    rows = torch.as_tensor(rows).to(device=p.device, dtype=torch.int64)
+    n_cols = len(cols)
+    if rows.numel() == 0 or n_cols == 0:
+        return torch.zeros((n_cols, rows.numel()), dtype=dtype, device=p.device)
+    return bit_lookup_from(p[rows].T, cols, dtype=dtype)
+
+
+def or_reduce(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """Bitwise-OR reduction over ``dim``, whose length must be a power
+    of two: PyTorch has no OR reduction, so the axis folds by halving
+    (log2(n) elementwise ORs)."""
+    n = x.shape[dim]
+    assert n & (n - 1) == 0, f"or_reduce needs a power-of-two axis, got {n}"
+    while n > 1:
+        n //= 2
+        x = x.narrow(dim, 0, n) | x.narrow(dim, n, n)
+    return x.squeeze(dim)
+
+
+def or_reduce_any(x: torch.Tensor, dim: int = 0) -> torch.Tensor:
+    """Bitwise-OR reduction over an axis of any length (pads it with
+    zero words up to a power of two first)."""
+    n = x.shape[dim]
+    if n == 0:
+        shape = list(x.shape)
+        del shape[dim]
+        return torch.zeros(shape, dtype=x.dtype, device=x.device)
+    p2 = 1 << (n - 1).bit_length()
+    if p2 != n:
+        pad = list(x.shape)
+        pad[dim] = p2 - n
+        x = torch.cat([x, x.new_zeros(pad)], dim=dim)
+    return or_reduce(x, dim)
+
+
+def _next_pow2(counts: np.ndarray) -> np.ndarray:
+    """Elementwise smallest power of two >= counts (counts >= 1), exact
+    for any int64 — float log2 alone misrounds near exact powers."""
+    b = (1 << np.ceil(np.log2(np.maximum(counts, 1))).astype(np.int64))
+    b = np.where(b < counts, b << 1, b)         # log2 rounded down
+    half = b >> 1
+    return np.where(half >= counts, half, b)    # log2 rounded up
+
+
+class SegmentedRowOr:
+    """Static plan for OR-combining packed *rows* that share a target row.
+
+    Segments are grouped by padded power-of-two length at build time,
+    each segment padded *with repeats of its own members* (OR is
+    idempotent, so repeats are free), and the runtime reduce is one
+    reshape + OR-fold per bucket: [n_seg, blen, W] → [n_seg, W].  The
+    plan is numpy; :meth:`reduce` and :meth:`write` run on tensors.
+
+    ``order`` (length ``k``, with repeats) maps kernel row position →
+    caller's raw axiom index; callers gather their per-axiom sources
+    through it once.  ``targets`` are the per-segment target row ids in
+    *bucket emission order*, aligned with :meth:`reduce`'s output.
+    """
+
+    def __init__(self, raw_targets: np.ndarray):
+        raw_targets = np.asarray(raw_targets, np.int64)
+        self._dev_cache: dict = {}
+        if raw_targets.size == 0:
+            self.k = 0
+            self.order = np.zeros(0, np.int64)
+            self.targets = raw_targets
+            self._buckets = []
+            return
+        order0 = np.argsort(raw_targets, kind="stable")
+        sorted_t = raw_targets[order0]
+        seg_targets, first, counts = np.unique(
+            sorted_t, return_index=True, return_counts=True
+        )
+        blens = _next_pow2(counts)
+        self._init_from_segments(seg_targets, counts, blens, first, order0)
+
+    def _init_from_segments(self, seg_targets, counts, blens, first, order0):
+        """Build emission order + buckets from per-segment (target, member
+        count, padded length, first-member offset into ``order0``)."""
+        bucket_sort = np.argsort(blens, kind="stable")
+        seg_targets = seg_targets[bucket_sort]
+        counts = counts[bucket_sort]
+        blens = blens[bucket_sort]
+        first = first[bucket_sort]
+        total = int(blens.sum())
+        out_starts = np.r_[0, np.cumsum(blens)[:-1]]
+        seg_of = np.repeat(np.arange(len(blens)), blens)
+        within = np.arange(total) - out_starts[seg_of]
+        # pad each segment with repeats of its own members — OR-idempotent
+        order = order0[first[seg_of] + within % counts[seg_of]]
+        ubl, ucnt = np.unique(blens, return_counts=True)  # ascending = emission
+        self.k = total
+        self.order = order
+        self.targets = seg_targets
+        #: (padded_len, n_segments) per bucket, in emission order
+        self._buckets = list(zip(ubl.tolist(), ucnt.tolist()))
+
+    def device_targets(self, device) -> torch.Tensor:
+        """``targets`` as an int64 tensor on ``device`` (cached)."""
+        key = ("t", str(device))
+        if key not in self._dev_cache:
+            self._dev_cache[key] = torch.as_tensor(
+                self.targets, dtype=torch.int64
+            ).to(device)
+        return self._dev_cache[key]
+
+    def reduce(self, rows: torch.Tensor) -> torch.Tensor:
+        """OR-reduce ``rows`` [k, W] (already gathered through ``order``)
+        within each segment → [n_targets, W]."""
+        if not self._buckets:
+            return rows[:0]
+        outs = []
+        pos = 0
+        for blen, nseg in self._buckets:
+            chunk = rows[pos : pos + nseg * blen]
+            pos += nseg * blen
+            if blen == 1:
+                outs.append(chunk)
+            else:
+                chunk = chunk.reshape(nseg, blen, rows.shape[1])
+                outs.append(or_reduce(chunk, 1))
+        return outs[0] if len(outs) == 1 else torch.cat(outs, dim=0)
+
+    def write(self, state: torch.Tensor, reduced: torch.Tensor,
+              cols: slice = slice(None)) -> torch.Tensor:
+        """OR already-reduced per-target rows ``reduced`` [n_targets, w]
+        into ``state[:, cols]`` **in place** (the state is the largest
+        tensor of a run; a functional update would double it).  Returns
+        a 0-d bool tensor "did any bit change", computed on the touched
+        rows only and left on the device."""
+        if self.k == 0:
+            return torch.zeros((), dtype=torch.bool, device=state.device)
+        t = self.device_targets(state.device)
+        old = state[t, cols]
+        merged = old | reduced
+        state[t, cols] = merged
+        return (merged != old).any()

@@ -1,0 +1,151 @@
+"""The end-to-end classifier: parse → normalize → index → saturate →
+taxonomy, with per-phase wall-clock timers.
+
+The port of ``distel_tpu/runtime/classifier.py``'s one-shot path
+(``ELClassifier.classify_text`` / ``classify_file``, including
+``resume_from=``) on the Python load plane and the row-packed engine.
+Everything runs on ``cuda`` unless the caller passes ``device="cpu"``;
+with no card and no device given, construction raises.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import time
+from dataclasses import dataclass, field
+from typing import Dict, Optional
+
+import torch
+
+from distel_tpu_torch.config import ClassifierConfig
+from distel_tpu_torch.core.engine import SaturationResult
+from distel_tpu_torch.core.indexing import Indexer, IndexedOntology
+from distel_tpu_torch.core.rowpacked_engine import RowPackedSaturationEngine
+from distel_tpu_torch.frontend.normalizer import Normalizer, NormalizedOntology
+from distel_tpu_torch.owl import loader as owl_loader
+from distel_tpu_torch.runtime.taxonomy import Taxonomy, extract_taxonomy
+
+
+def resolve_device(device=None) -> torch.device:
+    """``device`` as a ``torch.device``; None means the first card, and
+    raises when there is none (the port never falls back to the CPU on
+    its own)."""
+    if device is not None:
+        return torch.device(device)
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "distel_tpu_torch runs on a CUDA device and none is available; "
+            "pass device='cpu' to run the plain PyTorch versions on the CPU"
+        )
+    return torch.device("cuda")
+
+
+@dataclass
+class PhaseTimer:
+    """Wall seconds per named phase (synchronising the card at each
+    phase boundary, so device work lands in the phase that issued it)."""
+
+    device: torch.device
+    phases: Dict[str, float] = field(default_factory=dict)
+
+    @contextlib.contextmanager
+    def phase(self, name: str):
+        self._sync()
+        t0 = time.perf_counter()
+        try:
+            yield
+        finally:
+            self._sync()
+            self.phases[name] = self.phases.get(name, 0.0) + (
+                time.perf_counter() - t0
+            )
+
+    def _sync(self):
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    def report(self) -> str:
+        return "  ".join(f"{k}={v * 1000:.1f}ms" for k, v in self.phases.items())
+
+
+@dataclass
+class ClassificationResult:
+    result: SaturationResult
+    taxonomy: Taxonomy
+    norm: NormalizedOntology
+    idx: IndexedOntology
+    timer: PhaseTimer
+    #: the engine that ran the fixed point (its plan statistics)
+    engine: Optional[RowPackedSaturationEngine] = None
+
+    def summary(self) -> dict:
+        return {
+            "concepts": self.idx.n_concepts,
+            "roles": self.idx.n_roles,
+            "links": self.idx.n_links,
+            "normalized_axioms": self.norm.axiom_count(),
+            "removed_axioms": sum(self.norm.removed.values()),
+            "iterations": self.result.iterations,
+            "derivations": self.result.derivations,
+            "unsatisfiable": len(self.taxonomy.unsatisfiable),
+            "device": str(self.timer.device),
+            "phases_ms": {
+                k: round(v * 1000, 1) for k, v in self.timer.phases.items()
+            },
+        }
+
+
+def make_engine(config: ClassifierConfig, idx: IndexedOntology, device):
+    """The row-packed engine for ``config`` on ``device``."""
+    config.validate()
+    return RowPackedSaturationEngine(
+        idx,
+        device=device,
+        pad_multiple=config.pad_multiple,
+        cr6_tiles=config.cr6_tiles_config(),
+    )
+
+
+class ELClassifier:
+    """One classifier instance per config and device."""
+
+    def __init__(self, config: Optional[ClassifierConfig] = None, device=None):
+        self.config = config or ClassifierConfig()
+        self.config.validate()
+        self.device = resolve_device(device)
+
+    def classify_text(
+        self, text: str, *, resume_from: Optional[str] = None
+    ) -> ClassificationResult:
+        """``resume_from``: path of a v2 snapshot (either package's
+        ``save_snapshot``) to warm-start saturation from, realigned by
+        name onto this corpus's numbering.  Precondition: the snapshot's
+        corpus is a *subset* of this one — saturation is monotone, so
+        consequences of since-retracted axioms would survive."""
+        timer = PhaseTimer(self.device)
+        cfg = self.config
+        with timer.phase("parse"):
+            onto = owl_loader.load(text)
+        with timer.phase("normalize"):
+            norm = Normalizer().normalize(onto)
+        with timer.phase("index"):
+            idx = Indexer().index(norm)
+        with timer.phase("plan"):
+            engine = make_engine(cfg, idx, self.device)
+        initial = None
+        if resume_from is not None:
+            with timer.phase("resume(align)"):
+                from distel_tpu_torch.runtime.checkpoint import load_snapshot_state
+
+                initial, _info = load_snapshot_state(resume_from, idx=idx)
+        with timer.phase("saturate"):
+            result = engine.saturate(cfg.max_iterations, initial=initial)
+        with timer.phase("taxonomy"):
+            taxonomy = extract_taxonomy(result)
+        if cfg.instrumentation:
+            print(timer.report(), flush=True)
+        return ClassificationResult(result, taxonomy, norm, idx, timer, engine)
+
+    def classify_file(self, path: str, **kw) -> ClassificationResult:
+        with open(path, "r", encoding="utf-8-sig") as f:
+            return self.classify_text(f.read(), **kw)

@@ -35,6 +35,12 @@ def pytest_configure(config):
         "(`-m 'not slow'`); run explicitly, e.g. "
         "`pytest -m slow tests/test_restore_churn_stress.py`",
     )
+    config.addinivalue_line(
+        "markers",
+        "cuda: needs a CUDA device (the distel_tpu_torch kernels have no "
+        "CPU mode); skips without one — run on a card with "
+        "`python -m pytest -m cuda tests/test_torch_*.py`",
+    )
 
 
 @pytest.fixture(autouse=True)

@@ -1,0 +1,105 @@
+"""The port's boundary: it stands alone, and it never runs on the CPU
+unless asked.
+
+* No module under ``distel_tpu_torch/``, and not ``chip_smoke.py``,
+  imports ``jax`` or ``distel_tpu`` — checked on the source (AST) and
+  by importing every module in a fresh interpreter and reading
+  ``sys.modules``.
+* With no CUDA device and no device given, the entry points raise, and
+  ``chip_smoke.py`` exits non-zero without printing a result.
+"""
+
+import ast
+import json
+import shutil
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+from distel_tpu_torch import cli
+from distel_tpu_torch.ops.bitmatmul import PackedColsMatmulPlan
+from distel_tpu_torch.runtime import classifier
+
+ROOT = Path(__file__).resolve().parent.parent
+PORT_FILES = sorted((ROOT / "distel_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+FORBIDDEN = ("jax", "jaxlib", "distel_tpu")
+
+
+def _imported_roots(path: Path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name.split(".")[0]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+            yield node.module.split(".")[0]
+        elif isinstance(node, ast.Call) and getattr(node.func, "id", None) == "__import__":
+            if node.args and isinstance(node.args[0], ast.Constant):
+                yield str(node.args[0].value).split(".")[0]
+
+
+@pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(ROOT)))
+def test_source_imports_nothing_of_jax(path):
+    bad = sorted(set(_imported_roots(path)) & set(FORBIDDEN))
+    assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
+
+
+def test_importing_every_module_loads_no_jax():
+    mods = sorted(
+        ".".join(p.relative_to(ROOT).with_suffix("").parts).removesuffix(".__init__")
+        for p in PORT_FILES
+        if p.name != "chip_smoke.py"
+    )
+    code = (
+        "import importlib, json, sys\n"
+        f"for m in {mods!r} + ['chip_smoke']:\n"
+        "    importlib.import_module(m)\n"
+        "print(json.dumps(sorted(m for m in sys.modules\n"
+        "    if m.split('.')[0] in ('jax', 'jaxlib', 'distel_tpu'))))\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+                         text=True, timeout=120, check=True)
+    assert json.loads(out.stdout.strip().splitlines()[-1]) == []
+
+
+def test_entry_points_raise_without_a_card(monkeypatch, tmp_path):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        classifier.ELClassifier()
+    src = tmp_path / "a.ofn"
+    src.write_text("SubClassOf(A B)\n")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        cli.main(["classify", str(src)])
+    # an explicit CPU request runs
+    assert classifier.ELClassifier(device="cpu").device.type == "cpu"
+
+
+def test_plan_refuses_a_device_without_a_kernel():
+    plan = PackedColsMatmulPlan(2, 2, 1)
+    a = torch.zeros((2, 2), dtype=torch.int8, device="meta")
+    b = torch.zeros((2, 1), dtype=torch.int32, device="meta")
+    with pytest.raises(ValueError, match="no packed-columns kernel"):
+        plan(a, b)
+
+
+def _run_smoke(cwd: Path):
+    return subprocess.run([sys.executable, "chip_smoke.py"], cwd=cwd,
+                          capture_output=True, text=True, timeout=120)
+
+
+def test_chip_smoke_fails_without_a_card():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the smoke would run for real")
+    out = _run_smoke(ROOT)
+    assert out.returncode != 0
+    assert '"ok"' not in out.stdout and '"kernels"' not in out.stdout
+
+
+def test_chip_smoke_fails_alone(tmp_path):
+    shutil.copy(ROOT / "chip_smoke.py", tmp_path / "chip_smoke.py")
+    out = _run_smoke(tmp_path)
+    assert out.returncode != 0
+    assert '"ok"' not in out.stdout
