@@ -6,15 +6,21 @@
 Phases, each of which raises on failure:
 
 1. probe and build: the card, its power limit, and the CUDA kernels
-   built from ``distel_tpu_torch/ops/csrc`` (timed);
-2. kernel vs plain: both packed-columns kernels against their plain
-   PyTorch version on unaligned and tile-sparse shapes, bit for bit;
+   built from ``distel_tpu_torch/ops/csrc`` (one ``nvcc`` per source,
+   all started together; timed);
+2. kernel vs plain: both packed-columns kernels and ``packed_andor``
+   against their plain PyTorch versions on unaligned, bit-31 and
+   tile-sparse shapes, bit for bit (``packed_andor`` also timed beside
+   its plain version and its bound);
 3. golden fixtures: every ``tests/golden/*.ofn`` classified on the card
-   must match its ``.expected`` file;
+   through the row-packed engine and through ``engine="packed"`` must
+   match its ``.expected`` file;
 4. card vs CPU: the 8000-class SNOMED-shaped corpus classified on the
    card (with the window CR6, and with the live-tile CR6 forced on) and
    on the CPU gives identical packed S and R, derivation count and
-   taxonomy;
+   taxonomy; then ``engine="packed"`` on the card gives the same
+   x-major S and R (compared in row blocks against the transposed
+   row-packed state), derivations and taxonomy;
 5. full width: the 64000-class SNOMED-shaped corpus classified on the
    card to convergence with nothing hooked in, its wall, peak memory
    and the kernels' launch counts read from that run alone (both must
@@ -28,10 +34,21 @@ Phases, each of which raises on failure:
    plain version, each timed beside it and beside the card's bound for
    the same work, the sparse one also split into its live-tile listing
    and the bare kernel.  The pairs go to ``chiprun_out/kernel_pairs.json``.
+7. the packed engine at full width: the 64000-class corpus through
+   ``engine="packed"`` to convergence with nothing hooked in (launch
+   counts zeroed just before, read just after: ``packed_andor`` and the
+   taxonomy's ``packed_cols_dense`` must both be > 0), its derivations,
+   closure and taxonomy equal to the row-packed run's; then a profiled
+   rerun (per-part breakdown), and a captured rerun that keeps the
+   heaviest CR4 and CR6 operands (most set bits of A),
+   which ``packed_andor`` must reproduce bit for bit against its plain
+   version, each timed beside it and beside the bound.
 
 It prints the card's name and power limit, a ``{"policy": ...}`` line
 (each site's device time under the chosen kernel and under each
-kernel), a ``{"kernels": [...]}`` line, and as its last line
+kernel), the ``{"andor_checks": ...}``, ``{"packed_full_width": ...}``,
+``{"packed_breakdown": ...}`` and ``{"andor_operands": ...}`` lines, a
+``{"kernels": [...]}`` line, and as its last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 Without a CUDA device it exits non-zero and prints no result.
 """
@@ -55,10 +72,12 @@ ROOT = Path(__file__).resolve().parent
 PEAK_BYTES_S = 3.35e12
 PEAK_INT8_OPS_S = 1979e12
 SOURCE = "distel_tpu_torch/ops/csrc/packed_cols.cu"
+ANDOR_SOURCE = "distel_tpu_torch/ops/csrc/packed_andor.cu"
 REPLACES = {
     "packed_cols_dense": "distel_tpu/ops/bitmatmul.py:231 (_packed_cols_kernel)",
     "packed_cols_sparse": "distel_tpu/ops/bitmatmul.py:241 "
                           "(_packed_cols_sparse_kernel)",
+    "packed_andor": "distel_tpu/ops/bitmatmul.py:81 (_andor_kernel)",
 }
 
 
@@ -117,14 +136,15 @@ def phase_probe():
     log(f"[probe] torch {torch.__version__} cuda {torch.version.cuda} "
         f"device {name} count {torch.cuda.device_count()}")
     t0 = time.perf_counter()
-    secs = build.build_all(["packed_cols"])
+    secs = build.build_all(["packed_cols", "packed_andor"])
     from distel_tpu_torch.ops import bitmatmul
 
     bitmatmul._lib()
+    bitmatmul._andor_lib()
     log(f"[build] {secs} (wall {time.perf_counter() - t0:.2f} s)")
-    ptxas = Path(build.build_dir()).glob("libpacked_cols-*.so.ptxas.txt")
-    for p in ptxas:
-        log(p.read_text().strip())
+    for src in ("packed_cols", "packed_andor"):
+        for p in Path(build.build_dir()).glob(f"lib{src}-*.so.ptxas.txt"):
+            log(p.read_text().strip())
     return name
 
 
@@ -222,20 +242,21 @@ def golden_errors(closure: dict, expected: dict) -> list:
     return errors
 
 
-def phase_golden(device: str = "cuda") -> int:
+def phase_golden(device: str = "cuda", engine: str = "rowpacked") -> int:
+    from distel_tpu_torch.config import ClassifierConfig
     from distel_tpu_torch.runtime.classifier import ELClassifier
 
     fixtures = sorted((ROOT / "tests" / "golden").glob("*.ofn"))
     if len(fixtures) < 20:
         raise AssertionError(f"only {len(fixtures)} golden fixtures found")
-    clf = ELClassifier(device=device)
+    clf = ELClassifier(ClassifierConfig(engine=engine), device=device)
     for path in fixtures:
         expected = load_expected(path.with_suffix(".expected"))
         closure = golden_closure(clf.classify_file(str(path)).result)
         errors = golden_errors(closure, expected)
         if errors:
-            raise AssertionError(f"golden {path.stem}: {errors}")
-    log(f"[golden] {len(fixtures)} fixtures match on {device}")
+            raise AssertionError(f"golden {path.stem} ({engine}): {errors}")
+    log(f"[golden] {len(fixtures)} fixtures match on {device} ({engine})")
     return len(fixtures)
 
 
@@ -277,6 +298,52 @@ def phase_card_vs_cpu(cap: "Capture"):
         if taxonomy_key(res.taxonomy) != taxonomy_key(runs["cpu"].taxonomy):
             raise AssertionError(f"8k: taxonomies differ ({what})")
     log("[8k] identical on cuda, cuda with live-tile CR6, and cpu")
+    return runs["cuda"]
+
+
+def same_x_major(packed, row, block: int = 2048) -> bool:
+    """Whether an x-major packed-engine result and a transposed
+    row-packed result hold the same S and R, padded rows and columns
+    included: row blocks of the x-major words against the matching
+    word columns of the transposed state, unpacked on the card."""
+    from distel_tpu_torch.ops.bitpack import unpack_words
+
+    for px, pt in ((packed.packed_s, row.packed_s), (packed.packed_r, row.packed_r)):
+        width, nx = pt.shape[0], px.shape[0]
+        if nx != 32 * pt.shape[1] or px.shape[1] * 32 != _pad32(width):
+            return False
+        for x0 in range(0, nx, block):
+            x1 = min(x0 + block, nx)
+            a = unpack_words(px[x0:x1], width)
+            t = unpack_words(pt[:, x0 // 32 : x1 // 32], x1 - x0)
+            if not torch.equal(a, t.T):
+                return False
+    return True
+
+
+def _pad32(n: int) -> int:
+    return -(-n // 32) * 32
+
+
+def phase_cross_engine(row_run) -> None:
+    """The 8k corpus through ``engine="packed"`` on the card: the same
+    closure, derivations and taxonomy as the row-packed card run (which
+    phase 4 held against the CPU)."""
+    from distel_tpu_torch.config import ClassifierConfig
+    from distel_tpu_torch.frontend.ontology_tools import snomed_shaped_ontology
+    from distel_tpu_torch.runtime.classifier import ELClassifier
+
+    text = snomed_shaped_ontology(n_classes=8000, seed=42)
+    t0 = time.perf_counter()
+    got = ELClassifier(ClassifierConfig(engine="packed"), device="cuda").classify_text(text)
+    log(f"[8k] packed: {time.perf_counter() - t0:.2f} s {got.summary()}")
+    if not same_x_major(got.result, row_run.result):
+        raise AssertionError("8k: packed and row-packed closures differ")
+    if got.result.derivations != row_run.result.derivations:
+        raise AssertionError("8k: packed and row-packed derivations differ")
+    if taxonomy_key(got.taxonomy) != taxonomy_key(row_run.taxonomy):
+        raise AssertionError("8k: packed and row-packed taxonomies differ")
+    log("[8k] packed engine identical to the row-packed engine")
 
 
 #: the callers of PackedColsMatmulPlan on the main path, by function name
@@ -360,8 +427,8 @@ def phase_full_width():
     print(json.dumps({"full_width": stats}), flush=True)
     if not res.result.converged:
         raise AssertionError("64k run did not converge")
-    for k, n in launches.items():
-        if n == 0:
+    for k in ("packed_cols_dense", "packed_cols_sparse"):    # this path's kernels
+        if launches[k] == 0:
             raise AssertionError(f"{k} was never launched on the 64k run")
     if len(res.taxonomy.parents) == 0:
         raise AssertionError("64k taxonomy is empty")
@@ -556,6 +623,211 @@ def phase_kernel_line(launches, cap: Capture):
     return rows, pairs
 
 
+# ------------------------------------------------------------ packed_andor
+
+
+def andor_operands(gen, m, kw, k, n, density, *, bit31=False, zero_rows_from=None):
+    """A [m, kw] int32 words with about ``density`` of their bits set
+    (bit 31 of every word with ``bit31``), B [k, n] int8 0/1."""
+    bits = torch.rand((m, kw, 32), generator=gen, device="cuda") < density
+    if bit31:
+        bits[:, :, 31] = True
+    if zero_rows_from is not None:
+        bits[zero_rows_from:] = False
+    words = (bits.to(torch.int64) << torch.arange(32, device="cuda")).sum(dim=2)
+    words = torch.where(words >= 2**31, words - 2**32, words)
+    b = (torch.rand((k, n), generator=gen, device="cuda") < 0.05).to(torch.int8)
+    return words.to(torch.int32).contiguous(), b.contiguous()
+
+
+def andor_bound_ms(a: torch.Tensor, b: torch.Tensor):
+    """Least time for ``C = A ⊙ B`` (A packed along K) on these inputs:
+    the bytes are A once, the B rows some set bit of A selects, and C
+    once; the work is one byte-OR per set bit of A per output column,
+    counted as one int8 multiply-add (2 ops), as the packed-columns
+    bound counts a bit-MAC."""
+    from distel_tpu_torch.core.engine import popcount_rows
+    from distel_tpu_torch.ops.bitpack import or_reduce_any
+
+    m, kw = a.shape
+    k, n = b.shape
+    full, rem = divmod(k, 32)
+    any_row = or_reduce_any(a, 0)[None, :]
+
+    def bits(p):   # set bits at contraction indices < k
+        total = int(popcount_rows(p[:, :full]).sum())
+        if rem:
+            total += int(popcount_rows(p[:, full : full + 1] & ((1 << rem) - 1)).sum())
+        return total
+
+    nnz, selected = bits(a), bits(any_row)
+    nbytes = 4 * m * kw + selected * n + m * n
+    t_bytes, t_ops = nbytes / PEAK_BYTES_S, 2 * nnz * n / PEAK_INT8_OPS_S
+    return (1e3 * max(t_bytes, t_ops),
+            "bytes" if t_bytes >= t_ops else "operations", nnz, selected)
+
+
+def check_andor(a, b, n, what: str) -> dict:
+    """``packed_andor`` against its plain version bit for bit, then
+    both timed (CUDA events) beside the bound.  ``b`` may carry padded
+    columns past ``n``."""
+    from distel_tpu_torch.ops.bitmatmul import PackedMatmulPlan, plain_packed_andor
+
+    plan = PackedMatmulPlan(a.shape[0], a.shape[1], n)
+    got = plan(a, b)
+    sync()
+    want = plain_packed_andor(a, b[:, :n])
+    err = int((got.to(torch.int32) - want.to(torch.int32)).abs().max()) if got.numel() else 0
+    if err:
+        raise AssertionError(f"packed_andor {what}: differs from plain")
+    out = {"what": what, "shape": [a.shape[0], a.shape[1], b.shape[0], n],
+           "max_abs_err": err,
+           "ms": time_ms(lambda: plan(a, b)),
+           "plain_ms": time_ms(lambda: plain_packed_andor(a, b[:, :n]), reps=3)}
+    out["bound_ms"], out["bound_by"], out["a_bits"], out["b_rows_selected"] = \
+        andor_bound_ms(a, b[:, :n])
+    log(f"[andor] {json.dumps(out)}")
+    return out
+
+
+def phase_andor_kernel() -> list:
+    """``packed_andor`` bit for bit against its plain version on
+    unaligned shapes, bit-31 words, a mostly-zero A and more than one N
+    tile."""
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    checks = []
+    for what, (m, kw, k, n, dens, bit31, zero_from) in (
+        ("unaligned", (70, 10, 300, 90, 0.1, False, None)),
+        ("bit31", (33, 8, 256, 17, 0.02, True, None)),
+        ("mostly-zero", (300, 70, 2200, 4100, 0.001, False, 40)),
+        ("all-zero", (17, 300, 9600, 64, 0.0, False, None)),
+    ):
+        a, b = andor_operands(gen, m, kw, k, n, dens, bit31=bit31,
+                              zero_rows_from=zero_from)
+        checks.append(check_andor(a, b, n, what))
+    print(json.dumps({"andor_checks": checks}), flush=True)
+    return checks
+
+
+def phase_packed_full_width(row_res):
+    """The 64k corpus through ``engine="packed"`` with nothing hooked
+    in: wall per phase, peak memory, iterations, derivations and launch
+    counts of that run alone; its derivations, closure and taxonomy
+    must equal the row-packed run's."""
+    from distel_tpu_torch.config import ClassifierConfig
+    from distel_tpu_torch.frontend.ontology_tools import snomed_shaped_ontology
+    from distel_tpu_torch.ops.bitmatmul import LAUNCHES, reset_launches
+    from distel_tpu_torch.runtime.classifier import ELClassifier
+
+    text = snomed_shaped_ontology(n_classes=64000, seed=42)
+    clf = ELClassifier(ClassifierConfig(engine="packed"), device="cuda")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    reset_launches()
+    t0 = time.perf_counter()
+    res = clf.classify_text(text)
+    wall = time.perf_counter() - t0
+    launches = dict(LAUNCHES)
+    stats = {
+        **res.summary(),
+        "wall_s": wall,
+        "max_memory_allocated": torch.cuda.max_memory_allocated(),
+        "memory_allocated_before": base,
+        "launches": launches,
+        "plan": res.engine.plan_stats(),
+        "classes_in_taxonomy": len(res.taxonomy.parents),
+    }
+    log(f"[64k packed] {json.dumps(stats)}")
+    print(json.dumps({"packed_full_width": stats}), flush=True)
+    if not res.result.converged:
+        raise AssertionError("64k packed run did not converge")
+    for k in ("packed_andor", "packed_cols_dense"):
+        if launches[k] == 0:
+            raise AssertionError(f"{k} was never launched on the 64k packed run")
+    if res.result.derivations != row_res.result.derivations:
+        raise AssertionError("64k: packed and row-packed derivations differ")
+    if taxonomy_key(res.taxonomy) != taxonomy_key(row_res.taxonomy):
+        raise AssertionError("64k: packed and row-packed taxonomies differ")
+    if not same_x_major(res.result, row_res.result):
+        raise AssertionError("64k: packed and row-packed closures differ")
+    log("[64k packed] derivations, closure and taxonomy equal the row-packed run's")
+    return launches["packed_andor"], res
+
+
+def phase_packed_breakdown(packed) -> dict:
+    """Where the 64k packed run's time goes, from a profiled rerun on
+    the same engine (each part of the step synchronised and timed); its
+    closure must equal the first run's."""
+    engine = packed.engine
+    engine.rule_seconds = {}
+    sync()
+    t0 = time.perf_counter()
+    again = engine.saturate(profile=True)
+    wall = time.perf_counter() - t0
+    for x, y in zip((again.packed_s, again.packed_r),
+                    (packed.result.packed_s, packed.result.packed_r)):
+        if not torch.equal(x, y):
+            raise AssertionError("64k packed: the profiled rerun gave another closure")
+    out = {"saturate_profiled_s": wall, "iterations": again.iterations,
+           "rule_s": dict(engine.rule_seconds)}
+    log(f"[packed breakdown] {json.dumps(out)}")
+    print(json.dumps({"packed_breakdown": out}), flush=True)
+    return out
+
+
+def phase_andor_operands(packed, launches: int, checks: list) -> dict:
+    """A captured rerun of the 64k packed engine keeps, for CR4 and CR6,
+    the operand pair whose A has the most set bits; ``packed_andor``
+    must reproduce each bit for bit, timed beside its plain version and
+    the bound.  Returns the kernel line's row, at the heavier pair."""
+    from distel_tpu_torch.core.engine import popcount_rows
+    from distel_tpu_torch.ops import bitmatmul
+
+    engine = packed.engine
+    heavy = {}     # site -> [set bits of A, a, b, n]
+    orig = bitmatmul.PackedMatmulPlan._launch
+
+    def launch(plan, a, b):
+        site = next(r for (r, _m), p in engine._plans.items() if p is plan)
+        nbits = int(popcount_rows(a).sum())
+        if nbits > heavy.get(site, [-1])[0]:
+            heavy[site] = [nbits, a.clone(), b, plan.n]
+        return orig(plan, a, b)
+
+    bitmatmul.PackedMatmulPlan._launch = launch
+    try:
+        again = engine.saturate()
+    finally:
+        bitmatmul.PackedMatmulPlan._launch = orig
+    for x, y in zip((again.packed_s, again.packed_r),
+                    (packed.result.packed_s, packed.result.packed_r)):
+        if not torch.equal(x, y):
+            raise AssertionError("64k packed: the captured rerun gave another closure")
+    del again
+    pairs = []
+    for site in sorted(heavy):
+        _nbits, a, b, n = heavy.pop(site)
+        pairs.append({"site": site, **check_andor(a, b, n, f"64k {site}")})
+        del a, b
+    print(json.dumps({"andor_operands": pairs}), flush=True)
+    top = max(pairs, key=lambda p: p["a_bits"] * p["shape"][3])
+    return {
+        "name": "packed_andor",
+        "route": "cuda",
+        "source": ANDOR_SOURCE,
+        "replaces": REPLACES["packed_andor"],
+        "launches": launches,
+        "max_abs_err": max(p["max_abs_err"] for p in pairs + checks),
+        "ms": top["ms"],
+        "plain_ms": top["plain_ms"],
+        "bound_ms": top["bound_ms"],
+        "bound_by": top["bound_by"],
+        "library_ms": None,
+        "at": {"run": "64k packed", "site": top["site"], "shape": top["shape"]},
+    }
+
+
 def main() -> int:
     # the port first: in a directory without it this fails before any
     # result is printed
@@ -568,16 +840,26 @@ def main() -> int:
     t_start = time.perf_counter()
     name = phase_probe()
     phase_kernels()
+    andor_checks = phase_andor_kernel()
     phase_golden()
+    phase_golden(engine="packed")
     cap = Capture()
-    phase_card_vs_cpu(cap)
+    row8k = phase_card_vs_cpu(cap)
+    phase_cross_engine(row8k)
+    del row8k
     launches, res = phase_full_width()
     phase_breakdown(res)
     phase_threshold_ab(res)
     phase_capture_64k(res, cap)
+    andor_launches, packed = phase_packed_full_width(res)
     del res
     torch.cuda.empty_cache()
+    phase_packed_breakdown(packed)
+    andor_row = phase_andor_operands(packed, andor_launches, andor_checks)
+    del packed
+    torch.cuda.empty_cache()
     rows, pairs = phase_kernel_line(launches, cap)
+    rows.append(andor_row)
     out = ROOT / "chiprun_out"
     out.mkdir(exist_ok=True)
     (out / "kernel_pairs.json").write_text(json.dumps(pairs, indent=1))

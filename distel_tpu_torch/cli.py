@@ -1,6 +1,7 @@
 """Command-line interface of the port.
 
-  classify   load → saturate → taxonomy on a CUDA device
+  classify   load → saturate → taxonomy on a CUDA device (the engine
+             from --config: ``engine = rowpacked`` or ``engine = packed``)
 
 Usage: python -m distel_tpu_torch.cli classify FILE [--device cpu] ...
 """
@@ -47,11 +48,15 @@ def main(argv=None) -> int:
         help="torch device (default: the first CUDA device; raises if none)",
     )
     c.add_argument("--output", "-o", help="write taxonomy here")
-    c.add_argument("--snapshot", help="write a v2 S/R snapshot (.npz)")
+    c.add_argument(
+        "--snapshot",
+        help="write an S/R snapshot (.npz): v2 from the row-packed engine, "
+             "v1 from the packed engine",
+    )
     c.add_argument(
         "--resume",
-        help="warm-start from a v2 snapshot (.npz), realigned by name; its "
-             "corpus must be a SUBSET of this one",
+        help="warm-start from a v1 or v2 snapshot (.npz), realigned by name; "
+             "its corpus must be a SUBSET of this one",
     )
     c.add_argument("--instrument", action="store_true", help="phase timers")
     c.set_defaults(fn=cmd_classify)

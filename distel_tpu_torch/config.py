@@ -4,8 +4,10 @@ A subset of ``distel_tpu/config.py``'s ``ClassifierConfig`` with the
 same names and defaults where the port implements the knob.  Knobs of
 paths the port does not have yet (mesh, native load plane, serving,
 shape buckets) are absent, or refused where a reference config could
-carry them over: ``engine`` must resolve to ``rowpacked`` and
-``shape_buckets`` must be off.
+carry them over: ``engine`` must be ``auto``, ``rowpacked`` or
+``packed`` (``dense`` is not ported yet) and ``shape_buckets`` must be
+off.  The reference's ``matmul.dtype`` has no meaning for the port's
+exact bit kernels and is ignored with the other unknown keys.
 
 ``from_properties`` parses java-style ``key = value`` files with the
 reference's key spellings.
@@ -24,7 +26,7 @@ class ClassifierConfig:
     max_iterations: int = 10_000
     #: per-phase wall-clock tracing, printed after each classify
     instrumentation: bool = False
-    #: "auto" or "rowpacked" (the only engine of the port)
+    #: "auto" (= "rowpacked"), "rowpacked" or "packed"
     engine: str = "auto"
     #: shape-bucketed programs exist to share compiled XLA executables;
     #: the port runs eagerly and has no counterpart yet, so only False
@@ -44,10 +46,15 @@ class ClassifierConfig:
         self.validate()
 
     def validate(self) -> None:
-        if self.engine not in ("auto", "rowpacked"):
+        if self.engine == "dense":
             raise ValueError(
-                f"engine {self.engine!r}: distel_tpu_torch has only the "
-                "'rowpacked' engine ('auto' resolves to it)"
+                "engine 'dense' is not ported to distel_tpu_torch yet: use "
+                "'rowpacked' or 'packed'"
+            )
+        if self.engine not in ("auto", "rowpacked", "packed"):
+            raise ValueError(
+                f"unknown engine {self.engine!r}: expected 'auto', "
+                "'rowpacked' or 'packed'"
             )
         if self.shape_buckets:
             raise ValueError(

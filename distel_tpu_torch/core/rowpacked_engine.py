@@ -38,7 +38,7 @@ What differs from the reference, and why:
 * Rows are written in place (the state is the largest tensor of a run).
 * Temporaries are sized against the device's memory (an 80 GB H100)
   rather than the 16 GB v5e the reference's thresholds were measured on
-  — see :func:`default_temp_budget`.
+  — see ``core/engine.py``'s :func:`default_temp_budget`.
 """
 
 from __future__ import annotations
@@ -58,6 +58,7 @@ from distel_tpu_torch.core.engine import (
     SaturationResult,
     _host_bit_total,
     _pad_up,
+    default_temp_budget,
     fresh_init_total,
     live_bits,
 )
@@ -74,18 +75,6 @@ from distel_tpu_torch.ops.bitpack import (
 #: costs a few launches per live window per round, so merging relaxes
 #: (wider waste factors) until the count fits
 MAX_ROLE_CHUNKS = 256
-
-
-def default_temp_budget(device: torch.device) -> int:
-    """Bytes one rule's temporaries may take.  On a card: 1/32 of its
-    memory, clamped to [64 MiB, 2 GiB] — 2 GiB on an 80 GB H100, where
-    the 64k-class state (S_T + R_T) is under 2 GB, so a few live
-    temporaries of this size leave most of the card free.  On the CPU:
-    256 MiB, which keeps the CPU tests' working sets small."""
-    if device.type == "cuda":
-        total = torch.cuda.get_device_properties(device).total_memory
-        return int(min(max(total // 32, 64 << 20), 2 << 30))
-    return 256 << 20
 
 
 def _factored_closure_tables(h, nf4_roles, chain_roles):
@@ -110,6 +99,9 @@ class RowPackedSaturationEngine:
     row-packed state on ``device``; :meth:`saturate` runs the fixed
     point.  API mirrors the reference engine: ``initial_state`` /
     ``step`` / ``saturate`` / ``embed_state``."""
+
+    #: :meth:`embed_state` takes the packed transposed (v2 wire) form
+    accepts_wire_state = True
 
     def __init__(
         self,

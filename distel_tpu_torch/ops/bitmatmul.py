@@ -1,4 +1,7 @@
-"""Packed-columns AND-OR product: the saturation engine's contraction.
+"""Packed AND-OR products: the saturation engines' contractions.
+
+Two products live here.  The first, the packed-columns product, is
+the row-packed engine's:
 
 ``C_packed = pack_x(A ⊙ unpack_x(B_packed))`` in the boolean AND-OR
 semiring:
@@ -15,9 +18,22 @@ taxonomy.
 :class:`PackedColsMatmulPlan` runs one of two hand-written CUDA kernels
 (``csrc/packed_cols.cu``) for CUDA tensors — ``packed_cols_dense``, or
 ``packed_cols_sparse``, which walks only the A tiles holding a nonzero —
-and its plain PyTorch version for CPU tensors.  There is no fallback: a
-CUDA tensor launches its kernel or raises.  Each launch adds one to
-:data:`LAUNCHES`.
+and its plain PyTorch version for CPU tensors.
+
+The second, the packed-contraction product, is the packed engine's
+(CR4 and CR6 over the x-major R):
+
+    A  [M, KW]  int32 — state rows packed along the contraction K
+    B  [K, N]   int8  — per-step 0/1 operand, rows in the plan's
+                        ``bit_order``
+    C  [M, N]   int8  — 0/1
+
+:class:`PackedMatmulPlan` runs the hand-written ``packed_andor`` kernel
+(``csrc/packed_andor.cu``) for CUDA tensors and its plain version for
+CPU tensors.
+
+There is no fallback: a CUDA tensor launches its kernel or raises.
+Each launch adds one to :data:`LAUNCHES`.
 """
 
 from __future__ import annotations
@@ -25,13 +41,14 @@ from __future__ import annotations
 import ctypes
 from typing import Optional
 
+import numpy as np
 import torch
 
-from distel_tpu_torch.ops.bitpack import pack_planes, unpack_words_planes
+from distel_tpu_torch.ops.bitpack import pack_planes, unpack_words, unpack_words_planes
 
 #: kernel launches since the last :func:`reset_launches`, per entry point
 #: (the plain CPU version never counts)
-LAUNCHES = {"packed_cols_dense": 0, "packed_cols_sparse": 0}
+LAUNCHES = {"packed_cols_dense": 0, "packed_cols_sparse": 0, "packed_andor": 0}
 
 #: the kernels' block tile (rows of C, contraction rows, words of C);
 #: checked against the built library when it loads
@@ -45,7 +62,12 @@ KERNEL_TM, KERNEL_TL, KERNEL_TW = 64, 32, 128
 #: and above.
 SKIP_TILES_MIN_WORK = 1 << 30
 
+#: ``packed_andor``'s block tile (rows of C, bytes of C) and the byte
+#: alignment it needs of B's and C's rows; checked against the library
+ANDOR_TM, ANDOR_TN, ANDOR_ALIGN = 16, 4096, 16
+
 _LIB = None
+_ANDOR_LIB = None
 
 
 def reset_launches() -> None:
@@ -81,9 +103,35 @@ def _lib():
     return _LIB
 
 
-def _check_launch(lib, code: int, what: str) -> None:
+def _andor_lib():
+    """``packed_andor``'s library, built from ``csrc/packed_andor.cu`` on
+    first use."""
+    global _ANDOR_LIB
+    if _ANDOR_LIB is None:
+        from distel_tpu_torch.ops import build
+
+        lib = build.load("packed_andor")
+        vp, ci = ctypes.c_void_p, ctypes.c_int
+        lib.packed_andor.argtypes = [vp, vp, vp, ci, ci, ci, ci, vp]
+        lib.packed_andor.restype = ci
+        lib.packed_andor_error_string.argtypes = [ci]
+        lib.packed_andor_error_string.restype = ctypes.c_char_p
+        tiles = (
+            lib.packed_andor_tile_m(), lib.packed_andor_tile_n(),
+            lib.packed_andor_align(),
+        )
+        if tiles != (ANDOR_TM, ANDOR_TN, ANDOR_ALIGN):
+            raise RuntimeError(
+                f"packed_andor library tiles {tiles} != wrapper's "
+                f"{(ANDOR_TM, ANDOR_TN, ANDOR_ALIGN)}"
+            )
+        _ANDOR_LIB = lib
+    return _ANDOR_LIB
+
+
+def _check_launch(error_string, code: int, what: str) -> None:
     if code != 0:
-        msg = lib.packed_cols_error_string(code).decode()
+        msg = error_string(code).decode()
         raise RuntimeError(f"{what} launch failed: CUDA error {code} ({msg})")
 
 
@@ -162,7 +210,7 @@ class PackedColsMatmulPlan:
             a.data_ptr(), b.data_ptr(), c.data_ptr(), self.m, self.l,
             self.w, stream,
         )
-        _check_launch(lib, code, "packed_cols_dense")
+        _check_launch(lib.packed_cols_error_string, code, "packed_cols_dense")
         LAUNCHES["packed_cols_dense"] += 1
         return c
 
@@ -174,7 +222,7 @@ class PackedColsMatmulPlan:
             n_live.data_ptr(), c.data_ptr(), self.m, self.l, self.w,
             live_k.shape[1], torch.cuda.current_stream(a.device).cuda_stream,
         )
-        _check_launch(lib, code, "packed_cols_sparse")
+        _check_launch(lib.packed_cols_error_string, code, "packed_cols_sparse")
         LAUNCHES["packed_cols_sparse"] += 1
         return c
 
@@ -199,3 +247,128 @@ def plain_packed_cols(a: torch.Tensor, b_packed: torch.Tensor) -> torch.Tensor:
     prod = a_sub @ bits
     out[rows] = pack_planes(prod > 0)
     return out
+
+
+# ------------------------------------------------- packed-contraction product
+
+
+def _pad_up(n: int, m: int) -> int:
+    return ((n + m - 1) // m) * m
+
+
+class PackedMatmulPlan:
+    """AND-OR product with A **packed along the contraction**, for fixed
+    shapes ``[m, kw words] ⊙ [kw·32, n]`` (the port of the reference's
+    ``PackedMatmulPlan``).
+
+    ``bit_order`` [k_p] maps B's row position to the logical contraction
+    bit it pairs with; callers lay B's rows out in it.  The reference's
+    order is a TPU tile layout; this plan's is the logical order itself,
+    ``k = 32·w + p`` (bit p of word w), which is what a kernel that walks
+    A's set bits reads.  ``n_p`` is n rounded up to the kernel's row
+    alignment: a B (or C) with ``n_p`` columns is used without a copy,
+    its extra columns zero."""
+
+    def __init__(self, m: int, kw: int, n: int):
+        self.m, self.kw, self.n = int(m), int(kw), int(n)
+        self.k_p = self.kw * 32
+        self.n_p = _pad_up(max(self.n, 1), ANDOR_ALIGN)
+        #: B row position → logical contraction bit (length k_p)
+        self.bit_order = np.arange(self.k_p)
+
+    def __call__(self, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+        """a [m, kw] int32; b [<= k_p, n or n_p] int8/bool 0/1, rows in
+        ``bit_order`` → C [m, n] int8 0/1 (a view of an [m, n_p] tensor
+        on a card)."""
+        if b.dtype == torch.bool:
+            b = b.view(torch.int8)
+        if a.dtype != torch.int32 or b.dtype != torch.int8:
+            raise TypeError(
+                f"PackedMatmulPlan wants int32 A and int8 B, got "
+                f"{a.dtype} and {b.dtype}"
+            )
+        if (
+            tuple(a.shape) != (self.m, self.kw)
+            or b.dim() != 2
+            or b.shape[0] > self.k_p
+            or b.shape[1] not in (self.n, self.n_p)
+        ):
+            raise ValueError(
+                f"PackedMatmulPlan({self.m}, {self.kw}, {self.n}) got A "
+                f"{tuple(a.shape)} and B {tuple(b.shape)}"
+            )
+        if a.device != b.device:
+            raise ValueError(f"A on {a.device} but B on {b.device}")
+        if a.device.type == "cpu":
+            return plain_packed_andor(a, b[:, : self.n])
+        if a.device.type != "cuda":
+            raise ValueError(f"no packed_andor kernel for {a.device}")
+        return self._launch(a, b)
+
+    def _launch(self, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+        if not (a.is_contiguous() and b.is_contiguous()):
+            raise ValueError("packed_andor takes contiguous A and B")
+        if -(-self.m // ANDOR_TM) > 65535:
+            raise ValueError(f"M={self.m} exceeds the kernel grid")
+        if b.shape[1] != self.n_p:
+            b_p = torch.zeros((b.shape[0], self.n_p), dtype=torch.int8,
+                              device=b.device)
+            b_p[:, : self.n] = b
+            b = b_p
+        c = torch.empty((self.m, self.n_p), dtype=torch.int8, device=a.device)
+        if self.m == 0 or self.n == 0:
+            return c[:, : self.n]
+        if self.kw == 0 or b.shape[0] == 0:
+            return c.zero_()[:, : self.n]
+        for t in (b, c):
+            if t.data_ptr() % ANDOR_ALIGN:
+                raise ValueError(f"packed_andor needs {ANDOR_ALIGN}-byte "
+                                 "aligned B and C")
+        lib = _andor_lib()
+        code = lib.packed_andor(
+            a.data_ptr(), b.data_ptr(), c.data_ptr(), self.m, self.kw,
+            b.shape[0], self.n_p, torch.cuda.current_stream(a.device).cuda_stream,
+        )
+        _check_launch(lib.packed_andor_error_string, code, "packed_andor")
+        LAUNCHES["packed_andor"] += 1
+        return c[:, : self.n]
+
+
+def plain_packed_andor(a: torch.Tensor, b: torch.Tensor,
+                       k_block: int = 4096) -> torch.Tensor:
+    """The plain PyTorch version of ``packed_andor`` (the port of the
+    reference's ``_xla``): unpack A in logical bit order → matmul → ``> 0``
+    → int8, with B's rows in logical order.  The count accumulates in
+    float32 (exact below 2^24 terms; int8 matmuls wrap on the CPU), over
+    contraction blocks of ``k_block`` bits, skipping blocks where A has no
+    set bit."""
+    m, kw = a.shape
+    k, n = b.shape
+    assert k < (1 << 24), "float32 accumulation is exact only below 2^24 terms"
+    acc = torch.zeros((m, n), dtype=torch.float32, device=a.device)
+    wb = max(k_block // 32, 1)
+    for w0 in range(0, min(kw, -(-k // 32)), wb):
+        w1 = min(w0 + wb, kw)
+        k0, k1 = 32 * w0, min(32 * w1, k)
+        blk = a[:, w0:w1]
+        if not bool((blk != 0).any()):
+            continue
+        bits = unpack_words(blk, k1 - k0, torch.float32)
+        acc += bits @ b[k0:k1].to(torch.float32)
+    return (acc > 0).to(torch.int8)
+
+
+def packed_andor_matmul(a: torch.Tensor, b_logical: torch.Tensor) -> torch.Tensor:
+    """One-shot convenience: ``b_logical`` [K, N] int8/bool rows in
+    logical bit order, laid out in the plan's ``bit_order`` by a gather
+    (positions past K get zero rows).  Hot paths build B in ``bit_order``
+    directly."""
+    plan = PackedMatmulPlan(a.shape[0], a.shape[1], b_logical.shape[1])
+    if b_logical.dtype == torch.bool:
+        b_logical = b_logical.view(torch.int8)
+    valid = plan.bit_order < b_logical.shape[0]
+    src = torch.as_tensor(np.where(valid, plan.bit_order, 0),
+                          device=b_logical.device)
+    keep = torch.as_tensor(valid, device=b_logical.device)[:, None]
+    b = torch.where(keep, b_logical[src], 0).to(torch.int8)
+    return plan(a, b.contiguous())

@@ -1,11 +1,15 @@
-"""Snapshot / resume of the saturation state (the v2 wire form).
+"""Snapshot / resume of the saturation state, in the two forms
+``distel_tpu/runtime/checkpoint.py`` writes, so either package resumes
+from a snapshot the other wrote:
 
-A snapshot is an ``.npz`` holding the row-packed engine's packed state
-verbatim (``s_wire``/``r_wire``: subsumer-major uint32 rows) plus the
-entity tables — the same file format ``distel_tpu/runtime/checkpoint.py``
-writes for its row-packed results, so either package resumes from a
-snapshot the other wrote.  The older v1 form (x-major ``np.packbits``
-squares of the dense reference engine) is not read by the port.
+* **v2** (row-packed results, ``transposed=True``): the packed state
+  verbatim (``s_wire``/``r_wire``: subsumer-major uint32 rows) — saving
+  never densifies the square;
+* **v1** (x-major results: the packed engine's): the live S square and
+  the R rows as ``np.packbits`` bytes (``s_packed``/``r_packed``, with
+  ``s_cols``/``r_cols``), readable with plain numpy.
+
+Both carry the entity tables, so a resume realigns the state by name.
 """
 
 from __future__ import annotations
@@ -17,7 +21,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from distel_tpu_torch.core.engine import SaturationResult
+from distel_tpu_torch.core.engine import SaturationResult, _unpack_bits_host
 from distel_tpu_torch.core.indexing import IndexedOntology
 
 
@@ -27,26 +31,44 @@ def save_snapshot(
     compressed: bool = True,
     extra_meta: Optional[dict] = None,
 ) -> None:
-    """Write ``result``'s closure as a v2 snapshot.  ``extra_meta``:
-    JSON-serializable fields merged into the ``meta`` record."""
+    """Write ``result``'s closure: v2 for a transposed (row-packed)
+    result, v1 for an x-major one.  ``extra_meta``: JSON-serializable
+    fields merged into the ``meta`` record."""
     _savez = np.savez_compressed if compressed else np.savez
     idx = result.idx
     meta = {"time": time.time(), "converged": result.converged}
     if extra_meta:
         meta.update(extra_meta)
-    s_wire, r_wire = result.wire()
-    _savez(
-        path,
-        s_wire=s_wire,
-        r_wire=r_wire,
-        n_concepts=np.int64(idx.n_concepts),
-        n_links=np.int64(idx.n_links),
+    common = dict(
         iterations=np.int64(result.iterations),
         derivations=np.int64(result.derivations),
         concept_names=np.array(idx.concept_names, dtype=object),
         role_names=np.array(idx.role_names, dtype=object),
         links=idx.links,
         meta=np.array([json.dumps(meta)], dtype=object),
+    )
+    if result.transposed:
+        s_wire, r_wire = result.wire()
+        _savez(
+            path,
+            s_wire=s_wire,
+            r_wire=r_wire,
+            n_concepts=np.int64(idx.n_concepts),
+            n_links=np.int64(idx.n_links),
+            **common,
+        )
+        return
+    # v1: padded rows/columns sliced away, np.packbits layout
+    n = idx.n_concepts
+    s = result.s[:n, :n]
+    r = result.r[:n]
+    _savez(
+        path,
+        s_packed=np.packbits(s, axis=1),
+        r_packed=np.packbits(r, axis=1),
+        s_cols=np.int64(s.shape[1]),
+        r_cols=np.int64(r.shape[1]),
+        **common,
     )
 
 
@@ -62,32 +84,60 @@ def _info(z) -> dict:
 
 
 def load_snapshot_state(
-    path: str, idx: Optional[IndexedOntology] = None
+    path: str,
+    unpack: bool = False,
+    idx: Optional[IndexedOntology] = None,
 ) -> Tuple[Tuple[np.ndarray, np.ndarray], dict]:
-    """Resume-oriented load: ``(state, info)`` where ``state`` is the
-    wire-packed uint32 pair that feeds ``engine.saturate(initial=
-    state)``.  Pass ``idx`` (the index the resuming engine was built
-    from) to remap the state BY NAME onto that index's ids; omitting it
-    is only sound when resuming against the numbering the snapshot was
-    taken under."""
+    """Resume-oriented load: ``(state, info)`` where ``state`` feeds
+    ``engine.saturate(initial=state)``.  For a v2 snapshot the default
+    is the wire-packed uint32 pair, which only the row-packed engine
+    takes; ``unpack=True`` (and every v1 snapshot) gives the x-major
+    bool pair that both engines take.  Pass ``idx`` (the index the
+    resuming engine was built from) to remap the state BY NAME onto that
+    index's ids; omitting it is only sound when resuming against the
+    numbering the snapshot was taken under."""
     z = np.load(path, allow_pickle=True)
-    if "s_wire" not in z:
-        raise ValueError(
-            f"{path}: not a v2 (row-packed wire) snapshot; distel_tpu_torch "
-            "reads only the v2 form"
-        )
-    state, info = (z["s_wire"], z["r_wire"]), _info(z)
+    if "s_wire" in z and not unpack:
+        state, info = (z["s_wire"], z["r_wire"]), _info(z)
+    else:
+        s, r, info = _load_unpacked(z)
+        state = (s, r)
     if idx is not None:
         state = align_snapshot_state(state, info, idx)
     return state, info
 
 
+def _load_unpacked(z) -> Tuple[np.ndarray, np.ndarray, dict]:
+    if "s_wire" in z:
+        # v2: unpack the wire rows and present the x-major live view
+        n = int(z["n_concepts"])
+        nl = int(z["n_links"])
+        st = _unpack_bits_host(z["s_wire"], n)
+        rt = _unpack_bits_host(z["r_wire"], n)
+        return st[:n].T.copy(), rt[:nl].T.copy(), _info(z)
+    s_cols = int(z["s_cols"])
+    r_cols = int(z["r_cols"])
+    s = np.unpackbits(z["s_packed"], axis=1)[:, :s_cols].astype(bool)
+    r = np.unpackbits(z["r_packed"], axis=1)[:, :r_cols].astype(bool)
+    return s, r, _info(z)
+
+
+def load_snapshot(path: str) -> Tuple[np.ndarray, np.ndarray, dict]:
+    """``(S, R, info)``: unpacked x-major bool arrays over the logical
+    (unpadded) universe, and the names, links and counters."""
+    return _load_unpacked(np.load(path, allow_pickle=True))
+
+
 def state_from_reference(
     packed_s: np.ndarray, packed_r: np.ndarray, device
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The reference row-packed engine's packed state (uint32 arrays,
-    e.g. ``np.asarray(result.packed_s)``) as this port's int32 state
-    tensors on ``device``, bit for bit."""
+    """A reference engine's packed state (uint32 arrays, e.g.
+    ``np.asarray(result.packed_s)``) as this port's int32 state tensors
+    on ``device``, bit for bit: the row-packed engine's transposed
+    state for the port's row-packed engine, and the packed engine's
+    x-major ``packed_s``/``packed_r`` for the port's packed engine (the
+    two engines pad their axes as the reference's do, so the shapes
+    line up)."""
     def one(a):
         a = np.array(a, np.uint32, order="C")   # a writable copy
         return torch.from_numpy(a.view(np.int32)).to(device)
@@ -98,7 +148,8 @@ def state_from_reference(
 def align_snapshot_state(
     state: Tuple[np.ndarray, np.ndarray], info: dict, idx: IndexedOntology
 ) -> Tuple[np.ndarray, np.ndarray]:
-    """Remap a loaded wire-packed snapshot onto ``idx``'s numbering.
+    """Remap a loaded snapshot (wire-packed uint32, or x-major bool)
+    onto ``idx``'s numbering.
 
     Matching is by *name*: concepts via ``concept_names``, links via
     (role name, filler name).  Entities absent from ``idx`` are dropped;
@@ -132,10 +183,20 @@ def align_snapshot_state(
     lmap = _link_map(old_links, rmap, cmap, new_link_ids)
     n_old = len(old_cnames)
     s, r = np.asarray(state[0]), np.asarray(state[1])
-    return (
-        _remap_packed(s, cmap, cmap, idx.n_concepts, n_old),
-        _remap_packed(r, lmap, cmap, idx.n_links, n_old),
-    )
+    if s.dtype == np.uint32:
+        return (
+            _remap_packed(s, cmap, cmap, idx.n_concepts, n_old),
+            _remap_packed(r, lmap, cmap, idx.n_links, n_old),
+        )
+    # x-major bool [x, a] / [x, l]
+    vx = np.nonzero(cmap >= 0)[0]
+    s_new = np.zeros((idx.n_concepts, idx.n_concepts), bool)
+    s_new[np.ix_(cmap[vx], cmap[vx])] = s[np.ix_(vx, vx)]
+    vl = np.nonzero(lmap >= 0)[0]
+    r_new = np.zeros((idx.n_concepts, idx.n_links), bool)
+    if len(vl):
+        r_new[np.ix_(cmap[vx], lmap[vl])] = r[np.ix_(vx, vl)]
+    return s_new, r_new
 
 
 def _link_map(old_links, rmap, cmap, new_link_ids) -> np.ndarray:

@@ -3,7 +3,9 @@ taxonomy, with per-phase wall-clock timers.
 
 The port of ``distel_tpu/runtime/classifier.py``'s one-shot path
 (``ELClassifier.classify_text`` / ``classify_file``, including
-``resume_from=``) on the Python load plane and the row-packed engine.
+``resume_from=``) on the Python load plane, with the row-packed engine
+(``engine="auto"``/``"rowpacked"``) or the packed engine
+(``engine="packed"``).
 Everything runs on ``cuda`` unless the caller passes ``device="cpu"``;
 with no card and no device given, construction raises.
 """
@@ -13,13 +15,14 @@ from __future__ import annotations
 import contextlib
 import time
 from dataclasses import dataclass, field
-from typing import Dict, Optional
+from typing import Dict, Optional, Union
 
 import torch
 
 from distel_tpu_torch.config import ClassifierConfig
 from distel_tpu_torch.core.engine import SaturationResult
 from distel_tpu_torch.core.indexing import Indexer, IndexedOntology
+from distel_tpu_torch.core.packed_engine import PackedSaturationEngine
 from distel_tpu_torch.core.rowpacked_engine import RowPackedSaturationEngine
 from distel_tpu_torch.frontend.normalizer import Normalizer, NormalizedOntology
 from distel_tpu_torch.owl import loader as owl_loader
@@ -76,7 +79,9 @@ class ClassificationResult:
     idx: IndexedOntology
     timer: PhaseTimer
     #: the engine that ran the fixed point (its plan statistics)
-    engine: Optional[RowPackedSaturationEngine] = None
+    engine: Optional[
+        Union[RowPackedSaturationEngine, PackedSaturationEngine]
+    ] = None
 
     def summary(self) -> dict:
         return {
@@ -96,8 +101,13 @@ class ClassificationResult:
 
 
 def make_engine(config: ClassifierConfig, idx: IndexedOntology, device):
-    """The row-packed engine for ``config`` on ``device``."""
+    """The engine ``config.engine`` names, on ``device``: the row-packed
+    engine for "auto" and "rowpacked", the packed engine for "packed"."""
     config.validate()
+    if config.engine == "packed":
+        return PackedSaturationEngine(
+            idx, device=device, pad_multiple=config.pad_multiple
+        )
     return RowPackedSaturationEngine(
         idx,
         device=device,
@@ -117,7 +127,7 @@ class ELClassifier:
     def classify_text(
         self, text: str, *, resume_from: Optional[str] = None
     ) -> ClassificationResult:
-        """``resume_from``: path of a v2 snapshot (either package's
+        """``resume_from``: path of a v1 or v2 snapshot (either package's
         ``save_snapshot``) to warm-start saturation from, realigned by
         name onto this corpus's numbering.  Precondition: the snapshot's
         corpus is a *subset* of this one — saturation is monotone, so
@@ -137,7 +147,14 @@ class ELClassifier:
             with timer.phase("resume(align)"):
                 from distel_tpu_torch.runtime.checkpoint import load_snapshot_state
 
-                initial, _info = load_snapshot_state(resume_from, idx=idx)
+                # the wire-packed (v2) form re-embeds without densifying,
+                # but only an engine that takes wire state gets it; the
+                # packed engine gets the x-major bool view
+                initial, _info = load_snapshot_state(
+                    resume_from,
+                    idx=idx,
+                    unpack=not engine.accepts_wire_state,
+                )
         with timer.phase("saturate"):
             result = engine.saturate(cfg.max_iterations, initial=initial)
         with timer.phase("taxonomy"):

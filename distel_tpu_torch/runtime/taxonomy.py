@@ -6,7 +6,8 @@ taxonomy: equivalence classes, unsatisfiable classes, and direct
 :class:`Taxonomy`:
 
 * **device** (``_extract_device_blocked``): the port of the reference's
-  blocked bit-packed program.  The projected subsumption matrix lives
+  blocked bit-packed program, for results in either state layout.  The
+  projected subsumption matrix lives
   packed on the result's device ([n, n/32] words, rows = first index,
   bits = second), built and consumed in ``_TAX_BLOCK``-row blocks; the
   transitive-reduction product runs through the dense packed-columns
@@ -187,28 +188,41 @@ def _assemble(orig, names, canon, unsat, edges) -> Taxonomy:
     return Taxonomy(None, equivalents, parents, unsat_names)
 
 
-def _blocked_reduction(packed_s: torch.Tensor, orig: np.ndarray, block: int):
+def _blocked_reduction(packed_s: torch.Tensor, orig: np.ndarray, block: int,
+                       transposed: bool = True):
     """The cap-independent half of the blocked program: ``(canon,
     unsat, strict_r, blocks)`` on the result's device.
 
     sub[i, j] ⇔ orig_i ⊑ orig_j.  Two packed forms are built block by
     block: ``subt`` rows i, bits j (a class's parent set) and ``subp``
     rows j, bits i (the mirror, for the symmetry AND).  In the
-    transposed state, bit(S_T[a], x) = sub[x, a]."""
+    transposed state bit(S_T[a], x) = sub[x, a]; in the x-major state
+    bit(S[x], a) = sub[x, a]."""
     dev = packed_s.device
     o = torch.as_tensor(np.asarray(orig, np.int64)).to(dev)
     n = len(orig)
     npad = ((n + 31) // 32) * 32
     blocks = [(i, min(i + block, n)) for i in range(0, n, block)]
-    unsat = bit_lookup(packed_s, np.full(1, BOTTOM_ID), o)[:, 0]   # [n] bool
+    bottom = np.full(1, BOTTOM_ID)
+    if transposed:
+        unsat = bit_lookup(packed_s, bottom, o)[:, 0]              # [n] bool
+    else:
+        unsat = bit_lookup(packed_s, o, bottom)[0]
     unsat_pad = torch.zeros(npad, dtype=torch.bool, device=dev)
     unsat_pad[:n] = unsat
     unsat_packed = pack_bool_columns(unsat_pad[None, :])[0]
-    # rows o of the state, transposed once: [wc, n]
+    # rows o of the state, transposed once: [w, n]
     subt_all = packed_s[o].T.contiguous()
 
-    def padded(blk):
-        out = torch.zeros((blk.shape[0], npad), dtype=torch.bool, device=dev)
+    def oriented_block(lo, hi, want_rows_i):
+        """bool [hi-lo, npad]: rows over the block of the wanted row
+        index (i for subt, j for subp), bits over the other index."""
+        if transposed == want_rows_i:
+            # the block indexes the state's bits: rows already oriented
+            blk = bit_lookup_from(subt_all, o[lo:hi])
+        else:
+            blk = bit_lookup_from(packed_s[o[lo:hi]].T.contiguous(), o).T
+        out = torch.zeros((hi - lo, npad), dtype=torch.bool, device=dev)
         out[:, :n] = blk
         return out
 
@@ -217,14 +231,13 @@ def _blocked_reduction(packed_s: torch.Tensor, orig: np.ndarray, block: int):
     for lo, hi in blocks:
         ii = torch.arange(hi - lo, device=dev)
         jj = torch.arange(lo, hi, device=dev)
-        # rows i: bit_lookup_from(all rows, cols o[lo:hi]) → [hi-lo, n]
-        bt = padded(bit_lookup_from(subt_all, o[lo:hi]))
+        # rows i: unsat rows are ⊑ everything; reflexive diagonal
+        bt = oriented_block(lo, hi, want_rows_i=True)
         bt |= unsat[lo:hi, None]
         bt[ii, jj] = True
         subt[lo:hi] = pack_bool_columns(bt)
-        # rows j: the state rows o[lo:hi] over cols o → [n, hi-lo] → T
-        sub_rows = packed_s[o[lo:hi]].T.contiguous()
-        bp = padded(bit_lookup_from(sub_rows, o).T)
+        # rows j: unsat bit-columns set in every row; diagonal
+        bp = oriented_block(lo, hi, want_rows_i=False)
         bp[ii, jj] = True
         subp[lo:hi] = pack_bool_columns(bp) | unsat_packed[None, :]
     del subt_all
@@ -251,7 +264,7 @@ def _extract_device_blocked(result, orig, names, block) -> Taxonomy:
     """Run the blocked program; each block's direct-parent bits leave
     the device as (row, parent) index pairs."""
     canon, unsat, strict_r, blocks = _blocked_reduction(
-        result.packed_s, orig, block
+        result.packed_s, orig, block, result.transposed
     )
     n = len(orig)
     npad = strict_r.shape[0]

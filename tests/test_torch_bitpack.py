@@ -143,3 +143,69 @@ def test_segmented_row_or_bit31_target_and_empty():
 def test_next_pow2_matches_reference():
     c = np.arange(1, 5000)
     assert (port._next_pow2(c) == ref._next_pow2(c)).all()
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_gather_bit_columns_and_matrix_match_reference(seed):
+    """Both gathers against the reference, with bit 31 among the
+    columns and an all-ones word, from numpy and tensor indices."""
+    rng = np.random.default_rng(seed)
+    p = _words(rng, (21, 4))
+    p[3, 2] = 0x80000000
+    p[4, 1] = 0xFFFFFFFF
+    cols = rng.integers(0, 4 * 32, 19)
+    cols[:3] = [31, 95, 63]
+    rows = rng.integers(0, 21, 13)
+    rows[:2] = [3, 4]
+    got = port.gather_bit_columns(_t(p), cols)
+    assert got.dtype == torch.bool and got.shape == (21, 19)
+    assert (got.numpy() == np.asarray(ref.gather_bit_columns(jnp.asarray(p), cols))).all()
+    assert torch.equal(port.gather_bit_columns(_t(p), torch.as_tensor(cols)), got)
+    got = port.gather_bit_matrix(_t(p), rows, cols)
+    want = np.asarray(ref.gather_bit_matrix(jnp.asarray(p), rows, cols))
+    assert got.shape == (13, 19) and (got.numpy() == want).all()
+    assert port.gather_bit_columns(_t(p), np.zeros(0, np.int64)).shape == (21, 0)
+    assert port.gather_bit_matrix(_t(p), rows, np.zeros(0, np.int64)).shape == (13, 0)
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_column_scatter_matches_reference(seed):
+    """Repeated targets, a bit-31 target, sources given whole or as
+    column blocks, functional and in place, against the reference and
+    a per-source loop."""
+    rng = np.random.default_rng(seed)
+    n, w = 17, 4
+    base = _words(rng, (n, w))
+    base[:, 3] &= 0x7FFFFFFF                 # bit 127 clear: the scatter sets it
+    targets = rng.integers(0, w * 32, 40)
+    targets[:4] = [127, 31, 127, 31]         # repeated bit-31 targets
+    bits = rng.random((n, len(targets))) < 0.3
+    bits[:, 0] = True
+    expect = port.unpack_words(_t(base), w * 32).numpy()
+    for j, t in enumerate(targets):
+        expect[:, t] |= bits[:, j]
+    plan = port.ColumnScatter(targets, w)
+    rplan = ref.ColumnScatter(targets, w)
+    assert (plan.d_cols == rplan.d_cols).all() and (plan.inv == rplan.inv).all()
+    want = _u32(rplan.apply(jnp.asarray(base), jnp.asarray(bits)))
+    got = port.from_words(plan.apply(_t(base), torch.from_numpy(bits)))
+    assert (got == want).all()
+    assert (port.unpack_words(_t(got), w * 32).numpy() == expect).all()
+    assert ((got[:, 3] >> 31) == 1).all()
+    # column blocks, in place, with the change flag
+    st = _t(base)
+    blocks = [torch.from_numpy(bits[:, :7]), torch.from_numpy(bits[:, 7:])]
+    assert bool(plan.apply_(st, blocks))
+    assert (port.from_words(st) == want).all()
+    assert not bool(plan.apply_(st, blocks))          # idempotent
+    one_shot = port.scatter_or_columns(_t(base), torch.from_numpy(bits), targets)
+    assert (port.from_words(one_shot) == want).all()
+    with pytest.raises(ValueError, match="source columns"):
+        plan.apply(_t(base), torch.from_numpy(bits[:, 1:]))
+
+
+def test_column_scatter_empty():
+    p = _t(_words(np.random.default_rng(4), (5, 1)))
+    cs = port.ColumnScatter(np.zeros(0, np.int64), 1)
+    assert cs.apply(p, torch.zeros((5, 0), dtype=torch.bool)) is p
+    assert not bool(cs.apply_(p, torch.zeros((5, 0), dtype=torch.bool)))

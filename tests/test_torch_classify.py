@@ -222,3 +222,168 @@ def test_config_from_properties(tmp_path):
         ClassifierConfig.from_properties(str(props))
     with pytest.raises(ValueError, match="rowpacked"):
         ClassifierConfig(engine="dense")
+
+
+# ------------------------------------------------------- the packed engine
+
+PACKED = dict(engine="packed")
+
+
+def _ref_packed_classifier():
+    return RefClassifier(RefConfig(engine="packed", shape_buckets=False,
+                                   use_native_loader=False))
+
+
+def _port_packed_classifier():
+    return ELClassifier(ClassifierConfig(**PACKED), device="cpu")
+
+
+@pytest.mark.parametrize(
+    "corpus",
+    [
+        pytest.param(lambda: snomed_shaped_ontology(n_classes=500, seed=11),
+                     id="snomed"),
+        pytest.param(lambda: (Path(__file__).parent / "golden"
+                              / "19-bottom-chain.ofn").read_text(),
+                     id="bottom-chain"),
+    ],
+)
+def test_packed_classify_matches_reference(corpus):
+    """``engine="packed"`` through both packages: the same x-major
+    closure, iterations, summary counts and taxonomy — and the port's
+    row-packed engine's taxonomy."""
+    text = corpus()
+    ref = _ref_packed_classifier().classify_text(text)
+    got = _port_packed_classifier().classify_text(text)
+    assert type(got.engine).__name__ == "PackedSaturationEngine"
+    assert _tax_key(got.taxonomy) == _tax_key(ref.taxonomy)
+    want, have = ref.summary(), got.summary()
+    assert {k: have[k] for k in COUNTS + ("iterations",)} == {
+        k: want[k] for k in COUNTS + ("iterations",)
+    }
+    s, r = got.result.wire()
+    ws, wr = _wire(ref.result)
+    assert np.array_equal(s, ws) and np.array_equal(r, wr)
+    row = _port_classifier().classify_text(text)
+    assert _tax_key(row.taxonomy) == _tax_key(got.taxonomy)
+    assert row.result.derivations == got.result.derivations
+
+
+@pytest.mark.parametrize("block", [64, 4096])
+def test_x_major_taxonomy_host_equals_device(snomed_text, block):
+    """An x-major result through the host path and the blocked device
+    program (on the CPU: the plain packed-columns version) equals the
+    row-packed result's taxonomy."""
+    got = _port_packed_classifier().classify_text(snomed_text)
+    assert not got.result.transposed
+    host = extract_taxonomy(got.result, method="host")
+    dev = extract_taxonomy(got.result, method="device", block=block)
+    assert _tax_key(dev) == _tax_key(host)
+    assert dev.subsumers == host.subsumers
+    row = _port_classifier().classify_text(snomed_text)
+    assert _tax_key(extract_taxonomy(row.result, method="device", block=block)) \
+        == _tax_key(dev)
+
+
+def test_x_major_device_taxonomy_with_unsatisfiable_classes():
+    text = (Path(__file__).parent / "golden" / "21-range-bottom.ofn").read_text()
+    res = _port_packed_classifier().classify_text(text)
+    host = extract_taxonomy(res.result, method="host")
+    dev = extract_taxonomy(res.result, method="device", block=2)
+    assert host.unsatisfiable
+    assert _tax_key(dev) == _tax_key(host)
+
+
+def test_port_packed_resumes_reference_v1_snapshot(tmp_path, snomed_text):
+    """The reference packed engine saves a partial run (a v1 snapshot);
+    the port's packed engine resumes it to the reference's closure."""
+    from distel_tpu.core.packed_engine import PackedSaturationEngine as RefPacked
+
+    full = _ref_packed_classifier().classify_text(snomed_text)
+    part = RefPacked(full.idx, use_pallas=False).saturate(4, allow_incomplete=True)
+    assert not part.converged
+    snap = str(tmp_path / "ref_v1.npz")
+    ref_checkpoint.save_snapshot(snap, part)
+    assert "s_packed" in np.load(snap, allow_pickle=True)
+    got = _port_packed_classifier().classify_text(snomed_text, resume_from=snap)
+    s, r = got.result.wire()
+    assert np.array_equal(s, _wire(full.result)[0])
+    assert np.array_equal(r, _wire(full.result)[1])
+    assert _tax_key(got.taxonomy) == _tax_key(full.taxonomy)
+    assert got.result.iterations < full.result.iterations
+    # the row-packed engine resumes the same v1 snapshot (bool form)
+    row = _port_classifier().classify_text(snomed_text, resume_from=snap)
+    assert _tax_key(row.taxonomy) == _tax_key(full.taxonomy)
+
+
+def test_reference_packed_resumes_port_v1_snapshot(tmp_path, snomed_text):
+    """The reverse direction: the port's packed engine saves a partial
+    run as v1; the JAX package reads it as its own and resumes it."""
+    from distel_tpu_torch.core.packed_engine import PackedSaturationEngine
+
+    port = _port_packed_classifier().classify_text(snomed_text)
+    part = PackedSaturationEngine(port.idx, device="cpu").saturate(
+        4, allow_incomplete=True
+    )
+    snap = str(tmp_path / "port_v1.npz")
+    checkpoint.save_snapshot(snap, part)
+    ref = _ref_packed_classifier()
+    want = ref.classify_text(snomed_text)
+    got = ref.classify_text(snomed_text, resume_from=snap)
+    assert np.array_equal(_wire(got.result)[0], _wire(want.result)[0])
+    assert np.array_equal(_wire(got.result)[1], _wire(want.result)[1])
+    assert _tax_key(got.taxonomy) == _tax_key(want.taxonomy)
+    rs, rr, rinfo = ref_checkpoint.load_snapshot(snap)
+    ps, pr, pinfo = checkpoint.load_snapshot(snap)
+    assert np.array_equal(rs, ps) and np.array_equal(rr, pr)
+    assert rinfo["iterations"] == pinfo["iterations"] == 4
+    n = port.idx.n_concepts
+    assert np.array_equal(ps, part.s[:n, :n])
+
+
+def test_packed_engine_resumes_v2_rowpacked_snapshot(tmp_path, snomed_text):
+    """A v2 (row-packed wire) snapshot reaches the packed engine
+    unpacked (``unpack=True``), realigned by name, and resumes to the
+    full closure; the wire form itself is refused by that engine."""
+    from distel_tpu_torch.core.packed_engine import PackedSaturationEngine
+    from distel_tpu_torch.core.rowpacked_engine import RowPackedSaturationEngine
+
+    full = _port_packed_classifier().classify_text(snomed_text)
+    part = RowPackedSaturationEngine(full.idx, device="cpu").saturate(
+        2, allow_incomplete=True
+    )
+    snap = str(tmp_path / "row_v2.npz")
+    checkpoint.save_snapshot(snap, part)
+    got = _port_packed_classifier().classify_text(snomed_text, resume_from=snap)
+    assert np.array_equal(got.result.wire()[0], full.result.wire()[0])
+    assert np.array_equal(got.result.wire()[1], full.result.wire()[1])
+    assert _tax_key(got.taxonomy) == _tax_key(full.taxonomy)
+    state, _info = checkpoint.load_snapshot_state(snap, unpack=True, idx=full.idx)
+    ref_state, _ = ref_checkpoint.load_snapshot_state(snap, unpack=True, idx=full.idx)
+    assert all(np.array_equal(a, b) for a, b in zip(state, ref_state))
+    wire, _info = checkpoint.load_snapshot_state(snap, idx=full.idx)
+    with pytest.raises(TypeError, match="unpack=True"):
+        PackedSaturationEngine(full.idx, device="cpu").saturate(initial=wire)
+
+
+def test_cli_classify_with_the_packed_engine(tmp_path, capsys):
+    src = tmp_path / "onto.ofn"
+    src.write_text((Path(__file__).parent / "golden" / "05-existential.ofn").read_text())
+    props = tmp_path / "packed.properties"
+    props.write_text("engine = packed\nmatmul.dtype = bf16\n")
+    assert ClassifierConfig.from_properties(str(props)).engine == "packed"
+    snap, out = tmp_path / "snap.npz", tmp_path / "tax.ofn"
+    rc = cli.main(["classify", str(src), "--device", "cpu", "--config", str(props),
+                   "-o", str(out), "--snapshot", str(snap)])
+    assert rc == 0 and "SubClassOf(" in out.read_text()
+    assert "s_packed" in np.load(snap, allow_pickle=True)   # v1 from x-major
+    rc = cli.main(["classify", str(src), "--device", "cpu", "--config", str(props),
+                   "--resume", str(snap)])
+    assert rc == 0 and '"derivations": 0' in capsys.readouterr().out
+
+
+def test_dense_engine_is_refused():
+    with pytest.raises(ValueError, match="not ported"):
+        ClassifierConfig(engine="dense")
+    with pytest.raises(ValueError, match="unknown engine"):
+        ClassifierConfig(engine="Packed")

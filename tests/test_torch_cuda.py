@@ -23,7 +23,9 @@ from distel_tpu_torch.ops import bitmatmul
 from distel_tpu_torch.ops.bitmatmul import (
     LAUNCHES,
     PackedColsMatmulPlan,
+    PackedMatmulPlan,
     live_tiles,
+    plain_packed_andor,
     plain_packed_cols,
 )
 from distel_tpu_torch.runtime.classifier import ELClassifier
@@ -69,9 +71,8 @@ def test_kernel_matches_plain(card, name, skip, m, l, w, density, dead):
     got = PackedColsMatmulPlan(m, l, w, skip_zero_tiles=skip)(a, b)
     torch.cuda.synchronize()
     assert torch.equal(got, want)
-    other = [k for k in LAUNCHES if k != name][0]
     assert LAUNCHES[name] == before[name] + 1
-    assert LAUNCHES[other] == before[other]
+    assert all(LAUNCHES[k] == before[k] for k in LAUNCHES if k != name)
 
 
 def test_bool_operand_and_wrapper_checks(card):
@@ -152,3 +153,89 @@ def test_wide_taxonomy_stays_on_the_card(card, monkeypatch):
     got = extract_taxonomy(res.result)
     assert len(got.parents["X"]) == 5000
     assert got.parents == want.parents and got.equivalents == want.equivalents
+
+
+# ------------------------------------------------------------ packed_andor
+
+
+def _andor_operands(gen, m, kw, k, n, density, *, bit31=False, zero_rows_from=None):
+    """A [m, kw] int32 words with about ``density`` of their bits set,
+    B [k, n] int8 0/1."""
+    bits = torch.rand((m, kw, 32), generator=gen, device="cuda") < density
+    if bit31:
+        bits[:, :, 31] = True
+    if zero_rows_from is not None:
+        bits[zero_rows_from:] = False
+    shifts = torch.arange(32, device="cuda", dtype=torch.int64)
+    words = (bits.to(torch.int64) << shifts).sum(dim=2)
+    words = torch.where(words >= 2**31, words - 2**32, words)   # uint32 → int32
+    a = words.to(torch.int32).contiguous()
+    b = (torch.rand((k, n), generator=gen, device="cuda") < 0.05).to(torch.int8)
+    return a, b.contiguous()
+
+
+@pytest.mark.parametrize(
+    "m,kw,k,n,density,bit31,zero_from",
+    [(70, 10, 300, 90, 0.1, False, None),       # unaligned everywhere
+     (33, 8, 256, 17, 0.02, True, None),        # bit 31 of every word
+     (300, 70, 2200, 4100, 0.001, False, 40),   # mostly zero, > one N tile
+     (17, 300, 9600, 64, 0.0, False, None),     # all zero, several scan passes
+     (1, 1, 32, 1, 1.0, False, None)],
+)
+def test_packed_andor_matches_plain(card, m, kw, k, n, density, bit31, zero_from):
+    """Bit for bit; one launch per call on its own counter."""
+    gen = torch.Generator(device="cuda").manual_seed(m + kw + n)
+    a, b = _andor_operands(gen, m, kw, k, n, density, bit31=bit31,
+                           zero_rows_from=zero_from)
+    want = plain_packed_andor(a, b)
+    before = dict(LAUNCHES)
+    got = PackedMatmulPlan(m, kw, n)(a, b)
+    torch.cuda.synchronize()
+    assert got.shape == (m, n) and got.dtype == torch.int8
+    assert torch.equal(got, want)
+    assert LAUNCHES["packed_andor"] == before["packed_andor"] + 1
+    assert all(LAUNCHES[k] == before[k] for k in LAUNCHES if k != "packed_andor")
+
+
+def test_packed_andor_fewer_b_rows_and_wrapper_checks(card):
+    """A bits past B's last row select nothing; B given with the padded
+    n_p columns is used as it is; the wrapper refuses what the kernel
+    does not take."""
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    a, b = _andor_operands(gen, 50, 6, 150, 40, 0.2)
+    plan = PackedMatmulPlan(50, 6, 40)
+    assert torch.equal(plan(a, b), plain_packed_andor(a, b))
+    wide = torch.zeros((150, plan.n_p), dtype=torch.int8, device="cuda")
+    wide[:, :40] = b
+    assert torch.equal(plan(a, wide), plain_packed_andor(a, b))
+    with pytest.raises(ValueError, match="contiguous"):
+        PackedMatmulPlan(50, 3, 40)(a[:, ::2], b[:96])
+    with pytest.raises(ValueError, match="on"):
+        plan(a, b.cpu())
+
+
+@pytest.mark.parametrize(
+    "text",
+    [pytest.param(lambda: snomed_shaped_ontology(n_classes=600), id="snomed"),
+     pytest.param(lambda: (GOLDEN / "19-bottom-chain.ofn").read_text(),
+                  id="bottom-chain")],
+)
+def test_packed_engine_classify_on_the_card_equals_the_cpu(card, text):
+    """``engine="packed"``: closure, derivations, iterations and taxonomy
+    on the card equal the CPU run's, with CR4/CR6 through packed_andor."""
+    text = text()
+    cfg = ClassifierConfig(engine="packed")
+    bitmatmul.reset_launches()
+    gpu = ELClassifier(cfg, device="cuda").classify_text(text)
+    launched = LAUNCHES["packed_andor"]
+    cpu = ELClassifier(cfg, device="cpu").classify_text(text)
+    assert not gpu.result.transposed
+    for g, c in zip(gpu.result.wire(), cpu.result.wire()):
+        assert np.array_equal(g, c)
+    assert gpu.result.derivations == cpu.result.derivations
+    assert gpu.result.iterations == cpu.result.iterations
+    assert gpu.taxonomy.parents == cpu.taxonomy.parents
+    assert gpu.taxonomy.equivalents == cpu.taxonomy.equivalents
+    assert gpu.taxonomy.unsatisfiable == cpu.taxonomy.unsatisfiable
+    if gpu.idx.n_links:
+        assert launched > 0
