@@ -8,10 +8,14 @@ Phases, each of which raises on failure:
 1. probe and build: the card, its power limit, and the CUDA kernels
    built from ``distel_tpu_torch/ops/csrc`` (one ``nvcc`` per source,
    all started together; timed);
-2. kernel vs plain: both packed-columns kernels and ``packed_andor``
-   against their plain PyTorch versions on unaligned, bit-31 and
-   tile-sparse shapes, bit for bit (``packed_andor`` also timed beside
-   its plain version and its bound);
+2. kernel vs plain: the packed-columns product's two routes (the
+   listing kernel ``packed_cols_list`` then ``packed_cols_sparse``; and
+   ``packed_cols_dense``) against their plain PyTorch version, written
+   fresh and ORed into a seeded C, and the listing against the plain
+   listing, on unaligned, bit-31, tile-sparse, all-zero, fully dense,
+   one-nonzero-a-row and several-list-chunk operands, bit for bit; and
+   ``packed_andor`` against its plain version, timed beside it and its
+   bound;
 3. golden fixtures: every ``tests/golden/*.ofn`` classified on the card
    through the row-packed engine and through ``engine="packed"`` must
    match its ``.expected`` file;
@@ -23,32 +27,39 @@ Phases, each of which raises on failure:
    row-packed state), derivations and taxonomy;
 5. full width: the 64000-class SNOMED-shaped corpus classified on the
    card to convergence with nothing hooked in, its wall, peak memory
-   and the kernels' launch counts read from that run alone (both must
-   be > 0); then a profiled rerun (per-rule breakdown), an A/B of the
-   tile-skip threshold (saturation with every CR4/CR6 plan on the
-   sparse kernel against the shipped choice, A B B A) and a captured
-   rerun (operands), all of which must give the same closure;
+   and the kernels' launch counts read from that run alone (every
+   kernel of the routes its plans chose must be > 0); then a profiled
+   rerun (per-rule breakdown), an end-to-end A/B of the route choice
+   (saturation with the shipped choice, with every CR4/CR6 plan on the
+   sparse route and with every plan flipped, A B C C B A) and a
+   captured rerun (operands), all of which must give the same closure;
 6. every operand pair captured in phase 4's live-tile run and phase
    5's captured rerun (one per call site and power-of-two work
-   bucket): both kernels bit for bit against the
-   plain version, each timed beside it and beside the card's bound for
-   the same work, the sparse one also split into its live-tile listing
-   and the bare kernel.  The pairs go to ``chiprun_out/kernel_pairs.json``.
+   bucket): both routes bit for bit against the plain version and the
+   listing against the plain listing, each timed beside it and beside
+   the card's bound for the same work, the sparse route also split
+   into the listing kernel and the bare sparse kernel; the per-site
+   totals form the ``policy`` line.  The pairs go to
+   ``chiprun_out/kernel_pairs.json``.
 7. the packed engine at full width: the 64000-class corpus through
    ``engine="packed"`` to convergence with nothing hooked in (launch
    counts zeroed just before, read just after: ``packed_andor`` and the
-   taxonomy's ``packed_cols_dense`` must both be > 0), its derivations,
-   closure and taxonomy equal to the row-packed run's; then a profiled
-   rerun (per-part breakdown), and a captured rerun that keeps the
-   heaviest CR4 and CR6 operands (most set bits of A),
-   which ``packed_andor`` must reproduce bit for bit against its plain
-   version, each timed beside it and beside the bound.
+   taxonomy's sparse route must be > 0), its derivations, closure and
+   taxonomy equal to the row-packed run's; then a profiled rerun
+   (per-part breakdown), and a captured rerun that keeps the heaviest
+   CR4 and CR6 operands (most set bits of A), which ``packed_andor``
+   must reproduce bit for bit against its plain version, each timed
+   beside it and beside the bound.
 
+Kernel times are CUDA-event times per call over back-to-back calls.
 It prints the card's name and power limit, a ``{"policy": ...}`` line
-(each site's device time under the chosen kernel and under each
-kernel), the ``{"andor_checks": ...}``, ``{"packed_full_width": ...}``,
-``{"packed_breakdown": ...}`` and ``{"andor_operands": ...}`` lines, a
-``{"kernels": [...]}`` line, and as its last line
+(each site's device time under the chosen route and under each route,
+with A's nonzero fraction), the ``{"andor_checks": ...}``,
+``{"full_width": ...}``, ``{"breakdown": ...}``, ``{"threshold_ab":
+...}``, ``{"packed_full_width": ...}``, ``{"packed_breakdown": ...}``
+and ``{"andor_operands": ...}`` lines, a ``{"kernels": [...]}`` line
+(the sparse row also carries the listing kernel's time and launches),
+and as its last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 Without a CUDA device it exits non-zero and prints no result.
 """
@@ -90,20 +101,20 @@ def sync() -> None:
 
 
 def time_ms(fn, reps: int = 10) -> float:
-    """Median device time of ``fn()`` over ``reps`` runs (CUDA events,
-    after one warm-up)."""
+    """Device time per call of ``fn()``: CUDA events around ``reps``
+    back-to-back calls (after one warm-up), over the count, so that the
+    host's launch overhead overlaps the card's work wherever the card is
+    the slower of the two."""
     fn()
     sync()
-    times = []
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    e0.record()
     for _ in range(reps):
-        e0 = torch.cuda.Event(enable_timing=True)
-        e1 = torch.cuda.Event(enable_timing=True)
-        e0.record()
         fn()
-        e1.record()
-        e1.synchronize()
-        times.append(e0.elapsed_time(e1))
-    return float(np.median(times))
+    e1.record()
+    e1.synchronize()
+    return e0.elapsed_time(e1) / reps
 
 
 def bound_ms(a: torch.Tensor, b: torch.Tensor):
@@ -148,26 +159,37 @@ def phase_probe():
     return name
 
 
-def check_kernel(a, b, sparse: bool, what: str) -> int:
-    """Both kernels are exact: any differing bit fails."""
+def check_kernel(a, b, sparse: bool, what: str, c0=None) -> int:
+    """One route against the plain version, bit for bit, written fresh
+    or (with ``c0``) ORed into a copy of ``c0``; for the sparse route
+    also ``packed_cols_list`` against the plain listing."""
     from distel_tpu_torch.ops.bitmatmul import (
-        PackedColsMatmulPlan, plain_packed_cols,
+        PackedColsMatmulPlan, list_entries, plain_list_columns, plain_packed_cols,
     )
 
     plan = PackedColsMatmulPlan(a.shape[0], a.shape[1], b.shape[1],
                                 skip_zero_tiles=sparse)
-    got = plan(a, b)
+    got = plan(a, b, None if c0 is None else c0.clone())
     sync()
-    want = plain_packed_cols(a, b)
+    want = plain_packed_cols(a, b, None if c0 is None else c0.clone())
     diff = int((got != want).sum())
     kern = "packed_cols_sparse" if sparse else "packed_cols_dense"
+    mode = "accumulate" if c0 is not None else "write"
     if diff:
-        raise AssertionError(f"{kern} {what}: {diff} words differ from plain")
-    log(f"[kernel] {kern} {what} {tuple(a.shape)}x{tuple(b.shape)}: equal")
+        raise AssertionError(f"{kern} {what} ({mode}): {diff} words differ from plain")
+    if sparse:
+        lists, plain = plan.list_columns(a), plain_list_columns(a)
+        sync()
+        same = torch.equal(lists.counts, plain.counts) and all(
+            torch.equal(x, y) for x, y in zip(list_entries(lists), list_entries(plain))
+        )
+        if not same:
+            raise AssertionError(f"packed_cols_list {what}: lists differ from plain")
+    log(f"[kernel] {kern} {what} ({mode}) {tuple(a.shape)}x{tuple(b.shape)}: equal")
     return diff
 
 
-def random_operands(gen, m, l, w, density, dead_tiles=False):
+def random_operands(gen, m, l, w, density, dead_tiles=False, kind="random"):
     a = (torch.rand((m, l), generator=gen, device="cuda") < density).to(torch.int8)
     if dead_tiles:
         # keep ~10% of the 64x32 A tiles alive
@@ -175,26 +197,41 @@ def random_operands(gen, m, l, w, density, dead_tiles=False):
                           device="cuda") < 0.1
         keep = keep.repeat_interleave(64, 0)[:m].repeat_interleave(32, 1)[:, :l]
         a = a * keep.to(torch.int8)
+    if kind == "one-per-row":
+        a = torch.zeros((m, l), dtype=torch.int8, device="cuda")
+        a[torch.arange(m, device="cuda"),
+          torch.randint(0, l, (m,), generator=gen, device="cuda")] = 1
     b = torch.randint(-2**31, 2**31, (l, w), generator=gen, device="cuda",
                       dtype=torch.int64).to(torch.int32)
+    b[:, 0] |= -2**31                    # bit 31 set in every row
     return a.contiguous(), b.contiguous()
 
 
 def phase_kernels():
+    """Both routes and the listing on unaligned (L % 16, W % 4), bit-31,
+    tile-sparse, all-zero, fully dense, one-nonzero-a-row and
+    several-list-chunk operands, written fresh and accumulated."""
     gen = torch.Generator(device="cuda").manual_seed(0)
-    for sparse in (False, True):
-        for m, l, w, dens, dead in (
-            (37, 70, 5, 0.2, False),       # unaligned everywhere
-            (1, 1, 1, 1.0, False),
-            (300, 1000, 200, 0.05, True),  # most tiles dead
-            (513, 257, 129, 0.01, False),  # just past every tile edge
-        ):
-            a, b = random_operands(gen, m, l, w, dens, dead)
-            check_kernel(a, b, sparse, f"random(d={dens}, dead={dead})")
-        # all-zero A: every tile dead
-        a = torch.zeros((128, 64), dtype=torch.int8, device="cuda")
-        b = random_operands(gen, 1, 64, 33, 0.0)[1]
-        check_kernel(a, b, sparse, "all-zero A")
+    for m, l, w, dens, dead, kind in (
+        (37, 70, 5, 0.2, False, "random"),        # unaligned everywhere
+        (1, 1, 1, 1.0, False, "random"),
+        (300, 1000, 200, 0.05, True, "random"),   # most tiles dead
+        (513, 257, 129, 0.01, False, "random"),   # just past every tile edge
+        (128, 64, 33, 0.0, False, "random"),      # all-zero A
+        (130, 96, 300, 1.0, False, "random"),     # fully dense A
+        (200, 1500, 260, 0.0, False, "one-per-row"),
+        (150, 2304, 96, 0.004, False, "random"),  # several list chunks
+        (70, 2049, 33, 0.01, False, "random"),    # unaligned rows, 9 chunks
+        (2560, 300, 7680, 0.01, False, "random"), # lists not split
+    ):
+        a, b = random_operands(gen, m, l, w, dens, dead, kind)
+        c0 = torch.randint(-2**31, 2**31, (m, w), generator=gen, device="cuda",
+                           dtype=torch.int64).to(torch.int32)
+        c0[::2] = 0
+        what = f"{kind}(d={dens}, dead={dead})"
+        for sparse in (False, True):
+            check_kernel(a, b, sparse, what)
+            check_kernel(a, b, sparse, what, c0)
 
 
 def golden_closure(result) -> dict:
@@ -373,7 +410,7 @@ class Capture:
     def __enter__(self):
         cap = self
 
-        def launch(plan, a, b):
+        def launch(plan, a, b, out):
             f, site = sys._getframe(1), "other"
             while f is not None and f.f_code.co_name not in SITES:
                 f = f.f_back
@@ -387,13 +424,23 @@ class Capture:
             nnz = int(torch.count_nonzero(a))
             if nnz > got[1]:
                 got[1:] = [nnz, a.cpu(), b.cpu()]
-            return cap._orig(plan, a, b)
+            return cap._orig(plan, a, b, out)
 
         self.mod.PackedColsMatmulPlan._launch = launch
         return self
 
     def __exit__(self, *exc):
         self.mod.PackedColsMatmulPlan._launch = self._orig
+
+
+def path_kernels(plans) -> list:
+    """The packed-columns kernels the row-packed path must launch: the
+    sparse route (listing + sparse kernel) for CR6 and the taxonomy at
+    full width, and the dense kernel if any CR4/CR6 plan chose it."""
+    kernels = ["packed_cols_list", "packed_cols_sparse"]
+    if any(not p.skip_zero_tiles for p in plans):
+        kernels.append("packed_cols_dense")
+    return kernels
 
 
 def phase_full_width():
@@ -427,7 +474,7 @@ def phase_full_width():
     print(json.dumps({"full_width": stats}), flush=True)
     if not res.result.converged:
         raise AssertionError("64k run did not converge")
-    for k in ("packed_cols_dense", "packed_cols_sparse"):    # this path's kernels
+    for k in path_kernels(res.engine._plans.values()):
         if launches[k] == 0:
             raise AssertionError(f"{k} was never launched on the 64k run")
     if len(res.taxonomy.parents) == 0:
@@ -436,18 +483,24 @@ def phase_full_width():
 
 
 def phase_threshold_ab(res) -> dict:
-    """The shipped tile-skip threshold against every CR4 and window-CR6
-    plan on the sparse kernel (what the earlier threshold, 2^28, chose
-    at 64k): ``saturate()`` on the 64k engine in the order A B B A, host
-    wall with the card synchronised.  Every closure must equal the
-    first run's."""
+    """The shipped route choice end to end against every CR4 and
+    window-CR6 plan on the sparse route and against every plan on the
+    route it did not choose: ``saturate()`` on the 64k engine in the
+    order A B C C B A, host wall with the card synchronised.  Every
+    closure must equal the first run's."""
     plans = list(res.engine._plans.values())
     shipped = [p.skip_zero_tiles for p in plans]
-    walls = {"all_sparse": [], "shipped": []}
+    choice = {
+        "shipped": shipped,
+        "all_sparse": [True] * len(plans),
+        "flipped": [not x for x in shipped],
+    }
+    walls = {k: [] for k in choice}
     try:
-        for what in ("all_sparse", "shipped", "shipped", "all_sparse"):
-            for p, chosen in zip(plans, shipped):
-                p.skip_zero_tiles = chosen or what == "all_sparse"
+        for what in ("flipped", "all_sparse", "shipped", "shipped", "all_sparse",
+                     "flipped"):
+            for p, chosen in zip(plans, choice[what]):
+                p.skip_zero_tiles = chosen
             sync()
             t0 = time.perf_counter()
             again = res.engine.saturate()
@@ -534,12 +587,13 @@ def wall_ms(fn, reps: int = 10) -> float:
 
 
 def check_pair(run, site, kern, launches, a, b) -> dict:
-    """One captured operand pair: both kernels bit for bit against the
-    plain version, then their times (CUDA events; the sparse one also
-    split into its live-tile listing and the bare kernel), the host wall
-    per call, the plain version's time and the bound."""
+    """One captured operand pair: both routes bit for bit against the
+    plain version and the listing against the plain listing, then their
+    times (CUDA events; the sparse route also split into the listing
+    kernel and the bare sparse kernel), the host wall per call, the
+    plain version's time and the bound."""
     from distel_tpu_torch.ops.bitmatmul import (
-        PackedColsMatmulPlan, live_tiles, plain_packed_cols,
+        PackedColsMatmulPlan, list_entries, plain_list_columns, plain_packed_cols,
     )
 
     a, b = a.cuda(), b.cuda()
@@ -551,10 +605,20 @@ def check_pair(run, site, kern, launches, a, b) -> dict:
     err = 0
     for plan in (dense, sparse):
         err = max(err, int((plan(a, b) != want).sum()))
+    lists = sparse.list_columns(a)
+    plain = plain_list_columns(a)
+    if not torch.equal(lists.counts, plain.counts):
+        err = max(err, int((lists.counts != plain.counts).sum()))
+    else:
+        for x, y in zip(list_entries(lists), list_entries(plain)):
+            err = max(err, int((x != y).sum()))
+    del plain
     if err:
-        raise AssertionError(f"{run} {site} {tuple(a.shape)}: {err} words differ")
-    lists = live_tiles(a)
+        raise AssertionError(f"{run} {site} {tuple(a.shape)}: {err} entries differ")
+    if len(sparse.slabs(a.device)) != 1:
+        raise AssertionError(f"{run} {site}: lists past the budget")
     c = torch.empty((m, w), dtype=torch.int32, device="cuda")
+    gm = lists.counts.shape[0]
     out = {
         "run": run,
         "site": site,
@@ -562,12 +626,12 @@ def check_pair(run, site, kern, launches, a, b) -> dict:
         "launches": launches,
         "shape": [m, l, w],
         "a_nonzero_fraction": float((a != 0).float().mean()),
-        "live_tile_fraction": float(lists[1].sum()) / max(lists[0].numel(), 1),
+        "mean_list_length": float(lists.counts.sum()) / max(gm, 1),
         "max_abs_err": err,
         "dense_ms": time_ms(lambda: dense(a, b)),
         "sparse_ms": time_ms(lambda: sparse(a, b)),
-        "live_tiles_ms": time_ms(lambda: live_tiles(a)),
-        "sparse_kernel_ms": time_ms(lambda: sparse._launch_sparse(a, b, *lists, c)),
+        "list_ms": time_ms(lambda: sparse.list_columns(a, lists)),
+        "sparse_kernel_ms": time_ms(lambda: sparse.run_sparse(b, lists, c, False)),
         "dense_wall_ms": wall_ms(lambda: dense(a, b)),
         "sparse_wall_ms": wall_ms(lambda: sparse(a, b)),
         "plain_ms": time_ms(lambda: plain_packed_cols(a, b), reps=3),
@@ -578,35 +642,43 @@ def check_pair(run, site, kern, launches, a, b) -> dict:
 
 
 def phase_kernel_line(launches, cap: Capture):
-    """Every captured pair with both kernels, then one row per kernel.
-    A row's numbers are its kernel's at the heaviest pair (most
-    word-ANDs) that the 64k main path sent to it."""
+    """Every captured pair with both routes, the per-site policy, then
+    one row per kernel.  A row's numbers are its kernel's at the
+    heaviest pair (most word-ANDs) that the 64k main path sent to it
+    (for a kernel the path did not choose, the heaviest 64k pair)."""
     pairs = []
     for (run, site, kern, _bucket) in sorted(cap.pairs):
         n, _nnz, a, b = cap.pairs.pop((run, site, kern, _bucket))
         pairs.append(check_pair(run, site, kern, n, a, b))
-    # each site's device time under the kernel the plan chose, and under
-    # each kernel for every launch (launch-weighted over the buckets)
+    # each site's device time under the route the plan chose, and under
+    # each route for every launch (launch-weighted over the buckets)
     totals = {}
     for p in pairs:
         t = totals.setdefault(f"{p['run']}:{p['site']}", {
-            "launches": 0, "chosen_ms": 0.0, "all_dense_ms": 0.0,
-            "all_sparse_ms": 0.0,
+            "launches": 0, "chosen": set(), "chosen_ms": 0.0,
+            "all_dense_ms": 0.0, "all_sparse_ms": 0.0, "list_ms": 0.0,
+            "a_nonzero_fraction": 0.0,
         })
         t["launches"] += p["launches"]
+        t["chosen"].add(p["main_path_kernel"])
         chosen = "sparse_ms" if p["main_path_kernel"].endswith("sparse") else "dense_ms"
         t["chosen_ms"] += p["launches"] * p[chosen]
         t["all_dense_ms"] += p["launches"] * p["dense_ms"]
         t["all_sparse_ms"] += p["launches"] * p["sparse_ms"]
+        t["list_ms"] += p["launches"] * p["list_ms"]
+        t["a_nonzero_fraction"] += p["launches"] * p["a_nonzero_fraction"]
+    for t in totals.values():
+        t["chosen"] = sorted(t["chosen"])
+        t["a_nonzero_fraction"] /= max(t["launches"], 1)
     log(f"[policy] {json.dumps(totals)}")
     print(json.dumps({"policy": totals}), flush=True)
     rows = []
     for kern in ("packed_cols_dense", "packed_cols_sparse"):
-        mine = [p for p in pairs if p["main_path_kernel"] == kern]
-        on_path = [p for p in mine if p["run"] == "64k"] or mine
-        top = max(on_path, key=lambda p: p["shape"][0] * p["shape"][1] * p["shape"][2])
+        on_path = [p for p in pairs if p["main_path_kernel"] == kern and p["run"] == "64k"]
+        pool = on_path or [p for p in pairs if p["run"] == "64k"] or pairs
+        top = max(pool, key=lambda p: p["shape"][0] * p["shape"][1] * p["shape"][2])
         key = "sparse_ms" if kern.endswith("sparse") else "dense_ms"
-        rows.append({
+        row = {
             "name": kern,
             "route": "cuda",
             "source": SOURCE,
@@ -619,7 +691,13 @@ def phase_kernel_line(launches, cap: Capture):
             "bound_by": top["bound_by"],
             "library_ms": None,
             "at": {k: top[k] for k in ("run", "site", "shape")},
-        })
+            "main_path": bool(on_path),
+        }
+        if kern.endswith("sparse"):
+            # the sparse route's own listing kernel (no TPU kernel of its own)
+            row.update(list_ms=top["list_ms"], sparse_kernel_ms=top["sparse_kernel_ms"],
+                       list_launches=launches["packed_cols_list"])
+        rows.append(row)
     return rows, pairs
 
 
@@ -742,7 +820,8 @@ def phase_packed_full_width(row_res):
     print(json.dumps({"packed_full_width": stats}), flush=True)
     if not res.result.converged:
         raise AssertionError("64k packed run did not converge")
-    for k in ("packed_andor", "packed_cols_dense"):
+    # CR4/CR6 through packed_andor, the taxonomy through the sparse route
+    for k in ("packed_andor", "packed_cols_list", "packed_cols_sparse"):
         if launches[k] == 0:
             raise AssertionError(f"{k} was never launched on the 64k packed run")
     if res.result.derivations != row_res.result.derivations:

@@ -275,7 +275,9 @@ class RowPackedSaturationEngine:
         def plan(m, l):
             key = (m, l)
             if key not in self._plans:
-                self._plans[key] = PackedColsMatmulPlan(m, l, self.wc)
+                self._plans[key] = PackedColsMatmulPlan(
+                    m, l, self.wc, temp_budget_bytes=self.temp_budget_bytes
+                )
             return self._plans[key]
 
         def build_chunks(spans, tab, src_col, mask_tab):
@@ -504,7 +506,8 @@ class RowPackedSaturationEngine:
     def _contract_chunk(self, bits_state, rp, chunk):
         """One CR4/CR6 row chunk: its packed [rk, wc] AND-OR product,
         OR-accumulated over its live windows (a window of R_T rows is a
-        contiguous slice — no copy)."""
+        contiguous slice — no copy): the first window writes the
+        accumulator, every later one ORs into it in place."""
         src_rows, mask_rows, _piece, _order, wins, mm = chunk
         lc = self.lc
         subt = bits_state[src_rows].T.contiguous()         # [wc, rk]
@@ -514,8 +517,7 @@ class RowPackedSaturationEngine:
                 subt, self._fillers[off : off + lc], dtype=torch.int8
             )                                              # [lc, rk]
             w = mask_rows[:, self._link_roles[off : off + lc]] * f.T
-            out = mm(w.contiguous(), rp[off : off + lc])
-            acc = out if acc is None else acc.bitwise_or_(out)
+            acc = mm(w.contiguous(), rp[off : off + lc], out=acc)
         return acc
 
     def _cr4(self, sp, rp, changed):
@@ -555,7 +557,7 @@ class RowPackedSaturationEngine:
                         * f.T
                         * t6["tval"][rt, k][None, :]
                     )
-                    acc |= mm(w.contiguous(), rp[ids])
+                    mm(w.contiguous(), rp[ids], out=acc)
                 outs.append(acc)
             out = torch.cat(outs) if len(outs) > 1 else outs[0]
             changed |= plan.write(rp, plan.reduce(out[order]))

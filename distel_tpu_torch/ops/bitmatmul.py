@@ -15,10 +15,20 @@ wide x-axis stays packed end to end.  This is CR4 and CR6 of the
 row-packed engine and the transitive-reduction product of the blocked
 taxonomy.
 
-:class:`PackedColsMatmulPlan` runs one of two hand-written CUDA kernels
-(``csrc/packed_cols.cu``) for CUDA tensors — ``packed_cols_dense``, or
-``packed_cols_sparse``, which walks only the A tiles holding a nonzero —
-and its plain PyTorch version for CPU tensors.
+:class:`PackedColsMatmulPlan` runs hand-written CUDA kernels
+(``csrc/packed_cols.cu``) for CUDA tensors and its plain PyTorch version
+for CPU tensors.  Its two routes give the same words:
+
+* sparse: ``packed_cols_list`` lists, per 64-row block of A, the
+  contraction columns some row selects, each with its row mask
+  (:class:`ColumnLists`); ``packed_cols_sparse`` then ORs the listed B
+  rows into the rows each mask selects, so its work follows A's
+  nonzeros;
+* dense: ``packed_cols_dense`` runs the product on the int8 tensor
+  cores over every contraction tile that holds a nonzero.
+
+Either can OR into an existing C (``out=``) instead of writing a fresh
+one.
 
 The second, the packed-contraction product, is the packed engine's
 (CR4 and CR6 over the x-major R):
@@ -39,27 +49,36 @@ Each launch adds one to :data:`LAUNCHES`.
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
 
+from distel_tpu_torch.core.engine import default_temp_budget
 from distel_tpu_torch.ops.bitpack import pack_planes, unpack_words, unpack_words_planes
 
 #: kernel launches since the last :func:`reset_launches`, per entry point
 #: (the plain CPU version never counts)
-LAUNCHES = {"packed_cols_dense": 0, "packed_cols_sparse": 0, "packed_andor": 0}
+LAUNCHES = {
+    "packed_cols_list": 0,
+    "packed_cols_dense": 0,
+    "packed_cols_sparse": 0,
+    "packed_andor": 0,
+}
 
-#: the kernels' block tile (rows of C, contraction rows, words of C);
-#: checked against the built library when it loads
-KERNEL_TM, KERNEL_TL, KERNEL_TW = 64, 32, 128
+#: the packed-columns kernels' row block and the listing kernel's
+#: contraction chunk; checked against the built library when it loads
+KERNEL_TM, LIST_CHUNK = 64, 256
 
-#: auto ``skip_zero_tiles`` threshold in word-ANDs (M·L·W): below it the
-#: torch pass that lists live tiles (about 0.16 ms) costs more than
-#: skipping saves.  Set inside the crossover that ``chip_smoke.py``
-#: measured on an H100 (both kernels on the classify's own operands):
-#: dense faster at 6.5e8 word-ANDs and below, sparse faster at 2.1e9
-#: and above.
+#: auto ``skip_zero_tiles`` threshold in word-ANDs (M·L·W): plans at or
+#: above it take the sparse route, smaller ones the dense route.  From
+#: what ``chip_smoke.py`` measured on an H100 (both routes on the
+#: classify's own operands): at 1.2e10 and above (window CR6, the
+#: taxonomy product) the sparse route is 9x to 66x faster; at 6.5e8 and
+#: below (CR4 at 64k classes) the two routes are within the spread of
+#: the host's launch overhead, per call and end to end, and the dense
+#: route needs one launch where the sparse one needs two; on the 8k
+#: run's plans (4.6e7 and below) the dense route is 2-3x faster.
 SKIP_TILES_MIN_WORK = 1 << 30
 
 #: ``packed_andor``'s block tile (rows of C, bytes of C) and the byte
@@ -84,20 +103,19 @@ def _lib():
 
         lib = build.load("packed_cols")
         vp, ci = ctypes.c_void_p, ctypes.c_int
-        lib.packed_cols_dense.argtypes = [vp, vp, vp, ci, ci, ci, vp]
+        lib.packed_cols_list.argtypes = [vp, vp, vp, vp, ci, ci, vp]
+        lib.packed_cols_list.restype = ci
+        lib.packed_cols_dense.argtypes = [vp, vp, vp, ci, ci, ci, ci, vp]
         lib.packed_cols_dense.restype = ci
         lib.packed_cols_sparse.argtypes = [vp, vp, vp, vp, vp, ci, ci, ci, ci, vp]
         lib.packed_cols_sparse.restype = ci
         lib.packed_cols_error_string.argtypes = [ci]
         lib.packed_cols_error_string.restype = ctypes.c_char_p
-        tiles = (
-            lib.packed_cols_tile_m(), lib.packed_cols_tile_l(),
-            lib.packed_cols_tile_w(),
-        )
-        if tiles != (KERNEL_TM, KERNEL_TL, KERNEL_TW):
+        tiles = (lib.packed_cols_tile_m(), lib.packed_cols_list_chunk())
+        if tiles != (KERNEL_TM, LIST_CHUNK):
             raise RuntimeError(
                 f"packed_cols library tiles {tiles} != wrapper's "
-                f"{(KERNEL_TM, KERNEL_TL, KERNEL_TW)}"
+                f"{(KERNEL_TM, LIST_CHUNK)}"
             )
         _LIB = lib
     return _LIB
@@ -135,41 +153,105 @@ def _check_launch(error_string, code: int, what: str) -> None:
         raise RuntimeError(f"{what} launch failed: CUDA error {code} ({msg})")
 
 
-def live_tiles(a: torch.Tensor, tm: int = KERNEL_TM, tl: int = KERNEL_TL):
-    """Per-(row block, contraction tile) liveness of ``a`` [M, L] as the
-    sparse kernel's compacted lists: ``live_k`` [GM, GK] int32 holds, per
-    row block, the ascending ids of the ``tl``-wide contraction tiles
-    whose ``tm``-row A tile has any nonzero (then GK as filler), and
-    ``n_live`` [GM] int32 counts them.  Plain torch ops on ``a``'s
-    device — the counterpart of the TPU kernel's scalar-prefetch
-    ``flags``/``plk``."""
+def _stream(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+# ------------------------------------------------- packed-columns product
+
+
+class ColumnLists(NamedTuple):
+    """Per row block of A (``tm`` rows), the contraction columns some row
+    selects, in ``chunk``-column chunks: entry ``j < counts[g, c]`` of
+    chunk c is column ``cols[g, c, j]`` (ascending across the chunks),
+    with ``masks[g, c, j]`` bit r set iff ``A[tm·g + r, col] != 0``
+    (int64 holding the uint64 bits).  Entries at ``j >= counts`` are
+    undefined; :func:`list_entries` reads only the valid ones."""
+
+    cols: torch.Tensor     # [GM, NCH, chunk] int32
+    masks: torch.Tensor    # [GM, NCH, chunk] int64
+    counts: torch.Tensor   # [GM, NCH] int32
+
+
+def list_entries(lists: ColumnLists):
+    """``(cols, masks)`` of the valid entries, row block by row block,
+    each block's in ascending column order — the form in which two
+    listings compare bit for bit."""
+    chunk = lists.cols.shape[-1]
+    valid = (
+        torch.arange(chunk, device=lists.counts.device)[None, None, :]
+        < lists.counts[..., None]
+    )
+    return lists.cols[valid], lists.masks[valid]
+
+
+def plain_list_columns(a: torch.Tensor, tm: int = KERNEL_TM,
+                       chunk: int = LIST_CHUNK) -> ColumnLists:
+    """The plain PyTorch version of ``packed_cols_list`` (and the
+    reference's flags at a one-column contraction tile): row masks as
+    sums of distinct powers of two (an OR), then a stable sort that puts
+    each chunk's live columns first in ascending order.  Invalid
+    entries hold -1 and 0."""
+    if not 1 <= tm <= 64:
+        raise ValueError(f"row masks hold at most 64 rows, got tm={tm}")
     m, l = a.shape
-    gm, gk = -(-m // tm), -(-l // tl)
-    nz = torch.zeros((gm * tm, gk * tl), dtype=torch.bool, device=a.device)
-    nz[:m, :l] = a != 0
-    live = nz.view(gm, tm, gk, tl).any(dim=3).any(dim=1)          # [GM, GK]
-    ks = torch.arange(gk, dtype=torch.int32, device=a.device)
-    live_k = torch.where(live, ks[None, :], gk).sort(dim=1).values
-    return live_k.to(torch.int32).contiguous(), live.sum(1).to(torch.int32)
+    gm, nch = -(-m // tm), max(-(-l // chunk), 1)
+    dev = a.device
+    bits = np.left_shift(np.uint64(1), np.arange(tm, dtype=np.uint64))
+    weights = torch.from_numpy(bits.view(np.int64)).to(dev)
+    masks = torch.zeros((gm, nch * chunk), dtype=torch.int64, device=dev)
+    for g in range(gm):
+        rows = (a[g * tm : (g + 1) * tm] != 0).to(torch.int64)
+        masks[g, :l] = (rows * weights[: rows.shape[0], None]).sum(0)
+    masks = masks.view(gm, nch, chunk)
+    live = masks != 0
+    order = torch.sort((~live).to(torch.int8), dim=2, stable=True).indices
+    counts = live.sum(2).to(torch.int32)
+    first = torch.arange(nch, device=dev)[None, :, None] * chunk
+    valid = torch.arange(chunk, device=dev)[None, None, :] < counts[..., None]
+    cols = torch.where(valid, first + order, -1).to(torch.int32)
+    masks = torch.where(valid, torch.gather(masks, 2, order), 0)
+    return ColumnLists(cols.contiguous(), masks.contiguous(), counts)
+
+
+def _overlaps(x: torch.Tensor, y: torch.Tensor) -> bool:
+    if x.numel() == 0 or y.numel() == 0:
+        return False
+    x0, y0 = x.data_ptr(), y.data_ptr()
+    return x0 < y0 + y.numel() * y.element_size() and y0 < x0 + x.numel() * x.element_size()
 
 
 class PackedColsMatmulPlan:
     """AND-OR semiring product with **packed output columns** for fixed
     shapes ``[m, l] ⊙ [l, w]``.
 
-    ``skip_zero_tiles``: launch the tile-skipping kernel (None = auto,
-    by :data:`SKIP_TILES_MIN_WORK`).  The choice never changes the
-    result, only which kernel a CUDA call launches."""
+    ``skip_zero_tiles``: on a card, take the sparse route (listing +
+    ``packed_cols_sparse``) rather than ``packed_cols_dense`` (None =
+    auto, by :data:`SKIP_TILES_MIN_WORK`).  The choice never changes the
+    result, only which kernels a CUDA call launches.
+    ``temp_budget_bytes``: bytes the sparse route's lists may take (None
+    = :func:`default_temp_budget` of the device); row blocks beyond it
+    run in slabs."""
 
     def __init__(self, m: int, l: int, w: int, *,
-                 skip_zero_tiles: Optional[bool] = None):
+                 skip_zero_tiles: Optional[bool] = None,
+                 temp_budget_bytes: Optional[int] = None):
         self.m, self.l, self.w = int(m), int(l), int(w)
         if skip_zero_tiles is None:
             skip_zero_tiles = self.m * self.l * self.w >= SKIP_TILES_MIN_WORK
         self.skip_zero_tiles = bool(skip_zero_tiles)
+        self.temp_budget_bytes = temp_budget_bytes
+        # per device: the sparse route's slabs and its list buffers, kept
+        # across calls (a plan serves every window and round of its shape;
+        # calls on one stream run in order, so one set of lists serves all)
+        self._slabs: dict = {}
+        self._lists: dict = {}
 
-    def __call__(self, a: torch.Tensor, b_packed: torch.Tensor) -> torch.Tensor:
-        """a [m, l] int8/bool; b_packed [l, w] int32 → [m, w] int32."""
+    def __call__(self, a: torch.Tensor, b_packed: torch.Tensor,
+                 out: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """a [m, l] int8/bool; b_packed [l, w] int32 → [m, w] int32.
+        With ``out`` ([m, w] int32, not overlapping A or B) the product
+        is ORed into it (C |= A ⊙ B) and ``out`` is returned."""
         if a.dtype == torch.bool:
             a = a.view(torch.int8)
         if a.dtype != torch.int8 or b_packed.dtype != torch.int32:
@@ -186,57 +268,132 @@ class PackedColsMatmulPlan:
             )
         if a.device != b_packed.device:
             raise ValueError(f"A on {a.device} but B on {b_packed.device}")
+        if out is not None:
+            if out.dtype != torch.int32 or tuple(out.shape) != (self.m, self.w):
+                raise ValueError(
+                    f"out must be int32 [{self.m}, {self.w}], got {out.dtype} "
+                    f"{tuple(out.shape)}"
+                )
+            if out.device != a.device or not out.is_contiguous():
+                raise ValueError(f"out must be contiguous on {a.device}")
+            if _overlaps(out, a) or _overlaps(out, b_packed):
+                raise ValueError("out must not overlap A or B")
         if a.device.type == "cpu":
-            return plain_packed_cols(a, b_packed)
+            return plain_packed_cols(a, b_packed, out)
         if a.device.type != "cuda":
             raise ValueError(f"no packed-columns kernel for {a.device}")
-        return self._launch(a, b_packed)
+        return self._launch(a, b_packed, out)
 
-    def _launch(self, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    def _launch(self, a: torch.Tensor, b: torch.Tensor,
+                out: Optional[torch.Tensor]) -> torch.Tensor:
         if not (a.is_contiguous() and b.is_contiguous()):
             raise ValueError("packed-columns kernels take contiguous A and B")
         if -(-self.m // KERNEL_TM) > 65535:
             raise ValueError(f"M={self.m} exceeds the kernel grid")
-        c = torch.empty((self.m, self.w), dtype=torch.int32, device=a.device)
+        accumulate = out is not None
+        c = out if accumulate else torch.empty(
+            (self.m, self.w), dtype=torch.int32, device=a.device
+        )
         if self.m == 0 or self.w == 0:
             return c
         if self.l == 0:
-            return c.zero_()
-        if self.skip_zero_tiles:
-            return self._launch_sparse(a, b, *live_tiles(a), c)
-        lib = _lib()
-        stream = torch.cuda.current_stream(a.device).cuda_stream
-        code = lib.packed_cols_dense(
-            a.data_ptr(), b.data_ptr(), c.data_ptr(), self.m, self.l,
-            self.w, stream,
-        )
-        _check_launch(lib.packed_cols_error_string, code, "packed_cols_dense")
-        LAUNCHES["packed_cols_dense"] += 1
+            return c if accumulate else c.zero_()
+        if not self.skip_zero_tiles:
+            return self.run_dense(a, b, c, accumulate)
+        slabs = self.slabs(a.device)
+        bufs = self._lists.get(a.device)
+        if bufs is None:
+            bufs = self._lists[a.device] = self._new_lists(
+                slabs[0][1] - slabs[0][0], a.device
+            )
+        for r0, r1 in slabs:
+            self.run_sparse(b, self.list_columns(a[r0:r1], bufs), c[r0:r1],
+                            accumulate)
         return c
 
-    def _launch_sparse(self, a, b, live_k, n_live, c):
-        """The sparse kernel on lists :func:`live_tiles` built."""
+    def slabs(self, device) -> list:
+        """Row ranges (whole row blocks) whose lists fit the budget."""
+        device = torch.device(device)
+        got = self._slabs.get(device)
+        if got is None:
+            budget = self.temp_budget_bytes
+            if budget is None:
+                budget = default_temp_budget(device)
+            nch = -(-self.l // LIST_CHUNK)
+            per_block = 12 * nch * LIST_CHUNK
+            rows = max(budget // per_block, 1) * KERNEL_TM
+            got = self._slabs[device] = [
+                (r, min(r + rows, self.m)) for r in range(0, self.m, rows)
+            ]
+        return got
+
+    def _new_lists(self, rows: int, device) -> ColumnLists:
+        gm, nch = -(-rows // KERNEL_TM), -(-self.l // LIST_CHUNK)
+        return ColumnLists(
+            torch.empty((gm, nch, LIST_CHUNK), dtype=torch.int32, device=device),
+            torch.empty((gm, nch, LIST_CHUNK), dtype=torch.int64, device=device),
+            torch.empty((gm, nch), dtype=torch.int32, device=device),
+        )
+
+    def list_columns(self, a: torch.Tensor,
+                     into: Optional[ColumnLists] = None) -> ColumnLists:
+        """``packed_cols_list`` on a contiguous int8 A [rows, l] on a
+        card: its :class:`ColumnLists`, written into the leading row
+        blocks of ``into`` (buffers for at least as many rows) or into
+        fresh ones."""
+        m, l = a.shape
+        gm = -(-m // KERNEL_TM)
+        if into is None:
+            into = self._new_lists(m, a.device)
+        lists = ColumnLists(*(t[:gm] for t in into))
+        lib = _lib()
+        code = lib.packed_cols_list(
+            a.data_ptr(), lists.cols.data_ptr(), lists.masks.data_ptr(),
+            lists.counts.data_ptr(), m, l, _stream(a),
+        )
+        _check_launch(lib.packed_cols_error_string, code, "packed_cols_list")
+        LAUNCHES["packed_cols_list"] += 1
+        return lists
+
+    def run_sparse(self, b: torch.Tensor, lists: ColumnLists, c: torch.Tensor,
+                   accumulate: bool) -> torch.Tensor:
+        """``packed_cols_sparse`` over ``lists`` into C [rows, w]."""
         lib = _lib()
         code = lib.packed_cols_sparse(
-            a.data_ptr(), b.data_ptr(), live_k.data_ptr(),
-            n_live.data_ptr(), c.data_ptr(), self.m, self.l, self.w,
-            live_k.shape[1], torch.cuda.current_stream(a.device).cuda_stream,
+            b.data_ptr(), lists.cols.data_ptr(), lists.masks.data_ptr(),
+            lists.counts.data_ptr(), c.data_ptr(), c.shape[0], self.l, self.w,
+            int(accumulate), _stream(b),
         )
         _check_launch(lib.packed_cols_error_string, code, "packed_cols_sparse")
         LAUNCHES["packed_cols_sparse"] += 1
         return c
 
+    def run_dense(self, a: torch.Tensor, b: torch.Tensor, c: torch.Tensor,
+                  accumulate: bool) -> torch.Tensor:
+        """``packed_cols_dense`` into C [m, w]."""
+        lib = _lib()
+        code = lib.packed_cols_dense(
+            a.data_ptr(), b.data_ptr(), c.data_ptr(), self.m, self.l, self.w,
+            int(accumulate), _stream(a),
+        )
+        _check_launch(lib.packed_cols_error_string, code, "packed_cols_dense")
+        LAUNCHES["packed_cols_dense"] += 1
+        return c
 
-def plain_packed_cols(a: torch.Tensor, b_packed: torch.Tensor) -> torch.Tensor:
+
+def plain_packed_cols(a: torch.Tensor, b_packed: torch.Tensor,
+                      out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """The plain PyTorch version of the kernels' contract (the port of
     the reference's ``_xla``): plane-major unpack of B → matmul → ``> 0``
-    → repack.  Only A's nonzero rows and columns enter the matmul — the
-    others contribute nothing to an OR — and the count accumulates in
-    float32, exact for any L below 2^24."""
+    → repack, ORed into ``out`` when one is given.  Only A's nonzero
+    rows and columns enter the matmul — the others contribute nothing to
+    an OR — and the count accumulates in float32, exact for any L below
+    2^24."""
     m, l = a.shape
     w = b_packed.shape[1]
     assert l < (1 << 24), "float32 accumulation is exact only below 2^24 terms"
-    out = torch.zeros((m, w), dtype=torch.int32, device=a.device)
+    if out is None:
+        out = torch.zeros((m, w), dtype=torch.int32, device=a.device)
     nz = a != 0
     rows = nz.any(dim=1).nonzero().squeeze(1)
     cols = nz.any(dim=0).nonzero().squeeze(1)
@@ -245,7 +402,7 @@ def plain_packed_cols(a: torch.Tensor, b_packed: torch.Tensor) -> torch.Tensor:
     a_sub = a[rows][:, cols].to(torch.float32)
     bits = unpack_words_planes(b_packed[cols], torch.float32)
     prod = a_sub @ bits
-    out[rows] = pack_planes(prod > 0)
+    out[rows] |= pack_planes(prod > 0)
     return out
 
 

@@ -1,113 +1,335 @@
 // Packed-columns AND-OR product on Hopper (sm_90a), with a plain C
 // interface for ctypes (no PyTorch headers: this file builds in seconds).
 //
-//   C[m, w] = OR_{l : A[m, l] != 0} B[l, w]
+//   C[m, w] (|)= OR_{l : A[m, l] != 0} B[l, w]
 //
 //   A  [M, L] int8   — per-step operand (closure mask AND bit table)
 //   B  [L, W] int32  — packed state rows, 32 x-columns per word
 //   C  [M, W] int32  — packed output rows
 //
 // All three are row-major and contiguous.  Words carry the uint32 bit
-// pattern in int32 storage; the product only ANDs and ORs whole words,
-// so the sign bit is just bit 31.
+// pattern in int32 storage, so the sign bit is just bit 31.  With
+// `accumulate` set the kernels OR their product into C instead of
+// overwriting it (C must not alias A or B).
 //
-// Both kernels compute every output word exactly: acc |= B[l, w] & mask
-// with mask = -(A[m, l] != 0).  There is no count and no threshold, so
-// nothing can overflow or wrap whatever L is.
+// Three kernels:
 //
-// Block tile: TM rows x TW words of C, 256 threads, each thread owning
-// RM rows x RW words (32 accumulators in registers).  The contraction
-// axis streams through shared memory TL rows at a time.  Blocks never
-// share an output tile, so no sum carries between blocks.
+//   packed_cols_list    one pass over A: per 64-row block, the ascending
+//                       list of contraction indices l that some row of
+//                       the block selects, each with its 64-bit row mask
+//   packed_cols_sparse  walks those lists: work ∝ nnz(A)·W
+//   packed_cols_dense   int8 tensor cores (mma.sync m16n8k32 s8) on B
+//                       unpacked to bit planes in shared memory
+//
+// Nothing here counts in a type that can wrap: the sparse kernel only
+// ORs whole words, and the dense kernel's int32 counts are at most L.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int TM = 64;    // rows of C per block
-constexpr int TW = 128;   // words of C per block
-constexpr int TL = 32;    // contraction rows per shared-memory stage
-constexpr int THREADS = 256;
-constexpr int RM = 8;     // rows per thread   (TM = 8 warps x RM)
-constexpr int RW = 4;     // words per thread  (TW = 32 lanes x RW)
+constexpr int TM = 64;          // rows of C per row block (all kernels)
+constexpr int LCHUNK = 256;     // contraction columns per list chunk
 
-static_assert(TM == (THREADS / 32) * RM, "one warp per RM-row band");
-static_assert(TW == 32 * RW, "one lane per RW-word group");
+// ------------------------------------------------------------ async copy
 
-struct Tiles {
-  // As[l][m]: all-ones where A[m0 + m, l0 + l] != 0, else zero
-  alignas(16) int32_t As[TL][TM];
-  // Bs[l][w]: B[l0 + l, w0 + w] (zero past the edges)
-  alignas(16) int32_t Bs[TL][TW];
-};
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
 
-// Stage one (TL x TM) A tile and one (TL x TW) B tile.  A is read a
-// byte per thread down a column of TL bytes; the 32-byte sector of a
-// row stays in L1 across the 8 loads, so each A byte crosses from L2
-// once.  B rows are read 128 consecutive words at a time (coalesced).
-__device__ __forceinline__ void stage(
-    const int8_t* __restrict__ A, const int32_t* __restrict__ B,
-    int M, int L, int W, int m0, int w0, int l0, Tiles& t, int tid) {
-  {
-    const int m = tid & (TM - 1);
-    const int g = tid / TM;                 // 0..3: which 8 rows of l
-    const int gm = m0 + m;
-    const bool row_ok = gm < M;
-    const int8_t* arow = A + (size_t)gm * L;
+// 16 bytes global → shared, bypassing L1; src_bytes < 16 zero-fills the rest
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(smem_u32(dst)), "l"(src), "r"(src_bytes) : "memory");
+}
+
+__device__ __forceinline__ void cp_async8(void* dst, const void* src, int src_bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n"
+               :: "r"(smem_u32(dst)), "l"(src), "r"(src_bytes) : "memory");
+}
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, int src_bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
+               :: "r"(smem_u32(dst)), "l"(src), "r"(src_bytes) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
+}
+
+// ---------------------------------------------------------------------------
+// packed_cols_list
+//
+// The counterpart of the reference's inline flags/plk pass
+// (distel_tpu/ops/bitmatmul.py, PackedColsMatmulPlan.__call__ with
+// skip_zero_tiles=True), at a contraction tile of one column and with
+// the row mask kept beside each listed column.
+//
+// Output, for row block g (rows 64g .. 64g+63) and list chunk c
+// (columns LCHUNK·c .. LCHUNK·(c+1)-1), at entry e = (g·NCH + c)·LCHUNK:
+//   cols[e + j]   ascending contraction indices l with some A[m, l] != 0
+//   masks[e + j]  bit r set iff A[64g + r, l] != 0
+//   counts[g·NCH + c] = number of entries (j < counts are valid)
+//
+// Bound: it reads A once (M·L bytes) and writes at most 12 bytes per
+// listed column.  Design: one block per (chunk, row block) so the card
+// fills even when M is small; each warp reads 32 rows × 32 contiguous
+// bytes (two 16-byte loads a lane, whole 32-byte sectors) and turns
+// them into 32 column masks of 32 rows with __ballot_sync; two warps
+// make the 64-row mask.  Live columns are compacted in order by a warp
+// ballot, __popc prefix and a block prefix over the warps.  No sort and
+// no padded copy of A.
+// ---------------------------------------------------------------------------
+constexpr int LIST_THREADS = 256;
+constexpr int LSEG = 128;       // columns per pass: 4 column groups x 2 row halves
+
+template <bool A16>
+__global__ void __launch_bounds__(LIST_THREADS) packed_cols_list_kernel(
+    const int8_t* __restrict__ A, int32_t* __restrict__ cols,
+    uint64_t* __restrict__ masks, int32_t* __restrict__ counts, int M, int L,
+    int NCH) {
+  __shared__ uint32_t half_mask[2][LSEG];
+  __shared__ int warp_live[LSEG / 32];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int half = warp & 1, cg = warp >> 1;
+  const int g = blockIdx.y, c = blockIdx.x;
+  const int m = g * TM + half * 32 + lane;
+  const bool row_ok = m < M;
+  const int8_t* arow = A + (size_t)(row_ok ? m : 0) * L;
+  const size_t out0 = ((size_t)g * NCH + c) * LCHUNK;
+  const int c_end = min(L, (c + 1) * LCHUNK);
+  int base = 0;
+  for (int s0 = c * LCHUNK; s0 < c_end; s0 += LSEG) {
+    const int col0 = s0 + cg * 32;
+    uint32_t w[8];
+    if (A16) {
+      // L % 16 == 0: a 16-byte piece lies wholly inside or past the row
 #pragma unroll
-    for (int j = 0; j < TL / (THREADS / TM); ++j) {
-      const int l = g * (TL / (THREADS / TM)) + j;
-      const int gl = l0 + l;
-      const int8_t v = (row_ok && gl < L) ? arow[gl] : (int8_t)0;
-      t.As[l][m] = v ? -1 : 0;
+      for (int h = 0; h < 2; ++h) {
+        const int cc = col0 + 16 * h;
+        uint4 v = make_uint4(0u, 0u, 0u, 0u);
+        if (row_ok && cc < L) v = __ldg(reinterpret_cast<const uint4*>(arow + cc));
+        w[4 * h] = v.x; w[4 * h + 1] = v.y; w[4 * h + 2] = v.z; w[4 * h + 3] = v.w;
+      }
+    } else {
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        uint32_t x = 0;
+#pragma unroll
+        for (int b = 0; b < 4; ++b) {
+          const int cc = col0 + 4 * i + b;
+          const uint32_t v = (row_ok && cc < L) ? (uint8_t)arow[cc] : 0u;
+          x |= v << (8 * b);
+        }
+        w[i] = x;
+      }
     }
-  }
-  {
-    const int w = tid & (TW - 1);
-    const int lr = tid / TW;                // 0..1
-    const int gw = w0 + w;
-    const bool col_ok = gw < W;
+    uint32_t mine = 0;
 #pragma unroll
-    for (int j = 0; j < TL / (THREADS / TW); ++j) {
-      const int l = lr + j * (THREADS / TW);
-      const int gl = l0 + l;
-      t.Bs[l][w] = (col_ok && gl < L) ? B[(size_t)gl * W + gw] : 0;
+    for (int j = 0; j < 32; ++j) {
+      const uint32_t b = __ballot_sync(0xffffffffu, (w[j >> 2] >> (8 * (j & 3))) & 0xffu);
+      if (lane == j) mine = b;
+    }
+    half_mask[half][cg * 32 + lane] = mine;
+    __syncthreads();
+    uint64_t mk = 0;
+    if (tid < LSEG) mk = (uint64_t)half_mask[0][tid] | ((uint64_t)half_mask[1][tid] << 32);
+    const bool live = mk != 0;           // columns past L were read as zero
+    const uint32_t bal = __ballot_sync(0xffffffffu, live);
+    if (lane == 0 && warp < LSEG / 32) warp_live[warp] = __popc(bal);
+    __syncthreads();
+    if (live) {
+      int pos = base + __popc(bal & ((1u << lane) - 1u));
+      for (int v = 0; v < warp; ++v) pos += warp_live[v];
+      cols[out0 + pos] = s0 + tid;
+      masks[out0 + pos] = mk;
+    }
+#pragma unroll
+    for (int v = 0; v < LSEG / 32; ++v) base += warp_live[v];
+    __syncthreads();                     // before half_mask/warp_live are rewritten
+  }
+  if (tid == 0) counts[(size_t)g * NCH + c] = base;
+}
+
+// ---------------------------------------------------------------------------
+// packed_cols_sparse
+//
+// Replaces distel_tpu/ops/bitmatmul.py::_packed_cols_sparse_kernel
+// (PackedColsMatmulPlan with skip_zero_tiles=True: the plans the auto
+// rule sends here, window CR6 and the taxonomy's product at full width).
+//
+// Bound on this card: the work the data needs is one W-word OR per
+// nonzero of A; the bytes are A once, the B rows some nonzero selects
+// once, and C once.  At the main path's operands (0.04-0.2 % nonzero)
+// the bytes bound it.
+//
+// Design: the work follows A's nonzeros, not its tiles.  A block owns
+// 64 rows x 128 words of C, kept in shared memory, and walks its row
+// block's lists (packed_cols_list): for each listed column l, the
+// segment B[l, w0 : w0+128] streams through a 3-stage cp.async ring
+// (8 segments and their row masks a stage, 16 bytes a thread where W
+// allows), so later segments are in flight while the current one is
+// ORed into the rows its mask selects (__ffsll over the set bits; each
+// thread owns one word column of the tile, so no two threads touch one
+// word).  Cost ∝ nnz(A)·W plus the lists, against (live 64x32 tiles)
+// x 64 x 32 x W for a kernel that skips only all-zero tiles.  The epilogue writes
+// the tile once; with `accumulate` it ORs only nonzero words into C,
+// and a row block with an empty list returns at once.
+//
+// Row blocks' lists differ a lot in length (at the 64k CR4 and CR6
+// operands a few are several times the mean), and one block walks its
+// list serially, so the longest list would hold the launch.  When the grid
+// is small for the card, each row block's list is split evenly over up
+// to 16 blocks (grid z); each ORs its share into C with atomicOr (C is
+// zeroed first unless accumulating).  OR is order-free, so the words
+// do not depend on the split or on the order of the atomics.
+// ---------------------------------------------------------------------------
+constexpr int SP_TW = 128;      // words of C per block
+constexpr int SP_THREADS = SP_TW;
+constexpr int SP_SE = 8;        // list entries per stage
+constexpr int SP_NST = 3;       // stages in the ring
+// A row block's list is split over up to SP_MAX_SPLITS blocks when the
+// (column tile, row block) grid alone gives fewer than SP_TARGET_PER_SM
+// blocks an SM: one long list then no longer holds the whole launch.
+constexpr int SP_TARGET_PER_SM = 16;
+constexpr int SP_MAX_SPLITS = 16;
+
+// The cursor (chunk c, entry j) of a row block's e-th list entry.
+__device__ __forceinline__ void seek(const int32_t* __restrict__ cnt, int nch,
+                                     int e, int& c, int& j) {
+  for (c = 0; c < nch; ++c) {
+    const int n = __ldg(cnt + c);
+    if (e < n) break;
+    e -= n;
+  }
+  j = e;
+}
+
+// The next batch of at most SP_SE of the `left` entries still due, in
+// order: advances the cursor, sets `at` to the batch's first entry and
+// returns its length (0 when none is left).  Every thread computes the
+// same batches.
+__device__ __forceinline__ int next_batch(const int32_t* __restrict__ cnt, int nch,
+                                          int& c, int& j, int& left, size_t row0,
+                                          size_t& at) {
+  while (left > 0 && c < nch) {
+    const int n = __ldg(cnt + c);
+    if (j < n) {
+      const int k = min(min(SP_SE, n - j), left);
+      at = row0 + (size_t)c * LCHUNK + j;
+      j += k;
+      left -= k;
+      return k;
+    }
+    ++c;
+    j = 0;
+  }
+  return 0;
+}
+
+template <bool B16>
+__device__ __forceinline__ void sparse_issue(
+    uint32_t (*seg)[SP_TW], uint64_t* mseg, const int32_t* __restrict__ B,
+    const int32_t* __restrict__ cols, const uint64_t* __restrict__ masks,
+    size_t at, int k, int W, int w0, int t) {
+  if (t < k) cp_async8(mseg + t, masks + at + t, 8);
+  if (B16) {
+    constexpr int PIECES = SP_TW / 4;    // 16-byte pieces of a segment
+    for (int i = t; i < k * PIECES; i += SP_THREADS) {
+      const int e = i / PIECES, p = i % PIECES;
+      const int l = __ldg(cols + at + e);
+      const int w = w0 + 4 * p;
+      const bool ok = w < W;             // W % 4 == 0: all in or all out
+      cp_async16(&seg[e][4 * p], ok ? B + (size_t)l * W + w : B, ok ? 16 : 0);
+    }
+  } else {
+    const int w = w0 + t;
+    const bool ok = w < W;
+    for (int e = 0; e < k; ++e) {
+      const int l = __ldg(cols + at + e);
+      cp_async4(&seg[e][t], ok ? B + (size_t)l * W + w : B, ok ? 4 : 0);
     }
   }
 }
 
-// acc[r][c] |= As[l][row r] & Bs[l][word c] over the staged TL rows.
-// A warp shares its rows, so the As reads are broadcasts; the Bs reads
-// are 16-byte vectors over 512 consecutive bytes (conflict-free).
-__device__ __forceinline__ void contract(
-    const Tiles& t, int tx, int ty, int32_t (&acc)[RM][RW]) {
+template <bool B16>
+__global__ void __launch_bounds__(SP_THREADS) packed_cols_sparse_kernel(
+    const int32_t* __restrict__ B, const int32_t* __restrict__ cols,
+    const uint64_t* __restrict__ masks, const int32_t* __restrict__ counts,
+    int32_t* __restrict__ C, int M, int W, int NCH, int accumulate) {
+  __shared__ __align__(16) uint32_t Cs[TM][SP_TW];
+  __shared__ __align__(16) uint32_t ring[SP_NST][SP_SE][SP_TW];
+  __shared__ __align__(16) uint64_t mring[SP_NST][SP_SE];
+  const int t = threadIdx.x;
+  const int g = blockIdx.y, w0 = blockIdx.x * SP_TW, m0 = g * TM;
+  const int splits = gridDim.z;
+  const int32_t* cnt = counts + (size_t)g * NCH;
+  const size_t row0 = (size_t)g * NCH * LCHUNK;
+  // this block's share of the row block's list: entries [e0, e1)
+  int total = 0;
+  for (int c = 0; c < NCH; ++c) total += __ldg(cnt + c);
+  const int e0 = (int)((long long)total * blockIdx.z / splits);
+  const int e1 = (int)((long long)total * (blockIdx.z + 1) / splits);
+  // nothing to OR in: C keeps its words (accumulating, or zeroed by the
+  // launcher when the list is split)
+  if (e0 == e1 && (accumulate || splits > 1)) return;
 #pragma unroll 8
-  for (int l = 0; l < TL; ++l) {
-    const int4 a0 = *reinterpret_cast<const int4*>(&t.As[l][ty * RM]);
-    const int4 a1 = *reinterpret_cast<const int4*>(&t.As[l][ty * RM + 4]);
-    const int4 b = *reinterpret_cast<const int4*>(&t.Bs[l][tx * RW]);
-    const int32_t a[RM] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
-    const int32_t bw[RW] = {b.x, b.y, b.z, b.w};
+  for (int r = 0; r < TM; ++r) Cs[r][t] = 0u;
+  int pc, pj, cc, cj;                    // producer and consumer cursors
+  seek(cnt, NCH, e0, pc, pj);
+  cc = pc;
+  cj = pj;
+  int pleft = e1 - e0, cleft = e1 - e0;
+  size_t pat = 0, cat = 0;
 #pragma unroll
-    for (int r = 0; r < RM; ++r) {
-#pragma unroll
-      for (int c = 0; c < RW; ++c) acc[r][c] |= a[r] & bw[c];
-    }
+  for (int s = 0; s < SP_NST - 1; ++s) {
+    const int k = next_batch(cnt, NCH, pc, pj, pleft, row0, pat);
+    sparse_issue<B16>(ring[s], mring[s], B, cols, masks, pat, k, W, w0, t);
+    cp_async_commit();
   }
-}
-
-__device__ __forceinline__ void store(
-    int32_t* __restrict__ C, int M, int W, int m0, int w0, int tx, int ty,
-    const int32_t (&acc)[RM][RW]) {
-#pragma unroll
-  for (int r = 0; r < RM; ++r) {
-    const int gm = m0 + ty * RM + r;
-    if (gm >= M) break;
-#pragma unroll
-    for (int c = 0; c < RW; ++c) {
-      const int gw = w0 + tx * RW + c;
-      if (gw < W) C[(size_t)gm * W + gw] = acc[r][c];
+  for (int it = 0;; ++it) {
+    {
+      const int s = (it + SP_NST - 1) % SP_NST;   // consumed at it - 1
+      const int k = next_batch(cnt, NCH, pc, pj, pleft, row0, pat);
+      sparse_issue<B16>(ring[s], mring[s], B, cols, masks, pat, k, W, w0, t);
+      cp_async_commit();
+    }
+    const int k = next_batch(cnt, NCH, cc, cj, cleft, row0, cat);
+    cp_async_wait<SP_NST - 1>();
+    __syncthreads();
+    if (k == 0) break;                   // uniform: batches run in order
+    const int s = it % SP_NST;
+    for (int e = 0; e < k; ++e) {
+      unsigned long long mk = mring[s][e];
+      const uint32_t b = ring[s][e][t];
+      while (mk) {
+        const int r = __ffsll((long long)mk) - 1;
+        mk &= mk - 1ull;
+        Cs[r][t] |= b;
+      }
+    }
+    __syncthreads();                     // before stage s is refilled
+  }
+  cp_async_wait<0>();
+  const int w = w0 + t;
+  if (w >= W) return;
+  for (int r = 0; r < TM; ++r) {
+    const int m = m0 + r;
+    if (m >= M) break;
+    const uint32_t v = Cs[r][t];
+    int32_t* dst = C + (size_t)m * W + w;
+    if (splits > 1) {
+      if (v) atomicOr(dst, (int32_t)v);  // other shares OR into this word too
+    } else if (!accumulate) {
+      *dst = (int32_t)v;
+    } else if (v) {
+      *dst |= (int32_t)v;
     }
   }
 }
@@ -115,105 +337,271 @@ __device__ __forceinline__ void store(
 // ---------------------------------------------------------------------------
 // packed_cols_dense
 //
-// Replaces distel_tpu/ops/bitmatmul.py::_packed_cols_kernel (reached
-// through PackedColsMatmulPlan.__call__ with skip_zero_tiles=False).
+// Replaces distel_tpu/ops/bitmatmul.py::_packed_cols_kernel
+// (PackedColsMatmulPlan with skip_zero_tiles=False).
 //
-// Bound on this card: the function moves M*L + 4*L*W + 4*M*W bytes and
-// does M*L*W word-ANDs (32*M*L*W bit multiply-adds).  At the main path's
-// shapes (L, W in the thousands) the operation count dominates: the
-// int8 tensor-core formulation of the same bits would do 2*32*M*L*W ops
-// at 1,979 TOP/s, while the 3.35 TB/s memory moves the bytes in far less.
+// Bound on this card: the bytes are A once, the B rows once and C once;
+// the operations, counted as the reference's formulation does them, are
+// 32·M·L·W int8 multiply-adds (2 ops each) at 1,979 TOP/s.  On operands
+// whose tiles are live the operations bound it.
 //
-// Design: the work is done 32 bits at a time on the integer pipes, one
-// LOP3 per output word per contraction row, which does 32 bit-MACs per
-// instruction and never unpacks B or repacks C.  Each block loops over
-// the whole of L for its own output tile in registers, so C is written
-// once and A and B are each read once per output tile.  A tensor-core
-// design (unpack B to int8 in shared memory, int8 mma with int32
-// accumulation, threshold and repack in the epilogue) is later work.
+// Design: the reference's own formulation on the int8 tensor cores.  A
+// block owns 64 rows x 8 words (256 bit columns) of C and walks L 64
+// contraction rows at a time through a 3-stage cp.async ring holding
+// the A tile (int8, straight from global memory) and the packed B tile.
+// The B tile is unpacked in shared memory into int8 bit planes, K-major
+// as mma's B operand wants it, plane-major (column p·8 + w is bit p of
+// word w, as in the reference's _packed_cols_accumulate), with shifts
+// and byte permutes: four words become 32 four-byte plane words.  Eight
+// warps (2 x 4) each run mma.sync.m16n8k32.s32.s8.s8.s32 on a 32-row x
+// 64-column tile with int32 accumulators (exact: a count is at most L).
+// A k-tile whose staged A tile is all zero is skipped with one
+// __syncthreads_or (its copies were already in flight).  Epilogue:
+// threshold count > 0, fold each warp's 8 planes into words, OR the
+// four warps' partial words in shared memory, write the 64 x 8 words.
 // ---------------------------------------------------------------------------
-__global__ void __launch_bounds__(THREADS) packed_cols_dense_kernel(
-    const int8_t* __restrict__ A, const int32_t* __restrict__ B,
-    int32_t* __restrict__ C, int M, int L, int W) {
-  __shared__ Tiles t;
-  const int tid = threadIdx.x;
-  const int tx = tid & 31, ty = tid >> 5;
-  const int w0 = blockIdx.x * TW, m0 = blockIdx.y * TM;
-  int32_t acc[RM][RW] = {};
-  for (int l0 = 0; l0 < L; l0 += TL) {
-    stage(A, B, M, L, W, m0, w0, l0, t, tid);
-    __syncthreads();
-    contract(t, tx, ty, acc);
-    __syncthreads();
+constexpr int DTW = 8;          // words of C per block
+constexpr int DN = 32 * DTW;    // bit columns per block
+constexpr int DKT = 64;         // contraction rows per stage
+constexpr int DNST = 3;         // stages in the ring
+constexpr int DTHREADS = 256;
+constexpr int DROW = DKT + 16;  // bytes per shared row of As and Bs (conflict-free fragments)
+
+struct DenseSmem {
+  alignas(16) int8_t As[DNST][TM][DROW];
+  alignas(16) uint32_t Bp[DNST][DKT][DTW];
+  alignas(16) int8_t Bs[DN][DROW];       // Bs[p*8 + w][k] = bit p of B[k0+k, w0+w]
+  uint32_t Cw[TM][DTW];
+};
+
+template <bool A16, bool B16>
+__device__ __forceinline__ void dense_issue(
+    DenseSmem& sm, int s, const int8_t* __restrict__ A, const int32_t* __restrict__ B,
+    int M, int L, int W, int m0, int w0, int k0, int tid) {
+  {
+    const int row = tid >> 2, piece = tid & 3;
+    const int m = m0 + row, k = k0 + 16 * piece;
+    int8_t* dst = &sm.As[s][row][16 * piece];
+    if (A16) {
+      const bool ok = m < M && k < L;    // L % 16 == 0: all in or all out
+      cp_async16(dst, ok ? A + (size_t)m * L + k : A, ok ? 16 : 0);
+    } else {
+      uint32_t x[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        uint32_t v = 0;
+#pragma unroll
+        for (int b = 0; b < 4; ++b) {
+          const int kk = k + 4 * i + b;
+          const uint32_t y = (m < M && kk < L) ? (uint8_t)A[(size_t)m * L + kk] : 0u;
+          v |= y << (8 * b);
+        }
+        x[i] = v;
+      }
+      *reinterpret_cast<uint4*>(dst) = make_uint4(x[0], x[1], x[2], x[3]);
+    }
   }
-  store(C, M, W, m0, w0, tx, ty, acc);
+  if (B16) {
+    if (tid < DKT * DTW / 4) {
+      const int row = tid >> 1, piece = tid & 1;
+      const int l = k0 + row, w = w0 + 4 * piece;
+      const bool ok = l < L && w < W;    // W % 4 == 0
+      cp_async16(&sm.Bp[s][row][4 * piece], ok ? B + (size_t)l * W + w : B, ok ? 16 : 0);
+    }
+  } else {
+    for (int i = tid; i < DKT * DTW; i += DTHREADS) {
+      const int row = i / DTW, wd = i % DTW;
+      const int l = k0 + row, w = w0 + wd;
+      const bool ok = l < L && w < W;
+      cp_async4(&sm.Bp[s][row][wd], ok ? B + (size_t)l * W + w : B, ok ? 4 : 0);
+    }
+  }
 }
 
-// ---------------------------------------------------------------------------
-// packed_cols_sparse
-//
-// Replaces distel_tpu/ops/bitmatmul.py::_packed_cols_sparse_kernel
-// (PackedColsMatmulPlan with skip_zero_tiles=True: live-tile CR6 and
-// large plans).
-//
-// Bound on this card: the same function as packed_cols_dense, but the
-// work the data needs is only that of the nonzero A entries: nnz(A)*W
-// word-ORs, and the B rows that some nonzero entry selects.  At the
-// CR6 operand's measured sparsity (most A tiles all zero) the dense
-// kernel's cost is almost all dead tiles.
-//
-// Design: the wrapper lists, per TM-row block, the TL-row contraction
-// tiles whose A tile has any nonzero (live_k [GM, GK], n_live [GM]) —
-// the counterpart of the TPU kernel's scalar-prefetch flags and its
-// last-live redirect.  A block walks only its listed tiles, so a dead
-// tile costs no load of A or B and no instruction.
-// ---------------------------------------------------------------------------
-__global__ void __launch_bounds__(THREADS) packed_cols_sparse_kernel(
+__device__ __forceinline__ void mma_s8(int (&c)[4], const uint32_t (&a)[4],
+                                       uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+template <bool A16, bool B16>
+__global__ void __launch_bounds__(DTHREADS) packed_cols_dense_kernel(
     const int8_t* __restrict__ A, const int32_t* __restrict__ B,
-    const int32_t* __restrict__ live_k, const int32_t* __restrict__ n_live,
-    int32_t* __restrict__ C, int M, int L, int W, int GK) {
-  __shared__ Tiles t;
-  const int tid = threadIdx.x;
-  const int tx = tid & 31, ty = tid >> 5;
-  const int w0 = blockIdx.x * TW, m0 = blockIdx.y * TM;
-  const int32_t* ks = live_k + (size_t)blockIdx.y * GK;
-  const int n = n_live[blockIdx.y];
-  int32_t acc[RM][RW] = {};
-  for (int i = 0; i < n; ++i) {
-    stage(A, B, M, L, W, m0, w0, ks[i] * TL, t, tid);
-    __syncthreads();
-    contract(t, tx, ty, acc);
-    __syncthreads();
+    int32_t* __restrict__ C, int M, int L, int W, int accumulate) {
+  __shared__ DenseSmem sm;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t = lane & 3;        // mma fragment coordinates
+  const int wm = warp & 1, wn = warp >> 1;      // warp tile: rows 32wm.., planes 8wn..
+  const int w0 = blockIdx.x * DTW, m0 = blockIdx.y * TM;
+  for (int i = tid; i < TM * DTW; i += DTHREADS) sm.Cw[i / DTW][i % DTW] = 0u;
+  int acc[2][8][4];
+#pragma unroll
+  for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) acc[mi][nt][i] = 0;
+
+  const int nk = (L + DKT - 1) / DKT;
+#pragma unroll
+  for (int s = 0; s < DNST - 1; ++s) {
+    if (s < nk) dense_issue<A16, B16>(sm, s, A, B, M, L, W, m0, w0, s * DKT, tid);
+    cp_async_commit();
   }
-  store(C, M, W, m0, w0, tx, ty, acc);
+  // unpack mapping: lane -> (word, k-quad low), warp -> (k-quad high, plane half)
+  const int uw = lane & 7, ukq = (lane >> 3) + 4 * (warp & 3), uq0 = 4 * (warp >> 2);
+  for (int kt = 0; kt < nk; ++kt) {
+    {
+      const int nx = kt + DNST - 1;
+      if (nx < nk) dense_issue<A16, B16>(sm, nx % DNST, A, B, M, L, W, m0, w0, nx * DKT, tid);
+      cp_async_commit();
+    }
+    cp_async_wait<DNST - 1>();
+    const int s = kt % DNST;
+    const uint4 mine = *reinterpret_cast<const uint4*>(&sm.As[s][tid >> 2][16 * (tid & 3)]);
+    // barrier for the whole stage, and the dead-tile test in one
+    if (__syncthreads_or((mine.x | mine.y | mine.z | mine.w) != 0u)) {
+      const uint32_t x0 = sm.Bp[s][4 * ukq + 0][uw], x1 = sm.Bp[s][4 * ukq + 1][uw];
+      const uint32_t x2 = sm.Bp[s][4 * ukq + 2][uw], x3 = sm.Bp[s][4 * ukq + 3][uw];
+#pragma unroll
+      for (int qi = 0; qi < 4; ++qi) {
+        const int q = uq0 + qi;
+        // byte b of zj is bit q + 8b of xj
+        const uint32_t z0 = (x0 >> q) & 0x01010101u, z1 = (x1 >> q) & 0x01010101u;
+        const uint32_t z2 = (x2 >> q) & 0x01010101u, z3 = (x3 >> q) & 0x01010101u;
+        const uint32_t t0 = __byte_perm(z0, z1, 0x5140), t1 = __byte_perm(z2, z3, 0x5140);
+        const uint32_t t2 = __byte_perm(z0, z1, 0x7362), t3 = __byte_perm(z2, z3, 0x7362);
+        // byte j of plane word = bit p of B row 4*ukq + j
+        *reinterpret_cast<uint32_t*>(&sm.Bs[(q + 0) * DTW + uw][4 * ukq]) = __byte_perm(t0, t1, 0x5410);
+        *reinterpret_cast<uint32_t*>(&sm.Bs[(q + 8) * DTW + uw][4 * ukq]) = __byte_perm(t0, t1, 0x7632);
+        *reinterpret_cast<uint32_t*>(&sm.Bs[(q + 16) * DTW + uw][4 * ukq]) = __byte_perm(t2, t3, 0x5410);
+        *reinterpret_cast<uint32_t*>(&sm.Bs[(q + 24) * DTW + uw][4 * ukq]) = __byte_perm(t2, t3, 0x7632);
+      }
+      __syncthreads();
+#pragma unroll
+      for (int ks = 0; ks < DKT / 32; ++ks) {
+        uint32_t a[2][4];
+#pragma unroll
+        for (int mi = 0; mi < 2; ++mi) {
+          const int r = 32 * wm + 16 * mi + g;
+          const int kb = 32 * ks + 4 * t;
+          a[mi][0] = *reinterpret_cast<const uint32_t*>(&sm.As[s][r][kb]);
+          a[mi][1] = *reinterpret_cast<const uint32_t*>(&sm.As[s][r + 8][kb]);
+          a[mi][2] = *reinterpret_cast<const uint32_t*>(&sm.As[s][r][kb + 16]);
+          a[mi][3] = *reinterpret_cast<const uint32_t*>(&sm.As[s][r + 8][kb + 16]);
+        }
+#pragma unroll
+        for (int nt = 0; nt < 8; ++nt) {
+          const int n = (8 * wn + nt) * DTW + g;
+          const int kb = 32 * ks + 4 * t;
+          const uint32_t b0 = *reinterpret_cast<const uint32_t*>(&sm.Bs[n][kb]);
+          const uint32_t b1 = *reinterpret_cast<const uint32_t*>(&sm.Bs[n][kb + 16]);
+#pragma unroll
+          for (int mi = 0; mi < 2; ++mi) mma_s8(acc[mi][nt], a[mi], b0, b1);
+        }
+      }
+    }
+    __syncthreads();                     // before Bs and stage s are rewritten
+  }
+  cp_async_wait<0>();
+  // acc[mi][nt][2h + v]: row 32wm + 16mi + g + 8h, word 2t + v, plane 8wn + nt
+#pragma unroll
+  for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int v = 0; v < 2; ++v) {
+        uint32_t part = 0;
+#pragma unroll
+        for (int nt = 0; nt < 8; ++nt)
+          part |= (acc[mi][nt][2 * h + v] > 0 ? 1u : 0u) << (8 * wn + nt);
+        if (part) atomicOr(&sm.Cw[32 * wm + 16 * mi + g + 8 * h][2 * t + v], part);
+      }
+  __syncthreads();
+  for (int i = tid; i < TM * DTW; i += DTHREADS) {
+    const int row = i / DTW, wd = i % DTW;
+    const int m = m0 + row, w = w0 + wd;
+    if (m >= M || w >= W) continue;
+    const uint32_t v = sm.Cw[row][wd];
+    int32_t* dst = C + (size_t)m * W + w;
+    if (!accumulate) *dst = (int32_t)v;
+    else if (v) *dst |= (int32_t)v;
+  }
 }
 
 }  // namespace
 
 extern "C" {
 
-// Tile sizes the wrapper must build its live-tile lists with.
+// Row block and list chunk the wrapper must size the lists with.
 int packed_cols_tile_m() { return TM; }
-int packed_cols_tile_l() { return TL; }
-int packed_cols_tile_w() { return TW; }
+int packed_cols_list_chunk() { return LCHUNK; }
 
 // Each entry point launches on `stream` and returns cudaGetLastError()
 // (0 = launched); it neither synchronises nor allocates.
-int packed_cols_dense(const void* A, const void* B, void* C, int M, int L,
-                      int W, void* stream) {
-  dim3 grid((W + TW - 1) / TW, (M + TM - 1) / TM);
-  packed_cols_dense_kernel<<<grid, THREADS, 0, (cudaStream_t)stream>>>(
-      (const int8_t*)A, (const int32_t*)B, (int32_t*)C, M, L, W);
+
+int packed_cols_list(const void* A, void* cols, void* masks, void* counts,
+                     int M, int L, void* stream) {
+  const int nch = (L + LCHUNK - 1) / LCHUNK;
+  dim3 grid(nch, (M + TM - 1) / TM);
+  cudaStream_t st = (cudaStream_t)stream;
+  if (L % 16 == 0 && (uintptr_t)A % 16 == 0)
+    packed_cols_list_kernel<true><<<grid, LIST_THREADS, 0, st>>>(
+        (const int8_t*)A, (int32_t*)cols, (uint64_t*)masks, (int32_t*)counts, M, L, nch);
+  else
+    packed_cols_list_kernel<false><<<grid, LIST_THREADS, 0, st>>>(
+        (const int8_t*)A, (int32_t*)cols, (uint64_t*)masks, (int32_t*)counts, M, L, nch);
   return (int)cudaGetLastError();
 }
 
-int packed_cols_sparse(const void* A, const void* B, const void* live_k,
-                       const void* n_live, void* C, int M, int L, int W,
-                       int GK, void* stream) {
-  dim3 grid((W + TW - 1) / TW, (M + TM - 1) / TM);
-  packed_cols_sparse_kernel<<<grid, THREADS, 0, (cudaStream_t)stream>>>(
-      (const int8_t*)A, (const int32_t*)B, (const int32_t*)live_k,
-      (const int32_t*)n_live, (int32_t*)C, M, L, W, GK);
+int packed_cols_sparse(const void* B, const void* cols, const void* masks,
+                       const void* counts, void* C, int M, int L, int W,
+                       int accumulate, void* stream) {
+  const int nch = (L + LCHUNK - 1) / LCHUNK;
+  const long long tiles = (long long)((W + SP_TW - 1) / SP_TW) * ((M + TM - 1) / TM);
+  int dev = 0, sms = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  const long long want = (long long)SP_TARGET_PER_SM * sms;
+  const long long share = (want + tiles - 1) / tiles;
+  const int splits = share < 1 ? 1 : share > SP_MAX_SPLITS ? SP_MAX_SPLITS : (int)share;
+  cudaStream_t st = (cudaStream_t)stream;
+  if (splits > 1 && !accumulate) {       // the shares OR into a zeroed C
+    const cudaError_t err = cudaMemsetAsync(C, 0, (size_t)M * W * sizeof(int32_t), st);
+    if (err != cudaSuccess) return (int)err;
+  }
+  dim3 grid((W + SP_TW - 1) / SP_TW, (M + TM - 1) / TM, splits);
+  if (W % 4 == 0 && (uintptr_t)B % 16 == 0)
+    packed_cols_sparse_kernel<true><<<grid, SP_THREADS, 0, st>>>(
+        (const int32_t*)B, (const int32_t*)cols, (const uint64_t*)masks,
+        (const int32_t*)counts, (int32_t*)C, M, W, nch, accumulate);
+  else
+    packed_cols_sparse_kernel<false><<<grid, SP_THREADS, 0, st>>>(
+        (const int32_t*)B, (const int32_t*)cols, (const uint64_t*)masks,
+        (const int32_t*)counts, (int32_t*)C, M, W, nch, accumulate);
+  return (int)cudaGetLastError();
+}
+
+int packed_cols_dense(const void* A, const void* B, void* C, int M, int L,
+                      int W, int accumulate, void* stream) {
+  dim3 grid((W + DTW - 1) / DTW, (M + TM - 1) / TM);
+  const bool a16 = L % 16 == 0 && (uintptr_t)A % 16 == 0;
+  const bool b16 = W % 4 == 0 && (uintptr_t)B % 16 == 0;
+  cudaStream_t st = (cudaStream_t)stream;
+  const int8_t* a = (const int8_t*)A;
+  const int32_t* b = (const int32_t*)B;
+  int32_t* c = (int32_t*)C;
+  if (a16 && b16)
+    packed_cols_dense_kernel<true, true><<<grid, DTHREADS, 0, st>>>(a, b, c, M, L, W, accumulate);
+  else if (a16)
+    packed_cols_dense_kernel<true, false><<<grid, DTHREADS, 0, st>>>(a, b, c, M, L, W, accumulate);
+  else if (b16)
+    packed_cols_dense_kernel<false, true><<<grid, DTHREADS, 0, st>>>(a, b, c, M, L, W, accumulate);
+  else
+    packed_cols_dense_kernel<false, false><<<grid, DTHREADS, 0, st>>>(a, b, c, M, L, W, accumulate);
   return (int)cudaGetLastError();
 }
 

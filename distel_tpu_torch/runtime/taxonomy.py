@@ -10,8 +10,8 @@ taxonomy: equivalence classes, unsatisfiable classes, and direct
   projected subsumption matrix lives
   packed on the result's device ([n, n/32] words, rows = first index,
   bits = second), built and consumed in ``_TAX_BLOCK``-row blocks; the
-  transitive-reduction product runs through the dense packed-columns
-  kernel.  Only compact arrays cross to the host: canonical-
+  transitive-reduction product runs through ``PackedColsMatmulPlan``
+  on the route its auto rule picks.  Only compact arrays cross to the host: canonical-
   representative ids, the unsat mask and the direct-parent edges (the
   nonzero positions of each block's reduced rows, however many a class
   has).
@@ -269,11 +269,12 @@ def _extract_device_blocked(result, orig, names, block) -> Taxonomy:
     n = len(orig)
     npad = strict_r.shape[0]
     # transitive reduction: indirect[i, j] = ∃q strict[i,q] ∧ strict[q,j]
-    # = unpack(strict_r rows i over q) ⊙ strict_r, on the dense kernel
+    # = unpack(strict_r rows i over q) ⊙ strict_r; the plan picks the
+    # route by its own rule (the operand is almost all zeros)
     edges = []
     for lo, hi in blocks:
         a = unpack_words(strict_r[lo:hi], npad, torch.int8)
-        mm = PackedColsMatmulPlan(hi - lo, npad, npad // 32, skip_zero_tiles=False)
+        mm = PackedColsMatmulPlan(hi - lo, npad, npad // 32)
         direct = strict_r[lo:hi] & ~mm(a, strict_r)
         pairs = unpack_words(direct, n, torch.bool).nonzero()
         pairs[:, 0] += lo

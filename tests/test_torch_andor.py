@@ -23,6 +23,10 @@ from distel_tpu_torch.ops.bitmatmul import (
 )
 from distel_tpu_torch.ops.bitpack import to_words
 
+# six xdist workers share the host's cores: without a cap each would
+# start one torch thread per core
+torch.set_num_threads(2)
+
 
 def _operands(seed, m, k, n, density, *, bit31=False, dead_rows_from=None):
     """A [m, kw·32] bits (zero past k), B [k, n] bits, and A packed."""

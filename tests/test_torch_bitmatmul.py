@@ -3,9 +3,11 @@
 The port's plain ``PackedColsMatmulPlan`` (the CPU path) must equal the
 reference plan run as the reference's own tests run it
 (``tests/test_ops.py``): the Pallas kernel bodies in interpret mode,
-dense and tile-skipping, and the ``use_xla`` contract.  Equality is
-bit for bit.  The CUDA kernels themselves run only on a card
-(``tests/test_torch_cuda.py``).
+dense and tile-skipping, and the ``use_xla`` contract, also when the
+product is ORed into an existing C.  The plain listing of A's columns
+(the sparse route's first kernel) must equal the reference's tile flags
+at a one-column tile.  Equality is bit for bit.  The CUDA kernels
+themselves run only on a card (``tests/test_torch_cuda.py``).
 """
 
 import jax.numpy as jnp
@@ -20,10 +22,15 @@ from distel_tpu_torch.ops import bitmatmul
 from distel_tpu_torch.ops.bitmatmul import (
     LAUNCHES,
     PackedColsMatmulPlan,
-    live_tiles,
+    list_entries,
+    plain_list_columns,
     plain_packed_cols,
 )
 from distel_tpu_torch.ops.bitpack import from_words, to_words
+
+# six xdist workers share the host's cores: without a cap each would
+# start one torch thread per core
+torch.set_num_threads(2)
 
 
 def _operands(seed, m, l, x, density, dead_rows_from=None):
@@ -114,25 +121,129 @@ def _ref_flags_plk(a, tm, tl):
     return np.asarray(flags), np.asarray(plk)
 
 
+def _np_lists(a, tm):
+    """Per row block: the columns some row selects and their row masks
+    (uint64), by numpy."""
+    out = []
+    for g in range(0, a.shape[0], tm):
+        blk = a[g : g + tm] != 0
+        cols = np.flatnonzero(blk.any(axis=0))
+        masks = [
+            int(sum(1 << int(r) for r in np.flatnonzero(blk[:, c])))
+            for c in cols
+        ]
+        out.append((cols, masks))
+    return out
+
+
+def _as_uint64(t):
+    return t.numpy().astype(np.int64).view(np.uint64)
+
+
 @pytest.mark.parametrize("seed", [0, 1, 2])
 def test_live_tiles_match_reference_flags(seed):
+    """The sparse route's column lists are the reference's tile flags at
+    a one-column contraction tile (``tl = 1``), listed in order."""
     rng = np.random.default_rng(seed)
-    m, l, tm, tl = 70, 200, 16, 32
+    m, l, tm = 70, 200, 16
     a = rng.random((m, l)) < 0.01
     a[20:40] = False
-    live_k, n_live = live_tiles(torch.from_numpy(a.astype(np.int8)), tm, tl)
-    flags, plk = _ref_flags_plk(a, tm, tl)
+    lists = plain_list_columns(torch.from_numpy(a.astype(np.int8)), tm)
+    flags, plk = _ref_flags_plk(a, tm, 1)
     gm, gk = flags.shape
-    assert live_k.shape == (gm, gk) and n_live.shape == (gm,)
-    assert live_k.dtype == n_live.dtype == torch.int32
-    assert (n_live.numpy() == flags.sum(1)).all()
+    assert lists.counts.shape == (gm, 1) and gk == l
+    assert lists.cols.dtype == lists.counts.dtype == torch.int32
+    assert lists.masks.dtype == torch.int64
+    assert (lists.counts[:, 0].numpy() == flags.sum(1)).all()
     for i in range(gm):
-        ks = live_k[i, : n_live[i]].numpy()
+        n = int(lists.counts[i, 0])
+        ks = lists.cols[i, 0, :n].numpy()
         assert (ks == np.flatnonzero(flags[i])).all()
-        assert (live_k[i, n_live[i]:].numpy() == gk).all()
-        # the redirect: last live k' <= k (0 before the first)
-        redirect = np.zeros(gk, np.int64)
-        for k in range(gk):
-            prior = ks[ks <= k]
-            redirect[k] = prior[-1] if len(prior) else 0
+        assert (lists.cols[i, 0, n:].numpy() == -1).all()
+        # the reference's redirect is the last listed column <= k
+        redirect = np.array([ks[ks <= k][-1] if (ks <= k).any() else 0
+                             for k in range(gk)])
         assert (redirect == plk[i]).all()
+        blk = a[i * tm : (i + 1) * tm]
+        want = [sum(1 << int(r) for r in np.flatnonzero(blk[:, k])) for k in ks]
+        assert _as_uint64(lists.masks[i, 0, :n]).tolist() == want
+
+
+@pytest.mark.parametrize(
+    "m,l,density,chunk",
+    [
+        (37, 70, 0.05, 1024),      # unaligned M and L, one ragged row block
+        (130, 300, 0.02, 1024),    # more than 64 rows, ragged last block
+        (64, 2100, 0.003, 1024),   # several list chunks, the last ragged
+        (100, 90, 0.0, 1024),      # all-zero A: empty lists
+        (70, 45, 1.0, 1024),       # fully dense A: every column, all rows
+        (129, 200, 0.1, 32),       # small chunks: many per row block
+    ],
+)
+def test_plain_list_columns_matches_numpy(m, l, density, chunk):
+    """Per 64-row block, the ascending columns and their exact 64-bit
+    row masks (bit 63 included), chunk by chunk."""
+    rng = np.random.default_rng(m * l)
+    a = rng.random((m, l)) < density
+    lists = plain_list_columns(torch.from_numpy(a.astype(np.int8)), chunk=chunk)
+    gm, nch = -(-m // 64), -(-l // chunk)
+    assert lists.cols.shape == lists.masks.shape == (gm, nch, chunk)
+    assert lists.counts.shape == (gm, nch)
+    want = _np_lists(a, 64)
+    for g, (cols, masks) in enumerate(want):
+        got_cols, got_masks = [], []
+        for c in range(nch):
+            n = int(lists.counts[g, c])
+            part = lists.cols[g, c, :n].numpy()
+            assert ((part >= c * chunk) & (part < (c + 1) * chunk)).all()
+            got_cols += part.tolist()
+            got_masks += _as_uint64(lists.masks[g, c, :n]).tolist()
+        assert got_cols == cols.tolist()
+        assert got_masks == masks
+    cols, masks = list_entries(lists)
+    assert cols.tolist() == [c for cs, _ in want for c in cs.tolist()]
+    assert _as_uint64(masks).tolist() == [x for _, ms in want for x in ms]
+    if density == 1.0:
+        assert int(lists.counts.sum()) == gm * l
+        assert _as_uint64(lists.masks[0, 0, :1])[0] == np.uint64(2**64 - 1)
+
+
+@pytest.mark.parametrize(
+    "mode", ["xla", "interpret", "interpret-sparse"]
+)
+@pytest.mark.parametrize("shape", [(37, 70, 130), (70, 33, 40)])
+def test_plain_accumulate_matches_reference_plan(mode, shape):
+    """``out=`` ORs the product into a seeded C: the reference's product
+    ORed with that C, bit 31 included."""
+    m, l, x = shape
+    a, _b, bp = _operands(11, m, l, x, 0.1)
+    ref_plan = RefPlan(
+        m, l, bp.shape[1], use_xla=(mode == "xla"), interpret=(mode != "xla"),
+        tm=8, tl=16, tw=8, skip_zero_tiles=(mode == "interpret-sparse"),
+    )
+    want = np.asarray(ref_plan(jnp.asarray(a, jnp.int8), jnp.asarray(bp)))
+    c0 = np.random.default_rng(5).integers(0, 2**32, (m, bp.shape[1]),
+                                           dtype=np.uint64).astype(np.uint32)
+    c0[:, 0] |= 0x80000000
+    want = want.astype(np.uint32) | c0
+    for skip in (False, True):
+        out = to_words(c0.copy())
+        plan = PackedColsMatmulPlan(m, l, bp.shape[1], skip_zero_tiles=skip)
+        got = plan(torch.from_numpy(a.astype(np.int8)), to_words(bp), out=out)
+        assert got is out
+        assert (from_words(got) == want).all()
+
+
+def test_out_checks():
+    """``out`` must be an int32 [m, w] tensor apart from A and B."""
+    plan = PackedColsMatmulPlan(4, 8, 2)
+    a = torch.zeros((4, 8), dtype=torch.int8)
+    b = torch.zeros((8, 2), dtype=torch.int32)
+    with pytest.raises(ValueError, match="out must be int32"):
+        plan(a, b, out=torch.zeros((4, 3), dtype=torch.int32))
+    with pytest.raises(ValueError, match="overlap"):
+        plan(a, b, out=b[:4])
+    with pytest.raises(ValueError, match="overlap"):
+        plan(a, b, out=a.view(torch.int32))
+    out = torch.zeros((4, 2), dtype=torch.int32)
+    assert plan(a, b, out=out) is out

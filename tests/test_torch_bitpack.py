@@ -13,6 +13,10 @@ import torch
 from distel_tpu.ops import bitpack as ref
 from distel_tpu_torch.ops import bitpack as port
 
+# six xdist workers share the host's cores: without a cap each would
+# start one torch thread per core
+torch.set_num_threads(2)
+
 
 def _words(rng, shape):
     return rng.integers(0, 2**32, shape, dtype=np.uint64).astype(np.uint32)

@@ -12,6 +12,7 @@ from pathlib import Path
 
 import numpy as np
 import pytest
+import torch
 
 import chip_smoke
 from distel_tpu.config import ClassifierConfig as RefConfig
@@ -23,12 +24,17 @@ from distel_tpu.runtime import checkpoint as ref_checkpoint
 from distel_tpu.runtime.classifier import ELClassifier as RefClassifier
 from distel_tpu_torch import cli
 from distel_tpu_torch.config import ClassifierConfig
+from distel_tpu_torch.ops import bitmatmul
 from distel_tpu_torch.runtime import checkpoint
 from distel_tpu_torch.runtime.classifier import ELClassifier
 from distel_tpu_torch.runtime.taxonomy import extract_taxonomy
 from test_golden import _load_expected, _named_closure
 
 GOLDEN = sorted((Path(__file__).parent / "golden").glob("*.ofn"))
+
+# six xdist workers share the host's cores: without a cap each would
+# start one torch thread per core
+torch.set_num_threads(2)
 COUNTS = ("concepts", "roles", "links", "normalized_axioms",
           "removed_axioms", "derivations", "unsatisfiable")
 
@@ -110,6 +116,29 @@ def test_blocked_device_taxonomy_equals_host(snomed_text, block):
     dev = extract_taxonomy(res.result, method="device", block=block)
     assert _tax_key(dev) == _tax_key(host)
     assert dev.subsumers == host.subsumers
+
+
+@pytest.mark.parametrize("route", ["sparse", "dense"])
+def test_device_taxonomy_routing_equals_host(snomed_text, route, monkeypatch):
+    """The taxonomy's product is not pinned to a route: the plan's auto
+    rule picks it (every block sparse with the threshold at 0, dense with
+    it past the product's work), and either gives the host taxonomy."""
+    monkeypatch.setattr(bitmatmul, "SKIP_TILES_MIN_WORK",
+                        0 if route == "sparse" else 1 << 62)
+    seen = []
+    orig = bitmatmul.PackedColsMatmulPlan.__call__
+
+    def spy(plan, a, b, out=None):
+        seen.append(plan.skip_zero_tiles)
+        return orig(plan, a, b, out)
+
+    monkeypatch.setattr(bitmatmul.PackedColsMatmulPlan, "__call__", spy)
+    res = _port_classifier().classify_text(snomed_text)
+    host = extract_taxonomy(res.result, method="host")
+    seen.clear()
+    dev = extract_taxonomy(res.result, method="device", block=128)
+    assert len(seen) > 1 and set(seen) == {route == "sparse"}
+    assert _tax_key(dev) == _tax_key(host)
 
 
 def test_blocked_device_taxonomy_with_unsatisfiable_classes():

@@ -24,7 +24,8 @@ from distel_tpu_torch.ops.bitmatmul import (
     LAUNCHES,
     PackedColsMatmulPlan,
     PackedMatmulPlan,
-    live_tiles,
+    list_entries,
+    plain_list_columns,
     plain_packed_andor,
     plain_packed_cols,
 )
@@ -33,6 +34,10 @@ from distel_tpu_torch.runtime.taxonomy import extract_taxonomy
 
 GOLDEN = Path(__file__).parent / "golden"
 KERNELS = (("packed_cols_dense", False), ("packed_cols_sparse", True))
+#: a CUDA call's launches per route: the sparse route lists A's columns
+#: first (one slab when the lists fit the budget)
+ROUTE = {False: {"packed_cols_dense": 1},
+         True: {"packed_cols_list": 1, "packed_cols_sparse": 1}}
 
 pytestmark = pytest.mark.cuda
 
@@ -44,35 +49,96 @@ def card():
     return torch.device("cuda")
 
 
-def _operands(gen, m, l, w, density, dead_tiles=False):
+def _operands(gen, m, l, w, density, dead_tiles=False, kind="random"):
     a = (torch.rand((m, l), generator=gen, device="cuda") < density).to(torch.int8)
     if dead_tiles:
         keep = torch.rand((-(-m // 64), -(-l // 32)), generator=gen, device="cuda") < 0.1
         keep = keep.repeat_interleave(64, 0)[:m].repeat_interleave(32, 1)[:, :l]
         a = a * keep.to(torch.int8)
+    if kind == "one-per-row":
+        a = torch.zeros((m, l), dtype=torch.int8, device="cuda")
+        a[torch.arange(m, device="cuda"),
+          torch.randint(0, l, (m,), generator=gen, device="cuda")] = 1
     b = torch.randint(-2**31, 2**31, (l, w), generator=gen, device="cuda",
                       dtype=torch.int64).to(torch.int32)
+    b[:, 0] |= -2**31                                  # bit 31 of every row
     return a.contiguous(), b.contiguous()
 
 
+#: (m, l, w, density, dead tiles, kind): unaligned everywhere (L % 16,
+#: W % 4), tile-sparse, 1x1, all-zero, fully dense, one nonzero a row,
+#: several list chunks on aligned and unaligned rows, and a grid large
+#: enough that the sparse kernel does not split its lists
+CASES = [
+    (37, 70, 5, 0.2, False, "random"),
+    (513, 257, 129, 0.01, False, "random"),
+    (300, 1000, 200, 0.05, True, "random"),
+    (1, 1, 1, 1.0, False, "random"),
+    (64, 32, 128, 0.0, False, "random"),
+    (130, 96, 300, 1.0, False, "random"),
+    (200, 1500, 260, 0.0, False, "one-per-row"),
+    (150, 2304, 96, 0.004, False, "random"),
+    (70, 2049, 33, 0.01, False, "random"),
+    (2560, 300, 7680, 0.01, False, "random"),   # a grid that fills the card unsplit
+]
+
+
+@pytest.mark.parametrize("accumulate", [False, True], ids=["write", "accumulate"])
 @pytest.mark.parametrize("name,skip", KERNELS, ids=[k for k, _ in KERNELS])
-@pytest.mark.parametrize(
-    "m,l,w,density,dead",
-    [(37, 70, 5, 0.2, False), (513, 257, 129, 0.01, False),
-     (300, 1000, 200, 0.05, True), (1, 1, 1, 1.0, False), (64, 32, 128, 0.0, False)],
-)
-def test_kernel_matches_plain(card, name, skip, m, l, w, density, dead):
-    """Bit for bit, on unaligned, tile-sparse and all-zero operands;
-    each call adds exactly one launch to its own counter."""
+@pytest.mark.parametrize("m,l,w,density,dead,kind", CASES)
+def test_kernel_matches_plain(card, name, skip, m, l, w, density, dead, kind,
+                              accumulate):
+    """Bit for bit, written fresh or ORed into a seeded C; each call
+    adds exactly its route's launches to the counters."""
     gen = torch.Generator(device="cuda").manual_seed(m * 7 + l)
-    a, b = _operands(gen, m, l, w, density, dead)
-    want = plain_packed_cols(a, b)
+    a, b = _operands(gen, m, l, w, density, dead, kind)
+    c0 = None
+    if accumulate:
+        c0 = torch.randint(-2**31, 2**31, (m, w), generator=gen, device="cuda",
+                           dtype=torch.int64).to(torch.int32)
+        c0[::2] = 0
+    want = plain_packed_cols(a, b, None if c0 is None else c0.clone())
     before = dict(LAUNCHES)
-    got = PackedColsMatmulPlan(m, l, w, skip_zero_tiles=skip)(a, b)
+    out = None if c0 is None else c0.clone()
+    got = PackedColsMatmulPlan(m, l, w, skip_zero_tiles=skip)(a, b, out)
     torch.cuda.synchronize()
     assert torch.equal(got, want)
-    assert LAUNCHES[name] == before[name] + 1
-    assert all(LAUNCHES[k] == before[k] for k in LAUNCHES if k != name)
+    assert {k: LAUNCHES[k] - before[k] for k in LAUNCHES} == {
+        k: ROUTE[skip].get(k, 0) for k in LAUNCHES
+    }
+
+
+@pytest.mark.parametrize("m,l,w,density,dead,kind", CASES)
+def test_list_kernel_matches_plain(card, m, l, w, density, dead, kind):
+    """``packed_cols_list``: the same counts and the same valid entries
+    (columns and 64-bit row masks) as the plain listing."""
+    gen = torch.Generator(device="cuda").manual_seed(m + l)
+    a, _b = _operands(gen, m, l, w, density, dead, kind)
+    plan = PackedColsMatmulPlan(m, l, w, skip_zero_tiles=True)
+    got = plan.list_columns(a)
+    want = plain_list_columns(a)
+    torch.cuda.synchronize()
+    assert torch.equal(got.counts, want.counts)
+    for x, y in zip(list_entries(got), list_entries(want)):
+        assert torch.equal(x, y)
+
+
+def test_sparse_route_runs_in_slabs_within_the_budget(card):
+    """Lists past the budget split the rows into slabs of whole row
+    blocks, one listing and one sparse launch each."""
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    a, b = _operands(gen, 300, 2100, 70, 0.01)
+    per_block = 12 * -(-2100 // bitmatmul.LIST_CHUNK) * bitmatmul.LIST_CHUNK
+    plan = PackedColsMatmulPlan(300, 2100, 70, skip_zero_tiles=True,
+                                temp_budget_bytes=per_block)
+    slabs = plan.slabs(a.device)
+    assert len(slabs) == 5 and all((r0 % 64) == 0 for r0, _ in slabs)
+    before = dict(LAUNCHES)
+    got = plan(a, b)
+    torch.cuda.synchronize()
+    assert torch.equal(got, plain_packed_cols(a, b))
+    assert LAUNCHES["packed_cols_list"] - before["packed_cols_list"] == 5
+    assert LAUNCHES["packed_cols_sparse"] - before["packed_cols_sparse"] == 5
 
 
 def test_bool_operand_and_wrapper_checks(card):
@@ -84,13 +150,8 @@ def test_bool_operand_and_wrapper_checks(card):
         PackedColsMatmulPlan(40, 25, 9)(a[:, ::2], b[:25])
     with pytest.raises(ValueError, match="on"):
         plan(a, b.cpu())
-
-
-def test_live_tiles_on_the_card_match_the_cpu(card):
-    gen = torch.Generator(device="cuda").manual_seed(2)
-    a, _b = _operands(gen, 300, 1000, 1, 0.05, dead_tiles=True)
-    for got, want in zip(live_tiles(a), live_tiles(a.cpu())):
-        assert torch.equal(got.cpu(), want)
+    with pytest.raises(ValueError, match="overlap"):
+        PackedColsMatmulPlan(40, 50, 9)(a, b, out=b[:40])
 
 
 @pytest.mark.parametrize(
@@ -124,13 +185,22 @@ def test_classify_on_the_card_equals_the_cpu(card, text, config):
         assert launched > 0
 
 
-def test_device_taxonomy_launches_the_dense_kernel(card):
+@pytest.mark.parametrize("route", ["sparse", "dense"])
+def test_device_taxonomy_launches_the_chosen_kernel(card, route, monkeypatch):
+    """The taxonomy's product takes the route the plan's auto rule picks
+    (no pin), launches that route's kernels only, and gives the host
+    taxonomy."""
     res = ELClassifier(device="cuda").classify_text(
         snomed_shaped_ontology(n_classes=600)
     )
+    monkeypatch.setattr(bitmatmul, "SKIP_TILES_MIN_WORK",
+                        0 if route == "sparse" else 1 << 62)
     bitmatmul.reset_launches()
     dev = extract_taxonomy(res.result, method="device", block=128)
-    assert LAUNCHES["packed_cols_dense"] > 0
+    chosen = ("packed_cols_list", "packed_cols_sparse") if route == "sparse" \
+        else ("packed_cols_dense",)
+    assert all(LAUNCHES[k] > 0 for k in chosen)
+    assert all(LAUNCHES[k] == 0 for k in LAUNCHES if k not in chosen)
     host = extract_taxonomy(res.result, method="host")
     assert dev.parents == host.parents and dev.equivalents == host.equivalents
 

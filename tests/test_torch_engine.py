@@ -18,6 +18,7 @@ from pathlib import Path
 
 import numpy as np
 import pytest
+import torch
 
 from distel_tpu.core.indexing import index_ontology
 from distel_tpu.core.rowpacked_engine import RowPackedSaturationEngine as RefEngine
@@ -29,8 +30,13 @@ from distel_tpu.frontend.ontology_tools import (
 from distel_tpu.owl import parser
 from distel_tpu_torch.core import rowpacked_engine as port_engine
 from distel_tpu_torch.core.rowpacked_engine import RowPackedSaturationEngine
+from distel_tpu_torch.ops import bitmatmul
 from distel_tpu_torch.ops.bitmatmul import LAUNCHES
 from distel_tpu_torch.runtime.checkpoint import state_from_reference
+
+# six xdist workers share the host's cores: without a cap each would
+# start one torch thread per core
+torch.set_num_threads(2)
 
 GOLDEN = Path(__file__).parent / "golden"
 #: force-active live-tile CR6 (the density fallback is its own case)
@@ -127,6 +133,32 @@ def test_small_temp_budget_chunks_identically(chain_idx):
     stats = port.plan_stats()
     assert stats["word_block"] < stats["wc"]
     _assert_same(ref.saturate(), port.saturate())
+
+
+@pytest.mark.parametrize("tiles", [None, TILES_ON], ids=["windows", "tiles"])
+@pytest.mark.parametrize("corpus", ["snomed_idx", "chain_idx"])
+def test_many_windows_accumulate_in_place(corpus, tiles, request, monkeypatch):
+    """A small temporary budget cuts CR4/CR6 into many short windows (or
+    link tiles), each ORed into one accumulator in place (``out=``); the
+    closure equals the reference's bit for bit."""
+    idx = request.getfixturevalue(corpus)
+    calls = {"fresh": 0, "accumulate": 0}
+    orig = bitmatmul.PackedColsMatmulPlan.__call__
+
+    def spy(plan, a, b, out=None):
+        calls["accumulate" if out is not None else "fresh"] += 1
+        return orig(plan, a, b, out)
+
+    monkeypatch.setattr(bitmatmul.PackedColsMatmulPlan, "__call__", spy)
+    port = RowPackedSaturationEngine(idx, device="cpu", cr6_tiles=tiles,
+                                     temp_budget_bytes=1 << 10)
+    stats = port.plan_stats()
+    assert (stats["cr4_windows"] + stats["cr6_windows"]
+            > stats["cr4_chunks"] + stats["cr6_chunks"])
+    ref = RefEngine(idx, bucket=False, use_pallas=False, unroll=1,
+                    scan_chunks=tiles is not None, cr6_tiles=tiles)
+    _assert_same(ref.saturate(), port.saturate())
+    assert calls["accumulate"] > 0
 
 
 def test_rule_subset_and_unknown_rule(chain_idx):

@@ -32,6 +32,10 @@ from distel_tpu_torch.ops.bitmatmul import LAUNCHES
 from distel_tpu_torch.runtime.checkpoint import state_from_reference
 from test_packed_engine import BOTTOM_ONTO
 
+# six xdist workers share the host's cores: without a cap each would
+# start one torch thread per core
+torch.set_num_threads(2)
+
 GOLDEN = Path(__file__).parent / "golden"
 
 CORPORA = {
