@@ -14,8 +14,10 @@ Phases, each of which raises on failure:
    fresh and ORed into a seeded C, and the listing against the plain
    listing, on unaligned, bit-31, tile-sparse, all-zero, fully dense,
    one-nonzero-a-row and several-list-chunk operands, bit for bit; and
-   ``packed_andor`` against its plain version, timed beside it and its
-   bound;
+   the packed-contraction route (the listing kernel ``packed_andor_list``
+   then ``packed_cols_sparse``) against its plain version, and its
+   listing against the plain listing, each timed beside the plain
+   version and the bound;
 3. golden fixtures: every ``tests/golden/*.ofn`` classified on the card
    through the row-packed engine and through ``engine="packed"`` must
    match its ``.expected`` file;
@@ -43,15 +45,19 @@ Phases, each of which raises on failure:
    ``chiprun_out/kernel_pairs.json``.
 7. the packed engine at full width: the 64000-class corpus through
    ``engine="packed"`` to convergence with nothing hooked in (launch
-   counts zeroed just before, read just after: ``packed_andor`` and the
-   taxonomy's sparse route must be > 0), its derivations, closure and
-   taxonomy equal to the row-packed run's; then a profiled rerun
-   (per-part breakdown), and a captured rerun that keeps the heaviest
-   CR4 and CR6 operands (most set bits of A), which ``packed_andor``
-   must reproduce bit for bit against its plain version, each timed
-   beside it and beside the bound.
+   counts zeroed just before, read just after: ``packed_andor_list``,
+   ``packed_cols_sparse`` and the taxonomy's listing must be > 0), its
+   derivations, closure and taxonomy equal to the row-packed run's; then
+   a profiled rerun (per-part breakdown), and a captured rerun that
+   keeps the heaviest CR4 and CR6 operands (most set bits of A), on
+   which the route must reproduce the plain product and its listing the
+   plain listing bit for bit, the listing and the product each timed
+   beside the plain version and the bound.
 
-Kernel times are CUDA-event times per call over back-to-back calls.
+Kernel times are CUDA-event times per call over back-to-back calls;
+the packed-contraction route's are also taken from CUDA-graph replays
+(the card's time alone), which its kernel row carries as ``graph_ms``
+beside the event times.
 It prints the card's name and power limit, a ``{"policy": ...}`` line
 (each site's device time under the chosen route and under each route,
 with A's nonzero fraction), the ``{"andor_checks": ...}``,
@@ -83,12 +89,11 @@ ROOT = Path(__file__).resolve().parent
 PEAK_BYTES_S = 3.35e12
 PEAK_INT8_OPS_S = 1979e12
 SOURCE = "distel_tpu_torch/ops/csrc/packed_cols.cu"
-ANDOR_SOURCE = "distel_tpu_torch/ops/csrc/packed_andor.cu"
 REPLACES = {
     "packed_cols_dense": "distel_tpu/ops/bitmatmul.py:231 (_packed_cols_kernel)",
     "packed_cols_sparse": "distel_tpu/ops/bitmatmul.py:241 "
                           "(_packed_cols_sparse_kernel)",
-    "packed_andor": "distel_tpu/ops/bitmatmul.py:81 (_andor_kernel)",
+    "_andor_kernel": "distel_tpu/ops/bitmatmul.py:81 (_andor_kernel)",
 }
 
 
@@ -115,6 +120,28 @@ def time_ms(fn, reps: int = 10) -> float:
     e1.record()
     e1.synchronize()
     return e0.elapsed_time(e1) / reps
+
+
+def graph_ms(fn, reps: int = 10) -> float:
+    """Device time per call of ``fn()`` with the host taken out: ``reps``
+    calls captured in one CUDA graph, replayed once to warm up, then
+    three replays timed with CUDA events, over the count."""
+    fn()
+    sync()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    sync()
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    e0.record()
+    for _ in range(3):
+        graph.replay()
+    e1.record()
+    e1.synchronize()
+    return e0.elapsed_time(e1) / (3 * reps)
 
 
 def bound_ms(a: torch.Tensor, b: torch.Tensor):
@@ -147,15 +174,13 @@ def phase_probe():
     log(f"[probe] torch {torch.__version__} cuda {torch.version.cuda} "
         f"device {name} count {torch.cuda.device_count()}")
     t0 = time.perf_counter()
-    secs = build.build_all(["packed_cols", "packed_andor"])
+    secs = build.build_all(["packed_cols"])
     from distel_tpu_torch.ops import bitmatmul
 
     bitmatmul._lib()
-    bitmatmul._andor_lib()
     log(f"[build] {secs} (wall {time.perf_counter() - t0:.2f} s)")
-    for src in ("packed_cols", "packed_andor"):
-        for p in Path(build.build_dir()).glob(f"lib{src}-*.so.ptxas.txt"):
-            log(p.read_text().strip())
+    for p in Path(build.build_dir()).glob("libpacked_cols-*.so.ptxas.txt"):
+        log(p.read_text().strip())
     return name
 
 
@@ -701,12 +726,14 @@ def phase_kernel_line(launches, cap: Capture):
     return rows, pairs
 
 
-# ------------------------------------------------------------ packed_andor
+# ------------------------------------------- the packed-contraction route
 
 
-def andor_operands(gen, m, kw, k, n, density, *, bit31=False, zero_rows_from=None):
+def andor_operands(gen, m, kw, k, n, density, *, bit31=False, zero_rows_from=None,
+                   offset=0):
     """A [m, kw] int32 words with about ``density`` of their bits set
-    (bit 31 of every word with ``bit31``), B [k, n] int8 0/1."""
+    (bit 31 of every word with ``bit31``; ``offset`` words into its
+    allocation, so 1 misaligns it), B [k, n] int8 0/1."""
     bits = torch.rand((m, kw, 32), generator=gen, device="cuda") < density
     if bit31:
         bits[:, :, 31] = True
@@ -714,8 +741,11 @@ def andor_operands(gen, m, kw, k, n, density, *, bit31=False, zero_rows_from=Non
         bits[zero_rows_from:] = False
     words = (bits.to(torch.int64) << torch.arange(32, device="cuda")).sum(dim=2)
     words = torch.where(words >= 2**31, words - 2**32, words)
+    a = torch.empty(m * kw + offset, dtype=torch.int32, device="cuda")[offset:]
+    a = a.view(m, kw)
+    a.copy_(words.to(torch.int32))
     b = (torch.rand((k, n), generator=gen, device="cuda") < 0.05).to(torch.int8)
-    return words.to(torch.int32).contiguous(), b.contiguous()
+    return a, b.contiguous()
 
 
 def andor_bound_ms(a: torch.Tensor, b: torch.Tensor):
@@ -746,22 +776,54 @@ def andor_bound_ms(a: torch.Tensor, b: torch.Tensor):
 
 
 def check_andor(a, b, n, what: str) -> dict:
-    """``packed_andor`` against its plain version bit for bit, then
-    both timed (CUDA events) beside the bound.  ``b`` may carry padded
-    columns past ``n``."""
-    from distel_tpu_torch.ops.bitmatmul import PackedMatmulPlan, plain_packed_andor
+    """The route against the plain product bit for bit, and its listing
+    against ``plain_andor_list`` entry for entry; then the listing, the
+    product over that listing and the whole call timed (CUDA events over
+    back-to-back calls, as every kernel row is timed, which at small
+    work measure the host's side; and replayed from a CUDA graph, the
+    card's side alone) beside the plain product and the bound.
+    ``b`` may carry padded columns past ``n``; it is padded to ``n_p``
+    once, as the engine builds it, so no time holds a padding copy."""
+    from distel_tpu_torch.ops.bitmatmul import (
+        PackedMatmulPlan, list_entries, plain_andor_list, plain_packed_andor,
+    )
 
     plan = PackedMatmulPlan(a.shape[0], a.shape[1], n)
+    k = b.shape[0]
+    if b.shape[1] != plan.n_p:
+        b_p = torch.zeros((k, plan.n_p), dtype=torch.int8, device="cuda")
+        b_p[:, : b.shape[1]] = b
+        b = b_p
     got = plan(a, b)
     sync()
     want = plain_packed_andor(a, b[:, :n])
     err = int((got.to(torch.int32) - want.to(torch.int32)).abs().max()) if got.numel() else 0
+    del got, want
+    lists, plain = plan.list_rows(a, k), plain_andor_list(a, k)
+    sync()
+    if not torch.equal(lists.counts, plain.counts):
+        err = max(err, int((lists.counts != plain.counts).sum()))
+    else:
+        for x, y in zip(list_entries(lists), list_entries(plain)):
+            err = max(err, int((x != y).sum()))
+    del plain
     if err:
-        raise AssertionError(f"packed_andor {what}: differs from plain")
-    out = {"what": what, "shape": [a.shape[0], a.shape[1], b.shape[0], n],
+        raise AssertionError(f"packed-contraction route {what}: differs from plain")
+    entries = int(lists.counts.sum())
+    out = {"what": what, "shape": [a.shape[0], a.shape[1], k, n],
+           "a_aligned_16": a.data_ptr() % 16 == 0,
            "max_abs_err": err,
-           "ms": time_ms(lambda: plan(a, b)),
+           "list_entries": entries,
+           "max_row_block_entries": int(lists.counts.sum(1).max()) if entries else 0,
+           "b_bytes_read": entries * plan.n_p,
+           "list_ms": time_ms(lambda: plan.list_rows(a, k)),
+           "product_ms": time_ms(lambda: plan(a, b, lists=lists)),
+           "call_ms": time_ms(lambda: plan(a, b)),
+           "list_graph_ms": graph_ms(lambda: plan.list_rows(a, k)),
+           "product_graph_ms": graph_ms(lambda: plan(a, b, lists=lists)),
            "plain_ms": time_ms(lambda: plain_packed_andor(a, b[:, :n]), reps=3)}
+    out["ms"] = out["list_ms"] + out["product_ms"]
+    out["graph_ms"] = out["list_graph_ms"] + out["product_graph_ms"]
     out["bound_ms"], out["bound_by"], out["a_bits"], out["b_rows_selected"] = \
         andor_bound_ms(a, b[:, :n])
     log(f"[andor] {json.dumps(out)}")
@@ -769,19 +831,21 @@ def check_andor(a, b, n, what: str) -> dict:
 
 
 def phase_andor_kernel() -> list:
-    """``packed_andor`` bit for bit against its plain version on
-    unaligned shapes, bit-31 words, a mostly-zero A and more than one N
-    tile."""
+    """The route and its listing bit for bit against their plain
+    versions on unaligned shapes, bit-31 words, a mostly-zero A with
+    more than one column tile, an all-zero A, and an A that is not
+    16-byte aligned with an odd word count."""
     gen = torch.Generator(device="cuda").manual_seed(5)
     checks = []
-    for what, (m, kw, k, n, dens, bit31, zero_from) in (
-        ("unaligned", (70, 10, 300, 90, 0.1, False, None)),
-        ("bit31", (33, 8, 256, 17, 0.02, True, None)),
-        ("mostly-zero", (300, 70, 2200, 4100, 0.001, False, 40)),
-        ("all-zero", (17, 300, 9600, 64, 0.0, False, None)),
+    for what, (m, kw, k, n, dens, bit31, zero_from, offset) in (
+        ("unaligned", (70, 10, 300, 90, 0.1, False, None, 0)),
+        ("bit31", (33, 8, 256, 17, 0.02, True, None, 0)),
+        ("mostly-zero", (300, 70, 2200, 4100, 0.001, False, 40, 0)),
+        ("all-zero", (17, 300, 9600, 64, 0.0, False, None, 0)),
+        ("misaligned-odd-kw", (130, 37, 1180, 200, 0.01, False, None, 1)),
     ):
         a, b = andor_operands(gen, m, kw, k, n, dens, bit31=bit31,
-                              zero_rows_from=zero_from)
+                              zero_rows_from=zero_from, offset=offset)
         checks.append(check_andor(a, b, n, what))
     print(json.dumps({"andor_checks": checks}), flush=True)
     return checks
@@ -820,8 +884,9 @@ def phase_packed_full_width(row_res):
     print(json.dumps({"packed_full_width": stats}), flush=True)
     if not res.result.converged:
         raise AssertionError("64k packed run did not converge")
-    # CR4/CR6 through packed_andor, the taxonomy through the sparse route
-    for k in ("packed_andor", "packed_cols_list", "packed_cols_sparse"):
+    # CR4/CR6 through the listing and the sparse product, the taxonomy
+    # through the sparse route
+    for k in ("packed_andor_list", "packed_cols_list", "packed_cols_sparse"):
         if launches[k] == 0:
             raise AssertionError(f"{k} was never launched on the 64k packed run")
     if res.result.derivations != row_res.result.derivations:
@@ -831,7 +896,7 @@ def phase_packed_full_width(row_res):
     if not same_x_major(res.result, row_res.result):
         raise AssertionError("64k: packed and row-packed closures differ")
     log("[64k packed] derivations, closure and taxonomy equal the row-packed run's")
-    return launches["packed_andor"], res
+    return launches, res
 
 
 def phase_packed_breakdown(packed) -> dict:
@@ -855,11 +920,14 @@ def phase_packed_breakdown(packed) -> dict:
     return out
 
 
-def phase_andor_operands(packed, launches: int, checks: list) -> dict:
+def phase_andor_operands(packed, launches: dict, checks: list) -> dict:
     """A captured rerun of the 64k packed engine keeps, for CR4 and CR6,
-    the operand pair whose A has the most set bits; ``packed_andor``
-    must reproduce each bit for bit, timed beside its plain version and
-    the bound.  Returns the kernel line's row, at the heavier pair."""
+    the operand pair whose A has the most set bits; the route must
+    reproduce each bit for bit and its listing the plain listing, each
+    timed beside the plain version and the bound.  Returns the kernel
+    line's row, at the heavier pair, with the packed run's launches:
+    the listings, and the sparse products less the taxonomy's (one a
+    ``packed_cols_list``)."""
     from distel_tpu_torch.core.engine import popcount_rows
     from distel_tpu_torch.ops import bitmatmul
 
@@ -867,12 +935,12 @@ def phase_andor_operands(packed, launches: int, checks: list) -> dict:
     heavy = {}     # site -> [set bits of A, a, b, n]
     orig = bitmatmul.PackedMatmulPlan._launch
 
-    def launch(plan, a, b):
+    def launch(plan, a, b, lists):
         site = next(r for (r, _m), p in engine._plans.items() if p is plan)
         nbits = int(popcount_rows(a).sum())
         if nbits > heavy.get(site, [-1])[0]:
             heavy[site] = [nbits, a.clone(), b, plan.n]
-        return orig(plan, a, b)
+        return orig(plan, a, b, lists)
 
     bitmatmul.PackedMatmulPlan._launch = launch
     try:
@@ -892,13 +960,19 @@ def phase_andor_operands(packed, launches: int, checks: list) -> dict:
     print(json.dumps({"andor_operands": pairs}), flush=True)
     top = max(pairs, key=lambda p: p["a_bits"] * p["shape"][3])
     return {
-        "name": "packed_andor",
+        "name": "packed_andor_list + packed_cols_sparse",
         "route": "cuda",
-        "source": ANDOR_SOURCE,
-        "replaces": REPLACES["packed_andor"],
-        "launches": launches,
+        "source": SOURCE,
+        "replaces": REPLACES["_andor_kernel"],
+        "launches": launches["packed_andor_list"],
+        "product_launches": launches["packed_cols_sparse"] - launches["packed_cols_list"],
         "max_abs_err": max(p["max_abs_err"] for p in pairs + checks),
         "ms": top["ms"],
+        "list_ms": top["list_ms"],
+        "product_ms": top["product_ms"],
+        "graph_ms": top["graph_ms"],
+        "list_graph_ms": top["list_graph_ms"],
+        "product_graph_ms": top["product_graph_ms"],
         "plain_ms": top["plain_ms"],
         "bound_ms": top["bound_ms"],
         "bound_by": top["bound_by"],
@@ -930,11 +1004,11 @@ def main() -> int:
     phase_breakdown(res)
     phase_threshold_ab(res)
     phase_capture_64k(res, cap)
-    andor_launches, packed = phase_packed_full_width(res)
+    packed_launches, packed = phase_packed_full_width(res)
     del res
     torch.cuda.empty_cache()
     phase_packed_breakdown(packed)
-    andor_row = phase_andor_operands(packed, andor_launches, andor_checks)
+    andor_row = phase_andor_operands(packed, packed_launches, andor_checks)
     del packed
     torch.cuda.empty_cache()
     rows, pairs = phase_kernel_line(launches, cap)

@@ -12,9 +12,9 @@ reference's order within a step:
   CR1  S[:, b]  ∨= S[:, a]                     column gather → ColumnScatter
   CR2  S[:, b]  ∨= S[:, a1] ∧ S[:, a2]         column gathers → ColumnScatter
   CR3  R[:, l]  ∨= S[:, a]                     column gather → ColumnScatter
-  CR4  S[:, b_j] ∨= (R ⊙ W)[:, j]              ``packed_andor`` kernel
+  CR4  S[:, b_j] ∨= (R ⊙ W)[:, j]              ``PackedMatmulPlan`` kernels
          W[k, j] = M4[k, j] ∧ S[filler(k), a_j]
-  CR6  R[:, lt_p] ∨= (R ⊙ D)[:, p]             ``packed_andor`` kernel
+  CR6  R[:, lt_p] ∨= (R ⊙ D)[:, p]             ``PackedMatmulPlan`` kernels
          D[k, p] = M6[k, p] ∧ R[filler(k), l2_p]
   CR5  S[:, ⊥]  ∨= any(R[x] ∧ botf)            one AND + any per row
 
@@ -31,6 +31,9 @@ What differs from the reference, and why:
   column gathers (at full width a whole-state CR1 gather is 7.6 GB of
   bytes), the scatters' temporaries and the CR4/CR6 outputs by
   :func:`~distel_tpu_torch.core.engine.default_temp_budget`.
+* On a card, CR4 and CR6 share one listing of the chunk's R
+  (``packed_andor_list``): both contract the same rows over the same
+  k_p link rows, so the set bits are found once per chunk and step.
 * The fixed point is a host loop with ``unroll`` semantics kept: one
   change check per group of ``unroll`` steps, ``iterations`` a multiple
   of ``unroll`` — the reference's ``lax.while_loop`` count, exactly.
@@ -229,12 +232,30 @@ class PackedSaturationEngine:
 
     # ------------------------------------------------------------- plans
 
-    def _mm(self, rule: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-        n = len(self.idx.nf4) if rule == "cr4" else len(self.idx.chain_pairs)
-        key = (rule, a.shape[0])
+    def _plan(self, rule: str, rows: int) -> PackedMatmulPlan:
+        key = (rule, rows)
         if key not in self._plans:
-            self._plans[key] = PackedMatmulPlan(a.shape[0], self.wl, n)
-        return self._plans[key](a, b)
+            n = len(self.idx.nf4) if rule == "cr4" else len(self.idx.chain_pairs)
+            self._plans[key] = PackedMatmulPlan(
+                rows, self.wl, n, temp_budget_bytes=self.temp_budget_bytes
+            )
+        return self._plans[key]
+
+    def _mm(self, rule: str, a: torch.Tensor, b: torch.Tensor,
+            lists) -> torch.Tensor:
+        return self._plan(rule, a.shape[0])(a, b, lists=lists)
+
+    def _list_rows(self, rpc: torch.Tensor):
+        """One listing of the chunk's R rows for CR4 and CR6 on a card.
+        None on the CPU, whose plain product needs none, and when the
+        lists would pass the budget (each product then lists its own row
+        slabs)."""
+        if rpc.device.type != "cuda":
+            return None
+        plan = self._plan("cr4" if self._has4 else "cr6", rpc.shape[0])
+        if len(plan.slabs(rpc.device)) > 1:
+            return None
+        return plan.list_rows(rpc, self.k_p)
 
     def plan_stats(self) -> dict:
         return {
@@ -327,14 +348,19 @@ class PackedSaturationEngine:
         changed)`` with ``changed`` a 0-d bool tensor on the device."""
         changed = torch.zeros((), dtype=torch.bool, device=sp.device)
         w4, d6, botf = self._timed("operands", self._operands, sp, rp)
+        # one listing serves both products: they contract k_p rows each
+        assert all(t.shape[0] == self.k_p for t in (w4, d6) if t is not None)
         for x0 in range(0, self.nc, self.chunk_rows):
             spc = sp[x0 : x0 + self.chunk_rows]
             rpc = rp[x0 : x0 + self.chunk_rows]
             s_src, r_src = self._timed("cr1-3", self._row_sources, spc)
+            lists = None
+            if w4 is not None or d6 is not None:
+                lists = self._timed("list", self._list_rows, rpc)
             if w4 is not None:                                              # CR4
-                s_src.append(self._timed("cr4", self._mm, "cr4", rpc, w4))
+                s_src.append(self._timed("cr4", self._mm, "cr4", rpc, w4, lists))
             if d6 is not None:                                              # CR6
-                r_src.append(self._timed("cr6", self._mm, "cr6", rpc, d6))
+                r_src.append(self._timed("cr6", self._mm, "cr6", rpc, d6, lists))
             if botf is not None:                                            # CR5
                 s_src.append(self._timed("cr5", self._cr5, rpc, botf))
             changed |= self._timed("scatter", self._s_scatter.apply_, spc, s_src)

@@ -38,11 +38,16 @@ The second, the packed-contraction product, is the packed engine's
                         ``bit_order``
     C  [M, N]   int8  — 0/1
 
-:class:`PackedMatmulPlan` runs the hand-written ``packed_andor`` kernel
-(``csrc/packed_andor.cu``) for CUDA tensors and its plain version for
-CPU tensors.
+:class:`PackedMatmulPlan` runs two hand-written kernels of
+``csrc/packed_cols.cu`` for CUDA tensors and its plain version for CPU
+tensors: ``packed_andor_list`` lists, per 64-row block of A, the
+contraction indices some row sets, each with its row mask (the
+:class:`ColumnLists` format), and ``packed_cols_sparse`` ORs each
+listed B row into the rows its mask selects, on B and C viewed as
+int32 words (B's bytes are 0 or 1, so an OR four bytes to a word is the
+byte OR).  One listing of an A serves every product against it.
 
-There is no fallback: a CUDA tensor launches its kernel or raises.
+There is no fallback: a CUDA tensor launches its kernels or raises.
 Each launch adds one to :data:`LAUNCHES`.
 """
 
@@ -63,7 +68,7 @@ LAUNCHES = {
     "packed_cols_list": 0,
     "packed_cols_dense": 0,
     "packed_cols_sparse": 0,
-    "packed_andor": 0,
+    "packed_andor_list": 0,
 }
 
 #: the packed-columns kernels' row block and the listing kernel's
@@ -81,12 +86,12 @@ KERNEL_TM, LIST_CHUNK = 64, 256
 #: run's plans (4.6e7 and below) the dense route is 2-3x faster.
 SKIP_TILES_MIN_WORK = 1 << 30
 
-#: ``packed_andor``'s block tile (rows of C, bytes of C) and the byte
-#: alignment it needs of B's and C's rows; checked against the library
-ANDOR_TM, ANDOR_TN, ANDOR_ALIGN = 16, 4096, 16
+#: bytes that :class:`PackedMatmulPlan` pads B's and C's rows to, so that
+#: their int32 views are whole 16-byte pieces (``packed_cols_sparse``'s
+#: 16-byte copies)
+N_ALIGN = 16
 
 _LIB = None
-_ANDOR_LIB = None
 
 
 def reset_launches() -> None:
@@ -109,6 +114,8 @@ def _lib():
         lib.packed_cols_dense.restype = ci
         lib.packed_cols_sparse.argtypes = [vp, vp, vp, vp, vp, ci, ci, ci, ci, vp]
         lib.packed_cols_sparse.restype = ci
+        lib.packed_andor_list.argtypes = [vp] * 4 + [ci, ci, ci, vp]
+        lib.packed_andor_list.restype = ci
         lib.packed_cols_error_string.argtypes = [ci]
         lib.packed_cols_error_string.restype = ctypes.c_char_p
         tiles = (lib.packed_cols_tile_m(), lib.packed_cols_list_chunk())
@@ -119,32 +126,6 @@ def _lib():
             )
         _LIB = lib
     return _LIB
-
-
-def _andor_lib():
-    """``packed_andor``'s library, built from ``csrc/packed_andor.cu`` on
-    first use."""
-    global _ANDOR_LIB
-    if _ANDOR_LIB is None:
-        from distel_tpu_torch.ops import build
-
-        lib = build.load("packed_andor")
-        vp, ci = ctypes.c_void_p, ctypes.c_int
-        lib.packed_andor.argtypes = [vp, vp, vp, ci, ci, ci, ci, vp]
-        lib.packed_andor.restype = ci
-        lib.packed_andor_error_string.argtypes = [ci]
-        lib.packed_andor_error_string.restype = ctypes.c_char_p
-        tiles = (
-            lib.packed_andor_tile_m(), lib.packed_andor_tile_n(),
-            lib.packed_andor_align(),
-        )
-        if tiles != (ANDOR_TM, ANDOR_TN, ANDOR_ALIGN):
-            raise RuntimeError(
-                f"packed_andor library tiles {tiles} != wrapper's "
-                f"{(ANDOR_TM, ANDOR_TN, ANDOR_ALIGN)}"
-            )
-        _ANDOR_LIB = lib
-    return _ANDOR_LIB
 
 
 def _check_launch(error_string, code: int, what: str) -> None:
@@ -166,7 +147,11 @@ class ColumnLists(NamedTuple):
     chunk c is column ``cols[g, c, j]`` (ascending across the chunks),
     with ``masks[g, c, j]`` bit r set iff ``A[tm·g + r, col] != 0``
     (int64 holding the uint64 bits).  Entries at ``j >= counts`` are
-    undefined; :func:`list_entries` reads only the valid ones."""
+    undefined; :func:`list_entries` reads only the valid ones.  The
+    packed-columns listing puts chunk c's columns in ``[chunk·c,
+    chunk·(c+1))``; the packed-contraction listing packs a row block's
+    entries densely (chunk c holds its entries ``chunk·c`` onwards).
+    ``packed_cols_sparse`` reads either."""
 
     cols: torch.Tensor     # [GM, NCH, chunk] int32
     masks: torch.Tensor    # [GM, NCH, chunk] int64
@@ -212,6 +197,61 @@ def plain_list_columns(a: torch.Tensor, tm: int = KERNEL_TM,
     cols = torch.where(valid, first + order, -1).to(torch.int32)
     masks = torch.where(valid, torch.gather(masks, 2, order), 0)
     return ColumnLists(cols.contiguous(), masks.contiguous(), counts)
+
+
+def _chunks(l: int) -> int:
+    """List chunks a row block holds over ``l`` contraction indices (one
+    when ``l`` is 0, as the plain listing and the listing kernels make)."""
+    return max(-(-l // LIST_CHUNK), 1)
+
+
+def _list_slabs(m: int, l: int, budget: Optional[int], device) -> list:
+    """Row ranges (whole row blocks) of an m-row A whose lists over ``l``
+    contraction indices fit ``budget`` bytes (None =
+    :func:`default_temp_budget` of the device)."""
+    if budget is None:
+        budget = default_temp_budget(device)
+    rows = max(budget // (12 * _chunks(l) * LIST_CHUNK), 1) * KERNEL_TM
+    return [(r, min(r + rows, m)) for r in range(0, m, rows)]
+
+
+def _new_lists(rows: int, l: int, device) -> ColumnLists:
+    gm, nch = -(-rows // KERNEL_TM), _chunks(l)
+    return ColumnLists(
+        torch.empty((gm, nch, LIST_CHUNK), dtype=torch.int32, device=device),
+        torch.empty((gm, nch, LIST_CHUNK), dtype=torch.int64, device=device),
+        torch.empty((gm, nch), dtype=torch.int32, device=device),
+    )
+
+
+def _lists_in(into: ColumnLists, rows: int, l: int) -> ColumnLists:
+    """The lists of ``rows`` rows over ``l`` indices, laid out in the
+    leading elements of ``into``'s buffers."""
+    gm, nch = -(-rows // KERNEL_TM), _chunks(l)
+    n = gm * nch
+    if into.counts.numel() < n:
+        raise ValueError(f"list buffers hold {into.counts.numel()} chunks, "
+                         f"{n} wanted")
+    return ColumnLists(
+        into.cols.view(-1)[: n * LIST_CHUNK].view(gm, nch, LIST_CHUNK),
+        into.masks.view(-1)[: n * LIST_CHUNK].view(gm, nch, LIST_CHUNK),
+        into.counts.view(-1)[:n].view(gm, nch),
+    )
+
+
+def _run_sparse(b: torch.Tensor, lists: ColumnLists, c: torch.Tensor, l: int,
+                accumulate: bool) -> torch.Tensor:
+    """``packed_cols_sparse``: B [l, w] int32 over ``lists`` into C
+    [rows, w] int32."""
+    lib = _lib()
+    code = lib.packed_cols_sparse(
+        b.data_ptr(), lists.cols.data_ptr(), lists.masks.data_ptr(),
+        lists.counts.data_ptr(), c.data_ptr(), c.shape[0], l, c.shape[1],
+        int(accumulate), _stream(b),
+    )
+    _check_launch(lib.packed_cols_error_string, code, "packed_cols_sparse")
+    LAUNCHES["packed_cols_sparse"] += 1
+    return c
 
 
 def _overlaps(x: torch.Tensor, y: torch.Tensor) -> bool:
@@ -303,8 +343,8 @@ class PackedColsMatmulPlan:
         slabs = self.slabs(a.device)
         bufs = self._lists.get(a.device)
         if bufs is None:
-            bufs = self._lists[a.device] = self._new_lists(
-                slabs[0][1] - slabs[0][0], a.device
+            bufs = self._lists[a.device] = _new_lists(
+                slabs[0][1] - slabs[0][0], self.l, a.device
             )
         for r0, r1 in slabs:
             self.run_sparse(b, self.list_columns(a[r0:r1], bufs), c[r0:r1],
@@ -316,36 +356,21 @@ class PackedColsMatmulPlan:
         device = torch.device(device)
         got = self._slabs.get(device)
         if got is None:
-            budget = self.temp_budget_bytes
-            if budget is None:
-                budget = default_temp_budget(device)
-            nch = -(-self.l // LIST_CHUNK)
-            per_block = 12 * nch * LIST_CHUNK
-            rows = max(budget // per_block, 1) * KERNEL_TM
-            got = self._slabs[device] = [
-                (r, min(r + rows, self.m)) for r in range(0, self.m, rows)
-            ]
+            got = self._slabs[device] = _list_slabs(
+                self.m, self.l, self.temp_budget_bytes, device
+            )
         return got
-
-    def _new_lists(self, rows: int, device) -> ColumnLists:
-        gm, nch = -(-rows // KERNEL_TM), -(-self.l // LIST_CHUNK)
-        return ColumnLists(
-            torch.empty((gm, nch, LIST_CHUNK), dtype=torch.int32, device=device),
-            torch.empty((gm, nch, LIST_CHUNK), dtype=torch.int64, device=device),
-            torch.empty((gm, nch), dtype=torch.int32, device=device),
-        )
 
     def list_columns(self, a: torch.Tensor,
                      into: Optional[ColumnLists] = None) -> ColumnLists:
         """``packed_cols_list`` on a contiguous int8 A [rows, l] on a
-        card: its :class:`ColumnLists`, written into the leading row
-        blocks of ``into`` (buffers for at least as many rows) or into
+        card: its :class:`ColumnLists`, written into the leading
+        elements of ``into`` (buffers for at least as many rows) or into
         fresh ones."""
         m, l = a.shape
-        gm = -(-m // KERNEL_TM)
         if into is None:
-            into = self._new_lists(m, a.device)
-        lists = ColumnLists(*(t[:gm] for t in into))
+            into = _new_lists(m, l, a.device)
+        lists = _lists_in(into, m, l)
         lib = _lib()
         code = lib.packed_cols_list(
             a.data_ptr(), lists.cols.data_ptr(), lists.masks.data_ptr(),
@@ -358,15 +383,7 @@ class PackedColsMatmulPlan:
     def run_sparse(self, b: torch.Tensor, lists: ColumnLists, c: torch.Tensor,
                    accumulate: bool) -> torch.Tensor:
         """``packed_cols_sparse`` over ``lists`` into C [rows, w]."""
-        lib = _lib()
-        code = lib.packed_cols_sparse(
-            b.data_ptr(), lists.cols.data_ptr(), lists.masks.data_ptr(),
-            lists.counts.data_ptr(), c.data_ptr(), c.shape[0], self.l, self.w,
-            int(accumulate), _stream(b),
-        )
-        _check_launch(lib.packed_cols_error_string, code, "packed_cols_sparse")
-        LAUNCHES["packed_cols_sparse"] += 1
-        return c
+        return _run_sparse(b, lists, c, self.l, accumulate)
 
     def run_dense(self, a: torch.Tensor, b: torch.Tensor, c: torch.Tensor,
                   accumulate: bool) -> torch.Tensor:
@@ -421,22 +438,36 @@ class PackedMatmulPlan:
     ``bit_order`` [k_p] maps B's row position to the logical contraction
     bit it pairs with; callers lay B's rows out in it.  The reference's
     order is a TPU tile layout; this plan's is the logical order itself,
-    ``k = 32·w + p`` (bit p of word w), which is what a kernel that walks
-    A's set bits reads.  ``n_p`` is n rounded up to the kernel's row
-    alignment: a B (or C) with ``n_p`` columns is used without a copy,
-    its extra columns zero."""
+    ``k = 32·w + p`` (bit p of word w), which is what a kernel that lists
+    A's set bits reads.  ``n_p`` is n rounded up to :data:`N_ALIGN`: a B
+    (or C) with ``n_p`` columns is used without a copy, its extra columns
+    zero.  B must hold 0/1 bytes (the card ORs them four to a word).
 
-    def __init__(self, m: int, kw: int, n: int):
+    ``temp_budget_bytes``: bytes a card's lists may take (None =
+    :func:`default_temp_budget` of the device); row blocks beyond it are
+    listed and multiplied in slabs."""
+
+    def __init__(self, m: int, kw: int, n: int, *,
+                 temp_budget_bytes: Optional[int] = None):
         self.m, self.kw, self.n = int(m), int(kw), int(n)
         self.k_p = self.kw * 32
-        self.n_p = _pad_up(max(self.n, 1), ANDOR_ALIGN)
+        self.n_p = _pad_up(max(self.n, 1), N_ALIGN)
         #: B row position → logical contraction bit (length k_p)
         self.bit_order = np.arange(self.k_p)
+        self.temp_budget_bytes = temp_budget_bytes
+        # per device: the slabs and the list buffers (sized for the first
+        # slab at k_p rows of B), kept across calls as PackedColsMatmulPlan
+        # keeps its own
+        self._slabs: dict = {}
+        self._lists: dict = {}
 
-    def __call__(self, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    def __call__(self, a: torch.Tensor, b: torch.Tensor,
+                 lists: Optional[ColumnLists] = None) -> torch.Tensor:
         """a [m, kw] int32; b [<= k_p, n or n_p] int8/bool 0/1, rows in
         ``bit_order`` → C [m, n] int8 0/1 (a view of an [m, n_p] tensor
-        on a card)."""
+        on a card).  ``lists``: this A's :meth:`list_rows` at B's row
+        count, which a card then uses instead of listing A again (the
+        CPU's plain version needs none)."""
         if b.dtype == torch.bool:
             b = b.view(torch.int8)
         if a.dtype != torch.int32 or b.dtype != torch.int8:
@@ -459,41 +490,94 @@ class PackedMatmulPlan:
         if a.device.type == "cpu":
             return plain_packed_andor(a, b[:, : self.n])
         if a.device.type != "cuda":
-            raise ValueError(f"no packed_andor kernel for {a.device}")
-        return self._launch(a, b)
+            raise ValueError(f"no packed-contraction kernels for {a.device}")
+        if lists is not None:
+            want = (-(-self.m // KERNEL_TM), _chunks(b.shape[0]))
+            if tuple(lists.counts.shape) != want or lists.counts.device != a.device:
+                raise ValueError(
+                    f"lists of {tuple(lists.counts.shape)} chunks on "
+                    f"{lists.counts.device}, {want} on {a.device} wanted"
+                )
+        return self._launch(a, b, lists)
 
-    def _launch(self, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    def slabs(self, device) -> list:
+        """Row ranges (whole row blocks) whose lists fit the budget."""
+        device = torch.device(device)
+        got = self._slabs.get(device)
+        if got is None:
+            got = self._slabs[device] = _list_slabs(
+                self.m, self.k_p, self.temp_budget_bytes, device
+            )
+        return got
+
+    def list_rows(self, a: torch.Tensor, k_rows: int) -> ColumnLists:
+        """The :class:`ColumnLists` of A's set bits at
+        contraction indices below ``k_rows`` (B's row count): on a card
+        ``packed_andor_list`` on a contiguous int32 A [rows, kw], written
+        into the plan's list buffers (so the next listing overwrites
+        them) or, past their size, into fresh ones; on the CPU
+        :func:`plain_andor_list`."""
+        if a.dtype != torch.int32 or a.dim() != 2 or a.shape[1] != self.kw:
+            raise ValueError(f"A must be int32 [rows, {self.kw}], got "
+                             f"{a.dtype} {tuple(a.shape)}")
+        if not 0 <= k_rows <= self.k_p:
+            raise ValueError(f"k_rows={k_rows} outside [0, {self.k_p}]")
+        if a.device.type == "cpu":
+            return plain_andor_list(a, k_rows)
+        if a.device.type != "cuda" or not a.is_contiguous():
+            raise ValueError(f"packed_andor_list takes a contiguous A on a "
+                             f"card, got one on {a.device}")
+        rows = a.shape[0]
+        if rows == 0:
+            return _new_lists(0, k_rows, a.device)
+        if -(-rows // KERNEL_TM) > 65535:
+            raise ValueError(f"{rows} rows exceed the kernel grid")
+        bufs = self._lists.get(a.device)
+        if bufs is None:
+            r0, r1 = self.slabs(a.device)[0]
+            bufs = self._lists[a.device] = _new_lists(r1 - r0, self.k_p, a.device)
+        if -(-rows // KERNEL_TM) * _chunks(k_rows) > bufs.counts.numel():
+            bufs = _new_lists(rows, k_rows, a.device)
+        lists = _lists_in(bufs, rows, k_rows)
+        lib = _lib()
+        code = lib.packed_andor_list(
+            a.data_ptr(), lists.cols.data_ptr(), lists.masks.data_ptr(),
+            lists.counts.data_ptr(), rows, self.kw, k_rows, _stream(a),
+        )
+        _check_launch(lib.packed_cols_error_string, code, "packed_andor_list")
+        LAUNCHES["packed_andor_list"] += 1
+        return lists
+
+    def _launch(self, a: torch.Tensor, b: torch.Tensor,
+                lists: Optional[ColumnLists]) -> torch.Tensor:
         if not (a.is_contiguous() and b.is_contiguous()):
-            raise ValueError("packed_andor takes contiguous A and B")
-        if -(-self.m // ANDOR_TM) > 65535:
-            raise ValueError(f"M={self.m} exceeds the kernel grid")
+            raise ValueError("the packed-contraction kernels take contiguous A and B")
         if b.shape[1] != self.n_p:
             b_p = torch.zeros((b.shape[0], self.n_p), dtype=torch.int8,
                               device=b.device)
             b_p[:, : self.n] = b
             b = b_p
+        if b.data_ptr() % 4:
+            raise ValueError("B must start on a 4-byte boundary (it is read as words)")
         c = torch.empty((self.m, self.n_p), dtype=torch.int8, device=a.device)
+        k = b.shape[0]
         if self.m == 0 or self.n == 0:
             return c[:, : self.n]
-        if self.kw == 0 or b.shape[0] == 0:
+        if self.kw == 0 or k == 0:
             return c.zero_()[:, : self.n]
-        for t in (b, c):
-            if t.data_ptr() % ANDOR_ALIGN:
-                raise ValueError(f"packed_andor needs {ANDOR_ALIGN}-byte "
-                                 "aligned B and C")
-        lib = _andor_lib()
-        code = lib.packed_andor(
-            a.data_ptr(), b.data_ptr(), c.data_ptr(), self.m, self.kw,
-            b.shape[0], self.n_p, torch.cuda.current_stream(a.device).cuda_stream,
-        )
-        _check_launch(lib.packed_andor_error_string, code, "packed_andor")
-        LAUNCHES["packed_andor"] += 1
+        b32, c32 = b.view(torch.int32), c.view(torch.int32)
+        if lists is not None:
+            _run_sparse(b32, lists, c32, k, False)
+        else:
+            for r0, r1 in self.slabs(a.device):
+                _run_sparse(b32, self.list_rows(a[r0:r1], k), c32[r0:r1], k, False)
         return c[:, : self.n]
 
 
 def plain_packed_andor(a: torch.Tensor, b: torch.Tensor,
                        k_block: int = 4096) -> torch.Tensor:
-    """The plain PyTorch version of ``packed_andor`` (the port of the
+    """The plain PyTorch version of :class:`PackedMatmulPlan`'s product
+    (the port of the
     reference's ``_xla``): unpack A in logical bit order → matmul → ``> 0``
     → int8, with B's rows in logical order.  The count accumulates in
     float32 (exact below 2^24 terms; int8 matmuls wrap on the CPU), over
@@ -513,6 +597,29 @@ def plain_packed_andor(a: torch.Tensor, b: torch.Tensor,
         bits = unpack_words(blk, k1 - k0, torch.float32)
         acc += bits @ b[k0:k1].to(torch.float32)
     return (acc > 0).to(torch.int8)
+
+
+def plain_andor_list(a: torch.Tensor, k: int) -> ColumnLists:
+    """The plain PyTorch version of ``packed_andor_list``: the
+    :func:`plain_list_columns` listing of A's first ``k`` bits, unpacked
+    in logical order (bit p of word w is contraction index 32·w + p),
+    with each row block's entries packed densely into its chunks (chunk
+    c holds entries ``chunk·c`` onwards, every chunk before the last
+    nonempty one full).  Invalid entries hold -1 and 0."""
+    lists = plain_list_columns(unpack_words(a, k, torch.int8))
+    gm, nch, chunk = lists.cols.shape
+    dev = a.device
+    slots = torch.arange(nch * chunk, device=dev)
+    valid = (slots % chunk)[None, :] < lists.counts.repeat_interleave(chunk, 1)
+    order = torch.sort((~valid).to(torch.int8), dim=1, stable=True).indices
+    total = lists.counts.sum(1, keepdim=True)
+    keep = slots[None, :] < total
+    cols = torch.where(keep, torch.gather(lists.cols.view(gm, -1), 1, order), -1)
+    masks = torch.where(keep, torch.gather(lists.masks.view(gm, -1), 1, order), 0)
+    counts = (total - chunk * torch.arange(nch, device=dev)).clamp(0, chunk)
+    return ColumnLists(cols.view(gm, nch, chunk).contiguous(),
+                       masks.view(gm, nch, chunk).contiguous(),
+                       counts.to(torch.int32))
 
 
 def packed_andor_matmul(a: torch.Tensor, b_logical: torch.Tensor) -> torch.Tensor:

@@ -12,11 +12,14 @@
 // `accumulate` set the kernels OR their product into C instead of
 // overwriting it (C must not alias A or B).
 //
-// Three kernels:
+// Four entry points:
 //
 //   packed_cols_list    one pass over A: per 64-row block, the ascending
 //                       list of contraction indices l that some row of
 //                       the block selects, each with its 64-bit row mask
+//   packed_andor_list   the same lists, packed densely, for an A packed
+//                       along the contraction: with packed_cols_sparse
+//                       it is the packed-contraction product
 //   packed_cols_sparse  walks those lists: work ∝ nnz(A)·W
 //   packed_cols_dense   int8 tensor cores (mma.sync m16n8k32 s8) on B
 //                       unpacked to bit planes in shared memory
@@ -155,6 +158,149 @@ __global__ void __launch_bounds__(LIST_THREADS) packed_cols_list_kernel(
     __syncthreads();                     // before half_mask/warp_live are rewritten
   }
   if (tid == 0) counts[(size_t)g * NCH + c] = base;
+}
+
+// ---------------------------------------------------------------------------
+// packed_andor_list
+//
+// With packed_cols_sparse, replaces distel_tpu/ops/bitmatmul.py::
+// _andor_kernel (reached through PackedMatmulPlan.__call__): the packed
+// engine's CR4 and CR6,
+//
+//   C[m, n] = OR_{k < K : bit k of A[m] set} B[k, n]
+//
+// with A [M, KW] int32 packed along the contraction (bit p of word w is
+// k = 32w + p), B [K, N] and C [M, N] 0/1 bytes.  Because B's bytes are
+// 0 or 1, ORing them four to a 32-bit word is the byte OR (no carry
+// crosses a byte), so the product is packed_cols_sparse run on B and C
+// viewed as int32 words [K, N/4] and [M, N/4], over the lists this
+// kernel makes of A.  Each listed (row block, k) then reads B's row k
+// once per column tile, whatever number of the block's rows set bit k.
+//
+// Output: lists in packed_cols_list's format, with the contraction
+// index k in place of the column l: per row block, the ascending k < K
+// that some row of the block sets, each with its 64-bit row mask.  Bits
+// at k >= K select nothing and are dropped.  Unlike packed_cols_list's,
+// these lists are packed densely: chunk c of a row block holds its
+// entries LCHUNK·c .. LCHUNK·(c+1)-1, so every chunk before the last
+// nonempty one is full.  packed_cols_sparse streams a block's list in
+// batches of at most SP_SE entries that never cross a chunk, and walks
+// the counts of the chunks up to its last entry; at the packed engine's
+// state (about one live k per 256 for a 64-row block) lists by k range
+// would give it batches of about one entry, each a whole trip through
+// its copy ring, and a count to walk per chunk.
+//
+// Bound: it reads A once (4·M·KW bytes) and writes 12 bytes per listed
+// entry.  Design: one block per row block, so the running offset of a
+// row block's entries never leaves the block; it lists AL_GROUPS chunks
+// at a time, one thread per (row, chunk), and loads the next pass's
+// words while it lists this one.  Each thread reads its row's 8 chunk
+// words, one 32-byte sector (by word: the packed engine's KW is rarely
+// a multiple of 4, so wider loads would rarely be aligned).  A pass
+// whose words are all zero costs one __syncthreads_or.  Otherwise, per
+// word, a warp OR names the bits that some of the warp's 32 rows set,
+// and one __ballot_sync per such bit gives its 32-row mask, so the work
+// follows A's set bits, not the chunks' positions.  The two warps'
+// halves meet in shared memory; each thread then compacts AL_PER
+// consecutive positions, placed by a prefix over the block's threads,
+// so the entries come out ascending.
+// ---------------------------------------------------------------------------
+constexpr int AL_THREADS = 1024;
+constexpr int AL_GROUPS = AL_THREADS / TM;          // chunks listed a pass
+constexpr int AL_WORDS = LCHUNK / 32;               // A words per chunk
+constexpr int AL_PER = AL_GROUPS * LCHUNK / AL_THREADS;  // positions a thread compacts
+
+// A row's words of chunk c, with the bits at k >= K cleared (zero for a
+// row or chunk past the ends).
+__device__ __forceinline__ void andor_chunk_words(
+    const uint32_t* __restrict__ arow, bool row_ok, int c, int NCH, int KW, int K,
+    uint32_t (&w)[AL_WORDS]) {
+#pragma unroll
+  for (int i = 0; i < AL_WORDS; ++i) {
+    const int wi = c * AL_WORDS + i;
+    const int below = K - 32 * wi;                  // bits of word wi at k < K
+    uint32_t x = (row_ok && c < NCH && wi < KW && below > 0) ? __ldg(arow + wi) : 0u;
+    if (below < 32) x &= (1u << max(below, 0)) - 1u;
+    w[i] = x;
+  }
+}
+
+__global__ void __launch_bounds__(AL_THREADS) packed_andor_list_kernel(
+    const uint32_t* __restrict__ A, int32_t* __restrict__ cols,
+    uint64_t* __restrict__ masks, int32_t* __restrict__ counts, int M, int KW,
+    int K, int NCH) {
+  __shared__ uint32_t half_mask[AL_GROUPS][2][LCHUNK];
+  __shared__ int warp_live[AL_THREADS / 32];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int grp = tid / TM, half = warp & 1;
+  const int g = blockIdx.x;
+  const int m = g * TM + tid % TM;
+  const bool row_ok = m < M;
+  const uint32_t* arow = A + (size_t)(row_ok ? m : 0) * KW;
+  const size_t out0 = (size_t)g * NCH * LCHUNK;
+  uint32_t next[AL_WORDS];
+  andor_chunk_words(arow, row_ok, grp, NCH, KW, K, next);
+  int base = 0;
+  for (int cb = 0; cb < NCH; cb += AL_GROUPS) {
+    uint32_t w[AL_WORDS];
+    uint32_t any = 0u;
+#pragma unroll
+    for (int i = 0; i < AL_WORDS; ++i) {
+      w[i] = next[i];
+      any |= w[i];
+    }
+    andor_chunk_words(arow, row_ok, cb + AL_GROUPS + grp, NCH, KW, K, next);
+    if (!__syncthreads_or(any != 0u)) continue;    // uniform: nothing to list
+    for (int i = tid; i < AL_GROUPS * 2 * LCHUNK; i += AL_THREADS)
+      (&half_mask[0][0][0])[i] = 0u;
+    __syncthreads();
+#pragma unroll
+    for (int i = 0; i < AL_WORDS; ++i) {
+      uint32_t set = __reduce_or_sync(0xffffffffu, w[i]);
+      while (set) {                                // uniform across the warp
+        const int p = __ffs(set) - 1;
+        set &= set - 1u;
+        const uint32_t b = __ballot_sync(0xffffffffu, (w[i] >> p) & 1u);
+        if (lane == 0) half_mask[grp][half][32 * i + p] = b;
+      }
+    }
+    __syncthreads();
+    // positions AL_PER·tid ..: chunk-major, so ascending k across the block
+    uint64_t mk[AL_PER];
+    int live = 0;
+#pragma unroll
+    for (int j = 0; j < AL_PER; ++j) {
+      const int q = AL_PER * tid + j;
+      mk[j] = (uint64_t)half_mask[q / LCHUNK][0][q % LCHUNK] |
+              ((uint64_t)half_mask[q / LCHUNK][1][q % LCHUNK] << 32);
+      live += mk[j] != 0ull;
+    }
+    int incl = live;                               // inclusive prefix over the warp
+#pragma unroll
+    for (int d = 1; d < 32; d <<= 1) {
+      const int v = __shfl_up_sync(0xffffffffu, incl, d);
+      if (lane >= d) incl += v;
+    }
+    if (lane == 31) warp_live[warp] = incl;
+    __syncthreads();
+    int pos = base + incl - live;
+#pragma unroll
+    for (int v = 0; v < AL_THREADS / 32; ++v) {
+      if (v < warp) pos += warp_live[v];
+      base += warp_live[v];
+    }
+#pragma unroll
+    for (int j = 0; j < AL_PER; ++j) {
+      if (mk[j]) {
+        cols[out0 + pos] = cb * LCHUNK + AL_PER * tid + j;
+        masks[out0 + pos] = mk[j];
+        ++pos;
+      }
+    }
+    __syncthreads();                               // before half_mask/warp_live are rewritten
+  }
+  for (int c = tid; c < NCH; c += AL_THREADS)
+    counts[(size_t)g * NCH + c] = max(0, min(LCHUNK, base - LCHUNK * c));
 }
 
 // ---------------------------------------------------------------------------
@@ -554,6 +700,18 @@ int packed_cols_list(const void* A, void* cols, void* masks, void* counts,
   else
     packed_cols_list_kernel<false><<<grid, LIST_THREADS, 0, st>>>(
         (const int8_t*)A, (int32_t*)cols, (uint64_t*)masks, (int32_t*)counts, M, L, nch);
+  return (int)cudaGetLastError();
+}
+
+// Lists with ceil(K / LCHUNK) chunks a row block (one when K == 0), as
+// packed_cols_sparse reads them with L = K.
+int packed_andor_list(const void* A, void* cols, void* masks, void* counts,
+                      int M, int KW, int K, void* stream) {
+  const int nch = K > 0 ? (K + LCHUNK - 1) / LCHUNK : 1;
+  const int grid = (M + TM - 1) / TM;
+  packed_andor_list_kernel<<<grid, AL_THREADS, 0, (cudaStream_t)stream>>>(
+      (const uint32_t*)A, (int32_t*)cols, (uint64_t*)masks, (int32_t*)counts,
+      M, KW, K, nch);
   return (int)cudaGetLastError();
 }
 

@@ -4,8 +4,12 @@ The port's plain ``PackedMatmulPlan`` / ``packed_andor_matmul`` (the
 CPU path of the ``packed_andor`` kernel) must equal the reference's
 ``packed_andor_matmul`` as ``tests/test_ops.py`` runs it: the Pallas
 ``_andor_kernel`` body in interpret mode, and the ``use_xla`` contract.
-Equality is bit for bit.  The CUDA kernel itself runs only on a card
-(``tests/test_torch_cuda.py``).
+Equality is bit for bit.  On a card the product is two launches: the
+listing ``packed_andor_list`` (whose plain version ``plain_andor_list``
+must list exactly the reference's unpacked bits) and
+``packed_cols_sparse`` on B and C read as int32 words; that composition,
+written out in plain torch here, must equal the reference too.  The
+CUDA kernels themselves run only on a card (``tests/test_torch_cuda.py``).
 """
 
 import jax.numpy as jnp
@@ -15,10 +19,15 @@ import torch
 
 from distel_tpu.ops.bitmatmul import packed_andor_matmul as ref_andor
 from distel_tpu.ops.bitpack import pack_bool_columns as ref_pack
+from distel_tpu.ops.bitpack import unpack_words as ref_unpack
 from distel_tpu_torch.ops.bitmatmul import (
+    KERNEL_TM,
     LAUNCHES,
+    LIST_CHUNK,
     PackedMatmulPlan,
+    list_entries,
     packed_andor_matmul,
+    plain_andor_list,
     plain_packed_andor,
 )
 from distel_tpu_torch.ops.bitpack import to_words
@@ -125,3 +134,135 @@ def test_wrapper_checks_shapes_and_types():
         plan(a.to(torch.int64), b)
     with pytest.raises(TypeError):
         plan(a, b.to(torch.int32))
+
+
+# ------------------------------------------------------------ the card's route
+
+
+def _words(seed, m, kw, density, *, bit31=False):
+    """A packed along K, uint32 [m, kw], with about ``density`` of all
+    its 32·kw bit positions set (so also bits past a shorter B)."""
+    rng = np.random.default_rng(seed)
+    a = rng.random((m, kw * 32)) < density
+    if bit31:
+        a[:, 31::32] = True                             # bit 31 of every word
+    return np.asarray(ref_pack(jnp.asarray(a))).astype(np.uint32)
+
+
+#: the listing's cases beyond CASES: (m, kw, k, n, density, bit31)
+LIST_EXTRA = {
+    "rows-not-64": (130, 9, 288, 21, 0.05, False),      # M % 64 != 0, 3 row blocks
+    "bits-past-k": (40, 12, 300, 37, 0.2, False),       # K % 32, K % 256 != 0
+    "bit31-every-word": (70, 20, 640, 19, 0.01, True),  # several list chunks
+    "all-zero-wide": (65, 17, 530, 8, 0.0, False),
+    "many-chunks": (70, 300, 9500, 9, 0.002, False),    # 38 chunks, several full
+}
+LIST_CASES = sorted(CASES) + sorted(LIST_EXTRA)
+
+
+def _list_case(name, seed=11):
+    """(A words uint32 [m, kw], B bool [k, n], k) of a listing case."""
+    if name in CASES:
+        kw = dict(CASES[name])
+        m, k, n = kw.pop("m"), kw.pop("k"), kw.pop("n")
+        _a, b, ap = _operands(seed, m, k, n, **kw)
+        return ap, b, k
+    m, kw, k, n, density, bit31 = LIST_EXTRA[name]
+    b = np.random.default_rng(seed + 1).random((k, n)) < 0.05
+    return _words(seed, m, kw, density, bit31=bit31), b, k
+
+
+def _entry_blocks(lists):
+    """The row block of each valid entry, in :func:`list_entries` order."""
+    gm = lists.counts.shape[0]
+    return torch.arange(gm).repeat_interleave(lists.counts.sum(1).long())
+
+
+def _rows_of(block, mask):
+    bits = (torch.tensor(mask) >> torch.arange(KERNEL_TM)) & 1
+    return KERNEL_TM * block + torch.nonzero(bits).squeeze(1)
+
+
+@pytest.mark.parametrize("case", LIST_CASES)
+def test_plain_andor_list_matches_reference_bits(case):
+    """Every listed (row, k) pair is a set bit of the reference's unpacked
+    A below K and back; entries ascend in k within each row block, fill
+    its chunks in order, and the masks are the reference's row bits."""
+    ap, _b, k = _list_case(case)
+    bits = np.asarray(ref_unpack(jnp.asarray(ap), k))          # [m, k]
+    m = bits.shape[0]
+    before = dict(LAUNCHES)
+    lists = plain_andor_list(to_words(ap), k)
+    assert dict(LAUNCHES) == before
+    gm, nch = -(-m // KERNEL_TM), max(-(-k // LIST_CHUNK), 1)
+    assert tuple(lists.counts.shape) == (gm, nch)
+    cols, masks = list_entries(lists)
+    blocks = _entry_blocks(lists)
+    pairs = set()
+    for g, col, mask in zip(blocks.tolist(), cols.tolist(), masks.tolist()):
+        rows = _rows_of(g, mask).tolist()
+        assert rows and max(rows) < m
+        pairs.update((r, col) for r in rows)
+    assert pairs == set(zip(*map(np.ndarray.tolist, np.nonzero(bits))))
+    for g in range(gm):
+        blk = bits[KERNEL_TM * g : KERNEL_TM * (g + 1)]
+        want_cols = np.nonzero(blk.any(0))[0]
+        want_masks = (
+            blk[:, want_cols].astype(np.uint64)
+            << np.arange(blk.shape[0], dtype=np.uint64)[:, None]
+        ).sum(0, dtype=np.uint64).view(np.int64)
+        assert np.array_equal(cols[blocks == g].numpy(), want_cols)
+        assert np.array_equal(masks[blocks == g].numpy(), want_masks)
+        # packed densely: every chunk before the last nonempty one full
+        packed = np.clip(len(want_cols) - LIST_CHUNK * np.arange(nch), 0, LIST_CHUNK)
+        assert np.array_equal(lists.counts[g].numpy(), packed)
+
+
+def _route(a, b, k):
+    """The card's route written out in plain torch: list A, then OR each
+    listed B row, its 0/1 bytes read as int32 words, into the rows its
+    mask selects; C's words read back as bytes."""
+    m, n = a.shape[0], b.shape[1]
+    n_p = PackedMatmulPlan(m, a.shape[1], n).n_p
+    bp = torch.zeros((k, n_p), dtype=torch.int8)
+    bp[:, :n] = torch.from_numpy(b.astype(np.int8))
+    b32 = bp.view(torch.int32)
+    c32 = torch.zeros((m, n_p // 4), dtype=torch.int32)
+    lists = plain_andor_list(a, k)
+    cols, masks = list_entries(lists)
+    for g, col, mask in zip(_entry_blocks(lists).tolist(), cols.tolist(),
+                            masks.tolist()):
+        c32[_rows_of(g, mask)] |= b32[col]
+    return c32.view(torch.int8)[:, :n]
+
+
+@pytest.mark.parametrize("mode", ["xla", "interpret"])
+@pytest.mark.parametrize("case", LIST_CASES)
+def test_route_composition_matches_reference(mode, case):
+    """Listing, then the word-wise OR of the listed B rows, gives the
+    reference's product bit for bit (bits past B's rows select nothing)."""
+    ap, b, k = _list_case(case)
+    want = np.asarray(
+        ref_andor(jnp.asarray(ap), jnp.asarray(b, jnp.int8),
+                  use_xla=(mode == "xla"), interpret=(mode == "interpret"))
+    )
+    got = _route(to_words(ap), b, k)
+    assert got.dtype == torch.int8 and (got.numpy() == want).all()
+
+
+def test_list_rows_on_the_cpu_is_the_plain_listing():
+    """The plan's listing takes the plain version for a CPU tensor and
+    checks what it is given; the CPU product ignores ``lists``."""
+    ap, b, k = _list_case("bits-past-k")
+    a = to_words(ap)
+    plan = PackedMatmulPlan(a.shape[0], a.shape[1], b.shape[1])
+    got, want = plan.list_rows(a, k), plain_andor_list(a, k)
+    assert torch.equal(got.counts, want.counts)
+    for x, y in zip(list_entries(got), list_entries(want)):
+        assert torch.equal(x, y)
+    bt = torch.from_numpy(b.astype(np.int8))
+    assert torch.equal(plan(a, bt, lists=got), plan(a, bt))
+    with pytest.raises(ValueError):
+        plan.list_rows(a, plan.k_p + 1)
+    with pytest.raises(ValueError):
+        plan.list_rows(a[:, :-1].contiguous(), k)

@@ -25,6 +25,7 @@ from distel_tpu_torch.ops.bitmatmul import (
     PackedColsMatmulPlan,
     PackedMatmulPlan,
     list_entries,
+    plain_andor_list,
     plain_list_columns,
     plain_packed_andor,
     plain_packed_cols,
@@ -225,11 +226,16 @@ def test_wide_taxonomy_stays_on_the_card(card, monkeypatch):
     assert got.parents == want.parents and got.equivalents == want.equivalents
 
 
-# ------------------------------------------------------------ packed_andor
+# ------------------------------------------- the packed-contraction product
+#
+# PackedMatmulPlan on a card: packed_andor_list, then packed_cols_sparse
+# on B and C read as int32 words.
 
 
-def _andor_operands(gen, m, kw, k, n, density, *, bit31=False, zero_rows_from=None):
-    """A [m, kw] int32 words with about ``density`` of their bits set,
+def _andor_operands(gen, m, kw, k, n, density, *, bit31=False, zero_rows_from=None,
+                    offset=0):
+    """A [m, kw] int32 words with about ``density`` of their bits set
+    (``offset`` words into its allocation, so ``offset`` 1 misaligns it),
     B [k, n] int8 0/1."""
     bits = torch.rand((m, kw, 32), generator=gen, device="cuda") < density
     if bit31:
@@ -239,21 +245,28 @@ def _andor_operands(gen, m, kw, k, n, density, *, bit31=False, zero_rows_from=No
     shifts = torch.arange(32, device="cuda", dtype=torch.int64)
     words = (bits.to(torch.int64) << shifts).sum(dim=2)
     words = torch.where(words >= 2**31, words - 2**32, words)   # uint32 → int32
-    a = words.to(torch.int32).contiguous()
+    a = torch.empty(m * kw + offset, dtype=torch.int32, device="cuda")[offset:]
+    a = a.view(m, kw)
+    a.copy_(words.to(torch.int32))
     b = (torch.rand((k, n), generator=gen, device="cuda") < 0.05).to(torch.int8)
     return a, b.contiguous()
+
+
+def _launched(before):
+    return {k: LAUNCHES[k] - before[k] for k in LAUNCHES if LAUNCHES[k] != before[k]}
 
 
 @pytest.mark.parametrize(
     "m,kw,k,n,density,bit31,zero_from",
     [(70, 10, 300, 90, 0.1, False, None),       # unaligned everywhere
      (33, 8, 256, 17, 0.02, True, None),        # bit 31 of every word
-     (300, 70, 2200, 4100, 0.001, False, 40),   # mostly zero, > one N tile
-     (17, 300, 9600, 64, 0.0, False, None),     # all zero, several scan passes
+     (300, 70, 2200, 4100, 0.001, False, 40),   # mostly zero, > one column tile
+     (17, 300, 9600, 64, 0.0, False, None),     # all zero, many list chunks
      (1, 1, 32, 1, 1.0, False, None)],
 )
 def test_packed_andor_matches_plain(card, m, kw, k, n, density, bit31, zero_from):
-    """Bit for bit; one launch per call on its own counter."""
+    """The route bit for bit against the plain product; a call lists A
+    once and runs the product once (one slab)."""
     gen = torch.Generator(device="cuda").manual_seed(m + kw + n)
     a, b = _andor_operands(gen, m, kw, k, n, density, bit31=bit31,
                            zero_rows_from=zero_from)
@@ -263,14 +276,66 @@ def test_packed_andor_matches_plain(card, m, kw, k, n, density, bit31, zero_from
     torch.cuda.synchronize()
     assert got.shape == (m, n) and got.dtype == torch.int8
     assert torch.equal(got, want)
-    assert LAUNCHES["packed_andor"] == before["packed_andor"] + 1
-    assert all(LAUNCHES[k] == before[k] for k in LAUNCHES if k != "packed_andor")
+    assert _launched(before) == {"packed_andor_list": 1, "packed_cols_sparse": 1}
+
+
+@pytest.mark.parametrize(
+    "m,kw,k,density,bit31,offset",
+    [(70, 9, 288, 0.05, False, 0),              # odd KW, M % 64 != 0
+     (130, 16, 512, 0.02, False, 1),            # A not 16-byte aligned
+     (130, 16, 512, 0.02, True, 0),             # bit 31 of every word
+     (64, 40, 1200, 0.01, False, 0),            # 5 chunks, bits past K dropped
+     (65, 17, 530, 0.0, False, 0),              # all zero
+     (130, 300, 9600, 0.05, False, 0),          # 38 full chunks: 3 passes of the kernel
+     (600, 1998, 63936, 0.0005, False, 0)],     # the 64k run's contraction width
+)
+def test_andor_list_kernel_matches_plain(card, m, kw, k, density, bit31, offset):
+    """``packed_andor_list``: the same counts and the same valid entries
+    (contraction indices and 64-bit row masks) as the plain listing, in
+    one launch."""
+    gen = torch.Generator(device="cuda").manual_seed(m * 3 + kw)
+    a, _b = _andor_operands(gen, m, kw, 1, 1, density, bit31=bit31, offset=offset)
+    assert (a.data_ptr() % 16 != 0) == bool(offset)
+    plan = PackedMatmulPlan(m, kw, 8)
+    before = dict(LAUNCHES)
+    got = plan.list_rows(a, k)
+    torch.cuda.synchronize()
+    assert _launched(before) == {"packed_andor_list": 1}
+    want = plain_andor_list(a, k)
+    assert torch.equal(got.counts, want.counts)
+    for x, y in zip(list_entries(got), list_entries(want)):
+        assert torch.equal(x, y)
+
+
+def test_packed_andor_shares_lists_and_runs_in_slabs(card):
+    """One listing serves two products (no second listing); past the
+    budget, a call lists and multiplies in slabs of whole row blocks;
+    lists of another shape are refused."""
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    a, b = _andor_operands(gen, 300, 70, 2240, 90, 0.002)
+    b2 = (torch.rand((2240, 40), generator=gen, device="cuda") < 0.1).to(torch.int8)
+    plan, plan2 = PackedMatmulPlan(300, 70, 90), PackedMatmulPlan(300, 70, 40)
+    before = dict(LAUNCHES)
+    lists = plan.list_rows(a, 2240)
+    got, got2 = plan(a, b, lists=lists), plan2(a, b2, lists=lists)
+    torch.cuda.synchronize()
+    assert torch.equal(got, plain_packed_andor(a, b))
+    assert torch.equal(got2, plain_packed_andor(a, b2))
+    assert _launched(before) == {"packed_andor_list": 1, "packed_cols_sparse": 2}
+    with pytest.raises(ValueError, match="chunks"):
+        plan(a, b[:2000], lists=lists)
+    per_block = 12 * -(-70 * 32 // bitmatmul.LIST_CHUNK) * bitmatmul.LIST_CHUNK
+    small = PackedMatmulPlan(300, 70, 90, temp_budget_bytes=per_block)
+    assert len(small.slabs(a.device)) == 5
+    before = dict(LAUNCHES)
+    assert torch.equal(small(a, b), plain_packed_andor(a, b))
+    assert _launched(before) == {"packed_andor_list": 5, "packed_cols_sparse": 5}
 
 
 def test_packed_andor_fewer_b_rows_and_wrapper_checks(card):
     """A bits past B's last row select nothing; B given with the padded
-    n_p columns is used as it is; the wrapper refuses what the kernel
-    does not take."""
+    n_p columns is used as it is; the wrapper refuses what the kernels
+    do not take."""
     gen = torch.Generator(device="cuda").manual_seed(3)
     a, b = _andor_operands(gen, 50, 6, 150, 40, 0.2)
     plan = PackedMatmulPlan(50, 6, 40)
@@ -284,6 +349,32 @@ def test_packed_andor_fewer_b_rows_and_wrapper_checks(card):
         plan(a, b.cpu())
 
 
+def test_packed_engine_step_lists_each_chunk_once(card):
+    """One packed-engine step on the card, in several row chunks: one
+    listing a chunk serves CR4 and CR6 (two products a chunk), and the
+    step's state equals the CPU engine's from the same state."""
+    from distel_tpu_torch.core.packed_engine import PackedSaturationEngine
+
+    idx = ELClassifier(device="cpu").classify_text(
+        snomed_shaped_ontology(n_classes=600)
+    ).idx
+    budget = 1 << 17
+    cpu = PackedSaturationEngine(idx, device="cpu", temp_budget_bytes=budget)
+    gpu = PackedSaturationEngine(idx, device="cuda", temp_budget_bytes=budget)
+    chunks = gpu.plan_stats()["chunks"]
+    assert chunks > 1 and gpu._has4 and gpu._has6
+    sp, rp = cpu.initial_state()
+    for _ in range(3):
+        sp, rp, _ch = cpu.step(sp, rp)
+    want_s, want_r, _ch = cpu.step(sp.clone(), rp.clone())
+    before = dict(LAUNCHES)
+    got_s, got_r, _ch = gpu.step(sp.cuda(), rp.cuda())
+    torch.cuda.synchronize()
+    assert _launched(before) == {"packed_andor_list": chunks,
+                                 "packed_cols_sparse": 2 * chunks}
+    assert torch.equal(got_s.cpu(), want_s) and torch.equal(got_r.cpu(), want_r)
+
+
 @pytest.mark.parametrize(
     "text",
     [pytest.param(lambda: snomed_shaped_ontology(n_classes=600), id="snomed"),
@@ -292,12 +383,13 @@ def test_packed_andor_fewer_b_rows_and_wrapper_checks(card):
 )
 def test_packed_engine_classify_on_the_card_equals_the_cpu(card, text):
     """``engine="packed"``: closure, derivations, iterations and taxonomy
-    on the card equal the CPU run's, with CR4/CR6 through packed_andor."""
+    on the card equal the CPU run's, with CR4/CR6 through the listing
+    and the sparse product."""
     text = text()
     cfg = ClassifierConfig(engine="packed")
     bitmatmul.reset_launches()
     gpu = ELClassifier(cfg, device="cuda").classify_text(text)
-    launched = LAUNCHES["packed_andor"]
+    launched = LAUNCHES["packed_andor_list"]
     cpu = ELClassifier(cfg, device="cpu").classify_text(text)
     assert not gpu.result.transposed
     for g, c in zip(gpu.result.wire(), cpu.result.wire()):
