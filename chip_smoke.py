@@ -26,11 +26,22 @@ Phases, each of which raises on failure:
    on the CPU gives identical packed S and R, derivation count and
    taxonomy; then ``engine="packed"`` on the card gives the same
    x-major S and R (compared in row blocks against the transposed
-   row-packed state), derivations and taxonomy;
-5. full width: the 64000-class SNOMED-shaped corpus classified on the
-   card to convergence with nothing hooked in, its wall, peak memory
-   and the kernels' launch counts read from that run alone (every
-   kernel of the routes its plans chose must be > 0); then a profiled
+   row-packed state), derivations and taxonomy.  Then the frontier
+   gating at 8k: the gated fixed point stepped on the
+   card and on the CPU, every round's S, R and frontier flags equal
+   (the default plan, and 256-link L-chunks with the live-tile CR6
+   forced); ``engine="dense"`` on the card and the CPU, equal to the
+   row-packed card run; and ``verify=True`` (the closure against the
+   CPU oracle) on every golden fixture through the row-packed and the
+   dense engine, and on the 8k corpus;
+5. full width, the main path: the 64000-class SNOMED-shaped corpus
+   through ``ELClassifier().classify_text`` with the default config
+   (the native load plane, the frontier-gated engine) to convergence
+   with nothing hooked in, its wall, phases, peak memory, the windows
+   contracted and skipped, and the kernels' launch counts read from
+   that run alone (every kernel of the routes its plans chose must be
+   > 0); two more saturations of the same engine, timed (same
+   closure); the same text through the Python load plane (same derivations and taxonomy by name); then a profiled
    rerun (per-rule breakdown), an end-to-end A/B of the route choice
    (saturation with the shipped choice, with every CR4/CR6 plan on the
    sparse route and with every plan flipped, A B C C B A) and a
@@ -61,9 +72,11 @@ beside the event times.
 It prints the card's name and power limit, a ``{"policy": ...}`` line
 (each site's device time under the chosen route and under each route,
 with A's nonzero fraction), the ``{"andor_checks": ...}``,
-``{"full_width": ...}``, ``{"breakdown": ...}``, ``{"threshold_ab":
-...}``, ``{"packed_full_width": ...}``, ``{"packed_breakdown": ...}``
-and ``{"andor_operands": ...}`` lines, a ``{"kernels": [...]}`` line
+``{"gating": ...}``, ``{"dense": ...}``, ``{"verify": ...}``,
+``{"default_full_width": ...}``, ``{"full_width": ...}`` (the Python
+load plane), ``{"breakdown": ...}``, ``{"threshold_ab": ...}``,
+``{"packed_full_width": ...}``, ``{"packed_breakdown": ...}`` and
+``{"andor_operands": ...}`` lines, a ``{"kernels": [...]}`` line
 (the sparse row also carries the listing kernel's time and launches),
 and as its last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -408,6 +421,144 @@ def phase_cross_engine(row_run) -> None:
     log("[8k] packed engine identical to the row-packed engine")
 
 
+def phase_gating() -> dict:
+    """The gated fixed point at 8k, step by step on the card and on the
+    CPU from the same index: every round's S and R words and frontier
+    flags equal, and the same windows contracted and skipped — with the
+    default plan, and with many L-chunks and the live-tile CR6 forced."""
+    from distel_tpu_torch.config import ClassifierConfig
+    from distel_tpu_torch.core.rowpacked_engine import RowPackedSaturationEngine
+    from distel_tpu_torch.frontend.ontology_tools import snomed_shaped_ontology
+    from distel_tpu_torch.owl import native_loader
+
+    idx = native_loader.load_indexed(snomed_shaped_ontology(n_classes=8000, seed=42))
+    # one temporary budget on both devices, so both plan alike
+    budget = 1 << 28
+    plans = {
+        "default": {"cr6_tiles": ClassifierConfig().cr6_tiles_config()},
+        "lc256+tiles": {"l_chunk": 256,
+                        "cr6_tiles": {"density_threshold": 100.0}},
+    }
+    out = {}
+    for what, kw in plans.items():
+        gpu = RowPackedSaturationEngine(idx, device="cuda",
+                                        temp_budget_bytes=budget, **kw)
+        cpu = RowPackedSaturationEngine(idx, device="cpu",
+                                        temp_budget_bytes=budget, **kw)
+        gs, gr = gpu.initial_state()
+        cs, cr = cpu.initial_state()
+        gf = cf = None
+        t_gpu = t_cpu = 0.0
+        while gf is None or gf.changed:
+            sync()
+            t0 = time.perf_counter()
+            gs, gr, gf = gpu.step(gs, gr, gf)
+            sync()
+            t1 = time.perf_counter()
+            cs, cr, cf = cpu.step(cs, cr, cf)
+            t2 = time.perf_counter()
+            t_gpu, t_cpu = t_gpu + t1 - t0, t_cpu + t2 - t1
+            rnd = len(gpu.gate_rounds)
+            if not (torch.equal(gs.cpu(), cs) and torch.equal(gr.cpu(), cr)):
+                raise AssertionError(f"8k gating ({what}): S/R differ in round {rnd}")
+            for a in ("changed", "dirty_l", "f4", "f6", "fd6", "cr5"):
+                if not np.array_equal(getattr(gf, a), getattr(cf, a)):
+                    raise AssertionError(f"8k gating ({what}): {a} differs in round {rnd}")
+            if gpu.gate_rounds[-1] != cpu.gate_rounds[-1]:
+                raise AssertionError(f"8k gating ({what}): window counts differ")
+            if rnd > 200:
+                raise AssertionError(f"8k gating ({what}): no fixed point")
+        out[what] = {
+            "rounds": len(gpu.gate_rounds),
+            "windows": gpu.gate_totals(),
+            "windows_per_round": gate_rounds_compact(gpu),
+            "plan": gpu.plan_stats(),
+            "card_steps_s": t_gpu,
+            "cpu_steps_s": t_cpu,
+        }
+    log(f"[8k gating] {json.dumps(out)}")
+    print(json.dumps({"gating": out}), flush=True)
+    if not sum(v["skipped"] for v in out["lc256+tiles"]["windows"].values()):
+        raise AssertionError("8k gating: no window was ever skipped")
+    return out
+
+
+def phase_dense(row_run) -> dict:
+    """``engine="dense"`` on the 8k corpus, on the card and on the CPU:
+    the same S and R as each other and as the row-packed card run, the
+    same derivations and taxonomy.  It runs no kernel of the port (its
+    products are matmuls), which its launch counts show."""
+    from distel_tpu_torch.config import ClassifierConfig
+    from distel_tpu_torch.frontend.ontology_tools import snomed_shaped_ontology
+    from distel_tpu_torch.ops.bitmatmul import LAUNCHES, reset_launches
+    from distel_tpu_torch.runtime.classifier import ELClassifier
+
+    text = snomed_shaped_ontology(n_classes=8000, seed=42)
+    cfg = ClassifierConfig(engine="dense")
+    runs, walls = {}, {}
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    for dev in ("cuda", "cpu"):
+        reset_launches()
+        sync()
+        t0 = time.perf_counter()
+        runs[dev] = ELClassifier(cfg, device=dev).classify_text(text)
+        sync()
+        walls[dev] = time.perf_counter() - t0
+        if dev == "cuda":
+            launches, peak = dict(LAUNCHES), torch.cuda.max_memory_allocated()
+    for dev, res in runs.items():
+        for x, y in zip(res.result.wire(), row_run.result.wire()):
+            if not np.array_equal(x, y):
+                raise AssertionError(f"8k dense ({dev}): S/R differ from the row-packed run")
+        if res.result.derivations != row_run.result.derivations:
+            raise AssertionError(f"8k dense ({dev}): derivations differ")
+        if taxonomy_key(res.taxonomy) != taxonomy_key(row_run.taxonomy):
+            raise AssertionError(f"8k dense ({dev}): taxonomy differs")
+    if runs["cuda"].result.iterations != runs["cpu"].result.iterations:
+        raise AssertionError("8k dense: card and CPU iteration counts differ")
+    out = {
+        **runs["cuda"].summary(),
+        "wall_s": walls["cuda"],
+        "cpu_wall_s": walls["cpu"],
+        "cpu_phases_ms": runs["cpu"].summary()["phases_ms"],
+        "max_memory_allocated": peak,
+        "launches": launches,
+        "rowpacked_iterations": row_run.result.iterations,
+    }
+    log(f"[8k dense] {json.dumps(out)}")
+    print(json.dumps({"dense": out}), flush=True)
+    return out
+
+
+def phase_verify() -> dict:
+    """``verify=True`` (the closure against the CPU oracle) on the card:
+    every golden fixture through the row-packed and the dense engine,
+    and the 8k corpus."""
+    from distel_tpu_torch.config import ClassifierConfig
+    from distel_tpu_torch.frontend.ontology_tools import snomed_shaped_ontology
+    from distel_tpu_torch.runtime.classifier import ELClassifier
+
+    fixtures = sorted((ROOT / "tests" / "golden").glob("*.ofn"))
+    for engine in ("rowpacked", "dense"):
+        clf = ELClassifier(ClassifierConfig(engine=engine), device="cuda")
+        for path in fixtures:
+            clf.classify_file(str(path), verify=True)
+    t0 = time.perf_counter()
+    res = ELClassifier(device="cuda").classify_text(
+        snomed_shaped_ontology(n_classes=8000, seed=42), verify=True
+    )
+    out = {
+        "goldens": len(fixtures),
+        "engines": ["rowpacked", "dense"],
+        "8k_wall_s": time.perf_counter() - t0,
+        "8k_phases_ms": res.summary()["phases_ms"],
+    }
+    log(f"[verify] {json.dumps(out)}")
+    print(json.dumps({"verify": out}), flush=True)
+    return out
+
+
 #: the callers of PackedColsMatmulPlan on the main path, by function name
 SITES = {
     "_cr4": "cr4",
@@ -468,11 +619,24 @@ def path_kernels(plans) -> list:
     return kernels
 
 
-def phase_full_width():
-    """The main path at full width, with nothing hooked into it: wall,
-    peak memory and launch counts are those of ``cli classify``."""
-    from distel_tpu_torch.frontend.ontology_tools import snomed_shaped_ontology
+def gate_rounds_compact(engine) -> dict:
+    """Per round, the windows (or link tiles) contracted and skipped."""
+    out = {k: [] for k in ("cr4", "cr6", "cr6_tiles")}
+    for rnd in engine.gate_rounds:
+        for k in out:
+            out[k].append(rnd[k])
+    return out
+
+
+def phase_default_full_width():
+    """The main path: ``ELClassifier().classify_text`` with the default
+    config (the native load plane, the frontier-gated row-packed
+    engine) on the 64k corpus, with nothing hooked into it: wall, phases,
+    peak memory, launch counts and windows contracted and skipped are
+    those of ``cli classify``.  Then two more saturations of the same
+    engine, timed."""
     from distel_tpu_torch.ops.bitmatmul import LAUNCHES, reset_launches
+    from distel_tpu_torch.frontend.ontology_tools import snomed_shaped_ontology
     from distel_tpu_torch.runtime.classifier import ELClassifier
 
     text = snomed_shaped_ontology(n_classes=64000, seed=42)
@@ -485,26 +649,90 @@ def phase_full_width():
     res = clf.classify_text(text)
     wall = time.perf_counter() - t0
     launches = dict(LAUNCHES)
-    summary = res.summary()
+    peak = torch.cuda.max_memory_allocated()
+    gated = res.engine
+    gate_totals = gated.gate_totals()
+    per_round = gate_rounds_compact(gated)
+    walls = []
+    for _ in range(2):
+        sync()
+        t1 = time.perf_counter()
+        again = gated.saturate()
+        sync()
+        walls.append(time.perf_counter() - t1)
+        for x, y in zip(again.wire(), res.result.wire()):
+            if not np.array_equal(x, y):
+                raise AssertionError("64k: a rerun gave another closure")
     stats = {
-        **summary,
+        **res.summary(),
         "wall_s": wall,
-        "max_memory_allocated": torch.cuda.max_memory_allocated(),
+        "max_memory_allocated": peak,
         "memory_allocated_before": base,
         "launches": launches,
-        "plan": res.engine.plan_stats(),
+        "windows": gate_totals,
+        "windows_per_round": per_round,
+        "plan": gated.plan_stats(),
         "classes_in_taxonomy": len(res.taxonomy.parents),
+        "saturate_reruns_s": walls,
     }
-    log(f"[64k] {json.dumps(stats)}")
-    print(json.dumps({"full_width": stats}), flush=True)
+    log(f"[64k default] {json.dumps(stats)}")
+    print(json.dumps({"default_full_width": stats}), flush=True)
+    if "load(native)" not in res.timer.phases:
+        raise AssertionError("64k: the default classify did not run the native plane")
     if not res.result.converged:
         raise AssertionError("64k run did not converge")
-    for k in path_kernels(res.engine._plans.values()):
+    for k in path_kernels(gated._plans.values()):
         if launches[k] == 0:
             raise AssertionError(f"{k} was never launched on the 64k run")
     if len(res.taxonomy.parents) == 0:
         raise AssertionError("64k taxonomy is empty")
     return launches, res
+
+
+def phase_full_width(default):
+    """The same 64k text through the Python load plane (parse →
+    normalize → index), with nothing hooked in: its wall, peak memory
+    and launch counts; its derivations and taxonomy (by name: ids
+    differ between the planes) must equal the default run's."""
+    from distel_tpu_torch.config import ClassifierConfig
+    from distel_tpu_torch.frontend.ontology_tools import snomed_shaped_ontology
+    from distel_tpu_torch.ops.bitmatmul import LAUNCHES, reset_launches
+    from distel_tpu_torch.runtime.classifier import ELClassifier
+
+    text = snomed_shaped_ontology(n_classes=64000, seed=42)
+    clf = ELClassifier(ClassifierConfig(use_native_loader=False), device="cuda")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    reset_launches()
+    t0 = time.perf_counter()
+    res = clf.classify_text(text)
+    wall = time.perf_counter() - t0
+    launches = dict(LAUNCHES)
+    summary = res.summary()
+    stats = {
+        **summary,
+        "load_plane": "python",
+        "wall_s": wall,
+        "max_memory_allocated": torch.cuda.max_memory_allocated(),
+        "memory_allocated_before": base,
+        "launches": launches,
+        "windows": res.engine.gate_totals(),
+        "plan": res.engine.plan_stats(),
+        "classes_in_taxonomy": len(res.taxonomy.parents),
+    }
+    log(f"[64k python plane] {json.dumps(stats)}")
+    print(json.dumps({"full_width": stats}), flush=True)
+    if not res.result.converged:
+        raise AssertionError("64k python-plane run did not converge")
+    for k in path_kernels(res.engine._plans.values()):
+        if launches[k] == 0:
+            raise AssertionError(f"{k} was never launched on the 64k python-plane run")
+    if res.result.derivations != default.result.derivations:
+        raise AssertionError("64k: the load planes give other derivation counts")
+    if taxonomy_key(res.taxonomy) != taxonomy_key(default.taxonomy):
+        raise AssertionError("64k: the load planes give other taxonomies")
+    log("[64k] native and python load planes: same derivations and taxonomy")
 
 
 def phase_threshold_ab(res) -> dict:
@@ -999,8 +1227,12 @@ def main() -> int:
     cap = Capture()
     row8k = phase_card_vs_cpu(cap)
     phase_cross_engine(row8k)
+    phase_gating()
+    phase_dense(row8k)
     del row8k
-    launches, res = phase_full_width()
+    phase_verify()
+    launches, res = phase_default_full_width()
+    phase_full_width(res)
     phase_breakdown(res)
     phase_threshold_ab(res)
     phase_capture_64k(res, cap)

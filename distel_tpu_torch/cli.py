@@ -1,9 +1,14 @@
 """Command-line interface of the port.
 
   classify   load → saturate → taxonomy on a CUDA device (the engine
-             from --config: ``engine = rowpacked`` or ``engine = packed``)
+             from --config: ``engine = rowpacked``, ``packed`` or
+             ``dense``); ``--verify`` diffs the closure against the CPU
+             oracle
+  diff       the dense engine's closure against the CPU oracle; exit 1
+             on a difference
 
 Usage: python -m distel_tpu_torch.cli classify FILE [--device cpu] ...
+       python -m distel_tpu_torch.cli diff FILE [--device cpu]
 """
 
 from __future__ import annotations
@@ -24,7 +29,9 @@ def cmd_classify(args) -> int:
     )
     cfg.instrumentation = args.instrument
     clf = ELClassifier(cfg, device=args.device)
-    res = clf.classify_file(args.ontology, resume_from=args.resume)
+    res = clf.classify_file(
+        args.ontology, verify=args.verify, resume_from=args.resume
+    )
     print(json.dumps(res.summary(), indent=2))
     if args.output:
         res.taxonomy.write(args.output)
@@ -35,6 +42,20 @@ def cmd_classify(args) -> int:
         save_snapshot(args.snapshot, res.result)
         print(f"snapshot written to {args.snapshot}")
     return 0
+
+
+def cmd_diff(args) -> int:
+    from distel_tpu_torch.frontend.normalizer import normalize
+    from distel_tpu_torch.owl import loader
+    from distel_tpu_torch.runtime.classifier import resolve_device
+    from distel_tpu_torch.testing.differential import classify_and_diff
+
+    device = resolve_device(args.device)
+    with open(args.ontology, "r", encoding="utf-8-sig") as f:
+        norm = normalize(loader.load(f.read()))
+    _, report = classify_and_diff(norm, device=device)
+    print(report.summary())
+    return 0 if report.ok() else 1
 
 
 def main(argv=None) -> int:
@@ -59,7 +80,15 @@ def main(argv=None) -> int:
              "its corpus must be a SUBSET of this one",
     )
     c.add_argument("--instrument", action="store_true", help="phase timers")
+    c.add_argument("--verify", action="store_true", help="diff vs CPU oracle")
     c.set_defaults(fn=cmd_classify)
+    d = sub.add_parser("diff", help="verify against the CPU oracle")
+    d.add_argument("ontology")
+    d.add_argument(
+        "--device", default=None,
+        help="torch device (default: the first CUDA device; raises if none)",
+    )
+    d.set_defaults(fn=cmd_diff)
     args = p.parse_args(argv)
     return args.fn(args)
 

@@ -1,13 +1,14 @@
 """Configuration: the ``ClassifierConfig`` fields the port reads.
 
 A subset of ``distel_tpu/config.py``'s ``ClassifierConfig`` with the
-same names and defaults where the port implements the knob.  Knobs of
-paths the port does not have yet (mesh, native load plane, serving,
-shape buckets) are absent, or refused where a reference config could
-carry them over: ``engine`` must be ``auto``, ``rowpacked`` or
-``packed`` (``dense`` is not ported yet) and ``shape_buckets`` must be
-off.  The reference's ``matmul.dtype`` has no meaning for the port's
-exact bit kernels and is ignored with the other unknown keys.
+same names and defaults where the port implements the knob: the engine
+(``auto`` = ``rowpacked``, ``packed`` or ``dense``), the native load
+plane (on by default, as in the reference), the normalizer's gensym
+cache, and the live-tile CR6 knobs.  Knobs of paths the port does not
+have yet (mesh, serving, shape buckets) are absent, or refused where a
+reference config could carry them over: ``shape_buckets`` must be off.
+The reference's ``matmul.dtype`` has no meaning for the port's exact
+bit kernels and is ignored with the other unknown keys.
 
 ``from_properties`` parses java-style ``key = value`` files with the
 reference's key spellings.
@@ -26,8 +27,16 @@ class ClassifierConfig:
     max_iterations: int = 10_000
     #: per-phase wall-clock tracing, printed after each classify
     instrumentation: bool = False
-    #: "auto" (= "rowpacked"), "rowpacked" or "packed"
+    #: "auto" (= "rowpacked"), "rowpacked", "packed" or "dense"
     engine: str = "auto"
+    #: OFN text through the C++ load plane (``owl/native_loader.py``);
+    #: classify falls back to the Python plane only for XML input, for
+    #: ``verify=True`` and with a normalizer cache, as the reference does
+    use_native_loader: bool = True
+    #: persistable gensym cache of the Python normalizer (the
+    #: reference's NORMALIZE_CACHE): read before and written after
+    #: normalizing
+    normalize_cache_path: Optional[str] = None
     #: shape-bucketed programs exist to share compiled XLA executables;
     #: the port runs eagerly and has no counterpart yet, so only False
     #: is accepted (bucketing never changes a closure)
@@ -46,15 +55,10 @@ class ClassifierConfig:
         self.validate()
 
     def validate(self) -> None:
-        if self.engine == "dense":
-            raise ValueError(
-                "engine 'dense' is not ported to distel_tpu_torch yet: use "
-                "'rowpacked' or 'packed'"
-            )
-        if self.engine not in ("auto", "rowpacked", "packed"):
+        if self.engine not in ("auto", "rowpacked", "packed", "dense"):
             raise ValueError(
                 f"unknown engine {self.engine!r}: expected 'auto', "
-                "'rowpacked' or 'packed'"
+                "'rowpacked', 'packed' or 'dense'"
             )
         if self.shape_buckets:
             raise ValueError(
@@ -88,6 +92,10 @@ class ClassifierConfig:
         for key in ("instrumentation.enabled", "instrumentation"):
             if key in raw:
                 cfg.instrumentation = flag(key)
+        if "normalize.cache.path" in raw:
+            cfg.normalize_cache_path = raw["normalize.cache.path"]
+        if "native.loader" in raw:
+            cfg.use_native_loader = flag("native.loader")
         if "engine" in raw:
             cfg.engine = raw["engine"]
         if "shape.buckets" in raw:

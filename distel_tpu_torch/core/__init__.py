@@ -1,1 +1,1 @@
-"""Core: indexing and the row-packed saturation engine."""
+"""Core: indexing, the saturation engines and the CPU oracle."""

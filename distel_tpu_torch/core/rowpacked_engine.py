@@ -1,4 +1,4 @@
-"""Row-packed saturation engine: transposed, scatter-free.
+"""Row-packed saturation engine: transposed, scatter-free, frontier-gated.
 
 The port of ``distel_tpu/core/rowpacked_engine.py``'s exact-shape,
 single-device path.  The state is stored **transposed and packed**:
@@ -21,21 +21,41 @@ writes whole rows:
 in that order within a step.  The role hierarchy never materializes:
 the closure masks are FACTORED (``m[j, ρ] = H[ρ, s_j]``, gathered per
 link through its role), and each CR4/CR6 row chunk contracts only the
-link windows whose roles can satisfy it (role-aware chunking + static
-live windows).  CR6 runs the live-tile schedule (``core/cr6_tiles.py``)
+link windows whose roles can satisfy it (static live windows; chunks
+cut at role runs once the tables are big enough for that to pay, as in
+the reference).  CR6 runs the live-tile schedule (``core/cr6_tiles.py``)
 when its live structure is sparse enough.
+
+**Frontier gating** (the reference's two-sided semi-naive join): every
+writer returns its per-target change vector, and after each step one
+device fold turns them into the frontier of the next step — the
+changed S rows, and per L-chunk (``lc`` links of the link axis) whether
+an R row in it changed.  A CR4/CR6 window contracts only when an R row
+of an L-chunk it overlaps, or a bit-table source row of its chunk (S
+rows ``a_j`` for CR4, the L-chunks of the rows ``l2_p`` for CR6),
+changed in the last step; a live-tile slot likewise; with chunk gating
+(``gate_chunks``) CR5 runs only when R or the ⊥ row changed.  Skipping
+only delays derivations (every rule is a monotone OR, and the loop
+stops only after a step that changed nothing), and the per-round states
+equal the reference's ``_step`` with its dirty carry when both engines
+run the same chunk plan.  The flags reach the host in one small copy
+per round, which replaces the convergence read: a window whose inputs
+are clean launches nothing.
 
 What differs from the reference, and why:
 
-* The fixed point is a host loop with one convergence read per round;
-  there is no ``lax.while_loop`` to compile.  PyTorch runs eagerly, so
-  there is no scan mode and no unrolled-chunk mode either: chunks are a
-  Python loop.
-* No frontier gating: every live window is contracted every round.
-  Gating only delays derivations (every rule is a monotone OR), so the
-  closure and the derivation count are unchanged; the iteration count
-  can differ from the reference's.
+* The fixed point is a host loop with one flag read per round; there is
+  no ``lax.while_loop`` to compile.  PyTorch runs eagerly, so there is
+  no scan mode: chunks are a Python loop.
+* The fold ORs each writer's change vector into the frontier masks by
+  an indexed write (targets are unique within a writer); the reference's
+  layered permutation gathers exist only because a scatter serialises
+  on the TPU.
 * Rows are written in place (the state is the largest tensor of a run).
+* The link axis is never evened out to the window grid: windows that
+  run past its end are cut short (the reference pads the axis with
+  inert links instead), so ``nl`` never exceeds the reference engine's
+  and snapshots interchange both ways.
 * Temporaries are sized against the device's memory (an 80 GB H100)
   rather than the 16 GB v5e the reference's thresholds were measured on
   — see ``core/engine.py``'s :func:`default_temp_budget`.
@@ -44,7 +64,8 @@ What differs from the reference, and why:
 from __future__ import annotations
 
 import time
-from typing import Optional, Tuple
+from dataclasses import dataclass
+from typing import List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -76,6 +97,17 @@ from distel_tpu_torch.ops.bitpack import (
 #: (wider waste factors) until the count fits
 MAX_ROLE_CHUNKS = 256
 
+#: dense contraction volume (table rows × nl × nc) from which CR4/CR6
+#: chunks cut at role runs and windows resolve the link table's role
+#: runs — the reference's threshold: below it the whole table is one
+#: row-budget chunk over budget-sized windows
+ROLE_SPLIT_MIN_VOLUME = 5e11
+
+#: the reference's automatic chunk gating (which adds the CR5 gate):
+#: from this many padded concepts, up to :data:`GATE_MAX_STATE_BYTES`
+GATE_MIN_CONCEPTS = 32_768
+GATE_MAX_STATE_BYTES = 5 << 29
+
 
 def _factored_closure_tables(h, nf4_roles, chain_roles):
     """``(m4, m6)``: ``h`` extended with one all-zero SENTINEL role row
@@ -92,6 +124,33 @@ def _factored_closure_tables(h, nf4_roles, chain_roles):
         return np.ascontiguousarray(h2[:, roles].T)
 
     return tab(nf4_roles), tab(chain_roles)
+
+
+class _Chunk(NamedTuple):
+    """One CR4/CR6 row chunk of the window formulation."""
+
+    src: torch.Tensor        # [rk] bit-table source rows (a_j / l2_p)
+    mask: torch.Tensor       # [rk, n_roles + 1] factored mask rows
+    piece: SegmentedRowOr    # the chunk's write plan over its targets
+    order: torch.Tensor      # the plan's emission order
+    #: live windows ``(off, end, c0, c1)``: links [off, end) and the
+    #: first and last L-chunk the (uncut) window overlaps
+    windows: List[Tuple[int, int, int, int]]
+
+
+@dataclass
+class Frontier:
+    """What changed in the last step, as the next step reads it (host
+    flags; ``dirty_l_dev`` is the device copy the live-tile slots read,
+    with a trailing always-False slot)."""
+
+    changed: bool
+    dirty_l: np.ndarray      # [n_lchunks] an R row of the L-chunk changed
+    f4: np.ndarray           # [CR4 chunks] a source S row changed
+    f6: np.ndarray           # [CR6 chunks] an L-chunk of a source row did
+    fd6: np.ndarray          # [CR6 row tiles] same, per live-tile row tile
+    cr5: bool                # R or the ⊥ row changed
+    dirty_l_dev: torch.Tensor
 
 
 class RowPackedSaturationEngine:
@@ -112,11 +171,20 @@ class RowPackedSaturationEngine:
         temp_budget_bytes: Optional[int] = None,
         rules: Optional[frozenset] = None,
         cr6_tiles: Optional[dict] = None,
+        l_chunk: Optional[int] = None,
+        l_chunk_cr4: Optional[int] = None,
+        gate_chunks: Optional[bool] = None,
     ):
         """``rules``: subset of {"CR1".."CR6"} this engine applies (None
-        = all).  ``cr6_tiles``: live-tile CR6 config
-        (None = off; keys ``enable``, ``tile_m``, ``tile_l``,
-        ``density_threshold``)."""
+        = all).  ``cr6_tiles``: live-tile CR6 config (None = off; keys
+        ``enable``, ``tile_m``, ``tile_l``, ``density_threshold``).
+        ``l_chunk`` / ``l_chunk_cr4``: the L-chunk length (the frontier's
+        granularity on the link axis and CR6's window length) and CR4's
+        window length (at most ``l_chunk``), as the reference's knobs of
+        the same names; None = from the temporary budget.
+        ``gate_chunks``: gate CR5 on its inputs' change (None = the
+        reference's rule: from 32,768 padded concepts up to 2.5 GiB of
+        packed state)."""
         if rules is not None:
             unknown = set(rules) - {f"CR{i}" for i in range(1, 7)}
             if unknown:
@@ -128,12 +196,16 @@ class RowPackedSaturationEngine:
         self.temp_budget_bytes = int(temp_budget_bytes)
         pad_multiple = _pad_up(max(pad_multiple, 32), 32)
         self.nc = _pad_up(_pad_up(max(idx.n_concepts, 2), pad_multiple), 32)
-        # the link axis is never evened out to a window grid (windows
-        # clamp at the tail instead), so nl never exceeds the reference
-        # engine's and snapshots interchange both ways
         self.nl = max(_pad_up(idx.n_links, 32), 32)
         self.wc = self.nc // 32
         dev = self.device
+        if gate_chunks is None:
+            state_bytes = (self.nc + self.nl) * self.wc * 4
+            gate_chunks = (
+                self.nc >= GATE_MIN_CONCEPTS
+                and state_bytes <= GATE_MAX_STATE_BYTES
+            )
+        self._gate_cr5 = bool(gate_chunks)
 
         def on(rule: str) -> bool:
             return rules is None or rule in rules
@@ -184,23 +256,31 @@ class RowPackedSaturationEngine:
             idx.chain_pairs[:, 0] if self._has6 else None,
         )
 
-        # ---- role-aware row chunking for CR4/CR6: the tables arrive
-        # role-sorted, so chunks cut at role-run boundaries keep each
-        # chunk's live link set small; runs merge greedily while the
-        # merged (rows × live links) volume stays within ``waste`` of the
-        # parts' sum.  Chunk rows are bounded so one chunk's packed
-        # output [rk, wc] fits the budget.
+        # ---- CR4/CR6 row chunks.  Chunk rows are bounded so one
+        # chunk's packed output [rk, wc] fits the budget.  Once a table's
+        # dense contraction is big enough for pruning to pay (the
+        # reference's threshold), chunks cut at role-run boundaries (the
+        # tables arrive role-sorted), so each chunk's live link set stays
+        # small; runs merge greedily while the merged (rows × live links)
+        # volume stays within ``waste`` of the parts' sum.
         mm_rows = max(self.temp_budget_bytes // (4 * self.wc), 1)
         link_cnt = (
             np.bincount(idx.links[:, 0], minlength=n_roles)
             if idx.n_links
             else np.zeros(n_roles, np.int64)
         )
+        rows_max = max(
+            len(idx.nf4) if self._has4 else 0,
+            len(idx.chain_pairs) if self._has6 else 0,
+        )
+        big_tables = rows_max * self.nl * self.nc >= ROLE_SPLIT_MIN_VOLUME
 
         def role_chunks(tab_roles):
             n = len(tab_roles)
             if n == 0:
                 return []
+            if not big_tables:
+                return [(o, min(o + mm_rows, n)) for o in range(0, n, mm_rows)]
             starts = np.flatnonzero(np.r_[True, tab_roles[1:] != tab_roles[:-1]])
             ends = np.r_[starts[1:], n]
             pieces = []
@@ -237,38 +317,59 @@ class RowPackedSaturationEngine:
         spans4 = role_chunks(idx.nf4[:, 0]) if self._has4 else []
         spans6 = role_chunks(idx.chain_pairs[:, 0]) if self._has6 else []
         max_rk = max([a1 - a0 for a0, a1 in spans4 + spans6], default=1)
-        # window length: the [rk, lc] int8 operand within half the
-        # budget, and no longer than the link table's mean role run (with
-        # a 256 floor), so windows resolve role runs
-        n_link_roles = max(
-            len(np.unique(idx.links[:, 0])) if idx.n_links else 1, 1
-        )
-        lc = min(
-            _pad_up(max(self.temp_budget_bytes // 2 // max_rk, 32), 32),
-            max(_pad_up(-(-self.nl // n_link_roles), 32), 256),
-            self.nl,
-        )
-        self.lc = lc
 
-        def live_windows(role_list):
-            """Static window offsets covering the links whose role is a
-            (transitive) subrole of some role in ``role_list``; None
-            when no link can satisfy them.  Window edges may include
-            off-role links (their factored-mask entries are 0) and the
-            tail window clamps to ``nl - lc`` (re-deriving earlier links
-            is idempotent under OR)."""
+        # ---- the L-chunk grid: the [rk, lc] int8 operand within half the
+        # budget and, with big tables, no longer than the link table's
+        # mean role run (with a 256 floor), so windows resolve role runs;
+        # then evened out over the chunk count as the reference does.
+        # The grid may end past nl: windows there are cut at nl.
+        if l_chunk is not None:
+            lc = min(_pad_up(max(l_chunk, 32), 32), self.nl)
+        else:
+            lc = min(
+                _pad_up(max(self.temp_budget_bytes // 2 // max_rk, 32), 32),
+                self.nl,
+            )
+            if big_tables:
+                n_link_roles = max(
+                    len(np.unique(idx.links[:, 0])) if idx.n_links else 1, 1
+                )
+                lc = min(lc, max(_pad_up(-(-self.nl // n_link_roles), 32), 256))
+        self.n_lchunks = -(-self.nl // lc)
+        lc = _pad_up(-(-self.nl // self.n_lchunks), 32)
+        self.lc = lc
+        self._grid_end = self.n_lchunks * lc
+        # CR4's windows may be finer; the frontier grid stays lc (a
+        # window no wider than one L-chunk overlaps at most two)
+        self.lc4 = (
+            lc if l_chunk_cr4 is None
+            else min(_pad_up(max(l_chunk_cr4, 32), 32), lc)
+        )
+
+        def live_windows(role_list, lcn):
+            """Static live windows ``[(off, end, c0, c1)]`` covering the
+            links whose role is a (transitive) subrole of some role in
+            ``role_list``; None when no link can satisfy them.  Window
+            edges may include off-role links (their factored-mask entries
+            are 0); the tail window clamps to the grid end (re-deriving
+            earlier links is idempotent under OR) and is cut at nl."""
             croles = np.unique(role_list)
             rel = np.flatnonzero(h[:, croles].any(axis=1))
             live = np.flatnonzero(np.isin(link_roles, rel))
             if live.size == 0:
                 return None
-            offs = []
+            wins = []
             i = 0
             while i < live.size:
-                off = min(int(live[i]), self.nl - lc)
-                offs.append(off)
-                i = int(np.searchsorted(live, off + lc))
-            return offs
+                off = min(int(live[i]), self._grid_end - lcn)
+                wins.append((
+                    off,
+                    min(off + lcn, self.nl),
+                    off // lc,
+                    min((off + lcn - 1) // lc, self.n_lchunks - 1),
+                ))
+                i = int(np.searchsorted(live, off + lcn))
+            return wins
 
         self._plans: dict = {}
 
@@ -280,35 +381,38 @@ class RowPackedSaturationEngine:
                 )
             return self._plans[key]
 
-        def build_chunks(spans, tab, src_col, mask_tab):
-            """[(src rows, mask rows, seg-OR piece, windows, plan)] —
-            chunks with no live window are dropped outright."""
-            out = []
+        self._plan = plan
+
+        def build_chunks(spans, tab, src_col, mask_tab, lcn):
+            """The chunks with a live window (the others are dropped),
+            and each kept chunk's span."""
+            out, kept = [], []
             for a0, a1 in spans:
-                wins = live_windows(tab[a0:a1, 0])
+                wins = live_windows(tab[a0:a1, 0], lcn)
                 if wins is None:
                     continue
                 piece = SegmentedRowOr(tab[a0:a1, 2])
-                out.append(
-                    (
-                        i64(tab[a0:a1, src_col]),
-                        torch.as_tensor(mask_tab[a0:a1]).to(dev),
-                        piece,
-                        i64(piece.order),
-                        wins,
-                        plan(a1 - a0, lc),
-                    )
-                )
-            return out
+                out.append(_Chunk(
+                    i64(tab[a0:a1, src_col]),
+                    torch.as_tensor(mask_tab[a0:a1]).to(dev),
+                    piece,
+                    i64(piece.order),
+                    wins,
+                ))
+                kept.append((a0, a1))
+            return out, kept
 
-        self._chunks4 = build_chunks(spans4, idx.nf4, 1, m4) if self._has4 else []
+        self._chunks4, kept4 = (
+            build_chunks(spans4, idx.nf4, 1, m4, self.lc4)
+            if self._has4 else ([], [])
+        )
 
         # ---- CR6: live-tile schedule when its live structure is sparse
         # enough, else the same role-chunked window formulation as CR4
         self._tiles6 = None
         self.cr6_tiles_stats = {"active": False, "reason": "off"}
         tcfg = self._normalize_cr6_tiles_cfg(cr6_tiles)
-        self._chunks6 = []
+        self._chunks6, kept6 = [], []
         if self._has6:
             cp = idx.chain_pairs
             if tcfg is not None:
@@ -317,13 +421,13 @@ class RowPackedSaturationEngine:
                 g_rows = max(mm_rows // tm_eff, 1) * tm_eff
                 sched = build_cr6_tile_schedule(
                     cp[:, 0], cp[:, 1], cp[:, 2], m6, link_roles, h,
-                    lc=lc, n_lchunks=-(-self.nl // lc),
+                    lc=lc, n_lchunks=self.n_lchunks,
                     tile_m=tm_eff, tile_l=tcfg["tile_l"],
                     group_bounds=list(range(0, len(cp), g_rows)) + [len(cp)],
                     dead_link=self.nl - 1,
                 )
                 window_macs = sum(
-                    len(live_windows(cp[a0:a1, 0]) or ()) * lc * (a1 - a0)
+                    len(live_windows(cp[a0:a1, 0], lc) or ()) * lc * (a1 - a0)
                     for a0, a1 in spans6
                 )
                 tile_macs = sched.stats["occupied_slots"] * sched.tile_m
@@ -340,22 +444,56 @@ class RowPackedSaturationEngine:
                 else:
                     self.cr6_tiles_stats["reason"] = "density above threshold"
             if self._tiles6 is None:
-                self._chunks6 = build_chunks(spans6, cp, 1, m6)
+                self._chunks6, kept6 = build_chunks(spans6, cp, 1, m6, lc)
+        self._t6 = None
         if self._tiles6 is not None:
             t = self._tiles6
             n_tiles = [-(-len(lv) // t.tile_l) for lv in t.live_per_span]
+            # per (row tile, link tile): the L-chunks its valid slots
+            # read, for the host's launch decision
+            tile_lchunks = [
+                [np.unique(t.tids[rt, k][t.tval[rt, k]] // lc)
+                 for k in range(n_tiles[rt])]
+                for rt in range(t.n_rt)
+            ]
             self._t6 = {
                 "rows": torch.as_tensor(t.rows.astype(np.int64)).to(dev),
                 "mrows": torch.as_tensor(t.mrows).to(dev),
                 "tids": torch.as_tensor(t.tids.astype(np.int64)).to(dev),
-                "tval": torch.as_tensor(t.tval.astype(np.int8)).to(dev),
+                "tval": torch.as_tensor(t.tval).to(dev),
+                "tchunk": torch.as_tensor(
+                    (t.tids // lc).astype(np.int64)
+                ).to(dev),
+                "fdx": torch.as_tensor(t.fdx.astype(np.int64)).to(dev),
                 "n_tiles": n_tiles,
+                "lchunks": tile_lchunks,
                 "groups": [
                     (rt0, rt1, p, i64(order))
                     for rt0, rt1, p, order, _tg in t.groups
                 ],
                 "mm": make_tile_matmul(t.tile_m, t.tile_l, self.wc),
             }
+
+        # ---- frontier reductions: per chunk, which frontier entries its
+        # bit table reads (CSR: entry ids and their chunk), reduced on
+        # the device so the host copy stays n_chunks + n_lchunks flags
+        def csr(sets):
+            ids = [np.asarray(s, np.int64) for s in sets]
+            seg = [np.full(len(s), i, np.int64) for i, s in enumerate(ids)]
+            cat = np.concatenate(ids) if ids else np.zeros(0, np.int64)
+            segs = np.concatenate(seg) if seg else np.zeros(0, np.int64)
+            return i64(cat), i64(segs)
+
+        self._f4_csr = csr(
+            np.unique(idx.nf4[a0:a1, 1]) for a0, a1 in kept4
+        )
+        self._f6_csr = csr(
+            np.unique(idx.chain_pairs[a0:a1, 1] // lc) for a0, a1 in kept6
+        )
+        n_rt = self._tiles6.n_rt if self._tiles6 is not None else 0
+        self._flag_sizes = (
+            self.n_lchunks, len(self._chunks4), len(self._chunks6), n_rt,
+        )
 
         # live-column word mask: bits for x < n_concepts only
         wmask = np.zeros(self.wc, np.uint32)
@@ -367,27 +505,45 @@ class RowPackedSaturationEngine:
         #: per-rule wall seconds accumulated by :meth:`saturate` when
         #: ``profile=True`` (synchronised timings, for breakdowns only)
         self.rule_seconds: dict = {}
+        #: per-round gating counts of the last :meth:`saturate`:
+        #: ``{"cr4": [run, skipped], "cr6": [...], "cr6_tiles": [...],
+        #: "cr5": ran}`` (windows, or link tiles for the live-tile CR6)
+        self.gate_rounds: list = []
 
     def plan_stats(self) -> dict:
         """Static plan sizes: state layout, rule table sizes, and the
         CR4/CR6 contraction structure (chunks, windows, tiles)."""
-        t6 = self._t6["n_tiles"] if self._tiles6 is not None else []
+        t6 = self._t6["n_tiles"] if self._t6 is not None else []
         return {
             "nc": self.nc,
             "nl": self.nl,
             "wc": self.wc,
             "lc": self.lc,
+            "lc4": self.lc4,
+            "n_lchunks": self.n_lchunks,
             "word_block": self._bw,
             "seg_or_rows": [self._p1.k, self._p2.k, self._p3.k],
             "cr4_chunks": len(self._chunks4),
-            "cr4_windows": sum(len(c[4]) for c in self._chunks4),
+            "cr4_windows": sum(len(c.windows) for c in self._chunks4),
             "cr6_chunks": len(self._chunks6),
-            "cr6_windows": sum(len(c[4]) for c in self._chunks6),
+            "cr6_windows": sum(len(c.windows) for c in self._chunks6),
             "cr6_row_tiles": len(t6),
             "cr6_link_tiles": sum(t6),
             "cr6_tiles": self.cr6_tiles_stats.get("active", False),
+            "cr5_gate": self._gate_cr5,
             "temp_budget_bytes": self.temp_budget_bytes,
         }
+
+    def gate_totals(self) -> dict:
+        """:attr:`gate_rounds` summed over the rounds of the last run."""
+        out = {"cr4": [0, 0], "cr6": [0, 0], "cr6_tiles": [0, 0], "cr5": [0, 0]}
+        for rnd in self.gate_rounds:
+            for k in ("cr4", "cr6", "cr6_tiles"):
+                out[k][0] += rnd[k][0]
+                out[k][1] += rnd[k][1]
+            if rnd["cr5"] is not None:
+                out["cr5"][0 if rnd["cr5"] else 1] += 1
+        return {k: {"contracted": v[0], "skipped": v[1]} for k, v in out.items()}
 
     @classmethod
     def _normalize_cr6_tiles_cfg(cls, raw) -> Optional[dict]:
@@ -423,6 +579,17 @@ class RowPackedSaturationEngine:
         padded x columns evolve inertly and are masked from counts."""
         return self._to_state(
             self._init_rows(), np.zeros((self.nl, self.wc), np.uint32)
+        )
+
+    def initial_frontier(self) -> Frontier:
+        """Everything dirty: every rule runs on the first step (and on
+        the first step of a resume)."""
+        n_l, n4, n6, n_rt = self._flag_sizes
+        dl = torch.ones(n_l + 1, dtype=torch.bool, device=self.device)
+        dl[n_l] = False
+        return Frontier(
+            True, np.ones(n_l, bool), np.ones(n4, bool), np.ones(n6, bool),
+            np.ones(n_rt, bool), True, dl,
         )
 
     def embed_state(self, s_old, r_old, *, allow_shrink: bool = False):
@@ -488,82 +655,124 @@ class RowPackedSaturationEngine:
         )
         return out
 
-    def _row_rules(self, sp, rp, changed):
-        """CR1, CR2, CR3 swept over word blocks of the state."""
+    def _row_rules(self, sp, rp, s_cvs, r_cvs):
+        """CR1, CR2, CR3 swept over word blocks of the state; each
+        rule's change vector is the OR over its blocks."""
+        cv = [None, None, None]
         for off in range(0, self.wc, self._bw):
             blk = slice(off, min(off + self._bw, self.wc))
             if self._p1.k:  # CR1: a ⊑ b
                 red = self._p1.reduce(sp[self._src1, blk])
-                changed |= self._p1.write(sp, red, blk)
+                c = self._p1.write(sp, red, blk, track="rows")
+                cv[0] = c if cv[0] is None else cv[0] | c
             if self._p2.k:  # CR2: a1 ⊓ a2 ⊑ b
                 red = self._p2.reduce(sp[self._src2a, blk] & sp[self._src2b, blk])
-                changed |= self._p2.write(sp, red, blk)
+                c = self._p2.write(sp, red, blk, track="rows")
+                cv[1] = c if cv[1] is None else cv[1] | c
             if self._p3.k:  # CR3: a ⊑ ∃link — reads S, writes R
                 red = self._p3.reduce(sp[self._src3, blk])
-                changed |= self._p3.write(rp, red, blk)
-        return changed
+                c = self._p3.write(rp, red, blk, track="rows")
+                cv[2] = c if cv[2] is None else cv[2] | c
+        for plan, c, out in (
+            (self._p1, cv[0], s_cvs), (self._p2, cv[1], s_cvs),
+            (self._p3, cv[2], r_cvs),
+        ):
+            if c is not None:
+                out.append((plan.device_targets(sp.device), c))
 
-    def _contract_chunk(self, bits_state, rp, chunk):
+    def _contract_chunk(self, bits_state, rp, chunk, live):
         """One CR4/CR6 row chunk: its packed [rk, wc] AND-OR product,
         OR-accumulated over its live windows (a window of R_T rows is a
-        contiguous slice — no copy): the first window writes the
-        accumulator, every later one ORs into it in place."""
-        src_rows, mask_rows, _piece, _order, wins, mm = chunk
-        lc = self.lc
-        subt = bits_state[src_rows].T.contiguous()         # [wc, rk]
+        contiguous slice — no copy): the first live window writes the
+        accumulator, every later one ORs into it in place.  None when
+        no window is live (nothing launches)."""
+        rk = chunk.src.shape[0]
+        subt = None
         acc = None
-        for off in wins:
+        for (off, end, _c0, _c1), run in zip(chunk.windows, live):
+            if not run:
+                continue
+            if subt is None:
+                subt = bits_state[chunk.src].T.contiguous()   # [wc, rk]
             f = bit_lookup_from(
-                subt, self._fillers[off : off + lc], dtype=torch.int8
-            )                                              # [lc, rk]
-            w = mask_rows[:, self._link_roles[off : off + lc]] * f.T
-            acc = mm(w.contiguous(), rp[off : off + lc], out=acc)
+                subt, self._fillers[off:end], dtype=torch.int8
+            )                                              # [l, rk]
+            w = chunk.mask[:, self._link_roles[off:end]] * f.T
+            acc = self._plan(rk, end - off)(w.contiguous(), rp[off:end], out=acc)
         return acc
 
-    def _cr4(self, sp, rp, changed):
-        for chunk in self._chunks4:
-            out = self._contract_chunk(sp, rp, chunk)
-            piece, order = chunk[2], chunk[3]
-            changed |= piece.write(sp, piece.reduce(out[order]))
-        return changed
+    def _window_live(self, chunk, f, fr):
+        dl = fr.dirty_l
+        return [bool(f or dl[c0] or dl[c1]) for _o, _e, c0, c1 in chunk.windows]
 
-    def _cr6_windows(self, rp, changed):
-        for chunk in self._chunks6:
-            out = self._contract_chunk(rp, rp, chunk)
-            piece, order = chunk[2], chunk[3]
-            changed |= piece.write(rp, piece.reduce(out[order]))
-        return changed
+    def _contract_rule(self, chunks, flags, bits_state, rp, target, fr, cvs,
+                       counts):
+        for chunk, f in zip(chunks, flags):
+            live = self._window_live(chunk, f, fr)
+            n_run = sum(live)
+            counts[0] += n_run
+            counts[1] += len(live) - n_run
+            out = self._contract_chunk(bits_state, rp, chunk, live)
+            if out is None:
+                continue
+            piece = chunk.piece
+            cv = piece.write(target, piece.reduce(out[chunk.order]), track="rows")
+            cvs.append((piece.device_targets(target.device), cv))
 
-    def _cr6_tiles(self, rp, changed):
+    def _cr4(self, sp, rp, fr, s_cvs, counts):
+        self._contract_rule(self._chunks4, fr.f4, sp, rp, sp, fr, s_cvs, counts)
+
+    def _cr6_windows(self, rp, fr, r_cvs, counts):
+        self._contract_rule(self._chunks6, fr.f6, rp, rp, rp, fr, r_cvs, counts)
+
+    def _cr6_tiles(self, rp, fr, r_cvs, counts):
         """Live-tile CR6: role-run row tiles contract only their densely
         packed live links — the [tile_m, tile_l] operand is (factored
-        mask ∧ bit table ∧ slot validity) against the gathered R rows."""
+        mask ∧ bit table ∧ slot liveness) against the gathered R rows.
+        A slot is live when its link's L-chunk or an L-chunk of its row
+        tile's source rows changed; a link tile with no live slot, and a
+        row tile with no live link tile, launch nothing."""
         t6 = self._t6
         mm = t6["mm"]
+        dl = fr.dirty_l
         for rt0, rt1, plan, order in t6["groups"]:
-            outs = []
+            outs, any_live = [], False
             for rt in range(rt0, rt1):
-                subt = rp[t6["rows"][rt]].T.contiguous()   # [wc, tile_m]
+                fd = bool(fr.fd6[rt])
+                tiles = [
+                    k for k in range(t6["n_tiles"][rt])
+                    if fd or dl[t6["lchunks"][rt][k]].any()
+                ]
+                counts[0] += len(tiles)
+                counts[1] += t6["n_tiles"][rt] - len(tiles)
                 acc = torch.zeros(
                     (mm.m, self.wc), dtype=torch.int32, device=rp.device
                 )
-                for k in range(t6["n_tiles"][rt]):
+                if tiles:
+                    any_live = True
+                    subt = rp[t6["rows"][rt]].T.contiguous()   # [wc, tile_m]
+                for k in tiles:
                     ids = t6["tids"][rt, k]
+                    live = t6["tval"][rt, k]
+                    if not fd:
+                        live = live & fr.dirty_l_dev[t6["tchunk"][rt, k]]
                     f = bit_lookup_from(
                         subt, self._fillers[ids], dtype=torch.int8
                     )                                      # [tile_l, tile_m]
                     w = (
                         t6["mrows"][rt][:, self._link_roles[ids]]
                         * f.T
-                        * t6["tval"][rt, k][None, :]
+                        * live.to(torch.int8)[None, :]
                     )
                     mm(w.contiguous(), rp[ids], out=acc)
                 outs.append(acc)
+            if not any_live:
+                continue
             out = torch.cat(outs) if len(outs) > 1 else outs[0]
-            changed |= plan.write(rp, plan.reduce(out[order]))
-        return changed
+            cv = plan.write(rp, plan.reduce(out[order]), track="rows")
+            r_cvs.append((plan.device_targets(rp.device), cv))
 
-    def _cr5(self, sp, rp, changed):
+    def _cr5(self, sp, rp, s_cvs):
         """⊥ back-propagation: OR of the R rows whose filler is
         unsatisfiable, into the ⊥ row (in row blocks, so the masked copy
         stays bounded)."""
@@ -577,24 +786,81 @@ class RowPackedSaturationEngine:
             red |= or_reduce_any(masked, 0)
         old = sp[BOTTOM_ID].clone()
         sp[BOTTOM_ID] |= red
-        return changed | (sp[BOTTOM_ID] != old).any()
+        s_cvs.append((
+            torch.full((1,), BOTTOM_ID, dtype=torch.int64, device=sp.device),
+            (sp[BOTTOM_ID] != old).any()[None],
+        ))
 
-    def step(self, sp: torch.Tensor, rp: torch.Tensor):
-        """One superstep, in place: CR1, CR2, CR3, CR4, CR6, CR5.
-        Returns ``(sp, rp, changed)`` with ``changed`` a 0-d bool tensor
-        on the device (no host synchronisation)."""
-        changed = torch.zeros((), dtype=torch.bool, device=sp.device)
+    def _fold(self, s_cvs, r_cvs) -> Frontier:
+        """The next step's frontier from this step's change vectors: one
+        indexed OR a state matrix (targets are unique within a writer,
+        and the order of writers does not matter for an OR), the per-
+        chunk reductions on the device, and one copy of every flag to
+        the host."""
+        dev = self.device
+
+        def mask(cvs, n):
+            m = torch.zeros(n, dtype=torch.int32, device=dev)
+            if cvs:
+                t = torch.cat([t for t, _ in cvs])
+                v = torch.cat([c for _, c in cvs]).to(torch.int32)
+                m.index_add_(0, t, v)
+            return m > 0
+
+        def per_chunk(src, csr, n):
+            ids, seg = csr
+            out = torch.zeros(n, dtype=torch.int32, device=dev)
+            if ids.numel():
+                out.index_add_(0, seg, src[ids].to(torch.int32))
+            return out > 0
+
+        n_l, n4, n6, n_rt = self._flag_sizes
+        mask_s = mask(s_cvs, self.nc)
+        mask_r = mask(r_cvs, self._grid_end)
+        dirty_l = mask_r.view(n_l, self.lc).any(dim=1)
+        any_r = dirty_l.any()
+        dl_ext = torch.cat([dirty_l, dirty_l.new_zeros(1)])
+        parts = [
+            (mask_s.any() | any_r)[None],
+            dirty_l,
+            per_chunk(mask_s, self._f4_csr, n4),
+            per_chunk(dirty_l, self._f6_csr, n6),
+        ]
+        if n_rt:
+            parts.append(dl_ext[self._t6["fdx"]].any(dim=1))
+        parts.append((any_r | mask_s[BOTTOM_ID])[None])
+        flags = torch.cat(parts).cpu().numpy()
+        o = np.cumsum([1, n_l, n4, n6, n_rt])
+        return Frontier(
+            bool(flags[0]), flags[o[0]:o[1]], flags[o[1]:o[2]],
+            flags[o[2]:o[3]], flags[o[3]:o[4]], bool(flags[o[4]]), dl_ext,
+        )
+
+    def step(self, sp: torch.Tensor, rp: torch.Tensor,
+             frontier: Optional[Frontier] = None):
+        """One superstep, in place: CR1, CR2, CR3, CR4, CR6, CR5, gated
+        on ``frontier`` (None = everything dirty, as on a first step).
+        Returns ``(sp, rp, frontier_next)``; ``frontier_next.changed``
+        says whether any bit changed."""
+        fr = self.initial_frontier() if frontier is None else frontier
+        s_cvs, r_cvs = [], []
+        rnd = {"cr4": [0, 0], "cr6": [0, 0], "cr6_tiles": [0, 0], "cr5": None}
         if self._p1.k or self._p2.k or self._p3.k:
-            changed = self._timed("cr1-3", self._row_rules, sp, rp, changed)
+            self._timed("cr1-3", self._row_rules, sp, rp, s_cvs, r_cvs)
         if self._chunks4:
-            changed = self._timed("cr4", self._cr4, sp, rp, changed)
-        if self._tiles6 is not None:
-            changed = self._timed("cr6", self._cr6_tiles, rp, changed)
+            self._timed("cr4", self._cr4, sp, rp, fr, s_cvs, rnd["cr4"])
+        if self._t6 is not None:
+            self._timed("cr6", self._cr6_tiles, rp, fr, r_cvs, rnd["cr6_tiles"])
         elif self._chunks6:
-            changed = self._timed("cr6", self._cr6_windows, rp, changed)
+            self._timed("cr6", self._cr6_windows, rp, fr, r_cvs, rnd["cr6"])
         if self._bottom:
-            changed = self._timed("cr5", self._cr5, sp, rp, changed)
-        return sp, rp, changed
+            run = fr.cr5 or not self._gate_cr5
+            rnd["cr5"] = run
+            if run:
+                self._timed("cr5", self._cr5, sp, rp, s_cvs)
+        nxt = self._timed("read", self._fold, s_cvs, r_cvs)
+        self.gate_rounds.append(rnd)
+        return sp, rp, nxt
 
     _profile = False
 
@@ -612,13 +878,14 @@ class RowPackedSaturationEngine:
         profile: bool = False,
     ) -> SaturationResult:
         """Run supersteps until one changes nothing (one host read of
-        the device's change flag per round) or ``max_iters`` rounds
-        ran.  ``initial``: a previous closure for :meth:`embed_state`.
-        ``profile``: accumulate synchronised walls of each rule group,
-        the initial state, the per-round change-flag read and the final
-        bit count into :attr:`rule_seconds` (slower; for breakdowns
-        only)."""
+        the device's frontier flags per round) or ``max_iters`` rounds
+        ran.  ``initial``: a previous closure for :meth:`embed_state`
+        (its first step runs everything).  ``profile``: accumulate
+        synchronised walls of each rule group, the initial state, the
+        per-round frontier fold and read and the final bit count into
+        :attr:`rule_seconds` (slower; for breakdowns only)."""
         self._profile = bool(profile)
+        self.gate_rounds = []
         try:
             if initial is None:
                 sp, rp = self._timed("init", self.initial_state)
@@ -626,11 +893,11 @@ class RowPackedSaturationEngine:
             else:
                 sp, rp = self._timed("init", self.embed_state, *initial)
                 init_total = self.count_live_bits(sp, rp)
-            it, changed = 0, True
-            while changed and it < max_iters:
-                sp, rp, ch = self.step(sp, rp)
+            it, fr = 0, None
+            while (fr is None or fr.changed) and it < max_iters:
+                sp, rp, fr = self.step(sp, rp, fr)
                 it += 1
-                changed = self._timed("read", bool, ch)
+            changed = fr is None or fr.changed
             total = self._timed("count", self.count_live_bits, sp, rp)
         finally:
             self._profile = False

@@ -370,16 +370,21 @@ class SegmentedRowOr:
         return outs[0] if len(outs) == 1 else torch.cat(outs, dim=0)
 
     def write(self, state: torch.Tensor, reduced: torch.Tensor,
-              cols: slice = slice(None)) -> torch.Tensor:
+              cols: slice = slice(None), track=True) -> torch.Tensor:
         """OR already-reduced per-target rows ``reduced`` [n_targets, w]
         into ``state[:, cols]`` **in place** (the state is the largest
         tensor of a run; a functional update would double it).  Returns
-        a 0-d bool tensor "did any bit change", computed on the touched
-        rows only and left on the device."""
+        a 0-d bool tensor "did any bit change"; with ``track="rows"``
+        the per-target change vector [n_targets] bool instead (aligned
+        with ``targets``: the frontier signal of gated engines).  Either
+        is computed on the touched rows only and left on the device."""
         if self.k == 0:
-            return torch.zeros((), dtype=torch.bool, device=state.device)
+            shape = (0,) if track == "rows" else ()
+            return torch.zeros(shape, dtype=torch.bool, device=state.device)
         t = self.device_targets(state.device)
         old = state[t, cols]
         merged = old | reduced
         state[t, cols] = merged
+        if track == "rows":
+            return (merged != old).any(dim=1)
         return (merged != old).any()

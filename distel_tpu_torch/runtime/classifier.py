@@ -1,11 +1,15 @@
-"""The end-to-end classifier: parse → normalize → index → saturate →
-taxonomy, with per-phase wall-clock timers.
+"""The end-to-end classifier: load → saturate → taxonomy, with
+per-phase wall-clock timers.
 
 The port of ``distel_tpu/runtime/classifier.py``'s one-shot path
-(``ELClassifier.classify_text`` / ``classify_file``, including
-``resume_from=``) on the Python load plane, with the row-packed engine
-(``engine="auto"``/``"rowpacked"``) or the packed engine
-(``engine="packed"``).
+(``ELClassifier.classify_text`` / ``classify_file``, with
+``resume_from=`` and ``verify=``).  OFN text goes through the C++ load
+plane (phase ``load(native)``) unless the config turns it off, the input
+is XML, ``verify=True`` asks for the oracle diff (which reads the Python
+plane's normalized ontology) or a normalizer cache is configured; then
+parse → normalize → index run in Python, with the cache.  The engine is
+the row-packed one (``engine="auto"``/``"rowpacked"``), the packed one
+(``engine="packed"``) or the dense one (``engine="dense"``).
 Everything runs on ``cuda`` unless the caller passes ``device="cpu"``;
 with no card and no device given, construction raises.
 """
@@ -20,7 +24,7 @@ from typing import Dict, Optional, Union
 import torch
 
 from distel_tpu_torch.config import ClassifierConfig
-from distel_tpu_torch.core.engine import SaturationResult
+from distel_tpu_torch.core.engine import SaturationEngine, SaturationResult
 from distel_tpu_torch.core.indexing import Indexer, IndexedOntology
 from distel_tpu_torch.core.packed_engine import PackedSaturationEngine
 from distel_tpu_torch.core.rowpacked_engine import RowPackedSaturationEngine
@@ -75,21 +79,35 @@ class PhaseTimer:
 class ClassificationResult:
     result: SaturationResult
     taxonomy: Taxonomy
-    norm: NormalizedOntology
+    #: None when the native load plane ran (it keeps no Python IR)
+    norm: Optional[NormalizedOntology]
     idx: IndexedOntology
     timer: PhaseTimer
     #: the engine that ran the fixed point (its plan statistics)
     engine: Optional[
-        Union[RowPackedSaturationEngine, PackedSaturationEngine]
+        Union[RowPackedSaturationEngine, PackedSaturationEngine,
+              SaturationEngine]
     ] = None
 
     def summary(self) -> dict:
+        if self.norm is not None:
+            normalized = self.norm.axiom_count()
+            removed = sum(self.norm.removed.values())
+        else:
+            # native plane: the indexed normal-form rows (nf2 includes
+            # the binarization rows; role axioms are folded into the
+            # role closure and the chain pairs)
+            normalized = int(
+                len(self.idx.nf1) + len(self.idx.nf2) + len(self.idx.nf3)
+                + len(self.idx.nf4) + len(self.idx.chain_pairs)
+            )
+            removed = sum(self.idx.removed.values())
         return {
             "concepts": self.idx.n_concepts,
             "roles": self.idx.n_roles,
             "links": self.idx.n_links,
-            "normalized_axioms": self.norm.axiom_count(),
-            "removed_axioms": sum(self.norm.removed.values()),
+            "normalized_axioms": normalized,
+            "removed_axioms": removed,
             "iterations": self.result.iterations,
             "derivations": self.result.derivations,
             "unsatisfiable": len(self.taxonomy.unsatisfiable),
@@ -102,10 +120,15 @@ class ClassificationResult:
 
 def make_engine(config: ClassifierConfig, idx: IndexedOntology, device):
     """The engine ``config.engine`` names, on ``device``: the row-packed
-    engine for "auto" and "rowpacked", the packed engine for "packed"."""
+    engine for "auto" and "rowpacked", the packed engine for "packed",
+    the dense engine for "dense"."""
     config.validate()
     if config.engine == "packed":
         return PackedSaturationEngine(
+            idx, device=device, pad_multiple=config.pad_multiple
+        )
+    if config.engine == "dense":
+        return SaturationEngine(
             idx, device=device, pad_multiple=config.pad_multiple
         )
     return RowPackedSaturationEngine(
@@ -125,21 +148,46 @@ class ELClassifier:
         self.device = resolve_device(device)
 
     def classify_text(
-        self, text: str, *, resume_from: Optional[str] = None
+        self, text: str, *, verify: bool = False,
+        resume_from: Optional[str] = None,
     ) -> ClassificationResult:
-        """``resume_from``: path of a v1 or v2 snapshot (either package's
+        """``verify``: diff the closure against the CPU oracle
+        (``testing/differential.py``) in a phase of its own, raising
+        ``AssertionError`` with the report on a mismatch.
+        ``resume_from``: path of a v1 or v2 snapshot (either package's
         ``save_snapshot``) to warm-start saturation from, realigned by
         name onto this corpus's numbering.  Precondition: the snapshot's
         corpus is a *subset* of this one — saturation is monotone, so
         consequences of since-retracted axioms would survive."""
         timer = PhaseTimer(self.device)
         cfg = self.config
-        with timer.phase("parse"):
-            onto = owl_loader.load(text)
-        with timer.phase("normalize"):
-            norm = Normalizer().normalize(onto)
-        with timer.phase("index"):
-            idx = Indexer().index(norm)
+        norm = None
+        if (
+            cfg.use_native_loader
+            and owl_loader.detect_format(text) == "ofn"
+            and not verify
+            and not cfg.normalize_cache_path
+        ):
+            from distel_tpu_torch.owl import native_loader
+
+            with timer.phase("load(native)"):
+                idx = native_loader.load_indexed(text)
+        else:
+            with timer.phase("parse"):
+                onto = owl_loader.load(text)
+            cache = None
+            if cfg.normalize_cache_path:
+                try:
+                    cache = Normalizer.load_cache(cfg.normalize_cache_path)
+                except FileNotFoundError:
+                    cache = None
+            with timer.phase("normalize"):
+                normalizer = Normalizer(cache=cache)
+                norm = normalizer.normalize(onto)
+            if cfg.normalize_cache_path:
+                normalizer.save_cache(cfg.normalize_cache_path)
+            with timer.phase("index"):
+                idx = Indexer().index(norm)
         with timer.phase("plan"):
             engine = make_engine(cfg, idx, self.device)
         initial = None
@@ -159,6 +207,17 @@ class ELClassifier:
             result = engine.saturate(cfg.max_iterations, initial=initial)
         with timer.phase("taxonomy"):
             taxonomy = extract_taxonomy(result)
+        if verify:
+            with timer.phase("verify"):
+                from distel_tpu_torch.testing.differential import (
+                    diff_engine_vs_oracle,
+                )
+
+                report = diff_engine_vs_oracle(norm, result)
+                if not report.ok():
+                    raise AssertionError(
+                        f"differential check failed:\n{report.summary()}"
+                    )
         if cfg.instrumentation:
             print(timer.report(), flush=True)
         return ClassificationResult(result, taxonomy, norm, idx, timer, engine)

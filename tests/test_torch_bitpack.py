@@ -118,6 +118,13 @@ def test_segmented_row_or_matches_reference(trial):
     ref_st, ref_changed = rplan.write(jnp.asarray(state), jnp.asarray(red), track=True)
     assert (port.from_words(st) == _u32(ref_st)).all()
     assert bool(changed) == bool(ref_changed)
+    # the per-target change vector (track="rows"), as the reference's
+    st = _t(state)
+    rows = plan.write(st, plan.reduce(_t(permuted)), track="rows")
+    _, ref_rows = rplan.write(jnp.asarray(state), jnp.asarray(red), track="rows")
+    assert rows.dtype == torch.bool and rows.shape == (len(plan.targets),)
+    assert (rows.numpy() == np.asarray(ref_rows)).all()
+    assert (rows.numpy() == (expect != state).any(axis=1)[plan.targets]).all()
     # a column block: only those words move
     st = _t(state)
     plan.write(st, plan.reduce(_t(permuted))[:, 1:], slice(1, None))
@@ -141,6 +148,7 @@ def test_segmented_row_or_bit31_target_and_empty():
     assert out.shape == (0, 4)
     st = torch.ones((3, 4), dtype=torch.int32)
     assert not bool(empty.write(st, out))
+    assert empty.write(st, out, track="rows").shape == (0,)
     assert (st == 1).all()
 
 

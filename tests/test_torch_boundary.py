@@ -1,16 +1,19 @@
 """The port's boundary: it stands alone, and it never runs on the CPU
 unless asked.
 
-* No module under ``distel_tpu_torch/``, and not ``chip_smoke.py``,
+* No module under ``distel_tpu_torch/``, and neither ``chip_smoke.py`` nor ``chip_ab.py``,
   imports ``jax`` or ``distel_tpu`` — checked on the source (AST) and
   by importing every module in a fresh interpreter and reading
   ``sys.modules``.
+* Importing a module builds nothing: the CUDA kernels and the native
+  load plane compile at first use.
 * With no CUDA device and no device given, the entry points raise, and
   ``chip_smoke.py`` exits non-zero without printing a result.
 """
 
 import ast
 import json
+import os
 import shutil
 import subprocess
 import sys
@@ -24,7 +27,8 @@ from distel_tpu_torch.ops.bitmatmul import PackedColsMatmulPlan
 from distel_tpu_torch.runtime import classifier
 
 ROOT = Path(__file__).resolve().parent.parent
-PORT_FILES = sorted((ROOT / "distel_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+SCRIPTS = [ROOT / "chip_smoke.py", ROOT / "chip_ab.py"]
+PORT_FILES = sorted((ROOT / "distel_tpu_torch").rglob("*.py")) + SCRIPTS
 FORBIDDEN = ("jax", "jaxlib", "distel_tpu")
 
 
@@ -51,11 +55,11 @@ def test_importing_every_module_loads_no_jax():
     mods = sorted(
         ".".join(p.relative_to(ROOT).with_suffix("").parts).removesuffix(".__init__")
         for p in PORT_FILES
-        if p.name != "chip_smoke.py"
+        if p not in SCRIPTS
     )
     code = (
         "import importlib, json, sys\n"
-        f"for m in {mods!r} + ['chip_smoke']:\n"
+        f"for m in {mods!r} + ['chip_smoke', 'chip_ab']:\n"
         "    importlib.import_module(m)\n"
         "print(json.dumps(sorted(m for m in sys.modules\n"
         "    if m.split('.')[0] in ('jax', 'jaxlib', 'distel_tpu'))))\n"
@@ -63,6 +67,24 @@ def test_importing_every_module_loads_no_jax():
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
                          text=True, timeout=120, check=True)
     assert json.loads(out.stdout.strip().splitlines()[-1]) == []
+
+
+def test_importing_every_module_builds_nothing(tmp_path):
+    """No module compiles at import: with a build directory of its own
+    and no working compiler, importing every module (the native load
+    plane's binding included) leaves the directory empty."""
+    mods = sorted(
+        ".".join(p.relative_to(ROOT).with_suffix("").parts).removesuffix(".__init__")
+        for p in PORT_FILES
+        if p not in SCRIPTS
+    )
+    assert "distel_tpu_torch.owl.native_loader" in mods
+    code = "import importlib\n" f"for m in {mods!r}:\n    importlib.import_module(m)\n"
+    env = {**os.environ, "DISTEL_TORCH_BUILD_DIR": str(tmp_path),
+           "CXX": "false"}
+    subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                   capture_output=True, text=True, timeout=120, check=True)
+    assert list(tmp_path.iterdir()) == []
 
 
 def test_entry_points_raise_without_a_card(monkeypatch, tmp_path):

@@ -401,3 +401,94 @@ def test_packed_engine_classify_on_the_card_equals_the_cpu(card, text):
     assert gpu.taxonomy.unsatisfiable == cpu.taxonomy.unsatisfiable
     if gpu.idx.n_links:
         assert launched > 0
+
+
+# ------------------------------------------- frontier gating, dense engine
+
+GATED = {
+    "windows-lc64": {"l_chunk": 64},
+    "tiles-lc64": {"l_chunk": 64,
+                   "cr6_tiles": {"density_threshold": 100.0, "tile_m": 16,
+                                 "tile_l": 32}},
+    "cr5-gate-lc64": {"l_chunk": 64, "gate_chunks": True},
+}
+
+
+@pytest.mark.parametrize("kw", list(GATED.values()), ids=list(GATED))
+def test_gated_rounds_on_the_card_equal_the_cpu(card, kw):
+    """The gated fixed point on the card, step by step against the CPU:
+    the same S, R and frontier flags every round, and one product
+    launched per contracted window or link tile, none for a skipped
+    one (these plans all take the dense route)."""
+    from distel_tpu_torch.core.rowpacked_engine import RowPackedSaturationEngine
+
+    text = snomed_shaped_ontology(n_classes=2000) + "\n" + (
+        GOLDEN / "19-bottom-chain.ofn").read_text()
+    idx = ELClassifier(device="cpu").classify_text(text).idx
+    gpu = RowPackedSaturationEngine(idx, device="cuda", **kw)
+    cpu = RowPackedSaturationEngine(idx, device="cpu", **kw)
+    assert not any(p.skip_zero_tiles for p in gpu._plans.values())
+    if "cr6_tiles" in kw:
+        assert gpu._t6 is not None and not gpu._t6["mm"].skip_zero_tiles
+    gs, gr = gpu.initial_state()
+    cs, cr = cpu.initial_state()
+    gf = cf = None
+    skipped = 0
+    for rnd in range(1, 100):
+        before = dict(LAUNCHES)
+        gs, gr, gf = gpu.step(gs, gr, gf)
+        torch.cuda.synchronize()
+        cs, cr, cf = cpu.step(cs, cr, cf)
+        assert torch.equal(gs.cpu(), cs) and torch.equal(gr.cpu(), cr), rnd
+        for a in ("dirty_l", "f4", "f6", "fd6"):
+            assert np.array_equal(getattr(gf, a), getattr(cf, a)), (rnd, a)
+        assert (gf.changed, gf.cr5) == (cf.changed, cf.cr5)
+        counts = gpu.gate_rounds[-1]
+        assert counts == cpu.gate_rounds[-1]
+        ran = counts["cr4"][0] + counts["cr6"][0] + counts["cr6_tiles"][0]
+        skipped += counts["cr4"][1] + counts["cr6"][1] + counts["cr6_tiles"][1]
+        assert _launched(before) == ({"packed_cols_dense": ran} if ran else {})
+        if not gf.changed:
+            break
+    assert not gf.changed and skipped > 0
+
+
+@pytest.mark.parametrize("m,k,n", [(37, 70, 5), (300, 1000, 200), (64, 20000, 96)])
+def test_dense_andor_on_the_card_equals_the_cpu(card, m, k, n):
+    """The dense engine's AND-OR product (bfloat16 on the card, float32
+    on the CPU), on sparse, dense, all-zero and all-one operands."""
+    from distel_tpu_torch.core.engine import SaturationEngine
+
+    idx = ELClassifier(device="cpu").classify_text(chain_tailed_ontology(40, 4)).idx
+    gpu = SaturationEngine(idx, device="cuda")
+    cpu = SaturationEngine(idx, device="cpu")
+    gen = torch.Generator().manual_seed(7)
+    for density in (0.0, 0.001, 0.05, 0.5, 1.0):
+        a = torch.rand((m, k), generator=gen) < density
+        b = torch.rand((k, n), generator=gen) < density
+        got = gpu._andor(a.cuda(), b.cuda()).cpu()
+        assert torch.equal(got, cpu._andor(a, b)), density
+
+
+@pytest.mark.parametrize(
+    "text",
+    [pytest.param(lambda: snomed_shaped_ontology(n_classes=600), id="snomed"),
+     pytest.param(lambda: (GOLDEN / "19-bottom-chain.ofn").read_text(),
+                  id="bottom-chain")],
+)
+def test_dense_classify_on_the_card_equals_the_cpu(card, text):
+    text = text()
+    cfg = ClassifierConfig(engine="dense")
+    gpu = ELClassifier(cfg, device="cuda").classify_text(text)
+    cpu = ELClassifier(cfg, device="cpu").classify_text(text)
+    row = ELClassifier(device="cuda").classify_text(text)
+    for g, c, r in zip(gpu.result.wire(), cpu.result.wire(), row.result.wire()):
+        assert np.array_equal(g, c) and np.array_equal(g, r)
+    assert gpu.result.iterations == cpu.result.iterations
+    assert gpu.result.derivations == cpu.result.derivations == row.result.derivations
+    assert gpu.taxonomy.parents == cpu.taxonomy.parents
+
+
+def test_verify_on_the_card(card):
+    for path in sorted(GOLDEN.glob("*.ofn")):
+        ELClassifier(device="cuda").classify_file(str(path), verify=True)

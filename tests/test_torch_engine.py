@@ -8,10 +8,10 @@ plain PyTorch version.  ``packed_s``, ``packed_r`` and ``derivations``
 must be equal bit for bit.
 
 The reference is built with ``unroll=1`` so that its iteration count is
-not rounded up to an unroll multiple.  The port has no frontier gating:
-it contracts every live window every round.  Gating skips only windows
-whose inputs did not change, so on these corpora the iteration counts
-agree too, and the tests hold them equal.
+not rounded up to an unroll multiple.  Both engines gate their windows
+on the frontier, and at their default budgets both plan one chunk a
+rule over one L-chunk here, so the iteration counts agree too, and the tests hold
+them equal (``tests/test_torch_gating.py`` holds every round equal).
 """
 
 from pathlib import Path
