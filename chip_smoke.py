@@ -31,9 +31,15 @@ Phases, each of which raises on failure:
    card and on the CPU, every round's S, R and frontier flags equal
    (the default plan, and 256-link L-chunks with the live-tile CR6
    forced); ``engine="dense"`` on the card and the CPU, equal to the
-   row-packed card run; and ``verify=True`` (the closure against the
-   CPU oracle) on every golden fixture through the row-packed and the
-   dense engine, and on the 8k corpus;
+   row-packed card run; ``backend.CRn = host`` (CR5, and CR1 with CR6,
+   through the hybrid saturator) equal to the all-device card run;
+   ``verify=True`` (the closure against the CPU oracle) on every golden
+   fixture through the row-packed and the dense engine, and on the 8k
+   corpus; and the XML readers: the RDF/XML corpora of
+   ``tests/corpora`` (OpenGALEN module, LUBM) and the RDF/XML and
+   OWL/XML fixtures of ``tests/test_xml_readers.py`` classified on the
+   card, each equal (ids, S, R, derivations, taxonomy) to its EL part
+   written as OFN;
 5. full width, the main path: the 64000-class SNOMED-shaped corpus
    through ``ELClassifier().classify_text`` with the default config
    (the native load plane, the frontier-gated engine) to convergence
@@ -63,7 +69,17 @@ Phases, each of which raises on failure:
    keeps the heaviest CR4 and CR6 operands (most set bits of A), on
    which the route must reproduce the plain product and its listing the
    plain listing bit for bit, the listing and the product each timed
-   beside the plain version and the bound.
+   beside the plain version and the bound;
+8. the weak-scaling corpus at full width: the OpenGALEN module read
+   through the RDF/XML reader, multiplied into 600 crossed copies
+   (88,802 concepts), written as OFN and classified by the default
+   path with nothing hooked in (launch counts zeroed just before, read
+   just after; every kernel of the engine's routes must be > 0), held
+   to the Python-plane run of the same text (derivations, taxonomy);
+   how each plane's peak memory splits (plan tables, state, a rerun's
+   temporaries); then a captured saturate-and-taxonomy rerun of each
+   plane's engine, whose operand pairs (one per call site and work
+   bucket) are checked as in phase 6 and join the kernel line.
 
 Kernel times are CUDA-event times per call over back-to-back calls;
 the packed-contraction route's are also taken from CUDA-graph replays
@@ -72,11 +88,14 @@ beside the event times.
 It prints the card's name and power limit, a ``{"policy": ...}`` line
 (each site's device time under the chosen route and under each route,
 with A's nonzero fraction), the ``{"andor_checks": ...}``,
-``{"gating": ...}``, ``{"dense": ...}``, ``{"verify": ...}``,
-``{"default_full_width": ...}``, ``{"full_width": ...}`` (the Python
+``{"gating": ...}``, ``{"dense": ...}``, ``{"hybrid": ...}``,
+``{"verify": ...}``, ``{"xml_corpora": ...}``,
+``{"default_full_width": ...}`` (with the ``unroll`` it ran and its
+``rounds``), ``{"full_width": ...}`` (the Python
 load plane), ``{"breakdown": ...}``, ``{"threshold_ab": ...}``,
 ``{"packed_full_width": ...}``, ``{"packed_breakdown": ...}`` and
-``{"andor_operands": ...}`` lines, a ``{"kernels": [...]}`` line
+``{"andor_operands": ...}``, ``{"multiplied_full_width": ...}`` lines,
+a ``{"kernels": [...]}`` line
 (the sparse row also carries the listing kernel's time and launches),
 and as its last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -85,8 +104,10 @@ Without a CUDA device it exits non-zero and prints no result.
 
 from __future__ import annotations
 
+import ast
 import contextlib
 import json
+import re
 import subprocess
 import sys
 import time
@@ -559,6 +580,331 @@ def phase_verify() -> dict:
     return out
 
 
+def xml_reader_documents() -> dict:
+    """The OFN, RDF/XML and OWL/XML serializations of one ontology in
+    ``tests/test_xml_readers.py``, read off its source (the test module
+    imports the JAX package, so it is not imported here)."""
+    tree = ast.parse((ROOT / "tests" / "test_xml_readers.py").read_text())
+    names: dict = {}
+    for node in tree.body:
+        if (isinstance(node, ast.Assign) and len(node.targets) == 1
+                and isinstance(node.targets[0], ast.Name)
+                and node.targets[0].id in ("EX", "OFN", "RDFXML", "OWLXML")):
+            code = compile(ast.Expression(node.value), "test_xml_readers", "eval")
+            names[node.targets[0].id] = eval(code, {}, dict(names))
+    return names
+
+
+def x_major_equal(a, b, n: int, nl: int) -> bool:
+    """Whether two results hold the same S and R over the live concepts
+    (x < n) and links (l < nl), padding left out."""
+    return bool(np.array_equal(a.s[:n, :n], b.s[:n, :n])
+                and np.array_equal(a.r[:n, :nl], b.r[:n, :nl]))
+
+
+def el_part_as_ofn(onto) -> str:
+    """The ontology's EL part (``strip_non_el``) as OFN text.  The
+    writer leaves relative IRIs (``#advisor``: LUBM's ``rdf:ID``s
+    without an ``xml:base``) bare, which OFN cannot read back, so they
+    are bracketed (``<#advisor>``, the same IRI)."""
+    from distel_tpu_torch.frontend.ontology_tools import strip_non_el
+    from distel_tpu_torch.owl import writer
+
+    text = writer.ontology_to_str(strip_non_el(onto))
+    return re.sub(r"(?<=[ (])#([^\s()]+)", r"<#\1>", text)
+
+
+def phase_xml_corpora() -> dict:
+    """RDF/XML and OWL/XML on the card: the two real corpora of
+    ``tests/corpora`` and the readers' serializations through the
+    default classify (the Python plane reads XML), each against the card
+    run of its EL part (``strip_non_el``) written as OFN: the same ids,
+    S and R, derivations and taxonomy; the readers' three serializations
+    give one taxonomy; the profile check reports LUBM's dropped
+    inverses."""
+    from distel_tpu_torch.config import ClassifierConfig
+    from distel_tpu_torch.frontend.profile_checker import check_profile
+    from distel_tpu_torch.owl import loader
+    from distel_tpu_torch.runtime.classifier import ELClassifier
+
+    docs = xml_reader_documents()
+    corpora = ROOT / "tests" / "corpora"
+    inputs = {
+        "galen_module_jia": (corpora / "galen_module_jia.owl").read_text(encoding="utf-8-sig"),
+        "lubm_univ_bench": (corpora / "lubm_univ_bench.owl").read_text(encoding="utf-8-sig"),
+        "readers_rdfxml": docs["RDFXML"],
+        "readers_owlxml": docs["OWLXML"],
+    }
+    xml = ELClassifier(device="cuda")
+    ofn = ELClassifier(ClassifierConfig(use_native_loader=False), device="cuda")
+    out, taxes = {}, {}
+    for name, text in inputs.items():
+        onto = loader.load(text)
+        kept, removed = check_profile(onto)
+        sync()
+        t0 = time.perf_counter()
+        got = xml.classify_text(text)
+        wall = time.perf_counter() - t0
+        if got.norm is None or "parse" not in got.timer.phases:
+            raise AssertionError(f"xml {name}: did not go through the Python plane")
+        want = ofn.classify_text(el_part_as_ofn(onto))
+        idx = got.idx
+        if idx.concept_names != want.idx.concept_names:
+            raise AssertionError(f"xml {name}: the OFN text indexes other concepts")
+        if not x_major_equal(got.result, want.result, idx.n_concepts, idx.n_links):
+            raise AssertionError(f"xml {name}: S/R differ from the OFN run")
+        if got.result.derivations != want.result.derivations:
+            raise AssertionError(f"xml {name}: derivations differ from the OFN run")
+        if taxonomy_key(got.taxonomy) != taxonomy_key(want.taxonomy):
+            raise AssertionError(f"xml {name}: taxonomy differs from the OFN run")
+        taxes[name] = got.taxonomy
+        out[name] = {
+            "format": loader.detect_format(text), "axioms": len(onto),
+            "in_profile": kept, "removed": dict(removed),
+            "concepts": idx.n_concepts, "links": idx.n_links,
+            "iterations": got.result.iterations,
+            "derivations": got.result.derivations,
+            "wall_s": wall, "phases_ms": got.summary()["phases_ms"],
+        }
+    if out["lubm_univ_bench"]["removed"] != {"InverseObjectProperties": 2}:
+        raise AssertionError(f"xml lubm: profile check reports {out['lubm_univ_bench']['removed']}")
+    native = xml.classify_text(docs["OFN"])
+    for name in ("readers_rdfxml", "readers_owlxml"):
+        if (taxes[name].parents, taxes[name].equivalents) != (
+                native.taxonomy.parents, native.taxonomy.equivalents):
+            raise AssertionError(f"xml {name}: taxonomy differs from the OFN fixture's")
+    log(f"[xml] {json.dumps(out)}")
+    print(json.dumps({"xml_corpora": out}), flush=True)
+    return out
+
+
+def phase_hybrid(row_run) -> dict:
+    """``backend.CRn = host`` at 8k on the card: CR5, and CR1 with CR6,
+    routed to the host through the hybrid saturator; the same S, R,
+    derivations and taxonomy as the all-device card run."""
+    from distel_tpu_torch.config import ClassifierConfig
+    from distel_tpu_torch.core.hybrid import HybridSaturator
+    from distel_tpu_torch.frontend.ontology_tools import snomed_shaped_ontology
+    from distel_tpu_torch.ops.bitmatmul import LAUNCHES, reset_launches
+    from distel_tpu_torch.runtime.classifier import ELClassifier
+
+    text = snomed_shaped_ontology(n_classes=8000, seed=42)
+    idx = row_run.idx
+    out = {}
+    for routed in ({"CR5": "host"}, {"CR1": "host", "CR6": "host"}):
+        what = "+".join(sorted(routed))
+        reset_launches()
+        sync()
+        t0 = time.perf_counter()
+        res = ELClassifier(ClassifierConfig(rule_backends=routed),
+                           device="cuda").classify_text(text)
+        wall = time.perf_counter() - t0
+        if not isinstance(res.engine, HybridSaturator):
+            raise AssertionError(f"hybrid {what}: no hybrid saturator ran")
+        if res.idx.concept_names != idx.concept_names:
+            raise AssertionError(f"hybrid {what}: another index")
+        if not x_major_equal(res.result, row_run.result, idx.n_concepts, idx.n_links):
+            raise AssertionError(f"hybrid {what}: S/R differ from the all-device run")
+        if res.result.derivations != row_run.result.derivations:
+            raise AssertionError(f"hybrid {what}: derivations differ")
+        if taxonomy_key(res.taxonomy) != taxonomy_key(row_run.taxonomy):
+            raise AssertionError(f"hybrid {what}: taxonomy differs")
+        out[what] = {
+            "host_rules": sorted(res.engine.host_rules),
+            "iterations": res.result.iterations,
+            "derivations": res.result.derivations,
+            "wall_s": wall, "phases_ms": res.summary()["phases_ms"],
+            "launches": dict(LAUNCHES),
+        }
+    out["all_device_iterations"] = row_run.result.iterations
+    log(f"[8k hybrid] {json.dumps(out)}")
+    print(json.dumps({"hybrid": out}), flush=True)
+    return out
+
+
+#: the weak-scaling corpus: the OpenGALEN module (RDF/XML) in this many
+#: renamed copies, neighbours crossed, and what its index must hold
+MULTIPLY_COPIES = 600
+MULTIPLIED_EXPECT = {"concepts": 88802, "links": 22800, "classes": 59402}
+
+
+def device_bytes(engine) -> dict:
+    """Bytes of the card tensors an engine holds, by attribute (a chunk
+    list's and the live-tile schedule's by field), each storage once."""
+    seen_storage, seen_obj = set(), set()
+
+    def walk(x) -> int:
+        if isinstance(x, torch.Tensor):
+            if x.device.type != "cuda":
+                return 0
+            st = x.untyped_storage()
+            if st.data_ptr() in seen_storage:
+                return 0
+            seen_storage.add(st.data_ptr())
+            return st.nbytes()
+        if id(x) in seen_obj or isinstance(x, (str, bytes, int, float, np.ndarray)):
+            return 0
+        seen_obj.add(id(x))
+        if isinstance(x, dict):
+            return sum(walk(v) for v in x.values())
+        if isinstance(x, (list, tuple)):
+            return sum(walk(v) for v in x)
+        return walk(vars(x)) if hasattr(x, "__dict__") else 0
+
+    out = {}
+    for name, val in vars(engine).items():
+        if name == "idx":
+            continue
+        if isinstance(val, list) and val and hasattr(val[0], "_fields"):
+            for f in val[0]._fields:
+                out[f"{name}.{f}"] = sum(walk(getattr(c, f)) for c in val)
+        elif name == "_t6" and val is not None:
+            for k, v in val.items():
+                out[f"_t6.{k}"] = walk(v)
+        else:
+            out[name] = walk(val)
+    return {k: v for k, v in out.items() if v}
+
+
+def memory_split(engine, result) -> dict:
+    """How a row-packed engine's peak splits: the plan's tables (by
+    attribute), the closure's packed state, and what one more
+    saturation allocates on top of both (its state, the deferred write
+    groups and the other temporaries), from a plain rerun."""
+    plan = device_bytes(engine)
+    state = sum(t.untyped_storage().nbytes()
+                for t in (result.packed_s, result.packed_r))
+    torch.cuda.empty_cache()
+    sync()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    again = engine.saturate()
+    sync()
+    transient = torch.cuda.max_memory_allocated() - base
+    del again
+    masks = sum(v for k, v in plan.items() if k.endswith(".mask"))
+    return {"plan_bytes": plan, "plan_total": sum(plan.values()),
+            "mask_tables": masks, "state": state,
+            "saturate_peak_over_held": transient}
+
+
+def phase_multiplied_full_width(cap: Capture):
+    """The reference's weak-scaling pipeline at full width: the GALEN
+    module read through the RDF/XML reader, ``multiply_ontology(600,
+    crossed=True)``, written as OFN, then the default classify on the
+    card (the native load plane, the gated row-packed engine) with
+    nothing hooked in; held against the Python-plane card run of the
+    same text (taxonomy by name, derivations).  Then how each plane's
+    peak memory splits, and a captured saturate-and-taxonomy rerun of
+    each plane's engine: every operand pair captured there is checked
+    (both routes and the listing against the plain versions, bit for
+    bit); the pairs are returned for the kernel line."""
+    from distel_tpu_torch.config import ClassifierConfig
+    from distel_tpu_torch.frontend.ontology_tools import multiply_ontology
+    from distel_tpu_torch.ops.bitmatmul import LAUNCHES, reset_launches
+    from distel_tpu_torch.owl import rdfxml, writer
+    from distel_tpu_torch.runtime.classifier import ELClassifier
+    from distel_tpu_torch.runtime.taxonomy import extract_taxonomy
+
+    t0 = time.perf_counter()
+    galen = rdfxml.parse_file(str(ROOT / "tests" / "corpora" / "galen_module_jia.owl"))
+    onto = multiply_ontology(galen, MULTIPLY_COPIES, crossed=True)
+    text = writer.ontology_to_str(onto)
+    build_s = time.perf_counter() - t0
+    clf = ELClassifier(device="cuda")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    sync()
+    t0 = time.perf_counter()
+    res = clf.classify_text(text)
+    wall = time.perf_counter() - t0
+    launches = dict(LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    eng = res.engine
+    got = {"concepts": res.idx.n_concepts, "links": res.idx.n_links,
+           "classes": len(res.idx.original_classes)}
+    py_clf = ELClassifier(ClassifierConfig(use_native_loader=False), device="cuda")
+    torch.cuda.reset_peak_memory_stats()
+    sync()
+    t0 = time.perf_counter()
+    py = py_clf.classify_text(text)
+    py_wall = time.perf_counter() - t0
+    py_peak = torch.cuda.max_memory_allocated()
+    split = {"native": memory_split(eng, res.result),
+             "python": memory_split(py.engine, py.result)}
+    for run, r in (("multiplied", res), ("multiplied:python", py)):
+        cap.run = run
+        with cap:
+            again = r.engine.saturate()
+            tax = extract_taxonomy(again)
+        for x, y in zip(again.wire(), r.result.wire()):
+            if not np.array_equal(x, y):
+                raise AssertionError(f"{run}: the captured rerun gave another closure")
+        if taxonomy_key(tax) != taxonomy_key(r.taxonomy):
+            raise AssertionError(f"{run}: the captured rerun gave another taxonomy")
+        del again, tax
+    pairs = []
+    for key in sorted(k for k in cap.pairs if k[0].startswith("multiplied")):
+        n, _nnz, a, b = cap.pairs.pop(key)
+        pairs.append(check_pair(*key[:3], n, a, b))
+    stats = {
+        **res.summary(),
+        "copies": MULTIPLY_COPIES,
+        "axioms": len(onto),
+        "ofn_bytes": len(text.encode()),
+        "corpus_build_s": build_s,
+        "wall_s": wall,
+        "unroll": eng.unroll,
+        "rounds": len(eng.gate_rounds),
+        "windows": eng.gate_totals(),
+        "windows_per_round": gate_rounds_compact(eng),
+        "launches": launches,
+        "max_memory_allocated": peak,
+        "memory_split": split,
+        "plan": eng.plan_stats(),
+        "index": got,
+        "classes_in_taxonomy": len(res.taxonomy.parents),
+        "python_plane": {
+            "wall_s": py_wall, "phases_ms": py.summary()["phases_ms"],
+            "max_memory_allocated": py_peak,
+            "cr6_tiles": py.engine.plan_stats()["cr6_tiles"],
+            "cr6_row_tiles": py.engine.plan_stats()["cr6_row_tiles"],
+            "iterations": py.result.iterations,
+            "derivations": py.result.derivations,
+        },
+        "kernel_checks": [
+            {k: p[k] for k in ("run", "site", "main_path_kernel", "launches",
+                               "shape", "max_abs_err")}
+            for p in pairs
+        ],
+    }
+    log(f"[multiplied] {json.dumps(stats)}")
+    print(json.dumps({"multiplied_full_width": stats}), flush=True)
+    if got != MULTIPLIED_EXPECT:
+        raise AssertionError(f"multiplied: index {got}, expected {MULTIPLIED_EXPECT}")
+    if "load(native)" not in res.timer.phases:
+        raise AssertionError("multiplied: the default classify did not run the native plane")
+    if not res.result.converged:
+        raise AssertionError("multiplied: did not converge")
+    for k in path_kernels(eng._plans.values()):
+        if launches[k] == 0:
+            raise AssertionError(f"multiplied: {k} was never launched")
+    for run, e in (("multiplied", eng), ("multiplied:python", py.engine)):
+        sites = {p["site"] for p in pairs if p["run"] == run}
+        want = {"taxonomy", "cr6_tiles" if e._t6 is not None else "cr6_windows"}
+        if e._chunks4:
+            want.add("cr4")
+        if not want <= sites:
+            raise AssertionError(f"{run}: no operand captured at {sorted(want - sites)}")
+    if py.result.derivations != res.result.derivations:
+        raise AssertionError("multiplied: the load planes give other derivation counts")
+    if taxonomy_key(py.taxonomy) != taxonomy_key(res.taxonomy):
+        raise AssertionError("multiplied: the load planes give other taxonomies")
+    log("[multiplied] native and python load planes: same derivations and taxonomy")
+    return pairs
+
+
 #: the callers of PackedColsMatmulPlan on the main path, by function name
 SITES = {
     "_cr4": "cr4",
@@ -653,6 +999,7 @@ def phase_default_full_width():
     gated = res.engine
     gate_totals = gated.gate_totals()
     per_round = gate_rounds_compact(gated)
+    n_rounds = len(gated.gate_rounds)
     walls = []
     for _ in range(2):
         sync()
@@ -672,6 +1019,8 @@ def phase_default_full_width():
         "windows": gate_totals,
         "windows_per_round": per_round,
         "plan": gated.plan_stats(),
+        "unroll": gated.unroll,
+        "rounds": n_rounds,
         "classes_in_taxonomy": len(res.taxonomy.parents),
         "saturate_reruns_s": walls,
     }
@@ -894,12 +1243,13 @@ def check_pair(run, site, kern, launches, a, b) -> dict:
     return out
 
 
-def phase_kernel_line(launches, cap: Capture):
-    """Every captured pair with both routes, the per-site policy, then
-    one row per kernel.  A row's numbers are its kernel's at the
-    heaviest pair (most word-ANDs) that the 64k main path sent to it
-    (for a kernel the path did not choose, the heaviest 64k pair)."""
-    pairs = []
+def phase_kernel_line(launches, cap: Capture, checked=()):
+    """Every captured pair with both routes (``checked``: pairs already
+    checked), the per-site policy, then one row per kernel.  A row's
+    numbers are its kernel's at the heaviest pair (most word-ANDs) that
+    the 64k main path sent to it (for a kernel the path did not choose,
+    the heaviest 64k pair); its ``max_abs_err`` is over every pair."""
+    pairs = list(checked)
     for (run, site, kern, _bucket) in sorted(cap.pairs):
         n, _nnz, a, b = cap.pairs.pop((run, site, kern, _bucket))
         pairs.append(check_pair(run, site, kern, n, a, b))
@@ -1229,8 +1579,10 @@ def main() -> int:
     phase_cross_engine(row8k)
     phase_gating()
     phase_dense(row8k)
+    phase_hybrid(row8k)
     del row8k
     phase_verify()
+    phase_xml_corpora()
     launches, res = phase_default_full_width()
     phase_full_width(res)
     phase_breakdown(res)
@@ -1243,7 +1595,9 @@ def main() -> int:
     andor_row = phase_andor_operands(packed, packed_launches, andor_checks)
     del packed
     torch.cuda.empty_cache()
-    rows, pairs = phase_kernel_line(launches, cap)
+    checked = phase_multiplied_full_width(cap)
+    torch.cuda.empty_cache()
+    rows, pairs = phase_kernel_line(launches, cap, checked)
     rows.append(andor_row)
     out = ROOT / "chiprun_out"
     out.mkdir(exist_ok=True)

@@ -4,11 +4,15 @@ A subset of ``distel_tpu/config.py``'s ``ClassifierConfig`` with the
 same names and defaults where the port implements the knob: the engine
 (``auto`` = ``rowpacked``, ``packed`` or ``dense``), the native load
 plane (on by default, as in the reference), the normalizer's gensym
-cache, and the live-tile CR6 knobs.  Knobs of paths the port does not
-have yet (mesh, serving, shape buckets) are absent, or refused where a
-reference config could carry them over: ``shape_buckets`` must be off.
-The reference's ``matmul.dtype`` has no meaning for the port's exact
-bit kernels and is ignored with the other unknown keys.
+cache, the per-rule backends (``backend.CRn``, the hybrid of
+``core/hybrid.py``) and the live-tile CR6 knobs.  Knobs of paths the
+port does not have yet (mesh, serving, shape buckets) are absent, or
+refused where a reference config could carry them over:
+``shape_buckets`` must be off, and ``mesh.devices`` / ``NODES_LIST``
+may name no device (a mesh of one device still changes the reference's
+automatic rules, so it is refused too).  The reference's ``matmul.dtype`` has no
+meaning for the port's exact bit kernels and is ignored with the other
+unknown keys.
 
 ``from_properties`` parses java-style ``key = value`` files with the
 reference's key spellings.
@@ -16,7 +20,7 @@ reference's key spellings.
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Dict, Optional
 
 
@@ -37,6 +41,10 @@ class ClassifierConfig:
     #: reference's NORMALIZE_CACHE): read before and written after
     #: normalizing
     normalize_cache_path: Optional[str] = None
+    #: per-rule backend, the reference's rule→node plugin boundary:
+    #: {"CR4": "host", ...}; rules routed to the host run through the
+    #: hybrid saturator (``core/hybrid.py``, row-packed engine only)
+    rule_backends: Dict[str, str] = field(default_factory=dict)
     #: shape-bucketed programs exist to share compiled XLA executables;
     #: the port runs eagerly and has no counterpart yet, so only False
     #: is accepted (bucketing never changes a closure)
@@ -64,6 +72,9 @@ class ClassifierConfig:
             raise ValueError(
                 "shape_buckets=True is not supported by distel_tpu_torch yet"
             )
+        from distel_tpu_torch.core.hybrid import split_backends
+
+        split_backends(self.rule_backends)
 
     @classmethod
     def from_properties(cls, path: str) -> "ClassifierConfig":
@@ -83,6 +94,18 @@ class ClassifierConfig:
             return raw[key].lower() == "true"
 
         cfg = cls()
+        if "mesh.devices" in raw:
+            mesh_key, devices = "mesh.devices", int(raw["mesh.devices"])
+        elif "NODES_LIST" in raw:  # reference spelling: count the nodes
+            mesh_key = "NODES_LIST"
+            devices = len([n for n in raw["NODES_LIST"].split(",") if n])
+        else:
+            mesh_key, devices = None, 0
+        if devices:
+            raise ValueError(
+                f"{mesh_key} = {raw[mesh_key]} asks for a mesh of {devices} "
+                "device(s); distel_tpu_torch has no mesh path"
+            )
         if "pad.multiple" in raw:
             cfg.pad_multiple = int(raw["pad.multiple"])
         elif "chunk.size" in raw:  # nearest reference analog
@@ -110,6 +133,9 @@ class ClassifierConfig:
             cfg.cr6_tiles_density_threshold = float(
                 raw["cr6.tiles.density_threshold"]
             )
+        for k, v in raw.items():
+            if k.startswith("backend."):  # backend.CR1 = tpu
+                cfg.rule_backends[k[len("backend."):]] = v
         cfg.validate()
         return cfg
 

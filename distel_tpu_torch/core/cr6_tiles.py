@@ -11,8 +11,12 @@ occupied tiles.  The outputs flow into deferred segmented-OR write
 groups over row-tile ranges.
 
 A copy of ``distel_tpu/core/cr6_tiles.py``'s exact-mode schedule
-builder (numpy); the shape-bucketed and closure-rebind variants are not
-part of the port yet.  :func:`make_tile_matmul` forces the tile-skipping
+builder (numpy), apart from the factored mask: the reference copies
+each row tile's mask rows into a padded [n_rt, tile_m, n_roles + 1]
+table, the port keeps only each slot's row id into the unpadded mask
+table (short role runs pad most slots, and the padded copy grows with
+roles × row tiles).  The shape-bucketed and closure-rebind variants
+are not part of the port yet.  :func:`make_tile_matmul` forces the tile-skipping
 kernel on, as the reference does: the per-slot liveness zeroes whole
 dead tiles, and skipping them is the point of the formulation.
 """
@@ -53,8 +57,9 @@ class Cr6TileSchedule:
     nt: int
     #: [n_rt, tile_m] int32 — l2 (second-leg) R-row ids, padded dead
     rows: np.ndarray
-    #: [n_rt, tile_m, n_roles+1] int8 — factored mask rows
-    mrows: np.ndarray
+    #: [n_rt, tile_m] int32 — each slot's row of the factored mask
+    #: table (pad = the table's length: an all-zero row appended there)
+    mrow_ids: np.ndarray
     #: [n_rt, tile_m] int32 — per-row dirty-chunk source (l2 // lc; pad
     #: = n_lchunks), kept for parity with the reference schedule
     fdx: np.ndarray
@@ -118,7 +123,6 @@ def build_cr6_tile_schedule(
     tab_roles: np.ndarray,
     l2_rows: np.ndarray,
     targets: np.ndarray,
-    mask_tab: np.ndarray,
     link_roles: np.ndarray,
     role_closure: np.ndarray,
     *,
@@ -171,7 +175,7 @@ def build_cr6_tile_schedule(
     n_rt = len(spans)
 
     rows = np.full((n_rt, tile_m), dead_link, np.int32)
-    mrows = np.zeros((n_rt, tile_m, mask_tab.shape[1]), np.int8)
+    mrow_ids = np.full((n_rt, tile_m), n_real, np.int32)
     fdx = np.full((n_rt, tile_m), n_lchunks, np.int32)
     tgt = np.full((n_rt, tile_m), pad_target, np.int64)
     tids = np.full((n_rt, nt, tile_l), dead_link, np.int32)
@@ -181,7 +185,7 @@ def build_cr6_tile_schedule(
         k = a1 - a0
         if k > 0:
             rows[i, :k] = l2_rows[a0:a1]
-            mrows[i, :k] = mask_tab[a0:a1]
+            mrow_ids[i, :k] = np.arange(a0, a1)
             fdx[i, :k] = l2_rows[a0:a1] // lc
             tgt[i, :k] = targets[a0:a1]
         for t in range(-(-len(lv) // tile_l)):
@@ -239,7 +243,7 @@ def build_cr6_tile_schedule(
         n_rt=int(n_rt),
         nt=int(nt),
         rows=rows,
-        mrows=mrows,
+        mrow_ids=mrow_ids,
         fdx=fdx,
         tids=tids,
         tval=tval,

@@ -198,17 +198,19 @@ class SaturationEngine:
     bfloat16 on a card (nonnegative terms, so any positive sum stays
     positive under rounding) and float32 on the CPU (exact below 2^24
     terms).  The result is packed in the row-packed engine's transposed
-    layout.  One convergence read a step: the iteration count is the
-    reference's at ``unroll=1``."""
+    layout.  Steps run in groups of ``unroll`` (the reference's default
+    of 4) with one convergence read a group, so ``iterations`` and the
+    ``max_iters`` budget are the reference's."""
 
     #: :meth:`embed_state` takes unpacked x-major bool state
     accepts_wire_state = False
 
     def __init__(self, idx: IndexedOntology, *, device="cuda",
-                 pad_multiple: int = 128):
+                 pad_multiple: int = 128, unroll: int = 4):
         from distel_tpu_torch.ops.bitpack import SegmentedRowOr
 
         self.idx = idx
+        self.unroll = max(int(unroll), 1)
         self.device = dev = torch.device(device)
         self.nc = _pad_up(max(idx.n_concepts, 2), _pad_up(max(pad_multiple, 32), 32))
         self.nl = max(_pad_up(idx.n_links, 32), 32)
@@ -335,11 +337,13 @@ class SaturationEngine:
         initial: Optional[Tuple] = None,
         allow_incomplete: bool = False,
     ) -> "SaturationResult":
-        """Run supersteps until one changes nothing (one host read a
-        step) or ``max_iters`` ran.  ``initial``: a previous closure for
-        :meth:`embed_state`."""
+        """Groups of ``unroll`` supersteps until a group changes
+        nothing (one host read a group) or the budget — ``max_iters``
+        rounded up to ``unroll`` — is spent.  ``initial``: a previous
+        closure for :meth:`embed_state`."""
         from distel_tpu_torch.ops.bitpack import pack_bool_columns
 
+        budget = _pad_up(max_iters, self.unroll)
         if initial is None:
             s, r = self.initial_state()
             init_total = fresh_init_total(self.idx)
@@ -347,13 +351,16 @@ class SaturationEngine:
             s, r = self.embed_state(*initial)
             init_total = self.count_live_bits(s, r)
         it, changed = 0, True
-        while changed and it < max_iters:
-            s, r, ch = self.step(s, r)
-            it += 1
-            changed = bool(ch)
+        while changed and it < budget:
+            group = torch.zeros((), dtype=torch.bool, device=s.device)
+            for _ in range(self.unroll):
+                s, r, ch = self.step(s, r)
+                group |= ch
+            it += self.unroll
+            changed = bool(group)
         if changed and not allow_incomplete:
             raise RuntimeError(
-                f"saturation did not converge within {max_iters} iterations"
+                f"saturation did not converge within {budget} iterations"
             )
         total = self.count_live_bits(s, r)
         return SaturationResult(

@@ -44,9 +44,14 @@ are clean launches nothing.
 
 What differs from the reference, and why:
 
-* The fixed point is a host loop with one flag read per round; there is
-  no ``lax.while_loop`` to compile.  PyTorch runs eagerly, so there is
-  no scan mode: chunks are a Python loop.
+* The fixed point is a host loop with one flag read per step; there is
+  no ``lax.while_loop`` to compile.  It keeps the reference's ``unroll``
+  semantics: steps run in groups of ``unroll``, the loop stops only
+  after a whole group changed nothing, and ``iterations`` counts whole
+  groups against a budget of ``max_iters`` rounded up to ``unroll``.
+  A clean step inside a group contracts nothing (its frontier is
+  clean).  PyTorch runs eagerly, so there is no scan mode: chunks are a
+  Python loop.
 * The fold ORs each writer's change vector into the frontier masks by
   an indexed write (targets are unique within a writer); the reference's
   layered permutation gathers exist only because a scatter serialises
@@ -108,6 +113,10 @@ ROLE_SPLIT_MIN_VOLUME = 5e11
 GATE_MIN_CONCEPTS = 32_768
 GATE_MAX_STATE_BYTES = 5 << 29
 
+#: the reference's automatic ``unroll`` on one device: 2 steps a group
+#: up to this much packed state, 1 past it
+UNROLL2_MAX_STATE_BYTES = 9 << 29
+
 
 def _factored_closure_tables(h, nf4_roles, chain_roles):
     """``(m4, m6)``: ``h`` extended with one all-zero SENTINEL role row
@@ -124,6 +133,28 @@ def _factored_closure_tables(h, nf4_roles, chain_roles):
         return np.ascontiguousarray(h2[:, roles].T)
 
     return tab(nf4_roles), tab(chain_roles)
+
+
+def _tile_group_bounds(tab_roles: np.ndarray, tile_m: int,
+                       max_tiles: int) -> List[int]:
+    """Write-group bounds (table rows) of the live-tile CR6 such that no
+    group holds more than ``max_tiles`` row tiles, so its deferred
+    [tiles × tile_m, wc] output stays within the temporary budget.  A
+    row tile never spans two role runs' pieces of ``tile_m`` rows
+    (merging only lowers the count), so counting pieces bounds the
+    tiles; bounds fall on piece starts, where the schedule cuts too.
+    Many short role runs (each a padded tile) make many groups."""
+    n = len(tab_roles)
+    starts = np.flatnonzero(np.r_[True, tab_roles[1:] != tab_roles[:-1]])
+    ends = np.r_[starts[1:], n]
+    bounds, tiles = [0], 0
+    for s, e in zip(starts.tolist(), ends.tolist()):
+        for o in range(s, e, tile_m):
+            if tiles == max_tiles:
+                bounds.append(o)
+                tiles = 0
+            tiles += 1
+    return bounds + [n]
 
 
 class _Chunk(NamedTuple):
@@ -174,6 +205,7 @@ class RowPackedSaturationEngine:
         l_chunk: Optional[int] = None,
         l_chunk_cr4: Optional[int] = None,
         gate_chunks: Optional[bool] = None,
+        unroll: Optional[int] = None,
     ):
         """``rules``: subset of {"CR1".."CR6"} this engine applies (None
         = all).  ``cr6_tiles``: live-tile CR6 config (None = off; keys
@@ -184,7 +216,8 @@ class RowPackedSaturationEngine:
         the same names; None = from the temporary budget.
         ``gate_chunks``: gate CR5 on its inputs' change (None = the
         reference's rule: from 32,768 padded concepts up to 2.5 GiB of
-        packed state)."""
+        packed state).  ``unroll``: steps per convergence check (None =
+        the reference's rule: 2 up to 4.5 GiB of packed state, else 1)."""
         if rules is not None:
             unknown = set(rules) - {f"CR{i}" for i in range(1, 7)}
             if unknown:
@@ -199,8 +232,11 @@ class RowPackedSaturationEngine:
         self.nl = max(_pad_up(idx.n_links, 32), 32)
         self.wc = self.nc // 32
         dev = self.device
+        state_bytes = (self.nc + self.nl) * self.wc * 4
+        if unroll is None:
+            unroll = 1 if state_bytes > UNROLL2_MAX_STATE_BYTES else 2
+        self.unroll = max(int(unroll), 1)
         if gate_chunks is None:
-            state_bytes = (self.nc + self.nl) * self.wc * 4
             gate_chunks = (
                 self.nc >= GATE_MIN_CONCEPTS
                 and state_bytes <= GATE_MAX_STATE_BYTES
@@ -417,13 +453,13 @@ class RowPackedSaturationEngine:
             cp = idx.chain_pairs
             if tcfg is not None:
                 tm_eff = max(min(tcfg["tile_m"], _pad_up(len(cp), 8)), 8)
-                # write groups bound the deferred [rows, wc] output
-                g_rows = max(mm_rows // tm_eff, 1) * tm_eff
                 sched = build_cr6_tile_schedule(
-                    cp[:, 0], cp[:, 1], cp[:, 2], m6, link_roles, h,
+                    cp[:, 0], cp[:, 1], cp[:, 2], link_roles, h,
                     lc=lc, n_lchunks=self.n_lchunks,
                     tile_m=tm_eff, tile_l=tcfg["tile_l"],
-                    group_bounds=list(range(0, len(cp), g_rows)) + [len(cp)],
+                    group_bounds=_tile_group_bounds(
+                        cp[:, 0], tm_eff, max(mm_rows // tm_eff, 1)
+                    ),
                     dead_link=self.nl - 1,
                 )
                 window_macs = sum(
@@ -458,7 +494,11 @@ class RowPackedSaturationEngine:
             ]
             self._t6 = {
                 "rows": torch.as_tensor(t.rows.astype(np.int64)).to(dev),
-                "mrows": torch.as_tensor(t.mrows).to(dev),
+                # the factored mask rows, one all-zero row for pad slots
+                "mask": torch.as_tensor(
+                    np.concatenate([m6, np.zeros((1, m6.shape[1]), np.int8)])
+                ).to(dev),
+                "mrow_ids": torch.as_tensor(t.mrow_ids.astype(np.int64)).to(dev),
                 "tids": torch.as_tensor(t.tids.astype(np.int64)).to(dev),
                 "tval": torch.as_tensor(t.tval).to(dev),
                 "tchunk": torch.as_tensor(
@@ -760,7 +800,10 @@ class RowPackedSaturationEngine:
                         subt, self._fillers[ids], dtype=torch.int8
                     )                                      # [tile_l, tile_m]
                     w = (
-                        t6["mrows"][rt][:, self._link_roles[ids]]
+                        t6["mask"][
+                            t6["mrow_ids"][rt][:, None],
+                            self._link_roles[ids][None, :],
+                        ]
                         * f.T
                         * live.to(torch.int8)[None, :]
                     )
@@ -877,13 +920,15 @@ class RowPackedSaturationEngine:
         allow_incomplete: bool = False,
         profile: bool = False,
     ) -> SaturationResult:
-        """Run supersteps until one changes nothing (one host read of
-        the device's frontier flags per round) or ``max_iters`` rounds
-        ran.  ``initial``: a previous closure for :meth:`embed_state`
-        (its first step runs everything).  ``profile``: accumulate
+        """Groups of ``unroll`` supersteps (one host read of the
+        device's frontier flags a step) until a group changes nothing or
+        the budget — ``max_iters`` rounded up to ``unroll`` — is spent.
+        ``initial``: a previous closure for :meth:`embed_state` (its
+        first step runs everything).  ``profile``: accumulate
         synchronised walls of each rule group, the initial state, the
-        per-round frontier fold and read and the final bit count into
+        per-step frontier fold and read and the final bit count into
         :attr:`rule_seconds` (slower; for breakdowns only)."""
+        budget = _pad_up(max_iters, self.unroll)
         self._profile = bool(profile)
         self.gate_rounds = []
         try:
@@ -893,18 +938,20 @@ class RowPackedSaturationEngine:
             else:
                 sp, rp = self._timed("init", self.embed_state, *initial)
                 init_total = self.count_live_bits(sp, rp)
-            it, fr = 0, None
-            while (fr is None or fr.changed) and it < max_iters:
-                sp, rp, fr = self.step(sp, rp, fr)
-                it += 1
-            changed = fr is None or fr.changed
+            it, fr, changed = 0, None, True
+            while changed and it < budget:
+                changed = False
+                for _ in range(self.unroll):
+                    sp, rp, fr = self.step(sp, rp, fr)
+                    changed |= fr.changed
+                it += self.unroll
             total = self._timed("count", self.count_live_bits, sp, rp)
         finally:
             self._profile = False
         converged = not changed
         if not converged and not allow_incomplete:
             raise RuntimeError(
-                f"saturation did not converge within {max_iters} iterations"
+                f"saturation did not converge within {budget} iterations"
             )
         return SaturationResult(
             packed_s=sp,

@@ -1,17 +1,21 @@
-"""Corpus tools: the deterministic synthetic generators.
+"""Corpus tools: synthetic generators and ontology transforms.
 
-Copies of the reference package's generators, so the port builds the
-same corpora from the same seeds:
-  * ``synthetic_ontology``     — GALEN/GO-shaped EL+ corpus (every rule
-    CR1-CR6 gets exercised);
-  * ``chain_tailed_ontology``  — the same plus a ``SubClassOf`` chain
-    tail (late rounds derive one hop each);
-  * ``snomed_shaped_ontology`` — SNOMED CT's role structure: tens of
-    roles under a hierarchy, role-group conjunctions, a transitive
-    partonomy and right-identity chains.
-
-The corpus transforms (``multiply_ontology``, ``strip_non_el``) are not
-part of the port yet.
+Equivalents of the reference's corpus tooling:
+  * ``synthetic_ontology``   — deterministic EL+ generator (the scale tool
+    behind weak-scaling runs; plays the role of the reference's
+    ``samples/OntologyMultiplier.java`` synthetic corpora).
+  * ``snomed_shaped_ontology`` — deterministic generator with SNOMED CT's
+    *role structure*: tens of object properties under a role hierarchy,
+    role-group-style conjunctive definitions, transitive partonomy and
+    right-identity chains.  The reference's evaluation corpus is SNOMED
+    (``ShardInfo.properties:27`` chunk-tuning notes); this generator
+    reproduces its axiom-shape mix where the real release cannot ship.
+  * ``multiply_ontology``    — n-copy entity renaming and "crossed"
+    duplication (reference ``samples/OntologyMultiplier.java:32-88`` and
+    :97-…: copy k gets every axiom with entities renamed E→E_k; crossed
+    mode additionally mixes copies in conjunctions).
+  * ``strip_non_el``         — batch removal of out-of-profile axioms
+    (reference ``init/OntologyModifier.java:21-97``).
 """
 
 from __future__ import annotations
@@ -196,3 +200,82 @@ def snomed_shaped_ontology(
             f"SubClassOf({c} ObjectSomeValuesFrom(attr{a} {filler(rng)}))"
         )
     return "\n".join(lines)
+
+
+def _rename_atom(e: S.ClassExpression, k: int) -> S.ClassExpression:
+    if isinstance(e, S.Class):
+        return S.Class(f"{e.iri}__copy{k}")
+    if isinstance(e, S.Individual):
+        return S.Individual(f"{e.iri}__copy{k}")
+    if isinstance(e, S.ObjectIntersectionOf):
+        return S.ObjectIntersectionOf(tuple(_rename_atom(o, k) for o in e.operands))
+    if isinstance(e, S.ObjectSomeValuesFrom):
+        return S.ObjectSomeValuesFrom(_rename_role(e.role, k), _rename_atom(e.filler, k))
+    return e  # ⊤/⊥ shared across copies
+
+
+def _rename_role(r: S.ObjectProperty, k: int) -> S.ObjectProperty:
+    return S.ObjectProperty(f"{r.iri}__copy{k}")
+
+
+def _rename_axiom(ax: S.Axiom, k: int) -> S.Axiom:
+    if isinstance(ax, S.SubClassOf):
+        return S.SubClassOf(_rename_atom(ax.sub, k), _rename_atom(ax.sup, k))
+    if isinstance(ax, S.EquivalentClasses):
+        return S.EquivalentClasses(tuple(_rename_atom(o, k) for o in ax.operands))
+    if isinstance(ax, S.DisjointClasses):
+        return S.DisjointClasses(tuple(_rename_atom(o, k) for o in ax.operands))
+    if isinstance(ax, S.SubObjectPropertyOf):
+        return S.SubObjectPropertyOf(
+            tuple(_rename_role(r, k) for r in ax.chain), _rename_role(ax.sup, k)
+        )
+    if isinstance(ax, S.EquivalentObjectProperties):
+        return S.EquivalentObjectProperties(
+            tuple(_rename_role(r, k) for r in ax.operands)
+        )
+    if isinstance(ax, S.TransitiveObjectProperty):
+        return S.TransitiveObjectProperty(_rename_role(ax.role, k))
+    if isinstance(ax, S.ObjectPropertyDomain):
+        return S.ObjectPropertyDomain(_rename_role(ax.role, k), _rename_atom(ax.domain, k))
+    if isinstance(ax, S.ObjectPropertyRange):
+        return S.ObjectPropertyRange(_rename_role(ax.role, k), _rename_atom(ax.range, k))
+    if isinstance(ax, S.ClassAssertion):
+        return S.ClassAssertion(_rename_atom(ax.cls, k), _rename_atom(ax.individual, k))
+    if isinstance(ax, S.ObjectPropertyAssertion):
+        return S.ObjectPropertyAssertion(
+            _rename_role(ax.role, k),
+            _rename_atom(ax.subject, k),
+            _rename_atom(ax.object, k),
+        )
+    return ax
+
+
+def multiply_ontology(onto: S.Ontology, n_copies: int, crossed: bool = False) -> S.Ontology:
+    """Weak-scaling corpus builder: n disjoint renamed copies; ``crossed``
+    additionally links copy k to copy k+1 with cross-copy conjunctions
+    (the reference's A1⊓B2⊑C1 pattern, ``samples/OntologyMultiplier.java:97-``)."""
+    out = S.Ontology(iri=onto.iri + f"-x{n_copies}")
+    for k in range(n_copies):
+        for ax in onto.axioms:
+            out.add(_rename_axiom(ax, k))
+    if crossed and n_copies >= 2:
+        classes = sorted(onto.classes(), key=lambda c: c.iri)[:50]
+        for k in range(n_copies - 1):
+            for i in range(0, len(classes) - 1, 2):
+                a = _rename_atom(classes[i], k)
+                b = _rename_atom(classes[i + 1], k + 1)
+                c = _rename_atom(classes[i], k + 1)
+                out.add(S.SubClassOf(S.ObjectIntersectionOf((a, b)), c))
+    return out
+
+
+def strip_non_el(onto: S.Ontology) -> S.Ontology:
+    """Drop axioms containing out-of-profile constructs (reference
+    ``init/OntologyModifier.java:21-97`` / ``test/ELAxiomExtractor.java``)."""
+    from distel_tpu_torch.frontend.profile_checker import axiom_in_profile
+
+    out = S.Ontology(iri=onto.iri, prefixes=dict(onto.prefixes))
+    for ax in onto.axioms:
+        if axiom_in_profile(ax):
+            out.add(ax)
+    return out

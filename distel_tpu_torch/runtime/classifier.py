@@ -5,11 +5,13 @@ The port of ``distel_tpu/runtime/classifier.py``'s one-shot path
 (``ELClassifier.classify_text`` / ``classify_file``, with
 ``resume_from=`` and ``verify=``).  OFN text goes through the C++ load
 plane (phase ``load(native)``) unless the config turns it off, the input
-is XML, ``verify=True`` asks for the oracle diff (which reads the Python
-plane's normalized ontology) or a normalizer cache is configured; then
-parse → normalize → index run in Python, with the cache.  The engine is
-the row-packed one (``engine="auto"``/``"rowpacked"``), the packed one
-(``engine="packed"``) or the dense one (``engine="dense"``).
+is XML (RDF/XML or OWL/XML), ``verify=True`` asks for the oracle diff
+(which reads the Python plane's normalized ontology) or a normalizer
+cache is configured; then parse → normalize → index run in Python, with
+the cache.  The engine is the row-packed one
+(``engine="auto"``/``"rowpacked"``), the packed one (``engine="packed"``)
+or the dense one (``engine="dense"``); ``rule_backends`` that route a
+rule to the host wrap the row-packed engine in the hybrid saturator.
 Everything runs on ``cuda`` unless the caller passes ``device="cpu"``;
 with no card and no device given, construction raises.
 """
@@ -25,6 +27,7 @@ import torch
 
 from distel_tpu_torch.config import ClassifierConfig
 from distel_tpu_torch.core.engine import SaturationEngine, SaturationResult
+from distel_tpu_torch.core.hybrid import HybridSaturator, split_backends
 from distel_tpu_torch.core.indexing import Indexer, IndexedOntology
 from distel_tpu_torch.core.packed_engine import PackedSaturationEngine
 from distel_tpu_torch.core.rowpacked_engine import RowPackedSaturationEngine
@@ -86,7 +89,7 @@ class ClassificationResult:
     #: the engine that ran the fixed point (its plan statistics)
     engine: Optional[
         Union[RowPackedSaturationEngine, PackedSaturationEngine,
-              SaturationEngine]
+              SaturationEngine, HybridSaturator]
     ] = None
 
     def summary(self) -> dict:
@@ -121,8 +124,21 @@ class ClassificationResult:
 def make_engine(config: ClassifierConfig, idx: IndexedOntology, device):
     """The engine ``config.engine`` names, on ``device``: the row-packed
     engine for "auto" and "rowpacked", the packed engine for "packed",
-    the dense engine for "dense"."""
+    the dense engine for "dense"; the hybrid saturator over the
+    row-packed engine when ``rule_backends`` routes a rule to the
+    host."""
     config.validate()
+    _, host_rules = split_backends(config.rule_backends)
+    if host_rules:
+        if config.engine not in ("auto", "rowpacked"):
+            raise ValueError(
+                "rule_backends routing rules to the host requires the "
+                f"rowpacked engine, but engine={config.engine!r}"
+            )
+        return HybridSaturator(
+            idx, config.rule_backends, device=device,
+            engine_kw={"pad_multiple": config.pad_multiple},
+        )
     if config.engine == "packed":
         return PackedSaturationEngine(
             idx, device=device, pad_multiple=config.pad_multiple

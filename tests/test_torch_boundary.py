@@ -1,14 +1,15 @@
 """The port's boundary: it stands alone, and it never runs on the CPU
 unless asked.
 
-* No module under ``distel_tpu_torch/``, and neither ``chip_smoke.py`` nor ``chip_ab.py``,
-  imports ``jax`` or ``distel_tpu`` — checked on the source (AST) and
+* No module under ``distel_tpu_torch/``, and none of ``chip_smoke.py``,
+  ``chip_ab.py`` and ``chip_memory.py``, imports ``jax`` or ``distel_tpu`` — checked on the source (AST) and
   by importing every module in a fresh interpreter and reading
   ``sys.modules``.
 * Importing a module builds nothing: the CUDA kernels and the native
   load plane compile at first use.
 * With no CUDA device and no device given, the entry points raise, and
-  ``chip_smoke.py`` exits non-zero without printing a result.
+  ``chip_smoke.py`` and ``chip_memory.py`` exit non-zero without
+  printing a result.
 """
 
 import ast
@@ -27,7 +28,7 @@ from distel_tpu_torch.ops.bitmatmul import PackedColsMatmulPlan
 from distel_tpu_torch.runtime import classifier
 
 ROOT = Path(__file__).resolve().parent.parent
-SCRIPTS = [ROOT / "chip_smoke.py", ROOT / "chip_ab.py"]
+SCRIPTS = [ROOT / "chip_smoke.py", ROOT / "chip_ab.py", ROOT / "chip_memory.py"]
 PORT_FILES = sorted((ROOT / "distel_tpu_torch").rglob("*.py")) + SCRIPTS
 FORBIDDEN = ("jax", "jaxlib", "distel_tpu")
 
@@ -59,7 +60,7 @@ def test_importing_every_module_loads_no_jax():
     )
     code = (
         "import importlib, json, sys\n"
-        f"for m in {mods!r} + ['chip_smoke', 'chip_ab']:\n"
+        f"for m in {mods!r} + {[p.stem for p in SCRIPTS]!r}:\n"
         "    importlib.import_module(m)\n"
         "print(json.dumps(sorted(m for m in sys.modules\n"
         "    if m.split('.')[0] in ('jax', 'jaxlib', 'distel_tpu'))))\n"
@@ -107,8 +108,8 @@ def test_plan_refuses_a_device_without_a_kernel():
         plan(a, b)
 
 
-def _run_smoke(cwd: Path):
-    return subprocess.run([sys.executable, "chip_smoke.py"], cwd=cwd,
+def _run_smoke(cwd: Path, script: str = "chip_smoke.py"):
+    return subprocess.run([sys.executable, script], cwd=cwd,
                           capture_output=True, text=True, timeout=120)
 
 
@@ -118,6 +119,14 @@ def test_chip_smoke_fails_without_a_card():
     out = _run_smoke(ROOT)
     assert out.returncode != 0
     assert '"ok"' not in out.stdout and '"kernels"' not in out.stdout
+
+
+def test_chip_memory_fails_without_a_card():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the scan would run for real")
+    out = _run_smoke(ROOT, "chip_memory.py")
+    assert out.returncode != 0
+    assert '"memory"' not in out.stdout
 
 
 def test_chip_smoke_fails_alone(tmp_path):

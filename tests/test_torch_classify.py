@@ -38,7 +38,7 @@ GOLDEN = sorted((Path(__file__).parent / "golden").glob("*.ofn"))
 # start one torch thread per core
 torch.set_num_threads(2)
 COUNTS = ("concepts", "roles", "links", "normalized_axioms",
-          "removed_axioms", "derivations", "unsatisfiable")
+          "removed_axioms", "iterations", "derivations", "unsatisfiable")
 
 
 def _ref_classifier():
@@ -87,6 +87,46 @@ def test_classify_matches_reference(corpus):
     s, r = got.result.wire()
     ws, wr = _wire(ref.result)
     assert np.array_equal(s, ws) and np.array_equal(r, wr)
+
+
+@pytest.mark.parametrize(
+    "text",
+    [pytest.param(p.read_text(), id=p.stem) for p in GOLDEN]
+    + [pytest.param(snomed_shaped_ontology(n_classes=500), id="snomed-500")],
+)
+def test_default_classifier_matches_reference_default(text):
+    """Both packages at their defaults — the reference's
+    ``ELClassifier()`` with shape buckets and the native load plane, the
+    port's ``ELClassifier(device="cpu")`` — give the same taxonomy,
+    derivations and iterations (steps in groups of the same ``unroll``)."""
+    ref = RefClassifier().classify_text(text)
+    got = ELClassifier(device="cpu").classify_text(text)
+    assert _tax_key(got.taxonomy) == _tax_key(ref.taxonomy)
+    assert got.result.derivations == ref.result.derivations
+    assert got.result.iterations == ref.result.iterations
+
+
+@pytest.mark.parametrize("engine", ["rowpacked", "dense"])
+def test_max_iterations_budget_matches_reference(engine):
+    """On 19-bottom-chain (6 iterations on the row-packed engine in
+    groups of 2, 8 on the dense one in groups of 4) a budget of 4 raises
+    on both packages and a budget of 6 converges on both."""
+    text = (Path(__file__).parent / "golden" / "19-bottom-chain.ofn").read_text()
+    for budget, converges in ((4, False), (6, True)):
+        ref = RefClassifier(RefConfig(engine=engine, max_iterations=budget,
+                                      shape_buckets=False))
+        port = ELClassifier(ClassifierConfig(engine=engine, max_iterations=budget),
+                            device="cpu")
+        if not converges:
+            for clf in (ref, port):
+                with pytest.raises(RuntimeError,
+                                   match="did not converge within 4 iterations"):
+                    clf.classify_text(text)
+            continue
+        want, got = ref.classify_text(text), port.classify_text(text)
+        assert got.result.iterations == want.result.iterations == {
+            "rowpacked": 6, "dense": 8}[engine]
+        assert got.result.derivations == want.result.derivations
 
 
 @pytest.mark.parametrize("path", GOLDEN, ids=lambda p: p.stem)
@@ -238,7 +278,8 @@ def test_cli_classify_writes_taxonomy_and_snapshot(tmp_path, capsys):
     assert rc == 0
     assert "SubClassOf(" in out.read_text()
     again = _port_classifier().classify_file(str(src), resume_from=str(snap))
-    assert again.result.iterations == 1      # nothing left to derive
+    # nothing left to derive: one group of the engine's two steps
+    assert again.result.iterations == again.engine.unroll == 2
     assert '"derivations"' in capsys.readouterr().out
 
 
@@ -298,9 +339,7 @@ def test_packed_classify_matches_reference(corpus):
     assert type(got.engine).__name__ == "PackedSaturationEngine"
     assert _tax_key(got.taxonomy) == _tax_key(ref.taxonomy)
     want, have = ref.summary(), got.summary()
-    assert {k: have[k] for k in COUNTS + ("iterations",)} == {
-        k: want[k] for k in COUNTS + ("iterations",)
-    }
+    assert {k: have[k] for k in COUNTS} == {k: want[k] for k in COUNTS}
     s, r = got.result.wire()
     ws, wr = _wire(ref.result)
     assert np.array_equal(s, ws) and np.array_equal(r, wr)

@@ -492,3 +492,38 @@ def test_dense_classify_on_the_card_equals_the_cpu(card, text):
 def test_verify_on_the_card(card):
     for path in sorted(GOLDEN.glob("*.ofn")):
         ELClassifier(device="cuda").classify_file(str(path), verify=True)
+
+
+@pytest.mark.parametrize("routed", [{"CR5": "host"}, {"CR1": "host", "CR6": "host"},
+                                    {"CR4": "host"}],
+                         ids=["CR5", "CR1+CR6", "CR4"])
+def test_hybrid_on_the_card_equals_the_cpu(card, routed):
+    """Rules routed to the host beside the card's row-packed engine:
+    the same closure, counts and taxonomy as the same routing on the CPU
+    and as the all-device card run."""
+    text = snomed_shaped_ontology(n_classes=600, seed=3)
+    cfg = ClassifierConfig(rule_backends=routed)
+    gpu = ELClassifier(cfg, device="cuda").classify_text(text)
+    cpu = ELClassifier(cfg, device="cpu").classify_text(text)
+    row = ELClassifier(device="cuda").classify_text(text)
+    n, nl = gpu.idx.n_concepts, gpu.idx.n_links
+    assert np.array_equal(gpu.result.s[:n, :n], cpu.result.s[:n, :n])
+    assert np.array_equal(gpu.result.s[:n, :n], row.result.s[:n, :n])
+    assert np.array_equal(gpu.result.r[:n, :nl], row.result.r[:n, :nl])
+    assert (gpu.result.iterations, gpu.result.derivations) == (
+        cpu.result.iterations, cpu.result.derivations)
+    assert gpu.result.derivations == row.result.derivations
+    assert gpu.taxonomy.parents == row.taxonomy.parents
+
+
+@pytest.mark.parametrize("name", ["galen_module_jia", "lubm_univ_bench"])
+def test_rdfxml_corpus_on_the_card_equals_the_cpu(card, name):
+    text = (Path(__file__).parent / "corpora" / f"{name}.owl").read_text(
+        encoding="utf-8-sig")
+    gpu = ELClassifier(device="cuda").classify_text(text)
+    cpu = ELClassifier(device="cpu").classify_text(text)
+    for g, c in zip(gpu.result.wire(), cpu.result.wire()):
+        assert np.array_equal(g, c)
+    assert (gpu.result.iterations, gpu.result.derivations) == (
+        cpu.result.iterations, cpu.result.derivations)
+    assert gpu.taxonomy.parents == cpu.taxonomy.parents

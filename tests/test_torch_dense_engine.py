@@ -1,7 +1,7 @@
 """The port's dense engine and its differential check.
 
 The dense ``SaturationEngine`` of ``distel_tpu_torch/core/engine.py``
-against the JAX package's (CPU, ``unroll=1``): S, R, the iteration
+against the JAX package's (CPU, both at ``unroll=1``): S, R, the iteration
 count and the derivations must be equal, and so must the port's
 row-packed closure on the same index.  ``verify=True`` and the ``diff``
 command hold a closure against the CPU oracle, whose copy in the port
@@ -63,7 +63,7 @@ def _index(text):
 def test_dense_engine_matches_reference_and_rowpacked(corpus):
     idx = _index(CORPORA[corpus]())
     want = RefDense(idx, unroll=1).saturate()
-    got = SaturationEngine(idx, device="cpu").saturate()
+    got = SaturationEngine(idx, device="cpu", unroll=1).saturate()
     assert np.array_equal(got.s, np.asarray(want.s))
     assert np.array_equal(got.r, np.asarray(want.r))
     assert got.iterations == want.iterations
@@ -85,7 +85,7 @@ def test_dense_resume_matches_reference():
     assert not part.converged
     state = (np.asarray(part.s), np.asarray(part.r))
     want = RefDense(idx, unroll=1).saturate(initial=state)
-    got = SaturationEngine(idx, device="cpu").saturate(initial=state)
+    got = SaturationEngine(idx, device="cpu", unroll=1).saturate(initial=state)
     assert np.array_equal(got.s, np.asarray(want.s))
     assert (got.iterations, got.derivations) == (want.iterations,
                                                  want.derivations)

@@ -7,8 +7,10 @@ the port on ``device="cpu"``, where its packed-columns plans take their
 plain PyTorch version.  ``packed_s``, ``packed_r`` and ``derivations``
 must be equal bit for bit.
 
-The reference is built with ``unroll=1`` so that its iteration count is
-not rounded up to an unroll multiple.  Both engines gate their windows
+Both engines are built with ``unroll=1`` (one convergence check a
+step), so the iteration count is not rounded up to an unroll multiple
+(``tests/test_torch_classify.py`` holds the default unroll to the
+reference's).  Both engines gate their windows
 on the frontier, and at their default budgets both plan one chunk a
 rule over one L-chunk here, so the iteration counts agree too, and the tests hold
 them equal (``tests/test_torch_gating.py`` holds every round equal).
@@ -47,14 +49,13 @@ def _index(text):
     return index_ontology(normalize(parser.parse(text)))
 
 
-def _assert_same(ref_res, port_res, *, iterations=True):
+def _assert_same(ref_res, port_res):
     s, r = port_res.wire()
     assert np.array_equal(np.asarray(ref_res.packed_s).astype(np.uint32), s)
     assert np.array_equal(np.asarray(ref_res.packed_r).astype(np.uint32), r)
     assert ref_res.derivations == port_res.derivations
     assert port_res.converged
-    if iterations:
-        assert ref_res.iterations == port_res.iterations
+    assert ref_res.iterations == port_res.iterations
 
 
 @pytest.fixture(scope="module")
@@ -77,7 +78,8 @@ def test_engine_matches_reference(corpus, tiles, request):
     ref = RefEngine(idx, bucket=False, use_pallas=False, unroll=1,
                     scan_chunks=tiles is not None, cr6_tiles=tiles)
     assert (ref._tiles6 is not None) == (tiles is not None)
-    port = RowPackedSaturationEngine(idx, device="cpu", cr6_tiles=tiles)
+    port = RowPackedSaturationEngine(idx, device="cpu", unroll=1,
+                                     cr6_tiles=tiles)
     assert (port._tiles6 is not None) == (tiles is not None)
     before = dict(LAUNCHES)
     _assert_same(ref.saturate(), port.saturate())
@@ -89,7 +91,7 @@ def test_density_fallback_keeps_windows(snomed_idx):
     """The default threshold leaves this corpus on the window
     formulation, with the decision recorded, and the closure unchanged."""
     port = RowPackedSaturationEngine(
-        snomed_idx, device="cpu", cr6_tiles={"enable": True}
+        snomed_idx, device="cpu", unroll=1, cr6_tiles={"enable": True}
     )
     assert port._tiles6 is None
     assert port.cr6_tiles_stats["reason"] == "density above threshold"
@@ -105,7 +107,7 @@ def test_bottom_propagation_matches_reference(name):
     links needs no CR5: ⊥ arrives through CR1/CR2 alone)."""
     idx = _index((GOLDEN / f"{name}.ofn").read_text())
     assert idx.has_bottom_axioms
-    port = RowPackedSaturationEngine(idx, device="cpu")
+    port = RowPackedSaturationEngine(idx, device="cpu", unroll=1)
     assert port._bottom == (idx.n_links > 0)
     ref = RefEngine(idx, bucket=False, use_pallas=False, unroll=1)
     res = port.saturate()
@@ -120,7 +122,7 @@ def test_pallas_interpret_is_the_oracle():
     idx = _index(text)
     ref = RefEngine(idx, bucket=False, use_pallas=False, unroll=1,
                     mm_opts={"use_xla": False, "interpret": True})
-    port = RowPackedSaturationEngine(idx, device="cpu")
+    port = RowPackedSaturationEngine(idx, device="cpu", unroll=1)
     _assert_same(ref.saturate(), port.saturate())
 
 
@@ -128,7 +130,7 @@ def test_small_temp_budget_chunks_identically(chain_idx):
     """A tiny temporary budget forces many word blocks, row chunks and
     short windows; the closure does not move."""
     ref = RefEngine(chain_idx, bucket=False, use_pallas=False, unroll=1)
-    port = RowPackedSaturationEngine(chain_idx, device="cpu",
+    port = RowPackedSaturationEngine(chain_idx, device="cpu", unroll=1,
                                      temp_budget_bytes=1 << 12)
     stats = port.plan_stats()
     assert stats["word_block"] < stats["wc"]
@@ -150,7 +152,8 @@ def test_many_windows_accumulate_in_place(corpus, tiles, request, monkeypatch):
         return orig(plan, a, b, out)
 
     monkeypatch.setattr(bitmatmul.PackedColsMatmulPlan, "__call__", spy)
-    port = RowPackedSaturationEngine(idx, device="cpu", cr6_tiles=tiles,
+    port = RowPackedSaturationEngine(idx, device="cpu", unroll=1,
+                                     cr6_tiles=tiles,
                                      temp_budget_bytes=1 << 10)
     stats = port.plan_stats()
     assert (stats["cr4_windows"] + stats["cr6_windows"]
@@ -164,7 +167,7 @@ def test_many_windows_accumulate_in_place(corpus, tiles, request, monkeypatch):
 def test_rule_subset_and_unknown_rule(chain_idx):
     ref = RefEngine(chain_idx, bucket=False, use_pallas=False, unroll=1,
                     rules=frozenset({"CR1", "CR2"}))
-    port = RowPackedSaturationEngine(chain_idx, device="cpu",
+    port = RowPackedSaturationEngine(chain_idx, device="cpu", unroll=1,
                                      rules=frozenset({"CR1", "CR2"}))
     _assert_same(ref.saturate(), port.saturate())
     with pytest.raises(ValueError, match="unknown rules"):
@@ -181,7 +184,7 @@ def test_resume_from_reference_partial_state(snomed_idx):
     part = ref.saturate(2, allow_incomplete=True)
     assert not part.converged
     packed = (np.asarray(part.packed_s), np.asarray(part.packed_r))
-    port = RowPackedSaturationEngine(snomed_idx, device="cpu")
+    port = RowPackedSaturationEngine(snomed_idx, device="cpu", unroll=1)
     res = port.saturate(initial=state_from_reference(*packed, "cpu"))
     s, r = res.wire()
     assert np.array_equal(np.asarray(full.packed_s).astype(np.uint32), s)
@@ -211,3 +214,28 @@ def test_cuda_temp_budget_is_sized_for_the_card(monkeypatch):
 
     assert port_engine.default_temp_budget(torch.device("cuda")) == 2 << 30
     assert port_engine.default_temp_budget(torch.device("cpu")) == 256 << 20
+
+
+def test_live_tile_write_groups_stay_within_the_budget():
+    """Many short role runs (renamed copies of the OpenGALEN module)
+    make many padded row tiles; the live-tile CR6 cuts its deferred
+    write groups so no group's [tiles × tile_m, wc] output passes the
+    temporary budget; the closure and the iteration count are those of
+    the reference's live-tile CR6 with the same ``unroll``."""
+    from distel_tpu.frontend.ontology_tools import multiply_ontology
+    from distel_tpu.owl import rdfxml
+
+    galen = rdfxml.parse_file(str(GOLDEN.parent / "corpora" / "galen_module_jia.owl"))
+    idx = index_ontology(normalize(multiply_ontology(galen, 12, crossed=True)))
+    budget = 1 << 20
+    port = RowPackedSaturationEngine(idx, device="cpu", cr6_tiles=TILES_ON,
+                                     temp_budget_bytes=budget, unroll=2)
+    assert port._tiles6 is not None
+    groups = port._t6["groups"]
+    tile_rows = [(rt1 - rt0) * port._tiles6.tile_m for rt0, rt1, _p, _o in groups]
+    assert len(groups) > 1
+    assert max(tile_rows) * 4 * port.wc <= budget
+    ref = RefEngine(idx, bucket=False, use_pallas=False, unroll=2,
+                    scan_chunks=True, cr6_tiles=TILES_ON)
+    assert ref._tiles6 is not None
+    _assert_same(ref.saturate(), port.saturate())

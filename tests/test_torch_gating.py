@@ -9,7 +9,7 @@ and the per-L-chunk dirty flags must be equal, bit for bit, in the
 window formulation (the reference unrolled) and in the live-tile CR6
 (the reference scanned, ``scan_chunks=True``).  Both engines run on
 this host's CPU (the reference with ``use_pallas=False``, the port's
-plans on their plain version), and the reference at ``unroll=1``.
+plans on their plain version), both at ``unroll=1``.
 """
 
 import random
@@ -93,7 +93,7 @@ def run_both_per_round(idx, mode):
     reference engine)."""
     rkw, pkw = MODES[mode]
     ref = RefEngine(idx, bucket=False, use_pallas=False, unroll=1, **rkw)
-    port = RowPackedSaturationEngine(idx, device="cpu", **pkw)
+    port = RowPackedSaturationEngine(idx, device="cpu", unroll=1, **pkw)
     if "cr6_tiles" in pkw:
         assert (ref._tiles6 is None) == (port._tiles6 is None)
     assert (port.lc, port.n_lchunks) == (ref.lc, ref.n_lchunks)
