@@ -80,6 +80,22 @@ Phases, each of which raises on failure:
    temporaries); then a captured saturate-and-taxonomy rerun of each
    plane's engine, whose operand pairs (one per call site and work
    bucket) are checked as in phase 6 and join the kernel line.
+9. the incremental plane (``IncrementalClassifier``): the reference
+   bench's traffic (a 100-axiom class-only delta, a role-introducing
+   delta, ``SubObjectPropertyOf(attr7 attr8)``), the class-only delta
+   retracted, and a restore from a snapshot through the op log — over
+   the 8k corpus on the card and on the CPU (packed S and R and the
+   history equal after every step), then over the 64k corpus on the
+   card with the default config and nothing hooked in: each step's
+   path (base rebuild; class-only and role deltas on the fast path, the
+   role delta with a cross engine; the closure delta fast through the
+   rebind or rebuilt), held to a from-scratch card classify (taxonomy
+   and named subsumers by name), the retraction to a classify of the
+   survivors, the restore one quiet group with the same closure, and a
+   forced rebuild of the class-only delta on a second classifier; then
+   the delta, cross and rebound-base engines rerun under the capture,
+   whose heaviest operand pair per site, engine and kernel is checked
+   as in phase 6 and joins the kernel line.
 
 Kernel times are CUDA-event times per call over back-to-back calls;
 the packed-contraction route's are also taken from CUDA-graph replays
@@ -94,7 +110,11 @@ with A's nonzero fraction), the ``{"andor_checks": ...}``,
 ``rounds``), ``{"full_width": ...}`` (the Python
 load plane), ``{"breakdown": ...}``, ``{"threshold_ab": ...}``,
 ``{"packed_full_width": ...}``, ``{"packed_breakdown": ...}`` and
-``{"andor_operands": ...}``, ``{"multiplied_full_width": ...}`` lines,
+``{"andor_operands": ...}``, ``{"multiplied_full_width": ...}``,
+``{"incremental_card_vs_cpu": ...}`` and ``{"incremental_full_width":
+...}`` (each step's path, iterations, derivations, wall, phases,
+launches, host and card peaks; the retraction's overdeletion time)
+lines,
 a ``{"kernels": [...]}`` line
 (the sparse row also carries the listing kernel's time and launches),
 and as its last line
@@ -107,7 +127,9 @@ from __future__ import annotations
 import ast
 import contextlib
 import json
+import os
 import re
+import shutil
 import subprocess
 import sys
 import time
@@ -926,6 +948,9 @@ class Capture:
 
         self.mod = bitmatmul
         self.run = ""
+        #: None, or engine -> label: the call site is then keyed
+        #: ``site:label`` by the engine that launched
+        self.kind = None
         self.pairs = {}   # key -> [launches, nnz(A), a, b]
         self._orig = bitmatmul.PackedColsMatmulPlan._launch
 
@@ -938,6 +963,8 @@ class Capture:
                 f = f.f_back
             if f is not None:
                 site = SITES[f.f_code.co_name]
+                if cap.kind is not None:
+                    site = f"{site}:{cap.kind(f.f_locals.get('self'))}"
             kern = "packed_cols_sparse" if plan.skip_zero_tiles else "packed_cols_dense"
             work = plan.m * plan.l * plan.w
             key = (cap.run, site, kern, work.bit_length())
@@ -1304,6 +1331,342 @@ def phase_kernel_line(launches, cap: Capture, checked=()):
     return rows, pairs
 
 
+# ------------------------------------------------------ the incremental plane
+
+#: the reference bench's incremental traffic (``bench.py:1293-1382``): a
+#: 100-axiom class-only delta, a role-introducing delta (a new subrole,
+#: 50 property assertions over it, an ∃-on-the-left axiom), and a
+#: closure-changing delta between two base roles
+INC_CLASS_DELTA = "\n".join(f"SubClassOf(BenchDelta{i} Find{i * 7})" for i in range(100))
+INC_ROLE_DELTA = (
+    "SubObjectPropertyOf(benchNewRole attr0)\n"
+    + "\n".join(
+        f"SubClassOf(BenchR{i} ObjectSomeValuesFrom(benchNewRole Find{i * 11}))"
+        for i in range(50)
+    )
+    + "\nSubClassOf(ObjectSomeValuesFrom(benchNewRole Find11) BenchRoleHit)"
+)
+INC_CLOSURE_DELTA = "SubObjectPropertyOf(attr7 attr8)"
+SNAPSHOT_DIR = ROOT / "build" / "smoke"
+
+
+def named_closure_equal(a, b, block: int = 1024) -> bool:
+    """Whether two row-packed results hold the same subsumptions between
+    named classes, matched by name (the two indexes may number them
+    differently): S rows of named subsumers unpacked on the card in
+    blocks, restricted to named columns, in one name order."""
+    from distel_tpu_torch.ops.bitpack import unpack_words
+
+    ia, ib = a.idx, b.idx
+    names = sorted(ia.concept_names[i] for i in ia.original_classes)
+    if names != sorted(ib.concept_names[i] for i in ib.original_classes):
+        return False
+    ids = [
+        torch.as_tensor([idx.concept_ids[n] for n in names], device=res.packed_s.device)
+        for idx, res in ((ia, a), (ib, b))
+    ]
+    for i0 in range(0, len(names), block):
+        rows = []
+        for res, idv in zip((a, b), ids):
+            r = unpack_words(res.packed_s[idv[i0 : i0 + block]], res.packed_s.shape[1] * 32)
+            rows.append(r[:, idv])
+        if not torch.equal(rows[0], rows[1]):
+            return False
+    return True
+
+
+class HostPeak:
+    """The process's peak resident memory while active, sampled from
+    ``/proc/self/statm`` every 20 ms by a thread."""
+
+    def __enter__(self):
+        import threading
+
+        self.peak, self._stop = 0, threading.Event()
+        page = os.sysconf("SC_PAGE_SIZE")
+
+        def poll():
+            while True:
+                with open("/proc/self/statm") as f:
+                    self.peak = max(self.peak, int(f.read().split()[1]) * page)
+                if self._stop.wait(0.02):
+                    return
+
+        self._thread = threading.Thread(target=poll, daemon=True)
+        self._thread.start()
+        return self
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        self._thread.join()
+
+
+def without_ranges(text: str) -> str:
+    """``text`` without its ``ObjectPropertyRange`` axioms: with range
+    elimination active, retraction is refused (the reference's rule:
+    range retrofits attribute rows of old texts to later batches), so
+    the retraction runs over this variant of a corpus."""
+    return "\n".join(
+        ln for ln in text.splitlines() if not ln.startswith("ObjectPropertyRange(")
+    ) + "\n"
+
+
+def incremental_steps(text: str):
+    """The bench's sequence over ``text``: (op, text) in order."""
+    return [("add", text), ("add", INC_CLASS_DELTA), ("add", INC_ROLE_DELTA),
+            ("add", INC_CLOSURE_DELTA), ("retract", INC_CLASS_DELTA)]
+
+
+def phase_incremental_card_vs_cpu() -> dict:
+    """The bench's incremental traffic over the 8k corpus (without its
+    one range axiom, so that the retraction is not refused), the default
+    config (the fast path engages above 2,048 concepts), on the card and
+    on the CPU: after every increment, the retraction and a restore from
+    a snapshot (with the retraction marker in the op log), the packed S
+    and R byte-identical and the history records equal."""
+    from distel_tpu_torch.core.incremental import IncrementalClassifier
+    from distel_tpu_torch.frontend.ontology_tools import snomed_shaped_ontology
+
+    text = without_ranges(snomed_shaped_ontology(n_classes=8000, seed=42))
+    steps = incremental_steps(text)
+    log_ops = [t for _op, t in steps[:-1]] + [{"op": "retract", "text": INC_CLASS_DELTA}]
+    SNAPSHOT_DIR.mkdir(parents=True, exist_ok=True)
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        t0 = time.perf_counter()
+        inc = IncrementalClassifier(device=dev)
+        wires = []
+        for op, t in steps:
+            res = inc.add_text(t) if op == "add" else inc.retract(t)
+            wires.append(res.wire())
+        path = str(SNAPSHOT_DIR / f"inc8k-{dev}.npz")
+        inc.snapshot(path, compressed=False)
+        back = IncrementalClassifier.restore(log_ops, path, device=dev)
+        wires.append(back.last_result.wire())
+        runs[dev] = (inc.history + back.history[-1:], wires, time.perf_counter() - t0)
+        del inc, back, res
+    shutil.rmtree(SNAPSHOT_DIR, ignore_errors=True)
+    (hc, wc, tc), (hp, wp, tp) = runs["cuda"], runs["cpu"]
+    for i, (x, y) in enumerate(zip(wc, wp)):
+        if not all(np.array_equal(u, v) for u, v in zip(x, y)):
+            raise AssertionError(f"incremental 8k: step {i}: packed S/R differ card/cpu")
+    strip = [{k: v for k, v in h.items() if k != "restored_from"} for h in hc]
+    if strip != [{k: v for k, v in h.items() if k != "restored_from"} for h in hp]:
+        raise AssertionError(f"incremental 8k: histories differ: {hc} / {hp}")
+    paths = [h["path"] for h in hc]
+    if paths[:3] != ["rebuild", "fast", "fast"] or paths[4:] != ["retract", "restore"]:
+        raise AssertionError(f"incremental 8k: paths {paths}")
+    if hc[-1]["new_derivations"] != 0:
+        raise AssertionError("incremental 8k: the restore derived something")
+    out = {"history": hc, "cuda_s": tc, "cpu_s": tp}
+    log(f"[incremental 8k] {json.dumps(out)}")
+    print(json.dumps({"incremental_card_vs_cpu": out}), flush=True)
+    return out
+
+
+def phase_incremental_full_width(cap: Capture):
+    """The incremental plane at full width: the bench's traffic over the
+    64k corpus with the default config and nothing hooked in — base
+    (rebuild), class-only delta (fast), role delta (fast, with a cross
+    engine), closure delta (fast through the rebind, or rebuild), each
+    held to a from-scratch card classify of the texts so far; the
+    class-only delta retracted (held to a classify of the survivors);
+    a snapshot restored through the op log (one quiet group, the same
+    closure); a second classifier's forced rebuild of the class-only
+    delta.  Then the delta, cross and rebound-base engines rerun under
+    the capture; the heaviest operand pair per site, engine and kernel
+    is checked bit for bit and returned for the kernel line."""
+    from distel_tpu_torch.core.incremental import IncrementalClassifier
+    from distel_tpu_torch.frontend.ontology_tools import snomed_shaped_ontology
+    from distel_tpu_torch.ops.bitmatmul import LAUNCHES, reset_launches
+    from distel_tpu_torch.runtime.classifier import ELClassifier
+    from distel_tpu_torch.runtime.taxonomy import extract_taxonomy
+
+    text = snomed_shaped_ontology(n_classes=64000, seed=42)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    inc = IncrementalClassifier(device="cuda")
+    records = []
+
+    def step(name, fn, paths):
+        """``fn() -> (result, classifier)``, timed and recorded."""
+        reset_launches()
+        sync()
+        t0 = time.perf_counter()
+        with HostPeak() as hp:
+            res, who = fn()
+            sync()
+        wall = time.perf_counter() - t0
+        h = who.history[-1]
+        rec = {"step": name, **{k: h[k] for k in h if k != "restored_from"},
+               "wall_s": wall, "phases_s": who.last_phases,
+               "launches": dict(LAUNCHES), "host_peak_rss": hp.peak,
+               "max_memory_allocated": torch.cuda.max_memory_allocated()}
+        log(f"[incremental 64k] {json.dumps(rec)}")
+        records.append(rec)
+        if h["path"] not in paths:
+            raise AssertionError(f"incremental 64k {name}: path {h['path']}, want {paths}")
+        # every step's first round runs every window of the base engine,
+        # so each route its plans chose must have launched in the step
+        routes = {p.skip_zero_tiles for p in who._base_engine._plans.values()}
+        need = (["packed_cols_list", "packed_cols_sparse"] if True in routes else []) \
+            + (["packed_cols_dense"] if False in routes else [])
+        for k in need:
+            if rec["launches"][k] == 0:
+                raise AssertionError(f"incremental 64k {name}: {k} was never launched")
+        return res
+
+    def check(res, texts, what):
+        t0 = time.perf_counter()
+        batch = ELClassifier(device="cuda").classify_text("\n".join(texts) + "\n")
+        if taxonomy_key(extract_taxonomy(res)) != taxonomy_key(batch.taxonomy):
+            raise AssertionError(f"incremental 64k {what}: taxonomy differs from a classify")
+        if not named_closure_equal(res, batch.result):
+            raise AssertionError(f"incremental 64k {what}: named subsumers differ")
+        log(f"[incremental 64k] {what}: equal to a from-scratch classify "
+            f"({time.perf_counter() - t0:.1f} s)")
+
+    step("base", lambda: (inc.add_text(text), inc), {"rebuild"})
+    r1 = step("class_only", lambda: (inc.add_text(INC_CLASS_DELTA), inc), {"fast"})
+    check(r1, [text, INC_CLASS_DELTA], "class-only delta")
+    r2 = step("role", lambda: (inc.add_text(INC_ROLE_DELTA), inc), {"fast"})
+    if inc.history[-1]["delta_programs"] != 2:
+        raise AssertionError("incremental 64k: the role delta ran without a cross engine")
+    check(r2, [text, INC_CLASS_DELTA, INC_ROLE_DELTA], "role delta")
+    del r2
+    base_before = inc._base_engine
+    r3 = step("closure", lambda: (inc.add_text(INC_CLOSURE_DELTA), inc),
+              {"fast", "rebuild"})
+    closure_path = inc.history[-1]["path"]
+    rebound = inc._base_engine is base_before and closure_path == "fast"
+    del base_before
+    check(r3, [text, INC_CLASS_DELTA, INC_ROLE_DELTA, INC_CLOSURE_DELTA], "closure delta")
+    del r3
+    # the corpus has a range axiom: the reference refuses the retraction,
+    # leaving the classifier untouched, and so must the port
+    from distel_tpu_torch.core.retract import EntangledRetraction
+
+    n_hist, last = len(inc.history), inc.last_result
+    try:
+        inc.retract(INC_CLASS_DELTA)
+    except EntangledRetraction:
+        pass
+    else:
+        raise AssertionError("incremental 64k: retraction under a range axiom ran")
+    if len(inc.history) != n_hist or inc.last_result is not last:
+        raise AssertionError("incremental 64k: a refused retraction changed the classifier")
+    del inc, last
+    torch.cuda.empty_cache()
+    # the same traffic over the corpus without its range axiom, retracted
+    text_nr = without_ranges(text)
+    inc = IncrementalClassifier(device="cuda")
+    for name, t in (("base", text_nr), ("class_only", INC_CLASS_DELTA),
+                    ("role", INC_ROLE_DELTA), ("closure", INC_CLOSURE_DELTA)):
+        step(f"{name}:no_range", lambda t=t: (inc.add_text(t), inc),
+             {"rebuild"} if name == "base" else {"fast", "rebuild"})
+    survivors = [text_nr, INC_ROLE_DELTA, INC_CLOSURE_DELTA]
+    r4 = step("retract:no_range", lambda: (inc.retract(INC_CLASS_DELTA), inc),
+              {"retract"})
+    check(r4, survivors, "retraction")
+    SNAPSHOT_DIR.mkdir(parents=True, exist_ok=True)
+    path = str(SNAPSHOT_DIR / "inc64k.npz")
+    sync()
+    t0 = time.perf_counter()
+    inc.snapshot(path, compressed=False)
+    snapshot_s = time.perf_counter() - t0
+    ops = [text_nr, INC_CLASS_DELTA, INC_ROLE_DELTA, INC_CLOSURE_DELTA,
+           {"op": "retract", "text": INC_CLASS_DELTA}]
+
+    made = []
+
+    def restore():
+        made.append(IncrementalClassifier.restore(ops, path, device="cuda"))
+        return made[0].last_result, made[0]
+
+    r5 = step("restore", restore, {"restore"})
+    back = made.pop()
+    if r5.iterations != back._base_engine.unroll or r5.derivations != 0:
+        raise AssertionError("incremental 64k: the restore was not one quiet group")
+    if not all(np.array_equal(x, y) for x, y in zip(r5.wire(), r4.wire())):
+        raise AssertionError("incremental 64k: the restored closure differs")
+    del back, r5, r4, inc
+    shutil.rmtree(SNAPSHOT_DIR, ignore_errors=True)
+    torch.cuda.empty_cache()
+    inc2 = IncrementalClassifier(device="cuda")
+    inc2.add_text(text)
+    inc2.drop_base_program()
+    r6 = step("class_only_rebuild",
+              lambda: (inc2.add_text(INC_CLASS_DELTA), inc2), {"rebuild"})
+    if not named_closure_equal(r6, r1) or \
+            taxonomy_key(extract_taxonomy(r6)) != taxonomy_key(extract_taxonomy(r1)):
+        raise AssertionError("incremental 64k: the forced rebuild gave another closure")
+    peak = torch.cuda.max_memory_allocated()
+    del inc2, r6, r1
+    torch.cuda.empty_cache()
+    # the delta, cross and rebound-base engines again, under the capture
+    inc3 = IncrementalClassifier(device="cuda")
+    inc3.add_text(text)
+    base3 = inc3._base_engine
+
+    def kind(eng):
+        """Which engine launched: the reused base, a cross or delta
+        engine, or a rebuild's engine (which alone reserves window
+        slots besides the base)."""
+        if eng is None:
+            return "taxonomy"
+        if eng is base3:
+            return "base"
+        if eng._link_window is not None:
+            return "cross"
+        return "rebuild" if eng._window_headroom else "delta"
+
+    cap.kind = kind
+    try:
+        for name, delta in (("class_only", INC_CLASS_DELTA), ("role", INC_ROLE_DELTA),
+                            ("closure", INC_CLOSURE_DELTA)):
+            cap.run = f"incremental:{name}"
+            with cap:
+                inc3.add_text(delta)
+    finally:
+        cap.kind = None
+    cap_paths = [h["path"] for h in inc3.history]
+    del inc3, base3
+    torch.cuda.empty_cache()
+    # the heaviest pair per step, site (with engine) and kernel (when the
+    # rebind fits, the closure step's base pairs are the rebound base's)
+    heaviest = {}
+    for key in [k for k in cap.pairs if k[0].startswith("incremental")]:
+        n, nnz, a, b = cap.pairs.pop(key)
+        got = heaviest.setdefault(key[:3], [0, -1, None, None])
+        got[0] += n
+        if nnz > got[1]:
+            got[1:] = [nnz, a, b]
+    pairs = [check_pair(*key, n, a, b)
+             for key, (n, _nnz, a, b) in sorted(heaviest.items())]
+    sites = {p["site"] for p in pairs}
+    for want in ("cr4:delta", "cr4:cross", "cr4:base"):
+        if want not in sites:
+            raise AssertionError(f"incremental 64k: no {want} operand was captured")
+    retract_rec = next(r for r in records if r["step"].startswith("retract"))
+    out = {
+        "steps": records,
+        "closure_delta_path": closure_path,
+        "closure_delta_rebound": rebound,
+        "snapshot_s": snapshot_s,
+        "retract_overdelete_s": retract_rec["phases_s"]["overdelete"],
+        "retract_host_peak_rss": retract_rec["host_peak_rss"],
+        "max_memory_allocated": peak,
+        "memory_allocated_before": held,
+        "captured_paths": cap_paths,
+        "kernel_checks": [{k: p[k] for k in ("run", "site", "main_path_kernel", "shape",
+                                             "launches", "max_abs_err")} for p in pairs],
+    }
+    log(f"[incremental 64k] {json.dumps(out)}")
+    print(json.dumps({"incremental_full_width": out}), flush=True)
+    return pairs
+
+
 # ------------------------------------------- the packed-contraction route
 
 
@@ -1559,6 +1922,22 @@ def phase_andor_operands(packed, launches: dict, checks: list) -> dict:
     }
 
 
+class Tee:
+    """A text stream that writes to two (flushing both)."""
+
+    def __init__(self, *streams):
+        self.streams = streams
+
+    def write(self, text):
+        for st in self.streams:
+            st.write(text)
+        return len(text)
+
+    def flush(self):
+        for st in self.streams:
+            st.flush()
+
+
 def main() -> int:
     # the port first: in a directory without it this fails before any
     # result is printed
@@ -1569,6 +1948,11 @@ def main() -> int:
         return 2
     torch.backends.cuda.matmul.allow_tf32 = False
     t_start = time.perf_counter()
+    out = ROOT / "chiprun_out"
+    out.mkdir(exist_ok=True)
+    # every result line also to a file: a runner may keep only the tail
+    # of standard output
+    sys.stdout = Tee(sys.stdout, open(out / "smoke_stdout.txt", "w"))
     name = phase_probe()
     phase_kernels()
     andor_checks = phase_andor_kernel()
@@ -1583,6 +1967,7 @@ def main() -> int:
     del row8k
     phase_verify()
     phase_xml_corpora()
+    phase_incremental_card_vs_cpu()
     launches, res = phase_default_full_width()
     phase_full_width(res)
     phase_breakdown(res)
@@ -1597,10 +1982,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     checked = phase_multiplied_full_width(cap)
     torch.cuda.empty_cache()
+    checked += phase_incremental_full_width(cap)
+    torch.cuda.empty_cache()
     rows, pairs = phase_kernel_line(launches, cap, checked)
     rows.append(andor_row)
-    out = ROOT / "chiprun_out"
-    out.mkdir(exist_ok=True)
     (out / "kernel_pairs.json").write_text(json.dumps(pairs, indent=1))
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": rows}), flush=True)

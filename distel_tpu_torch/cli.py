@@ -5,6 +5,9 @@
              ``dense``; ``backend.CRn = host`` routes a rule to the
              host); ``--verify`` diffs the closure against the CPU
              oracle
+  stream     classify a base ontology, then add each delta file on top
+             of the running closure (``core/incremental.py``): one JSON
+             record per file, then the totals
   diff       the dense engine's closure against the CPU oracle; exit 1
              on a difference
   normalize  dump the NF1-NF6 normal forms
@@ -16,6 +19,7 @@
 Every command reads OWL functional syntax, RDF/XML or OWL/XML.
 
 Usage: python -m distel_tpu_torch.cli classify FILE [--device cpu] ...
+       python -m distel_tpu_torch.cli stream BASE [DELTA ...] [--device cpu]
        python -m distel_tpu_torch.cli diff FILE [--device cpu]
        python -m distel_tpu_torch.cli multiply FILE N -o OUT [--crossed]
 """
@@ -25,17 +29,23 @@ from __future__ import annotations
 import argparse
 import json
 import sys
+import time
 
 
-def cmd_classify(args) -> int:
+def _load_cfg(args):
     from distel_tpu_torch.config import ClassifierConfig
-    from distel_tpu_torch.runtime.classifier import ELClassifier
 
-    cfg = (
+    return (
         ClassifierConfig.from_properties(args.config)
         if args.config
         else ClassifierConfig()
     )
+
+
+def cmd_classify(args) -> int:
+    from distel_tpu_torch.runtime.classifier import ELClassifier
+
+    cfg = _load_cfg(args)
     cfg.instrumentation = args.instrument
     clf = ELClassifier(cfg, device=args.device)
     res = clf.classify_file(
@@ -50,6 +60,40 @@ def cmd_classify(args) -> int:
 
         save_snapshot(args.snapshot, res.result)
         print(f"snapshot written to {args.snapshot}")
+    return 0
+
+
+def cmd_stream(args) -> int:
+    """Incremental streaming: classify a base ontology, then add each
+    delta file on top of the running closure (the reference's
+    ``traffic-data-load-classify.sh`` loop)."""
+    from distel_tpu_torch.core.incremental import IncrementalClassifier
+    from distel_tpu_torch.runtime.checkpoint import Snapshotter
+
+    inc = IncrementalClassifier(_load_cfg(args), device=args.device)
+    snap = (
+        Snapshotter(args.snapshot_prefix, args.snapshot_interval)
+        if args.snapshot_prefix
+        else None
+    )
+    for path in [args.base] + args.deltas:
+        t0 = time.time()
+        with open(path, "r", encoding="utf-8") as f:
+            inc.add_text(f.read())
+        rec = dict(inc.history[-1], file=path, wall_s=round(time.time() - t0, 3))
+        print(json.dumps(rec), flush=True)
+        if snap is not None:
+            snap.maybe_snapshot(inc.last_result)
+    print(
+        json.dumps(
+            {
+                "increments": inc.increment,
+                "total_derivations": sum(
+                    h["new_derivations"] for h in inc.history
+                ),
+            }
+        )
+    )
     return 0
 
 
@@ -149,6 +193,19 @@ def main(argv=None) -> int:
     c.add_argument("--instrument", action="store_true", help="phase timers")
     c.add_argument("--verify", action="store_true", help="diff vs CPU oracle")
     c.set_defaults(fn=cmd_classify)
+    st = sub.add_parser("stream", help="incremental streaming classification")
+    st.add_argument("base")
+    st.add_argument("deltas", nargs="*")
+    st.add_argument("--config", help="properties/config file")
+    st.add_argument(
+        "--device", default=None,
+        help="torch device (default: the first CUDA device; raises if none)",
+    )
+    st.add_argument(
+        "--snapshot-prefix", help="timed state snapshots (ResultSnapshotter)"
+    )
+    st.add_argument("--snapshot-interval", type=float, default=120.0)
+    st.set_defaults(fn=cmd_stream)
     d = sub.add_parser("diff", help="verify against the CPU oracle")
     d.add_argument("ontology")
     d.add_argument(

@@ -49,6 +49,11 @@ class ClassifierConfig:
     #: the port runs eagerly and has no counterpart yet, so only False
     #: is accepted (bucketing never changes a closure)
     shape_buckets: bool = False
+    #: base concepts below which the incremental plane
+    #: (``core/incremental.py``) rebuilds every increment instead of
+    #: taking the delta fast path (properties key
+    #: ``fast.path.min.concepts``; the reference's default)
+    fast_path_min_concepts: int = 2_048
     #: live-tile CR6 formulation (``core/cr6_tiles.py``)
     cr6_tiles: bool = True
     #: row-tile height of the live-tile CR6 schedule
@@ -123,6 +128,8 @@ class ClassifierConfig:
             cfg.engine = raw["engine"]
         if "shape.buckets" in raw:
             cfg.shape_buckets = flag("shape.buckets")
+        if "fast.path.min.concepts" in raw:
+            cfg.fast_path_min_concepts = int(raw["fast.path.min.concepts"])
         if "cr6.tiles.enable" in raw:
             cfg.cr6_tiles = flag("cr6.tiles.enable")
         if "cr6.tiles.tile_m" in raw:

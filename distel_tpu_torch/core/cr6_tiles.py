@@ -15,8 +15,9 @@ builder (numpy), apart from the factored mask: the reference copies
 each row tile's mask rows into a padded [n_rt, tile_m, n_roles + 1]
 table, the port keeps only each slot's row id into the unpadded mask
 table (short role runs pad most slots, and the padded copy grows with
-roles × row tiles).  The shape-bucketed and closure-rebind variants
-are not part of the port yet.  :func:`make_tile_matmul` forces the tile-skipping
+roles × row tiles).  The closure re-fit (``h_override`` with
+``fit_schedule``) is the reference's; the shape-bucketed variant is not
+part of the port yet.  :func:`make_tile_matmul` forces the tile-skipping
 kernel on, as the reference does: the per-slot liveness zeroes whole
 dead tiles, and skipping them is the point of the formulation.
 """
@@ -135,14 +136,22 @@ def build_cr6_tile_schedule(
     dead_link: int,
     pad_target: int = 0,
     tile_headroom: int = 0,
-) -> Cr6TileSchedule:
-    """Build the live-tile schedule for one CR6 table.
+    h_override: Optional[np.ndarray] = None,
+    fit_schedule: Optional["Cr6TileSchedule"] = None,
+) -> Optional[Cr6TileSchedule]:
+    """Build (or re-fit) the live-tile schedule for one CR6 table.
 
     ``group_bounds``: ROW indices of the deferred write-group boundaries
     (``[0, ..., n_rows]``) — row tiles never straddle one.  An all-inert
     schedule (zero live links anywhere) comes back with ``nt`` slots all
-    invalid."""
-    h = np.asarray(role_closure).astype(bool)
+    invalid.  ``h_override``: recompute liveness under a GROWN role
+    closure (``rebind_role_closure``); with ``fit_schedule`` (the
+    schedule being re-bound) its spans, slot counts and write groups are
+    kept, and None comes back when a row tile needs more link tiles than
+    the schedule has."""
+    h = np.asarray(
+        role_closure if h_override is None else h_override
+    ).astype(bool)
     n_real = n_grid = len(tab_roles)
     link_roles = np.asarray(link_roles)
 
@@ -159,19 +168,27 @@ def build_cr6_tile_schedule(
         return live
 
     bounds = sorted({0, n_grid, *(min(b, n_grid) for b in group_bounds)})
-    live_count = (
-        (lambda r: 0)
-        if link_window is not None
-        else (lambda r: len(live_links(r)))
-    )
-    spans = _role_run_spans(tab_roles, bounds, tile_m, live_count)
-    spans = [(a0, a1, np.unique(tab_roles[a0:a1])) for a0, a1 in spans]
+    if fit_schedule is None:
+        live_count = (
+            (lambda r: 0)
+            if link_window is not None
+            else (lambda r: len(live_links(r)))
+        )
+        spans = _role_run_spans(tab_roles, bounds, tile_m, live_count)
+        spans = [(a0, a1, np.unique(tab_roles[a0:a1])) for a0, a1 in spans]
+    else:
+        spans = fit_schedule.spans
 
     live_per_span = [live_links(roles) for _a0, _a1, roles in spans]
     max_tiles = max(
         [-(-len(lv) // tile_l) for lv in live_per_span], default=0
     )
-    nt = max_tiles + int(tile_headroom)
+    if fit_schedule is not None:
+        nt = fit_schedule.nt
+        if max_tiles > nt:
+            return None  # the grown closure overflows the schedule's slots
+    else:
+        nt = max_tiles + int(tile_headroom)
     n_rt = len(spans)
 
     rows = np.full((n_rt, tile_m), dead_link, np.int32)
@@ -220,10 +237,11 @@ def build_cr6_tile_schedule(
 
     # deferred write groups over the group-bound row ranges; pad
     # row-tile slots target ``pad_target`` with all-zero outputs (a
-    # no-op under OR)
+    # no-op under OR).  A re-fit keeps the schedule's groups: the
+    # closure changes liveness and masks, never rows or targets
+    groups = fit_schedule.groups if fit_schedule is not None else []
     span_starts = [a0 for a0, _a1, _r in spans] + [n_grid]
-    groups = []
-    for b0, b1 in zip(bounds[:-1], bounds[1:]):
+    for b0, b1 in zip(bounds[:-1], bounds[1:]) if fit_schedule is None else ():
         rt0 = int(np.searchsorted(span_starts, b0))
         rt1 = max(int(np.searchsorted(span_starts, b1)), rt0)
         if rt1 == rt0 and b1 > b0:

@@ -206,6 +206,10 @@ class RowPackedSaturationEngine:
         l_chunk_cr4: Optional[int] = None,
         gate_chunks: Optional[bool] = None,
         unroll: Optional[int] = None,
+        min_concepts: int = 0,
+        min_links_pad: int = 0,
+        link_window: Optional[Tuple[int, int]] = None,
+        window_headroom: int = 0,
     ):
         """``rules``: subset of {"CR1".."CR6"} this engine applies (None
         = all).  ``cr6_tiles``: live-tile CR6 config (None = off; keys
@@ -217,7 +221,20 @@ class RowPackedSaturationEngine:
         ``gate_chunks``: gate CR5 on its inputs' change (None = the
         reference's rule: from 32,768 padded concepts up to 2.5 GiB of
         packed state).  ``unroll``: steps per convergence check (None =
-        the reference's rule: 2 up to 4.5 GiB of packed state, else 1)."""
+        the reference's rule: 2 up to 4.5 GiB of packed state, else 1).
+
+        The incremental plane's hooks (``core/incremental.py``), with
+        the reference's names and meanings: ``min_concepts`` /
+        ``min_links_pad`` reserve concept lanes and link rows past the
+        corpus (a later delta's concepts and links park there; the link
+        axis is never evened out, so ``l_chunk`` cannot move ``nl``);
+        ``link_window=(w0, w1)`` restricts CR4/CR6 to links in
+        ``[w0, w1)`` (the cross program of a link-creating delta; row
+        rules and CR5 are unaffected, and with tiles configured CR6
+        takes the live-tile schedule whatever its density);
+        ``window_headroom``: live-window slots reserved per CR4/CR6
+        chunk (and link tiles per row tile) for
+        :meth:`rebind_role_closure`."""
         if rules is not None:
             unknown = set(rules) - {f"CR{i}" for i in range(1, 7)}
             if unknown:
@@ -228,8 +245,12 @@ class RowPackedSaturationEngine:
             temp_budget_bytes = default_temp_budget(self.device)
         self.temp_budget_bytes = int(temp_budget_bytes)
         pad_multiple = _pad_up(max(pad_multiple, 32), 32)
-        self.nc = _pad_up(_pad_up(max(idx.n_concepts, 2), pad_multiple), 32)
-        self.nl = max(_pad_up(idx.n_links, 32), 32)
+        self.nc = _pad_up(
+            _pad_up(max(idx.n_concepts, min_concepts, 2), pad_multiple), 32
+        )
+        self.nl = max(_pad_up(idx.n_links, 32), 32, _pad_up(min_links_pad, 32))
+        self._link_window = link_window
+        self._window_headroom = int(window_headroom)
         self.wc = self.nc // 32
         dev = self.device
         state_bytes = (self.nc + self.nl) * self.wc * 4
@@ -383,29 +404,7 @@ class RowPackedSaturationEngine:
         )
 
         def live_windows(role_list, lcn):
-            """Static live windows ``[(off, end, c0, c1)]`` covering the
-            links whose role is a (transitive) subrole of some role in
-            ``role_list``; None when no link can satisfy them.  Window
-            edges may include off-role links (their factored-mask entries
-            are 0); the tail window clamps to the grid end (re-deriving
-            earlier links is idempotent under OR) and is cut at nl."""
-            croles = np.unique(role_list)
-            rel = np.flatnonzero(h[:, croles].any(axis=1))
-            live = np.flatnonzero(np.isin(link_roles, rel))
-            if live.size == 0:
-                return None
-            wins = []
-            i = 0
-            while i < live.size:
-                off = min(int(live[i]), self._grid_end - lcn)
-                wins.append((
-                    off,
-                    min(off + lcn, self.nl),
-                    off // lc,
-                    min((off + lcn - 1) // lc, self.n_lchunks - 1),
-                ))
-                i = int(np.searchsorted(live, off + lcn))
-            return wins
+            return self._live_windows(role_list, lcn, h)
 
         self._plans: dict = {}
 
@@ -419,14 +418,21 @@ class RowPackedSaturationEngine:
 
         self._plan = plan
 
-        def build_chunks(spans, tab, src_col, mask_tab, lcn):
-            """The chunks with a live window (the others are dropped),
-            and each kept chunk's span."""
-            out, kept = [], []
+        def window_spans(spans, tab, lcn):
+            """Each span's live windows, kept ``(a0, a1, windows)``, and
+            the roles of the spans with none (dropped from the plan)."""
+            kept, dropped = [], []
             for a0, a1 in spans:
                 wins = live_windows(tab[a0:a1, 0], lcn)
                 if wins is None:
-                    continue
+                    dropped.append(np.unique(tab[a0:a1, 0]))
+                else:
+                    kept.append((a0, a1, wins))
+            return kept, dropped
+
+        def build_chunks(kept, tab, src_col, mask_tab):
+            out = []
+            for a0, a1, wins in kept:
                 piece = SegmentedRowOr(tab[a0:a1, 2])
                 out.append(_Chunk(
                     i64(tab[a0:a1, src_col]),
@@ -435,20 +441,34 @@ class RowPackedSaturationEngine:
                     i64(piece.order),
                     wins,
                 ))
-                kept.append((a0, a1))
-            return out, kept
+            return out
 
-        self._chunks4, kept4 = (
-            build_chunks(spans4, idx.nf4, 1, m4, self.lc4)
-            if self._has4 else ([], [])
+        def slots(kept, dropped):
+            """What :meth:`rebind_role_closure` may grow into: each kept
+            span's window slots (its build-time windows plus the
+            headroom), and the dropped spans' roles."""
+            hw = self._window_headroom
+            return [(a0, a1, len(w) + hw) for a0, a1, w in kept], dropped
+
+        kept4, dropped4 = (
+            window_spans(spans4, idx.nf4, self.lc4) if self._has4 else ([], [])
         )
+        self._chunks4 = build_chunks(kept4, idx.nf4, 1, m4)
+        self._slots4 = slots(kept4, dropped4)
 
         # ---- CR6: live-tile schedule when its live structure is sparse
-        # enough, else the same role-chunked window formulation as CR4
+        # enough (a link-window engine's always), else the same
+        # role-chunked window formulation as CR4.  The window structure
+        # is recorded either way: a rebind refuses where the reference's
+        # window program would
         self._tiles6 = None
         self.cr6_tiles_stats = {"active": False, "reason": "off"}
         tcfg = self._normalize_cr6_tiles_cfg(cr6_tiles)
-        self._chunks6, kept6 = [], []
+        self._chunks6 = []
+        kept6, dropped6 = (
+            window_spans(spans6, idx.chain_pairs, lc) if self._has6 else ([], [])
+        )
+        self._slots6 = slots(kept6, dropped6)
         if self._has6:
             cp = idx.chain_pairs
             if tcfg is not None:
@@ -460,16 +480,16 @@ class RowPackedSaturationEngine:
                     group_bounds=_tile_group_bounds(
                         cp[:, 0], tm_eff, max(mm_rows // tm_eff, 1)
                     ),
+                    link_window=link_window,
                     dead_link=self.nl - 1,
+                    tile_headroom=self._window_headroom,
                 )
-                window_macs = sum(
-                    len(live_windows(cp[a0:a1, 0], lc) or ()) * lc * (a1 - a0)
-                    for a0, a1 in spans6
-                )
+                window_macs = sum(len(w) * lc * (a1 - a0) for a0, a1, w in kept6)
                 tile_macs = sched.stats["occupied_slots"] * sched.tile_m
                 density = tile_macs / max(float(window_macs), 1.0)
                 self.cr6_tiles_stats = {
-                    "active": density <= tcfg["density_threshold"],
+                    "active": (density <= tcfg["density_threshold"]
+                               or link_window is not None),
                     "density": round(density, 4),
                     "window_slot_rows": window_macs,
                     "tile_slot_rows": tile_macs,
@@ -480,39 +500,10 @@ class RowPackedSaturationEngine:
                 else:
                     self.cr6_tiles_stats["reason"] = "density above threshold"
             if self._tiles6 is None:
-                self._chunks6, kept6 = build_chunks(spans6, cp, 1, m6, lc)
+                self._chunks6 = build_chunks(kept6, cp, 1, m6)
         self._t6 = None
         if self._tiles6 is not None:
-            t = self._tiles6
-            n_tiles = [-(-len(lv) // t.tile_l) for lv in t.live_per_span]
-            # per (row tile, link tile): the L-chunks its valid slots
-            # read, for the host's launch decision
-            tile_lchunks = [
-                [np.unique(t.tids[rt, k][t.tval[rt, k]] // lc)
-                 for k in range(n_tiles[rt])]
-                for rt in range(t.n_rt)
-            ]
-            self._t6 = {
-                "rows": torch.as_tensor(t.rows.astype(np.int64)).to(dev),
-                # the factored mask rows, one all-zero row for pad slots
-                "mask": torch.as_tensor(
-                    np.concatenate([m6, np.zeros((1, m6.shape[1]), np.int8)])
-                ).to(dev),
-                "mrow_ids": torch.as_tensor(t.mrow_ids.astype(np.int64)).to(dev),
-                "tids": torch.as_tensor(t.tids.astype(np.int64)).to(dev),
-                "tval": torch.as_tensor(t.tval).to(dev),
-                "tchunk": torch.as_tensor(
-                    (t.tids // lc).astype(np.int64)
-                ).to(dev),
-                "fdx": torch.as_tensor(t.fdx.astype(np.int64)).to(dev),
-                "n_tiles": n_tiles,
-                "lchunks": tile_lchunks,
-                "groups": [
-                    (rt0, rt1, p, i64(order))
-                    for rt0, rt1, p, order, _tg in t.groups
-                ],
-                "mm": make_tile_matmul(t.tile_m, t.tile_l, self.wc),
-            }
+            self._t6 = self._tile_tables(self._tiles6, m6)
 
         # ---- frontier reductions: per chunk, which frontier entries its
         # bit table reads (CSR: entry ids and their chunk), reduced on
@@ -525,10 +516,11 @@ class RowPackedSaturationEngine:
             return i64(cat), i64(segs)
 
         self._f4_csr = csr(
-            np.unique(idx.nf4[a0:a1, 1]) for a0, a1 in kept4
+            np.unique(idx.nf4[a0:a1, 1]) for a0, a1, _w in kept4
         )
         self._f6_csr = csr(
-            np.unique(idx.chain_pairs[a0:a1, 1] // lc) for a0, a1 in kept6
+            np.unique(idx.chain_pairs[a0:a1, 1] // lc)
+            for a0, a1, _w in (kept6 if self._chunks6 else ())
         )
         n_rt = self._tiles6.n_rt if self._tiles6 is not None else 0
         self._flag_sizes = (
@@ -549,6 +541,71 @@ class RowPackedSaturationEngine:
         #: ``{"cr4": [run, skipped], "cr6": [...], "cr6_tiles": [...],
         #: "cr5": ran}`` (windows, or link tiles for the live-tile CR6)
         self.gate_rounds: list = []
+
+    def _live_windows(self, role_list, lcn, h):
+        """Static live windows ``[(off, end, c0, c1)]`` covering the
+        links (inside the link window, if any) whose role is a
+        (transitive) subrole under closure ``h`` of some role in
+        ``role_list``; None when no link can satisfy them.  Window edges
+        may include off-role links (their factored-mask entries are 0);
+        the tail window clamps to the grid end (re-deriving earlier
+        links is idempotent under OR) and is cut at nl."""
+        croles = np.unique(role_list)
+        rel = np.flatnonzero(h[:, croles].any(axis=1))
+        live = np.flatnonzero(np.isin(self._link_roles_np, rel))
+        if self._link_window is not None:
+            w0, w1 = self._link_window
+            live = live[(live >= w0) & (live < w1)]
+        if live.size == 0:
+            return None
+        lc = self.lc
+        wins = []
+        i = 0
+        while i < live.size:
+            off = min(int(live[i]), self._grid_end - lcn)
+            wins.append((
+                off,
+                min(off + lcn, self.nl),
+                off // lc,
+                min((off + lcn - 1) // lc, self.n_lchunks - 1),
+            ))
+            i = int(np.searchsorted(live, off + lcn))
+        return wins
+
+    def _tile_tables(self, t, m6: np.ndarray, mm=None) -> dict:
+        """The live-tile CR6 schedule ``t`` as device tables, over the
+        factored mask table ``m6``."""
+        dev, lc = self.device, self.lc
+
+        def i64(a):
+            return torch.as_tensor(np.asarray(a, np.int64)).to(dev)
+
+        n_tiles = [-(-len(lv) // t.tile_l) for lv in t.live_per_span]
+        # per (row tile, link tile): the L-chunks its valid slots read,
+        # for the host's launch decision
+        tile_lchunks = [
+            [np.unique(t.tids[rt, k][t.tval[rt, k]] // lc)
+             for k in range(n_tiles[rt])]
+            for rt in range(t.n_rt)
+        ]
+        return {
+            "rows": i64(t.rows),
+            # the factored mask rows, one all-zero row for pad slots
+            "mask": torch.as_tensor(
+                np.concatenate([m6, np.zeros((1, m6.shape[1]), np.int8)])
+            ).to(dev),
+            "mrow_ids": i64(t.mrow_ids),
+            "tids": i64(t.tids),
+            "tval": torch.as_tensor(t.tval).to(dev),
+            "tchunk": i64(t.tids // lc),
+            "fdx": i64(t.fdx),
+            "n_tiles": n_tiles,
+            "lchunks": tile_lchunks,
+            "groups": [
+                (rt0, rt1, p, i64(order)) for rt0, rt1, p, order, _tg in t.groups
+            ],
+            "mm": mm or make_tile_matmul(t.tile_m, t.tile_l, self.wc),
+        }
 
     def plan_stats(self) -> dict:
         """Static plan sizes: state layout, rule table sizes, and the
@@ -639,7 +696,16 @@ class RowPackedSaturationEngine:
         ``s_wire``/``r_wire`` or a result's ``packed_s``/``packed_r``)
         or *unpacked x-major* bool arrays.  Rows and words past this
         engine's arrays must be empty padding unless ``allow_shrink``.
-        Packed-row reuse is sound because concept ids are append-only."""
+        Packed-row reuse is sound because concept ids are append-only.
+        Int32 tensors on this engine's device embed on the device (the
+        incremental plane's path: the closure never visits the host);
+        the result is always a fresh pair, never the caller's tensors."""
+        if (
+            isinstance(s_old, torch.Tensor)
+            and self._on_device(s_old)
+            and s_old.dtype == torch.int32
+        ):
+            return self._embed_device(s_old, r_old, allow_shrink)
         if isinstance(s_old, torch.Tensor):
             s_old = s_old.detach().cpu().numpy().view(np.uint32)
             r_old = r_old.detach().cpu().numpy().view(np.uint32)
@@ -667,6 +733,49 @@ class RowPackedSaturationEngine:
         rp[:nlr, :nwr] = r_old[:nlr, :nwr]
         return self._to_state(sp, rp)
 
+    def _on_device(self, t: torch.Tensor) -> bool:
+        """Whether ``t`` lies on this engine's device (an engine built
+        for ``"cuda"`` runs on the current card, and its tensors report
+        that card's index)."""
+        dev = t.device
+        if dev.type != self.device.type:
+            return False
+        want = self.device.index
+        if want is None and dev.type == "cuda":
+            want = torch.cuda.current_device()
+        return want is None or dev.index in (want, None)
+
+    def _embed_device(self, s_old, r_old, allow_shrink: bool):
+        """:meth:`embed_state` for device tensors: the S(X)={X,⊤} init
+        built on the device, the old words ORed (S) or copied (R) in.
+        Bits past this engine's arrays are checked only when the old
+        arrays are larger (one scalar read)."""
+        if not allow_shrink:
+            for name, old, (nr, nw) in (
+                ("S", s_old, (self.nc, self.wc)),
+                ("R", r_old, (self.nl, self.wc)),
+            ):
+                if old.shape[0] > nr or old.shape[1] > nw:
+                    if bool(old[nr:].any()) or bool(old[:, nw:].any()):
+                        raise ValueError(
+                            f"embed_state: old {name} state {tuple(old.shape)} "
+                            f"holds bits past this engine's [{nr}, {nw}] arrays"
+                        )
+        dev = self.device
+        rows = torch.arange(self.nc, device=dev)
+        bit = torch.from_numpy(
+            (np.uint32(1) << np.arange(32, dtype=np.uint32)).view(np.int32)
+        ).to(dev)
+        sp = torch.zeros((self.nc, self.wc), dtype=torch.int32, device=dev)
+        sp[rows, rows >> 5] = bit[rows & 31]
+        sp[TOP_ID] = -1
+        na, nw = min(s_old.shape[0], self.nc), min(s_old.shape[1], self.wc)
+        sp[:na, :nw] |= s_old[:na, :nw]
+        rp = torch.zeros((self.nl, self.wc), dtype=torch.int32, device=dev)
+        nlr, nwr = min(r_old.shape[0], self.nl), min(r_old.shape[1], self.wc)
+        rp[:nlr, :nwr] = r_old[:nlr, :nwr]
+        return sp, rp
+
     @staticmethod
     def _pack_x_major(s: np.ndarray, r: np.ndarray):
         """x-major bool [x, a] / [x, l] → transposed uint32 wire rows."""
@@ -674,7 +783,7 @@ class RowPackedSaturationEngine:
             pad = (-m.shape[1]) % 32
             if pad:
                 m = np.pad(m, ((0, 0), (0, pad)))
-            b = np.packbits(m.astype(bool), axis=1, bitorder="little")
+            b = np.packbits(np.asarray(m, bool), axis=1, bitorder="little")
             return np.ascontiguousarray(b).view(np.uint32)
 
         return pack_rows(s.T), pack_rows(r.T)
@@ -907,6 +1016,87 @@ class RowPackedSaturationEngine:
 
     _profile = False
 
+    def rebind_role_closure(self, new_closure) -> bool:
+        """Swap in a grown role closure: the factored masks, each
+        chunk's live windows and the live-tile schedule are recomputed
+        under ``new_closure``; chunks, write plans and frontier maps
+        stay.  The caller re-enters the fixed point from the old state,
+        a sound warm start because the closure only grew.
+
+        Returns False, leaving the engine untouched, where the
+        reference's unrolled program refuses: the closure is not a
+        superset or has another shape, a span dropped at build (no live
+        window) comes alive, or a span needs more windows than its
+        build-time ones plus ``window_headroom`` — and, with the
+        live-tile CR6, where the reference's tile re-fit refuses: a row
+        tile needs more link tiles than the schedule has.  The port has
+        no compiled program and could always rebind; refusing where the
+        reference does keeps the incremental plane's ``path`` and
+        ``iterations`` the reference's."""
+        import dataclasses
+
+        idx = self.idx
+        h_old = np.asarray(idx.role_closure)
+        h_new = np.asarray(new_closure, dtype=h_old.dtype)
+        if h_new.shape != h_old.shape:
+            return False
+        ob, nb = h_old.astype(bool), h_new.astype(bool)
+        if np.any(ob & ~nb):
+            return False
+        if np.array_equal(ob, nb):
+            return True
+        m4, m6 = _factored_closure_tables(
+            h_new,
+            idx.nf4[:, 0] if self._has4 else None,
+            idx.chain_pairs[:, 0] if self._has6 else None,
+        )
+        windows = {}
+        for key, (kept, dropped), tab, lcn in (
+            ("cr4", self._slots4, idx.nf4, self.lc4),
+            ("cr6", self._slots6, idx.chain_pairs, self.lc),
+        ):
+            for roles in dropped:
+                if self._live_windows(roles, lcn, h_new) is not None:
+                    return False        # a dead span came alive
+            wins = []
+            for a0, a1, n_slots in kept:
+                w = self._live_windows(tab[a0:a1, 0], lcn, h_new) or []
+                if len(w) > n_slots:
+                    return False        # window slots exhausted
+                wins.append((a0, a1, w))
+            windows[key] = wins
+        tiles6 = None
+        if self._tiles6 is not None:
+            cp = idx.chain_pairs
+            t = self._tiles6
+            tiles6 = build_cr6_tile_schedule(
+                cp[:, 0], cp[:, 1], cp[:, 2], self._link_roles_np, h_old,
+                lc=self.lc, n_lchunks=self.n_lchunks,
+                tile_m=t.tile_m, tile_l=t.tile_l, group_bounds=[],
+                link_window=self._link_window, dead_link=self.nl - 1,
+                h_override=h_new, fit_schedule=t,
+            )
+            if tiles6 is None:
+                return False            # link-tile slots exhausted
+        # ---- every check passed: swap
+        dev = self.device
+
+        def rechunk(chunks, wins, m):
+            return [
+                c._replace(mask=torch.as_tensor(m[a0:a1]).to(dev), windows=w)
+                for c, (a0, a1, w) in zip(chunks, wins)
+            ]
+
+        self._chunks4 = rechunk(self._chunks4, windows["cr4"], m4)
+        if self._chunks6:
+            self._chunks6 = rechunk(self._chunks6, windows["cr6"], m6)
+        if tiles6 is not None:
+            self._tiles6 = tiles6
+            self._t6 = self._tile_tables(tiles6, m6, mm=self._t6["mm"])
+            self.cr6_tiles_stats = dict(self.cr6_tiles_stats, **tiles6.stats)
+        self.idx = dataclasses.replace(idx, role_closure=h_new)
+        return True
+
     def count_live_bits(self, sp, rp) -> int:
         return _host_bit_total(live_bits(sp, rp, self._wmask))
 
@@ -919,6 +1109,7 @@ class RowPackedSaturationEngine:
         initial: Optional[Tuple] = None,
         allow_incomplete: bool = False,
         profile: bool = False,
+        init_total: Optional[int] = None,
     ) -> SaturationResult:
         """Groups of ``unroll`` supersteps (one host read of the
         device's frontier flags a step) until a group changes nothing or
@@ -927,7 +1118,11 @@ class RowPackedSaturationEngine:
         first step runs everything).  ``profile``: accumulate
         synchronised walls of each rule group, the initial state, the
         per-step frontier fold and read and the final bit count into
-        :attr:`rule_seconds` (slower; for breakdowns only)."""
+        :attr:`rule_seconds` (slower; for breakdowns only).
+        ``init_total``: with ``initial``, skip the initial live-bit
+        count and take this value (the incremental round-robin, which
+        recounts under the full universe at the end); the result's
+        ``derivations`` then means something only to that caller."""
         budget = _pad_up(max_iters, self.unroll)
         self._profile = bool(profile)
         self.gate_rounds = []
@@ -937,7 +1132,9 @@ class RowPackedSaturationEngine:
                 init_total = fresh_init_total(self.idx)
             else:
                 sp, rp = self._timed("init", self.embed_state, *initial)
-                init_total = self.count_live_bits(sp, rp)
+                initial = None  # the embed copied it
+                if init_total is None:
+                    init_total = self.count_live_bits(sp, rp)
             it, fr, changed = 0, None, True
             while changed and it < budget:
                 changed = False

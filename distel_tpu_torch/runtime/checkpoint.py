@@ -231,3 +231,25 @@ def _remap_packed(p, row_map, bit_map, n_new_rows, n_old_bits, block=4096):
         packed = np.packbits(blk, axis=1, bitorder="little")
         out[rmap[keep]] = np.ascontiguousarray(packed).view(np.uint32)
     return out
+
+
+class Snapshotter:
+    """Timed snapshot hook — the ResultSnapshotter cadence
+    (``misc/ResultSnapshotter.java:23-25``: every 2 min over a window):
+    call ``maybe_snapshot`` between incremental batches."""
+
+    def __init__(self, path_prefix: str, interval_s: float = 120.0):
+        self.path_prefix = path_prefix
+        self.interval_s = interval_s
+        self._last = 0.0
+        self.count = 0
+
+    def maybe_snapshot(self, result: SaturationResult) -> Optional[str]:
+        now = time.time()
+        if now - self._last < self.interval_s:
+            return None
+        self._last = now
+        path = f"{self.path_prefix}.{self.count:04d}.npz"
+        save_snapshot(path, result)
+        self.count += 1
+        return path

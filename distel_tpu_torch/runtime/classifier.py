@@ -121,12 +121,17 @@ class ClassificationResult:
         }
 
 
-def make_engine(config: ClassifierConfig, idx: IndexedOntology, device):
+def make_engine(
+    config: ClassifierConfig, idx: IndexedOntology, device, **rowpacked_kw
+):
     """The engine ``config.engine`` names, on ``device``: the row-packed
     engine for "auto" and "rowpacked", the packed engine for "packed",
     the dense engine for "dense"; the hybrid saturator over the
     row-packed engine when ``rule_backends`` routes a rule to the
-    host."""
+    host.  ``rowpacked_kw``: extra row-packed engine kwargs (the
+    incremental plane's reservations ``min_concepts``,
+    ``min_links_pad``, ``window_headroom``), which the other engines
+    and the hybrid ignore, as the reference's do."""
     config.validate()
     _, host_rules = split_backends(config.rule_backends)
     if host_rules:
@@ -152,6 +157,7 @@ def make_engine(config: ClassifierConfig, idx: IndexedOntology, device):
         device=device,
         pad_multiple=config.pad_multiple,
         cr6_tiles=config.cr6_tiles_config(),
+        **rowpacked_kw,
     )
 
 

@@ -24,6 +24,7 @@ import pytest
 import torch
 
 from distel_tpu_torch import cli
+from distel_tpu_torch.core.incremental import IncrementalClassifier
 from distel_tpu_torch.ops.bitmatmul import PackedColsMatmulPlan
 from distel_tpu_torch.runtime import classifier
 
@@ -96,6 +97,10 @@ def test_entry_points_raise_without_a_card(monkeypatch, tmp_path):
     src.write_text("SubClassOf(A B)\n")
     with pytest.raises(RuntimeError, match="CUDA"):
         cli.main(["classify", str(src)])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        IncrementalClassifier()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        cli.main(["stream", str(src)])
     # an explicit CPU request runs
     assert classifier.ELClassifier(device="cpu").device.type == "cpu"
 

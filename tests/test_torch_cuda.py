@@ -527,3 +527,33 @@ def test_rdfxml_corpus_on_the_card_equals_the_cpu(card, name):
     assert (gpu.result.iterations, gpu.result.derivations) == (
         cpu.result.iterations, cpu.result.derivations)
     assert gpu.taxonomy.parents == cpu.taxonomy.parents
+
+
+def test_incremental_state_stays_on_the_card(card, monkeypatch):
+    """An engine built for ``"cuda"`` embeds a state on the card (its
+    tensors report ``cuda:0``) on the card: no host copy; and the
+    incremental fast path over it gives the CPU's closure."""
+    from distel_tpu_torch.core.incremental import IncrementalClassifier
+    from distel_tpu_torch.core.rowpacked_engine import RowPackedSaturationEngine
+
+    base = snomed_shaped_ontology(n_classes=600)
+    delta = "SubClassOf(NewX Find3)\nSubClassOf(NewY ObjectSomeValuesFrom(attr0 Find5))\n"
+    runs = {}
+    for dev in (card, "cpu"):
+        inc = IncrementalClassifier(device=dev)
+        inc._FAST_PATH_MIN_CONCEPTS = 0
+        inc.add_text(base)
+        runs[str(dev)] = (inc.add_text(delta).wire(), inc.history[-1])
+    assert runs["cuda"][1] == runs["cpu"][1] and runs["cuda"][1]["path"] == "fast"
+    assert all(np.array_equal(x, y) for x, y in zip(runs["cuda"][0], runs["cpu"][0]))
+    eng = RowPackedSaturationEngine(inc.last_result.idx, device="cuda")
+    res = eng.saturate()
+
+    def no_host(*_a, **_k):
+        raise AssertionError("the embed copied the state to the host")
+
+    with monkeypatch.context() as m:
+        m.setattr(torch.Tensor, "cpu", no_host)
+        m.setattr(torch.Tensor, "numpy", no_host)
+        sp, rp = eng.embed_state(res.packed_s, res.packed_r)
+    assert torch.equal(sp, res.packed_s) and torch.equal(rp, res.packed_r)

@@ -33,7 +33,7 @@ GOLDEN = sorted((Path(__file__).parent / "golden").glob("*.ofn"))
 #: modules the port keeps as copies of the reference's
 COPIES = ("owl/owlxml.py", "owl/rdfxml.py", "owl/loader.py",
           "frontend/profile_checker.py", "frontend/ontology_tools.py",
-          "runtime/stats.py")
+          "runtime/stats.py", "core/retract.py")
 ARRAYS = ("nf1", "nf2", "nf3", "nf4", "links", "chain_pairs", "role_closure",
           "original_classes")
 SCALARS = ("n_concepts", "n_roles", "concept_names", "concept_ids",
