@@ -96,6 +96,24 @@ Phases, each of which raises on failure:
    the delta, cross and rebound-base engines rerun under the capture,
    whose heaviest operand pair per site, engine and kernel is checked
    as in phase 6 and joins the kernel line.
+10. the serve plane on the card and on the CPU (``ServeApp`` through
+   ``dispatch``): the bench's traffic over the 8k corpus without its
+   range axiom, the scheduled and snapshot reads after each write, every
+   answer equal; the tracked mixed trace replayed over loopback HTTP on
+   both, with the row-packed and with the packed engine, every answer
+   equal; the 8k corpus and the class-only delta served by the packed
+   engine on the card, its answers equal to the row-packed engine's.
+11. the resident server at full width: ``ServeApp(device="cuda")``
+   behind ``make_server``, two workers, a card-memory budget (once the
+   64k tenant's state is known) that holds that tenant alone, driven
+   over HTTP by ``ServeClient`` under the capture: the 64k corpus without its range axiom, the three deltas and
+   the retraction, every served taxonomy held by name to a from-scratch
+   card classify; an 8k tenant evicting it to the warm tier (the card
+   must get its state's bytes back), a read promoting it; without the
+   warm tier, a cold spill and a restore; a concurrent burst held to
+   serial answers; the graceful close with its final spill.  The
+   captured operand pairs are checked as in phase 6 and join the kernel
+   line.
 
 Kernel times are CUDA-event times per call over back-to-back calls;
 the packed-contraction route's are also taken from CUDA-graph replays
@@ -113,8 +131,11 @@ load plane), ``{"breakdown": ...}``, ``{"threshold_ab": ...}``,
 ``{"andor_operands": ...}``, ``{"multiplied_full_width": ...}``,
 ``{"incremental_card_vs_cpu": ...}`` and ``{"incremental_full_width":
 ...}`` (each step's path, iterations, derivations, wall, phases,
-launches, host and card peaks; the retraction's overdeletion time)
-lines,
+launches, host and card peaks; the retraction's overdeletion time),
+``{"serve_card_vs_cpu": ...}`` and ``{"serve_full_width": ...}`` (per
+request: client wall, path, iterations, phases, launches, snapshot
+publish seconds, host peak RSS, card memory; the bytes an eviction
+freed; the burst; the close) lines,
 a ``{"kernels": [...]}`` line
 (the sparse row also carries the listing kernel's time and launches),
 and as its last line
@@ -941,12 +962,18 @@ class Capture:
     power-of-two work bucket) and keeps on the host, per key, the
     operand pair whose A has the most nonzeros, to re-run it with both
     kernels and the plain version afterwards.  Its stack walks, counts
-    and copies slow the run it watches, so no measured run has one."""
+    and copies slow the run it watches, so no measured run has one (bar
+    the serve phase, whose requests it watches as they are served).
+    The bookkeeping is locked: the serve plane launches from its
+    scheduler's worker threads."""
 
     def __init__(self):
+        import threading
+
         from distel_tpu_torch.ops import bitmatmul
 
         self.mod = bitmatmul
+        self._lock = threading.Lock()
         self.run = ""
         #: None, or engine -> label: the call site is then keyed
         #: ``site:label`` by the engine that launched
@@ -968,11 +995,12 @@ class Capture:
             kern = "packed_cols_sparse" if plan.skip_zero_tiles else "packed_cols_dense"
             work = plan.m * plan.l * plan.w
             key = (cap.run, site, kern, work.bit_length())
-            got = cap.pairs.setdefault(key, [0, -1, None, None])
-            got[0] += 1
             nnz = int(torch.count_nonzero(a))
-            if nnz > got[1]:
-                got[1:] = [nnz, a.cpu(), b.cpu()]
+            with cap._lock:
+                got = cap.pairs.setdefault(key, [0, -1, None, None])
+                got[0] += 1
+                if nnz > got[1]:
+                    got[1:] = [nnz, a.cpu(), b.cpu()]
             return cap._orig(plan, a, b, out)
 
         self.mod.PackedColsMatmulPlan._launch = launch
@@ -990,6 +1018,14 @@ def path_kernels(plans) -> list:
     if any(not p.skip_zero_tiles for p in plans):
         kernels.append("packed_cols_dense")
     return kernels
+
+
+def chosen_kernels(engine) -> list:
+    """The packed-columns kernels of the routes a row-packed engine's
+    plans chose (the sparse route is the listing and the sparse kernel)."""
+    routes = {p.skip_zero_tiles for p in engine._plans.values()}
+    return (["packed_cols_list", "packed_cols_sparse"] if True in routes else []) \
+        + (["packed_cols_dense"] if False in routes else [])
 
 
 def gate_rounds_compact(engine) -> dict:
@@ -1509,10 +1545,7 @@ def phase_incremental_full_width(cap: Capture):
             raise AssertionError(f"incremental 64k {name}: path {h['path']}, want {paths}")
         # every step's first round runs every window of the base engine,
         # so each route its plans chose must have launched in the step
-        routes = {p.skip_zero_tiles for p in who._base_engine._plans.values()}
-        need = (["packed_cols_list", "packed_cols_sparse"] if True in routes else []) \
-            + (["packed_cols_dense"] if False in routes else [])
-        for k in need:
+        for k in chosen_kernels(who._base_engine):
             if rec["launches"][k] == 0:
                 raise AssertionError(f"incremental 64k {name}: {k} was never launched")
         return res
@@ -1664,6 +1697,498 @@ def phase_incremental_full_width(cap: Capture):
     }
     log(f"[incremental 64k] {json.dumps(out)}")
     print(json.dumps({"incremental_full_width": out}), flush=True)
+    return pairs
+
+
+# ------------------------------------------------------- the serve plane
+
+#: answer fields that are clock readings (taken out before comparing)
+SERVE_CLOCK_KEYS = ("published_unix",)
+TRACE_FILE = ROOT / "traces" / "mixed_add_retract_query.jsonl"
+SERVE_DIR = ROOT / "build" / "smoke_serve"
+
+
+def serve_call(app, method, path, query=None, text=None):
+    """One request through ``ServeApp.dispatch``: ``(status, answer)``,
+    the answer without its clock readings (an error's message for a
+    refused request)."""
+    from distel_tpu_torch.serve.server import HTTPError
+
+    body = json.dumps({"text": text}).encode() if text is not None else b""
+    try:
+        status, _ctype, payload = app.dispatch(method, path, query or {}, body, None)
+    except HTTPError as e:
+        return e.status, e.message
+    doc = json.loads(payload)
+    for k in SERVE_CLOCK_KEYS:
+        doc.pop(k, None)
+    return status, doc
+
+
+def serve_reads(app, oid, cls, sub, sup):
+    """The reads after a write: the taxonomy and subsumers on the
+    scheduler lane, then every snapshot-plane read."""
+    base = f"/v1/ontologies/{oid}"
+    return [
+        serve_call(app, "GET", base + "/taxonomy"),
+        serve_call(app, "GET", base + "/subsumers", {"class": sub}),
+        serve_call(app, "GET", base + "/query/subsumed", {"sub": sub, "sup": sup}),
+        serve_call(app, "GET", base + "/query/subsumers", {"class": cls}),
+        serve_call(app, "GET", base + "/query/slice", {"class": cls}),
+        serve_call(app, "GET", base + "/query/version"),
+    ]
+
+
+def serve_steps(app, text):
+    """The bench's traffic through one app: load, the three deltas and
+    the retraction of the class-only delta, each followed by the reads;
+    every answer in order."""
+    out = []
+    status, rec = serve_call(app, "POST", "/v1/ontologies", text=text)
+    out.append((status, rec))
+    oid = rec["id"]
+    reads = ("Find7", "BenchDelta3", "Find21")
+    out += serve_reads(app, oid, *reads)
+    for op, t in incremental_steps(text)[1:]:
+        what = "deltas" if op == "add" else "retract"
+        out.append(serve_call(app, "POST", f"/v1/ontologies/{oid}/{what}", text=t))
+        out += serve_reads(app, oid, *reads)
+    return out
+
+
+class RecordingClient:
+    """A ``ServeClient`` whose request calls keep every answer, in order
+    (a trace replay returns only counts)."""
+
+    CALLS = ("load", "delta", "retract", "taxonomy", "subsumers",
+             "query_subsumers", "snapshot_version")
+
+    def __init__(self, url):
+        from distel_tpu_torch.serve.client import ServeClient
+
+        self.client = ServeClient(url, timeout=600)
+        self.answers = []
+
+    def __getattr__(self, name):
+        fn = getattr(self.client, name)
+        if name not in self.CALLS:
+            return fn
+
+        def call(*a, **kw):
+            doc = fn(*a, **kw)
+            self.answers.append((name, {k: v for k, v in doc.items()
+                                        if k not in SERVE_CLOCK_KEYS}))
+            return doc
+
+        return call
+
+
+@contextlib.contextmanager
+def http_serving(app):
+    """``app`` behind ``make_server`` on an ephemeral loopback port;
+    yields its base url; shuts the server down (the app stays open)."""
+    import threading
+
+    from distel_tpu_torch.serve.server import make_server
+
+    server = make_server(app, "127.0.0.1", 0)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    try:
+        yield f"http://127.0.0.1:{server.server_address[1]}"
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join(timeout=60)
+
+
+def replay_answers(app):
+    """The tracked mixed trace replayed against ``app`` over loopback
+    HTTP: the replay record and every answer."""
+    from distel_tpu_torch.serve.traces import load_trace, replay_trace
+
+    with http_serving(app) as url:
+        client = RecordingClient(url)
+        rec = replay_trace(load_trace(str(TRACE_FILE)), client)
+    rec.pop("wall_s")
+    return rec, client.answers
+
+
+def phase_serve_card_vs_cpu() -> dict:
+    """The serve plane on the card and on the CPU: ``ServeApp()`` (the
+    card by default) and ``ServeApp(device="cpu")`` driven through
+    ``dispatch`` with the bench's traffic over the 8k corpus without its
+    range axiom (load, the three deltas, the retraction; the scheduled
+    and snapshot reads after each write), every answer equal; then the
+    tracked mixed trace replayed over loopback HTTP against a card and a
+    CPU server, and again with ``engine = packed``, whose card app then
+    also serves the 8k corpus and the class-only delta — every answer
+    equal.  Launch counts are zeroed just before each card app's traffic
+    and read just after."""
+    from distel_tpu_torch.config import ClassifierConfig
+    from distel_tpu_torch.frontend.ontology_tools import snomed_shaped_ontology
+    from distel_tpu_torch.ops.bitmatmul import LAUNCHES, reset_launches
+    from distel_tpu_torch.serve.server import ServeApp
+
+    from distel_tpu_torch.runtime.classifier import resolve_device
+
+    text8 = snomed_shaped_ontology(n_classes=8000, seed=42)
+    text = without_ranges(text8)
+    out, answers = {}, {}
+    for dev in ("cuda", "cpu"):
+        app = ServeApp() if dev == "cuda" else ServeApp(device="cpu")
+        if app.registry.device != resolve_device(dev):
+            raise AssertionError(f"serve 8k: ServeApp runs on {app.registry.device}")
+        reset_launches()
+        t0 = time.perf_counter()
+        answers[dev] = serve_steps(app, text)
+        sync()
+        out[f"{dev}_s"] = time.perf_counter() - t0
+        if dev == "cuda":
+            out["launches"] = dict(LAUNCHES)
+            out["chosen"] = chosen_kernels(
+                app.registry.classifier("ont-0001")._base_engine)
+        app.close(final_spill=False)
+        del app
+    torch.cuda.empty_cache()
+    for i, (c, p) in enumerate(zip(answers["cuda"], answers["cpu"])):
+        if c != p:
+            raise AssertionError(f"serve 8k: answer {i} differs card/cpu: "
+                                 f"{str(c)[:300]} / {str(p)[:300]}")
+    # BenchDelta3 is unknown (404) to the reads naming it before the
+    # class-only delta adds it, and to the taxonomy's subsumers after its
+    # retraction (the snapshot keeps the retired concept id: its
+    # subsumption test answers); 7 answers a write
+    refused = {i: st for i, (st, _a) in enumerate(answers["cuda"]) if st not in (200, 201)}
+    if len(answers["cuda"]) != len(answers["cpu"]) or \
+            refused != {2: 404, 3: 404, 30: 404}:
+        raise AssertionError(f"serve 8k: requests refused: {refused}")
+    writes = [a for st, a in answers["cuda"] if st in (200, 201) and "path" in a]
+    out["paths"] = [w["path"] for w in writes]
+    if out["paths"] != ["rebuild", "fast", "fast", "fast", "retract"] and \
+            out["paths"] != ["rebuild", "fast", "fast", "rebuild", "retract"]:
+        raise AssertionError(f"serve 8k: paths {out['paths']}")
+    for k in out["chosen"]:
+        if out["launches"][k] == 0:
+            raise AssertionError(f"serve 8k: {k} was never launched")
+    out["answers"] = len(answers["cuda"])
+    # the tracked trace on the card and the CPU; then the card app also
+    # serves the 8k corpus and the class-only delta, and the packed
+    # engine's answers must equal the row-packed engine's
+    tenant = {}
+    for engine in ("auto", "packed"):
+        runs = {}
+        for dev in ("cuda", "cpu"):
+            app = ServeApp(ClassifierConfig(engine=engine), device=dev)
+            reset_launches()
+            t0 = time.perf_counter()
+            rec, got = replay_answers(app)
+            sync()
+            runs[dev] = (rec, got, time.perf_counter() - t0, dict(LAUNCHES))
+            if dev == "cuda":
+                reset_launches()
+                t0 = time.perf_counter()
+                st, load = serve_call(app, "POST", "/v1/ontologies", text=text8)
+                oid = load["id"]
+                ops = [(st, load), serve_call(
+                    app, "POST", f"/v1/ontologies/{oid}/deltas", text=INC_CLASS_DELTA)]
+                ops += serve_reads(app, oid, "Find7", "BenchDelta3", "Find21")
+                sync()
+                tenant[engine] = (ops, time.perf_counter() - t0, dict(LAUNCHES))
+            app.close(final_spill=False)
+            del app
+        torch.cuda.empty_cache()
+        (rc, gc_, tc, lc), (rp, gp, tp, _lp) = runs["cuda"], runs["cpu"]
+        if rc != rp or gc_ != gp:
+            bad = next((i for i, (x, y) in enumerate(zip(gc_, gp)) if x != y), None)
+            raise AssertionError(f"serve {engine}: the replays differ card/cpu "
+                                 f"({rc} / {rp}; first answer {bad})")
+        if rc["failed_requests"] or rc["skipped_migrates"] != 1:
+            raise AssertionError(f"serve {engine}: replay {rc}")
+        out[f"replay_{engine}"] = {"record": rc, "answers": len(gc_),
+                                   "cuda_s": tc, "cpu_s": tp, "launches": lc}
+        ops, t8, l8 = tenant[engine]
+        out[f"tenant8k_{engine}"] = {"wall_s": t8, "launches": l8,
+                                     "paths": [a["path"] for _s, a in ops[:2]]}
+    # the trace's toy tenants reach the packed-columns kernels through
+    # their taxonomy products at least; the packed tenant's CR4/CR6 run
+    # the packed-contraction route
+    for engine, lc in (("auto", out["replay_auto"]["launches"]),
+                       ("packed", out["tenant8k_packed"]["launches"])):
+        ran = lc["packed_andor_list"] if engine == "packed" else \
+            lc["packed_cols_dense"] + lc["packed_cols_sparse"]
+        if ran == 0:
+            raise AssertionError(f"serve {engine}: its kernels were never launched")
+    # the engines step differently (iterations; the row-packed engine's
+    # fast path and its accounting) and pad their packed rows
+    # differently (a snapshot's bytes); the answers agree
+    engine_keys = ("path", "iterations", "delta_bucketed", "delta_programs",
+                   "snapshot_bytes")
+    row, packed = ([(st, {k: v for k, v in a.items() if k not in engine_keys})
+                    for st, a in tenant[e][0]] for e in ("auto", "packed"))
+    if row != packed:
+        bad = next(i for i, (x, y) in enumerate(zip(row, packed)) if x != y)
+        raise AssertionError(f"serve 8k: the packed engine's answer {bad} differs: "
+                             f"{str(packed[bad])[:300]} / {str(row[bad])[:300]}")
+    log(f"[serve 8k] {json.dumps(out)}")
+    print(json.dumps({"serve_card_vs_cpu": out}), flush=True)
+    return out
+
+
+def publish_seconds(app) -> float:
+    """The serve metrics' summed snapshot build-and-swap seconds."""
+    for ln in app.metrics.render().splitlines():
+        if ln.startswith("distel_query_publish_seconds_sum"):
+            return float(ln.rsplit(" ", 1)[1])
+    return 0.0
+
+
+def phase_serve_full_width(cap: Capture):
+    """The resident server at full width: ``ServeApp(device="cuda")``
+    behind ``make_server`` on a loopback port, two workers and a spill
+    directory, driven over HTTP by ``ServeClient`` under the capture; once
+    the 64k tenant's state is known, the card-memory budget is set to its
+    bytes (it holds that tenant, not it and a second one together).  The 64k corpus without its range axiom is loaded,
+    takes the three deltas and the retraction of the class-only delta;
+    after each write every served taxonomy is held, by name, to a
+    from-scratch card classify of the accumulated text (and the
+    tenant's closure by ``named_closure_equal``), and ``query/subsumers``
+    of sampled classes to that taxonomy's subsumers.  The 8k corpus as
+    a second tenant evicts the 64k one to the warm tier (it must give
+    the card back at least its state's bytes); a scheduled read
+    promotes it.  With the warm tier turned off, a read of the 8k tenant
+    spills the 64k one cold, and a read of it restores it from the
+    spill.  Then one concurrent burst (a delta to one tenant, reads of
+    both, one client thread a request; the reads held to the same reads
+    served one at a time), and the graceful close with its final spill.
+    Per request: the client wall, the tenant's phases, path, iterations,
+    launches, host peak RSS and card memory; the snapshot publish
+    seconds.  The captured operand pairs are checked as in phase 6 and
+    returned for the kernel line."""
+    import threading
+
+    from distel_tpu_torch.config import ClassifierConfig
+    from distel_tpu_torch.frontend.ontology_tools import snomed_shaped_ontology
+    from distel_tpu_torch.ops.bitmatmul import LAUNCHES, reset_launches
+    from distel_tpu_torch.runtime.classifier import ELClassifier
+    from distel_tpu_torch.serve.client import ServeClient
+    from distel_tpu_torch.serve.registry import _state_bytes
+    from distel_tpu_torch.serve.server import ServeApp
+
+    big = without_ranges(snomed_shaped_ontology(n_classes=64000, seed=42))
+    small = snomed_shaped_ontology(n_classes=8000, seed=42)
+    shutil.rmtree(SERVE_DIR, ignore_errors=True)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    memory = {"before_load": torch.cuda.memory_allocated()}
+    # the warm tier holds the whole 64k state on the host (about 1.9 GB)
+    cfg = ClassifierConfig(storage_warm_budget_mb=16384)
+    app = ServeApp(cfg, device="cuda", workers=2, spill_dir=str(SERVE_DIR),
+                   memory_budget_bytes=1 << 40)
+    records = []
+    rng = np.random.default_rng(0)
+    cap.run = "serve"
+    with cap, http_serving(app) as url:
+        client = ServeClient(url, timeout=1200)
+
+        def history(oid):
+            entry = app.registry._entries.get(oid) if oid else None
+            inc = entry.inc if entry is not None else None
+            return (inc, len(inc.history)) if inc is not None else (None, 0)
+
+        def request(name, oid, fn):
+            """One request, timed on the client; the launches, host peak
+            RSS and card memory over it; and, where it changed the
+            tenant's classifier (a write, a promotion, a restore), the
+            new history record and its phases."""
+            before = history(oid)
+            reset_launches()
+            pub0 = publish_seconds(app)
+            t0 = time.perf_counter()
+            with HostPeak() as hp:
+                doc = fn()
+            wall = time.perf_counter() - t0
+            rec = {"request": name, "wall_s": wall,
+                   "launches": dict(LAUNCHES), "host_peak_rss": hp.peak,
+                   "memory_allocated": torch.cuda.memory_allocated(),
+                   "publish_s": publish_seconds(app) - pub0}
+            inc, n = history(oid or doc.get("id"))
+            if inc is not None and (inc is not before[0] or n > before[1]):
+                h = inc.history[-1]
+                rec.update(path=h["path"], iterations=h["iterations"],
+                           new_derivations=h["new_derivations"],
+                           phases_s=inc.last_phases)
+            if isinstance(doc, dict) and "version" in doc:
+                rec["version"] = doc["version"]
+            log(f"[serve 64k] {json.dumps(rec)}")
+            records.append(rec)
+            return doc
+
+        def check(oid, texts, what):
+            """The served taxonomy and sampled snapshot subsumers against
+            a from-scratch card classify of ``texts``."""
+            t0 = time.perf_counter()
+            served = request(f"taxonomy:{what}", oid, lambda: client.taxonomy(oid))
+            batch = ELClassifier(device="cuda").classify_text(
+                "\n".join(texts) + "\n")
+            tax = batch.taxonomy
+            if (served["parents"], served["equivalents"],
+                    sorted(served["unsatisfiable"])) != taxonomy_key(tax):
+                raise AssertionError(f"serve 64k {what}: taxonomy differs from a classify")
+            inc = app.registry._entries[oid].inc
+            if not named_closure_equal(inc.last_result, batch.result):
+                raise AssertionError(f"serve 64k {what}: named subsumers differ")
+            names = sorted(tax.subsumers)
+            for cls in rng.choice(names, 24, replace=False).tolist():
+                got = client.query_subsumers(oid, cls)["subsumers"]
+                if got != tax.subsumers[cls]:
+                    raise AssertionError(f"serve 64k {what}: query/subsumers {cls}")
+            del batch
+            log(f"[serve 64k] {what}: equal to a from-scratch classify "
+                f"({time.perf_counter() - t0:.1f} s)")
+            return names
+
+        def reads(oid, cls):
+            return [client.subsumers(oid, cls), client.query_subsumers(oid, cls),
+                    client.taxonomy_slice(oid, cls), client.snapshot_version(oid)]
+
+        a = request("load:64k", None, lambda: client.load(big))["id"]
+        memory["after_load"] = torch.cuda.memory_allocated()
+        texts = [big]
+        check(a, texts, "load")
+        for (op, t), name in zip(incremental_steps(big)[1:],
+                                 ("delta:class_only", "delta:role", "delta:closure",
+                                  "retract:class_only")):
+            if op == "add":
+                request(name, a, lambda t=t: client.delta(a, t))
+                texts.append(t)
+            else:
+                request(name, a, lambda t=t: client.retract(a, t))
+                texts.remove(t)
+            check(a, texts, name)
+            reads(a, "Find7")
+        paths = [r.get("path") for r in records if r["request"].startswith(
+            ("load", "delta", "retract"))]
+        if paths[:3] != ["rebuild", "fast", "fast"] or paths[4] != "retract" or \
+                paths[3] not in ("fast", "rebuild"):
+            raise AssertionError(f"serve 64k: write paths {paths}")
+        # the writes ran every kernel of the routes the tenant's plans chose
+        for k in chosen_kernels(app.registry._entries[a].inc._base_engine):
+            if not any(r["launches"][k] for r in records):
+                raise AssertionError(f"serve 64k: {k} was never launched")
+        # from here the card budget holds the 64k tenant alone
+        state_a = _state_bytes(app.registry._entries[a].inc)
+        app.registry.memory_budget_bytes = state_a
+        memory["before_evict"] = torch.cuda.memory_allocated()
+        # round 1: the second tenant evicts the 64k one to the warm tier
+        b = request("load:8k", None, lambda: client.load(small))["id"]
+        entry_a, entry_b = app.registry._entries[a], app.registry._entries[b]
+        if entry_a.inc is not None or entry_a.warm_inc is None:
+            raise AssertionError("serve 64k: the 8k load did not demote the 64k tenant")
+        sync()
+        held_b = sum(device_bytes(entry_b.inc).values())
+        memory["after_evict_warm"] = torch.cuda.memory_allocated()
+        freed_warm = memory["before_evict"] + held_b - memory["after_evict_warm"]
+        if freed_warm < state_a:
+            raise AssertionError(f"serve 64k: the warm eviction freed {freed_warm} B "
+                                 f"of a {state_a} B state")
+        request("promote:64k", a, lambda: client.taxonomy(a))
+        memory["after_promote"] = torch.cuda.memory_allocated()
+        if entry_a.inc is None or entry_b.inc is not None:
+            raise AssertionError("serve 64k: the read did not promote the 64k tenant")
+        # round 2: no warm tier; the 8k tenant's read spills the 64k one cold
+        app.registry.warm_budget_bytes = 0
+        request("promote:8k", b, lambda: client.taxonomy(b))
+        sync()
+        memory["after_evict_cold"] = torch.cuda.memory_allocated()
+        if entry_a.inc is not None or entry_a.warm_inc is not None or not entry_a.spill_path:
+            raise AssertionError("serve 64k: the 64k tenant was not spilled cold")
+        held_b = sum(device_bytes(entry_b.inc).values())
+        freed_cold = memory["after_promote"] + held_b - memory["after_evict_cold"]
+        if freed_cold < state_a:
+            raise AssertionError(f"serve 64k: the cold spill freed {freed_cold} B "
+                                 f"of a {state_a} B state")
+        request("restore:64k", a, lambda: client.taxonomy(a))
+        memory["after_restore"] = torch.cuda.memory_allocated()
+        if records[-1].get("path") != "restore":
+            raise AssertionError("serve 64k: the read did not restore the 64k tenant")
+        names = check(a, texts, "restore")
+        # the burst: both tenants resident, a delta to the 8k one, reads
+        app.registry.memory_budget_bytes = 1 << 40
+        burst_delta = "\n".join(f"SubClassOf(BurstX{i} Find{i * 3})" for i in range(20))
+        classes = rng.choice(names, 12, replace=False).tolist()
+        jobs = [("delta", b, None)] + [("read", a, c) for c in classes] + \
+            [("taxonomy", a, None), ("read", b, "Find7")]
+        got, errors = {}, []
+
+        def send(i, kind, oid, cls):
+            try:
+                if kind == "delta":
+                    got[i] = client.delta(oid, burst_delta)
+                elif kind == "taxonomy":
+                    got[i] = client.taxonomy(oid)
+                else:
+                    got[i] = [client.subsumers(oid, cls), client.query_subsumers(oid, cls)]
+            except Exception as e:  # noqa: BLE001 — reported below
+                errors.append(f"{kind} {oid}: {type(e).__name__}: {e}")
+
+        reset_launches()
+        t0 = time.perf_counter()
+        threads = [threading.Thread(target=send, args=(i, *j)) for i, j in enumerate(jobs)]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(timeout=900)
+            if th.is_alive():
+                raise AssertionError("serve 64k: a burst request never returned")
+        burst = {"requests": len(jobs), "wall_s": time.perf_counter() - t0,
+                 "launches": dict(LAUNCHES), "delta": {k: got[0].get(k) for k in
+                                                     ("path", "iterations", "version")}}
+        if errors:
+            raise AssertionError(f"serve 64k: burst failures {errors}")
+        for i, (kind, oid, cls) in enumerate(jobs):
+            if kind == "read" and oid == a:
+                if got[i] != [client.subsumers(oid, cls), client.query_subsumers(oid, cls)]:
+                    raise AssertionError(f"serve 64k: burst read {cls} differs from serial")
+            elif kind == "taxonomy":
+                if got[i] != client.taxonomy(oid):
+                    raise AssertionError("serve 64k: burst taxonomy differs from serial")
+        check(b, [small, burst_delta], "burst delta (8k)")
+        log(f"[serve 64k] burst {json.dumps(burst)}")
+    cap.run = ""
+    t0 = time.perf_counter()
+    spilled = app.close()
+    close_s = time.perf_counter() - t0
+    memory["peak"] = torch.cuda.max_memory_allocated()
+    tiers = app.registry.tier_stats()
+    flight = [e["kind"] for e in app.flight.events()]
+    del app
+    shutil.rmtree(SERVE_DIR, ignore_errors=True)
+    torch.cuda.empty_cache()
+    if len(spilled) != 2 or tiers["cold_ontologies"] != 2:
+        raise AssertionError(f"serve 64k: close spilled {spilled}, tiers {tiers}")
+    pairs = [check_pair(*key[:3], n, a_, b_)
+             for key, (n, _nnz, a_, b_) in sorted(cap.pairs.items()) if key[0] == "serve"]
+    for key in [k for k in cap.pairs if k[0] == "serve"]:
+        del cap.pairs[key]
+    if not pairs:
+        raise AssertionError("serve 64k: no operand pair was captured")
+    out = {
+        "requests": records,
+        "write_paths": paths,
+        "state_bytes_64k": state_a,
+        "freed_warm": freed_warm,
+        "freed_cold": freed_cold,
+        "memory_allocated": memory,
+        "burst": burst,
+        "close_s": close_s,
+        "spilled": [os.path.basename(p) for p in spilled],
+        "flight_kinds": sorted(set(flight)),
+        "kernel_checks": [{k: p[k] for k in ("run", "site", "main_path_kernel", "shape",
+                                             "launches", "max_abs_err")} for p in pairs],
+    }
+    log(f"[serve 64k] {json.dumps(out)}")
+    print(json.dumps({"serve_full_width": out}), flush=True)
     return pairs
 
 
@@ -1983,6 +2508,9 @@ def main() -> int:
     checked = phase_multiplied_full_width(cap)
     torch.cuda.empty_cache()
     checked += phase_incremental_full_width(cap)
+    torch.cuda.empty_cache()
+    phase_serve_card_vs_cpu()
+    checked += phase_serve_full_width(cap)
     torch.cuda.empty_cache()
     rows, pairs = phase_kernel_line(launches, cap, checked)
     rows.append(andor_row)

@@ -15,6 +15,12 @@
   check      EL profile check (JSON); exit 1 when axioms are removed
   multiply   n renamed copies of an ontology (``--crossed`` links
              neighbouring copies), written as OFN
+  serve      the resident classification service (``serve/``): HTTP
+             on ``--host``/``--port``, one incremental classifier per
+             loaded ontology on the card, graceful SIGTERM with a final
+             spill
+  query      snapshot-plane reads against a serve process
+  trace      fetch a recorded request trace from ``/debug/trace``
 
 Every command reads OWL functional syntax, RDF/XML or OWL/XML.
 
@@ -22,6 +28,9 @@ Usage: python -m distel_tpu_torch.cli classify FILE [--device cpu] ...
        python -m distel_tpu_torch.cli stream BASE [DELTA ...] [--device cpu]
        python -m distel_tpu_torch.cli diff FILE [--device cpu]
        python -m distel_tpu_torch.cli multiply FILE N -o OUT [--crossed]
+       python -m distel_tpu_torch.cli serve [--port 8080] [--device cpu] ...
+       python -m distel_tpu_torch.cli query OID subsumers CLASS [--url URL]
+       python -m distel_tpu_torch.cli trace [TRACE_ID] [--format chrome]
 """
 
 from __future__ import annotations
@@ -169,6 +178,127 @@ def cmd_multiply(args) -> int:
     return 0
 
 
+#: the reference's serve flags whose modules the port does not have
+#: yet: flag -> (argument, the reference module it waits for)
+REFUSED_SERVE_FLAGS = {
+    "--replica-id": ("replica_id", "serve/fleet/replica.py"),
+    "--artifacts-dir": ("artifacts_dir", "core/artifacts.py"),
+    "--artifacts-require": ("artifacts_require", "core/artifacts.py"),
+    "--warmup": ("warmup", "runtime/warmup.py"),
+}
+
+
+def cmd_serve(args) -> int:
+    """Resident classification service: one incremental classifier per
+    loaded ontology, its closure resident on the card, behind a
+    bounded-queue scheduler; see ``distel_tpu_torch/serve/``."""
+    from distel_tpu_torch.serve.server import ServeApp, serve_forever
+
+    for flag, (attr, module) in REFUSED_SERVE_FLAGS.items():
+        if getattr(args, attr):
+            raise ValueError(
+                f"{flag} is not supported by distel_tpu_torch yet: it needs "
+                f"the reference's {module}, which is not ported"
+            )
+    cfg = _load_cfg(args)
+    budget = (
+        int(args.memory_budget_mb * (1 << 20))
+        if args.memory_budget_mb is not None
+        else None
+    )
+    warm_budget = (
+        int(args.warm_budget_mb * (1 << 20))
+        if args.warm_budget_mb is not None
+        else None
+    )
+    app = ServeApp(
+        cfg,
+        device=args.device,
+        workers=args.workers,
+        max_queue=args.max_queue,
+        max_batch=args.max_batch,
+        deadline_s=args.deadline_s,
+        memory_budget_bytes=budget,
+        warm_budget_bytes=warm_budget,
+        spill_dir=args.spill_dir,
+        fast_path_min_concepts=args.fast_path_min_concepts,
+    )
+    spilled = serve_forever(app, args.host, args.port)
+    print(
+        json.dumps({"shutdown": "graceful", "spilled": spilled}),
+        flush=True,
+    )
+    return 0
+
+
+def cmd_trace(args) -> int:
+    """Fetch a recorded request trace from a serve process's
+    ``/debug/trace`` endpoint.  ``--format chrome`` writes Chrome
+    trace-event JSON (Perfetto or chrome://tracing load it)."""
+    from urllib.parse import quote
+    from urllib.request import urlopen
+
+    base = args.url.rstrip("/")
+    qs = []
+    if args.trace_id:
+        qs.append(f"trace_id={quote(args.trace_id)}")
+    if args.format == "chrome":
+        qs.append("format=chrome")
+    if args.limit is not None:
+        qs.append(f"limit={args.limit}")
+    if args.no_stitch:
+        qs.append("stitch=0")
+    url = base + "/debug/trace" + ("?" + "&".join(qs) if qs else "")
+    with urlopen(url, timeout=args.timeout) as resp:
+        payload = resp.read()
+    if args.output:
+        with open(args.output, "wb") as f:
+            f.write(payload)
+        doc = json.loads(payload)
+        n = len(doc.get("traceEvents", doc.get("spans", [])))
+        print(json.dumps({"written": args.output, "format": args.format,
+                          "records": n}))
+    else:
+        sys.stdout.write(payload.decode("utf-8"))
+    return 0
+
+
+def cmd_query(args) -> int:
+    """Snapshot-plane reads against a serve process: subsumption tests,
+    subsumer sets and taxonomy slices off the lock-free versioned read
+    snapshots.  Every answer carries the snapshot version it came
+    from."""
+    from distel_tpu_torch.serve.client import ServeClient
+
+    c = ServeClient(args.url, timeout=args.timeout)
+    if args.min_version:
+        c._versions[args.oid] = args.min_version
+    try:
+        if args.op == "subsumed":
+            if len(args.names) != 2:
+                print("subsumed needs SUB SUP", file=sys.stderr)
+                return 2
+            doc = c.is_subsumed(args.oid, args.names[0], args.names[1])
+        elif args.op == "subsumers":
+            if len(args.names) != 1:
+                print("subsumers needs CLASS", file=sys.stderr)
+                return 2
+            doc = c.query_subsumers(args.oid, args.names[0])
+        elif args.op == "slice":
+            if len(args.names) != 1:
+                print("slice needs CLASS", file=sys.stderr)
+                return 2
+            doc = c.taxonomy_slice(args.oid, args.names[0])
+        else:  # version
+            doc = c.snapshot_version(args.oid)
+    except Exception as e:  # noqa: BLE001 — ops surface, fail readable
+        print(json.dumps({"error": f"{type(e).__name__}: {e}"}),
+              file=sys.stderr)
+        return 1
+    print(json.dumps(doc, indent=2))
+    return 0
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(prog="distel_tpu_torch", description=__doc__)
     sub = p.add_subparsers(dest="cmd", required=True)
@@ -229,6 +359,83 @@ def main(argv=None) -> int:
     m.add_argument("--output", "-o", required=True)
     m.add_argument("--crossed", action="store_true")
     m.set_defaults(fn=cmd_multiply)
+    sv = sub.add_parser("serve", help="resident classification service (HTTP)")
+    sv.add_argument("--host", default="127.0.0.1")
+    sv.add_argument("--port", type=int, default=8080,
+                    help="0 binds an ephemeral port (printed at startup)")
+    sv.add_argument("--config", help="properties/config file")
+    sv.add_argument(
+        "--device", default=None,
+        help="torch device (default: the first CUDA device; raises if none)",
+    )
+    sv.add_argument("--workers", type=int, default=2,
+                    help="scheduler workers (cross-ontology concurrency)")
+    sv.add_argument("--max-queue", type=int, default=64,
+                    help="bounded admission queue; overflow answers 429")
+    sv.add_argument("--max-batch", type=int, default=8,
+                    help="max queued deltas coalesced into one increment")
+    sv.add_argument("--deadline-s", type=float, default=300.0,
+                    help="default per-request deadline (503 past it)")
+    sv.add_argument("--memory-budget-mb", type=float, default=None,
+                    help="resident-closure budget; the quietest ontologies "
+                         "demote past it (warm tier or --spill-dir)")
+    sv.add_argument("--warm-budget-mb", type=float, default=None,
+                    help="host-RAM warm-tier budget: hot evictions demote "
+                         "to packed host state (no frontend replay) before "
+                         "overflowing to compressed disk (default: config "
+                         "storage.warm.budget.mb, 0 = warm tier off)")
+    sv.add_argument("--spill-dir", default=None,
+                    help="snapshot directory for eviction + graceful "
+                         "shutdown (required with --memory-budget-mb)")
+    sv.add_argument("--fast-path-min-concepts", type=int, default=None,
+                    help="override the delta fast path's base-size "
+                         "cutoff (0 forces it everywhere)")
+    # the reference's flags whose modules are not ported: accepted by
+    # the parser, refused by cmd_serve naming the flag
+    sv.add_argument("--warmup", nargs="*", default=None, metavar="ONTOLOGY",
+                    help="not supported yet (refused)")
+    sv.add_argument("--replica-id", default=None,
+                    help="not supported yet (refused)")
+    sv.add_argument("--artifacts-dir", default=None,
+                    help="not supported yet (refused)")
+    sv.add_argument("--artifacts-require", action="store_true",
+                    help="not supported yet (refused)")
+    sv.set_defaults(fn=cmd_serve)
+    tr = sub.add_parser(
+        "trace", help="fetch a request trace from a serve /debug/trace endpoint"
+    )
+    tr.add_argument("trace_id", nargs="?", default=None,
+                    help="trace id (32 hex chars; ServeClient keeps the "
+                         "last one on .last_trace_id); omitted: every "
+                         "buffered span")
+    tr.add_argument("--url", default="http://127.0.0.1:8080",
+                    help="serve base url")
+    tr.add_argument("--format", choices=("json", "chrome"), default="json",
+                    help="chrome: Perfetto-loadable trace-event JSON")
+    tr.add_argument("--output", "-o", default=None,
+                    help="write the payload here instead of stdout")
+    tr.add_argument("--limit", type=int, default=None,
+                    help="newest N spans only")
+    tr.add_argument("--no-stitch", action="store_true",
+                    help="router only: skip fetching replica spans")
+    tr.add_argument("--timeout", type=float, default=30.0)
+    tr.set_defaults(fn=cmd_trace)
+    qr = sub.add_parser(
+        "query",
+        help="snapshot-plane reads against a serve process "
+             "(subsumed / subsumers / slice / version)",
+    )
+    qr.add_argument("oid", help="ontology id")
+    qr.add_argument("op", choices=("subsumed", "subsumers", "slice", "version"))
+    qr.add_argument("names", nargs="*",
+                    help="subsumed: SUB SUP; subsumers/slice: CLASS")
+    qr.add_argument("--url", default="http://127.0.0.1:8080",
+                    help="serve base url")
+    qr.add_argument("--min-version", type=int, default=None,
+                    help="read-your-writes watermark: refuse answers from "
+                         "snapshots older than this version")
+    qr.add_argument("--timeout", type=float, default=30.0)
+    qr.set_defaults(fn=cmd_query)
     args = p.parse_args(argv)
     return args.fn(args)
 

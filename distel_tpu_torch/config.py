@@ -5,12 +5,16 @@ same names and defaults where the port implements the knob: the engine
 (``auto`` = ``rowpacked``, ``packed`` or ``dense``), the native load
 plane (on by default, as in the reference), the normalizer's gensym
 cache, the per-rule backends (``backend.CRn``, the hybrid of
-``core/hybrid.py``) and the live-tile CR6 knobs.  Knobs of paths the
-port does not have yet (mesh, serving, shape buckets) are absent, or
-refused where a reference config could carry them over:
-``shape_buckets`` must be off, and ``mesh.devices`` / ``NODES_LIST``
-may name no device (a mesh of one device still changes the reference's
-automatic rules, so it is refused too).  The reference's ``matmul.dtype`` has no
+``core/hybrid.py``), the live-tile CR6 knobs and the serve plane's
+(``obs.*`` tracing, ``query.*`` snapshots, ``storage.*`` tiers,
+``cohort.*`` formation).  Knobs of paths the port does not have yet
+(mesh, shape buckets, the observed loop, the artifact farm, the fleet)
+are absent, or refused where a reference config could carry them over:
+``shape_buckets`` must be off, ``mesh.devices`` / ``NODES_LIST`` may
+name no device (a mesh of one device still changes the reference's
+automatic rules, so it is refused too), and ``obs.trace_rounds``,
+``obs.ledger.enable`` (both run the observed loop) and
+``artifacts.dir`` raise naming the key.  The reference's ``matmul.dtype`` has no
 meaning for the port's exact bit kernels and is ignored with the other
 unknown keys.
 
@@ -63,6 +67,37 @@ class ClassifierConfig:
     #: tiled-vs-window MAC-volume ratio above which the engine keeps the
     #: window formulation
     cr6_tiles_density_threshold: float = 0.5
+    #: request tracing (``obs/trace.py``): ``obs_enable=False`` takes
+    #: every span off-path; the flight recorder stays on
+    obs_enable: bool = True
+    #: fraction of root requests that record spans
+    obs_sample_rate: float = 1.0
+    #: finished-span ring capacity per process
+    obs_ring_capacity: int = 2048
+    #: flight-recorder event ring capacity per process
+    obs_flight_capacity: int = 4096
+    #: read-optimized query plane (``serve/query/``): every commit
+    #: publishes an immutable versioned host snapshot of the closure
+    #: that the ``/query/*`` endpoints answer from.  Off: they 404
+    query_enable: bool = True
+    #: decoded-row LRU capacity per snapshot
+    query_row_cache: int = 256
+    #: the scheduler's cohort-formation lane (``serve/scheduler.py``):
+    #: it forms only over bucketed base programs, so with the port's
+    #: exact-shape engines every delta runs solo
+    cohort_enable: bool = True
+    cohort_max_size: int = 8
+    cohort_max_wait_ms: float = 25.0
+    #: compress registry cold spills (``np.savez_compressed``)
+    storage_compress_spills: bool = True
+    #: host-RAM warm-tier budget (MiB); 0 = hot evictions spill
+    #: straight to cold
+    storage_warm_budget_mb: float = 0.0
+    #: halflife of the per-ontology read/write traffic EWMA that picks
+    #: eviction victims and prefetch candidates
+    storage_ewma_halflife_s: float = 60.0
+    #: period of the background tier promoter; 0 disables it
+    storage_prefetch_interval_s: float = 5.0
 
     def __post_init__(self):
         self.validate()
@@ -140,6 +175,45 @@ class ClassifierConfig:
             cfg.cr6_tiles_density_threshold = float(
                 raw["cr6.tiles.density_threshold"]
             )
+        if "obs.enable" in raw:
+            cfg.obs_enable = flag("obs.enable")
+        if "obs.sample_rate" in raw:
+            cfg.obs_sample_rate = float(raw["obs.sample_rate"])
+        for key in ("obs.trace_rounds", "obs.ledger.enable"):
+            if key in raw and flag(key):
+                raise ValueError(
+                    f"{key} = true runs the observed fixed-point loop, "
+                    "which distel_tpu_torch does not have yet"
+                )
+        if "obs.ring.capacity" in raw:
+            cfg.obs_ring_capacity = int(raw["obs.ring.capacity"])
+        if "obs.flight.capacity" in raw:
+            cfg.obs_flight_capacity = int(raw["obs.flight.capacity"])
+        if "artifacts.dir" in raw:
+            raise ValueError(
+                f"artifacts.dir = {raw['artifacts.dir']} names an AOT artifact "
+                "farm of compiled XLA programs; distel_tpu_torch has none"
+            )
+        if "query.enable" in raw:
+            cfg.query_enable = flag("query.enable")
+        if "query.row.cache" in raw:
+            cfg.query_row_cache = int(raw["query.row.cache"])
+        if "cohort.enable" in raw:
+            cfg.cohort_enable = flag("cohort.enable")
+        if "cohort.max_size" in raw:
+            cfg.cohort_max_size = int(raw["cohort.max_size"])
+        if "cohort.max_wait_ms" in raw:
+            cfg.cohort_max_wait_ms = float(raw["cohort.max_wait_ms"])
+        if "storage.compress.spills" in raw:
+            cfg.storage_compress_spills = flag("storage.compress.spills")
+        if "storage.warm.budget.mb" in raw:
+            cfg.storage_warm_budget_mb = float(raw["storage.warm.budget.mb"])
+        if "storage.ewma.halflife_s" in raw:
+            cfg.storage_ewma_halflife_s = float(raw["storage.ewma.halflife_s"])
+        if "storage.prefetch.interval_s" in raw:
+            cfg.storage_prefetch_interval_s = float(
+                raw["storage.prefetch.interval_s"]
+            )
         for k, v in raw.items():
             if k.startswith("backend."):  # backend.CR1 = tpu
                 cfg.rule_backends[k[len("backend."):]] = v
@@ -156,4 +230,14 @@ class ClassifierConfig:
             "tile_m": self.cr6_tiles_tile_m,
             "tile_l": self.cr6_tiles_tile_l,
             "density_threshold": self.cr6_tiles_density_threshold,
+        }
+
+    def tracer_kwargs(self) -> dict:
+        """The :class:`~distel_tpu_torch.obs.SpanRecorder` construction
+        kwargs for this config (the serve app builds its recorder from
+        it)."""
+        return {
+            "enable": self.obs_enable,
+            "sample_rate": self.obs_sample_rate,
+            "capacity": self.obs_ring_capacity,
         }

@@ -177,6 +177,10 @@ class IncrementalClassifier:
         self._base_idx = None
         #: fast-path accounting of the last increment (None on a rebuild)
         self.last_delta_stats: Optional[dict] = None
+        #: the reference's program-build record of the last increment;
+        #: the port compiles no programs, so it stays None (the serve
+        #: registry's compile counters then record nothing)
+        self.last_compile = None
         #: the index :meth:`demote` keeps for :meth:`promote`
         self._warm_idx = None
         #: one record per ingest: ``{"text", "spans": {nf: (start, end)}

@@ -407,16 +407,7 @@ class RowPackedSaturationEngine:
             return self._live_windows(role_list, lcn, h)
 
         self._plans: dict = {}
-
-        def plan(m, l):
-            key = (m, l)
-            if key not in self._plans:
-                self._plans[key] = PackedColsMatmulPlan(
-                    m, l, self.wc, temp_budget_bytes=self.temp_budget_bytes
-                )
-            return self._plans[key]
-
-        self._plan = plan
+        plan = self._plan
 
         def window_spans(spans, tab, lcn):
             """Each span's live windows, kept ``(a0, a1, windows)``, and
@@ -541,6 +532,18 @@ class RowPackedSaturationEngine:
         #: ``{"cr4": [run, skipped], "cr6": [...], "cr6_tiles": [...],
         #: "cr5": ran}`` (windows, or link tiles for the live-tile CR6)
         self.gate_rounds: list = []
+
+    def _plan(self, m, l) -> PackedColsMatmulPlan:
+        """The product plan of an [m, l] operand against the state's
+        words, one per shape (a method, not a closure over ``self``: a
+        reference cycle would keep the engine's tables on the card past
+        the last reference until a garbage collection)."""
+        key = (m, l)
+        if key not in self._plans:
+            self._plans[key] = PackedColsMatmulPlan(
+                m, l, self.wc, temp_budget_bytes=self.temp_budget_bytes
+            )
+        return self._plans[key]
 
     def _live_windows(self, role_list, lcn, h):
         """Static live windows ``[(off, end, c0, c1)]`` covering the

@@ -54,6 +54,7 @@ Each launch adds one to :data:`LAUNCHES`.
 from __future__ import annotations
 
 import ctypes
+import threading
 from typing import NamedTuple, Optional
 
 import numpy as np
@@ -92,18 +93,29 @@ SKIP_TILES_MIN_WORK = 1 << 30
 N_ALIGN = 16
 
 _LIB = None
+#: guards :data:`LAUNCHES` and the library's first load: the serve
+#: plane's scheduler workers launch from several threads
+_LOCK = threading.Lock()
 
 
 def reset_launches() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+    with _LOCK:
+        for k in LAUNCHES:
+            LAUNCHES[k] = 0
+
+
+def _count_launch(name: str) -> None:
+    with _LOCK:
+        LAUNCHES[name] += 1
 
 
 def _lib():
     """The kernels' library, built from ``csrc/packed_cols.cu`` on first
     use (see ``ops/build.py``)."""
     global _LIB
-    if _LIB is None:
+    with _LOCK:
+        if _LIB is not None:
+            return _LIB
         from distel_tpu_torch.ops import build
 
         lib = build.load("packed_cols")
@@ -125,7 +137,7 @@ def _lib():
                 f"{(KERNEL_TM, LIST_CHUNK)}"
             )
         _LIB = lib
-    return _LIB
+        return _LIB
 
 
 def _check_launch(error_string, code: int, what: str) -> None:
@@ -250,7 +262,7 @@ def _run_sparse(b: torch.Tensor, lists: ColumnLists, c: torch.Tensor, l: int,
         int(accumulate), _stream(b),
     )
     _check_launch(lib.packed_cols_error_string, code, "packed_cols_sparse")
-    LAUNCHES["packed_cols_sparse"] += 1
+    _count_launch("packed_cols_sparse")
     return c
 
 
@@ -377,7 +389,7 @@ class PackedColsMatmulPlan:
             lists.counts.data_ptr(), m, l, _stream(a),
         )
         _check_launch(lib.packed_cols_error_string, code, "packed_cols_list")
-        LAUNCHES["packed_cols_list"] += 1
+        _count_launch("packed_cols_list")
         return lists
 
     def run_sparse(self, b: torch.Tensor, lists: ColumnLists, c: torch.Tensor,
@@ -394,7 +406,7 @@ class PackedColsMatmulPlan:
             int(accumulate), _stream(a),
         )
         _check_launch(lib.packed_cols_error_string, code, "packed_cols_dense")
-        LAUNCHES["packed_cols_dense"] += 1
+        _count_launch("packed_cols_dense")
         return c
 
 
@@ -545,7 +557,7 @@ class PackedMatmulPlan:
             lists.counts.data_ptr(), rows, self.kw, k_rows, _stream(a),
         )
         _check_launch(lib.packed_cols_error_string, code, "packed_andor_list")
-        LAUNCHES["packed_andor_list"] += 1
+        _count_launch("packed_andor_list")
         return lists
 
     def _launch(self, a: torch.Tensor, b: torch.Tensor,

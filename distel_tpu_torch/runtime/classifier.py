@@ -18,10 +18,8 @@ with no card and no device given, construction raises.
 
 from __future__ import annotations
 
-import contextlib
-import time
-from dataclasses import dataclass, field
-from typing import Dict, Optional, Union
+from dataclasses import dataclass
+from typing import Optional, Union
 
 import torch
 
@@ -33,6 +31,7 @@ from distel_tpu_torch.core.packed_engine import PackedSaturationEngine
 from distel_tpu_torch.core.rowpacked_engine import RowPackedSaturationEngine
 from distel_tpu_torch.frontend.normalizer import Normalizer, NormalizedOntology
 from distel_tpu_torch.owl import loader as owl_loader
+from distel_tpu_torch.runtime.instrumentation import PhaseTimer
 from distel_tpu_torch.runtime.taxonomy import Taxonomy, extract_taxonomy
 
 
@@ -48,34 +47,6 @@ def resolve_device(device=None) -> torch.device:
             "pass device='cpu' to run the plain PyTorch versions on the CPU"
         )
     return torch.device("cuda")
-
-
-@dataclass
-class PhaseTimer:
-    """Wall seconds per named phase (synchronising the card at each
-    phase boundary, so device work lands in the phase that issued it)."""
-
-    device: torch.device
-    phases: Dict[str, float] = field(default_factory=dict)
-
-    @contextlib.contextmanager
-    def phase(self, name: str):
-        self._sync()
-        t0 = time.perf_counter()
-        try:
-            yield
-        finally:
-            self._sync()
-            self.phases[name] = self.phases.get(name, 0.0) + (
-                time.perf_counter() - t0
-            )
-
-    def _sync(self):
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
-
-    def report(self) -> str:
-        return "  ".join(f"{k}={v * 1000:.1f}ms" for k, v in self.phases.items())
 
 
 @dataclass

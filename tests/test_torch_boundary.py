@@ -105,6 +105,38 @@ def test_entry_points_raise_without_a_card(monkeypatch, tmp_path):
     assert classifier.ELClassifier(device="cpu").device.type == "cpu"
 
 
+def test_serve_and_obs_are_checked():
+    """The serve plane and its observability modules are among the files
+    the checks above read and import."""
+    rel = {str(p.relative_to(ROOT / "distel_tpu_torch")) for p in PORT_FILES
+           if p not in SCRIPTS}
+    for want in ("serve/server.py", "serve/registry.py", "serve/scheduler.py",
+                 "serve/client.py", "serve/metrics.py", "serve/traces.py",
+                 "serve/query/snapshot.py", "serve/storage/tiers.py",
+                 "obs/trace.py", "obs/flight.py",
+                 "runtime/instrumentation.py"):
+        assert want in rel, want
+
+
+def test_serve_entry_points_raise_without_a_card(monkeypatch, tmp_path):
+    from distel_tpu_torch.serve.registry import OntologyRegistry
+    from distel_tpu_torch.serve.server import ServeApp
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ServeApp()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        OntologyRegistry()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        cli.main(["serve", "--port", "0", "--spill-dir", str(tmp_path)])
+    # an explicit CPU request runs
+    app = ServeApp(device="cpu")
+    try:
+        assert app.registry.device.type == "cpu"
+    finally:
+        app.close(final_spill=False)
+
+
 def test_plan_refuses_a_device_without_a_kernel():
     plan = PackedColsMatmulPlan(2, 2, 1)
     a = torch.zeros((2, 2), dtype=torch.int8, device="meta")

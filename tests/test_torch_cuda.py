@@ -557,3 +557,106 @@ def test_incremental_state_stays_on_the_card(card, monkeypatch):
         m.setattr(torch.Tensor, "numpy", no_host)
         sp, rp = eng.embed_state(res.packed_s, res.packed_r)
     assert torch.equal(sp, res.packed_s) and torch.equal(rp, res.packed_r)
+
+
+# ------------------------------------------------------------ serve plane
+
+
+def test_evicting_a_tenant_frees_its_state_on_the_card(card, tmp_path):
+    """A tenant demoted to the warm tier, or spilled cold, gives the card
+    back at least its state's bytes (engines and tables go with it)."""
+    from distel_tpu_torch.serve.query import SnapshotStore
+    from distel_tpu_torch.serve.registry import OntologyRegistry, _state_bytes
+
+    for warm in (1 << 30, 0):
+        reg = OntologyRegistry(device=card, memory_budget_bytes=1 << 40,
+                               spill_dir=str(tmp_path / str(warm)),
+                               warm_budget_bytes=warm, query=SnapshotStore())
+        oid = reg.new_id()
+        reg.load(oid, snomed_shaped_ontology(n_classes=3000, seed=5))
+        state = _state_bytes(reg.classifier(oid))
+        torch.cuda.synchronize()
+        held = torch.cuda.memory_allocated()
+        reg.memory_budget_bytes = 1
+        reg._maybe_evict()
+        torch.cuda.synchronize()
+        freed = held - torch.cuda.memory_allocated()
+        tiers = reg.tier_stats()
+        assert tiers["resident_ontologies"] == 0
+        assert tiers["warm_ontologies" if warm else "cold_ontologies"] == 1
+        assert state > 0 and freed >= state, (warm, freed, state)
+        # and the next read brings it back with the same closure
+        assert reg.classifier(oid).last_result.packed_s.is_cuda
+
+
+def test_two_workers_two_tenants_equal_serial_requests(card):
+    """Two scheduler workers serving two tenants' deltas at once on the
+    card give the closures that the same requests one at a time do."""
+    import threading
+
+    from distel_tpu_torch.serve.server import ServeApp
+
+    texts = {"a": snomed_shaped_ontology(n_classes=2500, seed=21),
+             "b": snomed_shaped_ontology(n_classes=2200, seed=22)}
+    deltas = {k: [f"SubClassOf(Card{k}{i} Find{i + 3})\n"
+                  f"SubClassOf(CardR{k}{i} ObjectSomeValuesFrom(attr1 Find{i}))\n"
+                  for i in range(3)] for k in texts}
+
+    def run(concurrent):
+        app = ServeApp(device=card, workers=2, max_batch=1)
+        try:
+            ids = {k: json_of(app, "POST", "/v1/ontologies", t)["id"]
+                   for k, t in texts.items()}
+            jobs = [(k, d) for k in texts for d in deltas[k]]
+
+            def send(k, d):
+                json_of(app, "POST", f"/v1/ontologies/{ids[k]}/deltas", d)
+
+            if concurrent:
+                threads = [threading.Thread(target=send, args=j) for j in jobs]
+                for t in threads:
+                    t.start()
+                for t in threads:
+                    t.join(timeout=600)
+                    assert not t.is_alive()
+            else:
+                for j in jobs:
+                    send(*j)
+            return {k: app.registry.classifier(oid).last_result.wire()
+                    for k, oid in ids.items()}, \
+                {k: json_of(app, "GET", f"/v1/ontologies/{oid}/taxonomy")
+                 for k, oid in ids.items()}
+        finally:
+            app.close(final_spill=False)
+
+    (s_wire, s_tax), (c_wire, c_tax) = run(False), run(True)
+    for k in texts:
+        assert all(np.array_equal(x, y) for x, y in zip(s_wire[k], c_wire[k]))
+        assert s_tax[k] == c_tax[k]
+
+
+def json_of(app, method, path, text=None):
+    import json
+
+    body = json.dumps({"text": text}).encode() if text is not None else b""
+    status, _, payload = app.dispatch(method, path, {}, body, None)
+    assert status in (200, 201), payload
+    return json.loads(payload)
+
+
+def test_serve_app_runs_on_the_card_by_default(card):
+    from distel_tpu_torch.serve.server import ServeApp
+
+    app = ServeApp()
+    try:
+        assert app.registry.device.type == "cuda"
+        oid = json_of(app, "POST", "/v1/ontologies", "SubClassOf(A B)\n")["id"]
+        inc = app.registry.classifier(oid)
+        assert inc.device.type == "cuda"
+        assert inc.last_result.packed_s.is_cuda
+        status, _, body = app.dispatch(
+            "GET", f"/v1/ontologies/{oid}/query/subsumers", {"class": "A"},
+            b"", None)
+        assert status == 200 and b'"B"' in body
+    finally:
+        app.close(final_spill=False)

@@ -33,7 +33,10 @@ GOLDEN = sorted((Path(__file__).parent / "golden").glob("*.ofn"))
 #: modules the port keeps as copies of the reference's
 COPIES = ("owl/owlxml.py", "owl/rdfxml.py", "owl/loader.py",
           "frontend/profile_checker.py", "frontend/ontology_tools.py",
-          "runtime/stats.py", "core/retract.py")
+          "runtime/stats.py", "core/retract.py",
+          "obs/flight.py", "serve/scheduler.py", "serve/client.py",
+          "serve/traces.py", "serve/storage/__init__.py",
+          "serve/query/__init__.py")
 ARRAYS = ("nf1", "nf2", "nf3", "nf4", "links", "chain_pairs", "role_closure",
           "original_classes")
 SCALARS = ("n_concepts", "n_roles", "concept_names", "concept_ids",
