@@ -114,6 +114,25 @@ Phases, each of which raises on failure:
    serial answers; the graceful close with its final spill.  The
    captured operand pairs are checked as in phase 6 and join the kernel
    line.
+12. the serve fleet at full width: two replica processes on the card
+   (``ReplicaSupervisor``: ``cli serve --replica-id ... --device cuda``,
+   each checked to run this tree) behind a ``RouterApp`` in this
+   process: the 64k and 8k corpora (without their range axiom) loaded
+   through the router onto different replicas, the class-only delta;
+   the 64k tenant migrated live under reader threads and an 8k writer
+   (no request may fail, its taxonomy byte-identical across the move)
+   and moved back to its source; a read replica of the 8k tenant; the 64k tenant's replica SIGKILLed
+   and its tenant recovered by journal replay, then a retraction on the
+   8k tenant and its replica killed (the replay with the retract
+   marker); the tracked trace through the router with its ``migrate``
+   op, equal to an in-process CPU fleet's replay; the router's
+   aggregated ``/metrics``, a stitched ``/debug/trace``, ``/fleet/status``;
+   the graceful stop.  Every 64k and 8k taxonomy is held to a
+   from-scratch card classify.  The replicas' launches happen in their
+   own processes, out of this one's counts: a ``sitecustomize`` the
+   smoke puts ahead of the tree on their ``PYTHONPATH`` writes each
+   process's launches and allocator bytes to a file, and every replica
+   process must have launched the path's kernels.
 
 Kernel times are CUDA-event times per call over back-to-back calls;
 the packed-contraction route's are also taken from CUDA-graph replays
@@ -135,7 +154,10 @@ launches, host and card peaks; the retraction's overdeletion time),
 ``{"serve_card_vs_cpu": ...}`` and ``{"serve_full_width": ...}`` (per
 request: client wall, path, iterations, phases, launches, snapshot
 publish seconds, host peak RSS, card memory; the bytes an eviction
-freed; the burst; the close) lines,
+freed; the burst; the close) and ``{"fleet_full_width": ...}`` (boot,
+load, migration and recovery walls, the client hold, each recovery's
+polls, spans and events, per-process card memory, launches and host
+RSS, heartbeat latencies, ejections) lines,
 a ``{"kernels": [...]}`` line
 (the sparse row also carries the listing kernel's time and launches),
 and as its last line
@@ -2192,6 +2214,804 @@ def phase_serve_full_width(cap: Capture):
     return pairs
 
 
+# ------------------------------------------------------- the serve fleet
+
+FLEET_DIR = ROOT / "build" / "smoke_fleet"
+#: the router's probe timeout (``RouterApp(heartbeat_probe_timeout_s=)``,
+#: its default): the smoke's own probes use the same
+PROBE_TIMEOUT_S = 5.0
+#: the ``sitecustomize`` that counts inside each replica (put ahead of
+#: the tree on the replicas' ``PYTHONPATH``), and where it writes
+FLEET_SITE = ROOT / "build" / "smoke_fleet_site"
+FLEET_COUNTS = ROOT / "build" / "smoke_fleet_counts"
+#: seconds between two writes of a replica's counts
+COUNTS_PERIOD_S = 0.25
+
+#: The replicas' ``sitecustomize``: in a process started with
+#: ``--replica-id``, a thread writes the process's kernel launches
+#: (``ops.bitmatmul.LAUNCHES``, which count from 0 at import) and its
+#: CUDA caching allocator's bytes to ``<counts>/<rid>_<pid>.json`` every
+#: ``COUNTS_PERIOD_S`` and once more at exit (a graceful stop returns
+#: from ``cli serve`` and reaches ``atexit``).  It changes nothing in the
+#: program; the interpreter's own ``sitecustomize``, which it shadows,
+#: still runs.
+REPLICA_HOOK = '''\
+import atexit
+import importlib.machinery
+import importlib.util
+import json
+import os
+import sys
+import threading
+import time
+
+_HERE = os.path.dirname(os.path.abspath(__file__))
+_spec = importlib.machinery.PathFinder.find_spec(
+    "sitecustomize",
+    [p for p in sys.path if os.path.abspath(p or os.curdir) != _HERE])
+if _spec is not None and _spec.loader is not None:
+    _spec.loader.exec_module(importlib.util.module_from_spec(_spec))
+
+with open("/proc/self/cmdline", "rb") as _f:
+    _ARGV = _f.read().decode().split("\\0")
+
+if "--replica-id" in _ARGV:
+    _RID = _ARGV[_ARGV.index("--replica-id") + 1]
+    _PATH = os.path.join(COUNTS, "%s_%d.json" % (_RID, os.getpid()))
+    _STARTED = time.time()
+
+    def _dump():
+        doc = {"rid": _RID, "pid": os.getpid(), "ppid": os.getppid(),
+               "started": _STARTED, "ts": time.time(), "launches": None,
+               "cuda": None}
+        launches = getattr(
+            sys.modules.get("distel_tpu_torch.ops.bitmatmul"), "LAUNCHES", None)
+        if launches is not None:
+            doc["launches"] = dict(launches)
+        torch = sys.modules.get("torch")
+        try:
+            if torch is not None and torch.cuda.is_initialized():
+                st = torch.cuda.memory_stats()
+                doc["cuda"] = {
+                    "reserved": st.get("reserved_bytes.all.current", 0),
+                    "allocated": st.get("allocated_bytes.all.current", 0),
+                    "peak_reserved": st.get("reserved_bytes.all.peak", 0)}
+        except Exception:   # torch half imported: no reading this time
+            pass
+        tmp = "%s.%d.tmp" % (_PATH, threading.get_ident())
+        with open(tmp, "w") as f:
+            json.dump(doc, f)
+        os.replace(tmp, _PATH)
+
+    def _loop():
+        while True:
+            try:
+                _dump()
+            except Exception:
+                pass
+            time.sleep(PERIOD)
+
+    threading.Thread(target=_loop, name="smoke-counts", daemon=True).start()
+    atexit.register(_dump)
+'''
+
+
+def install_replica_hook() -> str:
+    """Write the replicas' ``sitecustomize``; returns its directory."""
+    shutil.rmtree(FLEET_SITE, ignore_errors=True)
+    shutil.rmtree(FLEET_COUNTS, ignore_errors=True)
+    FLEET_SITE.mkdir(parents=True)
+    FLEET_COUNTS.mkdir(parents=True)
+    (FLEET_SITE / "sitecustomize.py").write_text(
+        f"COUNTS = {str(FLEET_COUNTS)!r}\nPERIOD = {COUNTS_PERIOD_S!r}\n" + REPLICA_HOOK)
+    return str(FLEET_SITE)
+
+
+def replica_counts() -> dict:
+    """{pid: the last counts each replica process wrote}."""
+    out = {}
+    for path in FLEET_COUNTS.glob("*.json"):
+        try:
+            doc = json.loads(path.read_text())
+        except (OSError, ValueError):
+            continue
+        out[doc["pid"]] = doc
+    return out
+
+
+def fresh_counts(pids: dict, timeout_s: float = 10.0) -> dict:
+    """{rid: counts} of the live processes ``pids`` ({rid: pid}), each
+    written after this call began (so every launch the process made
+    before it is in)."""
+    t0 = time.time()
+    deadline = time.monotonic() + timeout_s
+    while True:
+        docs = replica_counts()
+        got = {rid: docs.get(pid) for rid, pid in pids.items()}
+        if all(d is not None and d["ts"] > t0 for d in got.values()):
+            return got
+        if time.monotonic() > deadline:
+            raise AssertionError(f"fleet: replicas {pids} wrote no counts "
+                                 f"in {timeout_s} s: {got}")
+        time.sleep(COUNTS_PERIOD_S / 2)
+
+
+def kernel_launches(doc) -> int:
+    """A replica's launches of the fleet path's kernels."""
+    return sum((doc.get("launches") or {}).get(k, 0) for k in
+               ("packed_cols_list", "packed_cols_dense", "packed_cols_sparse"))
+
+
+def process_tree_of(pid: int) -> dict:
+    """Where a process imports from: its working directory, its
+    ``PYTHONPATH`` and its command line."""
+    with open(f"/proc/{pid}/environ", "rb") as f:
+        env = dict(kv.split("=", 1) for kv in f.read().decode().split("\0") if "=" in kv)
+    with open(f"/proc/{pid}/cmdline", "rb") as f:
+        argv = f.read().decode().split("\0")
+    return {"cwd": os.readlink(f"/proc/{pid}/cwd"), "pythonpath": env.get("PYTHONPATH"),
+            "argv": [a for a in argv if a]}
+
+
+def host_rss_of(pid: int):
+    """A process's resident memory now (``/proc/<pid>/statm``), bytes."""
+    try:
+        with open(f"/proc/{pid}/statm") as f:
+            return int(f.read().split()[1]) * os.sysconf("SC_PAGE_SIZE")
+    except OSError:
+        return None
+
+
+def nvidia_smi(query: str) -> list:
+    out = subprocess.run(["nvidia-smi", query, "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True, timeout=60, check=True)
+    return [[x.strip() for x in ln.split(",")] for ln in out.stdout.splitlines()
+            if ln.strip()]
+
+
+def card_memory() -> dict:
+    """The card's memory in use (MiB) and its per-process rows as
+    ``nvidia-smi --query-compute-apps`` reports them ({pid: MiB}, pids as
+    the host's kernel sees them: a container may show all its processes
+    as one row)."""
+    return {"used": int(nvidia_smi("--query-gpu=memory.used")[0][0]),
+            "apps": {int(pid): int(mib) for pid, mib in
+                     nvidia_smi("--query-compute-apps=pid,used_memory")}}
+
+
+def kill_and_measure(pid: int, on_card: bool):
+    """SIGKILL a replica process; with a card, the card memory it held
+    when it died: the card's memory in use just before, less once the
+    process is gone (the supervisor reaps it later)."""
+    import signal
+
+    before = card_memory()["used"] if on_card else None
+    os.kill(pid, signal.SIGKILL)
+    while True:
+        try:
+            with open(f"/proc/{pid}/stat") as f:
+                if f.read().rsplit(")", 1)[1].split()[0] == "Z":
+                    break
+        except OSError:
+            break
+        time.sleep(0.02)
+    if not on_card:
+        return None
+    time.sleep(1.0)    # the CUDA context is torn down at exit
+    return before - card_memory()["used"]
+
+
+class FleetProbe:
+    """Heartbeat latencies: a thread that GETs every replica's
+    ``/healthz`` once a second with the router's probe timeout, each
+    sample labelled with the step the smoke is in."""
+
+    def __init__(self, router):
+        import threading
+
+        self.router, self.step, self.samples = router, "boot", []
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._run, daemon=True)
+
+    def _run(self):
+        import urllib.request
+
+        while not self._stop.wait(1.0):
+            for st in self.router.table.replicas():
+                t0 = time.perf_counter()
+                try:
+                    with urllib.request.urlopen(st.url + "/healthz",
+                                                timeout=PROBE_TIMEOUT_S) as r:
+                        r.read()
+                    err = None
+                except Exception as e:  # noqa: BLE001 — a sample, not a fault
+                    err = type(e).__name__
+                self.samples.append((self.step, st.rid, time.perf_counter() - t0, err))
+
+    def __enter__(self):
+        self._thread.start()
+        return self
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        self._thread.join(timeout=30)
+
+    def summary(self) -> dict:
+        """Per step and replica: probes, the slowest and the median
+        latency (s), and the probes that failed (timeouts among them)."""
+        out = {}
+        for step, rid, lat, err in self.samples:
+            out.setdefault(step, {}).setdefault(rid, []).append((lat, err))
+        return {
+            step: {rid: {"probes": len(v), "max_s": max(x for x, _ in v),
+                         "median_s": sorted(x for x, _ in v)[len(v) // 2],
+                         "failed": sorted(e for _, e in v if e)}
+                   for rid, v in per.items()}
+            for step, per in out.items()
+        }
+
+
+def raw_get(url: str, timeout: float = 1800) -> bytes:
+    import urllib.request
+
+    with urllib.request.urlopen(url, timeout=timeout) as r:
+        return r.read()
+
+
+def cpu_fleet_replay(tmp: Path):
+    """The tracked trace through an in-process two-replica fleet on the
+    CPU (``ReplicaApp``s behind a ``RouterApp``, loopback HTTP), its
+    ``migrate`` op run: the replay record and every answer."""
+    import threading
+
+    from distel_tpu_torch.serve.fleet.replica import ReplicaApp
+    from distel_tpu_torch.serve.fleet.router import RouterApp
+    from distel_tpu_torch.serve.server import make_server
+    from distel_tpu_torch.serve.traces import load_trace, replay_trace
+
+    apps, servers = [], []
+    for i in range(2):
+        apps.append(ReplicaApp(replica_id=f"r{i}", spill_dir=str(tmp), device="cpu"))
+        servers.append(make_server(apps[-1], "127.0.0.1", 0))
+        threading.Thread(target=servers[-1].serve_forever, daemon=True).start()
+    router = RouterApp([(f"r{i}", f"http://127.0.0.1:{s.server_address[1]}")
+                        for i, s in enumerate(servers)])
+    try:
+        with http_serving(router) as url:
+            client = RecordingClient(url)
+            rec = replay_trace(load_trace(str(TRACE_FILE)), client, migrate=router.migrate)
+    finally:
+        router.close()
+        for s in servers:
+            s.shutdown()
+            s.server_close()
+        for a in apps:
+            a.close(final_spill=False)
+    rec.pop("wall_s")
+    return rec, client.answers
+
+
+def phase_fleet_full_width(device: str = "cuda", n_big: int = 64000,
+                           n_small: int = 8000) -> dict:
+    """The serve fleet at full width: two replica processes on one card,
+    started by the port's ``ReplicaSupervisor`` (``cli serve
+    --replica-id ... --device cuda``, ``PYTHONPATH`` set to this tree,
+    each checked to import it), behind a ``RouterApp`` in this process
+    over loopback HTTP.  The 64k corpus without its range axiom and the
+    8k corpus are loaded through the router (affinity must place them
+    apart) and the 64k tenant takes the class-only delta (its taxonomy
+    held to a from-scratch card classify).  The 64k tenant is migrated
+    live while reader threads read both tenants and a writer sends
+    deltas to the 8k one: no request may fail, the 64k taxonomy must be
+    byte-identical before and after, the 8k answers equal the serial
+    ones.  The 8k tenant is replicated and its fanned-out reads equal
+    the primary's.  The 64k tenant's replica is SIGKILLed: the router
+    ejects it, the supervisor respawns it, the journal replays the
+    tenant, whose taxonomy must equal the classify; then a retraction on
+    the 8k tenant and a kill of its replica, whose journal replay (with
+    the retract marker) must equal a classify of the survivors.  The
+    tracked trace is replayed through the router with its ``migrate``
+    op, equal to the same replay on an in-process CPU fleet.  The
+    router's aggregated ``/metrics``, a stitched ``/debug/trace`` and
+    ``/fleet/status`` are checked, and the fleet stops gracefully.
+    Walls, the card's memory (``nvidia-smi``; each killed replica's
+    share as the drop at its death), the replicas' host RSS and
+    heartbeat latencies are printed.  Each replica process counts its
+    own kernel launches and allocator bytes (the smoke's
+    ``sitecustomize``, :data:`REPLICA_HOOK`): every process must have
+    launched the path's kernels, and the replica that replays the 64k
+    journal must launch them in the replay."""
+    import threading
+
+    from distel_tpu_torch.frontend.ontology_tools import snomed_shaped_ontology
+    from distel_tpu_torch.obs.trace import SpanRecorder
+    from distel_tpu_torch.runtime.classifier import ELClassifier
+    from distel_tpu_torch.serve.client import ServeClient, ServeError
+    from distel_tpu_torch.serve.fleet.router import RouterApp
+    from distel_tpu_torch.serve.fleet.supervisor import ReplicaSupervisor
+    from distel_tpu_torch.serve.traces import load_trace, replay_trace
+
+    # both without their range axiom, under which retraction is refused
+    big = without_ranges(snomed_shaped_ontology(n_classes=n_big, seed=42))
+    small = without_ranges(snomed_shaped_ontology(n_classes=n_small, seed=42))
+    shutil.rmtree(FLEET_DIR, ignore_errors=True)
+    out = {"device": device, "walls_s": {}, "card_memory_mib": {}, "replicas": {},
+           "host_rss": {}}
+    walls = out["walls_s"]
+    seen_pids = {}
+    on_card = device != "cpu"
+
+    def classify_key(texts):
+        res = ELClassifier(device=device).classify_text("\n".join(texts) + "\n")
+        key = taxonomy_key(res.taxonomy)
+        del res
+        if on_card:
+            torch.cuda.empty_cache()
+        return key
+
+    def served_key(doc):
+        return (doc["parents"], doc["equivalents"], sorted(doc["unsatisfiable"]))
+
+    def replica_pids() -> dict:
+        """{rid: pid} of the live replica processes, as the supervisor
+        started them; every pid seen is kept in ``seen_pids``."""
+        pids = {rid: p.proc.pid for rid, p in sorted(sup._procs.items())
+                if p.proc.poll() is None}
+        seen_pids.update({pid: rid for rid, pid in pids.items()})
+        return pids
+
+    def memory(label):
+        """The card's memory in use, ``nvidia-smi``'s per-process rows,
+        what this process holds of it (reserved by its allocator), each
+        replica's allocator bytes and kernel launches (its counts, fresh)
+        and each replica's host RSS."""
+        pids = replica_pids()
+        counts = fresh_counts(pids)
+        if on_card:
+            out["card_memory_mib"][label] = {
+                **card_memory(), "smoke_reserved": torch.cuda.memory_reserved() >> 20}
+        out["replicas"][label] = {
+            rid: {"pid": pids[rid], "launches": kernel_launches(doc),
+                  **{f"cuda_{k}_mib": v >> 20 for k, v in (doc["cuda"] or {}).items()}}
+            for rid, doc in counts.items()}
+        out["host_rss"][label] = {rid: host_rss_of(pid) for rid, pid in pids.items()}
+
+    # 1. boot: both replicas started together, each timed to its serving line
+    site = install_replica_hook()
+    env = {**os.environ, "PYTHONPATH": os.pathsep.join([site, str(ROOT)])}
+    sup = ReplicaSupervisor(2, spill_dir=str(FLEET_DIR),
+                            extra_args=["--device", device], env=env)
+    served_at = {}
+
+    def watch(rid, t0):
+        path = FLEET_DIR / "logs" / f"{rid}.log"
+        while time.perf_counter() - t0 < sup.startup_timeout_s:
+            try:
+                if '"serving": true' in path.read_text():
+                    served_at[rid] = time.perf_counter() - t0
+                    return
+            except OSError:
+                pass
+            time.sleep(0.05)
+
+    t0 = time.perf_counter()
+    watchers = [threading.Thread(target=watch, args=(f"r{i}", t0), daemon=True)
+                for i in range(2)]
+    for w in watchers:
+        w.start()
+    replicas = sup.start()
+    walls["boot"] = time.perf_counter() - t0
+    for w in watchers:
+        w.join(timeout=30)
+    walls["boot_to_serving"] = dict(sorted(served_at.items()))
+
+    def check_trees(label):
+        """Every replica process runs ``cli serve`` from this tree: its
+        working directory is this checkout, and its ``PYTHONPATH`` this
+        checkout behind the counting hook."""
+        pids = replica_pids()
+        if sorted(pids) != ["r0", "r1"]:
+            raise AssertionError(f"fleet: replica processes {pids}")
+        trees = {rid: process_tree_of(pid) for rid, pid in pids.items()}
+        for rid, tree in trees.items():
+            if tree["cwd"] != str(ROOT) or tree["pythonpath"] != env["PYTHONPATH"] or \
+                    tree["argv"][1:4] != ["-m", "distel_tpu_torch.cli", "serve"] or \
+                    tree["argv"][tree["argv"].index("--device") + 1] != device:
+                raise AssertionError(f"fleet: replica {rid} runs {tree}, not this tree")
+        out.setdefault("replica_trees", {})[label] = {
+            rid: {"pid": pids[rid], **{k: t[k] for k in ("cwd", "pythonpath")}}
+            for rid, t in trees.items()}
+
+    check_trees("booted")
+    memory("booted")
+    router = RouterApp(replicas, supervisor=sup)
+    router.start()
+    failures = []
+    try:
+        with http_serving(router) as url, FleetProbe(router) as probe:
+            client = ServeClient(url, timeout=1800)
+
+            # 2. loads through the router; affinity places them apart
+            probe.step = "load"
+            t0 = time.perf_counter()
+            a = client.load(big)["id"]
+            walls["load_64k"] = time.perf_counter() - t0
+            # placement reads the load the last heartbeat saw: one taken
+            # while the 64k load was in flight counts no tenant there yet
+            first = router.table.lookup(a)
+            t_loaded = time.monotonic()
+            while first.last_seen <= t_loaded:
+                time.sleep(0.1)
+            t0 = time.perf_counter()
+            b = client.load(small)["id"]
+            walls["load_8k"] = time.perf_counter() - t0
+            place = router.table.stats()["placement"]
+            if place[a] == place[b]:
+                raise AssertionError(f"fleet: both tenants placed on {place[a]}")
+            out["placement_after_load"] = dict(place)
+            t0 = time.perf_counter()
+            client.delta(a, INC_CLASS_DELTA)
+            walls["delta_64k"] = time.perf_counter() - t0
+            memory("loaded")
+            want_a = classify_key([big, INC_CLASS_DELTA])
+            if served_key(client.taxonomy(a)) != want_a:
+                raise AssertionError("fleet: the 64k taxonomy differs from a classify")
+            log(f"[fleet] loaded: {json.dumps(walls)}")
+
+            # 3. live migration of the 64k tenant under load
+            probe.step = "migrate"
+            tax_url = f"{url}/v1/ontologies/{a}/taxonomy"
+            before = raw_get(tax_url)
+            # the writer's deltas add classes under Find* classes: the
+            # subsumers of Find7 stay as they are, the snapshot version moves
+            serial_b = [client.subsumers(b, "Find7")["subsumers"],
+                        client.query_subsumers(b, "Find7")["subsumers"]]
+            names = sorted(json.loads(before)["parents"])
+            rng = np.random.default_rng(1)
+            sample = rng.choice(names, 8, replace=False).tolist()
+            serial_a = {c: client.subsumers(a, c) for c in sample}
+            stop, lock = threading.Event(), threading.Lock()
+            timeline, writes = [], []
+
+            def note(tenant, t_start, ok):
+                with lock:
+                    timeline.append((tenant, t_start, time.perf_counter(), ok))
+
+            def read_big():
+                i = 0
+                while not stop.is_set():
+                    t_s = time.perf_counter()
+                    try:
+                        if i % 3 == 0:
+                            ok = raw_get(tax_url) == before
+                        else:
+                            c = sample[i % len(sample)]
+                            ok = client.subsumers(a, c) == serial_a[c]
+                        note("64k", t_s, ok)
+                    except Exception as e:  # noqa: BLE001 — the check below
+                        failures.append(f"64k read: {type(e).__name__}: {e}")
+                    i += 1
+
+            def read_small():
+                while not stop.is_set():
+                    t_s = time.perf_counter()
+                    try:
+                        ok = [client.subsumers(b, "Find7")["subsumers"],
+                              client.query_subsumers(b, "Find7")["subsumers"]] == serial_b
+                        note("8k", t_s, ok)
+                    except Exception as e:  # noqa: BLE001
+                        failures.append(f"8k read: {type(e).__name__}: {e}")
+
+            w_texts = []
+
+            def write_small():
+                i = 0
+                while not stop.is_set():
+                    t = "\n".join(f"SubClassOf(FleetW{i}x{j} Find{j * 5 + i})"
+                                  for j in range(10))
+                    t_s = time.perf_counter()
+                    try:
+                        writes.append(client.delta(b, t))
+                        w_texts.append(t)
+                        note("8k write", t_s, True)
+                    except Exception as e:  # noqa: BLE001
+                        failures.append(f"8k write: {type(e).__name__}: {e}")
+                    i += 1
+                    stop.wait(2.0)
+
+            threads = [threading.Thread(target=f, daemon=True)
+                       for f in (read_big, read_big, read_small, write_small)]
+            for th in threads:
+                th.start()
+            time.sleep(3.0)
+            memory("before_migrate")
+            t_mig = time.perf_counter()
+            rec = router.migrate(a)
+            t_end = time.perf_counter()
+            walls["migrate"] = t_end - t_mig
+            time.sleep(3.0)
+            stop.set()
+            for th in threads:
+                th.join(timeout=1800)
+                if th.is_alive():
+                    raise AssertionError("fleet: a client thread never returned")
+            memory("after_migrate")
+            for e in router.flight.events():
+                if e["kind"] in ("migrate_drain", "migrate_export", "migrate_adopt",
+                                 "migrate_commit") and e.get("oid") == a:
+                    walls[e["kind"]] = e.get("wall_s")
+            overlapping = [t1 - t0_ for who, t0_, t1, _ in timeline
+                           if who == "64k" and t0_ < t_end and t1 > t_mig]
+            out["migration"] = {
+                "record": {k: v for k, v in rec.items() if k != "wall_s"},
+                "requests": len(timeline), "failed": len(failures),
+                "wrong": sum(1 for *_r, ok in timeline if not ok),
+                "requests_by_tenant": {t: sum(1 for x in timeline if x[0] == t)
+                                       for t in ("64k", "8k", "8k write")},
+                "client_hold_s": max(overlapping, default=None),
+                "requests_in_move": len(overlapping),
+                "writes": [w.get("path") for w in writes],
+            }
+            if failures or out["migration"]["wrong"] or len(w_texts) < 2:
+                raise AssertionError(f"fleet: migration under load: {out['migration']} "
+                                     f"{failures[:5]}")
+            if raw_get(tax_url) != before:
+                raise AssertionError("fleet: the 64k taxonomy changed across the move")
+            want_b = classify_key([small] + w_texts)
+            if served_key(client.taxonomy(b)) != want_b:
+                raise AssertionError("fleet: the 8k tenant differs from its serial classify")
+            log(f"[fleet] migrated: {json.dumps(out['migration'])}")
+            # the 64k tenant back where it came from: does the source's
+            # allocator take it into the blocks it kept?
+            seq0 = max((e["seq"] for e in router.flight.events()), default=0)
+            t0 = time.perf_counter()
+            router.migrate(a, dst_rid=rec["from"])
+            walls["migrate_back"] = time.perf_counter() - t0
+            for e in router.flight.events():
+                if e["seq"] > seq0 and e["kind"] in ("migrate_export", "migrate_adopt") \
+                        and e.get("oid") == a:
+                    walls[e["kind"] + "_back"] = e.get("wall_s")
+            if raw_get(tax_url) != before:
+                raise AssertionError("fleet: the 64k taxonomy changed across the move back")
+            memory("after_migrate_back")
+
+            # 4. read replica of the 8k tenant
+            probe.step = "replicate"
+            rep = client._request("POST", "/fleet/replicate", {"id": b})
+            primary = ServeClient(router.table.lookup(b).url, timeout=600)
+            for cls in ("Find7", "Find21", "FleetW1x3", "Find2"):
+                want = primary.query_subsumers(b, cls)
+                for _ in range(2):
+                    if client.query_subsumers(b, cls) != want:
+                        raise AssertionError(f"fleet: a fanned-out read of {cls} differs")
+            page = router.metrics.render()
+            reads = {t: float(m.group(1)) for t in ("primary", "replica")
+                     for m in [re.search(
+                         r'distel_router_reads_total\{target="%s"\} (\S+)' % t, page)] if m}
+            if not reads.get("replica"):
+                raise AssertionError(f"fleet: no read went to the read replica: {reads}")
+            out["read_replica"] = {"record": rep, "reads": reads}
+
+            # 5. crash and recovery of the 64k tenant's replica
+            def await_taxonomy(oid, t_kill, budget_s):
+                """Poll the tenant's taxonomy through the router until it
+                answers: the answer, and each poll's start and end (s after
+                the kill), status and trace id."""
+                poller = ServeClient(url, timeout=1800, tracer=SpanRecorder(service="smoke"))
+                polls = []
+                deadline = time.monotonic() + budget_s
+                while True:
+                    if time.monotonic() > deadline:
+                        raise AssertionError(f"fleet: no recovery of {oid}: {polls}")
+                    t_s = time.time()
+                    try:
+                        doc, status = poller.taxonomy(oid), 200
+                    except ServeError as e:
+                        doc, status = None, e.status
+                    polls.append({"start_s": t_s - t_kill, "end_s": time.time() - t_kill,
+                                  "status": status, "trace_id": poller.last_trace_id})
+                    if doc is not None:
+                        return doc, polls
+                    time.sleep(0.5)
+
+            def events_since(events, t_kill):
+                return [{"kind": e["kind"], "t_s": e["ts"] - t_kill,
+                         **{k: e[k] for k in ("rid", "oid", "dst", "to", "ok", "verdict",
+                                              "wall_s", "path") if k in e}}
+                        for e in events if e["ts"] >= t_kill]
+
+            probe.step = "recover_64k"
+            holder = router.table.lookup(a).rid
+            memory("before_kill")
+            killed = replica_pids()[holder]
+            t_kill = time.time()
+            held = kill_and_measure(killed, on_card)
+            doc, polls = await_taxonomy(a, t_kill, 900)
+            if served_key(doc) != want_a:
+                raise AssertionError("fleet: the recovered 64k taxonomy differs")
+
+            def since_kill(kind, **match):
+                ev = [e for e in router.flight.events(kind=kind)
+                      if e["ts"] >= t_kill and all(e.get(k) == v for k, v in match.items())]
+                return (ev[0]["ts"] - t_kill, ev[0]) if ev else (None, None)
+
+            recovery = {"killed": holder, "card_mib_at_death": held,
+                        "to_first_correct_taxonomy_s": polls[-1]["end_s"]}
+            for kind, match in (("eject", {"rid": holder}), ("respawn", {"rid": holder}),
+                                ("journal_replay", {"oid": a}), ("recover", {"oid": a})):
+                at, ev = since_kill(kind, **match)
+                recovery[f"to_{kind}_s"] = at
+                if ev is not None and "wall_s" in ev:
+                    recovery[f"{kind}_wall_s"] = ev["wall_s"]
+            if recovery["to_respawn_s"] is None or recovery["to_recover_s"] is None:
+                raise AssertionError(f"fleet: recovery incomplete: {recovery}")
+            # where the time between the kill and the answer went: every
+            # poll, the slowest poll's stitched spans (router and replica),
+            # the router's events and the new holder's
+            slow = max(polls, key=lambda p: p["end_s"] - p["start_s"])
+            spans = json.loads(raw_get(f"{url}/debug/trace?trace_id={slow['trace_id']}"))
+            new_holder = router.table.lookup(a)
+            recovery.update({
+                "recovered_on": new_holder.rid,
+                "polls": [{k: p[k] for k in ("start_s", "end_s", "status")} for p in polls],
+                "slowest_poll_spans": sorted(
+                    ({"service": sp.get("service"), "name": sp["name"],
+                      "start_s": sp["start_s"] - t_kill, "duration_s": sp["duration_s"]}
+                     for sp in spans["spans"]), key=lambda x: x["start_s"]),
+                "router_events": events_since(router.flight.events(), t_kill),
+                "holder_events": events_since(json.loads(raw_get(
+                    new_holder.url + "/debug/events"))["events"], t_kill),
+            })
+            memory("after_recovery")
+            check_trees("respawned")
+            # the replay re-classified the tenant from its texts: on the card
+            # its new holder launched the kernels for it
+            after = out["replicas"]["after_recovery"][new_holder.rid]
+            prior = out["replicas"]["before_kill"].get(new_holder.rid)
+            recovery["replay_launches"] = after["launches"] - (
+                prior["launches"] if prior and prior["pid"] == after["pid"] else 0)
+            if on_card and recovery["replay_launches"] <= 0:
+                raise AssertionError(f"fleet: the journal replay launched no kernel: {recovery}")
+            out["recovery_64k"] = recovery
+            log(f"[fleet] recovered 64k: {json.dumps(recovery)}")
+
+            # the 8k tenant: a retraction, then its replica killed
+            probe.step = "recover_8k"
+            t0 = time.perf_counter()
+            retract = client.retract(b, w_texts[1])
+            walls["retract_8k"] = time.perf_counter() - t0
+            if retract.get("path") != "retract":
+                raise AssertionError(f"fleet: the 8k retraction took {retract}")
+            holder_b = router.table.lookup(b).rid
+            if holder_b == router.table.lookup(a).rid:
+                router.migrate(b)
+                holder_b = router.table.lookup(b).rid
+            journal = router._journal_texts(b)
+            if {"op": "retract", "text": w_texts[1]} not in journal:
+                raise AssertionError("fleet: the retraction is not in the journal")
+            want_survivors = classify_key([small] + [t for i, t in enumerate(w_texts) if i != 1])
+            memory("before_kill_8k")
+            t_kill = time.time()
+            held_b = kill_and_measure(replica_pids()[holder_b], on_card)
+            doc, polls = await_taxonomy(b, t_kill, 600)
+            if served_key(doc) != want_survivors:
+                raise AssertionError("fleet: the 8k journal replay differs from a "
+                                     "classify of the survivors")
+            out["recovery_8k"] = {
+                "killed": holder_b, "card_mib_at_death": held_b, "journal_ops": len(journal),
+                "to_first_correct_taxonomy_s": polls[-1]["end_s"],
+                "polls": [{k: p[k] for k in ("start_s", "end_s", "status")} for p in polls]}
+            memory("after_recovery_8k")
+            check_trees("respawned_8k")
+
+            # 6. the tracked trace through the router, its migrate op run
+            probe.step = "trace"
+            t0 = time.perf_counter()
+            rc = RecordingClient(url)
+            replay = replay_trace(load_trace(str(TRACE_FILE)), rc, migrate=router.migrate)
+            replay.pop("wall_s")
+            replay, answers = logical_ids(replay, rc.answers)
+            walls["trace_replay"] = time.perf_counter() - t0
+            cpu_rec, cpu_answers = logical_ids(*cpu_fleet_replay(FLEET_DIR / "cpu_fleet"))
+            if replay != cpu_rec or answers != cpu_answers:
+                bad = next((i for i, (x, y) in enumerate(zip(answers, cpu_answers))
+                            if x != y), None)
+                raise AssertionError(f"fleet: the trace replay differs from the CPU "
+                                     f"fleet's ({replay} / {cpu_rec}; answer {bad})")
+            if replay["skipped_migrates"] or replay["failed_requests"] or \
+                    replay["ok"].get("migrate") != 1:
+                raise AssertionError(f"fleet: trace replay {replay}")
+            out["trace_replay"] = {"record": replay, "answers": len(answers)}
+
+            # 7. fleet observability
+            probe.step = "observe"
+            page = client.metrics_text()
+            for fam in ("distel_requests_total", "distel_registry_adoptions_total"):
+                for rid in ("r0", "r1"):
+                    if not re.search(r'^%s\{[^}]*replica="%s"' % (fam, rid), page, re.M):
+                        raise AssertionError(f"fleet: /metrics lacks {fam} of {rid}")
+            families = sorted({m.group(1) for m in re.finditer(
+                r"^(distel_(?:fleet|router)_[a-z_]+?)(?:_bucket|_sum|_count)?[ {]", page, re.M)})
+            for fam in ("distel_fleet_migrations_total", "distel_fleet_ejections_total",
+                        "distel_fleet_recoveries_total", "distel_fleet_replicas_healthy",
+                        "distel_router_requests_total", "distel_router_reads_total"):
+                if fam not in families:
+                    raise AssertionError(f"fleet: /metrics lacks {fam}")
+            traced = ServeClient(url, timeout=600, tracer=SpanRecorder(service="smoke"))
+            traced.query_subsumers(b, "Find7")
+            spans = json.loads(raw_get(f"{url}/debug/trace?trace_id={traced.last_trace_id}"))
+            services = sorted({s.get("service") for s in spans["spans"]})
+            if "router" not in services or not any(s.startswith("replica:") for s in services):
+                raise AssertionError(f"fleet: /debug/trace did not stitch: {services}")
+            status = json.loads(raw_get(f"{url}/fleet/status"))
+            if not all(r["healthy"] for r in status["replicas"]) or len(status["replicas"]) != 2:
+                raise AssertionError(f"fleet: /fleet/status {status['replicas']}")
+            counters = {m.group(1): float(m.group(2)) for m in re.finditer(
+                r"^(distel_fleet_[a-z_]+_total) (\S+)$", page, re.M)}
+            out["observability"] = {"fleet_counters": counters, "router_families": families,
+                                    "stitched_services": services,
+                                    "status_healthy": [r["id"] for r in status["replicas"]]}
+            ejects = router.flight.events(kind="eject")
+            out["ejections"] = [{k: e.get(k) for k in ("rid", "dead_process",
+                                                       "consecutive_failures",
+                                                       "consecutive_timeouts")}
+                                for e in ejects]
+            out["false_ejections"] = sum(1 for e in ejects if not e.get("dead_process"))
+            out["heartbeat_misses"] = [{k: e.get(k) for k in ("rid", "verdict", "consecutive")}
+                                       for e in router.flight.events(kind="heartbeat_miss")]
+            out["heartbeats"] = probe.summary()
+            memory("end")
+            tenants = sorted(router.table.stats()["placement"])
+    finally:
+        router.close()
+        # 8. graceful stop: every replica spills its tenants
+        t0, t_stop = time.perf_counter(), time.time()
+        procs = dict(sup._procs)
+        sup.stop(graceful=True, timeout_s=600)
+        walls["graceful_stop"] = time.perf_counter() - t0
+    codes = {rid: p.proc.returncode for rid, p in procs.items()}
+    shutdown = {}
+    for rid in procs:
+        lines = [ln for ln in (FLEET_DIR / "logs" / f"{rid}.log").read_text().splitlines()
+                 if ln.startswith('{"shutdown"')]
+        shutdown[rid] = json.loads(lines[-1]) if lines else None
+    out["stop"] = {"exit_codes": codes,
+                   "spilled": {rid: [os.path.basename(p) for p in (d or {}).get("spilled", [])]
+                               for rid, d in shutdown.items()}}
+    if any(codes.values()) or not all(shutdown.values()) or \
+            sorted(sum(out["stop"]["spilled"].values(), [])) != \
+            sorted(f"{oid}.snapshot.npz" for oid in tenants):
+        raise AssertionError(f"fleet: graceful stop {out['stop']}")
+    # every replica process's own launches, the last counts it wrote (at
+    # its exit for those stopped, just before the kill for those killed)
+    docs = replica_counts()
+    out["replica_launches"] = {
+        f"{rid}:{pid}": {"launches": (docs.get(pid) or {}).get("launches"),
+                         "written_after_stop": pid in docs and docs[pid]["ts"] >= t_stop}
+        for pid, rid in sorted(seen_pids.items())}
+    stopped = {p.proc.pid for p in procs.values()}
+    if any(pid not in docs for pid in seen_pids) or \
+            any(docs[pid]["ts"] < t_stop for pid in stopped):
+        raise AssertionError(f"fleet: replica counts missing {out['replica_launches']}")
+    if on_card and any(kernel_launches(docs[pid]) <= 0 for pid in seen_pids):
+        raise AssertionError(f"fleet: a replica launched no kernel {out['replica_launches']}")
+    for d in (FLEET_DIR, FLEET_SITE, FLEET_COUNTS):
+        shutil.rmtree(d, ignore_errors=True)
+    log(f"[fleet] {json.dumps(out)}")
+    print(json.dumps({"fleet_full_width": out}), flush=True)
+    return out
+
+
+def logical_ids(rec: dict, answers: list):
+    """A trace replay's record and answers with the server's ontology
+    ids replaced by the trace's logical names (a fleet that served other
+    tenants first mints other ids)."""
+    text = json.dumps([rec, answers])
+    for name, oid in rec["ontologies"].items():
+        text = text.replace(json.dumps(oid), json.dumps(name))
+    return tuple(json.loads(text))
+
+
 # ------------------------------------------- the packed-contraction route
 
 
@@ -2512,6 +3332,7 @@ def main() -> int:
     phase_serve_card_vs_cpu()
     checked += phase_serve_full_width(cap)
     torch.cuda.empty_cache()
+    phase_fleet_full_width()
     rows, pairs = phase_kernel_line(launches, cap, checked)
     rows.append(andor_row)
     (out / "kernel_pairs.json").write_text(json.dumps(pairs, indent=1))

@@ -18,7 +18,11 @@
   serve      the resident classification service (``serve/``): HTTP
              on ``--host``/``--port``, one incremental classifier per
              loaded ontology on the card, graceful SIGTERM with a final
-             spill
+             spill; ``--replica-id`` adds the fleet's /fleet admin plane
+  fleet      the serve fleet (``serve/fleet/``): a router in front of N
+             supervised replica processes, all on the one device
+             ``--device`` names (affinity placement, live migration,
+             journal-replay recovery, read replicas)
   query      snapshot-plane reads against a serve process
   trace      fetch a recorded request trace from ``/debug/trace``
 
@@ -29,6 +33,7 @@ Usage: python -m distel_tpu_torch.cli classify FILE [--device cpu] ...
        python -m distel_tpu_torch.cli diff FILE [--device cpu]
        python -m distel_tpu_torch.cli multiply FILE N -o OUT [--crossed]
        python -m distel_tpu_torch.cli serve [--port 8080] [--device cpu] ...
+       python -m distel_tpu_torch.cli fleet --spill-dir D [--replicas 2] [--device cpu]
        python -m distel_tpu_torch.cli query OID subsumers CLASS [--url URL]
        python -m distel_tpu_torch.cli trace [TRACE_ID] [--format chrome]
 """
@@ -178,14 +183,22 @@ def cmd_multiply(args) -> int:
     return 0
 
 
-#: the reference's serve flags whose modules the port does not have
-#: yet: flag -> (argument, the reference module it waits for)
+#: the reference's serve and fleet flags whose modules the port does
+#: not have yet: flag -> (argument, the reference module it waits for)
 REFUSED_SERVE_FLAGS = {
-    "--replica-id": ("replica_id", "serve/fleet/replica.py"),
     "--artifacts-dir": ("artifacts_dir", "core/artifacts.py"),
     "--artifacts-require": ("artifacts_require", "core/artifacts.py"),
     "--warmup": ("warmup", "runtime/warmup.py"),
 }
+
+
+def _refuse_unported_flags(args) -> None:
+    for flag, (attr, module) in REFUSED_SERVE_FLAGS.items():
+        if getattr(args, attr):
+            raise ValueError(
+                f"{flag} is not supported by distel_tpu_torch yet: it needs "
+                f"the reference's {module}, which is not ported"
+            )
 
 
 def cmd_serve(args) -> int:
@@ -194,12 +207,7 @@ def cmd_serve(args) -> int:
     bounded-queue scheduler; see ``distel_tpu_torch/serve/``."""
     from distel_tpu_torch.serve.server import ServeApp, serve_forever
 
-    for flag, (attr, module) in REFUSED_SERVE_FLAGS.items():
-        if getattr(args, attr):
-            raise ValueError(
-                f"{flag} is not supported by distel_tpu_torch yet: it needs "
-                f"the reference's {module}, which is not ported"
-            )
+    _refuse_unported_flags(args)
     cfg = _load_cfg(args)
     budget = (
         int(args.memory_budget_mb * (1 << 20))
@@ -211,8 +219,7 @@ def cmd_serve(args) -> int:
         if args.warm_budget_mb is not None
         else None
     )
-    app = ServeApp(
-        cfg,
+    kw = dict(
         device=args.device,
         workers=args.workers,
         max_queue=args.max_queue,
@@ -223,9 +230,133 @@ def cmd_serve(args) -> int:
         spill_dir=args.spill_dir,
         fast_path_min_concepts=args.fast_path_min_concepts,
     )
+    if args.replica_id:
+        # fleet worker: the same app plus the /fleet admin plane the
+        # router drives (load-with-id, migrate-out, adopt)
+        from distel_tpu_torch.serve.fleet.replica import ReplicaApp
+
+        if not args.spill_dir:
+            print(
+                "--replica-id needs --spill-dir (the migration handoff "
+                "spills through it)",
+                file=sys.stderr,
+            )
+            return 2
+        app = ReplicaApp(cfg, replica_id=args.replica_id, **kw)
+    else:
+        app = ServeApp(cfg, **kw)
     spilled = serve_forever(app, args.host, args.port)
     print(
         json.dumps({"shutdown": "graceful", "spilled": spilled}),
+        flush=True,
+    )
+    return 0
+
+
+def cmd_fleet(args) -> int:
+    """Serve fleet: N shared-nothing replica processes (supervised)
+    behind the affinity/migration router — the horizontal scale-out of
+    ``serve`` (see ``distel_tpu_torch/serve/fleet/``).  Every replica
+    runs on the device ``--device`` names (the first card by default)."""
+    import os
+    import signal as _signal
+    import threading
+
+    from distel_tpu_torch.serve.fleet.router import RouterApp
+    from distel_tpu_torch.serve.fleet.supervisor import ReplicaSupervisor
+    from distel_tpu_torch.serve.server import make_server
+
+    _refuse_unported_flags(args)
+    cfg = _load_cfg(args)
+    n = args.replicas if args.replicas is not None else cfg.fleet_replicas
+    extra = []
+    for flag, val in (
+        ("--config", args.config),
+        ("--device", args.device),
+        ("--workers", args.workers),
+        ("--max-queue", args.max_queue),
+        ("--max-batch", args.max_batch),
+        ("--deadline-s", args.deadline_s),
+        ("--memory-budget-mb", args.memory_budget_mb),
+        ("--warm-budget-mb", args.warm_budget_mb),
+        ("--fast-path-min-concepts", args.fast_path_min_concepts),
+    ):
+        if val is not None:
+            extra += [flag, str(val)]
+    sup = ReplicaSupervisor(n, spill_dir=args.spill_dir, extra_args=extra)
+    router = None
+    try:
+        replicas = sup.start()
+        router = RouterApp(
+            replicas,
+            supervisor=sup,
+            depth_divergence=(
+                args.depth_divergence
+                if args.depth_divergence is not None
+                else cfg.fleet_depth_divergence
+            ),
+            heartbeat_interval_s=cfg.fleet_heartbeat_interval_s,
+            eject_failures=cfg.fleet_eject_failures,
+            rebalance_interval_s=cfg.fleet_rebalance_interval_s,
+            config=cfg,
+        )
+        router.start()
+        server = make_server(router, args.host, args.port)
+    except Exception as e:
+        # a failed replica start, router bind (port taken) or
+        # construction must not orphan the live replica subprocesses
+        if router is not None:
+            router.close()
+        sup.stop(graceful=False)
+        print(f"fleet startup failed: {e}", file=sys.stderr)
+        return 1
+    bound = server.server_address[1]
+    print(
+        json.dumps(
+            {
+                "serving": True,
+                "role": "fleet-router",
+                "host": args.host,
+                "port": bound,
+                "replicas": [
+                    {"id": rid, "url": url} for rid, url in replicas
+                ],
+                "spill_dir": args.spill_dir,
+            }
+        ),
+        flush=True,
+    )
+
+    def _drain(signum, frame):
+        threading.Thread(target=server.shutdown, daemon=True).start()
+
+    prev_term = _signal.signal(_signal.SIGTERM, _drain)
+    prev_int = _signal.signal(_signal.SIGINT, _drain)
+    try:
+        server.serve_forever()
+    finally:
+        _signal.signal(_signal.SIGTERM, prev_term)
+        _signal.signal(_signal.SIGINT, prev_int)
+        server.server_close()
+        router.close()
+        sup.stop(graceful=True)
+    # the flight recorder is the fleet's black box: dump it next to the
+    # spills on the way out and surface the tail in the shutdown record
+    flight_path = os.path.join(args.spill_dir, "flight_router.jsonl")
+    try:
+        dumped = router.flight.dump(flight_path)
+    except OSError:
+        flight_path, dumped = None, 0
+    print(
+        json.dumps(
+            {
+                "shutdown": "graceful",
+                "replicas": n,
+                "flight_events": dumped,
+                "flight_dump": flight_path,
+                "recent_events": router.flight.events(limit=5),
+            }
+        ),
         flush=True,
     )
     return 0
@@ -297,6 +428,17 @@ def cmd_query(args) -> int:
         return 1
     print(json.dumps(doc, indent=2))
     return 0
+
+
+def _add_refused_flags(parser) -> None:
+    """The reference's flags whose modules are not ported: accepted by
+    the parser, refused by the command naming the flag."""
+    parser.add_argument("--warmup", nargs="*", default=None,
+                        metavar="ONTOLOGY", help="not supported yet (refused)")
+    parser.add_argument("--artifacts-dir", default=None,
+                        help="not supported yet (refused)")
+    parser.add_argument("--artifacts-require", action="store_true",
+                        help="not supported yet (refused)")
 
 
 def main(argv=None) -> int:
@@ -390,17 +532,56 @@ def main(argv=None) -> int:
     sv.add_argument("--fast-path-min-concepts", type=int, default=None,
                     help="override the delta fast path's base-size "
                          "cutoff (0 forces it everywhere)")
-    # the reference's flags whose modules are not ported: accepted by
-    # the parser, refused by cmd_serve naming the flag
-    sv.add_argument("--warmup", nargs="*", default=None, metavar="ONTOLOGY",
-                    help="not supported yet (refused)")
     sv.add_argument("--replica-id", default=None,
-                    help="not supported yet (refused)")
-    sv.add_argument("--artifacts-dir", default=None,
-                    help="not supported yet (refused)")
-    sv.add_argument("--artifacts-require", action="store_true",
-                    help="not supported yet (refused)")
+                    help="run as a fleet replica with this id: adds "
+                         "the /fleet admin plane (load-with-id, "
+                         "migrate-out, adopt) the router drives; "
+                         "requires --spill-dir")
+    _add_refused_flags(sv)
     sv.set_defaults(fn=cmd_serve)
+    fl = sub.add_parser(
+        "fleet",
+        help="serve fleet: router + N supervised shared-nothing "
+             "replica processes (affinity placement, live migration, "
+             "queue-depth rebalance)",
+    )
+    fl.add_argument("--host", default="127.0.0.1")
+    fl.add_argument("--port", type=int, default=8080,
+                    help="router port; 0 binds ephemerally (printed "
+                         "at startup)")
+    fl.add_argument("--replicas", type=int, default=None,
+                    help="replica process count (default: config "
+                         "fleet.replicas, 2)")
+    fl.add_argument("--spill-dir", required=True,
+                    help="shared snapshot directory — the migration "
+                         "handoff and graceful shutdown spill through "
+                         "it; every replica mounts the same path")
+    fl.add_argument("--depth-divergence", type=int, default=None,
+                    help="queue-depth gap (hot − cool) that triggers a "
+                         "rebalance migration (default: config, 8)")
+    fl.add_argument("--config", help="properties/config file "
+                                     "(fleet.* knobs + replica config)")
+    fl.add_argument(
+        "--device", default=None,
+        help="torch device of every replica (default: the first CUDA "
+             "device; a replica raises if there is none)",
+    )
+    fl.add_argument("--workers", type=int, default=None,
+                    help="scheduler workers per replica")
+    fl.add_argument("--max-queue", type=int, default=None,
+                    help="per-replica admission queue bound")
+    fl.add_argument("--max-batch", type=int, default=None,
+                    help="per-replica delta batch bound")
+    fl.add_argument("--deadline-s", type=float, default=None,
+                    help="per-replica default request deadline")
+    fl.add_argument("--memory-budget-mb", type=float, default=None,
+                    help="per-replica resident-closure budget")
+    fl.add_argument("--warm-budget-mb", type=float, default=None,
+                    help="per-replica host-RAM warm-tier budget")
+    fl.add_argument("--fast-path-min-concepts", type=int, default=None,
+                    help="per-replica delta fast-path cutoff override")
+    _add_refused_flags(fl)
+    fl.set_defaults(fn=cmd_fleet)
     tr = sub.add_parser(
         "trace", help="fetch a request trace from a serve /debug/trace endpoint"
     )

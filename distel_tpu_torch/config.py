@@ -7,9 +7,9 @@ plane (on by default, as in the reference), the normalizer's gensym
 cache, the per-rule backends (``backend.CRn``, the hybrid of
 ``core/hybrid.py``), the live-tile CR6 knobs and the serve plane's
 (``obs.*`` tracing, ``query.*`` snapshots, ``storage.*`` tiers,
-``cohort.*`` formation).  Knobs of paths the port does not have yet
-(mesh, shape buckets, the observed loop, the artifact farm, the fleet)
-are absent, or refused where a reference config could carry them over:
+``cohort.*`` formation) and the serve fleet's (``fleet.*``).  Knobs of
+paths the port does not have yet (mesh, shape buckets, the observed
+loop, the artifact farm) are absent, or refused where a reference config could carry them over:
 ``shape_buckets`` must be off, ``mesh.devices`` / ``NODES_LIST`` may
 name no device (a mesh of one device still changes the reference's
 automatic rules, so it is refused too), and ``obs.trace_rounds``,
@@ -98,6 +98,19 @@ class ClassifierConfig:
     storage_ewma_halflife_s: float = 60.0
     #: period of the background tier promoter; 0 disables it
     storage_prefetch_interval_s: float = 5.0
+    #: serve fleet (``serve/fleet/``): replica processes behind the
+    #: router, all on the one device ``cli fleet --device`` names
+    fleet_replicas: int = 2
+    #: queue-depth divergence (hot − cool) that triggers a live
+    #: ontology migration toward the cooler replica
+    fleet_depth_divergence: int = 8
+    #: router heartbeat period against each replica's /healthz
+    fleet_heartbeat_interval_s: float = 1.0
+    #: consecutive heartbeat failures before a replica is ejected (and
+    #: respawned when a supervisor is attached)
+    fleet_eject_failures: int = 3
+    #: rebalance sweep period (each sweep migrates at most one ontology)
+    fleet_rebalance_interval_s: float = 2.0
 
     def __post_init__(self):
         self.validate()
@@ -213,6 +226,20 @@ class ClassifierConfig:
         if "storage.prefetch.interval_s" in raw:
             cfg.storage_prefetch_interval_s = float(
                 raw["storage.prefetch.interval_s"]
+            )
+        if "fleet.replicas" in raw:
+            cfg.fleet_replicas = int(raw["fleet.replicas"])
+        if "fleet.depth.divergence" in raw:
+            cfg.fleet_depth_divergence = int(raw["fleet.depth.divergence"])
+        if "fleet.heartbeat.interval_s" in raw:
+            cfg.fleet_heartbeat_interval_s = float(
+                raw["fleet.heartbeat.interval_s"]
+            )
+        if "fleet.eject.failures" in raw:
+            cfg.fleet_eject_failures = int(raw["fleet.eject.failures"])
+        if "fleet.rebalance.interval_s" in raw:
+            cfg.fleet_rebalance_interval_s = float(
+                raw["fleet.rebalance.interval_s"]
             )
         for k, v in raw.items():
             if k.startswith("backend."):  # backend.CR1 = tpu

@@ -29,16 +29,22 @@ Layout::
                   opt-in jittered retry/backoff honoring Retry-After
                   plus typed snapshot-read helpers carrying a
                   min_version watermark (read-your-writes)
+    fleet/        horizontal scale-out: router + shared-nothing replica
+                  processes — affinity placement, live ontology
+                  migration over the registry's spill/restore wire,
+                  heartbeat eject-and-respawn, queue-depth rebalance,
+                  read-snapshot replication + /query fan-out
 
 The port of ``distel_tpu/serve/``, with the same exports.  Every module
 is a copy of the reference's apart from its imports, except
-``registry.py``, ``server.py`` and ``query/snapshot.py``, whose
-docstrings say what differs.  The fleet (``fleet/``: router, replicas,
-placement, supervisor; ``cli fleet``) is not ported yet.
+``registry.py``, ``server.py``, ``query/snapshot.py`` and
+``fleet/supervisor.py``, whose docstrings say what differs.
 
-Entry point: ``python -m distel_tpu_torch.cli serve --port 8080``
-(one process, on the first CUDA device unless ``--device`` says
-otherwise).
+Entry points: ``python -m distel_tpu_torch.cli serve --port 8080`` (one
+process) and ``python -m distel_tpu_torch.cli fleet --replicas 4
+--spill-dir /var/tmp/distel-spill`` (router + replicas).  Every process
+runs on the first CUDA device unless ``--device`` says otherwise; the
+replicas of a fleet all run on the one device its ``--device`` names.
 """
 
 from distel_tpu_torch.serve.query import (

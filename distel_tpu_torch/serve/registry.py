@@ -59,7 +59,11 @@ why:
   :meth:`OntologyRegistry.delta_cohort` raises ``NotImplementedError``.
 * ``inc.last_compile`` is always None in the port (it compiles no
   programs), so the compile counters record nothing, as for a
-  reference increment that compiled nothing.
+  reference increment that compiled nothing.  The delta-program cache
+  counters (``distel_delta_program_cache_{hits,misses}_total``) are
+  left out with the rest of ``server.NOT_YET_PORTED``: the port builds
+  its delta engines and fetches none from a program cache, so every
+  one would count as a miss.
 """
 
 from __future__ import annotations
@@ -1070,19 +1074,6 @@ class OntologyRegistry:
                 # keep reading correctly
                 self._count("distel_cohort_deltas_total")
             self._count("distel_deltas_fast_path_total")
-            n = rec.get("delta_programs", 0)
-            if n:
-                hits = rec.get("delta_program_hits", 0)
-                if hits:
-                    self.metrics.counter_inc(
-                        "distel_delta_program_cache_hits_total",
-                        value=hits,
-                    )
-                if n - hits:
-                    self.metrics.counter_inc(
-                        "distel_delta_program_cache_misses_total",
-                        value=n - hits,
-                    )
             st = inc.last_compile
             if st is not None:
                 self.metrics.observe(

@@ -113,12 +113,16 @@ def test_serve_and_obs_are_checked():
     for want in ("serve/server.py", "serve/registry.py", "serve/scheduler.py",
                  "serve/client.py", "serve/metrics.py", "serve/traces.py",
                  "serve/query/snapshot.py", "serve/storage/tiers.py",
+                 "serve/fleet/__init__.py", "serve/fleet/placement.py",
+                 "serve/fleet/replica.py", "serve/fleet/router.py",
+                 "serve/fleet/supervisor.py", "testing/lockdep.py",
                  "obs/trace.py", "obs/flight.py",
                  "runtime/instrumentation.py"):
         assert want in rel, want
 
 
 def test_serve_entry_points_raise_without_a_card(monkeypatch, tmp_path):
+    from distel_tpu_torch.serve.fleet.replica import ReplicaApp
     from distel_tpu_torch.serve.registry import OntologyRegistry
     from distel_tpu_torch.serve.server import ServeApp
 
@@ -128,13 +132,35 @@ def test_serve_entry_points_raise_without_a_card(monkeypatch, tmp_path):
     with pytest.raises(RuntimeError, match="CUDA"):
         OntologyRegistry()
     with pytest.raises(RuntimeError, match="CUDA"):
+        ReplicaApp(replica_id="r0", spill_dir=str(tmp_path))
+    with pytest.raises(RuntimeError, match="CUDA"):
         cli.main(["serve", "--port", "0", "--spill-dir", str(tmp_path)])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        cli.main(["serve", "--port", "0", "--spill-dir", str(tmp_path),
+                  "--replica-id", "r0"])
     # an explicit CPU request runs
     app = ServeApp(device="cpu")
     try:
         assert app.registry.device.type == "cpu"
     finally:
         app.close(final_spill=False)
+
+
+def test_fleet_without_a_device_fails_without_a_card(tmp_path):
+    """``cli fleet`` with no ``--device`` starts replicas on the first
+    card; with none, the replica fails at startup, the fleet exits
+    non-zero, and the replica's log says why (no CPU fallback)."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the fleet would run for real")
+    spill = tmp_path / "spill"
+    out = subprocess.run(
+        [sys.executable, "-m", "distel_tpu_torch.cli", "fleet", "--replicas",
+         "1", "--port", "0", "--spill-dir", str(spill)],
+        cwd=ROOT, capture_output=True, text=True, timeout=120)
+    assert out.returncode != 0
+    assert "fleet startup failed" in out.stderr and '"serving"' not in out.stdout
+    log = (spill / "logs" / "r0.log").read_text()
+    assert "CUDA" in log and '"serving"' not in log
 
 
 def test_plan_refuses_a_device_without_a_kernel():

@@ -660,3 +660,95 @@ def test_serve_app_runs_on_the_card_by_default(card):
         assert status == 200 and b'"B"' in body
     finally:
         app.close(final_spill=False)
+
+
+# ------------------------------------------------------------ serve fleet
+
+
+def _fleet_answers(device, spill):
+    """An in-process two-replica fleet (``ReplicaApp``s on loopback HTTP
+    servers behind a ``RouterApp``) on ``device``: the 8k corpus without
+    its range axiom, a class-only delta, a live migration, a retraction,
+    then the holder's crash recovered by journal replay (the retract
+    marker in it).  Every answer, without clock readings; and the
+    launches of the card's kernels over the traffic."""
+    import threading
+    import time
+
+    from distel_tpu_torch.serve.client import ServeClient
+    from distel_tpu_torch.serve.fleet.replica import ReplicaApp
+    from distel_tpu_torch.serve.fleet.router import RouterApp
+    from distel_tpu_torch.serve.server import make_server
+
+    text = "".join(ln + "\n" for ln in snomed_shaped_ontology(
+        n_classes=8000, seed=42).splitlines()
+        if not ln.startswith("ObjectPropertyRange("))
+    delta = "\n".join(f"SubClassOf(FleetD{i} Find{i * 7})" for i in range(40))
+    apps, servers, replicas = [], [], []
+    for i in range(2):
+        app = ReplicaApp(replica_id=f"r{i}", spill_dir=str(spill), device=device)
+        srv = make_server(app)
+        threading.Thread(target=srv.serve_forever, daemon=True).start()
+        apps.append(app)
+        servers.append(srv)
+        replicas.append((f"r{i}", f"http://127.0.0.1:{srv.server_address[1]}"))
+    router = RouterApp(replicas, eject_failures=1)
+    rsrv = make_server(router)
+    threading.Thread(target=rsrv.serve_forever, daemon=True).start()
+    client = ServeClient(f"http://127.0.0.1:{rsrv.server_address[1]}", timeout=600)
+    out = []
+
+    def reads(oid, cls):
+        out.extend([client.taxonomy(oid), client.subsumers(oid, cls),
+                    client.query_subsumers(oid, cls)])
+
+    bitmatmul.reset_launches()
+    try:
+        oid = client.load(text)["id"]
+        out.append(client.delta(oid, delta))
+        reads(oid, "FleetD3")
+        rec = router.migrate(oid)
+        assert rec["from"] != rec["to"]
+        reads(oid, "FleetD3")
+        out.append(client.retract(oid, delta))
+        reads(oid, "Find21")
+        holder = router.table.lookup(oid).rid
+        servers[int(holder[1:])].shutdown()
+        servers[int(holder[1:])].server_close()
+        router.heartbeat_once()
+        deadline = time.monotonic() + 600
+        while router.metrics.counter_value("distel_fleet_recoveries_total") < 1:
+            assert time.monotonic() < deadline, "recovery never ran"
+            time.sleep(0.1)
+        survivor = router.table.lookup(oid).rid
+        assert survivor != holder
+        # a journal replay restarts the snapshot versions (one increment
+        # an op): this client's watermark is past them, a new one reads
+        client = ServeClient(client.base_url, timeout=600)
+        reads(oid, "Find21")
+        inc = apps[int(survivor[1:])].registry.classifier(oid)
+        assert inc.last_result.packed_s.device.type == torch.device(device).type
+        for app in apps:
+            assert app.registry.device.type == torch.device(device).type
+        launches = dict(LAUNCHES)
+    finally:
+        router.close()
+        for s in servers + [rsrv]:
+            s.shutdown()
+            s.server_close()
+        for app in apps:
+            app.close(final_spill=False)
+    clock = ("published_unix", "wall_s")
+    return [{k: v for k, v in d.items() if k not in clock} for d in out], launches
+
+
+def test_fleet_migrates_and_recovers_on_the_card(card, tmp_path):
+    """The fleet on the card at 8k answers as the CPU fleet does, across
+    a live migration and a journal-replay recovery with a retraction;
+    its replicas launched the card's kernels."""
+    got, launches = _fleet_answers("cuda", tmp_path / "card")
+    want, _ = _fleet_answers("cpu", tmp_path / "cpu")
+    assert len(got) == len(want) == 14
+    for i, (g, w) in enumerate(zip(got, want)):
+        assert g == w, i
+    assert launches["packed_cols_dense"] + launches["packed_cols_sparse"] > 0

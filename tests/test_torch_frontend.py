@@ -36,7 +36,8 @@ COPIES = ("owl/owlxml.py", "owl/rdfxml.py", "owl/loader.py",
           "runtime/stats.py", "core/retract.py",
           "obs/flight.py", "serve/scheduler.py", "serve/client.py",
           "serve/traces.py", "serve/storage/__init__.py",
-          "serve/query/__init__.py")
+          "serve/query/__init__.py", "serve/fleet/__init__.py",
+          "serve/fleet/router.py")
 ARRAYS = ("nf1", "nf2", "nf3", "nf4", "links", "chain_pairs", "role_closure",
           "original_classes")
 SCALARS = ("n_concepts", "n_roles", "concept_names", "concept_ids",

@@ -435,13 +435,31 @@ def test_warmup_paths_are_refused():
         ServeApp(device="cpu", warmup_paths=["a.ofn"])
 
 
-@pytest.mark.parametrize("flag", [["--warmup", "a.ofn"], ["--replica-id", "r0"],
-                                  ["--artifacts-dir", "farm"],
-                                  ["--artifacts-require"]],
-                         ids=lambda f: f[0])
+REFUSED_FLAGS = [["--warmup", "a.ofn"], ["--artifacts-dir", "farm"],
+                 ["--artifacts-require"]]
+
+
+@pytest.mark.parametrize("flag", REFUSED_FLAGS, ids=lambda f: f[0])
 def test_refused_serve_flags_raise(flag):
     with pytest.raises(ValueError, match=re.escape(flag[0])):
         cli.main(["serve", "--device", "cpu", *flag])
+
+
+@pytest.mark.parametrize("flag", REFUSED_FLAGS, ids=lambda f: f[0])
+def test_refused_fleet_flags_raise(flag, tmp_path):
+    """``cli fleet`` refuses them before it starts a replica."""
+    with pytest.raises(ValueError, match=re.escape(flag[0])):
+        cli.main(["fleet", "--device", "cpu", "--spill-dir", str(tmp_path),
+                  *flag])
+    assert not (tmp_path / "logs").exists()
+
+
+def test_serve_replica_id_needs_a_spill_dir(capsys):
+    """``serve --replica-id`` runs a fleet replica, whose handoffs spill
+    through ``--spill-dir``: without one it exits 2, as the
+    reference's does."""
+    assert cli.main(["serve", "--device", "cpu", "--replica-id", "r0"]) == 2
+    assert "--spill-dir" in capsys.readouterr().err
 
 
 def test_cohort_lane_never_forms_on_exact_engines():
@@ -456,9 +474,25 @@ def test_cohort_lane_never_forms_on_exact_engines():
 # ------------------------------------------------- threads and the CLI
 
 
-def test_concurrent_tenants_equal_serial_requests():
+@pytest.fixture
+def lockdep_armed():
+    """The port's runtime lockdep, armed as the reference's conftest arms
+    its own for ``test_serve_concurrency``: a lock-order inversion
+    observed on any schedule fails the test."""
+    from distel_tpu_torch.testing import lockdep
+
+    lockdep.enable()
+    try:
+        yield
+        lockdep.check()
+    finally:
+        lockdep.disable()
+
+
+def test_concurrent_tenants_equal_serial_requests(lockdep_armed):
     """Two tenants' deltas and reads from eight client threads through
-    four workers answer as the same requests one at a time."""
+    four workers answer as the same requests one at a time (under the
+    port's runtime lockdep)."""
     texts = {"a": snomed_shaped_ontology(n_classes=300, seed=11),
              "b": snomed_shaped_ontology(n_classes=250, seed=12)}
     deltas = {k: [f"SubClassOf(Conc{k}{i} Find{i + 2})\n" for i in range(4)]
@@ -610,7 +644,8 @@ def test_cli_serve_query_trace_and_graceful_spill(tmp_path):
 #: modules copied from the reference with no import line of either
 #: package: equal to it byte for byte (the others are pinned by
 #: ``tests/test_torch_frontend.py::test_module_is_a_copy_apart_from_imports``)
-IMPORT_FREE_COPIES = ("obs/trace.py", "serve/metrics.py", "serve/storage/tiers.py")
+IMPORT_FREE_COPIES = ("obs/trace.py", "serve/metrics.py", "serve/storage/tiers.py",
+                      "serve/fleet/placement.py")
 
 
 @pytest.mark.parametrize("rel", IMPORT_FREE_COPIES)
