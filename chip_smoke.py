@@ -96,14 +96,30 @@ Phases, each of which raises on failure:
    the delta, cross and rebound-base engines rerun under the capture,
    whose heaviest operand pair per site, engine and kernel is checked
    as in phase 6 and joins the kernel line.
-10. the serve plane on the card and on the CPU (``ServeApp`` through
+10. the observed fixed point (``saturate_observed``: the adaptive
+   dense/sparse controller with pipelined dense rounds) at full width:
+   ``chain_tailed_ontology(64000, 64)`` (the reference's sparse-tier
+   regime, ``unroll=1``, default config) held round for round to its
+   dense-only observed run and to ``saturate``, with at least 20
+   sparse rounds, and both runs again with the pipeline off for the
+   per-round walls (``low_density_speedup``); the forced tier on the
+   64k corpus (threshold 1.1, hysteresis 1, 12 capacity rungs), per
+   round equal to the dense-only run, taxonomy equal to the default
+   classify, its sparse rounds launching the kernels, and a captured
+   rerun whose heaviest sparse-tier CR4 and CR6 pairs are checked as
+   in phase 6 and join the kernel line; the 64k base rebuild of the
+   incremental plane with ``obs.ledger.enable`` (observed, one ledger
+   record a round, ``cli runs report`` over it) beside the unobserved
+   rebuild; the 8k corpus forced on the card and on the CPU, every
+   round equal.
+11. the serve plane on the card and on the CPU (``ServeApp`` through
    ``dispatch``): the bench's traffic over the 8k corpus without its
    range axiom, the scheduled and snapshot reads after each write, every
    answer equal; the tracked mixed trace replayed over loopback HTTP on
    both, with the row-packed and with the packed engine, every answer
    equal; the 8k corpus and the class-only delta served by the packed
    engine on the card, its answers equal to the row-packed engine's.
-11. the resident server at full width: ``ServeApp(device="cuda")``
+12. the resident server at full width: ``ServeApp(device="cuda")``
    behind ``make_server``, two workers, a card-memory budget (once the
    64k tenant's state is known) that holds that tenant alone, driven
    over HTTP by ``ServeClient`` under the capture: the 64k corpus without its range axiom, the three deltas and
@@ -114,7 +130,7 @@ Phases, each of which raises on failure:
    serial answers; the graceful close with its final spill.  The
    captured operand pairs are checked as in phase 6 and join the kernel
    line.
-12. the serve fleet at full width: two replica processes on the card
+13. the serve fleet at full width: two replica processes on the card
    (``ReplicaSupervisor``: ``cli serve --replica-id ... --device cuda``,
    each checked to run this tree) behind a ``RouterApp`` in this
    process: the 64k and 8k corpora (without their range axiom) loaded
@@ -132,7 +148,9 @@ Phases, each of which raises on failure:
    own processes, out of this one's counts: a ``sitecustomize`` the
    smoke puts ahead of the tree on their ``PYTHONPATH`` writes each
    process's launches and allocator bytes to a file, and every replica
-   process must have launched the path's kernels.
+   process must have launched the path's kernels.  After the 64k
+   tenant moves out, its source replica's reserved bytes must be below
+   1 GiB (the registry returns a departed tenant's blocks).
 
 Kernel times are CUDA-event times per call over back-to-back calls;
 the packed-contraction route's are also taken from CUDA-graph replays
@@ -151,6 +169,9 @@ load plane), ``{"breakdown": ...}``, ``{"threshold_ab": ...}``,
 ``{"incremental_card_vs_cpu": ...}`` and ``{"incremental_full_width":
 ...}`` (each step's path, iterations, derivations, wall, phases,
 launches, host and card peaks; the retraction's overdeletion time),
+``{"observed_full_width": ...}`` (tier strings, per-round records,
+walls and the sparse rounds' launches of each run; the ledgered and
+unledgered rebuilds),
 ``{"serve_card_vs_cpu": ...}`` and ``{"serve_full_width": ...}`` (per
 request: client wall, path, iterations, phases, launches, snapshot
 publish seconds, host peak RSS, card memory; the bytes an eviction
@@ -976,7 +997,20 @@ SITES = {
     "_cr6_windows": "cr6_windows",
     "_cr6_tiles": "cr6_tiles",
     "_extract_device_blocked": "taxonomy",
+    # the observed controller's sparse tier (its rule: the frame's
+    # ``d`` is the engine's CR4 or CR6 table)
+    "_sparse_contract": "sparse",
 }
+
+
+def site_of(frame) -> str:
+    """The call site a captured launch came from (``frame``: the
+    engine's frame named in :data:`SITES`)."""
+    site = SITES[frame.f_code.co_name]
+    if site == "sparse":
+        loc = frame.f_locals
+        site = "sparse_cr4" if loc["d"] is loc["self"]._sp4 else "sparse_cr6"
+    return site
 
 
 class Capture:
@@ -1011,7 +1045,7 @@ class Capture:
             while f is not None and f.f_code.co_name not in SITES:
                 f = f.f_back
             if f is not None:
-                site = SITES[f.f_code.co_name]
+                site = site_of(f)
                 if cap.kind is not None:
                     site = f"{site}:{cap.kind(f.f_locals.get('self'))}"
             kern = "packed_cols_sparse" if plan.skip_zero_tiles else "packed_cols_dense"
@@ -1719,6 +1753,336 @@ def phase_incremental_full_width(cap: Capture):
     }
     log(f"[incremental 64k] {json.dumps(out)}")
     print(json.dumps({"incremental_full_width": out}), flush=True)
+    return pairs
+
+
+# --------------------------------------------- the observed fixed point
+
+OBS_DIR = ROOT / "build" / "smoke_runs"
+#: the forced sparse tier (the reference's strictest selection test)
+#: with capacity rungs up to 64 << 11 = 131,072 rows: at the default 8
+#: rungs (8,192 rows) most 64k rounds would overflow to dense
+FORCED_WIDE = {"density_threshold": 1.1, "hysteresis_rounds": 1,
+               "capacity_buckets": 12}
+
+
+def observed_run(engine, **kw) -> tuple:
+    """One ``saturate_observed``, the launch counts set to 0 just
+    before it: the observer's ``(iteration, derivations, changed)``
+    sequence; each round's record with the host wall since the previous
+    record and the kernel launches in between (a sparse round runs with
+    no dense round in flight, so those are its own); the result; the
+    wall; the run's launches, read just after it."""
+    from distel_tpu_torch.ops.bitmatmul import LAUNCHES, reset_launches
+
+    reset_launches()
+    obs, rounds = [], []
+    last = [dict(LAUNCHES), 0.0]
+
+    def frontier(st):
+        now, t = dict(LAUNCHES), time.perf_counter()
+        rounds.append({
+            "iteration": st.iteration, "tier": st.tier,
+            "density": st.density, "rows_touched": st.rows_touched,
+            "derivations": st.derivations, "overflow": st.overflow,
+            "inflight": st.inflight, "wall_s": t - last[1],
+            "launches": {k: now[k] - last[0][k] for k in now
+                         if now[k] != last[0][k]},
+        })
+        last[0], last[1] = now, t
+
+    on_card = engine.device.type == "cuda"
+    if on_card:
+        sync()
+    t0 = last[1] = time.perf_counter()
+    res = engine.saturate_observed(
+        observer=lambda *a: obs.append(a), frontier_observer=frontier, **kw
+    )
+    if on_card:
+        sync()
+    return obs, rounds, res, time.perf_counter() - t0, dict(LAUNCHES)
+
+
+def round_records(rounds) -> list:
+    """Per round, what card and CPU (or two tiers) must agree on."""
+    return [(r["iteration"], r["tier"], r["rows_touched"], r["derivations"],
+             r["overflow"], r["inflight"]) for r in rounds]
+
+
+def tier_string(rounds) -> str:
+    return "".join(r["tier"][0] for r in rounds)
+
+
+def sparse_launches(rounds) -> dict:
+    out = {}
+    for r in rounds:
+        if r["tier"] == "sparse":
+            for k, v in r["launches"].items():
+                out[k] = out.get(k, 0) + v
+    return out
+
+
+def same_closure(a, b) -> bool:
+    return bool(torch.equal(a.packed_s.cpu(), b.packed_s.cpu())
+                and torch.equal(a.packed_r.cpu(), b.packed_r.cpu()))
+
+
+def phase_observed_full_width(cap: Capture, device: str = "cuda",
+                              n_chain: int = 64000, chain_depth: int = 64,
+                              n_big: int = 64000, n_small: int = 8000,
+                              min_sparse: int = 20):
+    """The observed fixed point (``saturate_observed``: the adaptive
+    dense/sparse controller, pipelined dense rounds) at full width:
+
+    1. the reference's sparse-tier regime, ``chain_tailed_ontology(64000,
+       64)`` at ``unroll=1``, default sparse config, pipeline depth 2:
+       held round for round to the dense-only observed run, and to the
+       unobserved ``saturate``'s closure and derivations, with at least
+       ``min_sparse`` sparse rounds; then both again with the pipeline
+       off, whose per-round walls at matching iterations give the
+       reference probe's ``low_density_speedup``;
+    2. the forced tier on the 64k SNOMED-shaped corpus (threshold 1.1,
+       hysteresis 1, 12 capacity rungs), ``unroll=1``: per round equal
+       to the dense-only run, closure and taxonomy equal to the default
+       classify, every round after the first sparse unless it
+       overflowed, and its sparse rounds launching the packed-columns
+       kernels; a captured rerun keeps the sparse tier's heaviest CR4
+       and CR6 operand pairs, checked as in phase 6;
+    3. the user's path: the 64k corpus through the incremental plane
+       (what ``cli stream`` runs) with ``obs.ledger.enable``: the base
+       rebuild runs observed, its taxonomy equals the unobserved
+       rebuild's and the classify's, its ledger holds one record a
+       retired round and ``cli runs report`` reads its chain; both
+       rebuilds' walls;
+    4. the 8k corpus, forced tier, ``unroll=1``, on the card and on the
+       CPU: every round's record, the observer's sequence, S and R
+       equal.
+
+    Returns the checked sparse-tier pairs for the kernel line."""
+    import io
+
+    from distel_tpu_torch import cli
+    from distel_tpu_torch.config import ClassifierConfig
+    from distel_tpu_torch.core.incremental import IncrementalClassifier
+    from distel_tpu_torch.core.rowpacked_engine import RowPackedSaturationEngine
+    from distel_tpu_torch.frontend.ontology_tools import (
+        chain_tailed_ontology, snomed_shaped_ontology,
+    )
+    from distel_tpu_torch.obs import ledger as ledger_mod
+    from distel_tpu_torch.owl import native_loader
+    from distel_tpu_torch.runtime.classifier import ELClassifier
+    from distel_tpu_torch.runtime.taxonomy import extract_taxonomy
+
+    on_card = device == "cuda"
+    out = {}
+    t_phase = time.perf_counter()
+
+    def settle():
+        if on_card:
+            sync()
+
+    def free():
+        if on_card:
+            torch.cuda.empty_cache()
+
+    def held_equal(what, a, b):
+        """Observer sequences, iterations and closures of two runs."""
+        if a[0] != b[0]:
+            raise AssertionError(f"{what}: the observer sequences differ")
+        if a[2].iterations != b[2].iterations or not same_closure(a[2], b[2]):
+            raise AssertionError(f"{what}: iterations or closure differ")
+
+    # 1. the chain-tailed regime
+    text = chain_tailed_ontology(n_chain, chain_depth)
+    idx = native_loader.load_indexed(text)
+    del text
+
+    def chain_engine():
+        return RowPackedSaturationEngine(idx, device=device, unroll=1)
+
+    ad = observed_run(chain_engine(), sparse_tail=True)
+    dn = observed_run(chain_engine(), sparse_tail={"enable": False})
+    held_equal("chain-tailed adaptive vs dense-only", ad, dn)
+    sat_engine = chain_engine()
+    settle()
+    t0 = time.perf_counter()
+    sat = sat_engine.saturate()
+    settle()
+    sat_s = time.perf_counter() - t0
+    if not same_closure(ad[2], sat) or ad[2].derivations != sat.derivations:
+        raise AssertionError("chain-tailed: the observed closure is not saturate's")
+    n_sparse = tier_string(ad[1]).count("s")
+    if n_sparse < min_sparse:
+        raise AssertionError(f"chain-tailed: {n_sparse} sparse rounds < {min_sparse}")
+    # the walls with the pipeline off (observer inter-arrival is then
+    # each round's own wall, as the reference's probe times it)
+    ad_sync = observed_run(chain_engine(), sparse_tail=True, pipeline=False)
+    dn_sync = observed_run(chain_engine(), sparse_tail={"enable": False},
+                           pipeline=False)
+    held_equal("chain-tailed synchronous", ad_sync, dn_sync)
+    dense_wall = {r["iteration"]: r["wall_s"] for r in dn_sync[1]}
+    speedups = sorted(
+        dense_wall[r["iteration"]] / r["wall_s"] for r in ad_sync[1]
+        if r["tier"] == "sparse" and r["rows_touched"] and r["wall_s"] > 0
+        and r["iteration"] in dense_wall
+    )
+    out["chain_tailed"] = {
+        "concepts": idx.n_concepts, "links": idx.n_links, "roles": idx.n_roles,
+        "iterations": ad[2].iterations, "derivations": ad[2].derivations,
+        "tiers": tier_string(ad[1]), "sparse_rounds": n_sparse,
+        "tiers_synchronous": tier_string(ad_sync[1]),
+        "wall_s": {"adaptive": ad[3], "dense_only": dn[3], "saturate": sat_s,
+                   "adaptive_synchronous": ad_sync[3],
+                   "dense_only_synchronous": dn_sync[3]},
+        "round_walls_s": {"adaptive": [(r["iteration"], r["tier"], r["wall_s"])
+                                       for r in ad_sync[1]],
+                          "dense_only": sorted(dense_wall.items())},
+        "low_density_speedup": speedups[len(speedups) // 2] if speedups else None,
+        "launches": ad[4],
+        "sparse_round_launches": sparse_launches(ad[1]),
+    }
+    log(f"[observed chain-tailed] {json.dumps(out['chain_tailed'])}")
+    del ad, dn, ad_sync, dn_sync, sat, sat_engine, idx
+    free()
+
+    # 2. the forced tier at 64k
+    text = snomed_shaped_ontology(n_classes=n_big, seed=42)
+    idx = native_loader.load_indexed(text)
+
+    def big_engine():
+        return RowPackedSaturationEngine(idx, device=device, unroll=1)
+
+    fo_engine = big_engine()
+    fo = observed_run(fo_engine, sparse_tail=FORCED_WIDE)
+    dn = observed_run(big_engine(), sparse_tail={"enable": False})
+    held_equal("64k forced vs dense-only", fo, dn)
+    late = [r for r in fo[1][1:] if r["tier"] not in ("sparse", "idle")
+            and not r["overflow"]]
+    if fo[1][0]["tier"] != "dense" or late:
+        raise AssertionError(f"64k forced: rounds that did not run sparse: {late}")
+    fo_launches = sparse_launches(fo[1])
+    if not any(v for k, v in fo_launches.items() if k.startswith("packed_cols")) \
+            or not all(fo[4][k] for k in chosen_kernels(fo_engine)):
+        raise AssertionError(f"64k forced: kernels not launched: {fo[4]}, "
+                             f"sparse rounds {fo_launches}")
+    t0 = time.perf_counter()
+    classified = ELClassifier(device=device).classify_text(text)
+    classify_s = time.perf_counter() - t0
+    want_key = taxonomy_key(classified.taxonomy)
+    if fo[2].derivations != classified.result.derivations \
+            or not same_closure(fo[2], classified.result):
+        raise AssertionError("64k forced: closure or derivations differ from the classify")
+    if taxonomy_key(extract_taxonomy(fo[2])) != want_key:
+        raise AssertionError("64k forced: taxonomy differs from the classify")
+    out["forced_64k"] = {
+        "concepts": idx.n_concepts, "iterations": fo[2].iterations,
+        "derivations": fo[2].derivations, "tiers": tier_string(fo[1]),
+        "overflow_rounds": sum(r["overflow"] for r in fo[1]),
+        "rounds": [{k: r[k] for k in ("iteration", "tier", "rows_touched",
+                                       "derivations", "overflow", "wall_s",
+                                       "launches")} for r in fo[1]],
+        "dense_only_round_walls_s": [(r["iteration"], r["wall_s"]) for r in dn[1]],
+        "wall_s": {"forced": fo[3], "dense_only": dn[3], "classify": classify_s},
+        "launches": fo[4],
+        "sparse_round_launches": fo_launches,
+    }
+    log(f"[observed forced 64k] {json.dumps(out['forced_64k'])}")
+    del fo, fo_engine, dn, classified
+    free()
+    # the sparse tier's operands: a captured rerun, the heaviest pair per
+    # site and kernel kept and checked
+    cap.run = "observed:forced64k"
+    with cap:
+        big_engine().saturate_observed(sparse_tail=FORCED_WIDE)
+    heaviest = {}
+    for key in [k for k in cap.pairs if k[0] == cap.run]:
+        n, nnz, a, b = cap.pairs.pop(key)
+        if not key[1].startswith("sparse"):
+            continue
+        got = heaviest.setdefault(key[:3], [0, -1, None, None])
+        got[0] += n
+        if nnz > got[1]:
+            got[1:] = [nnz, a, b]
+    cap.run = ""
+    pairs = [check_pair(*key, n, a, b)
+             for key, (n, _nnz, a, b) in sorted(heaviest.items())]
+    if {p["site"] for p in pairs} != {"sparse_cr4", "sparse_cr6"}:
+        raise AssertionError(f"64k forced: captured sites {sorted(heaviest)}")
+    out["forced_64k"]["kernel_checks"] = [
+        {k: p[k] for k in ("site", "main_path_kernel", "shape", "launches",
+                           "max_abs_err", "dense_ms", "sparse_ms", "plain_ms",
+                           "bound_ms", "bound_by")} for p in pairs]
+    free()
+
+    # 3. the user's path: a ledgered rebuild through the incremental plane
+    shutil.rmtree(OBS_DIR, ignore_errors=True)
+    rebuilds = {}
+    for ledger in (True, False):
+        cfg = ClassifierConfig(obs_ledger=ledger, obs_ledger_dir=str(OBS_DIR))
+        inc = IncrementalClassifier(cfg, device=device)
+        settle()
+        t0 = time.perf_counter()
+        res = inc.add_text(text)
+        settle()
+        wall = time.perf_counter() - t0
+        key = taxonomy_key(extract_taxonomy(res))
+        engine = inc._base_engine
+        rebuilds["observed" if ledger else "unobserved"] = {
+            "wall_s": wall, "phases_s": dict(inc.timer.phases),
+            "iterations": res.iterations, "derivations": res.derivations,
+            "path": inc.history[-1]["path"],
+            "tiers": "".join(st.tier[0] for st in engine.frontier_rounds),
+            "taxonomy_equal": key == want_key,
+        }
+        if key != want_key:
+            raise AssertionError(f"ledgered rebuild (ledger={ledger}): taxonomy differs")
+        if ledger:
+            n_rounds = len(engine.frontier_rounds)
+        del inc, res, engine
+        free()
+    if rebuilds["unobserved"]["tiers"]:
+        raise AssertionError("the unledgered rebuild ran observed")
+    files = sorted(OBS_DIR.glob("*.ledger.jsonl"))
+    if len(files) != 1:
+        raise AssertionError(f"ledgered rebuild: ledger files {files}")
+    recs = ledger_mod.read_ledger(str(files[0]))
+    n_round_recs = sum(1 for r in recs if r["ev"] == "round")
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(["runs", "report", str(files[0]), "--json"])
+    report = json.loads(buf.getvalue())
+    if rc != 0 or n_round_recs != n_rounds or report["rounds"] != n_rounds \
+            or not report["converged"]:
+        raise AssertionError(f"ledgered rebuild: {n_round_recs} records, {n_rounds} "
+                             f"rounds, report {report.get('rounds')} rc {rc}")
+    out["ledgered_rebuild"] = {
+        **rebuilds, "ledger_round_records": n_round_recs,
+        "report": {k: report[k] for k in ("rounds", "tiers", "derivations_total",
+                                          "wall_s", "converged")},
+    }
+    log(f"[observed ledgered rebuild] {json.dumps(out['ledgered_rebuild'])}")
+    shutil.rmtree(OBS_DIR, ignore_errors=True)
+    del idx, text
+
+    # 4. card vs CPU at 8k, forced
+    idx8 = native_loader.load_indexed(snomed_shaped_ontology(n_classes=n_small, seed=42))
+    g = observed_run(RowPackedSaturationEngine(idx8, device=device, unroll=1),
+                     sparse_tail=FORCED_WIDE)
+    c = observed_run(RowPackedSaturationEngine(idx8, device="cpu", unroll=1),
+                     sparse_tail=FORCED_WIDE)
+    if round_records(g[1]) != round_records(c[1]) or g[0] != c[0] \
+            or not same_closure(g[2], c[2]):
+        raise AssertionError("8k forced: card and CPU rounds differ")
+    out["card_vs_cpu_8k"] = {
+        "concepts": idx8.n_concepts, "tiers": tier_string(g[1]),
+        "rounds": len(g[1]), "wall_s": {"card": g[3], "cpu": c[3]},
+        "sparse_round_launches": sparse_launches(g[1]),
+    }
+    del g, c
+    free()
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"[observed] {json.dumps(out['card_vs_cpu_8k'])} phase {out['phase_s']:.1f} s")
+    print(json.dumps({"observed_full_width": out}), flush=True)
     return pairs
 
 
@@ -2736,6 +3100,21 @@ def phase_fleet_full_width(device: str = "cuda", n_big: int = 64000,
                 if th.is_alive():
                     raise AssertionError("fleet: a client thread never returned")
             memory("after_migrate")
+            # the registry releases a departed tenant's cached blocks:
+            # the source replica's reserved bytes fall below 1 GiB
+            src = out["replicas"]["after_migrate"].get(rec["from"], {})
+            out["repair"] = {
+                "source": rec["from"],
+                "source_reserved_mib_after_move": src.get("cuda_reserved_mib"),
+                "source_allocated_mib_after_move": src.get("cuda_allocated_mib"),
+                "card_used_mib_after_move":
+                    out["card_memory_mib"].get("after_migrate", {}).get("used"),
+            }
+            log(f"[fleet] after the move: {json.dumps(out['repair'])}")
+            if on_card and not (src.get("cuda_reserved_mib") is not None
+                                and src["cuda_reserved_mib"] < 1024):
+                raise AssertionError(f"fleet: the source replica kept its blocks "
+                                     f"after the move: {out['repair']}")
             for e in router.flight.events():
                 if e["kind"] in ("migrate_drain", "migrate_export", "migrate_adopt",
                                  "migrate_commit") and e.get("oid") == a:
@@ -2767,6 +3146,7 @@ def phase_fleet_full_width(device: str = "cuda", n_big: int = 64000,
             t0 = time.perf_counter()
             router.migrate(a, dst_rid=rec["from"])
             walls["migrate_back"] = time.perf_counter() - t0
+            out["repair"]["move_back_s"] = walls["migrate_back"]
             for e in router.flight.events():
                 if e["seq"] > seq0 and e["kind"] in ("migrate_export", "migrate_adopt") \
                         and e.get("oid") == a:
@@ -3328,6 +3708,8 @@ def main() -> int:
     checked = phase_multiplied_full_width(cap)
     torch.cuda.empty_cache()
     checked += phase_incremental_full_width(cap)
+    torch.cuda.empty_cache()
+    checked += phase_observed_full_width(cap)
     torch.cuda.empty_cache()
     phase_serve_card_vs_cpu()
     checked += phase_serve_full_width(cap)

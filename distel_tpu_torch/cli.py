@@ -25,6 +25,8 @@
              journal-replay recovery, read replicas)
   query      snapshot-plane reads against a serve process
   trace      fetch a recorded request trace from ``/debug/trace``
+  runs       run observatory over run ledgers (``obs/ledger.py``):
+             ``list`` chains, ``report`` one, ``watch`` a ledger file
 
 Every command reads OWL functional syntax, RDF/XML or OWL/XML.
 
@@ -36,12 +38,14 @@ Usage: python -m distel_tpu_torch.cli classify FILE [--device cpu] ...
        python -m distel_tpu_torch.cli fleet --spill-dir D [--replicas 2] [--device cpu]
        python -m distel_tpu_torch.cli query OID subsumers CLASS [--url URL]
        python -m distel_tpu_torch.cli trace [TRACE_ID] [--format chrome]
+       python -m distel_tpu_torch.cli runs list|report|watch LEDGER ...
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import os
 import sys
 import time
 
@@ -61,6 +65,31 @@ def cmd_classify(args) -> int:
 
     cfg = _load_cfg(args)
     cfg.instrumentation = args.instrument
+    if args.budget_s is not None:
+        # launch budget guard: predict the wall from the fitted cost
+        # model BEFORE paying load/saturate, and refuse a run that
+        # cannot fit the stage budget (the basis is the port's own run
+        # ledgers under the repo's runs/, not the cwd's)
+        from distel_tpu_torch.obs import costmodel
+        from distel_tpu_torch.runtime.stats import ontology_stats
+
+        repo_root = os.path.dirname(
+            os.path.dirname(os.path.abspath(__file__))
+        )
+        model = costmodel.fit_from_paths(
+            args.model_from
+            if args.model_from is not None
+            else costmodel.default_basis_paths(repo_root),
+            shards=1,
+        )
+        n = ontology_stats(args.ontology)["classes"]
+        guard = costmodel.guard_launch(
+            model, n, args.budget_s, force=args.force,
+        )
+        print(json.dumps({"launch_guard": guard}), flush=True)
+        if not guard["allowed"]:
+            print(f"refusing launch: {guard['reason']}", file=sys.stderr)
+            return 3
     clf = ELClassifier(cfg, device=args.device)
     res = clf.classify_file(
         args.ontology, verify=args.verify, resume_from=args.resume
@@ -109,6 +138,161 @@ def cmd_stream(args) -> int:
         )
     )
     return 0
+
+
+def _render_curve(curve, width: int = 48, height: int = 8) -> str:
+    """Coarse ASCII completeness curve (derivations_total over rounds)
+    straight off a ledger."""
+    pts = [
+        (c.get("round") or 0, c.get("derivations_total") or 0)
+        for c in curve
+    ]
+    if not pts:
+        return "(no rounds)"
+    top = max(d for _, d in pts) or 1
+    cols = min(width, len(pts))
+    # resample onto the column grid (later rounds win within a column)
+    grid = [0] * cols
+    for i, (_, d) in enumerate(pts):
+        grid[i * cols // len(pts)] = d
+    lines = []
+    for row in range(height, 0, -1):
+        cut = top * (row - 0.5) / height
+        lines.append(
+            "  " + "".join("#" if d >= cut else " " for d in grid)
+        )
+    lines.append("  " + "-" * cols)
+    lines.append(
+        f"  rounds 1..{pts[-1][0]}, derivations_total {top}"
+    )
+    return "\n".join(lines)
+
+
+def cmd_runs(args) -> int:
+    """Run observatory: render chains of runs from their ledgers —
+    round counts, completeness curves, per-rule share trends,
+    ETA/prediction error — without re-running anything."""
+    from distel_tpu_torch.obs import ledger as ledger_mod
+
+    by_chain = {}
+    if args.op in ("list", "report"):
+        records = []
+        for path in args.ledgers:
+            records.extend(
+                ledger_mod.read_ledger(path, strict=not args.lax)
+            )
+        by_chain = ledger_mod.chains(records)
+    if args.op == "list":
+        rows = []
+        for cid, recs in by_chain.items():
+            try:
+                s = ledger_mod.validate_chain(recs)
+            except ValueError as e:
+                rows.append({"chain_run_id": cid, "invalid": str(e)})
+                continue
+            rows.append({"chain_run_id": cid, **s})
+        print(json.dumps({"chains": rows}, indent=2))
+        return 0
+    if args.op == "report":
+        cid = args.chain
+        if cid is None:
+            if len(by_chain) != 1:
+                print(
+                    f"{len(by_chain)} chains in the ledger(s) — pick one "
+                    f"with --chain: {sorted(by_chain)}",
+                    file=sys.stderr,
+                )
+                return 2
+            cid = next(iter(by_chain))
+        if cid not in by_chain:
+            print(f"unknown chain {cid!r}", file=sys.stderr)
+            return 2
+        try:
+            rep = ledger_mod.report_chain(by_chain[cid])
+        except ValueError as e:
+            print(f"invalid chain {cid}: {e}", file=sys.stderr)
+            return 2
+        if args.json:
+            print(json.dumps(rep, indent=2))
+            return 0
+        print(f"chain {rep['chain_run_id']}")
+        print(
+            f"  sessions: {rep['runs']} ({rep['closed_runs']} closed"
+            + (
+                f", session {rep['open_session']} crashed/in-flight)"
+                if rep["open_session"]
+                else ")"
+            )
+        )
+        print(
+            f"  rounds: {rep['rounds']} (last index {rep['last_round']}) "
+            f"tiers {rep['tiers']}"
+        )
+        print(
+            f"  derivations_total: {rep['derivations_total']}  "
+            f"wall: {rep['wall_s']}s  converged: {rep['converged']}"
+        )
+        print(
+            f"  snapshots: {rep['snapshots']}  anomalies: "
+            f"{rep['anomalies']}"
+        )
+        if rep.get("rule_shares"):
+            shares = ", ".join(
+                f"{k}={v:.0%}" for k, v in sorted(rep["rule_shares"].items())
+            )
+            print(f"  rule shares: {shares}")
+        if rep.get("launch_prediction"):
+            lp = rep["launch_prediction"]
+            print(
+                f"  launch prediction: {lp['predicted_wall_s']}s vs "
+                f"actual {lp['actual_wall_s']}s "
+                f"(error {lp['error']:+.0%})"
+            )
+        if rep.get("eta_final"):
+            ef = rep["eta_final"]
+            print(
+                f"  final ETA: predicted tail {ef['predicted_tail_s']}s "
+                f"vs actual {ef['actual_tail_s']}s "
+                f"(error {ef['error_s']:+}s)"
+            )
+        print(_render_curve(rep["curve"]))
+        return 0
+    # watch: poll the ledger file and echo new records as they land
+    if len(args.ledgers) != 1:
+        print("watch follows exactly one ledger file", file=sys.stderr)
+        return 2
+    path = args.ledgers[0]
+    # byte-offset tail, not a full re-read per poll
+    offset = 0
+    buf = ""
+    ticks = 0
+    while True:
+        if os.path.exists(path):
+            size = os.path.getsize(path)
+            if size < offset:  # truncated/replaced: start over
+                offset = 0
+                buf = ""
+            if size > offset:
+                with open(path, "r", encoding="utf-8") as f:
+                    f.seek(offset)
+                    buf += f.read()
+                    offset = f.tell()
+                # the trailing fragment (no newline yet) waits for the
+                # writer's flush; complete lines print immediately
+                *complete, buf = buf.split("\n")
+                for line in complete:
+                    line = line.strip()
+                    if not line:
+                        continue
+                    try:
+                        rec = json.loads(line)
+                    except ValueError:
+                        continue
+                    print(json.dumps(rec), flush=True)
+        ticks += 1
+        if args.iterations is not None and ticks >= args.iterations:
+            return 0
+        time.sleep(args.interval)
 
 
 def cmd_diff(args) -> int:
@@ -464,6 +648,16 @@ def main(argv=None) -> int:
     )
     c.add_argument("--instrument", action="store_true", help="phase timers")
     c.add_argument("--verify", action="store_true", help="diff vs CPU oracle")
+    c.add_argument("--budget-s", type=float, default=None,
+                   help="stage budget: predict the wall from the fitted "
+                        "cost model (obs/costmodel.py) at launch and "
+                        "refuse the run (exit 3) when the prediction "
+                        "exceeds this many seconds")
+    c.add_argument("--force", action="store_true",
+                   help="launch past a failed --budget-s guard")
+    c.add_argument("--model-from", nargs="*", default=None, metavar="FILE",
+                   help="ledger/probe files the cost model fits from "
+                        "(default: the repo's runs/*.ledger.jsonl)")
     c.set_defaults(fn=cmd_classify)
     st = sub.add_parser("stream", help="incremental streaming classification")
     st.add_argument("base")
@@ -617,6 +811,28 @@ def main(argv=None) -> int:
                          "snapshots older than this version")
     qr.add_argument("--timeout", type=float, default=30.0)
     qr.set_defaults(fn=cmd_query)
+    rn = sub.add_parser(
+        "runs",
+        help="run observatory: chains, reports, and live tailing of "
+             "run ledgers (obs/ledger.py JSONL)",
+    )
+    rn.add_argument("op", choices=("list", "report", "watch"))
+    rn.add_argument("ledgers", nargs="+", metavar="LEDGER",
+                    help="ledger JSONL file(s)")
+    rn.add_argument("--chain", default=None,
+                    help="report: chain_run_id to report (needed when "
+                         "the ledgers hold more than one chain)")
+    rn.add_argument("--json", action="store_true",
+                    help="report: machine-readable JSON instead of "
+                         "the text rendering")
+    rn.add_argument("--lax", action="store_true",
+                    help="tolerate malformed mid-file lines instead "
+                         "of failing the strict parse")
+    rn.add_argument("--interval", type=float, default=2.0,
+                    help="watch: poll period in seconds")
+    rn.add_argument("--iterations", type=int, default=None,
+                    help="watch: stop after N polls (default: forever)")
+    rn.set_defaults(fn=cmd_runs)
     args = p.parse_args(argv)
     return args.fn(args)
 

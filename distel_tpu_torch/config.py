@@ -7,16 +7,17 @@ plane (on by default, as in the reference), the normalizer's gensym
 cache, the per-rule backends (``backend.CRn``, the hybrid of
 ``core/hybrid.py``), the live-tile CR6 knobs and the serve plane's
 (``obs.*`` tracing, ``query.*`` snapshots, ``storage.*`` tiers,
-``cohort.*`` formation) and the serve fleet's (``fleet.*``).  Knobs of
-paths the port does not have yet (mesh, shape buckets, the observed
-loop, the artifact farm) are absent, or refused where a reference config could carry them over:
-``shape_buckets`` must be off, ``mesh.devices`` / ``NODES_LIST`` may
-name no device (a mesh of one device still changes the reference's
-automatic rules, so it is refused too), and ``obs.trace_rounds``,
-``obs.ledger.enable`` (both run the observed loop) and
-``artifacts.dir`` raise naming the key.  The reference's ``matmul.dtype`` has no
-meaning for the port's exact bit kernels and is ignored with the other
-unknown keys.
+``cohort.*`` formation), the serve fleet's (``fleet.*``) and the
+observed fixed point's (``sparse_tail.*``, ``pipeline.*``,
+``obs.trace_rounds``, ``obs.ledger.*``).  Knobs of paths the port does
+not have yet (mesh, shape buckets, the fused K-round window, the
+artifact farm) are absent, or refused where a reference config could
+carry them over: ``shape_buckets`` must be off, ``mesh.devices`` /
+``NODES_LIST`` may name no device (a mesh of one device still changes
+the reference's automatic rules, so it is refused too), and
+``fused.rounds.k`` above 1 and ``artifacts.dir`` raise naming the key.
+The reference's ``matmul.dtype`` has no meaning for the port's exact
+bit kernels and is ignored with the other unknown keys.
 
 ``from_properties`` parses java-style ``key = value`` files with the
 reference's key spellings.
@@ -67,11 +68,42 @@ class ClassifierConfig:
     #: tiled-vs-window MAC-volume ratio above which the engine keeps the
     #: window formulation
     cr6_tiles_density_threshold: float = 0.5
+    #: adaptive sparse-tail execution of observed runs (row-packed
+    #: engine): once a round's frontier density stays below
+    #: ``sparse_density_threshold`` for ``sparse_hysteresis_rounds``
+    #: rounds, the controller runs the frontier-compacted sparse step
+    #: instead of the dense one
+    sparse_tail: bool = True
+    #: frontier density (active rule rows / total rule rows) below which
+    #: a round is eligible for the sparse tier
+    sparse_density_threshold: float = 0.05
+    #: capacity rungs of the sparse tier: rung i holds ``floor * 2**i``
+    #: rows; an active set past the largest runs dense for that round
+    sparse_capacity_buckets: int = 8
+    #: consecutive below-threshold rounds before the sparse tier
+    #: (switching back to dense is immediate)
+    sparse_hysteresis_rounds: int = 2
+    #: pipelined observation of observed runs: up to ``pipeline_depth``
+    #: dense rounds dispatched before the host retires the oldest one's
+    #: fold (the retired rounds are the synchronous loop's)
+    pipeline: bool = True
+    #: maximum in-flight observed rounds (1 = synchronous)
+    pipeline_depth: int = 2
     #: request tracing (``obs/trace.py``): ``obs_enable=False`` takes
     #: every span off-path; the flight recorder stays on
     obs_enable: bool = True
     #: fraction of root requests that record spans
     obs_sample_rate: float = 1.0
+    #: run traced REBUILD saturations through the observed loop, so each
+    #: round lands as a span event on the request's trace
+    obs_trace_rounds: bool = False
+    #: run ledger (``obs/ledger.py``): REBUILD saturations run the
+    #: observed loop and append one JSONL record a round to a
+    #: per-process ledger under ``obs_ledger_dir``
+    obs_ledger: bool = False
+    #: directory rebuild ledgers land in (created on demand; one
+    #: ``rebuild-<pid>.ledger.jsonl`` per process)
+    obs_ledger_dir: str = "runs"
     #: finished-span ring capacity per process
     obs_ring_capacity: int = 2048
     #: flight-recorder event ring capacity per process
@@ -188,16 +220,44 @@ class ClassifierConfig:
             cfg.cr6_tiles_density_threshold = float(
                 raw["cr6.tiles.density_threshold"]
             )
+        if "sparse_tail.enable" in raw:
+            cfg.sparse_tail = flag("sparse_tail.enable")
+        if "sparse_tail.density_threshold" in raw:
+            cfg.sparse_density_threshold = float(
+                raw["sparse_tail.density_threshold"]
+            )
+        if "sparse_tail.capacity_buckets" in raw:
+            cfg.sparse_capacity_buckets = int(
+                raw["sparse_tail.capacity_buckets"]
+            )
+        if "sparse_tail.hysteresis_rounds" in raw:
+            cfg.sparse_hysteresis_rounds = int(
+                raw["sparse_tail.hysteresis_rounds"]
+            )
+        if "pipeline.enable" in raw:
+            cfg.pipeline = flag("pipeline.enable")
+        if "pipeline.depth" in raw:
+            cfg.pipeline_depth = int(raw["pipeline.depth"])
+        if (
+            int(raw.get("fused.rounds.k", 1)) > 1
+            and raw.get("fused.rounds.enable", "true").lower() == "true"
+        ):
+            raise ValueError(
+                f"fused.rounds.k = {raw['fused.rounds.k']} asks for the "
+                "device-resident fused K-round window, which "
+                "distel_tpu_torch does not have (k = 1 runs the per-round "
+                "controller)"
+            )
         if "obs.enable" in raw:
             cfg.obs_enable = flag("obs.enable")
         if "obs.sample_rate" in raw:
             cfg.obs_sample_rate = float(raw["obs.sample_rate"])
-        for key in ("obs.trace_rounds", "obs.ledger.enable"):
-            if key in raw and flag(key):
-                raise ValueError(
-                    f"{key} = true runs the observed fixed-point loop, "
-                    "which distel_tpu_torch does not have yet"
-                )
+        if "obs.trace_rounds" in raw:
+            cfg.obs_trace_rounds = flag("obs.trace_rounds")
+        if "obs.ledger.enable" in raw:
+            cfg.obs_ledger = flag("obs.ledger.enable")
+        if "obs.ledger.dir" in raw:
+            cfg.obs_ledger_dir = raw["obs.ledger.dir"]
         if "obs.ring.capacity" in raw:
             cfg.obs_ring_capacity = int(raw["obs.ring.capacity"])
         if "obs.flight.capacity" in raw:
@@ -246,6 +306,26 @@ class ClassifierConfig:
                 cfg.rule_backends[k[len("backend."):]] = v
         cfg.validate()
         return cfg
+
+    def sparse_tail_config(self) -> Optional[dict]:
+        """The row-packed engine's ``sparse_tail=`` kwarg for this
+        config (None = tier disabled)."""
+        if not self.sparse_tail:
+            return None
+        return {
+            "enable": True,
+            "density_threshold": self.sparse_density_threshold,
+            "capacity_buckets": self.sparse_capacity_buckets,
+            "hysteresis_rounds": self.sparse_hysteresis_rounds,
+        }
+
+    def pipeline_config(self) -> dict:
+        """The row-packed engine's ``pipeline=`` kwarg for this config
+        (``{"enable": False}`` restores the synchronous loop)."""
+        return {
+            "enable": self.pipeline,
+            "depth": self.pipeline_depth,
+        }
 
     def cr6_tiles_config(self) -> Optional[dict]:
         """The engine's ``cr6_tiles=`` kwarg for this config (None =

@@ -3,9 +3,10 @@
 The port of ``distel_tpu/core/engine.py``: the dense
 :class:`SaturationEngine` (``engine="dense"``), :class:`SaturationResult`
 in either state layout, the padding helper, the live-bit accounting
-behind ``derivations``, the resume guard :func:`check_embed_fits`, and
+behind ``derivations``, the resume guard :func:`check_embed_fits`,
 :func:`default_temp_budget`, the one rule that sizes the packed
-engines' temporaries.
+engines' temporaries, and :func:`observed_loop`, the superstep/observer
+protocol both engines' ``saturate_observed`` share.
 
 State layouts, as int32 words carrying the uint32 bit pattern:
 
@@ -19,6 +20,8 @@ State layouts, as int32 words carrying the uint32 bit pattern:
 
 from __future__ import annotations
 
+import time
+from collections import deque
 from dataclasses import dataclass, field
 from typing import Optional, Set, Tuple
 
@@ -26,6 +29,7 @@ import numpy as np
 import torch
 
 from distel_tpu_torch.core.indexing import BOTTOM_ID, TOP_ID, IndexedOntology
+from distel_tpu_torch.runtime.instrumentation import DISPATCH_EVENTS
 
 
 def _pad_up(n: int, m: int) -> int:
@@ -113,6 +117,101 @@ def live_bits(sp: torch.Tensor, rp: torch.Tensor, wmask: torch.Tensor):
     """Per-row popcount over live x columns, [nc + nl] int64, on the
     state's device.  ``wmask`` [wc] int32 keeps bits x < n_concepts."""
     return torch.cat([popcount_rows(sp, wmask), popcount_rows(rp, wmask)])
+
+
+def to_host(x):
+    """A round's observables on the host: tensors become Python scalars
+    (0-d) or numpy arrays; anything else passes through.  The one
+    blocking read of a round, the counterpart of the reference's
+    ``fetch_global``."""
+    if isinstance(x, (tuple, list)):
+        return type(x)(to_host(v) for v in x)
+    if isinstance(x, torch.Tensor):
+        x = x.detach().cpu()
+        return x.item() if x.dim() == 0 else x.numpy()
+    return x
+
+
+def observed_loop(
+    observe_step, s, r, init_total: int, unroll: int, budget: int, observer,
+    state_observer=None, pipeline_depth: int = 1, round_stats=None,
+):
+    """Shared superstep/observer protocol of both engines'
+    ``saturate_observed``: run ``observe_step`` (returning
+    ``(s, r, changed, live_bits)``) until convergence or budget, calling
+    ``observer(iteration, derivations, changed)`` after each round.
+
+    ``pipeline_depth > 1`` runs the loop PIPELINED: up to ``depth``
+    rounds are dispatched before the oldest round's ``changed``/``bits``
+    fold is retired from the in-flight queue.  Each round runs on the
+    calling thread when it is dispatched (its launches are queued on the
+    card's stream); only the host read of its observables waits for the
+    retire.  The retired sequence (per-round totals, observer calls,
+    the final state) equals the synchronous loop's: the same steps run
+    in the same order, only the host-side fetch is deferred.  On
+    convergence at round N, the ≤depth-1 speculatively dispatched extra
+    rounds are no-ops at the fixed point (every rule is a monotone OR):
+    they are dropped unretired and excluded from iteration/derivation
+    accounting.
+
+    ``state_observer(iteration, derivations, changed, s, r)`` — if given
+    — additionally receives the live state after each round, so a long
+    run can snapshot mid-flight; the callback runs synchronously between
+    rounds.  The engines step in place, so a speculative round would
+    already have rewritten the state the callback reads: a
+    ``state_observer`` forces ``pipeline_depth`` to 1.
+
+    ``round_stats(iteration, delta, changed, dispatch_s, retire_s,
+    inflight)`` — if given — is called once per RETIRED round with the
+    round's derivation delta and its host-time split (``inflight`` is
+    the queue occupancy when the round was dispatched; 0 means it was
+    dispatched synchronously), before ``observer``.
+
+    The state arrives in the calling engine's working layout — packed
+    transposed int32 words from ``RowPackedSaturationEngine``, unpacked
+    transposed bool from the dense :class:`SaturationEngine` — so a
+    snapshot callback is engine-specific."""
+    depth = max(int(pipeline_depth), 1)
+    if state_observer is not None:
+        depth = 1
+    iteration, converged, total = 0, False, init_total
+    dispatched = 0
+    pending = deque()  # (iteration_after, (changed, bits), dispatch_s)
+    while True:
+        # keep the queue full: dispatch until it holds ``depth`` rounds
+        # (depth 1 == the synchronous loop)
+        while dispatched < budget and len(pending) < depth:
+            t0 = time.perf_counter()
+            s, r, changed_dev, bits = observe_step(s, r)
+            dispatch_s = time.perf_counter() - t0
+            dispatched += unroll
+            DISPATCH_EVENTS.record_dense()
+            pending.append((dispatched, (changed_dev, bits), dispatch_s))
+        if not pending:
+            break  # budget exhausted without convergence
+        it_after, handle, dispatch_s = pending.popleft()
+        inflight = len(pending)
+        t0 = time.perf_counter()
+        changed, bits_host = to_host(handle)
+        retire_s = time.perf_counter() - t0
+        prev_total = total
+        total = _host_bit_total(bits_host)
+        iteration = it_after
+        if round_stats is not None:
+            round_stats(
+                iteration, total - prev_total, bool(changed),
+                dispatch_s, retire_s, inflight,
+            )
+        if observer is not None:
+            observer(iteration, total - init_total, bool(changed))
+        if state_observer is not None:
+            state_observer(
+                iteration, total - init_total, bool(changed), s, r
+            )
+        if not changed:
+            converged = True
+            break
+    return s, r, iteration, total, converged
 
 
 @dataclass
@@ -327,6 +426,60 @@ class SaturationEngine:
     def count_live_bits(self, s, r) -> int:
         n = self.idx.n_concepts
         return int(s[:, :n].sum()) + int(r[:, :n].sum())
+
+    def _observe_round(self, s, r):
+        """One round of :meth:`saturate_observed`: ``unroll`` supersteps
+        plus the live-bit count, both left on the device."""
+        changed = torch.zeros((), dtype=torch.bool, device=s.device)
+        for _ in range(self.unroll):
+            s, r, ch = self.step(s, r)
+            changed |= ch
+        n = self.idx.n_concepts
+        return s, r, changed, s[:, :n].sum() + r[:, :n].sum()
+
+    def saturate_observed(
+        self,
+        max_iters: int = 10_000,
+        *,
+        observer=None,
+        state_observer=None,
+        initial: Optional[Tuple] = None,
+        allow_incomplete: bool = False,
+        pipeline_depth: int = 1,
+    ) -> "SaturationResult":
+        """Fixed point with per-superstep observation (the reference's
+        progress plane).  ``observer`` is called after every round of
+        ``unroll`` supersteps with ``(iteration, derivations_so_far,
+        changed)``; ``state_observer`` also gets the live (unpacked,
+        transposed) state.  With ``pipeline_depth > 1`` up to that many
+        rounds are in flight before their host folds retire (see
+        :func:`observed_loop`).  The rounds are :meth:`saturate`'s, so
+        the closure, ``iterations`` and ``derivations`` are too."""
+        from distel_tpu_torch.ops.bitpack import pack_bool_columns
+
+        if initial is None:
+            s, r = self.initial_state()
+        else:
+            s, r = self.embed_state(*initial)
+        init_total = self.count_live_bits(s, r)
+        budget = _pad_up(max_iters, self.unroll)
+        s, r, iteration, total, converged = observed_loop(
+            self._observe_round, s, r, init_total, self.unroll, budget,
+            observer, state_observer=state_observer,
+            pipeline_depth=pipeline_depth,
+        )
+        if not converged and not allow_incomplete:
+            raise RuntimeError(
+                f"saturation did not converge within {budget} iterations"
+            )
+        return SaturationResult(
+            packed_s=pack_bool_columns(s),
+            packed_r=pack_bool_columns(r),
+            iterations=iteration,
+            derivations=total - init_total,
+            idx=self.idx,
+            converged=converged,
+        )
 
     # -------------------------------------------------------- fixed point
 

@@ -469,11 +469,73 @@ class IncrementalClassifier:
         # holding it through the run would add a full state to the peak
         self.last_result = None
         with self.timer.phase("saturate"):
-            result = engine.saturate(
-                self.config.max_iterations, initial=self._pop_state()
-            )
+            result = self._rebuild_saturate(engine, idx)
         if isinstance(engine, RowPackedSaturationEngine):
             self._base_engine, self._base_idx = engine, idx
+        return result
+
+    def _rebuild_saturate(self, engine, idx) -> SaturationResult:
+        """The rebuild's fixed point: the observed loop for a traced
+        request under ``obs.trace_rounds`` (each round a span event on
+        its trace) and/or a ledgered rebuild (``obs.ledger.enable``, one
+        run-ledger record a round), where the engine has one (the
+        row-packed and dense engines; the packed engine and the hybrid
+        stay unobserved, as in the reference); else :meth:`saturate`.
+        Either way the closure and derivations are the same (the
+        adaptive controller counts a sparse round as one iteration)."""
+        from distel_tpu_torch.obs import trace as obs_trace
+
+        observable = hasattr(engine, "saturate_observed")
+        sp = obs_trace.active_span()
+        traced_rounds = (
+            self.config.obs_trace_rounds
+            and sp is not None
+            and sp.sampled  # an unsampled carrier records nothing
+            and observable
+        )
+        ledger_obs = None
+        if self.config.obs_ledger and observable:
+            from distel_tpu_torch.obs.ledger import rebuild_ledger_observer
+
+            ledger_obs = rebuild_ledger_observer(
+                self.config,
+                meta={
+                    "kind": "rebuild",
+                    "increment": self.increment,
+                    # n_classes keys the cost-model fit
+                    "n_classes": int(len(idx.original_classes)),
+                    "n_concepts": idx.n_concepts,
+                    "n_links": idx.n_links,
+                    "n_shards": 1,
+                },
+            )
+        if not (traced_rounds or ledger_obs is not None):
+            return engine.saturate(
+                self.config.max_iterations, initial=self._pop_state()
+            )
+        kw = {}
+        if ledger_obs is not None:
+            kw["observer"] = ledger_obs.observer
+            if isinstance(engine, RowPackedSaturationEngine):
+                # tier/density/dispatch telemetry: only the row-packed
+                # controller has the frontier hook
+                kw["frontier_observer"] = ledger_obs.frontier_observer
+        try:
+            result = engine.saturate_observed(
+                self.config.max_iterations, initial=self._pop_state(), **kw
+            )
+        except BaseException:
+            if ledger_obs is not None:
+                ledger_obs.close("error")
+                ledger_obs.ledger.close()
+            raise
+        if ledger_obs is not None:
+            ledger_obs.close(
+                "converged" if result.converged else "incomplete",
+                iterations=int(result.iterations),
+                derivations=int(result.derivations),
+            )
+            ledger_obs.ledger.close()
         return result
 
     def _delta_fast_path(self, idx) -> Optional[SaturationResult]:

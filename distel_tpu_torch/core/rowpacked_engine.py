@@ -64,11 +64,44 @@ What differs from the reference, and why:
 * Temporaries are sized against the device's memory (an 80 GB H100)
   rather than the 16 GB v5e the reference's thresholds were measured on
   — see ``core/engine.py``'s :func:`default_temp_budget`.
+
+**The observed fixed point** (:meth:`saturate_observed`) is the
+reference's: per-round observation, the adaptive dense/sparse
+controller with pipelined dense rounds (``sparse_tail=``,
+``pipeline=``), :class:`~distel_tpu_torch.runtime.instrumentation.
+FrontierStats` per round.  A dense round is ``unroll`` gated steps; its
+last fold also copies the changed-S row mask to the host, which the
+controller's density measure and the sparse tier read (the unobserved
+:meth:`saturate` copies only the flags).  A sparse round
+(:meth:`_sparse_exec`) runs the selected rule rows only, in the dense
+step's rule and write-group order, and contracts each write group's
+selected CR4/CR6 rows per row chunk, ``[k_selected, window] ⊙ R[window]``,
+through the packed-columns kernels; its writes go through
+``SegmentedRowOr`` with change tracking, so duplicate targets count
+their new bits once, as the reference's sequential writes do.  What
+differs from the reference's tier, and why:
+
+* The reference selects rows over its scanned slabs (uniform ``rk``-row
+  chunks; a row of a dropped span, or of a chunk with no live window,
+  is inert).  The port has no scanned slabs: a row's chunk is its row
+  chunk of this engine's plan, inert when dropped at build or left with
+  no live window by a rebind.  Where both engines plan one span per
+  rule, the counts (``rows_touched``, ``density``) are the reference's.
+* The tier runs on every plan (:meth:`_sparse_supported`).  The
+  reference's rides its scanned formulation, which its default
+  (``shape_buckets = true``) always builds; unbucketed and unscanned
+  (for instance 8k on its CPU backend) it takes the plain observed loop
+  instead, every round dense.
+* Capacity rungs compile nothing here; they keep their meaning: a
+  selection past the last rung overflows, and the round runs dense.
+* The reference's device-resident fused K-round window
+  (``fused_rounds.rounds > 1``) is not ported and raises.
 """
 
 from __future__ import annotations
 
 import time
+from collections import deque
 from dataclasses import dataclass
 from typing import List, NamedTuple, Optional, Tuple
 
@@ -87,9 +120,16 @@ from distel_tpu_torch.core.engine import (
     default_temp_budget,
     fresh_init_total,
     live_bits,
+    observed_loop,
+    popcount_rows,
 )
 from distel_tpu_torch.core.indexing import BOTTOM_ID, TOP_ID, IndexedOntology
 from distel_tpu_torch.ops.bitmatmul import PackedColsMatmulPlan
+from distel_tpu_torch.runtime.instrumentation import (
+    DISPATCH_EVENTS,
+    FRONTIER_EVENTS,
+    FrontierStats,
+)
 from distel_tpu_torch.ops.bitpack import (
     SegmentedRowOr,
     bit_lookup,
@@ -117,6 +157,19 @@ GATE_MAX_STATE_BYTES = 5 << 29
 #: up to this much packed state, 1 past it
 UNROLL2_MAX_STATE_BYTES = 9 << 29
 
+
+
+def bucket_dim(n: int, floor: int = 32) -> int:
+    """Smallest rung of the ladder ``floor * 2**k`` that is >= ``n``;
+    ``n <= 0`` maps to 0.  The ratio-2 family of
+    ``distel_tpu/core/program_cache.py``'s ``bucket_dim`` (the only one
+    the sparse tier's capacity rungs use), with the same rungs."""
+    if n <= 0:
+        return 0
+    rung = floor
+    while rung < n:
+        rung *= 2
+    return rung
 
 def _factored_closure_tables(h, nf4_roles, chain_roles):
     """``(m4, m6)``: ``h`` extended with one all-zero SENTINEL role row
@@ -182,6 +235,9 @@ class Frontier:
     fd6: np.ndarray          # [CR6 row tiles] same, per live-tile row tile
     cr5: bool                # R or the ⊥ row changed
     dirty_l_dev: torch.Tensor
+    #: [nc] the changed S rows — on the host only where the observed
+    #: controller asked for it (``carry``), else None
+    mask_s: Optional[np.ndarray] = None
 
 
 class RowPackedSaturationEngine:
@@ -210,6 +266,9 @@ class RowPackedSaturationEngine:
         min_links_pad: int = 0,
         link_window: Optional[Tuple[int, int]] = None,
         window_headroom: int = 0,
+        sparse_tail=None,
+        pipeline=None,
+        fused_rounds=None,
     ):
         """``rules``: subset of {"CR1".."CR6"} this engine applies (None
         = all).  ``cr6_tiles``: live-tile CR6 config (None = off; keys
@@ -234,7 +293,19 @@ class RowPackedSaturationEngine:
         takes the live-tile schedule whatever its density);
         ``window_headroom``: live-window slots reserved per CR4/CR6
         chunk (and link tiles per row tile) for
-        :meth:`rebind_role_closure`."""
+        :meth:`rebind_role_closure`.
+
+        The observed fixed point's knobs, with the reference's names,
+        keys and defaults: ``sparse_tail`` (None/False = off, True = the
+        defaults, or a dict of ``enable``, ``density_threshold``,
+        ``capacity_buckets``, ``hysteresis_rounds``,
+        ``capacity_floor``), ``pipeline`` (None = on at depth 2) and
+        ``fused_rounds`` (``rounds`` 1 only: the fused K-round window
+        is not ported).  Degenerate values raise here, not rounds into
+        a run."""
+        self._sparse_cfg = self._normalize_sparse_cfg(sparse_tail)
+        self._pipeline_cfg = self._normalize_pipeline_cfg(pipeline)
+        self._normalize_fused_cfg(fused_rounds)
         if rules is not None:
             unknown = set(rules) - {f"CR{i}" for i in range(1, 7)}
             if unknown:
@@ -284,6 +355,9 @@ class RowPackedSaturationEngine:
         self._p2, self._src2a, self._src2b = rule_plan(nf2, 2, (0, 1))
         nf3 = idx.nf3 if on("CR3") else empty2
         self._p3, self._src3 = rule_plan(nf3, 1, (0,))
+        # raw (unpermuted) CR1-CR3 tables: the sparse tier selects rows
+        # against these
+        self._sp_nf1, self._sp_nf2, self._sp_nf3 = nf1, nf2, nf3
         # word-block sweep: each of CR1-CR3 is column-local (word w of a
         # target row depends only on word w of its sources), so blocks of
         # bw words bound the gathered [k, bw] temporaries
@@ -498,21 +572,24 @@ class RowPackedSaturationEngine:
 
         # ---- frontier reductions: per chunk, which frontier entries its
         # bit table reads (CSR: entry ids and their chunk), reduced on
-        # the device so the host copy stays n_chunks + n_lchunks flags
+        # the device so the host copy stays n_chunks + n_lchunks flags;
+        # the host copies serve :meth:`_frontier_from_host`
         def csr(sets):
             ids = [np.asarray(s, np.int64) for s in sets]
             seg = [np.full(len(s), i, np.int64) for i, s in enumerate(ids)]
             cat = np.concatenate(ids) if ids else np.zeros(0, np.int64)
             segs = np.concatenate(seg) if seg else np.zeros(0, np.int64)
-            return i64(cat), i64(segs)
+            return cat, segs
 
-        self._f4_csr = csr(
+        self._f4_np = csr(
             np.unique(idx.nf4[a0:a1, 1]) for a0, a1, _w in kept4
         )
-        self._f6_csr = csr(
+        self._f6_np = csr(
             np.unique(idx.chain_pairs[a0:a1, 1] // lc)
             for a0, a1, _w in (kept6 if self._chunks6 else ())
         )
+        self._f4_csr = tuple(i64(a) for a in self._f4_np)
+        self._f6_csr = tuple(i64(a) for a in self._f6_np)
         n_rt = self._tiles6.n_rt if self._tiles6 is not None else 0
         self._flag_sizes = (
             self.n_lchunks, len(self._chunks4), len(self._chunks6), n_rt,
@@ -525,6 +602,9 @@ class RowPackedSaturationEngine:
         if rem:
             wmask[full] = (1 << rem) - 1
         self._wmask = torch.as_tensor(wmask.view(np.int32)).to(dev)
+        self._build_sparse_tables(m4, m6, kept4, kept6)
+        #: per-round :class:`FrontierStats` of the last observed run
+        self.frontier_rounds: list = []
         #: per-rule wall seconds accumulated by :meth:`saturate` when
         #: ``profile=True`` (synchronised timings, for breakdowns only)
         self.rule_seconds: dict = {}
@@ -658,6 +738,191 @@ class RowPackedSaturationEngine:
         if cfg["tile_m"] < 1 or cfg["tile_l"] < 1:
             raise ValueError(f"cr6_tiles tile sizes must be >= 1: {cfg}")
         return cfg
+
+    # ------------------------------------------- observed-loop configs
+
+    _SPARSE_DEFAULTS = {
+        "enable": True,
+        "density_threshold": 0.05,
+        "capacity_buckets": 8,
+        "hysteresis_rounds": 2,
+        "capacity_floor": 64,
+    }
+
+    @classmethod
+    def _normalize_sparse_cfg(cls, raw) -> Optional[dict]:
+        if not raw:
+            return None
+        cfg = dict(cls._SPARSE_DEFAULTS)
+        if raw is not True:
+            unknown = set(raw) - set(cfg)
+            if unknown:
+                raise ValueError(
+                    f"unknown sparse_tail keys: {sorted(unknown)}"
+                )
+            cfg.update(raw)
+        if not cfg["enable"]:
+            return None
+        # reject degenerate values at load, not rounds deep into a run:
+        # capacity_buckets < 1 would shift by a negative count in
+        # _sparse_rung, capacity_floor < 1 breaks the rung ladder, and
+        # hysteresis < 1 silently means "always eligible"
+        if int(cfg["capacity_buckets"]) < 1 or int(cfg["capacity_floor"]) < 1:
+            raise ValueError(
+                "sparse_tail capacity_buckets and capacity_floor must "
+                f"be >= 1 (got {cfg['capacity_buckets']!r}, "
+                f"{cfg['capacity_floor']!r})"
+            )
+        if int(cfg["hysteresis_rounds"]) < 1:
+            raise ValueError(
+                "sparse_tail hysteresis_rounds must be >= 1 "
+                f"(got {cfg['hysteresis_rounds']!r})"
+            )
+        return cfg
+
+    _PIPELINE_DEFAULTS = {"enable": True, "depth": 2}
+
+    @classmethod
+    def _normalize_pipeline_cfg(cls, raw) -> dict:
+        """Resolved pipelined-observation config.  Unlike
+        ``sparse_tail`` (where None means off), None means the
+        DEFAULTS — pipelining replays the synchronous loop's rounds
+        with only the host fetch deferred, so it is safe on by
+        default.  ``False`` / ``{"enable": False}`` / depth 1 restore
+        the strictly synchronous loop."""
+        cfg = dict(cls._PIPELINE_DEFAULTS)
+        if raw is None or raw is True:
+            return cfg
+        if raw is False:
+            cfg["enable"] = False
+            return cfg
+        unknown = set(raw) - set(cfg)
+        if unknown:
+            raise ValueError(f"unknown pipeline keys: {sorted(unknown)}")
+        cfg.update(raw)
+        if int(cfg["depth"]) < 1:
+            raise ValueError(
+                f"pipeline depth must be >= 1 (got {cfg['depth']!r})"
+            )
+        cfg["depth"] = int(cfg["depth"])
+        cfg["enable"] = bool(cfg["enable"])
+        return cfg
+
+    _FUSED_DEFAULTS = {"enable": True, "rounds": 1, "adaptive": False}
+
+    @classmethod
+    def _normalize_fused_cfg(cls, raw) -> Optional[dict]:
+        """The reference's fused-rounds config, parsed as it parses it
+        (None/True = the defaults, K = 1: the per-round controllers).
+        K > 1 moves the round loop into one device dispatch in the
+        reference; the port has no such window and raises."""
+        if raw is None or raw is True:
+            return dict(cls._FUSED_DEFAULTS)
+        if raw is False:
+            return None
+        cfg = dict(cls._FUSED_DEFAULTS)
+        unknown = set(raw) - set(cfg)
+        if unknown:
+            raise ValueError(f"unknown fused_rounds keys: {sorted(unknown)}")
+        cfg.update(raw)
+        if not cfg["enable"]:
+            return None
+        if int(cfg["rounds"]) < 1:
+            raise ValueError(
+                f"fused_rounds rounds must be >= 1 (got {cfg['rounds']!r})"
+            )
+        if int(cfg["rounds"]) > 1:
+            raise ValueError(
+                f"fused_rounds rounds = {cfg['rounds']}: the device-resident "
+                "fused K-round window is not ported to distel_tpu_torch "
+                "(rounds = 1 runs the per-round controller)"
+            )
+        cfg["rounds"] = 1
+        cfg["adaptive"] = bool(cfg["adaptive"])
+        return cfg
+
+    # ------------------------------------------- the sparse tier's tables
+
+    def _build_sparse_tables(self, m4, m6, kept4, kept6) -> None:
+        """Host copies the sparse tier's per-round selection reads: the
+        factored masks as bool, which roles each L-chunk carries (dirty
+        chunks -> dirty roles -> rows whose masks cover one), each
+        table's row activity with every L-chunk dirty, and per CR4/CR6
+        table its rows' chunks, the chunks' live windows and its write
+        groups (:meth:`_sparse_rule`).  :meth:`rebind_role_closure`
+        refreshes the closure-dependent ones."""
+        idx = self.idx
+        self._m4_full = m4.astype(bool)
+        self._m6_full = m6.astype(bool)
+        self._chunk_roles_np = np.zeros(
+            (self.n_lchunks, m4.shape[1]), bool
+        )
+        self._chunk_roles_np[
+            np.arange(self.nl) // self.lc, self._link_roles_np
+        ] = True
+        self._max_dirty_roles = self._chunk_roles_np.any(axis=0)
+        self._m4_any = (self._m4_full & self._max_dirty_roles).any(axis=1)
+        self._m6_any = (self._m6_full & self._max_dirty_roles).any(axis=1)
+        #: density denominator of the controller: the rule-table rows a
+        #: fully dirty round re-evaluates
+        self._sp_total_rows = (
+            len(self._sp_nf1) + len(self._sp_nf2) + len(self._sp_nf3)
+            + (len(idx.nf4) if self._has4 else 0)
+            + (len(idx.chain_pairs) if self._has6 else 0)
+            + (1 if self._bottom else 0)
+        )
+        self._a4 = idx.nf4[:, 1] if self._has4 else None
+        self._l26 = idx.chain_pairs[:, 1] if self._has6 else None
+        self._sp4 = self._sparse_rule(idx.nf4, kept4, None) if self._has4 else None
+        groups6 = None
+        if self._tiles6 is not None:
+            # the live-tile CR6 writes per tile group: the sparse tier
+            # keeps the dense step's write groups
+            groups6 = [self._tiles6.spans[g[0]][0] for g in self._tiles6.groups]
+        self._sp6 = (
+            self._sparse_rule(idx.chain_pairs, kept6, groups6)
+            if self._has6 else None
+        )
+
+    @staticmethod
+    def _sparse_rule(tab, kept, group_starts) -> Optional[dict]:
+        """One CR4/CR6 table's sparse structure: ``chunk_of`` [rows]
+        (the row chunk of each table row, -1 for a span dropped at
+        build), each chunk's live windows, and the write groups as
+        their first table rows (None = one group a chunk, the window
+        formulation's order).  None when every span was dropped."""
+        if not kept:
+            return None
+        chunk_of = np.full(len(tab), -1, np.int64)
+        for i, (a0, a1, _w) in enumerate(kept):
+            chunk_of[a0:a1] = i
+        if group_starts is None:
+            group_starts = [a0 for a0, _a1, _w in kept]
+        return {
+            "tab": tab,
+            "chunk_of": chunk_of,
+            "windows": [list(w) for _a0, _a1, w in kept],
+            "group_starts": np.asarray(group_starts, np.int64),
+        }
+
+    def _sparse_supported(self) -> bool:
+        """The tier runs on every plan of the port (see the module
+        docstring: the reference's restriction to its scanned
+        formulation comes from its slabs, which its default
+        bucketed config always builds)."""
+        return True
+
+    @staticmethod
+    def _sparse_rung(cfg: dict, n: int, floor: int) -> Optional[int]:
+        """Smallest workspace rung >= ``n`` on the power-of-two family
+        of the program-cache ladder (:func:`bucket_dim`, ratio 2), or
+        None when ``n`` overflows the largest of the
+        ``capacity_buckets`` configured rungs — the caller then runs the
+        dense step for the round."""
+        rung = bucket_dim(max(int(n), 1), floor=floor)
+        if rung > floor << (int(cfg["capacity_buckets"]) - 1):
+            return None
+        return rung
 
     # ------------------------------------------------------------- state
 
@@ -927,10 +1192,9 @@ class RowPackedSaturationEngine:
             cv = plan.write(rp, plan.reduce(out[order]), track="rows")
             r_cvs.append((plan.device_targets(rp.device), cv))
 
-    def _cr5(self, sp, rp, s_cvs):
-        """⊥ back-propagation: OR of the R rows whose filler is
-        unsatisfiable, into the ⊥ row (in row blocks, so the masked copy
-        stays bounded)."""
+    def _cr5_reduce(self, sp, rp) -> torch.Tensor:
+        """The OR of the R rows whose filler is unsatisfiable [wc] (in
+        row blocks, so the masked copy stays bounded)."""
         botf = bit_lookup(
             sp, np.full(1, BOTTOM_ID), self._fillers, dtype=torch.bool
         )[:, 0]                                            # [nl]
@@ -939,6 +1203,12 @@ class RowPackedSaturationEngine:
         for i in range(0, self.nl, blk):
             masked = torch.where(botf[i : i + blk, None], rp[i : i + blk], 0)
             red |= or_reduce_any(masked, 0)
+        return red
+
+    def _cr5(self, sp, rp, s_cvs):
+        """⊥ back-propagation: OR of the R rows whose filler is
+        unsatisfiable, into the ⊥ row."""
+        red = self._cr5_reduce(sp, rp)
         old = sp[BOTTOM_ID].clone()
         sp[BOTTOM_ID] |= red
         s_cvs.append((
@@ -946,12 +1216,13 @@ class RowPackedSaturationEngine:
             (sp[BOTTOM_ID] != old).any()[None],
         ))
 
-    def _fold(self, s_cvs, r_cvs) -> Frontier:
+    def _fold(self, s_cvs, r_cvs, carry: bool = False) -> Frontier:
         """The next step's frontier from this step's change vectors: one
         indexed OR a state matrix (targets are unique within a writer,
         and the order of writers does not matter for an OR), the per-
         chunk reductions on the device, and one copy of every flag to
-        the host."""
+        the host — with ``carry``, of the changed-S row mask too (the
+        observed controller's host frontier)."""
         dev = self.device
 
         def mask(cvs, n):
@@ -984,19 +1255,49 @@ class RowPackedSaturationEngine:
         if n_rt:
             parts.append(dl_ext[self._t6["fdx"]].any(dim=1))
         parts.append((any_r | mask_s[BOTTOM_ID])[None])
+        if carry:
+            parts.append(mask_s)
         flags = torch.cat(parts).cpu().numpy()
-        o = np.cumsum([1, n_l, n4, n6, n_rt])
+        o = np.cumsum([1, n_l, n4, n6, n_rt, 1])
         return Frontier(
             bool(flags[0]), flags[o[0]:o[1]], flags[o[1]:o[2]],
             flags[o[2]:o[3]], flags[o[3]:o[4]], bool(flags[o[4]]), dl_ext,
+            flags[o[5]:] if carry else None,
+        )
+
+    def _frontier_from_host(self, s_chg: np.ndarray,
+                            dirty_l: np.ndarray) -> Frontier:
+        """The inverse of :meth:`_fold`: the frontier a step would read
+        after a step whose changed-S rows are ``s_chg`` and whose dirty
+        L-chunks are ``dirty_l`` — the controller's entry into a dense
+        round after sparse rounds (the counterpart of the reference's
+        ``_host_gate_flags``)."""
+        def per_chunk(src, csr, n):
+            ids, seg = csr
+            return np.bincount(seg, weights=src[ids], minlength=n) > 0
+
+        n_l, n4, n6, n_rt = self._flag_sizes
+        any_r = bool(dirty_l.any())
+        dl_ext = np.r_[dirty_l, False]
+        fd6 = (
+            dl_ext[self._tiles6.fdx].any(axis=1) if n_rt
+            else np.zeros(0, bool)
+        )
+        return Frontier(
+            bool(s_chg.any()) or any_r, np.asarray(dirty_l, bool),
+            per_chunk(s_chg, self._f4_np, n4),
+            per_chunk(dirty_l, self._f6_np, n6), fd6,
+            any_r or bool(s_chg[BOTTOM_ID]),
+            torch.as_tensor(dl_ext).to(self.device),
+            np.asarray(s_chg, bool),
         )
 
     def step(self, sp: torch.Tensor, rp: torch.Tensor,
-             frontier: Optional[Frontier] = None):
+             frontier: Optional[Frontier] = None, carry: bool = False):
         """One superstep, in place: CR1, CR2, CR3, CR4, CR6, CR5, gated
         on ``frontier`` (None = everything dirty, as on a first step).
         Returns ``(sp, rp, frontier_next)``; ``frontier_next.changed``
-        says whether any bit changed."""
+        says whether any bit changed (``carry``: see :meth:`_fold`)."""
         fr = self.initial_frontier() if frontier is None else frontier
         s_cvs, r_cvs = [], []
         rnd = {"cr4": [0, 0], "cr6": [0, 0], "cr6_tiles": [0, 0], "cr5": None}
@@ -1013,11 +1314,255 @@ class RowPackedSaturationEngine:
             rnd["cr5"] = run
             if run:
                 self._timed("cr5", self._cr5, sp, rp, s_cvs)
-        nxt = self._timed("read", self._fold, s_cvs, r_cvs)
+        nxt = self._timed("read", self._fold, s_cvs, r_cvs, carry)
         self.gate_rounds.append(rnd)
         return sp, rp, nxt
 
     _profile = False
+
+    # ------------------------------------------------- the sparse tier
+
+    def _sparse_round_plan(self, cfg, s_chg, dirty_l, any_r):
+        """Host-side measure + active-set selection for one round.
+        Returns ``(rows_touched, density, measure, overflow)``;
+        ``measure`` holds the selected row sets and is None on workspace
+        overflow (``overflow`` True) — the round then runs dense, never
+        dropping work.
+
+        Selection replicates the dense step's gating, extended with its
+        intra-step cascade: CR1 selects on the previous round's
+        changed-S mask (dense CR1 reads pre-step S); CR2 also covers
+        readers of active CR1 targets (dense CR2 reads S after CR1's
+        writes); CR3 covers CR1/CR2 targets likewise.  CR4/CR6 select at
+        ROW granularity: a row is active iff its bit-table source row
+        changed (CR4: the S row ``a4[j]``; CR6: the L-chunk of R row
+        ``l2[p]``) or its factored mask covers a role present in a
+        dirty L-chunk — rows outside that set contribute nothing new
+        even in the dense step, so per-round derivations stay those of
+        a dense-only run.  Rows of chunks dropped at build, or left
+        with no live window, are inert and excluded."""
+        nf1, nf2, nf3 = self._sp_nf1, self._sp_nf2, self._sp_nf3
+        empty = np.zeros(0, np.int64)
+        act1 = np.flatnonzero(s_chg[nf1[:, 0]]) if len(nf1) else empty
+        s1 = s_chg
+        if act1.size:
+            s1 = s_chg.copy()
+            s1[nf1[act1, 1]] = True
+        act2 = (
+            np.flatnonzero(s1[nf2[:, 0]] | s1[nf2[:, 1]])
+            if len(nf2)
+            else empty
+        )
+        s2 = s1
+        if act2.size:
+            s2 = s1.copy() if s1 is s_chg else s1
+            s2[nf2[act2, 2]] = True
+        act3 = np.flatnonzero(s2[nf3[:, 0]]) if len(nf3) else empty
+
+        # dirty chunks -> dirty roles: the role-granular over-
+        # approximation of "some link this row's mask covers changed"
+        dirty_roles = self._chunk_roles_np[dirty_l].any(axis=0)
+
+        def row_act(d, mask_tab, mask_any, fd_rows):
+            if np.array_equal(dirty_roles, self._max_dirty_roles):
+                masked = mask_any
+            else:
+                masked = (mask_tab & dirty_roles).any(axis=1)
+            ch = d["chunk_of"]
+            has_win = np.asarray([len(w) > 0 for w in d["windows"]], bool)
+            ok = (ch >= 0) & has_win[np.clip(ch, 0, None)]
+            return np.flatnonzero((fd_rows | masked) & ok)
+
+        act4 = act6 = empty
+        fd4 = fd6 = None
+        if self._sp4 is not None:
+            fd4 = s_chg[self._a4]
+            act4 = row_act(self._sp4, self._m4_full, self._m4_any, fd4)
+        if self._sp6 is not None:
+            fd6 = dirty_l[self._l26 // self.lc]
+            act6 = row_act(self._sp6, self._m6_full, self._m6_any, fd6)
+        run5 = bool(self._bottom and (any_r or s_chg[BOTTOM_ID]))
+        rows_touched = int(
+            act1.size + act2.size + act3.size + act4.size + act6.size
+            + (1 if run5 else 0)
+        )
+        density = rows_touched / max(self._sp_total_rows, 1)
+        floor = cfg["capacity_floor"]
+        c123 = self._sparse_rung(
+            cfg, max(act1.size, act2.size, act3.size), floor
+        )
+        a4 = self._sparse_rung(cfg, act4.size, floor) if act4.size else 0
+        a6 = self._sparse_rung(cfg, act6.size, floor) if act6.size else 0
+        if c123 is None or a4 is None or a6 is None:
+            return rows_touched, density, None, True
+        measure = {
+            "act1": act1, "act2": act2, "act3": act3,
+            "act4": act4, "act6": act6, "fd4": fd4, "fd6": fd6,
+            "run5": run5, "key": (c123, a4, a6),
+        }
+        return rows_touched, density, measure, False
+
+    def _sparse_write(self, state, plan, red, cols, mvec):
+        """OR the reduced rows ``red`` into ``state[targets, cols]`` in
+        place, mark the rows that gained a bit in ``mvec`` and return
+        the count of live-column bits gained (a 0-d tensor on the
+        device)."""
+        t = plan.device_targets(state.device)
+        old = state[t, cols]
+        merged = old | red
+        state[t, cols] = merged
+        gained = merged ^ old
+        mvec[t] |= (gained != 0).any(dim=1)
+        return popcount_rows(gained, self._wmask[cols]).sum()
+
+    def _sparse_contract(self, d, rows, fd_rows, mask_tab, bits_state,
+                         rp, dl, plans):
+        """The selected rows ``rows`` (one row chunk of ``d``) against
+        that chunk's live windows: ``[k, window] ⊙ R[window]``, ORed
+        over the windows, through the packed-columns plans.  A window
+        is live for every row when an L-chunk it overlaps is dirty, else
+        only for the rows whose source changed (``fd_rows``), the
+        reference's per-row liveness.  None when no window is live."""
+        tab = d["tab"]
+        k = len(rows)
+        dev = self.device
+        subt = acc = live_dev = mask = None
+        for off, end, c0, c1 in d["windows"][int(d["chunk_of"][rows[0]])]:
+            all_live = bool(dl[c0] or dl[c1])
+            if not all_live and not fd_rows.any():
+                continue
+            if subt is None:
+                src = torch.as_tensor(tab[rows, 1]).to(dev)
+                subt = bits_state[src].T.contiguous()      # [wc, k]
+                mask = torch.as_tensor(
+                    mask_tab[rows].view(np.int8)
+                ).to(dev)                                  # [k, roles+1]
+            f = bit_lookup_from(
+                subt, self._fillers[off:end], dtype=torch.int8
+            )                                              # [l, k]
+            w = mask[:, self._link_roles[off:end]] * f.T
+            if not all_live:
+                if live_dev is None:
+                    live_dev = torch.as_tensor(
+                        fd_rows.astype(np.int8)
+                    ).to(dev)
+                w = w * live_dev[:, None]
+            key = (k, end - off)
+            if key not in plans:
+                plans[key] = PackedColsMatmulPlan(
+                    k, end - off, self.wc,
+                    temp_budget_bytes=self.temp_budget_bytes,
+                )
+            acc = plans[key](w.contiguous(), rp[off:end], out=acc)
+        return acc
+
+    def _sparse_rule_pass(self, d, act, fd, mask_tab, bits_state, rp,
+                          target, mvec, dl):
+        """One CR4/CR6 rule over its selected rows ``act`` (ascending
+        table rows), in the dense step's write-group order: per group,
+        each row chunk's selected rows contract (reading the state the
+        earlier groups left), then one seg-OR write of the group.
+        Returns the live bits gained (device 0-d) or None."""
+        if not act.size:
+            return None
+        tab = d["tab"]
+        gid = np.searchsorted(d["group_starts"], act, side="right") - 1
+        cut = np.flatnonzero(np.r_[True, gid[1:] != gid[:-1], True])
+        plans: dict = {}
+        delta = None
+        for g0, g1 in zip(cut[:-1], cut[1:]):
+            rows_g = act[g0:g1]
+            fd_g = fd[rows_g]
+            ch = d["chunk_of"][rows_g]
+            ccut = np.flatnonzero(np.r_[True, ch[1:] != ch[:-1], True])
+            outs, tgts = [], []
+            for c0, c1 in zip(ccut[:-1], ccut[1:]):
+                out = self._sparse_contract(
+                    d, rows_g[c0:c1], fd_g[c0:c1], mask_tab, bits_state,
+                    rp, dl, plans,
+                )
+                if out is not None:
+                    outs.append(out)
+                    tgts.append(tab[rows_g[c0:c1], 2])
+            if not outs:
+                continue
+            plan = SegmentedRowOr(np.concatenate(tgts))
+            out = torch.cat(outs) if len(outs) > 1 else outs[0]
+            order = torch.as_tensor(plan.order).to(self.device)
+            dd = self._sparse_write(
+                target, plan, plan.reduce(out[order]), slice(None), mvec
+            )
+            delta = dd if delta is None else delta + dd
+        return delta
+
+    def _sparse_exec(self, sp, rp, measure, dirty_l):
+        """One frontier-compacted superstep, in place — the counterpart
+        of the reference's ``_sparse_exec``.  Rule order and read/write
+        structure mirror :meth:`step`: CR1 → CR2 → CR3 over the
+        compacted rows (word blocks, each rule gathering before its
+        writes), CR4 then CR6 over the selected rows in the dense
+        step's write-group order, CR5 when its inputs changed
+        (``run5``).  Returns ``(changed, delta_bits, mask_s, any_r,
+        dirty_l_next)`` on the host, from one read of the round's fold;
+        ``delta_bits`` counts new live-column bits, so sparse rounds
+        skip the full live-bits sweep."""
+        dev = self.device
+        mask_s = torch.zeros(self.nc, dtype=torch.bool, device=dev)
+        mask_r = torch.zeros(self._grid_end, dtype=torch.bool, device=dev)
+        deltas = []
+
+        def i64(a):
+            return torch.as_tensor(np.asarray(a, np.int64)).to(dev)
+
+        row_rules = []
+        for tab, act, tgt_col, src_cols, state, mvec in (
+            (self._sp_nf1, measure["act1"], 1, (0,), sp, mask_s),
+            (self._sp_nf2, measure["act2"], 2, (0, 1), sp, mask_s),
+            (self._sp_nf3, measure["act3"], 1, (0,), rp, mask_r),
+        ):
+            if act.size:
+                plan = SegmentedRowOr(tab[act, tgt_col])
+                srcs = [i64(tab[act[plan.order], c]) for c in src_cols]
+                row_rules.append((plan, srcs, state, mvec))
+        if row_rules:
+            emission = max(p.k * len(srcs) for p, srcs, _s, _m in row_rules)
+            bw = max(min(self.temp_budget_bytes // (4 * emission), self.wc), 1)
+            for off in range(0, self.wc, bw):
+                blk = slice(off, min(off + bw, self.wc))
+                for plan, srcs, state, mvec in row_rules:
+                    g = sp[srcs[0], blk]
+                    if len(srcs) == 2:
+                        g = g & sp[srcs[1], blk]
+                    deltas.append(self._sparse_write(
+                        state, plan, plan.reduce(g), blk, mvec
+                    ))
+        dl = dirty_l
+        if self._sp4 is not None:
+            deltas.append(self._sparse_rule_pass(
+                self._sp4, measure["act4"], measure["fd4"], self._m4_full,
+                sp, rp, sp, mask_s, dl,
+            ))
+        if self._sp6 is not None:
+            deltas.append(self._sparse_rule_pass(
+                self._sp6, measure["act6"], measure["fd6"], self._m6_full,
+                rp, rp, rp, mask_r, dl,
+            ))
+        if self._bottom and measure["run5"]:
+            red = self._cr5_reduce(sp, rp)[None]
+            one = SegmentedRowOr(np.full(1, BOTTOM_ID))
+            deltas.append(self._sparse_write(sp, one, red, slice(None), mask_s))
+        deltas = [x for x in deltas if x is not None]
+        delta = (
+            torch.stack(deltas).sum() if deltas
+            else torch.zeros((), dtype=torch.int64, device=dev)
+        )
+        dirty_next = mask_r.view(self.n_lchunks, self.lc).any(dim=1)
+        flags = torch.cat([mask_s, dirty_next]).cpu().numpy()
+        s_chg, dl_next = flags[: self.nc], flags[self.nc:]
+        any_r = bool(dl_next.any())
+        changed = bool(s_chg.any()) or any_r
+        return changed, int(delta), s_chg, any_r, dl_next
+
 
     def rebind_role_closure(self, new_closure) -> bool:
         """Swap in a grown role closure: the factored masks, each
@@ -1097,6 +1642,16 @@ class RowPackedSaturationEngine:
             self._tiles6 = tiles6
             self._t6 = self._tile_tables(tiles6, m6, mm=self._t6["mm"])
             self.cr6_tiles_stats = dict(self.cr6_tiles_stats, **tiles6.stats)
+        # the sparse tier's host selection reads the factored masks and
+        # each chunk's live windows: refresh them under the grown closure
+        # (chunk -> role coverage is closure-independent and stays put)
+        self._m4_full = m4.astype(bool)
+        self._m6_full = m6.astype(bool)
+        self._m4_any = (self._m4_full & self._max_dirty_roles).any(axis=1)
+        self._m6_any = (self._m6_full & self._max_dirty_roles).any(axis=1)
+        for d, key in ((self._sp4, "cr4"), (self._sp6, "cr6")):
+            if d is not None:
+                d["windows"] = [list(w) for _a0, _a1, w in windows[key]]
         self.idx = dataclasses.replace(idx, role_closure=h_new)
         return True
 
@@ -1157,6 +1712,331 @@ class RowPackedSaturationEngine:
             packed_s=sp,
             packed_r=rp,
             iterations=it,
+            derivations=total - init_total,
+            idx=self.idx,
+            converged=converged,
+        )
+
+    # ------------------------------------------------ observed fixed point
+
+    def _observe_round(self, sp, rp, fr):
+        """One dense round of the observed loops: ``unroll`` gated
+        steps in place, the last one folding the host carry.  Returns
+        ``(sp, rp, changed, live_bits, frontier)`` with host values."""
+        changed = False
+        for i in range(self.unroll):
+            sp, rp, fr = self.step(sp, rp, fr, carry=i == self.unroll - 1)
+            changed |= fr.changed
+        return sp, rp, changed, self.count_live_bits(sp, rp), fr
+
+    def _saturate_adaptive(
+        self, cfg, sp, rp, init_total, budget, observer, state_observer,
+        frontier_observer, pipeline_depth: int = 1,
+    ):
+        """The dense/sparse controller loop, with pipelined dense rounds
+        — the reference's ``_saturate_adaptive``, bookkeeping and all.
+        Per retired round: measure density from the frontier the round
+        consumed, track hysteresis, and pick the tier — dense (the
+        regular ``unroll``-step round) above ``density_threshold`` or on
+        workspace overflow; sparse (one frontier-compacted superstep,
+        :meth:`_sparse_exec`) once ``hysteresis_rounds`` consecutive
+        rounds measured below it (switching back is immediate).  The
+        host carries the full frontier (changed-S mask, per-L-chunk
+        dirty flags), so the tiers interleave freely; sparse rounds
+        return the fold directly plus a live-bit delta.
+
+        While nothing suggests a tier switch the controller keeps up to
+        ``pipeline_depth`` dense rounds in flight, each chained on the
+        previous round's state and frontier and run when it is
+        dispatched; each retire replays the synchronous controller's
+        pre-round measure (the host copies hold the PREVIOUS round's
+        frontier, because retires happen in dispatch order), so
+        per-round records match the synchronous controller's.  Sparse rounds need the host
+        selection, so the pipeline drains before any tier switch: the
+        decision acts on a frontier stale by at most the depth, which
+        can delay a switch by up to depth-1 rounds and never changes
+        what a round derives.  On convergence the ≤depth-1
+        speculatively dispatched extra rounds are fixed-point no-ops:
+        dropped unretired, outside the iteration/derivation accounting.
+        A ``state_observer`` forces depth 1 (it reads the live state,
+        which a speculative round would be rewriting in place)."""
+        depth = max(int(pipeline_depth), 1)
+        if state_observer is not None:
+            depth = 1
+        s_chg = np.ones(self.nc, bool)
+        dirty_l = np.ones(self.n_lchunks, bool)
+        any_r = True
+        carry = self.initial_frontier()
+        below = 0
+        iteration, total, converged = 0, init_total, False
+        dispatched = 0
+        pending = deque()  # in-flight dense rounds, oldest first
+        self.frontier_rounds = []
+
+        def finish_round(st, changed):
+            nonlocal converged
+            FRONTIER_EVENTS.record(st)
+            self.frontier_rounds.append(st)
+            if frontier_observer is not None:
+                frontier_observer(st)
+            if observer is not None:
+                observer(st.iteration, total - init_total, changed)
+            if state_observer is not None:
+                state_observer(
+                    st.iteration, total - init_total, changed, sp, rp
+                )
+            if not changed:
+                converged = True
+
+        def dispatch_dense(plan):
+            """Run and enqueue one dense round, chained on the newest
+            in-flight round's frontier (on the host carry when none is
+            in flight); ``plan`` is the pre-measured ``(rows_touched,
+            density, overflow)`` when dispatched from the synchronous
+            decision point, None when speculative (measured at retire
+            instead)."""
+            nonlocal sp, rp, dispatched
+            t0 = time.perf_counter()
+            fr = pending[-1]["out"][2] if pending else carry
+            sp, rp, ch, bits, fr_next = self._observe_round(sp, rp, fr)
+            dispatched += self.unroll
+            DISPATCH_EVENTS.record_dense()
+            pending.append({
+                "out": (ch, bits, fr_next),
+                "iteration": dispatched,
+                "dispatch_s": time.perf_counter() - t0,
+                "inflight": len(pending),
+                "plan": plan,
+            })
+
+        def retire_dense():
+            """Retire the oldest in-flight dense round: replay the
+            synchronous pre-round measure if it was dispatched
+            speculatively, and fold its frontier into the host
+            copies."""
+            nonlocal total, below, iteration, carry, dirty_l, s_chg, any_r
+            ent = pending.popleft()
+            if ent["plan"] is None:
+                rows_touched, density, measure, over = (
+                    self._sparse_round_plan(cfg, s_chg, dirty_l, any_r)
+                )
+                if density < cfg["density_threshold"]:
+                    below += 1
+                else:
+                    below = 0
+                over = bool(
+                    below >= cfg["hysteresis_rounds"]
+                    and measure is None and over
+                )
+            else:
+                rows_touched, density, over = ent["plan"]
+            t1 = time.perf_counter()
+            ch, bits, fr = ent["out"]
+            retire_s = time.perf_counter() - t1
+            prev_total = total
+            total = int(bits)
+            carry = fr
+            dirty_l = fr.dirty_l
+            s_chg = fr.mask_s
+            any_r = bool(dirty_l.any())
+            iteration = ent["iteration"]
+            finish_round(
+                FrontierStats(
+                    iteration=iteration,
+                    tier="dense",
+                    density=float(density),
+                    rows_touched=rows_touched,
+                    total_rows=self._sp_total_rows,
+                    derivations=total - prev_total,
+                    overflow=bool(over),
+                    wall_s=ent["dispatch_s"] + retire_s,
+                    dispatch_s=ent["dispatch_s"],
+                    retire_s=retire_s,
+                    inflight=ent["inflight"],
+                ),
+                bool(ch),
+            )
+
+        while True:
+            if converged:
+                break  # drop any still-speculative in-flight rounds
+            if pending:
+                # speculative regime: while nothing suggests a tier
+                # switch, keep the queue full with dense rounds
+                # chained on the previous round; otherwise retire
+                # toward the next synchronous decision point
+                if (
+                    below < cfg["hysteresis_rounds"]
+                    and dispatched < budget
+                    and len(pending) < depth
+                ):
+                    dispatch_dense(None)
+                else:
+                    retire_dense()
+                continue
+            if iteration >= budget:
+                break
+            # ---- pipeline drained: the synchronous decision point
+            t0 = time.perf_counter()
+            prev_total = total
+            rows_touched, density, measure, over = self._sparse_round_plan(
+                cfg, s_chg, dirty_l, any_r
+            )
+            if density < cfg["density_threshold"]:
+                below += 1
+            else:
+                below = 0
+            want_sparse = (
+                iteration > 0 and below >= cfg["hysteresis_rounds"]
+            )
+            use_sparse = want_sparse and measure is not None
+            if rows_touched == 0:
+                # empty frontier: either tier's step derives nothing
+                # — emit the final no-change round without one
+                iteration += 1
+                dispatched = iteration
+                finish_round(
+                    FrontierStats(
+                        iteration=iteration,
+                        tier="idle",
+                        density=float(density),
+                        rows_touched=rows_touched,
+                        total_rows=self._sp_total_rows,
+                        derivations=0,
+                        overflow=False,
+                        wall_s=time.perf_counter() - t0,
+                    ),
+                    False,
+                )
+            elif use_sparse:
+                DISPATCH_EVENTS.record_sparse()
+                ch, delta, s_chg, any_r, dirty_l = self._sparse_exec(
+                    sp, rp, measure, dirty_l
+                )
+                total += delta
+                carry = self._frontier_from_host(s_chg, dirty_l)
+                iteration += 1
+                dispatched = iteration
+                finish_round(
+                    FrontierStats(
+                        iteration=iteration,
+                        tier="sparse",
+                        density=float(density),
+                        rows_touched=rows_touched,
+                        total_rows=self._sp_total_rows,
+                        derivations=total - prev_total,
+                        overflow=False,
+                        wall_s=time.perf_counter() - t0,
+                    ),
+                    bool(ch),
+                )
+            else:
+                dispatch_dense((
+                    rows_touched, density,
+                    bool(want_sparse and measure is None and over),
+                ))
+        return sp, rp, iteration, total, converged
+
+    def saturate_observed(
+        self,
+        max_iters: int = 10_000,
+        *,
+        observer=None,
+        state_observer=None,
+        initial: Optional[Tuple] = None,
+        allow_incomplete: bool = False,
+        sparse_tail=None,
+        frontier_observer=None,
+        pipeline=None,
+        fused_rounds=None,
+    ) -> SaturationResult:
+        """Fixed point with per-round observation (the reference's
+        progress plane).  ``observer(iteration, derivations_so_far,
+        changed)`` after every retired round; ``state_observer`` also
+        gets the live packed state (and forces the synchronous loop);
+        ``frontier_observer`` each round's :class:`FrontierStats` (also
+        kept in :attr:`frontier_rounds` and recorded into
+        ``FRONTIER_EVENTS``, which puts them on a traced request's
+        span).  Dense rounds are pipelined by default (``pipeline``:
+        per-call override of the engine's ``{"enable", "depth"}``).
+
+        ``sparse_tail``: per-call override of the engine's config; when
+        active the adaptive controller (:meth:`_saturate_adaptive`)
+        runs, else the plain observed loop, every round dense with
+        density pinned at 1.0.  ``fused_rounds``: parsed as the
+        reference's; ``rounds`` > 1 raises (not ported).  The closure
+        and ``derivations`` are :meth:`saturate`'s; ``iterations`` count
+        ``unroll`` a dense round and one a sparse or idle round, as the
+        reference's controller counts them."""
+        if initial is None:
+            sp, rp = self.initial_state()
+        else:
+            sp, rp = self.embed_state(*initial)
+            initial = None  # the embed copied it
+        init_total = self.count_live_bits(sp, rp)
+        budget = _pad_up(max_iters, self.unroll)
+        cfg = (
+            self._sparse_cfg
+            if sparse_tail is None
+            else self._normalize_sparse_cfg(sparse_tail)
+        )
+        pcfg = (
+            self._pipeline_cfg
+            if pipeline is None
+            else self._normalize_pipeline_cfg(pipeline)
+        )
+        pdepth = pcfg["depth"] if pcfg["enable"] else 1
+        if fused_rounds is not None:
+            self._normalize_fused_cfg(fused_rounds)
+        self.gate_rounds = []
+        if cfg is not None and self._sparse_supported():
+            sp, rp, iteration, total, converged = self._saturate_adaptive(
+                cfg, sp, rp, init_total, budget, observer,
+                state_observer, frontier_observer, pipeline_depth=pdepth,
+            )
+        else:
+            self.frontier_rounds = []
+            box = [None]   # the frontier carried from round to round
+
+            def observe_step(s, r):
+                s, r, ch, bits, box[0] = self._observe_round(s, r, box[0])
+                return s, r, ch, bits
+
+            def round_stats(it, delta, changed, dispatch_s, retire_s,
+                            inflight):
+                # dense-tier telemetry from the plain path: no host
+                # measure runs here, so density reports the dense sweep
+                # itself (every rule-table row re-evaluated)
+                st = FrontierStats(
+                    iteration=it,
+                    tier="dense",
+                    density=1.0,
+                    rows_touched=self._sp_total_rows,
+                    total_rows=self._sp_total_rows,
+                    derivations=delta,
+                    wall_s=dispatch_s + retire_s,
+                    dispatch_s=dispatch_s,
+                    retire_s=retire_s,
+                    inflight=inflight,
+                )
+                FRONTIER_EVENTS.record(st)
+                self.frontier_rounds.append(st)
+                if frontier_observer is not None:
+                    frontier_observer(st)
+
+            sp, rp, iteration, total, converged = observed_loop(
+                observe_step, sp, rp, init_total, self.unroll, budget,
+                observer, state_observer=state_observer,
+                pipeline_depth=pdepth, round_stats=round_stats,
+            )
+        if not converged and not allow_incomplete:
+            raise RuntimeError(
+                f"saturation did not converge within {budget} iterations"
+            )
+        return SaturationResult(
+            packed_s=sp,
+            packed_r=rp,
+            iterations=iteration,
             derivations=total - init_total,
             idx=self.idx,
             converged=converged,

@@ -1,7 +1,8 @@
-"""Observability: end-to-end request tracing and the flight recorder
-(stdlib only — importable everywhere, off-path when disabled).
+"""Observability: end-to-end request tracing, the flight recorder and
+the run ledger (stdlib only — importable everywhere, off-path when
+disabled).
 
-The port of ``distel_tpu/obs/``'s serving half::
+The port of ``distel_tpu/obs/``::
 
     trace.py   TraceContext (W3C ``traceparent`` wire form), Span,
                SpanRecorder (bounded ring, config-gated sampling,
@@ -11,17 +12,32 @@ The port of ``distel_tpu/obs/``'s serving half::
     flight.py  FlightRecorder — bounded structured control-plane event
                log, queryable at ``/debug/events`` and dumped as JSONL
                on shutdown (a copy of the reference's)
-
-The reference's ``ledger.py`` (run ledger, stall watchdog,
-``RUN_EVENTS``) and ``costmodel.py`` serve the observed fixed-point
-loop, which the port does not have yet; they come with it.
+    ledger.py  RunLedger — crash-safe append-only JSONL run ledger
+               (one record per observed saturation round, plus
+               open/snapshot/resume/close chain markers), the
+               stall/regression/memory StallWatchdog, the
+               ``distel_run_*`` gauge bridge (RUN_EVENTS), and the
+               LedgerObserver adapter for ``saturate_observed`` (a copy
+               of the reference's; the card's peak memory reads
+               ``torch.cuda.max_memory_allocated``)
+    costmodel.py  fitted rounds-vs-size cost model (seeded from the
+               port's own run ledgers under ``runs/``), the online ETA,
+               and the launch budget guard (a copy of the reference's)
 
 Config knobs (``config.ClassifierConfig`` / ``obs.*`` properties):
 ``obs.enable``, ``obs.sample_rate``, ``obs.ring.capacity``,
-``obs.flight.capacity``.
+``obs.flight.capacity``, ``obs.ledger.enable``, ``obs.ledger.dir``,
+``obs.trace_rounds``.
 """
 
 from distel_tpu_torch.obs.flight import FlightRecorder
+from distel_tpu_torch.obs.ledger import (
+    RUN_EVENTS,
+    BudgetExhausted,
+    LedgerObserver,
+    RunLedger,
+    StallWatchdog,
+)
 from distel_tpu_torch.obs.trace import (
     NOOP,
     Span,
@@ -35,8 +51,13 @@ from distel_tpu_torch.obs.trace import (
 )
 
 __all__ = [
+    "BudgetExhausted",
     "FlightRecorder",
+    "LedgerObserver",
     "NOOP",
+    "RUN_EVENTS",
+    "RunLedger",
+    "StallWatchdog",
     "Span",
     "SpanRecorder",
     "TraceContext",

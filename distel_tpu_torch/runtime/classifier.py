@@ -102,7 +102,9 @@ def make_engine(
     host.  ``rowpacked_kw``: extra row-packed engine kwargs (the
     incremental plane's reservations ``min_concepts``,
     ``min_links_pad``, ``window_headroom``), which the other engines
-    and the hybrid ignore, as the reference's do."""
+    and the hybrid ignore, as the reference's do.  The row-packed
+    engine also gets the config's ``sparse_tail`` and ``pipeline``
+    (its observed runs' controller)."""
     config.validate()
     _, host_rules = split_backends(config.rule_backends)
     if host_rules:
@@ -123,6 +125,10 @@ def make_engine(
         return SaturationEngine(
             idx, device=device, pad_multiple=config.pad_multiple
         )
+    # the adaptive sparse tail and pipelined observation act in
+    # observed runs only (saturate_observed), as in the reference
+    rowpacked_kw.setdefault("sparse_tail", config.sparse_tail_config())
+    rowpacked_kw.setdefault("pipeline", config.pipeline_config())
     return RowPackedSaturationEngine(
         idx,
         device=device,

@@ -11,18 +11,18 @@ What differs from the reference, and why:
   scheduler workers on one card, a phase also waits for the work the
   other workers queued.  As in the reference, a phase run under a
   traced request also lands as a child span.
-* :class:`PhaseAggregate` and the process aggregates
+* :class:`FrontierStats` (the per-round record of the observed fixed
+  point), :class:`PhaseAggregate` and the process aggregates
   (:data:`FRONTIER_EVENTS`, :data:`STEP_RULE_EVENTS`,
   :data:`COHORT_EVENTS`, :data:`DISPATCH_EVENTS`) are the reference's.
-  Only the observed loop, a profiled capture and the cohort plane
-  record into them, and the port has none of those yet, so they stay
-  empty — as they do in the reference's unobserved runs — and the
-  serve plane's gauges over them read zeros.
-* ``FrontierStats``, the per-round record the observed loop feeds to
-  :data:`FRONTIER_EVENTS`, comes with that loop.  ``CompileStats``, the
-  persistent-cache counter, ``compile_watch`` and ``trace_to`` count
-  and capture XLA compilation; the port compiles nothing, so they are
-  not ported.
+  The observed loops (``core/engine.py``, ``core/rowpacked_engine.py``)
+  record into :data:`FRONTIER_EVENTS` and :data:`DISPATCH_EVENTS`;
+  nothing in the port records into the other two yet (a profiled
+  capture and the cohort plane), so the serve plane's gauges over them
+  read zeros, as they do in the reference's runs without those.
+* ``CompileStats``, the persistent-cache counter, ``compile_watch`` and
+  ``trace_to`` count and capture XLA compilation; the port compiles
+  nothing, so they are not ported.
 """
 
 from __future__ import annotations
@@ -112,6 +112,67 @@ class PhaseAggregate:
                 }
                 for name, (c, t, mx) in self._phases.items()
             }
+
+
+@dataclass
+class FrontierStats:
+    """One saturation round's frontier record — the telemetry the
+    adaptive sparse-tail controller (``RowPackedSaturationEngine.
+    saturate_observed``) is steered by and reports.  ``rows_touched``
+    is the number of rule-table rows the round actually had to
+    re-evaluate (row granularity throughout: CR1-CR3 on the changed-S
+    mask + intra-step cascade, CR4/CR6 on changed bit-table sources
+    and dirty-L-chunk role coverage); ``density`` is that count over
+    the total rule-table rows, the signal the dense/sparse tier
+    decision thresholds on.  ``tier`` records what actually ran
+    ("dense" | "sparse", or "idle" for the empty-frontier termination
+    round, where NO step runs — idle rounds count toward neither tier
+    total); ``overflow`` marks a round whose active set exceeded the
+    largest sparse workspace rung, forcing the dense fallback.
+
+    Pipelined observation splits the round's blocking host time:
+    ``dispatch_s`` is the cost of enqueueing the round's dense step on
+    the pipeline's worker, ``retire_s`` the later blocking fetch+fold
+    of its results, and ``wall_s`` their sum — the HOST time the round
+    cost, which under pipelining is less than the round's wall-clock
+    (the worker's rounds overlap other rounds' host work).
+    ``inflight`` is the pipeline occupancy when the round was
+    dispatched (0 = synchronous dispatch — sparse and idle rounds are
+    always 0).  Threaded through the run ledger's round records and
+    the serve plane's ``/metrics`` gauges (via
+    :data:`FRONTIER_EVENTS`)."""
+
+    iteration: int = 0
+    tier: str = "dense"
+    density: float = 1.0
+    rows_touched: int = 0
+    total_rows: int = 0
+    derivations: int = 0
+    overflow: bool = False
+    wall_s: float = 0.0
+    dispatch_s: float = 0.0
+    retire_s: float = 0.0
+    inflight: int = 0
+    #: how many retired rounds the surfacing that produced this stat
+    #: covered — always 1 in the port (the reference's fused K-round
+    #: windows are not ported); ledger consumers divide by it
+    rounds_in_window: int = 1
+
+    def as_dict(self) -> dict:
+        return {
+            "iteration": self.iteration,
+            "tier": self.tier,
+            "density": round(self.density, 5),
+            "rows_touched": self.rows_touched,
+            "total_rows": self.total_rows,
+            "derivations": self.derivations,
+            "overflow": self.overflow,
+            "wall_s": round(self.wall_s, 4),
+            "dispatch_s": round(self.dispatch_s, 4),
+            "retire_s": round(self.retire_s, 4),
+            "inflight": self.inflight,
+            "rounds_in_window": self.rounds_in_window,
+        }
 
 
 class FrontierAggregate:

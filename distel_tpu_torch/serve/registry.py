@@ -64,6 +64,11 @@ why:
   left out with the rest of ``server.NOT_YET_PORTED``: the port builds
   its delta engines and fetches none from a program cache, so every
   one would count as a miss.
+* A tenant that leaves the card (export, eviction, a failed load or
+  adopt) frees its cached blocks on the card at once
+  (:meth:`OntologyRegistry._release_card`): other replica processes
+  share the card, and PyTorch's caching allocator would otherwise keep
+  them reserved for this one.
 """
 
 from __future__ import annotations
@@ -210,6 +215,21 @@ class OntologyRegistry:
             inc._FAST_PATH_MIN_CONCEPTS = self.fast_path_min_concepts
         return inc
 
+    def _release_card(self) -> None:
+        """Free a departed tenant's cached card memory.  A
+        tenant leaves the card on export, eviction (warm or cold) and
+        deletion; its tensors are unreferenced by then, but PyTorch's
+        caching allocator keeps their blocks reserved for this process.
+        Other replica processes share the card, and the budget above
+        counts only this registry's tenants, so the cached blocks are
+        released to the card (``torch.cuda.empty_cache``).  Decisions, answers, counters and
+        events do not change."""
+        if self.device.type == "cuda":
+            import torch
+
+            with torch.cuda.device(self.device):
+                torch.cuda.empty_cache()
+
     def _entry(self, oid: str) -> _Entry:
         with self._lock:
             entry = self._entries.get(oid)
@@ -310,6 +330,7 @@ class OntologyRegistry:
             # /healthz, un-restorable, growing the map on every retry)
             with self._lock:
                 self._entries.pop(oid, None)
+            self._release_card()
             raise
         self.traffic.note_write(oid)
         self._note_path(inc)
@@ -532,6 +553,7 @@ class OntologyRegistry:
             sha = entry.spill_sha
             with self._lock:
                 self._entries.pop(oid, None)
+        self._release_card()
         self.traffic.forget(oid)
         self._count("distel_registry_exports_total")
         self._event("registry_export", oid=oid, spill=path)
@@ -613,6 +635,7 @@ class OntologyRegistry:
             # a failed adopt must not leave a zombie id behind
             with self._lock:
                 self._entries.pop(oid, None)
+            self._release_card()
             raise
         self._count("distel_registry_adoptions_total")
         self._event(
@@ -914,6 +937,7 @@ class OntologyRegistry:
                     self._demote_warm(victim)
                 else:
                     self._spill(victim)
+                self._release_card()
                 self._count("distel_registry_evictions_total")
                 self._event(
                     "registry_evict",

@@ -39,8 +39,8 @@ why:
   left out, in one place: :data:`NOT_YET_PORTED` names each metric
   series and route that goes with it, and the module it waits for —
   the artifact-farm install and its counters, the program-cache
-  eviction counter, the run-ledger gauges and ``/debug/runs``, the
-  startup warmup (``warmup_paths`` raises), and the compile counters,
+  eviction counter, the startup warmup (``warmup_paths`` raises), and
+  the compile counters,
   which only a compiled-program plane records.  Every other route,
   metric and gauge keeps the reference's name and meaning.
 """
@@ -96,12 +96,6 @@ NOT_YET_PORTED = {
     "distel_warmup_done": "runtime/warmup.py",
     "distel_warmup_programs_total": "runtime/warmup.py",
     "distel_warmup_errors_total": "runtime/warmup.py",
-    "distel_run_round": "obs/ledger.py",
-    "distel_run_derivation_rate": "obs/ledger.py",
-    "distel_run_eta_s": "obs/ledger.py",
-    "distel_run_budget_remaining_s": "obs/ledger.py",
-    "distel_run_stall": "obs/ledger.py",
-    "/debug/runs": "obs/ledger.py",
 }
 
 #: request-body ceiling (64 MiB — a multiplied corpus is tens of MB; a
@@ -140,6 +134,8 @@ _ROUTES = (
      "/debug/trace"),
     ("GET", re.compile(r"^/debug/events/?$"), "debug_events",
      "/debug/events"),
+    ("GET", re.compile(r"^/debug/runs/?$"), "debug_runs",
+     "/debug/runs"),
 )
 
 
@@ -149,7 +145,8 @@ _ROUTES = (
 #: traces it exists to keep.  A caller that deliberately traces a
 #: probe (sampled traceparent header) is still honored.
 UNTRACED_ROOT_ENDPOINTS = frozenset(
-    ("/healthz", "/metrics", "/debug/trace", "/debug/events")
+    ("/healthz", "/metrics", "/debug/trace", "/debug/events",
+     "/debug/runs")
 )
 
 
@@ -591,6 +588,35 @@ class ServeApp:
             "rule",
             lambda: STEP_RULE_EVENTS.snapshot()["per_rule"],
         )
+        # ---- run observatory: the newest ledgered run's per-round
+        # figures, live-sampled from the process-global RUN_EVENTS
+        # aggregate every LedgerObserver (rebuilds behind
+        # obs.ledger.enable, anything observed) updates.  -1 = honestly
+        # unknown (no live run / ETA not estimable yet / no stage
+        # budget set); per-run summaries at /debug/runs.
+        from distel_tpu_torch.obs.ledger import RUN_EVENTS
+
+        _RUN_GAUGES = (
+            ("distel_run_round",
+             "cumulative round index of the newest ledgered run"),
+            ("distel_run_derivation_rate",
+             "derivations per second of the newest ledgered run's "
+             "last retired round"),
+            ("distel_run_eta_s",
+             "online completion estimate: rolling round-wall median "
+             "x remaining-rounds from the derivation-curve tail "
+             "(-1 = unknown)"),
+            ("distel_run_budget_remaining_s",
+             "stage-budget seconds left before the run snapshots and "
+             "exits cleanly (-1 = no budget set)"),
+            ("distel_run_stall",
+             "1 while the watchdog sees a non-terminal "
+             "zero-derivation stall"),
+        )
+
+        for metric, help_text in _RUN_GAUGES:
+            self.metrics.describe(metric, help_text)
+        self.metrics.gauge_group(RUN_EVENTS.gauges)
         # ---- background tier promoter: traffic-driven prefetch of
         # warm/cold entries back toward hot while budget headroom
         # exists (the registry's EWMA picks the read-hottest victim);
@@ -893,6 +919,19 @@ class ServeApp:
 
     def _ep_debug_events(self, *, query, body, deadline_s):
         return debug_events_response(self.flight, query)
+
+    def _ep_debug_runs(self, *, query, body, deadline_s):
+        """Run observatory: per-run summaries from the process-global
+        telemetry every ledgered run updates (``?limit=`` newest N)."""
+        from distel_tpu_torch.obs.ledger import RUN_EVENTS
+
+        runs = RUN_EVENTS.runs()
+        limit = parse_limit(query)
+        if limit is not None:
+            runs = runs[-limit:] if limit else []
+        return 200, "application/json", _dumps(
+            {"service": self.tracer.service, "runs": runs}
+        )
 
     # --------------------------------------------------------- shutdown
 

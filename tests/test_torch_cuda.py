@@ -453,6 +453,85 @@ def test_gated_rounds_on_the_card_equal_the_cpu(card, kw):
     assert not gf.changed and skipped > 0
 
 
+# ------------------------------------------------- observed fixed point
+
+#: the forced sparse tier with rungs up to 131,072 rows (the chip
+#: smoke's 8k configuration)
+FORCED_WIDE = {"density_threshold": 1.1, "hysteresis_rounds": 1,
+               "capacity_buckets": 12}
+
+
+def _observed_records(engine, sparse_tail):
+    """The observer's sequence, each round's record, the result, and
+    the kernel launches of the sparse rounds alone (a sparse round runs
+    with no dense round in flight, so the launches between its record
+    and the one before are its own)."""
+    obs, sparse_launches = [], [0]
+    last = [dict(LAUNCHES)]
+
+    def frontier(st):
+        now = dict(LAUNCHES)
+        if st.tier == "sparse":
+            sparse_launches[0] += sum(now[k] - last[0][k] for k in now)
+        last[0] = now
+
+    res = engine.saturate_observed(
+        observer=lambda *a: obs.append(a), sparse_tail=sparse_tail,
+        frontier_observer=frontier,
+    )
+    recs = [(s.iteration, s.tier, s.rows_touched, s.derivations,
+             s.overflow, s.inflight) for s in engine.frontier_rounds]
+    return obs, recs, res, sparse_launches[0]
+
+
+@pytest.mark.parametrize("sparse_tail", [FORCED_WIDE, True],
+                         ids=["forced", "default"])
+def test_observed_8k_on_the_card_equals_the_cpu(card, sparse_tail):
+    """The adaptive controller at 8k, ``unroll=1``: every round's
+    record (tier, rows touched, derivations, overflow, occupancy), the
+    observer's sequence, S and R equal on the card and on the CPU; the
+    forced run's sparse rounds launch the packed-columns kernels."""
+    from distel_tpu_torch.core.rowpacked_engine import RowPackedSaturationEngine
+
+    idx = ELClassifier(device="cpu").classify_text(
+        snomed_shaped_ontology(n_classes=8000)
+    ).idx
+    gpu = RowPackedSaturationEngine(idx, device="cuda", unroll=1)
+    got = _observed_records(gpu, sparse_tail)
+    torch.cuda.synchronize()
+    want = _observed_records(
+        RowPackedSaturationEngine(idx, device="cpu", unroll=1), sparse_tail
+    )
+    assert got[0] == want[0] and got[1] == want[1]
+    assert torch.equal(got[2].packed_s.cpu(), want[2].packed_s)
+    assert torch.equal(got[2].packed_r.cpu(), want[2].packed_r)
+    if sparse_tail is FORCED_WIDE:
+        assert "sparse" in [r[1] for r in got[1]]
+        assert got[3] > 0 and want[3] == 0
+
+
+def test_exported_tenant_returns_its_card_memory(card, tmp_path):
+    """A tenant exported off the card (the migration hook) releases its
+    cached blocks, not only its tensors: the
+    process's reserved bytes fall back to within 64 MiB of their level
+    before the load."""
+    from distel_tpu_torch.serve.registry import OntologyRegistry
+
+    reg = OntologyRegistry(device=card, spill_dir=str(tmp_path))
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_reserved()
+    oid = reg.new_id()
+    reg.load(oid, snomed_shaped_ontology(n_classes=8000))
+    torch.cuda.synchronize()
+    loaded = torch.cuda.memory_reserved()
+    assert loaded > base + (64 << 20)
+    reg.export(oid)
+    torch.cuda.synchronize()
+    assert torch.cuda.memory_reserved() <= base + (64 << 20), (
+        base, loaded, torch.cuda.memory_reserved())
+
+
 @pytest.mark.parametrize("m,k,n", [(37, 70, 5), (300, 1000, 200), (64, 20000, 96)])
 def test_dense_andor_on_the_card_equals_the_cpu(card, m, k, n):
     """The dense engine's AND-OR product (bfloat16 on the card, float32

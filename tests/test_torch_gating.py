@@ -50,6 +50,10 @@ MODES = {
                    {"l_chunk": 64, "cr6_tiles": TILES}),
     "cr5-gate-lc64": ({"l_chunk": 64, "gate_chunks": True},
                       {"l_chunk": 64, "gate_chunks": True}),
+    # the reference's scanned formulation with one chunk a write group:
+    # the target the port's step meets round by round (its default
+    # grouping may write several chunks at once), at the default plans
+    "scanned-g1": ({"scan_chunks": True, "scan_group_bytes": 1}, {}),
 }
 
 
@@ -142,6 +146,23 @@ def test_golden_per_round_matches_reference(path):
     assert got.derivations == res.derivations
     s, r = got.wire()
     assert np.array_equal(s, np.asarray(res.packed_s).astype(np.uint32))
+
+
+@pytest.mark.parametrize(
+    "text",
+    [lambda: chain_tailed_ontology(4000, 28)]
+    + [lambda p=p: p.read_text() for p in GOLDEN],
+    ids=["chain-tailed-4000"] + [p.stem for p in GOLDEN],
+)
+def test_scanned_one_chunk_a_group_per_round(text):
+    """The port's gated step against the reference's scanned
+    formulation with one chunk a write group, at both engines' default
+    chunk plans: every round equal (the target the observed controller's
+    per-round records are held to)."""
+    idx = _index(text())
+    rounds, port, ref = run_both_per_round(idx, "scanned-g1")
+    assert ref._scan_mode or not (len(idx.nf4) or len(idx.chain_pairs))
+    assert rounds >= 1
 
 
 def _plan_calls(monkeypatch):
