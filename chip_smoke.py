@@ -79,7 +79,19 @@ Phases, each of which raises on failure:
    how each plane's peak memory splits (plan tables, state, a rerun's
    temporaries); then a captured saturate-and-taxonomy rerun of each
    plane's engine, whose operand pairs (one per call site and work
-   bucket) are checked as in phase 6 and join the kernel line.
+   bucket) are checked as in phase 6 and join the kernel line.  Then
+   the component plane at the reference's weak-scaling size: 16,384
+   disjoint GALEN copies (2.52M axioms) as OFN text, split by
+   ``partition_ofn_text`` into one group, its representative ingested
+   natively and the group run as one batched fixed point on the card
+   (``saturate_isomorphic``, nothing hooked in, launch counts zeroed
+   just before and read just after; every copy's S and R equal to copy
+   0's, copy 0 to the CPU classify, derivations 16,384 times the
+   representative's); GALEN x 64 with the 8k corpus through
+   ``partition_index`` and ``saturate_components`` (65 components, each
+   equal to the monolithic card classify of the union restricted to
+   it); and ``packed_cols_dense_batched`` at the heaviest operand of a
+   captured rerun against its plain version, for the kernel line.
 9. the incremental plane (``IncrementalClassifier``): the reference
    bench's traffic (a 100-axiom class-only delta, a role-introducing
    delta, ``SubObjectPropertyOf(attr7 attr8)``), the class-only delta
@@ -166,6 +178,8 @@ with A's nonzero fraction), the ``{"andor_checks": ...}``,
 load plane), ``{"breakdown": ...}``, ``{"threshold_ab": ...}``,
 ``{"packed_full_width": ...}``, ``{"packed_breakdown": ...}`` and
 ``{"andor_operands": ...}``, ``{"multiplied_full_width": ...}``,
+``{"partition_full_width": ...}`` (text-level walls, host peak RSS,
+state bytes, launches; the index-level union),
 ``{"incremental_card_vs_cpu": ...}`` and ``{"incremental_full_width":
 ...}`` (each step's path, iterations, derivations, wall, phases,
 launches, host and card peaks; the retraction's overdeletion time),
@@ -180,7 +194,8 @@ load, migration and recovery walls, the client hold, each recovery's
 polls, spans and events, per-process card memory, launches and host
 RSS, heartbeat latencies, ejections) lines,
 a ``{"kernels": [...]}`` line
-(the sparse row also carries the listing kernel's time and launches),
+(the sparse row also carries the listing kernel's time and launches;
+the batched dense row's numbers are from the component phase),
 and as its last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 Without a CUDA device it exits non-zero and prints no result.
@@ -989,6 +1004,296 @@ def phase_multiplied_full_width(cap: Capture):
         raise AssertionError("multiplied: the load planes give other taxonomies")
     log("[multiplied] native and python load planes: same derivations and taxonomy")
     return pairs
+
+
+#: the weak-scaling regime of the component plane: this many disjoint
+#: renamed GALEN copies (2.52M axioms; the monolithic path runs out of
+#: the card between 2,400 and 2,700 copies), and the reference's own
+#: 10M-axiom size (65,536 copies), run in a call of its own
+PARTITION_COPIES = 16384
+#: the index-level union (GALEN x 64 uncrossed + the 8k corpus), as the
+#: reference's partition_index splits it
+PARTITION_UNION_EXPECT = {"concepts": 20569, "roles": 3010, "links": 10600,
+                          "components": 65, "groups": 2,
+                          "component_concepts": [150, 11097]}
+
+
+def galen_copy_template() -> str:
+    """One renamed copy of the GALEN module as OFN lines, ``__copy0``
+    the substitution anchor (the renaming of ``multiply_ontology``;
+    out-of-profile axioms dropped) — the recipe of the reference's
+    ``scripts/weak_scaling.py``, built with the port's modules."""
+    from distel_tpu_torch.frontend.ontology_tools import _rename_axiom
+    from distel_tpu_torch.owl import rdfxml, syntax as S
+    from distel_tpu_torch.owl.writer import axiom_to_str
+
+    onto = rdfxml.parse_file(str(ROOT / "tests" / "corpora" / "galen_module_jia.owl"))
+    return "\n".join(
+        axiom_to_str(_rename_axiom(ax, 0)) for ax in onto.axioms
+        if not isinstance(ax, S.UnsupportedAxiom)
+    )
+
+
+class BatchedCapture:
+    """While active, keeps the operand pair of ``packed_cols_dense_batched``
+    whose A has the most nonzeros (on the card, copied), and counts the
+    launches it saw."""
+
+    def __init__(self):
+        from distel_tpu_torch.ops import bitmatmul
+
+        self.mod = bitmatmul
+        self._orig = bitmatmul._launch_dense_batched
+        self.launches, self.nnz, self.a, self.b = 0, -1, None, None
+
+    def __enter__(self):
+        cap = self
+
+        def launch(a, b, out):
+            cap.launches += 1
+            nnz = int(torch.count_nonzero(a))
+            if nnz > cap.nnz:
+                cap.nnz, cap.a, cap.b = nnz, a.clone(), b.contiguous()
+            return cap._orig(a, b, out)
+
+        self.mod._launch_dense_batched = launch
+        return self
+
+    def __exit__(self, *exc):
+        self.mod._launch_dense_batched = self._orig
+
+
+def batched_bound_ms(a: torch.Tensor, b: torch.Tensor):
+    """:func:`bound_ms` summed over a batch's copies: A once, the B rows
+    some nonzero of their copy selects, C once; one W-word OR a
+    nonzero."""
+    nb, m, l = a.shape
+    w = b.shape[2]
+    nz = a != 0
+    nnz = int(nz.sum())
+    live_l = int(nz.any(dim=1).sum())
+    nbytes = nb * m * l + 4 * w * live_l + 4 * nb * m * w
+    ops = 2 * 32 * nnz * w
+    t_bytes, t_ops = nbytes / PEAK_BYTES_S, ops / PEAK_INT8_OPS_S
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def phase_partition_full_width(copies: int = PARTITION_COPIES,
+                               index_level: bool = True, device: str = "cuda"):
+    """The component plane at the reference's weak-scaling size.
+
+    (a) ``copies`` renamed GALEN copies built as OFN text (the
+    reference's ``scripts/weak_scaling.py`` recipe), split by
+    ``partition_ofn_text``, the one group's representative ingested
+    through the native plane, then ``saturate_isomorphic`` on the card
+    with the warm rerun — nothing hooked in, the launch counts zeroed
+    just before and read just after.  Every copy's S and R must equal
+    copy 0's word for word, copy 0 the CPU classify of the
+    representative; derivations ``copies`` times the representative's,
+    the iterations its own.
+    (b) GALEN x 64 uncrossed plus the 8k corpus in one text, through the
+    native plane, ``partition_index`` and ``saturate_components`` on the
+    card: the reference's component counts, and every component's S
+    equal to the monolithic card classify of the union restricted to
+    it, the derivations equal in all.
+    (c) The batched kernel at the heaviest operand (a) sent it (a
+    captured rerun): against its plain version bit for bit, timed
+    beside it and the bound.  Returns the kernel row."""
+    from distel_tpu_torch.core.components import (
+        partition_index, saturate_components, saturate_isomorphic,
+    )
+    from distel_tpu_torch.core.rowpacked_engine import RowPackedSaturationEngine
+    from distel_tpu_torch.frontend.ontology_tools import (
+        multiply_ontology, snomed_shaped_ontology,
+    )
+    from distel_tpu_torch.frontend.partition_text import partition_ofn_text
+    from distel_tpu_torch.ops.bitmatmul import (
+        LAUNCHES, packed_cols_dense_batched, plain_packed_cols_batched,
+        reset_launches,
+    )
+    from distel_tpu_torch.ops.bitpack import gather_bit_matrix
+    from distel_tpu_torch.owl import native_loader, rdfxml, writer
+    from distel_tpu_torch.runtime.classifier import ELClassifier
+
+    t_phase = time.perf_counter()
+    out = {"copies": copies}
+    native_loader.load_indexed("SubClassOf(A B)")   # the plane built, if not yet
+    # ---- (a) the text level
+    with HostPeak() as hp:
+        t0 = time.perf_counter()
+        template = galen_copy_template()
+        text = "\n".join(template.replace("__copy0", f"__copy{k}")
+                         for k in range(copies))
+        out["gen_s"] = time.perf_counter() - t0
+        out["axioms"] = (template.count("\n") + 1) * copies
+        out["ofn_bytes"] = len(text)
+        t0 = time.perf_counter()
+        parts = partition_ofn_text(text)
+        out["partition_s"] = time.perf_counter() - t0
+        del text
+    out["host_peak_rss"] = hp.peak
+    out["text_fallback"] = parts.fallback
+    out["n_components"] = sum(c for _, c in parts.groups)
+    out["n_groups"] = len(parts.groups)
+    log(f"[partition] {copies} copies: gen {out['gen_s']:.2f} s, partition "
+        f"{out['partition_s']:.2f} s, {out['n_groups']} group(s)")
+    # the reference's grouping: one group of every copy (a copy landing
+    # in a group of its own would shrink the batch silently)
+    if parts.fallback or out["n_groups"] != 1 or out["n_components"] != copies:
+        raise AssertionError(f"partition: text level gave {out}")
+    rep_text, count = parts.groups[0]
+    del parts
+    t0 = time.perf_counter()
+    idx = native_loader.load_indexed(rep_text)
+    out["ingest_s"] = time.perf_counter() - t0
+    if device == "cuda":
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        sync()
+    held = torch.cuda.memory_allocated() if device == "cuda" else 0
+    reset_launches()
+    t0 = time.perf_counter()
+    g = saturate_isomorphic(idx, count, warm_timing=True, device=device,
+                            keep_state=True)
+    out["solve_total_s"] = time.perf_counter() - t0
+    launches = dict(LAUNCHES)
+    if device == "cuda":
+        out["max_memory_allocated"] = torch.cuda.max_memory_allocated()
+        out["memory_allocated_before"] = held
+    ps, pr = g.pop("packed_s"), g.pop("packed_r")
+    out["solve_s"], out["solve_warm_s"] = g["wall_s"], g["wall_warm_s"]
+    out["group"] = g
+    out["derivations"], out["iterations_max"] = g["derivations"], g["iterations"]
+    out["launches"] = launches
+    out["n_concepts"] = (idx.n_concepts - 2) * count
+    out["n_links"] = idx.n_links * count
+    nc, nl, wc = ps.shape[1], pr.shape[1], ps.shape[2]
+    out["state_bytes"] = ps.untyped_storage().nbytes()
+    out["per_copy_bytes"] = (nc + nl) * wc * 4
+    out["state_shape"] = [count, nc + nl, wc]
+    same = bool((ps == ps[:1]).all()) and bool((pr == pr[:1]).all())
+    cpu = RowPackedSaturationEngine(idx, device="cpu").saturate()
+    cs, cr = cpu.wire()
+    copy0 = (np.array_equal(ps[0].cpu().numpy().view(np.uint32), cs)
+             and np.array_equal(pr[0].cpu().numpy().view(np.uint32), cr))
+    out["rep"] = {"n_concepts": idx.n_concepts, "n_links": idx.n_links,
+                  "iterations": cpu.iterations, "derivations": cpu.derivations}
+    del ps, pr, g
+    if not same:
+        raise AssertionError("partition: a copy's closure differs from copy 0's")
+    if not copy0:
+        raise AssertionError("partition: copy 0 differs from the CPU classify")
+    if out["derivations"] != count * cpu.derivations:
+        raise AssertionError(f"partition: derivations {out['derivations']} != "
+                             f"{count} x {cpu.derivations}")
+    if out["iterations_max"] != cpu.iterations:
+        raise AssertionError(f"partition: {out['iterations_max']} iterations, "
+                             f"the representative {cpu.iterations}")
+    if out["state_bytes"] != count * out["per_copy_bytes"]:
+        raise AssertionError(f"partition: state {out['state_bytes']} B for "
+                             f"{count} x {out['per_copy_bytes']} B")
+    if device == "cuda" and launches["packed_cols_dense_batched"] == 0:
+        raise AssertionError("partition: the batched kernel was never launched")
+    log(f"[partition] text level: solve {out['solve_s']} s, warm "
+        f"{out['solve_warm_s']} s, {out['derivations']} derivations; every "
+        "copy equal to copy 0, copy 0 to the CPU classify")
+
+    # ---- (c) the batched kernel at the heaviest operand of (a)
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    with BatchedCapture() as bcap:
+        saturate_isomorphic(idx, count, device=device)
+    a, b = bcap.a, bcap.b
+    want = plain_packed_cols_batched(a, b)
+    err = int((packed_cols_dense_batched(a, b) != want).sum())
+    del want
+    if err:
+        raise AssertionError(f"packed_cols_dense_batched: {err} words differ from plain")
+    timer = time_ms if device == "cuda" else wall_ms
+    row = {
+        "name": "packed_cols_dense_batched",
+        "route": "cuda",
+        "source": SOURCE,
+        "replaces": REPLACES["packed_cols_dense"],
+        "launches": launches["packed_cols_dense_batched"],
+        "max_abs_err": err,
+        "ms": timer(lambda: packed_cols_dense_batched(a, b)),
+        "plain_ms": timer(lambda: plain_packed_cols_batched(a, b), reps=3),
+        "library_ms": None,
+        "at": {"run": f"partition:{copies}", "shape": list(a.shape) + [b.shape[2]],
+               "a_nonzero_fraction": float((a != 0).float().mean()),
+               "captured_launches": bcap.launches},
+        "main_path": True,
+    }
+    row["bound_ms"], row["bound_by"] = batched_bound_ms(a, b)
+    del a, b, bcap
+    out["kernel"] = row
+    log(f"[partition] kernel {json.dumps(row)}")
+
+    # ---- (b) the index level: GALEN x 64 + the 8k corpus, one text
+    if index_level:
+        galen = rdfxml.parse_file(str(ROOT / "tests" / "corpora" / "galen_module_jia.owl"))
+        union = (writer.ontology_to_str(multiply_ontology(galen, 64)) + "\n"
+                 + snomed_shaped_ontology(n_classes=8000, seed=42))
+        t0 = time.perf_counter()
+        uidx = native_loader.load_indexed(union)
+        comps = partition_index(uidx)
+        ib = {"ingest_partition_s": time.perf_counter() - t0}
+        sizes = sorted({c.idx.n_concepts for c in comps})
+        got = {"concepts": uidx.n_concepts, "roles": uidx.n_roles,
+               "links": uidx.n_links, "components": len(comps),
+               "groups": len({c.signature() for c in comps}),
+               "component_concepts": sizes}
+        ib["index"] = got
+        if got != PARTITION_UNION_EXPECT:
+            raise AssertionError(f"partition: union {got}, expected "
+                                 f"{PARTITION_UNION_EXPECT}")
+        reset_launches()
+        t0 = time.perf_counter()
+        agg = saturate_components(comps, device=device, keep_state=True)
+        ib["saturate_s"] = time.perf_counter() - t0
+        ib["launches"] = dict(LAUNCHES)
+        t0 = time.perf_counter()
+        whole = ELClassifier(device=device).classify_text(union)
+        ib["monolithic"] = {"wall_s": time.perf_counter() - t0,
+                            "iterations": whole.result.iterations,
+                            "derivations": whole.result.derivations}
+        ib["groups"] = [{k: v for k, v in gr.items() if not k.startswith("packed")}
+                        for gr in agg["groups"]]
+        ib["derivations"], ib["iterations_max"] = agg["derivations"], agg["iterations_max"]
+        if agg["derivations"] != whole.result.derivations:
+            raise AssertionError("partition: union derivations differ from the "
+                                 "monolithic classify")
+        # every component's S against the union's, restricted to it
+        usp = whole.result.packed_s
+        by_sig = {}
+        for c in comps:
+            by_sig.setdefault(c.signature(), []).append(c)
+        checked = 0
+        for gr, members in zip(agg["groups"], by_sig.values()):
+            for k, c in enumerate(members):
+                n = c.idx.n_concepts
+                gmap = torch.as_tensor(np.r_[0, 1, c.global_concepts], device=usp.device)
+                local = gather_bit_matrix(gr["packed_s"][k], torch.arange(n, device=usp.device),
+                                          torch.arange(2, n, device=usp.device))
+                glob = gather_bit_matrix(usp, gmap, gmap[2:])
+                if not torch.equal(local, glob):
+                    raise AssertionError(f"partition: component {checked} differs "
+                                         "from the union's closure")
+                checked += 1
+        ib["components_checked"] = checked
+        if device == "cuda":
+            if ib["launches"]["packed_cols_dense_batched"] == 0:
+                raise AssertionError("partition: the union's 64-copy group never "
+                                     "launched the batched kernel")
+            if ib["launches"]["packed_cols_dense"] + ib["launches"]["packed_cols_sparse"] == 0:
+                raise AssertionError("partition: the singleton never launched a kernel")
+        del agg, whole, usp, comps, uidx
+        out["index_level"] = ib
+        log(f"[partition] index level: {checked} components equal to the union's")
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(json.dumps({"partition_full_width": out}), flush=True)
+    return row
 
 
 #: the callers of PackedColsMatmulPlan on the main path, by function name
@@ -3707,6 +4012,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     checked = phase_multiplied_full_width(cap)
     torch.cuda.empty_cache()
+    batched_row = phase_partition_full_width()
+    torch.cuda.empty_cache()
     checked += phase_incremental_full_width(cap)
     torch.cuda.empty_cache()
     checked += phase_observed_full_width(cap)
@@ -3717,6 +4024,7 @@ def main() -> int:
     phase_fleet_full_width()
     rows, pairs = phase_kernel_line(launches, cap, checked)
     rows.append(andor_row)
+    rows.append(batched_row)
     (out / "kernel_pairs.json").write_text(json.dumps(pairs, indent=1))
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": rows}), flush=True)

@@ -15,6 +15,9 @@
   check      EL profile check (JSON); exit 1 when axioms are removed
   multiply   n renamed copies of an ontology (``--crossed`` links
              neighbouring copies), written as OFN
+  partition  component-partitioned classification
+             (``core/components.py``): isomorphic components run as one
+             batched fixed point; prints the counters as JSON
   serve      the resident classification service (``serve/``): HTTP
              on ``--host``/``--port``, one incremental classifier per
              loaded ontology on the card, graceful SIGTERM with a final
@@ -34,6 +37,7 @@ Usage: python -m distel_tpu_torch.cli classify FILE [--device cpu] ...
        python -m distel_tpu_torch.cli stream BASE [DELTA ...] [--device cpu]
        python -m distel_tpu_torch.cli diff FILE [--device cpu]
        python -m distel_tpu_torch.cli multiply FILE N -o OUT [--crossed]
+       python -m distel_tpu_torch.cli partition FILE [--device cpu] [--config P]
        python -m distel_tpu_torch.cli serve [--port 8080] [--device cpu] ...
        python -m distel_tpu_torch.cli fleet --spill-dir D [--replicas 2] [--device cpu]
        python -m distel_tpu_torch.cli query OID subsumers CLASS [--url URL]
@@ -307,6 +311,86 @@ def cmd_diff(args) -> int:
     _, report = classify_and_diff(norm, device=device)
     print(report.summary())
     return 0 if report.ok() else 1
+
+
+def cmd_partition(args) -> int:
+    """Partitioned classification: discover interaction components,
+    batch isomorphic ones through one planned fixed point
+    (``core/components.py`` — the weak-scaling path for
+    OntologyMultiplier-style corpora).  OFN corpora partition at TEXT
+    level before any index exists (the monolithic index is
+    role-quadratic and impossible at multiplied-corpus scale); other
+    formats, and corpora with global-conclusion axioms, partition at
+    index level or fall back to monolithic classification — always
+    sound.  Runs on ``--device`` (the first card by default)."""
+    from distel_tpu_torch.core.components import (
+        partition_index,
+        saturate_components,
+        saturate_isomorphic,
+    )
+    from distel_tpu_torch.owl import loader as owl_loader
+    from distel_tpu_torch.runtime.classifier import resolve_device
+
+    cfg = _load_cfg(args)
+    device = resolve_device(args.device)
+
+    def ingest(text):
+        """The config's load plane, as the classifier picks it: the
+        native C++ plane for OFN when enabled, else the Python
+        frontend."""
+        if cfg.use_native_loader and owl_loader.detect_format(text) == "ofn":
+            from distel_tpu_torch.owl import native_loader
+
+            return native_loader.load_indexed(text)
+        from distel_tpu_torch.core.indexing import index_ontology
+        from distel_tpu_torch.frontend.normalizer import normalize
+
+        return index_ontology(normalize(owl_loader.load(text)))
+
+    # the reference threads matmul.dtype into its engines; the port's
+    # bit kernels are exact and have no such knob
+    max_iters = cfg.max_iterations
+
+    # utf-8-sig: a BOM would otherwise glue onto the first functor and
+    # silently defeat the text-level splitter (loader.load_file parity)
+    with open(args.ontology, "r", encoding="utf-8-sig") as f:
+        text = f.read()
+    out = {"file": args.ontology}
+    t0 = time.time()
+    if owl_loader.detect_format(text) == "ofn":
+        from distel_tpu_torch.frontend.partition_text import partition_ofn_text
+
+        parts = partition_ofn_text(text)
+        out["text_fallback"] = parts.fallback
+        if not parts.fallback:
+            out["level"] = "text"
+            out["n_components"] = sum(c for _, c in parts.groups)
+            out["n_groups"] = len(parts.groups)
+            derivs = 0
+            iters = 0
+            for rep, count in parts.groups:
+                g = saturate_isomorphic(
+                    ingest(rep), count, max_iters=max_iters, device=device,
+                )
+                derivs += g["derivations"]
+                iters = max(iters, g["iterations"])
+            out.update(derivations=derivs, iterations_max=iters)
+            out["wall_s"] = round(time.time() - t0, 3)
+            print(json.dumps(out, indent=2))
+            return 0
+    # index-level partition (non-OFN formats, or text-level fallback)
+    comps = partition_index(ingest(text))
+    agg = saturate_components(comps, max_iters=max_iters, device=device)
+    out["level"] = "index"
+    out.update(
+        n_components=agg["n_components"],
+        n_groups=agg["n_groups"],
+        derivations=agg["derivations"],
+        iterations_max=agg["iterations_max"],
+        wall_s=round(time.time() - t0, 3),
+    )
+    print(json.dumps(out, indent=2))
+    return 0
 
 
 def cmd_normalize(args) -> int:
@@ -695,6 +779,17 @@ def main(argv=None) -> int:
     m.add_argument("--output", "-o", required=True)
     m.add_argument("--crossed", action="store_true")
     m.set_defaults(fn=cmd_multiply)
+    pt = sub.add_parser(
+        "partition",
+        help="component-partitioned classification (weak-scaling path)",
+    )
+    pt.add_argument("ontology")
+    pt.add_argument("--config", help="properties/config file")
+    pt.add_argument(
+        "--device", default=None,
+        help="torch device (default: the first CUDA device; raises if none)",
+    )
+    pt.set_defaults(fn=cmd_partition)
     sv = sub.add_parser("serve", help="resident classification service (HTTP)")
     sv.add_argument("--host", default="127.0.0.1")
     sv.add_argument("--port", type=int, default=8080,

@@ -15,7 +15,9 @@ artifact farm) are absent, or refused where a reference config could
 carry them over: ``shape_buckets`` must be off, ``mesh.devices`` /
 ``NODES_LIST`` may name no device (a mesh of one device still changes
 the reference's automatic rules, so it is refused too), and
-``fused.rounds.k`` above 1 and ``artifacts.dir`` raise naming the key.
+``fused.rounds.k`` above 1, ``artifacts.dir`` and the multi-process keys
+``coordinator.address``, ``num.processes`` and ``process.id`` raise
+naming the key.
 The reference's ``matmul.dtype`` has no meaning for the port's exact
 bit kernels and is ignored with the other unknown keys.
 
@@ -27,6 +29,12 @@ from __future__ import annotations
 
 from dataclasses import dataclass, field
 from typing import Dict, Optional
+
+
+#: the reference's multi-controller keys: with a coordinator it joins a
+#: multi-process runtime, which the port does not have, so each of them
+#: raises rather than run every process alone
+MULTI_PROCESS_KEYS = ("coordinator.address", "num.processes", "process.id")
 
 
 @dataclass
@@ -191,6 +199,12 @@ class ClassifierConfig:
                 f"{mesh_key} = {raw[mesh_key]} asks for a mesh of {devices} "
                 "device(s); distel_tpu_torch has no mesh path"
             )
+        for key in MULTI_PROCESS_KEYS:
+            if key in raw:
+                raise ValueError(
+                    f"{key} = {raw[key]} asks for a multi-process runtime; "
+                    "distel_tpu_torch runs one process on one device"
+                )
         if "pad.multiple" in raw:
             cfg.pad_multiple = int(raw["pad.multiple"])
         elif "chunk.size" in raw:  # nearest reference analog

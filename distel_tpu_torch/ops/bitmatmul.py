@@ -27,6 +27,11 @@ for CPU tensors.  Its two routes give the same words:
 * dense: ``packed_cols_dense`` runs the product on the int8 tensor
   cores over every contraction tile that holds a nonzero.
 
+:func:`packed_cols_dense_batched` runs the dense route's kernel over a
+batch of independent products in one launch (the component plane's
+groups of isomorphic copies, ``core/components.py``), and
+:func:`plain_packed_cols_batched` is its plain version.
+
 Either can OR into an existing C (``out=``) instead of writing a fresh
 one.
 
@@ -70,6 +75,7 @@ LAUNCHES = {
     "packed_cols_dense": 0,
     "packed_cols_sparse": 0,
     "packed_andor_list": 0,
+    "packed_cols_dense_batched": 0,
 }
 
 #: the packed-columns kernels' row block and the listing kernel's
@@ -124,6 +130,11 @@ def _lib():
         lib.packed_cols_list.restype = ci
         lib.packed_cols_dense.argtypes = [vp, vp, vp, ci, ci, ci, ci, vp]
         lib.packed_cols_dense.restype = ci
+        ll = ctypes.c_longlong
+        lib.packed_cols_dense_batched.argtypes = (
+            [vp, vp, vp, ci, ci, ci, ci, ll, ll, ll, ci, vp]
+        )
+        lib.packed_cols_dense_batched.restype = ci
         lib.packed_cols_sparse.argtypes = [vp, vp, vp, vp, vp, ci, ci, ci, ci, vp]
         lib.packed_cols_sparse.restype = ci
         lib.packed_andor_list.argtypes = [vp] * 4 + [ci, ci, ci, vp]
@@ -266,11 +277,18 @@ def _run_sparse(b: torch.Tensor, lists: ColumnLists, c: torch.Tensor, l: int,
     return c
 
 
+def _span(t: torch.Tensor) -> int:
+    """Bytes from ``t``'s first element to past its last (a strided
+    view spans more than its elements)."""
+    return (1 + sum((n - 1) * st for n, st in zip(t.shape, t.stride()))) \
+        * t.element_size()
+
+
 def _overlaps(x: torch.Tensor, y: torch.Tensor) -> bool:
     if x.numel() == 0 or y.numel() == 0:
         return False
     x0, y0 = x.data_ptr(), y.data_ptr()
-    return x0 < y0 + y.numel() * y.element_size() and y0 < x0 + x.numel() * x.element_size()
+    return x0 < y0 + _span(y) and y0 < x0 + _span(x)
 
 
 class PackedColsMatmulPlan:
@@ -408,6 +426,89 @@ class PackedColsMatmulPlan:
         _check_launch(lib.packed_cols_error_string, code, "packed_cols_dense")
         _count_launch("packed_cols_dense")
         return c
+
+
+def packed_cols_dense_batched(a: torch.Tensor, b: torch.Tensor,
+                              out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """``C[k] (|)= A[k] ⊙ B[k]`` for every copy k of a batch: a [nb, m, l]
+    int8/bool, b [nb, l, w] int32 → [nb, m, w] int32, ORed into ``out``
+    (contiguous, not overlapping A or B) when one is given.  Each copy's
+    B rows must be contiguous (``b.stride()[1:] == (w, 1)``); the copies
+    may lie anywhere (a slice of a batched state).  On a card this is one
+    launch of ``packed_cols_dense_batched``, the dense route's kernel
+    with a grid axis over the copies; on the CPU it is
+    :func:`plain_packed_cols_batched`."""
+    if a.dtype == torch.bool:
+        a = a.view(torch.int8)
+    if a.dtype != torch.int8 or b.dtype != torch.int32:
+        raise TypeError(f"packed_cols_dense_batched wants int8 A and int32 B, "
+                        f"got {a.dtype} and {b.dtype}")
+    if a.dim() != 3 or b.dim() != 3 or a.shape[0] != b.shape[0] \
+            or a.shape[2] != b.shape[1]:
+        raise ValueError(f"packed_cols_dense_batched got A {tuple(a.shape)} "
+                         f"and B {tuple(b.shape)}")
+    if a.device != b.device:
+        raise ValueError(f"A on {a.device} but B on {b.device}")
+    nb, m, l = a.shape
+    w = b.shape[2]
+    if out is not None:
+        if out.dtype != torch.int32 or tuple(out.shape) != (nb, m, w):
+            raise ValueError(f"out must be int32 [{nb}, {m}, {w}], got "
+                             f"{out.dtype} {tuple(out.shape)}")
+        if out.device != a.device or not out.is_contiguous():
+            raise ValueError(f"out must be contiguous on {a.device}")
+        if _overlaps(out, a) or _overlaps(out, b):
+            raise ValueError("out must not overlap A or B")
+    if a.device.type == "cpu":
+        return plain_packed_cols_batched(a, b, out)
+    if a.device.type != "cuda":
+        raise ValueError(f"no packed-columns kernel for {a.device}")
+    return _launch_dense_batched(a, b, out)
+
+
+def _launch_dense_batched(a: torch.Tensor, b: torch.Tensor,
+                          out: Optional[torch.Tensor]) -> torch.Tensor:
+    nb, m, l = a.shape
+    w = b.shape[2]
+    if not a.is_contiguous():
+        raise ValueError("packed_cols_dense_batched takes a contiguous A")
+    if w and l and (b.stride(2) != 1 or b.stride(1) != w):
+        raise ValueError(f"each copy's B rows must be contiguous, got strides "
+                         f"{b.stride()}")
+    accumulate = out is not None
+    c = out if accumulate else torch.empty((nb, m, w), dtype=torch.int32,
+                                           device=a.device)
+    if nb == 0 or m == 0 or w == 0:
+        return c
+    if l == 0:
+        return c if accumulate else c.zero_()
+    lib = _lib()
+    code = lib.packed_cols_dense_batched(
+        a.data_ptr(), b.data_ptr(), c.data_ptr(), nb, m, l, w,
+        m * l, b.stride(0), m * w, int(accumulate), _stream(a),
+    )
+    _check_launch(lib.packed_cols_error_string, code, "packed_cols_dense_batched")
+    _count_launch("packed_cols_dense_batched")
+    return c
+
+
+def plain_packed_cols_batched(a: torch.Tensor, b: torch.Tensor,
+                              out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The plain PyTorch version of ``packed_cols_dense_batched``: every
+    copy's B unpacked plane-major, one batched matmul, ``> 0``, repacked
+    and ORed into ``out`` when one is given (exact in float32 below 2^24
+    contraction terms, as :func:`plain_packed_cols`)."""
+    nb, m, l = a.shape
+    w = b.shape[2]
+    assert l < (1 << 24), "float32 accumulation is exact only below 2^24 terms"
+    if out is None:
+        out = torch.zeros((nb, m, w), dtype=torch.int32, device=a.device)
+    if nb == 0 or m == 0 or w == 0 or l == 0:
+        return out
+    bits = unpack_words_planes(b.reshape(nb * l, w), torch.float32)
+    prod = torch.bmm(a.to(torch.float32), bits.view(nb, l, 32 * w))
+    out |= pack_planes((prod > 0).view(nb * m, 32 * w)).view(nb, m, w)
+    return out
 
 
 def plain_packed_cols(a: torch.Tensor, b_packed: torch.Tensor,

@@ -12,7 +12,7 @@
 // `accumulate` set the kernels OR their product into C instead of
 // overwriting it (C must not alias A or B).
 //
-// Four entry points:
+// Five entry points:
 //
 //   packed_cols_list    one pass over A: per 64-row block, the ascending
 //                       list of contraction indices l that some row of
@@ -23,6 +23,9 @@
 //   packed_cols_sparse  walks those lists: work ∝ nnz(A)·W
 //   packed_cols_dense   int8 tensor cores (mma.sync m16n8k32 s8) on B
 //                       unpacked to bit planes in shared memory
+//   packed_cols_dense_batched
+//                       the same kernel over a batch of independent
+//                       products, one grid axis over the copies
 //
 // Nothing here counts in a type that can wrap: the sparse kernel only
 // ORs whole words, and the dense kernel's int32 counts are at most L.
@@ -573,15 +576,27 @@ __device__ __forceinline__ void mma_s8(int (&c)[4], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-template <bool A16, bool B16>
+// BATCH: blockIdx.x runs over (copy, word tile) pairs, ntw word tiles a
+// copy, and copy b reads A + b·sa and B + b·sb and writes C + b·sc
+// (strides in elements): one launch for every copy of a batch.
+template <bool A16, bool B16, bool BATCH>
 __global__ void __launch_bounds__(DTHREADS) packed_cols_dense_kernel(
     const int8_t* __restrict__ A, const int32_t* __restrict__ B,
-    int32_t* __restrict__ C, int M, int L, int W, int accumulate) {
+    int32_t* __restrict__ C, int M, int L, int W, int accumulate,
+    long long sa, long long sb, long long sc, int ntw) {
   __shared__ DenseSmem sm;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int g = lane >> 2, t = lane & 3;        // mma fragment coordinates
   const int wm = warp & 1, wn = warp >> 1;      // warp tile: rows 32wm.., planes 8wn..
-  const int w0 = blockIdx.x * DTW, m0 = blockIdx.y * TM;
+  int bx = blockIdx.x;
+  if (BATCH) {
+    const int copy = bx / ntw;
+    bx -= copy * ntw;
+    A += copy * sa;
+    B += copy * sb;
+    C += copy * sc;
+  }
+  const int w0 = bx * DTW, m0 = blockIdx.y * TM;
   for (int i = tid; i < TM * DTW; i += DTHREADS) sm.Cw[i / DTW][i % DTW] = 0u;
   int acc[2][8][4];
 #pragma unroll
@@ -752,14 +767,43 @@ int packed_cols_dense(const void* A, const void* B, void* C, int M, int L,
   const int8_t* a = (const int8_t*)A;
   const int32_t* b = (const int32_t*)B;
   int32_t* c = (int32_t*)C;
+  const int ntw = (int)grid.x;
   if (a16 && b16)
-    packed_cols_dense_kernel<true, true><<<grid, DTHREADS, 0, st>>>(a, b, c, M, L, W, accumulate);
+    packed_cols_dense_kernel<true, true, false><<<grid, DTHREADS, 0, st>>>(a, b, c, M, L, W, accumulate, 0, 0, 0, ntw);
   else if (a16)
-    packed_cols_dense_kernel<true, false><<<grid, DTHREADS, 0, st>>>(a, b, c, M, L, W, accumulate);
+    packed_cols_dense_kernel<true, false, false><<<grid, DTHREADS, 0, st>>>(a, b, c, M, L, W, accumulate, 0, 0, 0, ntw);
   else if (b16)
-    packed_cols_dense_kernel<false, true><<<grid, DTHREADS, 0, st>>>(a, b, c, M, L, W, accumulate);
+    packed_cols_dense_kernel<false, true, false><<<grid, DTHREADS, 0, st>>>(a, b, c, M, L, W, accumulate, 0, 0, 0, ntw);
   else
-    packed_cols_dense_kernel<false, false><<<grid, DTHREADS, 0, st>>>(a, b, c, M, L, W, accumulate);
+    packed_cols_dense_kernel<false, false, false><<<grid, DTHREADS, 0, st>>>(a, b, c, M, L, W, accumulate, 0, 0, 0, ntw);
+  return (int)cudaGetLastError();
+}
+
+// NB copies of the product in one launch: copy b is A + b·sa [M, L],
+// B + b·sb [L, W] and C + b·sc [M, W] (strides in elements; each copy's
+// rows contiguous).  The component plane's batched groups run every
+// copy's CR4/CR6 window through it.
+int packed_cols_dense_batched(const void* A, const void* B, void* C, int NB,
+                              int M, int L, int W, long long sa, long long sb,
+                              long long sc, int accumulate, void* stream) {
+  const long long ntw = (W + DTW - 1) / DTW;
+  if (ntw * NB > 0x7fffffffLL || (M + TM - 1) / TM > 65535)
+    return (int)cudaErrorInvalidConfiguration;
+  dim3 grid((unsigned)(ntw * NB), (M + TM - 1) / TM);
+  const bool a16 = L % 16 == 0 && (uintptr_t)A % 16 == 0 && sa % 16 == 0;
+  const bool b16 = W % 4 == 0 && (uintptr_t)B % 16 == 0 && sb % 4 == 0;
+  cudaStream_t st = (cudaStream_t)stream;
+  const int8_t* a = (const int8_t*)A;
+  const int32_t* b = (const int32_t*)B;
+  int32_t* c = (int32_t*)C;
+  if (a16 && b16)
+    packed_cols_dense_kernel<true, true, true><<<grid, DTHREADS, 0, st>>>(a, b, c, M, L, W, accumulate, sa, sb, sc, (int)ntw);
+  else if (a16)
+    packed_cols_dense_kernel<true, false, true><<<grid, DTHREADS, 0, st>>>(a, b, c, M, L, W, accumulate, sa, sb, sc, (int)ntw);
+  else if (b16)
+    packed_cols_dense_kernel<false, true, true><<<grid, DTHREADS, 0, st>>>(a, b, c, M, L, W, accumulate, sa, sb, sc, (int)ntw);
+  else
+    packed_cols_dense_kernel<false, false, true><<<grid, DTHREADS, 0, st>>>(a, b, c, M, L, W, accumulate, sa, sb, sc, (int)ntw);
   return (int)cudaGetLastError();
 }
 

@@ -53,6 +53,13 @@ def test_source_imports_nothing_of_jax(path):
     assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
 
 
+@pytest.mark.parametrize("rel", ["core/components.py", "frontend/partition_text.py"])
+def test_component_plane_is_inside_the_boundary(rel):
+    """The component plane's modules (the text partitioner a copy of the
+    reference's) are among the files the checks above read."""
+    assert ROOT / "distel_tpu_torch" / rel in PORT_FILES
+
+
 def test_importing_every_module_loads_no_jax():
     mods = sorted(
         ".".join(p.relative_to(ROOT).with_suffix("").parts).removesuffix(".__init__")

@@ -831,3 +831,74 @@ def test_fleet_migrates_and_recovers_on_the_card(card, tmp_path):
     for i, (g, w) in enumerate(zip(got, want)):
         assert g == w, i
     assert launches["packed_cols_dense"] + launches["packed_cols_sparse"] > 0
+
+
+# ------------------------------------------ the batched dense-route kernel
+
+#: (copies, m, l, w, density): a GALEN copy's CR4 shape, unaligned
+#: everywhere, several row blocks and word tiles a copy, all-zero, dense
+BATCHED_CASES = [
+    (600, 61, 64, 8, 0.05),
+    (7, 37, 70, 5, 0.2),
+    (3, 130, 96, 19, 0.3),
+    (5, 64, 32, 8, 0.0),
+    (2, 70, 33, 9, 1.0),
+]
+
+
+@pytest.mark.parametrize("accumulate", [False, True], ids=["write", "accumulate"])
+@pytest.mark.parametrize("nb,m,l,w,density", BATCHED_CASES)
+def test_batched_dense_matches_plain_and_unbatched(card, nb, m, l, w, density,
+                                                   accumulate):
+    """``packed_cols_dense_batched``: bit for bit against its plain
+    version and against ``nb`` launches of ``packed_cols_dense``, with
+    B a strided window of a batched state; one launch counted."""
+    gen = torch.Generator(device="cuda").manual_seed(nb * 31 + m)
+    a = (torch.rand((nb, m, l), generator=gen, device="cuda") < density).to(torch.int8)
+    state = torch.randint(-2**31, 2**31, (nb, l + 11, w), generator=gen,
+                          device="cuda", dtype=torch.int64).to(torch.int32)
+    b = state[:, 5 : 5 + l]
+    c0 = None
+    if accumulate:
+        c0 = torch.randint(-2**31, 2**31, (nb, m, w), generator=gen, device="cuda",
+                           dtype=torch.int64).to(torch.int32)
+        c0[:, ::2] = 0
+    want = bitmatmul.plain_packed_cols_batched(
+        a, b, None if c0 is None else c0.clone())
+    plan = PackedColsMatmulPlan(m, l, w, skip_zero_tiles=False)
+    loop = torch.stack([
+        plan(a[k], b[k].contiguous(), None if c0 is None else c0[k].clone())
+        for k in range(nb)
+    ])
+    before = dict(LAUNCHES)
+    got = bitmatmul.packed_cols_dense_batched(
+        a, b, None if c0 is None else c0.clone())
+    torch.cuda.synchronize()
+    assert torch.equal(got, want) and torch.equal(got, loop)
+    assert {k: LAUNCHES[k] - before[k] for k in LAUNCHES if LAUNCHES[k] != before[k]} \
+        == {"packed_cols_dense_batched": 1}
+
+
+def test_isomorphic_group_on_the_card_equals_cpu(card):
+    """A group of copies on the card: every copy's closure and the
+    counters equal the CPU run's, and the group's CR4/CR6 went through
+    the batched kernel."""
+    from distel_tpu_torch.core.components import partition_index, saturate_components
+    from distel_tpu_torch.core.indexing import index_ontology
+    from distel_tpu_torch.frontend.normalizer import normalize
+    from distel_tpu_torch.frontend.ontology_tools import multiply_ontology
+    from distel_tpu_torch.owl import parser
+
+    onto = multiply_ontology(parser.parse(snomed_shaped_ontology(n_classes=400)), 6)
+    comps = partition_index(index_ontology(normalize(onto)))
+    before = LAUNCHES["packed_cols_dense_batched"]
+    got = saturate_components(comps, device="cuda", keep_state=True)
+    assert LAUNCHES["packed_cols_dense_batched"] > before
+    want = saturate_components(comps, device="cpu", keep_state=True)
+    for k in ("n_components", "n_groups", "derivations", "iterations_max"):
+        assert got[k] == want[k], k
+    assert any(g["batch"] > 1 for g in got["groups"])
+    for g, h in zip(got["groups"], want["groups"]):
+        assert g["iterations"] == h["iterations"]
+        assert torch.equal(g["packed_s"].cpu(), h["packed_s"])
+        assert torch.equal(g["packed_r"].cpu(), h["packed_r"])
