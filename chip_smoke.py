@@ -7,7 +7,7 @@ Phases, each of which raises on failure:
 
 1. probe and build: the card, its power limit, and the CUDA kernels
    built from ``distel_tpu_torch/ops/csrc`` (one ``nvcc`` per source,
-   all started together; timed);
+   ``packed_cols.cu`` and ``graph_if.cu``, all started together; timed);
 2. kernel vs plain: the packed-columns product's two routes (the
    listing kernel ``packed_cols_list`` then ``packed_cols_sparse``; and
    ``packed_cols_dense``) against their plain PyTorch version, written
@@ -124,6 +124,21 @@ Phases, each of which raises on failure:
    record a round, ``cli runs report`` over it) beside the unobserved
    rebuild; the 8k corpus forced on the card and on the CPU, every
    round equal.
+10b. the fused K-round window (``fused_rounds``: K rounds of the
+   adaptive controller a captured CUDA graph of IF nodes, one host read
+   a window) at full width, each run equal round for round and in
+   closure to the synchronous per-round controller: the chain-tailed
+   64k corpus at K = 4, K = 8 (this phase's main path: its launches of
+   ``packed_cols_dense_n``, ``packed_cols_list_n`` and the IF setter
+   ``graph_if_set`` are read from that run alone, and must be > 0) and
+   K = 8 adaptive, each cold and warm; the forced 64k tier at K = 8;
+   the 64k ledgered rebuild with ``fused.rounds.k = 8`` from a
+   properties file against the unfused rebuild; the 8k corpus forced
+   and with a one-rung overflow on the card and on the CPU, record for
+   record, fallouts included; the row-count variants at the heaviest
+   CR4 and CR6 windows of the forced run's final state (both routes,
+   row counts 0, 1, half and all) and the IF node against a Python
+   ``if``, for the kernel line.
 11. the serve plane on the card and on the CPU (``ServeApp`` through
    ``dispatch``): the bench's traffic over the 8k corpus without its
    range axiom, the scheduled and snapshot reads after each write, every
@@ -185,7 +200,11 @@ state bytes, launches; the index-level union),
 launches, host and card peaks; the retraction's overdeletion time),
 ``{"observed_full_width": ...}`` (tier strings, per-round records,
 walls and the sparse rounds' launches of each run; the ledgered and
-unledgered rebuilds),
+unledgered rebuilds), ``{"fused_full_width": ...}`` (per run: cold and
+warm walls, rounds each window retired, fallouts, dropped windows,
+dispatch counters, the host's blocking reads, launches, and each
+captured window's K, capacities, capture seconds, recorded operations
+and card bytes),
 ``{"serve_card_vs_cpu": ...}`` and ``{"serve_full_width": ...}`` (per
 request: client wall, path, iterations, phases, launches, snapshot
 publish seconds, host peak RSS, card memory; the bytes an eviction
@@ -195,7 +214,8 @@ polls, spans and events, per-process card memory, launches and host
 RSS, heartbeat latencies, ejections) lines,
 a ``{"kernels": [...]}`` line
 (the sparse row also carries the listing kernel's time and launches;
-the batched dense row's numbers are from the component phase),
+the batched dense row's numbers are from the component phase; the
+row-count variants' and the IF setter's from the fused phase),
 and as its last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 Without a CUDA device it exits non-zero and prints no result.
@@ -309,12 +329,13 @@ def phase_probe():
     log(f"[probe] torch {torch.__version__} cuda {torch.version.cuda} "
         f"device {name} count {torch.cuda.device_count()}")
     t0 = time.perf_counter()
-    secs = build.build_all(["packed_cols"])
-    from distel_tpu_torch.ops import bitmatmul
+    secs = build.build_all(["packed_cols", "graph_if"])
+    from distel_tpu_torch.ops import bitmatmul, graph_if
 
     bitmatmul._lib()
+    graph_if._lib()
     log(f"[build] {secs} (wall {time.perf_counter() - t0:.2f} s)")
-    for p in Path(build.build_dir()).glob("libpacked_cols-*.so.ptxas.txt"):
+    for p in Path(build.build_dir()).glob("lib*.so.ptxas.txt"):
         log(p.read_text().strip())
     return name
 
@@ -1345,7 +1366,7 @@ class Capture:
     def __enter__(self):
         cap = self
 
-        def launch(plan, a, b, out):
+        def launch(plan, a, b, out, n_rows=None):
             f, site = sys._getframe(1), "other"
             while f is not None and f.f_code.co_name not in SITES:
                 f = f.f_back
@@ -1362,7 +1383,9 @@ class Capture:
                 got[0] += 1
                 if nnz > got[1]:
                     got[1:] = [nnz, a.cpu(), b.cpu()]
-            return cap._orig(plan, a, b, out)
+            if n_rows is None:
+                return cap._orig(plan, a, b, out)
+            return cap._orig(plan, a, b, out, n_rows)
 
         self.mod.PackedColsMatmulPlan._launch = launch
         return self
@@ -2090,7 +2113,8 @@ def observed_run(engine, **kw) -> tuple:
             "iteration": st.iteration, "tier": st.tier,
             "density": st.density, "rows_touched": st.rows_touched,
             "derivations": st.derivations, "overflow": st.overflow,
-            "inflight": st.inflight, "wall_s": t - last[1],
+            "inflight": st.inflight, "rounds_in_window": st.rounds_in_window,
+            "wall_s": t - last[1],
             "launches": {k: now[k] - last[0][k] for k in now
                          if now[k] != last[0][k]},
         })
@@ -2389,6 +2413,390 @@ def phase_observed_full_width(cap: Capture, device: str = "cuda",
     log(f"[observed] {json.dumps(out['card_vs_cpu_8k'])} phase {out['phase_s']:.1f} s")
     print(json.dumps({"observed_full_width": out}), flush=True)
     return pairs
+
+
+# ------------------------------------------------------ the fused window
+
+GRAPH_IF_SOURCE = "distel_tpu_torch/ops/csrc/graph_if.cu"
+#: the 8k overflow configuration: a one-rung workspace of 8 rows, so the
+#: busy rounds fall out of the window
+OVERFLOW_8 = {"density_threshold": 1.1, "hysteresis_rounds": 1,
+              "capacity_buckets": 1, "capacity_floor": 8}
+
+
+def fused_records(rounds) -> list:
+    """Per round, what a fused run and the per-round run must agree on
+    (the occupancy and the window size are the window's own)."""
+    return [(r["iteration"], r["tier"], r["rows_touched"], r["derivations"],
+             r["overflow"]) for r in rounds]
+
+
+def fused_run(engine, **kw) -> tuple:
+    """:func:`observed_run` of a fused run, with the IF setter's
+    launches zeroed just before too, and the window counters: rounds a
+    retired window retired, fallouts, windows dropped, the dispatch
+    counters' deltas, the host's blocking reads, the captured windows."""
+    from distel_tpu_torch.ops import graph_if
+    from distel_tpu_torch.runtime.instrumentation import DISPATCH_EVENTS
+
+    graph_if.reset_launches()
+    before = DISPATCH_EVENTS.snapshot()
+    run = observed_run(engine, **kw)
+    after = DISPATCH_EVENTS.snapshot()
+    info = {
+        **{k: v for k, v in engine.fused_run_stats.items()},
+        "dispatch": {k: after[k] - before[k] for k in
+                     ("dense_dispatches", "sparse_dispatches", "fused_windows",
+                      "fused_rounds_retired")},
+        "host_reads": dict(engine.host_reads),
+        "launches": {**run[4], **graph_if.LAUNCHES},
+        "captured": engine.fused_window_stats(),
+    }
+    return run, info
+
+
+def variant_operands(engine, res) -> list:
+    """The heaviest contraction window of each CR4/CR6 row-chunk table of
+    ``engine`` (rows × links), as the window's dense step builds it from
+    the final state ``res``: ``(rule, A, B, the engine's route)``."""
+    from distel_tpu_torch.ops.bitpack import bit_lookup_from
+
+    sp, rp = res.packed_s, res.packed_r
+    out = []
+    for rule, chunks, bits_state in (("cr4", engine._chunks4, sp),
+                                     ("cr6", engine._chunks6, rp)):
+        best = max(((c.src.shape[0] * (e - o), c, o, e) for c in chunks
+                    for o, e, _c0, _c1 in c.windows), default=None,
+                   key=lambda t: t[0])
+        if best is None:
+            continue
+        _work, chunk, off, end = best
+        subt = bits_state[chunk.src].T.contiguous()
+        f = bit_lookup_from(subt, engine._fillers[off:end], dtype=torch.int8)
+        a = (chunk.mask[:, engine._link_roles[off:end]] * f.T).contiguous()
+        route = engine._plan(a.shape[0], a.shape[1]).skip_zero_tiles
+        out.append((rule, a, rp[off:end].contiguous(), route))
+    return out
+
+
+def check_variants(ops) -> list:
+    """Both row-count variants (the dense kernel, and the listing
+    kernel then the sparse kernel) on every operand, against the plain
+    version for row counts 0 (a dead window), 1, half and all of A's
+    rows, ORed into a seeded C; then each variant's time at every row
+    live and at none, the plain version's and the bound."""
+    from distel_tpu_torch.ops.bitmatmul import (
+        PackedColsMatmulPlan, plain_packed_cols_rows,
+    )
+
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    checks = []
+    for rule, a, b, route in ops:
+        m, l = a.shape
+        w = b.shape[1]
+        c0 = torch.randint(-2**31, 2**31, (m, w), generator=gen, device="cuda",
+                           dtype=torch.int64).to(torch.int32)
+        for sparse in (False, True):
+            plan = PackedColsMatmulPlan(m, l, w, skip_zero_tiles=sparse)
+            err = 0
+            for n in (0, 1, m // 2, m):
+                nr = torch.full((1,), n, dtype=torch.int32, device="cuda")
+                got = plan(a, b, out=c0.clone(), n_rows=nr)
+                want = plain_packed_cols_rows(a, b, c0.clone(), nr)
+                sync()
+                err = max(err, int((got != want).sum()))
+            if err:
+                raise AssertionError(f"row-count variant {rule} sparse={sparse}: "
+                                     f"{err} words differ from plain")
+            c = c0.clone()
+            full = torch.full((1,), m, dtype=torch.int32, device="cuda")
+            dead = torch.zeros(1, dtype=torch.int32, device="cuda")
+            row = {
+                "kernel": "packed_cols_list_n" if sparse else "packed_cols_dense_n",
+                "rule": rule, "shape": [m, l, w], "main_path": sparse == route,
+                "max_abs_err": err,
+                "ms": time_ms(lambda: plan(a, b, out=c, n_rows=full)),
+                "dead_ms": time_ms(lambda: plan(a, b, out=c, n_rows=dead)),
+                "plain_ms": time_ms(lambda: plain_packed_cols_rows(a, b, c, full),
+                                    reps=3),
+                "a_nonzero_fraction": float((a != 0).float().mean()),
+            }
+            row["bound_ms"], row["bound_by"] = bound_ms(a, b)
+            checks.append(row)
+            log(f"[fused variant] {json.dumps(row)}")
+    return checks
+
+
+def graph_if_check() -> dict:
+    """The IF node against a Python ``if`` (the plain version): a graph
+    of two IF nodes replayed under every pair of predicates, each
+    result equal to the branches run by hand; then the time a node
+    takes (a graph of 64 IF nodes with empty bodies, replayed, over the
+    count) beside a host read of the predicate, its plain version."""
+    from distel_tpu_torch.ops import graph_if
+
+    x = torch.zeros(2, dtype=torch.int64, device="cuda")
+    p = torch.zeros(2, dtype=torch.bool, device="cuda")
+    graph, pool, child = torch.cuda.CUDAGraph(), torch.cuda.MemPool(), \
+        torch.cuda.Stream()
+    with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+        graph_if.capture_if(p[0], lambda: x[0:1].add_(1), child, pool)
+        graph_if.capture_if(p[1], lambda: x[1:2].add_(x[0:1] * 10 + 1), child, pool)
+    want, err = [0, 0], 0
+    for p0, p1 in ((False, False), (True, False), (False, True), (True, True)):
+        p.copy_(torch.tensor([p0, p1]))
+        graph.replay()
+        if p0:
+            want[0] += 1
+        if p1:
+            want[1] += want[0] * 10 + 1
+        err = max(err, max(abs(g - h) for g, h in zip(x.tolist(), want)))
+    if err:
+        raise AssertionError(f"IF nodes: {x.tolist()} != {want}")
+    n = 64
+    empty = torch.cuda.CUDAGraph()
+    pool2 = torch.cuda.MemPool()
+    q = torch.zeros((), dtype=torch.bool, device="cuda")
+    y = torch.zeros(1, dtype=torch.int64, device="cuda")
+    with torch.cuda.graph(empty, capture_error_mode="thread_local"):
+        for _ in range(n):
+            graph_if.capture_if(q, lambda: y.add_(1), child, pool2)
+    empty.replay()
+    sync()
+    e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    e0.record()
+    for _ in range(10):
+        empty.replay()
+    e1.record()
+    e1.synchronize()
+    ms = e0.elapsed_time(e1) / (10 * n)
+    plain_ms = wall_ms(lambda: bool(q), reps=100)
+    out = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+           "bound_ms": 1e3 * 1 / PEAK_BYTES_S, "bound_by": "bytes"}
+    log(f"[graph_if] {json.dumps(out)}")
+    return out
+
+
+def phase_fused_full_width(device: str = "cuda", n_chain: int = 64000,
+                           chain_depth: int = 64, n_big: int = 64000,
+                           n_small: int = 8000):
+    """The fused K-round window (``fused_rounds``: K rounds of the
+    adaptive controller a captured CUDA graph, one host read a window)
+    at full width, each run held round for round and in closure to the
+    per-round controller:
+
+    1. ``chain_tailed_ontology(64000, 64)``, ``unroll=1``, the default
+       sparse config and pipeline: the per-round run (synchronous, what
+       the windows' rounds equal; pipelined, for its wall), then K = 4,
+       K = 8
+       (THE main path of this phase: its launches, the row-count kernel
+       variants and the IF setter among them, are read from that run
+       alone) and K = 8 adaptive, each cold (its captures inside) and
+       again warm on the same engine;
+    2. the forced tier on the 64k corpus (threshold 1.1, hysteresis 1,
+       12 rungs), K = 8, against the per-round forced run, cold and
+       warm; the row-count variants at the heaviest CR4 and CR6 windows
+       of its final state, both routes, against the plain version;
+    3. the 64k corpus through the incremental plane with
+       ``obs.ledger.enable = true`` and ``fused.rounds.k = 8`` read from
+       a properties file: the closure of the unfused (unobserved)
+       rebuild, ledger records with ``rounds_in_window`` > 1;
+    4. the 8k corpus, K = 4, forced and with the one-rung overflow
+       config, on the card and on the CPU: every record (window sizes
+       and occupancy included), the observer's sequence, S and R equal.
+
+    Returns the kernel line's rows of the row-count variants and the IF
+    setter."""
+    from distel_tpu_torch.config import ClassifierConfig
+    from distel_tpu_torch.core.incremental import IncrementalClassifier
+    from distel_tpu_torch.core.rowpacked_engine import RowPackedSaturationEngine
+    from distel_tpu_torch.frontend.ontology_tools import (
+        chain_tailed_ontology, snomed_shaped_ontology,
+    )
+    from distel_tpu_torch.obs import ledger as ledger_mod
+    from distel_tpu_torch.owl import native_loader
+
+    on_card = device == "cuda"
+    out = {}
+    t_phase = time.perf_counter()
+
+    def free():
+        if on_card:
+            torch.cuda.empty_cache()
+
+    def held_equal(what, got, want):
+        if got[0] != want[0]:
+            raise AssertionError(f"{what}: the observer sequences differ")
+        if fused_records(got[1]) != fused_records(want[1]):
+            raise AssertionError(f"{what}: the round records differ")
+        if got[2].iterations != want[2].iterations \
+                or got[2].derivations != want[2].derivations \
+                or not same_closure(got[2], want[2]):
+            raise AssertionError(f"{what}: iterations, derivations or closure differ")
+
+    def summary(run, info, warm):
+        return {
+            "wall_s": run[3], "warm_wall_s": warm[3],
+            "rounds": len(run[1]), "tiers": tier_string(run[1]),
+            "window_rounds": info["windows"], "fallouts": info["fallouts"],
+            "dropped": info["dropped"], "dispatch": info["dispatch"],
+            "host_reads": info["host_reads"], "launches": info["launches"],
+            "captured": info["captured"],
+        }
+
+    # 1. the chain-tailed regime, K = 4, 8, 8 adaptive
+    idx = native_loader.load_indexed(chain_tailed_ontology(n_chain, chain_depth))
+
+    def chain_engine():
+        return RowPackedSaturationEngine(idx, device=device, unroll=1)
+
+    # the per-round controller, synchronous: what a window's retired
+    # rounds equal (a pipelined per-round run may switch tiers up to
+    # depth - 1 rounds late); and pipelined, the default, for its wall
+    base_engine = chain_engine()
+    base = observed_run(base_engine, sparse_tail=True, pipeline=False)
+    piped = observed_run(chain_engine(), sparse_tail=True)
+    chain = {"concepts": idx.n_concepts, "per_round": {
+        "wall_s": base[3], "rounds": len(base[1]), "tiers": tier_string(base[1]),
+        "host_reads": dict(base_engine.host_reads), "launches": base[4],
+        "pipelined_wall_s": piped[3], "pipelined_tiers": tier_string(piped[1])}}
+    del base_engine, piped
+    main = None
+    for label, fused in (("K4", {"rounds": 4}), ("K8", {"rounds": 8}),
+                         ("K8_adaptive", {"rounds": 8, "adaptive": True})):
+        eng = chain_engine()
+        run, info = fused_run(eng, sparse_tail=True, fused_rounds=fused)
+        held_equal(f"chain-tailed {label}", run, base)
+        warm, _ = fused_run(eng, sparse_tail=True, fused_rounds=fused)
+        held_equal(f"chain-tailed {label} warm", warm, base)
+        chain[label] = summary(run, info, warm)
+        if label == "K8":
+            main = info["launches"]
+        log(f"[fused chain-tailed {label}] {json.dumps(chain[label])}")
+        del eng, run, warm
+        free()
+    if on_card and (not (main["packed_cols_dense_n"] + main["packed_cols_list_n"])
+                    or not main["graph_if_set"]):
+        raise AssertionError(f"chain-tailed K8: the window's kernels were not "
+                             f"launched: {main}")
+    out["chain_tailed"] = chain
+    del base, idx
+    free()
+
+    # 2. the forced tier at 64k, K = 8
+    text = snomed_shaped_ontology(n_classes=n_big, seed=42)
+    idx = native_loader.load_indexed(text)
+
+    def big_engine():
+        return RowPackedSaturationEngine(idx, device=device, unroll=1)
+
+    base = observed_run(big_engine(), sparse_tail=FORCED_WIDE, pipeline=False)
+    eng = big_engine()
+    run, info = fused_run(eng, sparse_tail=FORCED_WIDE, fused_rounds={"rounds": 8})
+    held_equal("64k forced K8", run, base)
+    warm, _ = fused_run(eng, sparse_tail=FORCED_WIDE, fused_rounds={"rounds": 8})
+    held_equal("64k forced K8 warm", warm, base)
+    out["forced_64k"] = {"concepts": idx.n_concepts,
+                         "per_round": {"wall_s": base[3], "tiers": tier_string(base[1])},
+                         "K8": summary(run, info, warm)}
+    log(f"[fused forced 64k] {json.dumps(out['forced_64k'])}")
+    checks = check_variants(variant_operands(eng, warm[2]))
+    del base, eng, run, warm
+    free()
+
+    # 3. the ledgered rebuild with K = 8 from a properties file
+    shutil.rmtree(OBS_DIR, ignore_errors=True)
+    OBS_DIR.mkdir(parents=True)
+    props = OBS_DIR / "fused.properties"
+    props.write_text(f"obs.ledger.enable = true\nobs.ledger.dir = {OBS_DIR}\n"
+                     "fused.rounds.k = 8\n")
+    rebuilds = {}
+    for label, cfg in (("fused", ClassifierConfig.from_properties(str(props))),
+                       ("unfused", ClassifierConfig())):
+        inc = IncrementalClassifier(cfg, device=device)
+        sync()
+        t0 = time.perf_counter()
+        res = inc.add_text(text)
+        sync()
+        engine = inc._base_engine
+        rebuilds[label] = {
+            "wall_s": time.perf_counter() - t0, "iterations": res.iterations,
+            "derivations": res.derivations,
+            "tiers": "".join(st.tier[0] for st in engine.frontier_rounds),
+            "rounds_in_window": [st.rounds_in_window for st in engine.frontier_rounds],
+            "captured": engine.fused_window_stats(),
+            "result": res,
+        }
+        del inc, engine, res
+    fz, uf = rebuilds["fused"].pop("result"), rebuilds["unfused"].pop("result")
+    if fz.derivations != uf.derivations or not same_closure(fz, uf):
+        raise AssertionError("ledgered fused rebuild: closure differs from the unfused")
+    (ledger_file,) = sorted(OBS_DIR.glob("*.ledger.jsonl"))
+    recs = [r for r in ledger_mod.read_ledger(str(ledger_file)) if r["ev"] == "round"]
+    if not recs or max(r["rounds_in_window"] for r in recs) <= 1:
+        raise AssertionError(f"ledgered fused rebuild: window sizes "
+                             f"{[r['rounds_in_window'] for r in recs]}")
+    out["ledgered_rebuild"] = {**rebuilds, "ledger_round_records": len(recs),
+                               "records_rounds_in_window":
+                                   [r["rounds_in_window"] for r in recs]}
+    log(f"[fused ledgered rebuild] {json.dumps(out['ledgered_rebuild'])}")
+    shutil.rmtree(OBS_DIR, ignore_errors=True)
+    del fz, uf, idx, text
+    free()
+
+    # 4. card vs CPU at 8k: forced and overflow, K = 4
+    idx8 = native_loader.load_indexed(snomed_shaped_ontology(n_classes=n_small, seed=42))
+    out["card_vs_cpu_8k"] = {}
+    for label, sparse in (("forced", FORCED_WIDE), ("overflow", OVERFLOW_8)):
+        g, ginfo = fused_run(RowPackedSaturationEngine(idx8, device=device, unroll=1),
+                             sparse_tail=sparse, fused_rounds={"rounds": 4})
+        c, cinfo = fused_run(RowPackedSaturationEngine(idx8, device="cpu", unroll=1),
+                             sparse_tail=sparse, fused_rounds={"rounds": 4})
+        recs_g = [(*x, r["inflight"], r["rounds_in_window"])
+                  for x, r in zip(fused_records(g[1]), g[1])]
+        recs_c = [(*x, r["inflight"], r["rounds_in_window"])
+                  for x, r in zip(fused_records(c[1]), c[1])]
+        if recs_g != recs_c or g[0] != c[0] or not same_closure(g[2], c[2]) \
+                or ginfo["fallouts"] != cinfo["fallouts"]:
+            raise AssertionError(f"8k {label}: card and CPU fused runs differ")
+        out["card_vs_cpu_8k"][label] = {
+            "tiers": tier_string(g[1]), "window_rounds": ginfo["windows"],
+            "fallouts": ginfo["fallouts"], "wall_s": {"card": g[3], "cpu": c[3]},
+        }
+        del g, c
+    free()
+    if_check = graph_if_check()
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"[fused] 8k {json.dumps(out['card_vs_cpu_8k'])} phase {out['phase_s']:.1f} s")
+    print(json.dumps({"fused_full_width": out}), flush=True)
+
+    rows = []
+    for kern, replaces in (("packed_cols_dense_n", REPLACES["packed_cols_dense"]),
+                           ("packed_cols_list_n", REPLACES["packed_cols_sparse"])):
+        mine = [c for c in checks if c["kernel"] == kern]
+        pool = [c for c in mine if c["main_path"]] or mine
+        top = max(pool, key=lambda c: c["shape"][0] * c["shape"][1] * c["shape"][2])
+        row = {
+            "name": kern, "route": "cuda", "source": SOURCE, "replaces": replaces,
+            "launches": main[kern],
+            "max_abs_err": max(c["max_abs_err"] for c in mine),
+            "ms": top["ms"], "plain_ms": top["plain_ms"], "bound_ms": top["bound_ms"],
+            "bound_by": top["bound_by"], "library_ms": None, "dead_ms": top["dead_ms"],
+            "at": {"run": "forced64k:final", "rule": top["rule"],
+                   "shape": top["shape"]},
+            "main_path": top["main_path"],
+        }
+        if kern == "packed_cols_list_n":
+            row["sparse_launches"] = main["packed_cols_sparse"]
+        rows.append(row)
+    rows.append({
+        "name": "graph_if_set", "route": "cuda", "source": GRAPH_IF_SOURCE,
+        "replaces": "distel_tpu/core/rowpacked_engine.py:3026 (the cond of "
+                    "_fused_exec's lax.while_loop and its lax.switch; no Pallas "
+                    "kernel)",
+        "launches": main["graph_if_set"], **if_check, "library_ms": None,
+    })
+    return rows
 
 
 # ------------------------------------------------------- the serve plane
@@ -4018,6 +4426,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     checked += phase_observed_full_width(cap)
     torch.cuda.empty_cache()
+    fused_rows = phase_fused_full_width()
+    torch.cuda.empty_cache()
     phase_serve_card_vs_cpu()
     checked += phase_serve_full_width(cap)
     torch.cuda.empty_cache()
@@ -4025,6 +4435,7 @@ def main() -> int:
     rows, pairs = phase_kernel_line(launches, cap, checked)
     rows.append(andor_row)
     rows.append(batched_row)
+    rows.extend(fused_rows)
     (out / "kernel_pairs.json").write_text(json.dumps(pairs, indent=1))
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": rows}), flush=True)

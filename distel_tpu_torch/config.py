@@ -9,13 +9,13 @@ cache, the per-rule backends (``backend.CRn``, the hybrid of
 (``obs.*`` tracing, ``query.*`` snapshots, ``storage.*`` tiers,
 ``cohort.*`` formation), the serve fleet's (``fleet.*``) and the
 observed fixed point's (``sparse_tail.*``, ``pipeline.*``,
-``obs.trace_rounds``, ``obs.ledger.*``).  Knobs of paths the port does
-not have yet (mesh, shape buckets, the fused K-round window, the
-artifact farm) are absent, or refused where a reference config could
-carry them over: ``shape_buckets`` must be off, ``mesh.devices`` /
-``NODES_LIST`` may name no device (a mesh of one device still changes
-the reference's automatic rules, so it is refused too), and
-``fused.rounds.k`` above 1, ``artifacts.dir`` and the multi-process keys
+``obs.trace_rounds``, ``obs.ledger.*``) with its fused K-round window
+(``fused.rounds.*``).  Knobs of paths the port does not have yet (mesh,
+shape buckets, the artifact farm) are absent, or refused where a
+reference config could carry them over: ``shape_buckets`` must be off,
+``mesh.devices`` / ``NODES_LIST`` may name no device (a mesh of one
+device still changes the reference's automatic rules, so it is refused
+too), and ``artifacts.dir`` and the multi-process keys
 ``coordinator.address``, ``num.processes`` and ``process.id`` raise
 naming the key.
 The reference's ``matmul.dtype`` has no meaning for the port's exact
@@ -97,6 +97,19 @@ class ClassifierConfig:
     pipeline: bool = True
     #: maximum in-flight observed rounds (1 = synchronous)
     pipeline_depth: int = 2
+    #: the fused K-round window of observed runs (row-packed engine):
+    #: with ``fused_rounds_k`` > 1 one captured window runs up to K
+    #: rounds of the adaptive controller on the card (tier pick,
+    #: density/hysteresis and convergence there too) and the host reads
+    #: the card once a window; the retired rounds are the per-round
+    #: controller's, and a round that overflows the window's sparse
+    #: workspace runs on the per-round path
+    fused_rounds: bool = True
+    #: rounds per window (K); 1 = the per-round controller
+    fused_rounds_k: int = 1
+    #: halve K down the ladder K, K/2, ..., 2 once the derivation tail's
+    #: geometric decay predicts fewer rounds than half a window
+    fused_rounds_adaptive: bool = False
     #: request tracing (``obs/trace.py``): ``obs_enable=False`` takes
     #: every span off-path; the flight recorder stays on
     obs_enable: bool = True
@@ -252,16 +265,12 @@ class ClassifierConfig:
             cfg.pipeline = flag("pipeline.enable")
         if "pipeline.depth" in raw:
             cfg.pipeline_depth = int(raw["pipeline.depth"])
-        if (
-            int(raw.get("fused.rounds.k", 1)) > 1
-            and raw.get("fused.rounds.enable", "true").lower() == "true"
-        ):
-            raise ValueError(
-                f"fused.rounds.k = {raw['fused.rounds.k']} asks for the "
-                "device-resident fused K-round window, which "
-                "distel_tpu_torch does not have (k = 1 runs the per-round "
-                "controller)"
-            )
+        if "fused.rounds.enable" in raw:
+            cfg.fused_rounds = flag("fused.rounds.enable")
+        if "fused.rounds.k" in raw:
+            cfg.fused_rounds_k = int(raw["fused.rounds.k"])
+        if "fused.rounds.adaptive" in raw:
+            cfg.fused_rounds_adaptive = flag("fused.rounds.adaptive")
         if "obs.enable" in raw:
             cfg.obs_enable = flag("obs.enable")
         if "obs.sample_rate" in raw:
@@ -339,6 +348,18 @@ class ClassifierConfig:
         return {
             "enable": self.pipeline,
             "depth": self.pipeline_depth,
+        }
+
+    def fused_rounds_config(self) -> Optional[dict]:
+        """The row-packed engine's ``fused_rounds=`` kwarg for this
+        config (None = the per-round controller; the engine also routes
+        per round when K is 1)."""
+        if not self.fused_rounds:
+            return None
+        return {
+            "enable": True,
+            "rounds": self.fused_rounds_k,
+            "adaptive": self.fused_rounds_adaptive,
         }
 
     def cr6_tiles_config(self) -> Optional[dict]:

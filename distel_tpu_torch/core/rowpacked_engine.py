@@ -94,19 +94,55 @@ differs from the reference's tier, and why:
   instead, every round dense.
 * Capacity rungs compile nothing here; they keep their meaning: a
   selection past the last rung overflows, and the round runs dense.
-* The reference's device-resident fused K-round window
-  (``fused_rounds.rounds > 1``) is not ported and raises.
+
+**The fused K-round window** (``fused_rounds={"rounds": K}``, K > 1;
+:meth:`_saturate_fused`) is the reference's: up to K rounds of the
+adaptive controller per dispatch, the tier decision on the card, one
+host read a window, every retired round the per-round controller's.
+On a card a window is one CUDA graph a ``(K, capacities)`` pair,
+captured once and replayed: K round bodies unrolled, each four
+conditional (IF) nodes in a row (:meth:`_branch`, ``ops/graph_if.py``):
+the round's decision while the window still runs, the dense tier, the
+sparse tier, and the round's record, each on a flag the card computed
+(PyTorch 2.11 exposes no IF nodes, so ``csrc/graph_if.cu`` adds them;
+one level, no nesting).  Every table the body
+reads is on the card before the capture; the body reads nothing back:
+the device round plan (:meth:`_round_plan_dev`) replaces the host
+selection, the compaction is a prefix sum and a scatter
+(:meth:`_compact_dev`), the dense step takes each window's liveness as
+a card-held row count that the kernels read (:meth:`_step_dev`), and
+the sparse step runs at the traced capacities (:meth:`_sparse_exec_dev`)
+with duplicate-safe row writes (:meth:`_seg_or_write`).  A host sync in
+the body fails the capture, and the run with it.  On the CPU the same
+body runs eagerly on the plain versions, under :class:`NoHostReads`,
+which raises on the operations that would sync a card.  What differs
+from the reference's window, and why:
+
+* The reference contracts a sparse round's selected CR4/CR6 rows one
+  row at a time; the port contracts each row chunk's selected rows
+  (capacity-sized, the count on the card) through the packed-columns
+  kernels, window by window, in the dense step's write groups.
+* A graph replays its captured launches without a wrapper call, so the
+  launch counts of :data:`~distel_tpu_torch.ops.bitmatmul.LAUNCHES`
+  are what the retired rounds' tier bodies captured, added at retire.
+* Captured graphs hold the addresses they were captured on: a card
+  engine runs its windows on one state pair of its own, copied in at
+  the start of a run and out at its end.
 """
 
 from __future__ import annotations
 
+import contextlib
+import gc
+import threading
 import time
-from collections import deque
+from collections import OrderedDict, deque
 from dataclasses import dataclass
 from typing import List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
 
 from distel_tpu_torch.core.cr6_tiles import (
     TILE_DEFAULTS,
@@ -124,6 +160,8 @@ from distel_tpu_torch.core.engine import (
     popcount_rows,
 )
 from distel_tpu_torch.core.indexing import BOTTOM_ID, TOP_ID, IndexedOntology
+from distel_tpu_torch.ops import bitmatmul, graph_if
+from distel_tpu_torch.ops.nosync import NoHostReads
 from distel_tpu_torch.ops.bitmatmul import PackedColsMatmulPlan
 from distel_tpu_torch.runtime.instrumentation import (
     DISPATCH_EVENTS,
@@ -132,7 +170,6 @@ from distel_tpu_torch.runtime.instrumentation import (
 )
 from distel_tpu_torch.ops.bitpack import (
     SegmentedRowOr,
-    bit_lookup,
     bit_lookup_from,
     or_reduce_any,
 )
@@ -240,6 +277,161 @@ class Frontier:
     mask_s: Optional[np.ndarray] = None
 
 
+class _OpCount(TorchDispatchMode):
+    """Counts the tensor operations run under it (a capture records each
+    as one or more graph nodes)."""
+
+    def __init__(self):
+        super().__init__()
+        self.n = 0
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        self.n += 1
+        return func(*args, **(kwargs or {}))
+
+
+_WARM = set()
+#: captures in progress in this process, under _GC_LOCK: the garbage
+#: collector stays off while any runs (no CUDA object may be freed
+#: inside a capture) and comes back as it was after the last
+_GC_STATE = {"captures": 0, "was_enabled": True}
+_GC_LOCK = threading.Lock()
+
+
+@contextlib.contextmanager
+def _no_gc():
+    with _GC_LOCK:
+        if _GC_STATE["captures"] == 0:
+            _GC_STATE["was_enabled"] = gc.isenabled()
+            gc.collect()
+            gc.disable()
+        _GC_STATE["captures"] += 1
+    try:
+        yield
+    finally:
+        with _GC_LOCK:
+            _GC_STATE["captures"] -= 1
+            if _GC_STATE["captures"] == 0 and _GC_STATE["was_enabled"]:
+                gc.enable()
+
+
+def _warm_kernels(device) -> None:
+    """Load the packed-columns library and launch each kernel a window
+    captures once on tiny operands (row count 0), so that no module is
+    first loaded inside a capture."""
+    key = str(device)
+    if key in _WARM:
+        return
+    a = torch.zeros((64, 64), dtype=torch.int8, device=device)
+    b = torch.zeros((64, 8), dtype=torch.int32, device=device)
+    c = torch.zeros((64, 8), dtype=torch.int32, device=device)
+    n = torch.zeros(1, dtype=torch.int32, device=device)
+    for skip in (False, True):
+        PackedColsMatmulPlan(64, 64, 8, skip_zero_tiles=skip)(a, b, out=c,
+                                                             n_rows=n)
+    torch.cuda.synchronize(device)
+    _WARM.add(key)
+
+
+class _WindowOut:
+    """One dispatched window's report, changed-S mask and dirty
+    L-chunks on their way to the host: on a card, asynchronous copies
+    into pinned buffers behind an event; on the CPU, copies."""
+
+    def __init__(self, win):
+        srcs = (win.report, win.ms, win.dl)
+        if win.report.device.type == "cuda":
+            self.bufs = [torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+                         for t in srcs]
+            for buf, t in zip(self.bufs, srcs):
+                buf.copy_(t, non_blocking=True)
+            self.event = torch.cuda.Event()
+            self.event.record()
+        else:
+            self.bufs = [t.clone() for t in srcs]
+            self.event = None
+
+    def wait(self):
+        """``(report, mask_s, dirty_l)`` as numpy arrays, once the
+        copies landed."""
+        if self.event is not None:
+            self.event.synchronize()
+        return tuple(b.numpy() for b in self.bufs)
+
+
+class _FusedWindow:
+    """One window of K rounds at sparse capacities ``caps``: its carries
+    and per-round records as fixed card tensors (a graph reads and
+    writes them in place), and on a card its captured graph."""
+
+    def __init__(self, engine, K: int, caps: tuple, state):
+        # no reference back to the engine: an engine and its windows
+        # must not form a cycle (a cycle frees its card memory only at a
+        # garbage collection, which may come in the middle of a capture)
+        dev = engine.device
+        self.K, self.caps = K, caps
+        self.state = state
+
+        def scalar(dtype=torch.int64):
+            return torch.zeros((), dtype=dtype, device=dev)
+
+        # carries (loaded at a sync point, chained between windows)
+        self.ms = torch.zeros(engine.nc, dtype=torch.bool, device=dev)
+        self.dl = torch.zeros(engine.n_lchunks, dtype=torch.bool, device=dev)
+        self.below, self.it = scalar(), scalar()
+        self.budget, self.below_cut, self.hyst = scalar(), scalar(), scalar()
+        self.status, self.rdone = scalar(), scalar()
+        # one round's decision and results
+        (self.use_dense, self.use_sparse, self.fallout, self.idle,
+         self.ch) = (scalar(torch.bool) for _ in range(5))
+        self.rows, self.below_next = scalar(), scalar()
+        self.bits, self.delta = scalar(), scalar()
+        # per-round records, and the report the host reads
+        self.tb, self.rb, self.db, self.bb = (
+            torch.zeros(K, dtype=torch.int64, device=dev) for _ in range(4)
+        )
+        self.cb = torch.zeros(K, dtype=torch.bool, device=dev)
+        self.report = torch.zeros(4 + 5 * K, dtype=torch.int64, device=dev)
+        #: per round, per tier: the kernel launches its body captured
+        self.launches = [{} for _ in range(K)]
+        self.plan = None
+        self.graph = self.pool = None
+        self.capture_s = 0.0
+        self.captured_ops = 0
+        self.card_bytes = 0
+
+    def load(self, s_chg, dirty_l, below, iteration, budget, below_cut,
+             hyst) -> None:
+        """The host carry of a sync point, into the window's tensors."""
+        self.ms.copy_(torch.from_numpy(np.asarray(s_chg, bool)))
+        self.dl.copy_(torch.from_numpy(np.asarray(dirty_l, bool)))
+        for t, v in ((self.below, below), (self.it, iteration),
+                     (self.budget, budget), (self.below_cut, below_cut),
+                     (self.hyst, hyst)):
+            t.fill_(int(v))
+
+    def chain(self, prev) -> None:
+        """Continue from ``prev``'s exit carries, on the card."""
+        for name in ("ms", "dl", "below", "it", "budget", "below_cut",
+                     "hyst"):
+            getattr(self, name).copy_(getattr(prev, name))
+
+    def run(self, engine) -> None:
+        if self.graph is not None:
+            self.graph.replay()
+            # four IF nodes a round, each behind its setter kernel
+            graph_if.add_launches(4 * self.K)
+        else:
+            with NoHostReads():
+                engine._window_body(self)
+        self.plan = None
+
+    def release(self) -> None:
+        if self.graph is not None:
+            self.graph.reset()
+        self.graph = self.pool = self.plan = None
+
+
 class RowPackedSaturationEngine:
     """Compiles an indexed ontology into plans over transposed
     row-packed state on ``device``; :meth:`saturate` runs the fixed
@@ -300,12 +492,12 @@ class RowPackedSaturationEngine:
         defaults, or a dict of ``enable``, ``density_threshold``,
         ``capacity_buckets``, ``hysteresis_rounds``,
         ``capacity_floor``), ``pipeline`` (None = on at depth 2) and
-        ``fused_rounds`` (``rounds`` 1 only: the fused K-round window
-        is not ported).  Degenerate values raise here, not rounds into
+        ``fused_rounds`` (None = K 1; ``enable``, ``rounds`` K,
+        ``adaptive``).  Degenerate values raise here, not rounds into
         a run."""
         self._sparse_cfg = self._normalize_sparse_cfg(sparse_tail)
         self._pipeline_cfg = self._normalize_pipeline_cfg(pipeline)
-        self._normalize_fused_cfg(fused_rounds)
+        self._fused_cfg = self._normalize_fused_cfg(fused_rounds)
         if rules is not None:
             unknown = set(rules) - {f"CR{i}" for i in range(1, 7)}
             if unknown:
@@ -612,6 +804,20 @@ class RowPackedSaturationEngine:
         #: ``{"cr4": [run, skipped], "cr6": [...], "cr6_tiles": [...],
         #: "cr5": ran}`` (windows, or link tiles for the live-tile CR6)
         self.gate_rounds: list = []
+        #: blocking reads of the card by the host since the last observed
+        #: run began: ``flags`` (a step's or a sparse round's frontier, a
+        #: fused window's report) and ``bits`` (live-bit totals)
+        self.host_reads = {"flags": 0, "bits": 0}
+        #: windows of the last fused run (see :meth:`_saturate_fused`)
+        self.fused_run_stats = {"windows": [], "fallouts": 0, "dropped": 0}
+        self._bottom_idx = torch.full(
+            (1,), BOTTOM_ID, dtype=torch.int64, device=dev
+        )
+        # the fused window's card tables, its captured windows (LRU) and
+        # the state pair a card's windows run on (see _saturate_fused)
+        self._fused_tab_cache = None
+        self._fused_windows: "OrderedDict" = OrderedDict()
+        self._fused_state = None
 
     def _plan(self, m, l) -> PackedColsMatmulPlan:
         """The product plan of an [m, l] operand against the state's
@@ -812,10 +1018,11 @@ class RowPackedSaturationEngine:
 
     @classmethod
     def _normalize_fused_cfg(cls, raw) -> Optional[dict]:
-        """The reference's fused-rounds config, parsed as it parses it
-        (None/True = the defaults, K = 1: the per-round controllers).
-        K > 1 moves the round loop into one device dispatch in the
-        reference; the port has no such window and raises."""
+        """The resolved fused-rounds config, the reference's: ``rounds``
+        (K) rounds of the adaptive controller a dispatch, the host
+        reading the card at window edges only.  None/True = the
+        defaults (K = 1: the per-round controllers run); None when
+        disabled."""
         if raw is None or raw is True:
             return dict(cls._FUSED_DEFAULTS)
         if raw is False:
@@ -831,13 +1038,7 @@ class RowPackedSaturationEngine:
             raise ValueError(
                 f"fused_rounds rounds must be >= 1 (got {cfg['rounds']!r})"
             )
-        if int(cfg["rounds"]) > 1:
-            raise ValueError(
-                f"fused_rounds rounds = {cfg['rounds']}: the device-resident "
-                "fused K-round window is not ported to distel_tpu_torch "
-                "(rounds = 1 runs the per-round controller)"
-            )
-        cfg["rounds"] = 1
+        cfg["rounds"] = int(cfg["rounds"])
         cfg["adaptive"] = bool(cfg["adaptive"])
         return cfg
 
@@ -1195,8 +1396,8 @@ class RowPackedSaturationEngine:
     def _cr5_reduce(self, sp, rp) -> torch.Tensor:
         """The OR of the R rows whose filler is unsatisfiable [wc] (in
         row blocks, so the masked copy stays bounded)."""
-        botf = bit_lookup(
-            sp, np.full(1, BOTTOM_ID), self._fillers, dtype=torch.bool
+        botf = bit_lookup_from(
+            sp[self._bottom_idx].T, self._fillers, dtype=torch.bool
         )[:, 0]                                            # [nl]
         blk = max(self.temp_budget_bytes // (4 * self.wc), 1)
         red = torch.zeros(self.wc, dtype=torch.int32, device=sp.device)
@@ -1216,13 +1417,11 @@ class RowPackedSaturationEngine:
             (sp[BOTTOM_ID] != old).any()[None],
         ))
 
-    def _fold(self, s_cvs, r_cvs, carry: bool = False) -> Frontier:
-        """The next step's frontier from this step's change vectors: one
-        indexed OR a state matrix (targets are unique within a writer,
-        and the order of writers does not matter for an OR), the per-
-        chunk reductions on the device, and one copy of every flag to
-        the host — with ``carry``, of the changed-S row mask too (the
-        observed controller's host frontier)."""
+    def _fold_masks(self, s_cvs, r_cvs):
+        """The changed-S row mask [nc] and the dirty L-chunks [n_lchunks]
+        of a step's change vectors, on the device: one indexed OR a
+        state matrix (targets are unique within a writer, and the order
+        of writers does not matter for an OR)."""
         dev = self.device
 
         def mask(cvs, n):
@@ -1233,6 +1432,17 @@ class RowPackedSaturationEngine:
                 m.index_add_(0, t, v)
             return m > 0
 
+        mask_s = mask(s_cvs, self.nc)
+        mask_r = mask(r_cvs, self._grid_end)
+        return mask_s, mask_r.view(self.n_lchunks, self.lc).any(dim=1)
+
+    def _chunk_flags(self, mask_s, dirty_l):
+        """What a step's gates read of a frontier ``(mask_s, dirty_l)``,
+        on the device: per CR4 chunk whether a source S row changed, per
+        CR6 chunk (and live-tile row tile) whether an L-chunk of a
+        source row did, ``dirty_l`` with a trailing always-False slot."""
+        dev = self.device
+
         def per_chunk(src, csr, n):
             ids, seg = csr
             out = torch.zeros(n, dtype=torch.int32, device=dev)
@@ -1240,24 +1450,34 @@ class RowPackedSaturationEngine:
                 out.index_add_(0, seg, src[ids].to(torch.int32))
             return out > 0
 
-        n_l, n4, n6, n_rt = self._flag_sizes
-        mask_s = mask(s_cvs, self.nc)
-        mask_r = mask(r_cvs, self._grid_end)
-        dirty_l = mask_r.view(n_l, self.lc).any(dim=1)
-        any_r = dirty_l.any()
+        _n_l, n4, n6, n_rt = self._flag_sizes
         dl_ext = torch.cat([dirty_l, dirty_l.new_zeros(1)])
-        parts = [
-            (mask_s.any() | any_r)[None],
-            dirty_l,
+        fd6 = (
+            dl_ext[self._t6["fdx"]].any(dim=1) if n_rt
+            else dirty_l.new_zeros(0)
+        )
+        return (
             per_chunk(mask_s, self._f4_csr, n4),
-            per_chunk(dirty_l, self._f6_csr, n6),
-        ]
+            per_chunk(dirty_l, self._f6_csr, n6), fd6, dl_ext,
+        )
+
+    def _fold(self, s_cvs, r_cvs, carry: bool = False) -> Frontier:
+        """The next step's frontier from this step's change vectors
+        (:meth:`_fold_masks`, :meth:`_chunk_flags`) and one copy of every
+        flag to the host — with ``carry``, of the changed-S row mask too
+        (the observed controller's host frontier)."""
+        n_l, n4, n6, n_rt = self._flag_sizes
+        mask_s, dirty_l = self._fold_masks(s_cvs, r_cvs)
+        any_r = dirty_l.any()
+        f4, f6, fd6, dl_ext = self._chunk_flags(mask_s, dirty_l)
+        parts = [(mask_s.any() | any_r)[None], dirty_l, f4, f6]
         if n_rt:
-            parts.append(dl_ext[self._t6["fdx"]].any(dim=1))
+            parts.append(fd6)
         parts.append((any_r | mask_s[BOTTOM_ID])[None])
         if carry:
             parts.append(mask_s)
         flags = torch.cat(parts).cpu().numpy()
+        self.host_reads["flags"] += 1
         o = np.cumsum([1, n_l, n4, n6, n_rt, 1])
         return Frontier(
             bool(flags[0]), flags[o[0]:o[1]], flags[o[1]:o[2]],
@@ -1558,6 +1778,7 @@ class RowPackedSaturationEngine:
         )
         dirty_next = mask_r.view(self.n_lchunks, self.lc).any(dim=1)
         flags = torch.cat([mask_s, dirty_next]).cpu().numpy()
+        self.host_reads["flags"] += 1
         s_chg, dl_next = flags[: self.nc], flags[self.nc:]
         any_r = bool(dl_next.any())
         changed = bool(s_chg.any()) or any_r
@@ -1652,10 +1873,15 @@ class RowPackedSaturationEngine:
         for d, key in ((self._sp4, "cr4"), (self._sp6, "cr6")):
             if d is not None:
                 d["windows"] = [list(w) for _a0, _a1, w in windows[key]]
+        # the fused window's tables and captured windows read the masks
+        # and windows: rebuild them on next use
+        self._fused_tab_cache = None
+        self._fused_windows.clear()
         self.idx = dataclasses.replace(idx, role_closure=h_new)
         return True
 
     def count_live_bits(self, sp, rp) -> int:
+        self.host_reads["bits"] += 1
         return _host_bit_total(live_bits(sp, rp, self._wmask))
 
     # -------------------------------------------------------- fixed point
@@ -1716,6 +1942,961 @@ class RowPackedSaturationEngine:
             idx=self.idx,
             converged=converged,
         )
+
+    # ------------------------------------------- the fused K-round window
+    #
+    # The per-round controller pays a host read of the card's frontier
+    # a round.  The fused window moves the round loop onto the card: up
+    # to K rounds of the adaptive controller a dispatch, the decision
+    # (frontier measure, density and hysteresis, tier, convergence)
+    # re-derived there from card copies of the same carries, the host
+    # reading the card once a window.  A round whose frontier overflows
+    # the window's sparse workspace does not run: the window exits
+    # (status 2) and the host replays that one round on the per-round
+    # path, so every retired round is the per-round controller's.
+
+    _FUSED_TIERS = {0: "dense", 1: "sparse", 2: "idle"}
+
+    #: captured windows an engine keeps, least recently used first out:
+    #: each holds its graph's card memory (:meth:`fused_window_stats`)
+    FUSED_CACHE_SIZE = 4
+
+    @staticmethod
+    def _fused_k_ladder(K: int, adaptive: bool) -> list:
+        """The window sizes this config can dispatch: just K, or — with
+        the K-adaptive terminal window on — the halving ladder K, K/2,
+        ..., 2."""
+        ks = [int(K)]
+        if adaptive:
+            k = int(K)
+            while k > 2:
+                k //= 2
+                ks.append(k)
+        return ks
+
+    def _fused_eligible(self) -> bool:
+        """Whether this engine's config routes the fused window (K > 1
+        configured, and the sparse tier its round decision is built
+        from configured and supported)."""
+        return bool(
+            self._fused_cfg
+            and self._fused_cfg["rounds"] > 1
+            and self._sparse_cfg is not None
+            and self._sparse_supported()
+        )
+
+    def _fused_below_cutoff(self, thr: float) -> int:
+        """Largest ``rows_touched`` for which the host controller's f64
+        test ``rows / max(total_rows, 1) < thr`` holds — the exact
+        integer form of the density test the window runs on the card
+        (a division there could disagree with the host at the
+        threshold and desync the hysteresis)."""
+        total = max(self._sp_total_rows, 1)
+        start = int(np.floor(float(thr) * total)) + 2
+        for cand in range(start, -1, -1):
+            if cand / total < thr:
+                return cand
+        return -1
+
+    @staticmethod
+    def _fused_pieces(d: dict) -> list:
+        """A CR4/CR6 table's write pieces ``(group, chunk, r0, r1)`` in
+        row order: the rows of one row chunk inside one write group (a
+        chunk is one contiguous span of rows; a live-tile group may cut
+        it).  A sparse round's selected rows of a piece lie together in
+        its workspace, because the workspace is in row order."""
+        starts = d["group_starts"]
+        out = []
+        for c in range(len(d["windows"])):
+            rows = np.flatnonzero(d["chunk_of"] == c)
+            r0, r1 = int(rows[0]), int(rows[-1]) + 1
+            cuts = sorted({r0, r1, *(int(x) for x in starts if r0 < x < r1)})
+            for a, b in zip(cuts[:-1], cuts[1:]):
+                g = int(np.searchsorted(starts, a, side="right")) - 1
+                out.append((g, c, a, b))
+        return sorted(out, key=lambda p: p[2])
+
+    def _fused_tables(self) -> dict:
+        """The card tables the window's round decision and tiers read —
+        the counterparts of :meth:`_sparse_round_plan`'s host arrays
+        (rule tables, factored masks, row validity, write pieces) and of
+        the dense step's window L-chunks.  Built before any capture (a
+        capture may not copy from the host); cached per engine,
+        dropped by :meth:`rebind_role_closure`."""
+        ft = self._fused_tab_cache
+        if ft is not None:
+            return ft
+        dev = self.device
+
+        def i64(a):
+            return torch.as_tensor(np.asarray(a, np.int64)).to(dev)
+
+        nf1, nf2, nf3 = self._sp_nf1, self._sp_nf2, self._sp_nf3
+
+        def most(tgts):
+            """The most rows of one target (a write's longest segment)."""
+            return int(np.unique(tgts, return_counts=True)[1].max()) \
+                if len(tgts) else 1
+
+        ft = {"croles": torch.as_tensor(self._chunk_roles_np).to(dev),
+              "most": {k: most(t[:, c]) for k, t, c in
+                       (("1", nf1, 1), ("2", nf2, 2), ("3", nf3, 1))}}
+        if len(nf1):
+            ft["nf1s"], ft["nf1t"] = i64(nf1[:, 0]), i64(nf1[:, 1])
+        if len(nf2):
+            ft["nf2a"], ft["nf2b"] = i64(nf2[:, 0]), i64(nf2[:, 1])
+            ft["nf2t"] = i64(nf2[:, 2])
+        if len(nf3):
+            ft["nf3s"], ft["nf3t"] = i64(nf3[:, 0]), i64(nf3[:, 1])
+        for key, d, src, mask in (
+            ("4", self._sp4, self._a4, self._m4_full),
+            ("6", self._sp6,
+             None if self._l26 is None else self._l26 // self.lc,
+             self._m6_full),
+        ):
+            if d is None:
+                continue
+            ch = d["chunk_of"]
+            has_win = np.asarray([len(w) > 0 for w in d["windows"]], bool)
+            pieces = self._fused_pieces(d)
+            piece_of = np.zeros(len(ch), np.int64)
+            for pi, (_g, _c, r0, r1) in enumerate(pieces):
+                piece_of[r0:r1] = pi
+            ft["fd" + key] = i64(src)
+            ft["m" + key] = torch.as_tensor(mask).to(dev)
+            ft["ok" + key] = torch.as_tensor(
+                (ch >= 0) & has_win[np.clip(ch, 0, None)]
+            ).to(dev)
+            ft["tab" + key] = i64(d["tab"])
+            ft["piece" + key] = i64(piece_of)
+            ft["pieces" + key] = pieces
+            groups = {}
+            for _g, _c, r0, r1 in pieces:
+                groups.setdefault(_g, []).append(d["tab"][r0:r1, 2])
+            ft["most" + key] = {g: most(np.concatenate(t))
+                                for g, t in groups.items()}
+        for key, chunks in (("4", self._chunks4), ("6", self._chunks6)):
+            ft["win" + key] = [
+                (i64([w[2] for w in c.windows]), i64([w[3] for w in c.windows]))
+                for c in chunks
+            ]
+        # the write plans' card targets, which the dense step would
+        # otherwise copy over on first use
+        state_dev = self._wmask.device
+        plans = [self._p1, self._p2, self._p3]
+        plans += [c.piece for c in self._chunks4 + self._chunks6]
+        if self._t6 is not None:
+            plans += [g[2] for g in self._t6["groups"]]
+        for plan in plans:
+            plan.device_targets(state_dev)
+        self._fused_tab_cache = ft
+        return ft
+
+    # ---- the round decision on the card
+
+    def _round_plan_dev(self, ms, dl) -> dict:
+        """The card replica of :meth:`_sparse_round_plan`'s measure from
+        the carries ``ms`` (changed S rows) and ``dl`` (dirty L-chunks):
+        per-rule activity masks and counts over the full tables, the
+        CR1 → CR2 → CR3 cascade, row-level CR4/CR6 liveness and CR5's
+        ``run5``.  It must select exactly what the host selects from
+        the same carries: the tier, the hysteresis and every
+        ``rows_touched`` record hang off it."""
+        ft = self._fused_tables()
+        dev = self.device
+        zero = torch.zeros((), dtype=torch.int64, device=dev)
+        plan = {"n1": zero, "n2": zero, "n3": zero, "n4": zero, "n6": zero}
+
+        def scatter_or(base, tgts, act):
+            hit = torch.zeros(self.nc, dtype=torch.int32, device=dev)
+            hit.index_add_(0, tgts, act.to(torch.int32))
+            return base | (hit > 0)
+
+        s1 = ms
+        if "nf1s" in ft:
+            act1 = ms[ft["nf1s"]]
+            plan["act1"], plan["n1"] = act1, act1.sum()
+            s1 = scatter_or(ms, ft["nf1t"], act1)
+        s2 = s1
+        if "nf2a" in ft:
+            act2 = s1[ft["nf2a"]] | s1[ft["nf2b"]]
+            plan["act2"], plan["n2"] = act2, act2.sum()
+            s2 = scatter_or(s1, ft["nf2t"], act2)
+        if "nf3s" in ft:
+            act3 = s2[ft["nf3s"]]
+            plan["act3"], plan["n3"] = act3, act3.sum()
+        dirty_roles = (ft["croles"] & dl[:, None]).any(dim=0)
+        for key, src in (("4", ms), ("6", dl)):
+            if "m" + key not in ft:
+                continue
+            fd = src[ft["fd" + key]]
+            masked = (ft["m" + key] & dirty_roles[None, :]).any(dim=1)
+            act = (fd | masked) & ft["ok" + key]
+            plan["fd" + key], plan["act" + key] = fd, act
+            plan["n" + key] = act.sum()
+        rows = plan["n1"] + plan["n2"] + plan["n3"] + plan["n4"] + plan["n6"]
+        if self._bottom:
+            plan["run5"] = dl.any() | ms[BOTTOM_ID]
+            rows = rows + plan["run5"].to(torch.int64)
+        plan["rows"] = rows
+        return plan
+
+    @staticmethod
+    def _compact_dev(mask, cap: int):
+        """``(idx, valid)``: the positions of ``mask``'s set entries in
+        ascending order (``np.flatnonzero``'s) in a workspace of ``cap``
+        slots, pad slots index 0 — a prefix sum and a scatter, with no
+        host read (``torch.nonzero`` would read its count back)."""
+        n = mask.numel()
+        dev = mask.device
+        pos = torch.cumsum(mask.to(torch.int64), 0) - 1
+        dest = torch.where(mask & (pos < cap), pos, cap)
+        slots = torch.zeros(cap + 1, dtype=torch.int64, device=dev)
+        slots.scatter_(0, dest, torch.arange(n, device=dev))
+        valid = torch.arange(cap, device=dev) < mask.sum()
+        return torch.where(valid, slots[:cap], 0), valid
+
+    def _fused_sparse_args_dev(self, plan, caps) -> dict:
+        """One round's selected row sets compacted into the workspaces of
+        the window's capacities ``(c123, a4, a6)`` — the card form of
+        :meth:`_sparse_round_args`: CR1-CR3 rows gathered from their
+        tables (pad slots: index 0, ``val`` False), the CR4/CR6 table
+        rows with their source-changed flags, and per write piece its
+        rows' count and first workspace slot."""
+        ft = self._fused_tables()
+        c123, a4c, a6c = caps
+        sa = {}
+        for key, cols in (("1", ("nf1s", "nf1t")),
+                          ("2", ("nf2a", "nf2b", "nf2t")),
+                          ("3", ("nf3s", "nf3t"))):
+            if "act" + key not in plan:
+                continue
+            idx, valid = self._compact_dev(plan["act" + key], c123)
+            sa["rows" + key] = [
+                torch.where(valid, ft[c][idx], 0) for c in cols
+            ]
+            sa["val" + key] = valid
+        for key, cap in (("4", a4c), ("6", a6c)):
+            if "act" + key not in plan:
+                continue
+            act = plan["act" + key]
+            idx, valid = self._compact_dev(act, cap)
+            n_p = len(ft["pieces" + key])
+            cnt = torch.zeros(n_p, dtype=torch.int64, device=self.device)
+            cnt.index_add_(0, ft["piece" + key], act.to(torch.int64))
+            sa["sel" + key] = idx
+            sa["fd" + key] = valid & plan["fd" + key][idx]
+            sa["cnt" + key] = cnt
+            sa["start" + key] = torch.cumsum(cnt, 0) - cnt
+        if self._bottom:
+            sa["run5"] = plan["run5"]
+        return sa
+
+    # ---- duplicate-safe row writes on the card
+
+    @staticmethod
+    def _seg_plan_dev(tgt, valid) -> tuple:
+        """The segments of equal targets of the rows ``valid`` of
+        ``tgt`` [n] for :meth:`_seg_or_write`: the stable sort order
+        (the other rows, pad slots, last), each position's write target,
+        segment start and last valid position, and whether it is that
+        position.  Pad slots write the last segment's row with its
+        value (the same write twice); with no valid row, row 0 with its
+        own value."""
+        n = tgt.numel()
+        pos = torch.arange(n, device=tgt.device)
+        key = torch.where(valid, tgt, torch.iinfo(torch.int64).max)
+        order = torch.argsort(key, stable=True)
+        key = key[order]
+        count = valid.sum()
+        lastv = (count - 1).clamp(min=0)
+        fill = torch.where(count > 0, key[lastv.view(1)], 0)
+        t = torch.where(pos < count, key, fill)
+        start = torch.searchsorted(t, t)
+        end = torch.minimum(torch.searchsorted(t, t, right=True) - 1, lastv)
+        return order, t, start, end, pos == end
+
+    def _seg_or_write(self, state, seg, x, cols, mvec, most: int):
+        """``state[tgt[i], cols] |= x[i]`` for every i, duplicate
+        targets included, in place: mark the rows that gained a bit in
+        ``mvec`` and return the live-column bits gained (a 0-d int64 on
+        the device).  The rows are sorted by target; a doubling scan
+        ORs each segment's rows together (``most``: the longest segment
+        the table can give, which bounds the scan's passes; pad slots
+        sort after the valid rows, so no segment's scan runs through
+        them); every member of a segment then writes the same merged
+        row.  ``x`` must be 0 on pad slots."""
+        order, t, start, end, last = seg
+        xs = x[order]
+        n = xs.shape[0]
+        pos = torch.arange(n, device=xs.device)
+        step = 1
+        while step < min(n, most):
+            ok = (pos[step:] - step) >= start[step:]
+            xs = torch.cat([
+                xs[:step],
+                xs[step:] | torch.where(ok[:, None], xs[:-step], 0),
+            ])
+            step *= 2
+        full = xs[end]
+        old = state[t, cols]
+        merged = old | full
+        state[t, cols] = merged
+        gained = merged ^ old
+        mvec[t] = mvec[t] | (gained != 0).any(dim=1)
+        bits = popcount_rows(gained, self._wmask[cols])
+        return (bits * last).sum()
+
+    # ---- the tiers without a host read
+
+    def _contract_rule_dev(self, chunks, wins, flags, bits_state, rp,
+                           target, dl_ext, cvs):
+        """:meth:`_contract_rule` with each window's liveness on the
+        card: every window launches, its kernel reading the row count
+        (``rk`` when live, 0 when its inputs are clean) from card
+        memory; each chunk's accumulator is zeroed once and every
+        launch ORs into it; every chunk writes."""
+        for i, (chunk, (c0, c1)) in enumerate(zip(chunks, wins)):
+            if not chunk.windows:
+                continue
+            rk = chunk.src.shape[0]
+            live = flags[i] | dl_ext[c0] | dl_ext[c1]
+            n_rows = live.to(torch.int32) * rk
+            subt = bits_state[chunk.src].T.contiguous()       # [wc, rk]
+            acc = torch.zeros((rk, self.wc), dtype=torch.int32,
+                              device=rp.device)
+            for j, (off, end, _c0, _c1) in enumerate(chunk.windows):
+                f = bit_lookup_from(
+                    subt, self._fillers[off:end], dtype=torch.int8
+                )                                              # [l, rk]
+                w = chunk.mask[:, self._link_roles[off:end]] * f.T
+                self._plan(rk, end - off)(
+                    w.contiguous(), rp[off:end], out=acc,
+                    n_rows=n_rows[j : j + 1],
+                )
+            piece = chunk.piece
+            cv = piece.write(target, piece.reduce(acc[chunk.order]),
+                             track="rows")
+            cvs.append((piece.device_targets(target.device), cv))
+
+    def _cr6_tiles_dev(self, rp, fd6, dl_ext, r_cvs):
+        """:meth:`_cr6_tiles` with the slots' liveness on the card: every
+        link tile launches, its slots masked by liveness and its
+        kernel's row count 0 when no slot is live; every group
+        writes."""
+        t6 = self._t6
+        mm = t6["mm"]
+        for rt0, rt1, plan, order in t6["groups"]:
+            outs = []
+            for rt in range(rt0, rt1):
+                acc = torch.zeros(
+                    (mm.m, self.wc), dtype=torch.int32, device=rp.device
+                )
+                if t6["n_tiles"][rt]:
+                    subt = rp[t6["rows"][rt]].T.contiguous()   # [wc, tile_m]
+                for k in range(t6["n_tiles"][rt]):
+                    ids = t6["tids"][rt, k]
+                    live = t6["tval"][rt, k] & (fd6[rt] | dl_ext[t6["tchunk"][rt, k]])
+                    f = bit_lookup_from(
+                        subt, self._fillers[ids], dtype=torch.int8
+                    )                                      # [tile_l, tile_m]
+                    w = (
+                        t6["mask"][
+                            t6["mrow_ids"][rt][:, None],
+                            self._link_roles[ids][None, :],
+                        ]
+                        * f.T
+                        * live.to(torch.int8)[None, :]
+                    )
+                    n_rows = (live.any().to(torch.int32) * mm.m).reshape(1)
+                    mm(w.contiguous(), rp[ids], out=acc, n_rows=n_rows)
+                outs.append(acc)
+            out = torch.cat(outs) if len(outs) > 1 else outs[0]
+            cv = plan.write(rp, plan.reduce(out[order]), track="rows")
+            r_cvs.append((plan.device_targets(rp.device), cv))
+
+    def _step_dev(self, sp, rp, ms, dl):
+        """One gated superstep in place with the frontier ``(ms, dl)`` on
+        the card and nothing read back — :meth:`step` as the window
+        runs it: the same rules, order and writes, the gates reduced to
+        card-held row counts and masks (a clean window's kernel does
+        nothing; a write of nothing changes nothing).  Returns
+        ``(changed, mask_s, dirty_l)`` on the device."""
+        s_cvs, r_cvs = [], []
+        f4, f6, fd6, dl_ext = self._chunk_flags(ms, dl)
+        if self._p1.k or self._p2.k or self._p3.k:
+            self._row_rules(sp, rp, s_cvs, r_cvs)
+        ft = self._fused_tables()
+        if self._chunks4:
+            self._contract_rule_dev(self._chunks4, ft["win4"], f4, sp, rp,
+                                    sp, dl_ext, s_cvs)
+        if self._t6 is not None:
+            self._cr6_tiles_dev(rp, fd6, dl_ext, r_cvs)
+        elif self._chunks6:
+            self._contract_rule_dev(self._chunks6, ft["win6"], f6, rp, rp,
+                                    rp, dl_ext, r_cvs)
+        if self._bottom:
+            red = self._cr5_reduce(sp, rp)
+            if self._gate_cr5:
+                run = dl.any() | ms[BOTTOM_ID]
+                red = red * run.to(torch.int32)
+            old = sp[BOTTOM_ID].clone()
+            sp[BOTTOM_ID] |= red
+            s_cvs.append((self._bottom_idx, (sp[BOTTOM_ID] != old).any()[None]))
+        mask_s, dirty_l = self._fold_masks(s_cvs, r_cvs)
+        return mask_s.any() | dirty_l.any(), mask_s, dirty_l
+
+    def _sparse_exec_dev(self, sp, rp, sa, dl):
+        """One frontier-compacted superstep in place at the window's
+        traced capacities, nothing read back — :meth:`_sparse_exec` as
+        the window runs it: CR1 → CR2 → CR3 over the compacted rows
+        (word blocks, each rule gathering before its writes), CR4 then
+        CR6 piece by piece in the dense step's write groups (each
+        piece's selected rows, capacity-sized with their count on the
+        card, contracted window by window through the packed-columns
+        kernels; a window is live for every row when an L-chunk it
+        overlaps is dirty, else for the rows whose source changed), CR5
+        when ``run5``.  Returns ``(changed, delta_bits, mask_s,
+        dirty_l_next)`` on the device."""
+        dev = self.device
+        ft = self._fused_tables()
+        mask_s = torch.zeros(self.nc, dtype=torch.bool, device=dev)
+        mask_r = torch.zeros(self._grid_end, dtype=torch.bool, device=dev)
+        deltas = []
+        rules = []
+        for key, tgt_state, mvec in (("1", sp, mask_s), ("2", sp, mask_s),
+                                     ("3", rp, mask_r)):
+            if "rows" + key in sa:
+                *srcs, tgt = sa["rows" + key]
+                valid = sa["val" + key]
+                val = valid.to(torch.int32).neg()[:, None]
+                rules.append((srcs, val, self._seg_plan_dev(tgt, valid),
+                              tgt_state, mvec, ft["most"][key]))
+        if rules:
+            cap = rules[0][1].shape[0]
+            # the gathers, the scan's rows and the write: about 8 row
+            # copies of a block alive at once
+            bw = max(min(self.temp_budget_bytes // (32 * cap), self.wc), 1)
+            for off in range(0, self.wc, bw):
+                blk = slice(off, min(off + bw, self.wc))
+                for srcs, val, seg, state, mvec, most in rules:
+                    g = sp[srcs[0], blk]
+                    if len(srcs) == 2:
+                        g = g & sp[srcs[1], blk]
+                    deltas.append(self._seg_or_write(state, seg, g & val,
+                                                     blk, mvec, most))
+        dl_ext = torch.cat([dl, dl.new_zeros(1)])
+        for key, d, bits_state, target, mvec in (
+            ("4", self._sp4, sp, sp, mask_s), ("6", self._sp6, rp, rp, mask_r),
+        ):
+            if "sel" + key not in sa:
+                continue
+            deltas.extend(self._sparse_pieces_dev(
+                key, d, sa, bits_state, rp, target, mvec, dl_ext
+            ))
+        if self._bottom:
+            red = self._cr5_reduce(sp, rp) * sa["run5"].to(torch.int32)
+            old = sp[BOTTOM_ID].clone()
+            merged = old | red
+            sp[BOTTOM_ID] = merged
+            gained = merged ^ old
+            mask_s[BOTTOM_ID] = mask_s[BOTTOM_ID] | (gained != 0).any()
+            deltas.append(popcount_rows(gained[None], self._wmask).sum())
+        delta = (
+            torch.stack(deltas).sum() if deltas
+            else torch.zeros((), dtype=torch.int64, device=dev)
+        )
+        dirty_next = mask_r.view(self.n_lchunks, self.lc).any(dim=1)
+        return mask_s.any() | dirty_next.any(), delta, mask_s, dirty_next
+
+    def _sparse_pieces_dev(self, key, d, sa, bits_state, rp, target, mvec,
+                           dl_ext) -> list:
+        """CR4 (``key`` "4") or CR6 ("6") of a window's sparse round over
+        the selected rows, group by group; returns the groups' gained
+        bits."""
+        ft = self._fused_tables()
+        dev = self.device
+        tab, sel, fdw = ft["tab" + key], sa["sel" + key], sa["fd" + key]
+        cnt, start = sa["cnt" + key], sa["start" + key]
+        cap = sel.shape[0]
+        deltas, outs, tgts, valids = [], [], [], []
+        pieces = ft["pieces" + key]
+        for pi, (g, c, r0, r1) in enumerate(pieces):
+            wins = d["windows"][c]
+            if wins:
+                m = min(cap, r1 - r0)
+                slot = torch.arange(m, device=dev)
+                valid = slot < cnt[pi]
+                ws = torch.clamp(start[pi] + slot, max=cap - 1)
+                rows = sel[ws]
+                fd = fdw[ws] & valid
+                n_sel = cnt[pi].to(torch.int32).reshape(1)
+                subt = bits_state[tab[rows, 1]].T.contiguous()   # [wc, m]
+                mask = ft["m" + key][rows].view(torch.int8)       # [m, roles+1]
+                acc = torch.zeros((m, self.wc), dtype=torch.int32, device=dev)
+                for off, end, c0, c1 in wins:
+                    row_live = valid & (dl_ext[c0] | dl_ext[c1] | fd)
+                    f = bit_lookup_from(
+                        subt, self._fillers[off:end], dtype=torch.int8
+                    )                                              # [l, m]
+                    w = (mask[:, self._link_roles[off:end]] * f.T
+                         * row_live.to(torch.int8)[:, None])
+                    self._plan(m, end - off)(
+                        w.contiguous(), rp[off:end], out=acc,
+                        n_rows=n_sel * row_live.any().to(torch.int32),
+                    )
+                outs.append(acc)
+                tgts.append(tab[rows, 2])
+                valids.append(valid)
+            if outs and (pi + 1 == len(pieces) or pieces[pi + 1][0] != g):
+                x, tg, ok = (torch.cat(v) if len(v) > 1 else v[0]
+                             for v in (outs, tgts, valids))
+                deltas.append(self._seg_or_write(
+                    target, self._seg_plan_dev(tg, ok), x, slice(None), mvec,
+                    ft["most" + key][g],
+                ))
+                outs, tgts, valids = [], [], []
+        return deltas
+
+    # ---- the window
+
+    def _branch(self, pred, body) -> None:
+        """Run ``body`` when the 0-d bool ``pred`` holds: on a card, as a
+        conditional (IF) node of the graph being captured
+        (``ops/graph_if.py``); on the CPU, as a Python ``if`` on the
+        value (the one read the CPU path makes).  The only thing the two
+        paths do differently."""
+        cap = self._capturing
+        if cap is not None:
+            graph_if.capture_if(pred, body, *cap)
+            return
+        with NoHostReads.allowed():
+            taken = bool(pred)
+        if taken:
+            body()
+
+    #: ``(child stream, memory pool)`` while a window is being captured
+    _capturing = None
+
+    def _window_body(self, win: "_FusedWindow") -> None:
+        """Up to ``win.K`` rounds of the adaptive controller on the
+        window's carries and the state pair in place (the port of the
+        reference's ``_fused_exec``).  Round r runs while the status is
+        0 and the iteration is under the budget (a running round r has
+        retired r rounds before it): the device round plan, the density
+        test against the exact integer cutoff, hysteresis, the tier —
+        idle, sparse (when eligible and within the capacities), dense,
+        or the fallout exit (eligible but over a capacity: the round
+        does not run) — then the tier, then the round's record.  Exit
+        status: 0 = K rounds or the budget, 1 = converged, 2 =
+        fallout."""
+        win.status.zero_()
+        win.rdone.zero_()
+        for r in range(win.K):
+            alive = (win.status == 0) & (win.it < win.budget)
+            self._branch(alive, lambda: self._window_decide(win))
+            self._branch(alive & win.use_dense,
+                         lambda r=r: self._window_tier(win, r, "dense"))
+            self._branch(alive & win.use_sparse,
+                         lambda r=r: self._window_tier(win, r, "sparse"))
+            self._branch(alive, lambda r=r: self._window_retire(win, r))
+        torch.cat([win.below.view(1), win.it.view(1), win.rdone.view(1),
+                   win.status.view(1), win.tb, win.rb, win.db,
+                   win.cb.to(torch.int64), win.bb], out=win.report)
+
+    def _window_decide(self, win) -> None:
+        plan = self._round_plan_dev(win.ms, win.dl)
+        rows = plan["rows"]
+        below_next = torch.where(rows <= win.below_cut, win.below + 1, 0)
+        idle = rows == 0
+        want = (win.it > 0) & (below_next >= win.hyst)
+        c123, a4c, a6c = win.caps
+        fits = torch.maximum(torch.maximum(plan["n1"], plan["n2"]),
+                             plan["n3"]) <= c123
+        if "act4" in plan:
+            fits = fits & (plan["n4"] <= a4c)
+        if "act6" in plan:
+            fits = fits & (plan["n6"] <= a6c)
+        use_sparse = want & fits & ~idle
+        fallout = want & ~fits & ~idle
+        win.use_sparse.copy_(use_sparse)
+        win.fallout.copy_(fallout)
+        win.idle.copy_(idle)
+        win.use_dense.copy_(~(idle | use_sparse | fallout))
+        win.rows.copy_(rows)
+        win.below_next.copy_(below_next)
+        win.plan = plan
+
+    def _window_tier(self, win, r: int, tier: str) -> None:
+        rec = bitmatmul.recorded() or {}
+        before = dict(rec)
+        sp, rp = win.state
+        if tier == "dense":
+            ms, dl = win.ms, win.dl
+            changed = torch.zeros((), dtype=torch.bool, device=self.device)
+            for _ in range(self.unroll):
+                ch, ms, dl = self._step_dev(sp, rp, ms, dl)
+                changed = changed | ch
+            win.bits.copy_(live_bits(sp, rp, self._wmask).sum())
+        else:
+            sa = self._fused_sparse_args_dev(win.plan, win.caps)
+            changed, delta, ms, dl = self._sparse_exec_dev(sp, rp, sa, win.dl)
+            win.delta.copy_(delta)
+        win.ms.copy_(ms)
+        win.dl.copy_(dl)
+        win.ch.copy_(changed)
+        win.launches[r][tier] = {
+            k: v - before[k] for k, v in rec.items() if v != before[k]
+        }
+
+    def _window_retire(self, win, r: int) -> None:
+        ran = win.use_dense | win.use_sparse
+        tier = torch.where(win.idle, 2, torch.where(win.use_sparse, 1, 0))
+        changed = win.ch & ran
+        win.tb[r] = tier
+        win.rb[r] = win.rows
+        win.db[r] = torch.where(win.use_sparse, win.delta, 0)
+        win.cb[r] = changed
+        win.bb[r] = torch.where(win.use_dense, win.bits, 0)
+        step = torch.where(win.idle | win.use_sparse, 1, self.unroll)
+        win.it.add_(torch.where(win.fallout, 0, step))
+        win.rdone.add_((~win.fallout).to(torch.int64))
+        win.status.copy_(torch.where(
+            win.fallout, 2, torch.where(changed, 0, 1)
+        ))
+        win.below.copy_(torch.where(win.fallout, win.below, win.below_next))
+
+    def _fused_window(self, K: int, caps: tuple, state) -> "_FusedWindow":
+        """The window of ``K`` rounds at sparse capacities ``caps`` over
+        the state pair ``state``: on a card its CUDA graph, captured on
+        first use and kept (LRU, :data:`FUSED_CACHE_SIZE` entries; a
+        card's runs all use the engine's own pair); on the CPU the
+        eager body."""
+        key = (int(K), tuple(int(c) for c in caps))
+        win = self._fused_windows.get(key)
+        if win is not None:
+            self._fused_windows.move_to_end(key)
+            win.state = state
+            return win
+        self._fused_tables()
+        win = _FusedWindow(self, key[0], key[1], state)
+        if self.device.type == "cuda":
+            self._capture_window(win)
+        self._fused_windows[key] = win
+        while len(self._fused_windows) > self.FUSED_CACHE_SIZE:
+            _k, old = self._fused_windows.popitem(last=False)
+            old.release()
+        return win
+
+    def _capture_window(self, win) -> None:
+        """Capture ``win``'s body into one CUDA graph on this engine's
+        state pair.  A host sync anywhere in the body fails the capture
+        and raises, and takes the process down (``ops/graph_if.py``);
+        nothing here catches it.  The wrappers record the launches of
+        each round's tier bodies (``bitmatmul.recording``); the replays
+        add what ran."""
+        dev = self.device
+        _warm_kernels(dev)
+        torch.cuda.synchronize(dev)
+        graph = torch.cuda.CUDAGraph()
+        win.pool = torch.cuda.MemPool()
+        child = torch.cuda.Stream(dev)
+        t0 = time.perf_counter()
+        self._capturing = (child, win.pool)
+        try:
+            with _no_gc(), _OpCount() as ops, bitmatmul.recording(), \
+                    torch.cuda.graph(graph, capture_error_mode="thread_local"):
+                self._window_body(win)
+        finally:
+            self._capturing = None
+        win.capture_s = time.perf_counter() - t0
+        win.captured_ops = ops.n
+        win.graph = graph
+        pools = {tuple(graph.pool()), tuple(win.pool.id)}
+        win.card_bytes = sum(
+            seg["total_size"] for seg in torch.cuda.memory_snapshot()
+            if tuple(seg.get("segment_pool_id", ())) in pools
+        )
+
+    def fused_window_stats(self) -> list:
+        """What each captured window holds: ``K``, the capacities, the
+        capture's seconds, the operations it recorded (each one or more
+        graph nodes) and the card bytes of its memory pools (the
+        graph's and its IF bodies'), as the allocator's segments count
+        them."""
+        return [
+            {"K": w.K, "caps": list(w.caps), "capture_s": w.capture_s,
+             "captured_ops": w.captured_ops, "card_bytes": w.card_bytes}
+            for w in self._fused_windows.values()
+        ]
+
+    def _fused_run_state(self, sp, rp):
+        """The state pair a run's windows work on: on a card the
+        engine's own pair (the captured graphs' addresses), with the
+        run's state copied in; on the CPU the run's own tensors."""
+        if self.device.type != "cuda":
+            return sp, rp
+        if self._fused_state is None:
+            self._fused_state = (torch.empty_like(sp), torch.empty_like(rp))
+        ws, wr = self._fused_state
+        ws.copy_(sp)
+        wr.copy_(rp)
+        return ws, wr
+
+    def _saturate_fused(
+        self, cfg, K, sp, rp, init_total, budget, observer,
+        frontier_observer, pipeline_depth: int = 1, adaptive: bool = False,
+    ):
+        """The K-round window controller — the reference's
+        ``_saturate_fused``.  Each dispatch runs one window
+        (:meth:`_window_body`): up to K rounds of the adaptive
+        controller on the card.  Per window the host loads the carry
+        (at a sync point), replays, and later reads the window's report
+        once: every round's tier, rows touched, delta or live-bit
+        total and change flag, from which it rebuilds each retired
+        round's :class:`FrontierStats`, stamped ``rounds_in_window`` =
+        the rounds the window retired, with the window's walls split
+        evenly over them.  The retired rounds are the per-round
+        controller's; the two escapes hand control back without
+        running a round differently:
+
+        * fallout (status 2): a round's sparse frontier overflowed the
+          window's capacities and did not run; the host replays that
+          one round on the per-round path (which may pick a bigger
+          rung, or the dense step with its overflow flag) and resumes
+          windows;
+        * convergence (status 1): windows dispatched behind it retire
+          only idle rounds and are dropped.
+
+        ``adaptive``: each dispatch takes its K from the halving ladder
+        (:meth:`_fused_k_ladder`), smaller once the derivation tail's
+        geometric decay predicts fewer rounds than half a window; only
+        the window edges move.
+
+        Pipelining (``pipeline_depth`` > 1) keeps up to that many
+        windows in flight, each chained on the previous window's carries
+        on the card (a window of another K copies them over on the
+        card), with no worker thread: each window's report, changed-S
+        mask and dirty L-chunks go to pinned host buffers by
+        asynchronous copies, behind an event the retire waits on."""
+        from distel_tpu_torch.obs import costmodel
+
+        sp_run, rp_run = sp, rp
+        sp, rp = self._fused_run_state(sp, rp)
+        depth = max(int(pipeline_depth), 1)
+        unroll = self.unroll
+        s_chg = np.ones(self.nc, bool)
+        dirty_l = np.ones(self.n_lchunks, bool)
+        any_r = True
+        below = 0
+        iteration, total, converged = 0, init_total, False
+        floor = cfg["capacity_floor"]
+        run_consts = (budget,
+                      self._fused_below_cutoff(cfg["density_threshold"]),
+                      int(cfg["hysteresis_rounds"]))
+        pending = deque()          # in-flight windows, oldest first
+        latest = [None]            # the newest dispatched window
+        self.frontier_rounds = []
+        #: the last fused run's windows: rounds each retired window
+        #: retired, fallouts replayed on the per-round path, and windows
+        #: dropped unretired behind a fallout or convergence
+        self.fused_run_stats = {"windows": [], "fallouts": 0, "dropped": 0}
+        stats = self.fused_run_stats
+        recent_deltas = deque(maxlen=8)
+        cur_caps = None
+
+        def finish_round(st, changed):
+            nonlocal converged
+            recent_deltas.append(st.derivations)
+            FRONTIER_EVENTS.record(st)
+            self.frontier_rounds.append(st)
+            if frontier_observer is not None:
+                frontier_observer(st)
+            if observer is not None:
+                observer(st.iteration, total - init_total, changed)
+            if not changed:
+                converged = True
+
+        def pick_caps():
+            """Sparse capacities for the next window, from the host
+            frontier at this sync point; CR4/CR6 get at least the floor
+            rung while inactive, so a later activation in the window
+            need not fall out."""
+            _rows, _den, measure, _over = self._sparse_round_plan(
+                cfg, s_chg, dirty_l, any_r
+            )
+            key = (floor, floor, floor) if measure is None else measure["key"]
+            return (
+                key[0],
+                max(key[1], floor) if self._sp4 is not None else 0,
+                max(key[2], floor) if self._sp6 is not None else 0,
+            )
+
+        def pick_k():
+            """K for the next dispatch: halved down the ladder while half
+            a window still covers the rounds the tail's decay predicts
+            (floor 2)."""
+            if not adaptive:
+                return K
+            rem = costmodel.geometric_tail_remaining(recent_deltas)
+            if rem is None:
+                return K
+            k = K
+            while k > 2 and k // 2 >= rem:
+                k //= 2
+            return k
+
+        def dispatch_window(caps, kw, sync_point):
+            win = self._fused_window(kw, caps, (sp, rp))
+            t0 = time.perf_counter()
+            if sync_point:
+                win.load(s_chg, dirty_l, below, iteration, *run_consts)
+            elif latest[0] is not win:
+                win.chain(latest[0])
+            win.run(self)
+            latest[0] = win
+            pending.append({
+                "win": win, "out": _WindowOut(win),
+                "dispatch_s": time.perf_counter() - t0,
+                "inflight": len(pending),
+            })
+
+        def retire_window():
+            nonlocal total, below, iteration, dirty_l, s_chg, any_r
+            ent = pending.popleft()
+            win = ent["win"]
+            t1 = time.perf_counter()
+            rep, ms_h, dl_h = ent["out"].wait()
+            retire_s = time.perf_counter() - t1
+            self.host_reads["flags"] += 1
+            stats["windows"].append(int(rep[2]))
+            k = win.K
+            below_o, it_o, rdone, status = (int(x) for x in rep[:4])
+            tb, rb, db, cb, bb = rep[4:].reshape(5, k)
+            if rdone:
+                DISPATCH_EVENTS.record_fused_window(rdone)
+                it_r, run_total = iteration, total
+                for r in range(rdone):
+                    tier = int(tb[r])
+                    if tier == 0:
+                        it_r += unroll
+                        delta = int(bb[r]) - run_total
+                    elif tier == 1:
+                        it_r += 1
+                        delta = int(db[r])
+                    else:
+                        it_r += 1
+                        delta = 0
+                    run_total += delta
+                    total = run_total
+                    if self.device.type == "cuda" and tier != 2:
+                        bitmatmul.add_launches(
+                            win.launches[r][self._FUSED_TIERS[tier]]
+                        )
+                    rows = int(rb[r])
+                    finish_round(
+                        FrontierStats(
+                            iteration=it_r,
+                            tier=self._FUSED_TIERS[tier],
+                            density=rows / max(self._sp_total_rows, 1),
+                            rows_touched=rows,
+                            total_rows=self._sp_total_rows,
+                            derivations=delta,
+                            overflow=False,
+                            wall_s=(ent["dispatch_s"] + retire_s) / rdone,
+                            dispatch_s=ent["dispatch_s"] / rdone,
+                            retire_s=retire_s / rdone,
+                            inflight=ent["inflight"],
+                            rounds_in_window=rdone,
+                        ),
+                        bool(cb[r]),
+                    )
+            s_chg, dirty_l = ms_h, dl_h
+            any_r = bool(dirty_l.any())
+            below, iteration = below_o, it_o
+            return status, rdone
+
+        def replay_host_round():
+            """One round of the per-round controller on the host
+            frontier — the fallout escape."""
+            nonlocal total, below, iteration, dirty_l, s_chg, any_r
+            t0 = time.perf_counter()
+            prev_total = total
+            rows_touched, density, measure, over = self._sparse_round_plan(
+                cfg, s_chg, dirty_l, any_r
+            )
+            below = below + 1 if density < cfg["density_threshold"] else 0
+            want_sparse = iteration > 0 and below >= cfg["hysteresis_rounds"]
+            if rows_touched == 0:
+                iteration += 1
+                tier, ch = "idle", False
+            elif want_sparse and measure is not None:
+                DISPATCH_EVENTS.record_sparse()
+                ch, delta, s_chg, any_r, dirty_l = self._sparse_exec(
+                    sp, rp, measure, dirty_l
+                )
+                total += delta
+                iteration += 1
+                tier = "sparse"
+            else:
+                carry = self._frontier_from_host(s_chg, dirty_l)
+                _s, _r, ch, bits, fr = self._observe_round(sp, rp, carry)
+                DISPATCH_EVENTS.record_dense()
+                total = int(bits)
+                dirty_l, s_chg = fr.dirty_l, fr.mask_s
+                any_r = bool(dirty_l.any())
+                iteration += unroll
+                tier = "dense"
+            finish_round(
+                FrontierStats(
+                    iteration=iteration,
+                    tier=tier,
+                    density=float(density),
+                    rows_touched=rows_touched,
+                    total_rows=self._sp_total_rows,
+                    derivations=total - prev_total,
+                    overflow=bool(tier == "dense" and want_sparse
+                                  and measure is None and over),
+                    wall_s=time.perf_counter() - t0,
+                ),
+                bool(ch),
+            )
+
+        while True:
+            if converged:
+                break  # drop still-speculative windows (idle no-ops)
+            if pending:
+                if len(pending) < depth:
+                    # a speculative window on the last sync point's
+                    # capacities: a wrong guess is a deterministic
+                    # fallout, never a different round
+                    dispatch_window(cur_caps, pick_k(), False)
+                else:
+                    status, rdone = retire_window()
+                    if status == 2:
+                        stats["fallouts"] += 1
+                        stats["dropped"] += len(pending)
+                        pending.clear()
+                        replay_host_round()
+                    elif status == 0 and rdone == 0:
+                        # the budget was spent on the card
+                        stats["dropped"] += len(pending)
+                        pending.clear()
+                        break
+                continue
+            if iteration >= budget:
+                break
+            # ---- the pipeline is drained: a sync point
+            cur_caps = pick_caps()
+            dispatch_window(cur_caps, pick_k(), True)
+        # windows dropped behind a fallout or convergence ran no round:
+        # the state pair holds the last retired round's state
+        stats["dropped"] += len(pending)
+        pending.clear()
+        if sp is not sp_run:
+            sp_run.copy_(sp)
+            rp_run.copy_(rp)
+        return sp_run, rp_run, iteration, total, converged
 
     # ------------------------------------------------ observed fixed point
 
@@ -1963,11 +3144,16 @@ class RowPackedSaturationEngine:
         ``sparse_tail``: per-call override of the engine's config; when
         active the adaptive controller (:meth:`_saturate_adaptive`)
         runs, else the plain observed loop, every round dense with
-        density pinned at 1.0.  ``fused_rounds``: parsed as the
-        reference's; ``rounds`` > 1 raises (not ported).  The closure
-        and ``derivations`` are :meth:`saturate`'s; ``iterations`` count
-        ``unroll`` a dense round and one a sparse or idle round, as the
-        reference's controller counts them."""
+        density pinned at 1.0.  ``fused_rounds``: per-call override of
+        the engine's ``{"enable", "rounds", "adaptive"}``; with K > 1,
+        the sparse tier configured and no ``state_observer`` (which
+        needs the live state of every round), the fused K-round window
+        runs (:meth:`_saturate_fused`), else the per-round controller
+        — the reference's routing.  The closure and ``derivations`` are
+        :meth:`saturate`'s; ``iterations`` count ``unroll`` a dense round
+        and one a sparse or idle round, as the reference's controller
+        counts them."""
+        self.host_reads = {"flags": 0, "bits": 0}
         if initial is None:
             sp, rp = self.initial_state()
         else:
@@ -1986,10 +3172,25 @@ class RowPackedSaturationEngine:
             else self._normalize_pipeline_cfg(pipeline)
         )
         pdepth = pcfg["depth"] if pcfg["enable"] else 1
-        if fused_rounds is not None:
-            self._normalize_fused_cfg(fused_rounds)
+        kcfg = (
+            self._fused_cfg
+            if fused_rounds is None
+            else self._normalize_fused_cfg(fused_rounds)
+        )
+        fk = int(kcfg["rounds"]) if kcfg else 1
         self.gate_rounds = []
-        if cfg is not None and self._sparse_supported():
+        if (
+            fk > 1
+            and cfg is not None
+            and self._sparse_supported()
+            and state_observer is None
+        ):
+            sp, rp, iteration, total, converged = self._saturate_fused(
+                cfg, fk, sp, rp, init_total, budget, observer,
+                frontier_observer, pipeline_depth=pdepth,
+                adaptive=bool(kcfg.get("adaptive")),
+            )
+        elif cfg is not None and self._sparse_supported():
             sp, rp, iteration, total, converged = self._saturate_adaptive(
                 cfg, sp, rp, init_total, budget, observer,
                 state_observer, frontier_observer, pipeline_depth=pdepth,

@@ -33,7 +33,11 @@ groups of isomorphic copies, ``core/components.py``), and
 :func:`plain_packed_cols_batched` is its plain version.
 
 Either can OR into an existing C (``out=``) instead of writing a fresh
-one.
+one, and either can take a row count that lies on the card
+(``n_rows=``): only rows below it are computed and ORed into C, which
+lets a captured CUDA graph skip work no host decision can skip
+(``packed_cols_list_n`` / ``packed_cols_dense_n``; their plain version
+is :func:`plain_packed_cols_rows`).
 
 The second, the packed-contraction product, is the packed engine's
 (CR4 and CR6 over the x-major R):
@@ -58,6 +62,7 @@ Each launch adds one to :data:`LAUNCHES`.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import threading
 from typing import NamedTuple, Optional
@@ -76,6 +81,8 @@ LAUNCHES = {
     "packed_cols_sparse": 0,
     "packed_andor_list": 0,
     "packed_cols_dense_batched": 0,
+    "packed_cols_list_n": 0,
+    "packed_cols_dense_n": 0,
 }
 
 #: the packed-columns kernels' row block and the listing kernel's
@@ -110,9 +117,44 @@ def reset_launches() -> None:
             LAUNCHES[k] = 0
 
 
+#: per thread, the launches a CUDA-graph capture in progress recorded
+_RECORDING = threading.local()
+
+
 def _count_launch(name: str) -> None:
+    rec = recorded()
+    if rec is not None:
+        rec[name] += 1
+        return
     with _LOCK:
         LAUNCHES[name] += 1
+
+
+@contextlib.contextmanager
+def recording():
+    """While this thread captures a CUDA graph: the wrappers' launches
+    go to the yielded dict (by entry point) instead of :data:`LAUNCHES`,
+    since a capture launches nothing; the graph's replays launch them,
+    and whoever replays adds them with :func:`add_launches`."""
+    _RECORDING.counts = rec = dict.fromkeys(LAUNCHES, 0)
+    try:
+        yield rec
+    finally:
+        _RECORDING.counts = None
+
+
+def recorded() -> Optional[dict]:
+    """The launches this thread's capture in progress recorded so far
+    (None outside :func:`recording`)."""
+    return getattr(_RECORDING, "counts", None)
+
+
+def add_launches(counts: dict) -> None:
+    """Add launches made by replaying captured kernels (a CUDA graph
+    launches what its capture recorded, with no wrapper call)."""
+    with _LOCK:
+        for k, v in counts.items():
+            LAUNCHES[k] += int(v)
 
 
 def _lib():
@@ -130,6 +172,10 @@ def _lib():
         lib.packed_cols_list.restype = ci
         lib.packed_cols_dense.argtypes = [vp, vp, vp, ci, ci, ci, ci, vp]
         lib.packed_cols_dense.restype = ci
+        lib.packed_cols_list_n.argtypes = [vp, vp, vp, vp, ci, ci, vp, vp]
+        lib.packed_cols_list_n.restype = ci
+        lib.packed_cols_dense_n.argtypes = [vp, vp, vp, ci, ci, ci, vp, vp]
+        lib.packed_cols_dense_n.restype = ci
         ll = ctypes.c_longlong
         lib.packed_cols_dense_batched.argtypes = (
             [vp, vp, vp, ci, ci, ci, ci, ll, ll, ll, ci, vp]
@@ -318,10 +364,15 @@ class PackedColsMatmulPlan:
         self._lists: dict = {}
 
     def __call__(self, a: torch.Tensor, b_packed: torch.Tensor,
-                 out: Optional[torch.Tensor] = None) -> torch.Tensor:
+                 out: Optional[torch.Tensor] = None,
+                 n_rows: Optional[torch.Tensor] = None) -> torch.Tensor:
         """a [m, l] int8/bool; b_packed [l, w] int32 → [m, w] int32.
         With ``out`` ([m, w] int32, not overlapping A or B) the product
-        is ORed into it (C |= A ⊙ B) and ``out`` is returned."""
+        is ORed into it (C |= A ⊙ B) and ``out`` is returned.
+        ``n_rows``: a one-element int32 tensor on A's device; only rows
+        below its value are computed and ORed into ``out`` (which it
+        requires), read by the kernels when they start — no host
+        read."""
         if a.dtype == torch.bool:
             a = a.view(torch.int8)
         if a.dtype != torch.int8 or b_packed.dtype != torch.int32:
@@ -348,14 +399,28 @@ class PackedColsMatmulPlan:
                 raise ValueError(f"out must be contiguous on {a.device}")
             if _overlaps(out, a) or _overlaps(out, b_packed):
                 raise ValueError("out must not overlap A or B")
+        if n_rows is not None:
+            if out is None:
+                raise ValueError("n_rows needs out (the rows past it keep out's)")
+            if (n_rows.dtype != torch.int32 or n_rows.numel() != 1
+                    or n_rows.device != a.device):
+                raise ValueError(
+                    f"n_rows must be one int32 on {a.device}, got "
+                    f"{n_rows.dtype} {tuple(n_rows.shape)} on {n_rows.device}"
+                )
         if a.device.type == "cpu":
+            if n_rows is not None:
+                return plain_packed_cols_rows(a, b_packed, out, n_rows)
             return plain_packed_cols(a, b_packed, out)
         if a.device.type != "cuda":
             raise ValueError(f"no packed-columns kernel for {a.device}")
-        return self._launch(a, b_packed, out)
+        if n_rows is None:
+            return self._launch(a, b_packed, out)
+        return self._launch(a, b_packed, out, n_rows)
 
     def _launch(self, a: torch.Tensor, b: torch.Tensor,
-                out: Optional[torch.Tensor]) -> torch.Tensor:
+                out: Optional[torch.Tensor],
+                n_rows: Optional[torch.Tensor] = None) -> torch.Tensor:
         if not (a.is_contiguous() and b.is_contiguous()):
             raise ValueError("packed-columns kernels take contiguous A and B")
         if -(-self.m // KERNEL_TM) > 65535:
@@ -369,6 +434,8 @@ class PackedColsMatmulPlan:
         if self.l == 0:
             return c if accumulate else c.zero_()
         if not self.skip_zero_tiles:
+            if n_rows is not None:
+                return self.run_dense_n(a, b, c, n_rows)
             return self.run_dense(a, b, c, accumulate)
         slabs = self.slabs(a.device)
         bufs = self._lists.get(a.device)
@@ -377,8 +444,12 @@ class PackedColsMatmulPlan:
                 slabs[0][1] - slabs[0][0], self.l, a.device
             )
         for r0, r1 in slabs:
-            self.run_sparse(b, self.list_columns(a[r0:r1], bufs), c[r0:r1],
-                            accumulate)
+            if n_rows is None:
+                lists = self.list_columns(a[r0:r1], bufs)
+            else:
+                n = n_rows if r0 == 0 else (n_rows - r0).to(torch.int32)
+                lists = self.list_columns_n(a[r0:r1], n, bufs)
+            self.run_sparse(b, lists, c[r0:r1], accumulate)
         return c
 
     def slabs(self, device) -> list:
@@ -409,6 +480,35 @@ class PackedColsMatmulPlan:
         _check_launch(lib.packed_cols_error_string, code, "packed_cols_list")
         _count_launch("packed_cols_list")
         return lists
+
+    def list_columns_n(self, a: torch.Tensor, n_rows: torch.Tensor,
+                       into: ColumnLists) -> ColumnLists:
+        """``packed_cols_list_n``: :meth:`list_columns` over the rows of A
+        below the card-held count ``n_rows`` (the lists of the other row
+        blocks come out empty)."""
+        m, l = a.shape
+        lists = _lists_in(into, m, l)
+        lib = _lib()
+        code = lib.packed_cols_list_n(
+            a.data_ptr(), lists.cols.data_ptr(), lists.masks.data_ptr(),
+            lists.counts.data_ptr(), m, l, n_rows.data_ptr(), _stream(a),
+        )
+        _check_launch(lib.packed_cols_error_string, code, "packed_cols_list_n")
+        _count_launch("packed_cols_list_n")
+        return lists
+
+    def run_dense_n(self, a: torch.Tensor, b: torch.Tensor, c: torch.Tensor,
+                    n_rows: torch.Tensor) -> torch.Tensor:
+        """``packed_cols_dense_n``: C |= A ⊙ B over the rows below the
+        card-held count ``n_rows``."""
+        lib = _lib()
+        code = lib.packed_cols_dense_n(
+            a.data_ptr(), b.data_ptr(), c.data_ptr(), self.m, self.l, self.w,
+            n_rows.data_ptr(), _stream(a),
+        )
+        _check_launch(lib.packed_cols_error_string, code, "packed_cols_dense_n")
+        _count_launch("packed_cols_dense_n")
+        return c
 
     def run_sparse(self, b: torch.Tensor, lists: ColumnLists, c: torch.Tensor,
                    accumulate: bool) -> torch.Tensor:
@@ -533,6 +633,24 @@ def plain_packed_cols(a: torch.Tensor, b_packed: torch.Tensor,
     bits = unpack_words_planes(b_packed[cols], torch.float32)
     prod = a_sub @ bits
     out[rows] |= pack_planes(prod > 0)
+    return out
+
+
+def plain_packed_cols_rows(a: torch.Tensor, b_packed: torch.Tensor,
+                           out: torch.Tensor,
+                           n_rows: torch.Tensor) -> torch.Tensor:
+    """The plain PyTorch version of ``packed_cols_list_n`` +
+    ``packed_cols_sparse`` and of ``packed_cols_dense_n``: ``out[r] |=
+    (A ⊙ B)[r]`` for the rows ``r < n_rows`` (a one-element tensor), by
+    :func:`plain_packed_cols` on those rows; the other rows of ``out``
+    keep their words."""
+    from distel_tpu_torch.ops.nosync import NoHostReads
+
+    # the kernels read the count on the card; this stand-in reads it
+    with NoHostReads.allowed():
+        n = min(max(int(n_rows.reshape(())), 0), a.shape[0])
+        if n:
+            plain_packed_cols(a[:n], b_packed, out[:n])
     return out
 
 

@@ -12,7 +12,8 @@
 // `accumulate` set the kernels OR their product into C instead of
 // overwriting it (C must not alias A or B).
 //
-// Five entry points:
+// Five entry points, two of them also with a row count read from card
+// memory (the `_n` forms below):
 //
 //   packed_cols_list    one pass over A: per 64-row block, the ascending
 //                       list of contraction indices l that some row of
@@ -26,6 +27,16 @@
 //   packed_cols_dense_batched
 //                       the same kernel over a batch of independent
 //                       products, one grid axis over the copies
+//
+// packed_cols_list_n and packed_cols_dense_n are packed_cols_list and
+// packed_cols_dense with a row count n read from card memory when the
+// kernel starts: only rows m < n are computed and written (n <= 0 makes
+// the launch a no-op).  The fused K-round window of the row-packed
+// engine launches them from a CUDA graph, where no host decision can
+// skip a launch: a contraction window whose inputs are clean gets n = 0
+// (the launch returns at once), and a sparse round's operand, sized for
+// the workspace's capacity, gets n = the rows the round selected.  The
+// dense form always ORs into C.
 //
 // Nothing here counts in a type that can wrap: the sparse kernel only
 // ORs whole words, and the dense kernel's int32 counts are at most L.
@@ -99,12 +110,19 @@ template <bool A16>
 __global__ void __launch_bounds__(LIST_THREADS) packed_cols_list_kernel(
     const int8_t* __restrict__ A, int32_t* __restrict__ cols,
     uint64_t* __restrict__ masks, int32_t* __restrict__ counts, int M, int L,
-    int NCH) {
+    int NCH, const int* __restrict__ n_rows) {
   __shared__ uint32_t half_mask[2][LSEG];
   __shared__ int warp_live[LSEG / 32];
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int half = warp & 1, cg = warp >> 1;
   const int g = blockIdx.y, c = blockIdx.x;
+  // rows past the card-held count list nothing (a whole block past it
+  // writes an empty list and stops)
+  if (n_rows != nullptr) M = min(M, max(__ldg(n_rows), 0));
+  if (g * TM >= M) {
+    if (tid == 0) counts[(size_t)g * NCH + c] = 0;
+    return;
+  }
   const int m = g * TM + half * 32 + lane;
   const bool row_ok = m < M;
   const int8_t* arow = A + (size_t)(row_ok ? m : 0) * L;
@@ -583,7 +601,8 @@ template <bool A16, bool B16, bool BATCH>
 __global__ void __launch_bounds__(DTHREADS) packed_cols_dense_kernel(
     const int8_t* __restrict__ A, const int32_t* __restrict__ B,
     int32_t* __restrict__ C, int M, int L, int W, int accumulate,
-    long long sa, long long sb, long long sc, int ntw) {
+    long long sa, long long sb, long long sc, int ntw,
+    const int* __restrict__ n_rows) {
   __shared__ DenseSmem sm;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int g = lane >> 2, t = lane & 3;        // mma fragment coordinates
@@ -597,6 +616,10 @@ __global__ void __launch_bounds__(DTHREADS) packed_cols_dense_kernel(
     C += copy * sc;
   }
   const int w0 = bx * DTW, m0 = blockIdx.y * TM;
+  // rows past the card-held count are neither read nor written (the
+  // wrapper then always accumulates, so C keeps them)
+  if (n_rows != nullptr) M = min(M, max(__ldg(n_rows), 0));
+  if (m0 >= M) return;
   for (int i = tid; i < TM * DTW; i += DTHREADS) sm.Cw[i / DTW][i % DTW] = 0u;
   int acc[2][8][4];
 #pragma unroll
@@ -704,18 +727,31 @@ int packed_cols_list_chunk() { return LCHUNK; }
 // Each entry point launches on `stream` and returns cudaGetLastError()
 // (0 = launched); it neither synchronises nor allocates.
 
-int packed_cols_list(const void* A, void* cols, void* masks, void* counts,
-                     int M, int L, void* stream) {
+static int list_launch(const void* A, void* cols, void* masks, void* counts,
+                       int M, int L, const void* n_rows, void* stream) {
   const int nch = (L + LCHUNK - 1) / LCHUNK;
   dim3 grid(nch, (M + TM - 1) / TM);
   cudaStream_t st = (cudaStream_t)stream;
+  const int* n = (const int*)n_rows;
   if (L % 16 == 0 && (uintptr_t)A % 16 == 0)
     packed_cols_list_kernel<true><<<grid, LIST_THREADS, 0, st>>>(
-        (const int8_t*)A, (int32_t*)cols, (uint64_t*)masks, (int32_t*)counts, M, L, nch);
+        (const int8_t*)A, (int32_t*)cols, (uint64_t*)masks, (int32_t*)counts, M, L, nch, n);
   else
     packed_cols_list_kernel<false><<<grid, LIST_THREADS, 0, st>>>(
-        (const int8_t*)A, (int32_t*)cols, (uint64_t*)masks, (int32_t*)counts, M, L, nch);
+        (const int8_t*)A, (int32_t*)cols, (uint64_t*)masks, (int32_t*)counts, M, L, nch, n);
   return (int)cudaGetLastError();
+}
+
+int packed_cols_list(const void* A, void* cols, void* masks, void* counts,
+                     int M, int L, void* stream) {
+  return list_launch(A, cols, masks, counts, M, L, nullptr, stream);
+}
+
+// packed_cols_list over rows m < *n_rows only (n_rows: one int32 on the
+// card, read when the kernel starts).
+int packed_cols_list_n(const void* A, void* cols, void* masks, void* counts,
+                       int M, int L, const void* n_rows, void* stream) {
+  return list_launch(A, cols, masks, counts, M, L, n_rows, stream);
 }
 
 // Lists with ceil(K / LCHUNK) chunks a row block (one when K == 0), as
@@ -758,9 +794,10 @@ int packed_cols_sparse(const void* B, const void* cols, const void* masks,
   return (int)cudaGetLastError();
 }
 
-int packed_cols_dense(const void* A, const void* B, void* C, int M, int L,
-                      int W, int accumulate, void* stream) {
+static int dense_launch(const void* A, const void* B, void* C, int M, int L,
+                        int W, int accumulate, const void* n_rows, void* stream) {
   dim3 grid((W + DTW - 1) / DTW, (M + TM - 1) / TM);
+  const int* n = (const int*)n_rows;
   const bool a16 = L % 16 == 0 && (uintptr_t)A % 16 == 0;
   const bool b16 = W % 4 == 0 && (uintptr_t)B % 16 == 0;
   cudaStream_t st = (cudaStream_t)stream;
@@ -769,14 +806,26 @@ int packed_cols_dense(const void* A, const void* B, void* C, int M, int L,
   int32_t* c = (int32_t*)C;
   const int ntw = (int)grid.x;
   if (a16 && b16)
-    packed_cols_dense_kernel<true, true, false><<<grid, DTHREADS, 0, st>>>(a, b, c, M, L, W, accumulate, 0, 0, 0, ntw);
+    packed_cols_dense_kernel<true, true, false><<<grid, DTHREADS, 0, st>>>(a, b, c, M, L, W, accumulate, 0, 0, 0, ntw, n);
   else if (a16)
-    packed_cols_dense_kernel<true, false, false><<<grid, DTHREADS, 0, st>>>(a, b, c, M, L, W, accumulate, 0, 0, 0, ntw);
+    packed_cols_dense_kernel<true, false, false><<<grid, DTHREADS, 0, st>>>(a, b, c, M, L, W, accumulate, 0, 0, 0, ntw, n);
   else if (b16)
-    packed_cols_dense_kernel<false, true, false><<<grid, DTHREADS, 0, st>>>(a, b, c, M, L, W, accumulate, 0, 0, 0, ntw);
+    packed_cols_dense_kernel<false, true, false><<<grid, DTHREADS, 0, st>>>(a, b, c, M, L, W, accumulate, 0, 0, 0, ntw, n);
   else
-    packed_cols_dense_kernel<false, false, false><<<grid, DTHREADS, 0, st>>>(a, b, c, M, L, W, accumulate, 0, 0, 0, ntw);
+    packed_cols_dense_kernel<false, false, false><<<grid, DTHREADS, 0, st>>>(a, b, c, M, L, W, accumulate, 0, 0, 0, ntw, n);
   return (int)cudaGetLastError();
+}
+
+int packed_cols_dense(const void* A, const void* B, void* C, int M, int L,
+                      int W, int accumulate, void* stream) {
+  return dense_launch(A, B, C, M, L, W, accumulate, nullptr, stream);
+}
+
+// C |= A ⊙ B over rows m < *n_rows only (n_rows: one int32 on the card,
+// read when the kernel starts); the other rows of C keep their words.
+int packed_cols_dense_n(const void* A, const void* B, void* C, int M, int L,
+                        int W, const void* n_rows, void* stream) {
+  return dense_launch(A, B, C, M, L, W, 1, n_rows, stream);
 }
 
 // NB copies of the product in one launch: copy b is A + b·sa [M, L],
@@ -797,13 +846,13 @@ int packed_cols_dense_batched(const void* A, const void* B, void* C, int NB,
   const int32_t* b = (const int32_t*)B;
   int32_t* c = (int32_t*)C;
   if (a16 && b16)
-    packed_cols_dense_kernel<true, true, true><<<grid, DTHREADS, 0, st>>>(a, b, c, M, L, W, accumulate, sa, sb, sc, (int)ntw);
+    packed_cols_dense_kernel<true, true, true><<<grid, DTHREADS, 0, st>>>(a, b, c, M, L, W, accumulate, sa, sb, sc, (int)ntw, nullptr);
   else if (a16)
-    packed_cols_dense_kernel<true, false, true><<<grid, DTHREADS, 0, st>>>(a, b, c, M, L, W, accumulate, sa, sb, sc, (int)ntw);
+    packed_cols_dense_kernel<true, false, true><<<grid, DTHREADS, 0, st>>>(a, b, c, M, L, W, accumulate, sa, sb, sc, (int)ntw, nullptr);
   else if (b16)
-    packed_cols_dense_kernel<false, true, true><<<grid, DTHREADS, 0, st>>>(a, b, c, M, L, W, accumulate, sa, sb, sc, (int)ntw);
+    packed_cols_dense_kernel<false, true, true><<<grid, DTHREADS, 0, st>>>(a, b, c, M, L, W, accumulate, sa, sb, sc, (int)ntw, nullptr);
   else
-    packed_cols_dense_kernel<false, false, true><<<grid, DTHREADS, 0, st>>>(a, b, c, M, L, W, accumulate, sa, sb, sc, (int)ntw);
+    packed_cols_dense_kernel<false, false, true><<<grid, DTHREADS, 0, st>>>(a, b, c, M, L, W, accumulate, sa, sb, sc, (int)ntw, nullptr);
   return (int)cudaGetLastError();
 }
 

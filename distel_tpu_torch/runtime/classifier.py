@@ -103,8 +103,8 @@ def make_engine(
     incremental plane's reservations ``min_concepts``,
     ``min_links_pad``, ``window_headroom``), which the other engines
     and the hybrid ignore, as the reference's do.  The row-packed
-    engine also gets the config's ``sparse_tail`` and ``pipeline``
-    (its observed runs' controller)."""
+    engine also gets the config's ``sparse_tail``, ``pipeline`` and
+    ``fused_rounds`` (its observed runs' controller)."""
     config.validate()
     _, host_rules = split_backends(config.rule_backends)
     if host_rules:
@@ -129,6 +129,9 @@ def make_engine(
     # observed runs only (saturate_observed), as in the reference
     rowpacked_kw.setdefault("sparse_tail", config.sparse_tail_config())
     rowpacked_kw.setdefault("pipeline", config.pipeline_config())
+    # the fused K-round window: rebuilds, stream, serve and the fleet's
+    # replicas inherit K through here
+    rowpacked_kw.setdefault("fused_rounds", config.fused_rounds_config())
     return RowPackedSaturationEngine(
         idx,
         device=device,

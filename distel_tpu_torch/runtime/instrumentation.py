@@ -154,8 +154,9 @@ class FrontierStats:
     retire_s: float = 0.0
     inflight: int = 0
     #: how many retired rounds the surfacing that produced this stat
-    #: covered — always 1 in the port (the reference's fused K-round
-    #: windows are not ported); ledger consumers divide by it
+    #: covered: 1 for the per-round controllers, the rounds a fused
+    #: K-round window retired for each of its rounds (whose walls are the
+    #: window's split evenly); ledger consumers divide by it
     rounds_in_window: int = 1
 
     def as_dict(self) -> dict:

@@ -902,3 +902,116 @@ def test_isomorphic_group_on_the_card_equals_cpu(card):
         assert g["iterations"] == h["iterations"]
         assert torch.equal(g["packed_s"].cpu(), h["packed_s"])
         assert torch.equal(g["packed_r"].cpu(), h["packed_r"])
+
+
+# ------------------------------------------------------ the fused window
+
+#: (m, l, w, density): a CR4 window chunk of the 64k run's shape, a
+#: sparse-route shape, one row block, unaligned everywhere
+ROW_COUNT_CASES = [(223, 1056, 2768, 0.01), (332, 1056, 64, 0.02),
+                   (64, 64, 8, 0.3), (130, 96, 40, 0.05)]
+
+
+@pytest.mark.parametrize("sparse", [False, True], ids=["dense_n", "list_n"])
+@pytest.mark.parametrize("m,l,w,density", ROW_COUNT_CASES)
+def test_row_count_variants_match_plain(card, m, l, w, density, sparse):
+    """``packed_cols_dense_n`` and ``packed_cols_list_n`` (+ the sparse
+    kernel) with the row count on the card: only the rows below it
+    change, ORed into a seeded C, equal to the plain version — a dead
+    window (0 rows) and a count past the rows included."""
+    gen = torch.Generator(device="cuda").manual_seed(m + w)
+    a, b = _operands(gen, m, l, w, density)
+    c0 = torch.randint(-2**31, 2**31, (m, w), generator=gen, device="cuda",
+                       dtype=torch.int64).to(torch.int32)
+    plan = PackedColsMatmulPlan(m, l, w, skip_zero_tiles=sparse)
+    name = "packed_cols_list_n" if sparse else "packed_cols_dense_n"
+    for n in (0, 1, m // 2, m, m + 7):
+        nr = torch.full((1,), n, dtype=torch.int32, device="cuda")
+        before = LAUNCHES[name]
+        got = plan(a, b, out=c0.clone(), n_rows=nr)
+        assert LAUNCHES[name] == before + 1
+        want = bitmatmul.plain_packed_cols_rows(a.cpu(), b.cpu(), c0.cpu(),
+                                                nr.cpu())
+        assert torch.equal(got.cpu(), want)
+        assert torch.equal(got[n:].cpu(), c0[n:].cpu())
+
+
+def test_graph_if_node_runs_its_body_only_when_true(card):
+    """Two IF nodes of one captured graph, replayed under every pair of
+    predicates: each body runs exactly when its predicate holds, in
+    order, as Python ``if`` statements would run them."""
+    from distel_tpu_torch.ops import graph_if
+
+    x = torch.zeros(2, dtype=torch.int64, device="cuda")
+    p = torch.zeros(2, dtype=torch.bool, device="cuda")
+    graph, pool, child = torch.cuda.CUDAGraph(), torch.cuda.MemPool(), \
+        torch.cuda.Stream()
+    with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+        graph_if.capture_if(p[0], lambda: x[0:1].add_(1), child, pool)
+        graph_if.capture_if(p[1], lambda: x[1:2].add_(x[0:1] * 10 + 1),
+                            child, pool)
+    want = [0, 0]
+    for p0, p1 in ((False, False), (True, False), (False, True), (True, True)):
+        p.copy_(torch.tensor([p0, p1]))
+        graph.replay()
+        if p0:
+            want[0] += 1
+        if p1:
+            want[1] += want[0] * 10 + 1
+        assert x.tolist() == want
+
+
+def _fused_records(engine, idx, sparse, k, depth=1):
+    from distel_tpu_torch.runtime.instrumentation import DISPATCH_EVENTS
+
+    before = DISPATCH_EVENTS.snapshot()["fused_windows"]
+    obs = []
+    res = engine.saturate_observed(
+        observer=lambda *a: obs.append(a), sparse_tail=sparse,
+        fused_rounds={"rounds": k}, pipeline={"enable": depth > 1, "depth": depth},
+    )
+    recs = [(s.iteration, s.tier, s.rows_touched, s.derivations, s.overflow,
+             s.inflight, s.rounds_in_window) for s in engine.frontier_rounds]
+    windows = DISPATCH_EVENTS.snapshot()["fused_windows"] - before
+    return obs, recs, res, windows, dict(engine.fused_run_stats)
+
+
+OVERFLOW_8 = {"density_threshold": 1.1, "hysteresis_rounds": 1,
+              "capacity_buckets": 1, "capacity_floor": 8}
+
+
+@pytest.mark.parametrize("corpus,sparse,depth", [
+    ("chain-400", FORCED_WIDE, 1), ("chain-400", FORCED_WIDE, 2),
+    ("chain-400", True, 2), ("snomed-8k", FORCED_WIDE, 1),
+    ("snomed-8k", OVERFLOW_8, 2),
+], ids=["chain-forced", "chain-forced-depth2", "chain-default-depth2",
+        "8k-forced", "8k-overflow-depth2"])
+def test_fused_window_on_the_card_equals_the_cpu(card, corpus, sparse, depth):
+    """The fused window (K = 4) as CUDA graphs on the card and eagerly
+    on the CPU: every record (window sizes, occupancy and fallouts
+    included), the observer's sequence, S and R equal; the card's
+    windows launch the row-count kernels and the IF setter."""
+    from distel_tpu_torch.core.rowpacked_engine import RowPackedSaturationEngine
+    from distel_tpu_torch.ops import graph_if
+
+    text = (chain_tailed_ontology(400, 12)
+            + "\nDisjointClasses(TailChain3 TailChain7)"
+            if corpus == "chain-400" else snomed_shaped_ontology(n_classes=8000))
+    idx = ELClassifier(device="cpu").classify_text(text).idx
+    before = dict(LAUNCHES)
+    setters = graph_if.LAUNCHES["graph_if_set"]
+    got = _fused_records(RowPackedSaturationEngine(idx, device="cuda", unroll=1),
+                         idx, sparse, 4, depth)
+    torch.cuda.synchronize()
+    assert graph_if.LAUNCHES["graph_if_set"] > setters
+    assert sum(LAUNCHES[k] - before[k]
+               for k in ("packed_cols_dense_n", "packed_cols_list_n")) > 0
+    want = _fused_records(RowPackedSaturationEngine(idx, device="cpu", unroll=1),
+                          idx, sparse, 4, depth)
+    assert got[0] == want[0] and got[1] == want[1]
+    assert got[3] == want[3] > 0 and got[4] == want[4]
+    assert torch.equal(got[2].packed_s.cpu(), want[2].packed_s)
+    assert torch.equal(got[2].packed_r.cpu(), want[2].packed_r)
+    if sparse is OVERFLOW_8:
+        assert got[4]["fallouts"] > 0
+

@@ -500,11 +500,13 @@ KEYS = (
     "sparse_tail.capacity_buckets = 12\nsparse_tail.hysteresis_rounds = 3\n"
     "pipeline.enable = false\npipeline.depth = 4\n"
     "obs.trace_rounds = true\nobs.ledger.enable = true\n"
-    "obs.ledger.dir = /tmp/led\nfused.rounds.k = 1\n"
+    "obs.ledger.dir = /tmp/led\nfused.rounds.k = 8\n"
+    "fused.rounds.adaptive = true\n"
 )
 FIELDS = ("sparse_tail", "sparse_density_threshold", "sparse_capacity_buckets",
           "sparse_hysteresis_rounds", "pipeline", "pipeline_depth",
-          "obs_trace_rounds", "obs_ledger", "obs_ledger_dir")
+          "obs_trace_rounds", "obs_ledger", "obs_ledger_dir", "fused_rounds",
+          "fused_rounds_k", "fused_rounds_adaptive")
 
 
 @pytest.mark.parametrize("text", [KEYS, ""], ids=["set", "defaults"])
@@ -517,13 +519,43 @@ def test_observed_config_keys_parse_as_the_reference(tmp_path, text):
         assert getattr(got, field) == getattr(want, field), field
     assert got.sparse_tail_config() == want.sparse_tail_config()
     assert got.pipeline_config() == want.pipeline_config()
+    assert got.fused_rounds_config() == want.fused_rounds_config()
 
 
-def test_fused_rounds_k_above_one_raises_naming_the_key(tmp_path):
-    p = tmp_path / "c.properties"
-    p.write_text("fused.rounds.k = 4\n")
-    with pytest.raises(ValueError, match="fused.rounds.k"):
-        ClassifierConfig.from_properties(str(p))
+#: ledger round-record keys that are host walls, clocks or readings
+VOLATILE = {"ts", "run_id", "chain_run_id", "round_wall_s", "elapsed_s",
+            "dispatch_s", "retire_s", "eta_s", "host_mb"}
+
+
+def test_fused_rounds_k_reaches_engine_and_ledger(tmp_path):
+    """``fused.rounds.k = 4`` read from a properties file reaches the
+    rebuild's engine, and the ledgered CPU rebuild runs in windows of
+    four: its round records (one a window) carry ``rounds_in_window`` >
+    1 and equal the reference's, less walls and host readings."""
+    text = chain_tailed_ontology(400, 12)
+    got = {}
+    for name, cfg_cls, inc_cls, kw in (
+        ("port", ClassifierConfig, IncrementalClassifier, {"device": "cpu"}),
+        ("ref", RefConfig, RefInc, {}),
+    ):
+        p = tmp_path / f"{name}.properties"
+        d = tmp_path / name
+        p.write_text(f"obs.ledger.enable = true\nobs.ledger.dir = {d}\n"
+                     "fused.rounds.k = 4\n")
+        inc = inc_cls(cfg_cls.from_properties(str(p)), **kw)
+        inc.add_text(text)
+        assert inc._base_engine._fused_cfg == {
+            "enable": True, "rounds": 4, "adaptive": False,
+        }
+        (f,) = [x for x in os.listdir(d) if x.endswith(".ledger.jsonl")]
+        got[name] = [
+            {k: v for k, v in r.items() if k not in VOLATILE}
+            for r in lg.read_ledger(str(d / f)) if r["ev"] == "round"
+        ]
+    assert got["port"] == got["ref"]
+    assert max(r["rounds_in_window"] for r in got["port"]) > 1
     # the reference ignores K with the fused rounds off; so does the port
+    p = tmp_path / "off.properties"
     p.write_text("fused.rounds.k = 4\nfused.rounds.enable = false\n")
-    assert ClassifierConfig.from_properties(str(p)).sparse_tail
+    assert ClassifierConfig.from_properties(str(p)).fused_rounds_config() \
+        is None

@@ -231,14 +231,24 @@ def test_dense_engine_observed_equals_saturate(name, depth, corpus):
     assert obs[-1] == (got.iterations, got.derivations, False)
 
 
-def test_fused_rounds_above_one_raise(corpus):
-    idx, _ref = corpus("chain-tailed-400")
-    with pytest.raises(ValueError, match="fused_rounds"):
-        RowPackedSaturationEngine(idx, device="cpu",
-                                  fused_rounds={"rounds": 4})
-    port = RowPackedSaturationEngine(idx, device="cpu")
-    with pytest.raises(ValueError, match="fused_rounds"):
-        port.saturate_observed(fused_rounds={"rounds": 2})
+def test_fused_rounds_above_one_run_windows(corpus):
+    """``fused_rounds`` K > 1 runs the fused window (held to the
+    reference in ``tests/test_torch_fused.py``); degenerate values raise
+    at build and per call, as the reference's do."""
+    idx, ref = corpus("chain-tailed-400")
+    port = RowPackedSaturationEngine(idx, device="cpu",
+                                     fused_rounds={"rounds": 4})
+    before = DISPATCH_EVENTS.snapshot()["fused_windows"]
+    got = _observed(port, port.nl, sparse_tail=True)
+    assert DISPATCH_EVENTS.snapshot()["fused_windows"] > before
+    want = _observed(ref, port.nl, sparse_tail=True,
+                     fused_rounds={"rounds": 4})
+    _assert_same_run(got, want, port.nl)
+    for bad in ({"rounds": 0}, {"nope": 1}):
+        with pytest.raises(ValueError, match="fused_rounds"):
+            RowPackedSaturationEngine(idx, device="cpu", fused_rounds=bad)
+        with pytest.raises(ValueError, match="fused_rounds"):
+            port.saturate_observed(fused_rounds=bad)
 
 
 @pytest.mark.parametrize("bad", [{"capacity_buckets": 0},

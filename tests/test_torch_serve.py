@@ -391,7 +391,9 @@ def test_snapshot_is_a_copy_of_the_state():
 
 # --------------------------------------------------------------- refusals
 
-REFUSED_KEYS = {"fused.rounds.k": "4", "artifacts.dir": "/srv/farm"}
+#: keys of paths the port does not have (``fused.rounds.k`` > 1 runs the
+#: fused window since it was ported: ``tests/test_torch_fused.py``)
+REFUSED_KEYS = {"artifacts.dir": "/srv/farm"}
 
 
 @pytest.mark.parametrize("key", sorted(REFUSED_KEYS))
