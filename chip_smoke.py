@@ -42,16 +42,36 @@ Phases, each of which raises on failure:
    written as OFN;
 5. full width, the main path: the 64000-class SNOMED-shaped corpus
    through ``ELClassifier().classify_text`` with the default config
-   (the native load plane, the frontier-gated engine) to convergence
-   with nothing hooked in, its wall, phases, peak memory, the windows
-   contracted and skipped, and the kernels' launch counts read from
-   that run alone (every kernel of the routes its plans chose must be
-   > 0); two more saturations of the same engine, timed (same
-   closure); the same text through the Python load plane (same derivations and taxonomy by name); then a profiled
-   rerun (per-rule breakdown), an end-to-end A/B of the route choice
-   (saturation with the shipped choice, with every CR4/CR6 plan on the
-   sparse route and with every plan flipped, A B C C B A) and a
-   captured rerun (operands), all of which must give the same closure;
+   (the native load plane, the frontier-gated engine, shape buckets:
+   its step program captured as a CUDA graph in the ``compile`` phase)
+   to convergence with nothing hooked in, its wall, phases, peak
+   memory, the windows contracted and skipped, the program's record
+   and the kernels' launch counts read from that run alone (the step's
+   row-count kernels and the taxonomy's must be > 0); two more
+   saturations of the same engine, timed (graph replays, same closure);
+   the same text through the Python load plane in exact mode (same
+   derivations, iterations and taxonomy by name); then ``shape
+   buckets`` at full width (``bucket_full_width``): the signatures of
+   seeds 42, 41 (the nearest seed of 42's bucket) and 43; seed 41
+   classified bucketed as a registry hit with nothing captured; seeds
+   42 and 41 in exact mode, each bucketed run equal to it in S and R
+   over the real rows, derivations, iterations and taxonomy; the
+   chain-tailed 64k corpus with the fused window (K = 8) on two
+   bucketed engines, the second replaying the first's windows, both
+   equal round for round to the exact per-round run; ``warmup_paths``
+   (serve profile) on the 64k corpus, then a fresh ``ServeApp``'s load
+   and class-only delta, both building nothing; the 8k corpus bucketed
+   on the card and on the CPU, equal; and one step group of the 64k
+   program run eagerly under the capture, whose heaviest operand of
+   each route goes through both row-count variants against the plain
+   version (the bucketed rows of the kernel line).  Then, on the exact
+   native 64k run, a profiled rerun (per-rule breakdown), an end-to-end
+   A/B of the route choice (saturation with the shipped choice, with
+   every CR4/CR6 plan on the sparse route and with every plan flipped,
+   A B C C B A) and a captured rerun (operands), all of which must give
+   the same closure.  Every other phase pins ``shape_buckets=False``
+   (``EXACT``): its records are held to earlier PRs' figures, and its
+   captured reruns watch each launch from the host;
 6. every operand pair captured in phase 4's live-tile run and phase
    5's captured rerun (one per call site and power-of-two work
    bucket): both routes bit for bit against the plain version and the
@@ -188,9 +208,14 @@ It prints the card's name and power limit, a ``{"policy": ...}`` line
 with A's nonzero fraction), the ``{"andor_checks": ...}``,
 ``{"gating": ...}``, ``{"dense": ...}``, ``{"hybrid": ...}``,
 ``{"verify": ...}``, ``{"xml_corpora": ...}``,
-``{"default_full_width": ...}`` (with the ``unroll`` it ran and its
-``rounds``), ``{"full_width": ...}`` (the Python
-load plane), ``{"breakdown": ...}``, ``{"threshold_ab": ...}``,
+``{"default_full_width": ...}`` (with the ``unroll`` it ran, its
+``rounds``, ``mode`` and ``program``), ``{"full_width": ...}`` (the
+Python load plane, exact), ``{"bucket_full_width": ...}`` (signatures,
+per seed the bucketed and exact walls and phases, iterations, state
+bytes, the build record; the program's capture seconds and card bytes;
+the fused K = 8 runs on two engines; the warmup and the warmed load and
+delta; the 8k card = CPU; the registry's counters; ``phase_s``),
+``{"breakdown": ...}``, ``{"threshold_ab": ...}``,
 ``{"packed_full_width": ...}``, ``{"packed_breakdown": ...}`` and
 ``{"andor_operands": ...}``, ``{"multiplied_full_width": ...}``,
 ``{"partition_full_width": ...}`` (text-level walls, host peak RSS,
@@ -213,7 +238,10 @@ load, migration and recovery walls, the client hold, each recovery's
 polls, spans and events, per-process card memory, launches and host
 RSS, heartbeat latencies, ejections) lines,
 a ``{"kernels": [...]}`` line
-(the sparse row also carries the listing kernel's time and launches;
+(the dense row's launches are the exact 64k run's, the bucketed main
+path launching the row-count forms, whose rows ``(bucketed step)`` are
+at the 64k program's heaviest operands;
+the sparse row also carries the listing kernel's time and launches;
 the batched dense row's numbers are from the component phase; the
 row-count variants' and the IF setter's from the fused phase),
 and as its last line
@@ -238,6 +266,16 @@ import numpy as np
 import torch
 
 ROOT = Path(__file__).resolve().parent
+
+
+def EXACT(**kw):
+    """The exact-shape config (``shape.buckets = false``): the phases
+    whose records are held to earlier PRs' figures, and whose captured
+    reruns watch each launch from the host, run the engines they ran
+    before buckets became the default."""
+    from distel_tpu_torch.config import ClassifierConfig
+
+    return ClassifierConfig(shape_buckets=False, **kw)
 #: H100 SXM published peaks (NVIDIA data sheet): HBM3 bytes/s and dense
 #: int8 tensor-core ops/s — the bound of a bit-MAC counted as one int8
 #: multiply-add (2 ops)
@@ -490,12 +528,12 @@ def phase_card_vs_cpu(cap: "Capture"):
     from distel_tpu_torch.runtime.classifier import ELClassifier
 
     text = snomed_shaped_ontology(n_classes=8000, seed=42)
-    tiles = ClassifierConfig(cr6_tiles_density_threshold=100.0)
+    tiles = ClassifierConfig(shape_buckets=False, cr6_tiles_density_threshold=100.0)
     runs = {}
     for what, clf in (
-        ("cuda", ELClassifier(device="cuda")),
+        ("cuda", ELClassifier(EXACT(), device="cuda")),
         ("cuda+tiles", ELClassifier(tiles, device="cuda")),
-        ("cpu", ELClassifier(device="cpu")),
+        ("cpu", ELClassifier(EXACT(), device="cpu")),
     ):
         t0 = time.perf_counter()
         cap.run = f"8k:{what}"
@@ -553,7 +591,7 @@ def phase_cross_engine(row_run) -> None:
 
     text = snomed_shaped_ontology(n_classes=8000, seed=42)
     t0 = time.perf_counter()
-    got = ELClassifier(ClassifierConfig(engine="packed"), device="cuda").classify_text(text)
+    got = ELClassifier(EXACT(engine="packed"), device="cuda").classify_text(text)
     log(f"[8k] packed: {time.perf_counter() - t0:.2f} s {got.summary()}")
     if not same_x_major(got.result, row_run.result):
         raise AssertionError("8k: packed and row-packed closures differ")
@@ -684,11 +722,11 @@ def phase_verify() -> dict:
 
     fixtures = sorted((ROOT / "tests" / "golden").glob("*.ofn"))
     for engine in ("rowpacked", "dense"):
-        clf = ELClassifier(ClassifierConfig(engine=engine), device="cuda")
+        clf = ELClassifier(EXACT(engine=engine), device="cuda")
         for path in fixtures:
             clf.classify_file(str(path), verify=True)
     t0 = time.perf_counter()
-    res = ELClassifier(device="cuda").classify_text(
+    res = ELClassifier(EXACT(), device="cuda").classify_text(
         snomed_shaped_ontology(n_classes=8000, seed=42), verify=True
     )
     out = {
@@ -757,8 +795,8 @@ def phase_xml_corpora() -> dict:
         "readers_rdfxml": docs["RDFXML"],
         "readers_owlxml": docs["OWLXML"],
     }
-    xml = ELClassifier(device="cuda")
-    ofn = ELClassifier(ClassifierConfig(use_native_loader=False), device="cuda")
+    xml = ELClassifier(EXACT(), device="cuda")
+    ofn = ELClassifier(EXACT(use_native_loader=False), device="cuda")
     out, taxes = {}, {}
     for name, text in inputs.items():
         onto = loader.load(text)
@@ -818,7 +856,7 @@ def phase_hybrid(row_run) -> dict:
         reset_launches()
         sync()
         t0 = time.perf_counter()
-        res = ELClassifier(ClassifierConfig(rule_backends=routed),
+        res = ELClassifier(EXACT(rule_backends=routed),
                            device="cuda").classify_text(text)
         wall = time.perf_counter() - t0
         if not isinstance(res.engine, HybridSaturator):
@@ -933,7 +971,7 @@ def phase_multiplied_full_width(cap: Capture):
     onto = multiply_ontology(galen, MULTIPLY_COPIES, crossed=True)
     text = writer.ontology_to_str(onto)
     build_s = time.perf_counter() - t0
-    clf = ELClassifier(device="cuda")
+    clf = ELClassifier(EXACT(), device="cuda")
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     reset_launches()
@@ -946,7 +984,7 @@ def phase_multiplied_full_width(cap: Capture):
     eng = res.engine
     got = {"concepts": res.idx.n_concepts, "links": res.idx.n_links,
            "classes": len(res.idx.original_classes)}
-    py_clf = ELClassifier(ClassifierConfig(use_native_loader=False), device="cuda")
+    py_clf = ELClassifier(EXACT(use_native_loader=False), device="cuda")
     torch.cuda.reset_peak_memory_stats()
     sync()
     t0 = time.perf_counter()
@@ -1275,7 +1313,7 @@ def phase_partition_full_width(copies: int = PARTITION_COPIES,
         ib["saturate_s"] = time.perf_counter() - t0
         ib["launches"] = dict(LAUNCHES)
         t0 = time.perf_counter()
-        whole = ELClassifier(device=device).classify_text(union)
+        whole = ELClassifier(EXACT(), device=device).classify_text(union)
         ib["monolithic"] = {"wall_s": time.perf_counter() - t0,
                             "iterations": whole.result.iterations,
                             "derivations": whole.result.derivations}
@@ -1326,6 +1364,9 @@ SITES = {
     # the observed controller's sparse tier (its rule: the frame's
     # ``d`` is the engine's CR4 or CR6 table)
     "_sparse_contract": "sparse",
+    # the bucketed step program run eagerly (``core/bucketing._Step``;
+    # the frame's ``key`` is "4" or "6")
+    "contract": "bucket",
 }
 
 
@@ -1333,6 +1374,8 @@ def site_of(frame) -> str:
     """The call site a captured launch came from (``frame``: the
     engine's frame named in :data:`SITES`)."""
     site = SITES[frame.f_code.co_name]
+    if site == "bucket":
+        return f"bucket_cr{frame.f_locals['key']}"
     if site == "sparse":
         loc = frame.f_locals
         site = "sparse_cr4" if loc["d"] is loc["self"]._sp4 else "sparse_cr6"
@@ -1367,6 +1410,12 @@ class Capture:
         cap = self
 
         def launch(plan, a, b, out, n_rows=None):
+            if torch.cuda.is_current_stream_capturing():
+                # a graph being captured: its launches replay unseen
+                # (a copy to the host here would fail the capture)
+                if n_rows is None:
+                    return cap._orig(plan, a, b, out)
+                return cap._orig(plan, a, b, out, n_rows)
             f, site = sys._getframe(1), "other"
             while f is not None and f.f_code.co_name not in SITES:
                 f = f.f_back
@@ -1412,6 +1461,40 @@ def chosen_kernels(engine) -> list:
         + (["packed_cols_dense"] if False in routes else [])
 
 
+def bucket_path_kernels(engine) -> list:
+    """The kernels a bucketed row-packed run must launch: its step
+    program's row-count routes (the dense kernel's ``_n`` form, or the
+    ``_n`` listing and the sparse kernel) and the taxonomy's listing and
+    sparse kernel."""
+    plans = engine._bucket_program().step.plans.values()
+    kernels = ["packed_cols_list", "packed_cols_sparse"]
+    if any(not p.skip_zero_tiles for p in plans):
+        kernels.append("packed_cols_dense_n")
+    if any(p.skip_zero_tiles for p in plans):
+        kernels.append("packed_cols_list_n")
+    return kernels
+
+
+def program_stats(engine) -> dict:
+    """A bucketed engine's program: signature, build record, the
+    registry's counters and the card bytes it holds."""
+    from distel_tpu_torch.core import bucketing
+    from distel_tpu_torch.core.program_cache import PROGRAMS
+
+    prog = engine._bucket_program()
+    return {
+        "bucket_signature": engine.bucket_signature,
+        "compile": engine.compile_stats.as_dict(),
+        "capture_s": prog.capture_s,
+        "graph_bytes": prog.graph_bytes,
+        "program_card_bytes": prog.nbytes,
+        "state_pair_bytes": prog.pair.nbytes,
+        "registry": PROGRAMS.stats(),
+        "registry_card_bytes": bucketing.program_bytes("cuda"),
+        "struct": repr(engine._bstruct),
+    }
+
+
 def gate_rounds_compact(engine) -> dict:
     """Per round, the windows (or link tiles) contracted and skipped."""
     out = {k: [] for k in ("cr4", "cr6", "cr6_tiles")}
@@ -1423,11 +1506,12 @@ def gate_rounds_compact(engine) -> dict:
 
 def phase_default_full_width():
     """The main path: ``ELClassifier().classify_text`` with the default
-    config (the native load plane, the frontier-gated row-packed
-    engine) on the 64k corpus, with nothing hooked into it: wall, phases,
-    peak memory, launch counts and windows contracted and skipped are
-    those of ``cli classify``.  Then two more saturations of the same
-    engine, timed."""
+    config (the native load plane, the frontier-gated row-packed engine,
+    shape buckets: its step program captured as a CUDA graph in the
+    ``compile`` phase) on the 64k corpus, with nothing hooked into it:
+    wall, phases, peak memory, launch counts and windows contracted and
+    skipped are those of ``cli classify``.  Then two more saturations of
+    the same engine, timed (graph replays)."""
     from distel_tpu_torch.ops.bitmatmul import LAUNCHES, reset_launches
     from distel_tpu_torch.frontend.ontology_tools import snomed_shaped_ontology
     from distel_tpu_torch.runtime.classifier import ELClassifier
@@ -1470,14 +1554,18 @@ def phase_default_full_width():
         "rounds": n_rounds,
         "classes_in_taxonomy": len(res.taxonomy.parents),
         "saturate_reruns_s": walls,
+        "mode": "bucketed",
+        "program": program_stats(gated),
     }
     log(f"[64k default] {json.dumps(stats)}")
     print(json.dumps({"default_full_width": stats}), flush=True)
     if "load(native)" not in res.timer.phases:
         raise AssertionError("64k: the default classify did not run the native plane")
+    if not gated._bucket or "compile" not in res.timer.phases:
+        raise AssertionError("64k: the default classify did not run bucketed")
     if not res.result.converged:
         raise AssertionError("64k run did not converge")
-    for k in path_kernels(gated._plans.values()):
+    for k in bucket_path_kernels(gated):
         if launches[k] == 0:
             raise AssertionError(f"{k} was never launched on the 64k run")
     if len(res.taxonomy.parents) == 0:
@@ -1496,7 +1584,7 @@ def phase_full_width(default):
     from distel_tpu_torch.runtime.classifier import ELClassifier
 
     text = snomed_shaped_ontology(n_classes=64000, seed=42)
-    clf = ELClassifier(ClassifierConfig(use_native_loader=False), device="cuda")
+    clf = ELClassifier(EXACT(use_native_loader=False), device="cuda")
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     base = torch.cuda.memory_allocated()
@@ -1570,11 +1658,13 @@ def phase_threshold_ab(res) -> dict:
 
 
 def phase_capture_64k(res, cap: Capture) -> None:
-    """A third saturate-and-taxonomy run on the 64k index, under the
-    capture; its closure must equal the first run's."""
+    """A third saturate-and-taxonomy run on the exact 64k index, under
+    the capture (run ``64k-exact``: the bucketed main path replays a
+    graph, whose launches the host cannot see one by one); its closure
+    must equal the first run's."""
     from distel_tpu_torch.runtime.taxonomy import extract_taxonomy
 
-    cap.run = "64k"
+    cap.run = "64k-exact"
     with cap:
         again = res.engine.saturate()
         tax = extract_taxonomy(again)
@@ -1690,12 +1780,17 @@ def check_pair(run, site, kern, launches, a, b) -> dict:
     return out
 
 
-def phase_kernel_line(launches, cap: Capture, checked=()):
+def phase_kernel_line(launches, exact_launches, cap: Capture, checked=()):
     """Every captured pair with both routes (``checked``: pairs already
     checked), the per-site policy, then one row per kernel.  A row's
-    numbers are its kernel's at the heaviest pair (most word-ANDs) that
-    the 64k main path sent to it (for a kernel the path did not choose,
-    the heaviest 64k pair); its ``max_abs_err`` is over every pair."""
+    ``launches`` are the bucketed main path's (``launches``; the dense
+    kernel's are 0 there: its step launches the row-count forms, whose
+    rows :func:`bucket_kernel_rows` adds), ``exact_64k_launches`` the
+    exact 64k run's; its times and bound are its kernel's at the
+    heaviest pair (most word-ANDs) that the exact 64k run sent to it
+    (for a kernel that run did not choose, its heaviest pair), so the
+    row is not the main path's (``main_path`` false); its
+    ``max_abs_err`` is over every pair."""
     pairs = list(checked)
     for (run, site, kern, _bucket) in sorted(cap.pairs):
         n, _nnz, a, b = cap.pairs.pop((run, site, kern, _bucket))
@@ -1724,8 +1819,8 @@ def phase_kernel_line(launches, cap: Capture, checked=()):
     print(json.dumps({"policy": totals}), flush=True)
     rows = []
     for kern in ("packed_cols_dense", "packed_cols_sparse"):
-        on_path = [p for p in pairs if p["main_path_kernel"] == kern and p["run"] == "64k"]
-        pool = on_path or [p for p in pairs if p["run"] == "64k"] or pairs
+        exact = [p for p in pairs if p["run"] == "64k-exact"]
+        pool = [p for p in exact if p["main_path_kernel"] == kern] or exact or pairs
         top = max(pool, key=lambda p: p["shape"][0] * p["shape"][1] * p["shape"][2])
         key = "sparse_ms" if kern.endswith("sparse") else "dense_ms"
         row = {
@@ -1734,6 +1829,7 @@ def phase_kernel_line(launches, cap: Capture, checked=()):
             "source": SOURCE,
             "replaces": REPLACES[kern],
             "launches": launches[kern],
+            "exact_64k_launches": exact_launches[kern],
             "max_abs_err": max(p["max_abs_err"] for p in pairs),
             "ms": top[key],
             "plain_ms": top["plain_ms"],
@@ -1741,14 +1837,285 @@ def phase_kernel_line(launches, cap: Capture, checked=()):
             "bound_by": top["bound_by"],
             "library_ms": None,
             "at": {k: top[k] for k in ("run", "site", "shape")},
-            "main_path": bool(on_path),
+            "main_path": False,
         }
         if kern.endswith("sparse"):
             # the sparse route's own listing kernel (no TPU kernel of its own)
             row.update(list_ms=top["list_ms"], sparse_kernel_ms=top["sparse_kernel_ms"],
-                       list_launches=launches["packed_cols_list"])
+                       list_launches=launches["packed_cols_list"],
+                       exact_64k_list_launches=exact_launches["packed_cols_list"])
         rows.append(row)
     return rows, pairs
+
+
+# ------------------------------------------------------ shape buckets
+
+BUCKET_SEEDS = (42, 41, 43)
+#: a class-only delta within the warmed delta programs' floor rung
+BUCKET_DELTA = "\n".join(f"SubClassOf(BucketDelta{i} Find{i * 7})" for i in range(4))
+
+
+def rows_equal(bucketed, exact, n_c: int, n_l: int) -> bool:
+    """S and R of a bucketed and an exact result over the real rows and
+    the exact layout's words, compared on the card."""
+    wc = exact.packed_s.shape[1]
+    return (torch.equal(bucketed.packed_s[:n_c, :wc], exact.packed_s[:n_c, :wc])
+            and torch.equal(bucketed.packed_r[:n_l, :wc], exact.packed_r[:n_l, :wc]))
+
+
+def bucket_operands(engine, res, cap: "Capture") -> None:
+    """One step group of ``engine``'s bucketed program run eagerly (not
+    replayed) from ``res``'s closure with every window live, under the
+    capture (run ``64k-bucketed``): the operands the program's kernels
+    get at the real rung shapes.  The closure must not move."""
+    prog = engine._bucket_program()
+    with prog.pair.lock:
+        prog.load(engine._btables)
+        prog.pair.sp.copy_(res.packed_s)
+        prog.pair.rp.copy_(res.packed_r)
+        prog.ms.fill_(True)
+        prog.dl.copy_(prog.T["dl_valid"])
+        cap.run = "64k-bucketed"
+        with cap:
+            prog._group()
+        sync()
+        if bool(prog.flags[0]) or not torch.equal(prog.pair.sp, res.packed_s):
+            raise AssertionError("64k bucketed: a step on the fixed point changed it")
+
+
+def bucket_kernel_rows(cap: "Capture", launches: dict) -> list:
+    """The bucketed 64k step's heaviest operand of each route (the pairs
+    :func:`bucket_operands` captured), through both row-count variants
+    against the plain version (0 differing words) and timed: one kernel
+    row each, with the main path's launches of the variant."""
+    ops = []
+    for (run, site, kern, bucket) in sorted(cap.pairs):
+        if run != "64k-bucketed":
+            continue
+        n, nnz, a, b = cap.pairs.pop((run, site, kern, bucket))
+        ops.append((site, kern, nnz, a.cuda(), b.cuda()))
+    rows = []
+    for kern, variant, replaces in (
+        ("packed_cols_dense", "packed_cols_dense_n", REPLACES["packed_cols_dense"]),
+        ("packed_cols_sparse", "packed_cols_list_n", REPLACES["packed_cols_sparse"]),
+    ):
+        pool = [o for o in ops if o[1] == kern]
+        if not pool:
+            continue
+        site, _k, _nnz, a, b = max(pool, key=lambda o: o[3].shape[0] * o[3].shape[1]
+                                   * o[4].shape[1])
+        checks = check_variants([(site, a, b, kern.endswith("sparse"))])
+        mine = [c for c in checks if c["kernel"] == variant]
+        top = mine[0]
+        row = {
+            "name": f"{variant} (bucketed step)", "route": "cuda", "source": SOURCE,
+            "replaces": replaces, "launches": launches[variant],
+            "max_abs_err": max(c["max_abs_err"] for c in checks),
+            "ms": top["ms"], "plain_ms": top["plain_ms"], "bound_ms": top["bound_ms"],
+            "bound_by": top["bound_by"], "library_ms": None, "dead_ms": top["dead_ms"],
+            "at": {"run": "64k-bucketed", "site": site, "shape": top["shape"]},
+            "main_path": True,
+        }
+        if variant == "packed_cols_list_n":
+            row["sparse_launches"] = launches["packed_cols_sparse"]
+        rows.append(row)
+        del a, b
+    if not rows:
+        raise AssertionError("the bucketed 64k step sent no operand to a kernel")
+    return rows
+
+
+def phase_bucket_full_width(default, device: str = "cuda", n_classes: int = 64000,
+                            n_chain: int = 64000, chain_depth: int = 64,
+                            n_small: int = 8000, seeds=BUCKET_SEEDS):
+    """Shape buckets at full width.  ``default`` is the main path's
+    bucketed 64k classify (seed 42), which captured its bucket's step
+    program.
+
+    1. The signatures of the seeds 42, 41 and 43 (41 is the nearest seed
+       whose corpus shares 42's bucket; 43 lands in another: a hub
+       target's segment falls a power of two lower).
+    2. Seed 41 classified bucketed: a registry hit, nothing captured
+       (``compile_s == 0.0``).  Seeds 42 and 41 classified exact on the
+       native plane: each bucketed run equal to it in S and R over the
+       real rows, derivations, iterations and taxonomy.
+    3. ``chain_tailed_ontology(64000, 64)`` with the fused window
+       (``fused_rounds`` K = 8) on two bucketed engines, each held round
+       for round to the exact synchronous per-round run; the second
+       engine's windows are registry hits (capture 0.0 s).
+    4. ``warmup_paths`` (the ``"serve"`` profile) on the 64k corpus, then
+       a fresh ``ServeApp`` loads it and takes a class-only delta: both
+       build nothing (``compile_s == 0.0``, hits).
+    5. The 8k corpus bucketed on the card and on the CPU: equal.
+
+    Returns the exact native 64k result (seed 42) for the phases that
+    capture operands from the host, and the exact run's launches."""
+    from distel_tpu_torch.config import ClassifierConfig
+    from distel_tpu_torch.core.program_cache import PROGRAMS
+    from distel_tpu_torch.core.rowpacked_engine import RowPackedSaturationEngine
+    from distel_tpu_torch.frontend.ontology_tools import (
+        chain_tailed_ontology, snomed_shaped_ontology,
+    )
+    from distel_tpu_torch.ops.bitmatmul import LAUNCHES, reset_launches
+    from distel_tpu_torch.owl import native_loader
+    from distel_tpu_torch.runtime import warmup
+    from distel_tpu_torch.runtime.classifier import ELClassifier, make_engine
+    from distel_tpu_torch.serve.server import ServeApp
+
+    t_phase = time.perf_counter()
+    out = {"mode": "bucketed, ratio 1.25"}
+    one, two, _other = seeds
+    texts = {s: snomed_shaped_ontology(n_classes=n_classes, seed=s)
+             for s in set(seeds)}
+
+    # 1. signatures
+    sigs = {}
+    for s in seeds:
+        idx = native_loader.load_indexed(texts[s])
+        eng = make_engine(ClassifierConfig(), idx, device)
+        sigs[s] = {"signature": eng.bucket_signature, "nc": eng.nc, "nl": eng.nl,
+                   "concepts": idx.n_concepts, "links": idx.n_links}
+        del eng, idx
+    out["signatures"] = sigs
+    log(f"[bucket] signatures {json.dumps(sigs)}")
+    if sigs[two]["signature"] != sigs[one]["signature"]:
+        raise AssertionError(f"seeds {one} and {two} no longer share a bucket")
+    if default.engine.bucket_signature != sigs[one]["signature"]:
+        raise AssertionError("the main path ran another bucket")
+
+    # 2. the second corpus of the bucket, and both held to exact mode
+    first = default.engine.compile_stats
+    reset_launches()
+    sync()
+    t0 = time.perf_counter()
+    second = ELClassifier(device=device).classify_text(texts[two])
+    sync()
+    runs = {one: {"bucketed": default, "first_compile": first.as_dict()},
+            two: {"bucketed": second, "wall_s": time.perf_counter() - t0,
+                  "launches": dict(LAUNCHES)}}
+    st = second.compile_stats
+    if not st.program_cache_hit or st.compile_s != 0.0 or st.trace_lower_s != 0.0:
+        raise AssertionError(f"seed {two}: the bucket's program was built again: {st}")
+    exact42 = exact_launches = None
+    for s in (one, two):
+        reset_launches()
+        sync()
+        t0 = time.perf_counter()
+        ex = ELClassifier(EXACT(), device=device).classify_text(texts[s])
+        sync()
+        wall = time.perf_counter() - t0
+        b = runs[s]["bucketed"]
+        same = {
+            "rows": rows_equal(b.result, ex.result, ex.idx.n_concepts, ex.idx.n_links),
+            "derivations": b.result.derivations == ex.result.derivations,
+            "iterations": b.result.iterations == ex.result.iterations,
+            "taxonomy": taxonomy_key(b.taxonomy) == taxonomy_key(ex.taxonomy),
+        }
+        runs[s].update(
+            exact_wall_s=wall, exact_phases_ms=ex.summary()["phases_ms"],
+            bucketed_phases_ms=b.summary()["phases_ms"],
+            iterations=[b.result.iterations, ex.result.iterations],
+            derivations=b.result.derivations, same=same,
+            state_bytes=[(b.engine.nc + b.engine.nl) * b.engine.wc * 4,
+                         (ex.engine.nc + ex.engine.nl) * ex.engine.wc * 4],
+            compile=b.compile_stats.as_dict(),
+        )
+        runs[s].pop("bucketed")
+        if not all(same.values()):
+            raise AssertionError(f"seed {s}: bucketed and exact runs differ: {same}")
+        if s == one:
+            exact42, exact_launches = ex, dict(LAUNCHES)
+        del ex
+    prog = default.engine._bucket_program()
+    out["runs"] = runs
+    out["program"] = {"capture_s": prog.capture_s, "graph_bytes": prog.graph_bytes,
+                      "program_card_bytes": prog.nbytes,
+                      "state_pair_bytes": prog.pair.nbytes}
+    del second
+    log(f"[bucket 64k] {json.dumps(runs)} {json.dumps(out['program'])}")
+
+    # 3. the fused window on two engines of one corpus
+    idx = native_loader.load_indexed(chain_tailed_ontology(n_chain, chain_depth))
+    base = observed_run(RowPackedSaturationEngine(idx, device=device, unroll=1),
+                        sparse_tail=True, pipeline=False)
+    fused = {"per_round_wall_s": base[3], "rounds": len(base[1])}
+    for label in ("first", "second"):
+        eng = RowPackedSaturationEngine(idx, device=device, unroll=1, bucket=True)
+        run, info = fused_run(eng, sparse_tail=True, fused_rounds={"rounds": 8})
+        if run[0] != base[0] or fused_records(run[1]) != fused_records(base[1]) \
+                or run[2].iterations != base[2].iterations \
+                or not rows_equal(run[2], base[2], idx.n_concepts, idx.n_links):
+            raise AssertionError(f"chain-tailed K8 ({label} bucketed engine) differs "
+                                 "from the per-round run")
+        cs = eng.compile_stats
+        fused[label] = {"wall_s": run[3], "window_rounds": info["windows"],
+                        "compile": cs.as_dict(), "captured": info["captured"]}
+        if label == "second" and (not cs.program_cache_hit or cs.compile_s != 0.0):
+            raise AssertionError(f"the second engine captured its windows: {cs}")
+        del eng, run
+    out["fused_k8"] = fused
+    del base, idx
+    torch.cuda.empty_cache()
+    log(f"[bucket fused] {json.dumps(fused)}")
+
+    # 4. warmup (serve profile), then a fresh server's load and delta
+    path = ROOT / "build" / "smoke" / "bucket64k.ofn"
+    path.parent.mkdir(parents=True, exist_ok=True)
+    path.write_text(texts[one])
+    t0 = time.perf_counter()
+    recs = warmup.warmup_paths([str(path)], ClassifierConfig(), profile="serve",
+                               device=device)
+    warm = {"wall_s": time.perf_counter() - t0, "record": recs[0],
+            "registry": PROGRAMS.stats()}
+    app = ServeApp(device=device)
+    try:
+        t0 = time.perf_counter()
+        status, load = serve_call(app, "POST", "/v1/ontologies", text=texts[one])
+        warm["load_wall_s"] = time.perf_counter() - t0
+        if status != 201:
+            raise AssertionError(f"the 64k load answered {status}: {load}")
+        t0 = time.perf_counter()
+        status, delta = serve_call(app, "POST",
+                                   f"/v1/ontologies/{load['id']}/deltas",
+                                   text=BUCKET_DELTA)
+        warm["delta_wall_s"] = time.perf_counter() - t0
+    finally:
+        app.close(final_spill=False)
+    path.unlink()
+    warm["load"] = {k: load.get(k) for k in ("compile_s", "trace_lower_s",
+                                              "program_cache_hit", "bucket_signature",
+                                              "iterations", "path")}
+    warm["delta"] = {k: delta.get(k) for k in (
+        "compile_s", "program_cache_hit", "delta_programs", "delta_program_hits",
+        "delta_bucketed", "path", "iterations")}
+    out["warmup_serve"] = warm
+    log(f"[bucket warmup] {json.dumps(warm)}")
+    if load.get("compile_s") != 0.0 or not load.get("program_cache_hit"):
+        raise AssertionError(f"the warmed load built a program: {warm['load']}")
+    if delta.get("path") != "fast" or delta.get("compile_s") != 0.0 \
+            or delta.get("delta_program_hits") != delta.get("delta_programs"):
+        raise AssertionError(f"the warmed delta built a program: {warm['delta']}")
+    del app
+    torch.cuda.empty_cache()
+
+    # 5. 8k bucketed on the card and on the CPU
+    text8 = snomed_shaped_ontology(n_classes=n_small)
+    small = {}
+    got = {dev: ELClassifier(device=dev).classify_text(text8) for dev in (device, "cpu")}
+    c, h = got[device], got["cpu"]
+    small = {"iterations": c.result.iterations, "derivations": c.result.derivations,
+             "signature": c.engine.bucket_signature}
+    if (c.result.iterations, c.result.derivations) != \
+            (h.result.iterations, h.result.derivations) \
+            or not torch.equal(c.result.packed_s.cpu(), h.result.packed_s) \
+            or not torch.equal(c.result.packed_r.cpu(), h.result.packed_r) \
+            or taxonomy_key(c.taxonomy) != taxonomy_key(h.taxonomy):
+        raise AssertionError("8k bucketed: card and CPU differ")
+    out["card_vs_cpu_8k"] = small
+    out["registry"] = PROGRAMS.stats()
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(json.dumps({"bucket_full_width": out}), flush=True)
+    return exact42, exact_launches
 
 
 # ------------------------------------------------------ the incremental plane
@@ -1854,16 +2221,17 @@ def phase_incremental_card_vs_cpu() -> dict:
     runs = {}
     for dev in ("cuda", "cpu"):
         t0 = time.perf_counter()
-        inc = IncrementalClassifier(device=dev)
+        inc = IncrementalClassifier(EXACT(), device=dev)
         wires = []
         for op, t in steps:
             res = inc.add_text(t) if op == "add" else inc.retract(t)
             wires.append(res.wire())
         path = str(SNAPSHOT_DIR / f"inc8k-{dev}.npz")
         inc.snapshot(path, compressed=False)
-        back = IncrementalClassifier.restore(log_ops, path, device=dev)
+        back = IncrementalClassifier.restore(log_ops, path, EXACT(), device=dev)
         wires.append(back.last_result.wire())
-        runs[dev] = (inc.history + back.history[-1:], wires, time.perf_counter() - t0)
+        runs[dev] = ([without_build(h) for h in inc.history + back.history[-1:]],
+                     wires, time.perf_counter() - t0)
         del inc, back, res
     shutil.rmtree(SNAPSHOT_DIR, ignore_errors=True)
     (hc, wc, tc), (hp, wp, tp) = runs["cuda"], runs["cpu"]
@@ -1906,7 +2274,7 @@ def phase_incremental_full_width(cap: Capture):
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     held = torch.cuda.memory_allocated()
-    inc = IncrementalClassifier(device="cuda")
+    inc = IncrementalClassifier(EXACT(), device="cuda")
     records = []
 
     def step(name, fn, paths):
@@ -1936,7 +2304,7 @@ def phase_incremental_full_width(cap: Capture):
 
     def check(res, texts, what):
         t0 = time.perf_counter()
-        batch = ELClassifier(device="cuda").classify_text("\n".join(texts) + "\n")
+        batch = ELClassifier(EXACT(), device="cuda").classify_text("\n".join(texts) + "\n")
         if taxonomy_key(extract_taxonomy(res)) != taxonomy_key(batch.taxonomy):
             raise AssertionError(f"incremental 64k {what}: taxonomy differs from a classify")
         if not named_closure_equal(res, batch.result):
@@ -1977,7 +2345,7 @@ def phase_incremental_full_width(cap: Capture):
     torch.cuda.empty_cache()
     # the same traffic over the corpus without its range axiom, retracted
     text_nr = without_ranges(text)
-    inc = IncrementalClassifier(device="cuda")
+    inc = IncrementalClassifier(EXACT(), device="cuda")
     for name, t in (("base", text_nr), ("class_only", INC_CLASS_DELTA),
                     ("role", INC_ROLE_DELTA), ("closure", INC_CLOSURE_DELTA)):
         step(f"{name}:no_range", lambda t=t: (inc.add_text(t), inc),
@@ -1998,7 +2366,7 @@ def phase_incremental_full_width(cap: Capture):
     made = []
 
     def restore():
-        made.append(IncrementalClassifier.restore(ops, path, device="cuda"))
+        made.append(IncrementalClassifier.restore(ops, path, EXACT(), device="cuda"))
         return made[0].last_result, made[0]
 
     r5 = step("restore", restore, {"restore"})
@@ -2010,7 +2378,7 @@ def phase_incremental_full_width(cap: Capture):
     del back, r5, r4, inc
     shutil.rmtree(SNAPSHOT_DIR, ignore_errors=True)
     torch.cuda.empty_cache()
-    inc2 = IncrementalClassifier(device="cuda")
+    inc2 = IncrementalClassifier(EXACT(), device="cuda")
     inc2.add_text(text)
     inc2.drop_base_program()
     r6 = step("class_only_rebuild",
@@ -2022,7 +2390,7 @@ def phase_incremental_full_width(cap: Capture):
     del inc2, r6, r1
     torch.cuda.empty_cache()
     # the delta, cross and rebound-base engines again, under the capture
-    inc3 = IncrementalClassifier(device="cuda")
+    inc3 = IncrementalClassifier(EXACT(), device="cuda")
     inc3.add_text(text)
     base3 = inc3._base_engine
 
@@ -2295,7 +2663,7 @@ def phase_observed_full_width(cap: Capture, device: str = "cuda",
         raise AssertionError(f"64k forced: kernels not launched: {fo[4]}, "
                              f"sparse rounds {fo_launches}")
     t0 = time.perf_counter()
-    classified = ELClassifier(device=device).classify_text(text)
+    classified = ELClassifier(EXACT(), device=device).classify_text(text)
     classify_s = time.perf_counter() - t0
     want_key = taxonomy_key(classified.taxonomy)
     if fo[2].derivations != classified.result.derivations \
@@ -2347,7 +2715,7 @@ def phase_observed_full_width(cap: Capture, device: str = "cuda",
     shutil.rmtree(OBS_DIR, ignore_errors=True)
     rebuilds = {}
     for ledger in (True, False):
-        cfg = ClassifierConfig(obs_ledger=ledger, obs_ledger_dir=str(OBS_DIR))
+        cfg = EXACT(obs_ledger=ledger, obs_ledger_dir=str(OBS_DIR))
         inc = IncrementalClassifier(cfg, device=device)
         settle()
         t0 = time.perf_counter()
@@ -2709,10 +3077,10 @@ def phase_fused_full_width(device: str = "cuda", n_chain: int = 64000,
     OBS_DIR.mkdir(parents=True)
     props = OBS_DIR / "fused.properties"
     props.write_text(f"obs.ledger.enable = true\nobs.ledger.dir = {OBS_DIR}\n"
-                     "fused.rounds.k = 8\n")
+                     "fused.rounds.k = 8\nshape.buckets = false\n")
     rebuilds = {}
     for label, cfg in (("fused", ClassifierConfig.from_properties(str(props))),
-                       ("unfused", ClassifierConfig())):
+                       ("unfused", EXACT())):
         inc = IncrementalClassifier(cfg, device=device)
         sync()
         t0 = time.perf_counter()
@@ -2803,6 +3171,22 @@ def phase_fused_full_width(device: str = "cuda", n_chain: int = 64000,
 
 #: answer fields that are clock readings (taken out before comparing)
 SERVE_CLOCK_KEYS = ("published_unix",)
+#: a write record's program-build fields: the signatures name the device
+#: (and an exact engine's the card's temporary budget), the walls are the
+#: device's, so card and CPU records differ there by construction
+BUILD_KEYS = {"bucket_signature", "program", "trace_lower_s", "compile_s",
+              "program_cache_hit", "persistent_cache_hits",
+              "persistent_cache_misses", "delta_signature"}
+
+
+def without_build(doc):
+    """``doc`` (a record, or a ``(status, record)`` answer) without its
+    :data:`BUILD_KEYS`."""
+    if isinstance(doc, tuple):
+        return tuple(without_build(d) for d in doc)
+    if isinstance(doc, dict):
+        return {k: v for k, v in doc.items() if k not in BUILD_KEYS}
+    return doc
 TRACE_FILE = ROOT / "traces" / "mixed_add_retract_query.jsonl"
 SERVE_DIR = ROOT / "build" / "smoke_serve"
 
@@ -2875,8 +3259,8 @@ class RecordingClient:
 
         def call(*a, **kw):
             doc = fn(*a, **kw)
-            self.answers.append((name, {k: v for k, v in doc.items()
-                                        if k not in SERVE_CLOCK_KEYS}))
+            self.answers.append((name, without_build(
+                {k: v for k, v in doc.items() if k not in SERVE_CLOCK_KEYS})))
             return doc
 
         return call
@@ -2935,7 +3319,7 @@ def phase_serve_card_vs_cpu() -> dict:
     text = without_ranges(text8)
     out, answers = {}, {}
     for dev in ("cuda", "cpu"):
-        app = ServeApp() if dev == "cuda" else ServeApp(device="cpu")
+        app = ServeApp(EXACT()) if dev == "cuda" else ServeApp(EXACT(), device="cpu")
         if app.registry.device != resolve_device(dev):
             raise AssertionError(f"serve 8k: ServeApp runs on {app.registry.device}")
         reset_launches()
@@ -2951,7 +3335,7 @@ def phase_serve_card_vs_cpu() -> dict:
         del app
     torch.cuda.empty_cache()
     for i, (c, p) in enumerate(zip(answers["cuda"], answers["cpu"])):
-        if c != p:
+        if without_build(c) != without_build(p):
             raise AssertionError(f"serve 8k: answer {i} differs card/cpu: "
                                  f"{str(c)[:300]} / {str(p)[:300]}")
     # BenchDelta3 is unknown (404) to the reads naming it before the
@@ -2978,7 +3362,7 @@ def phase_serve_card_vs_cpu() -> dict:
     for engine in ("auto", "packed"):
         runs = {}
         for dev in ("cuda", "cpu"):
-            app = ServeApp(ClassifierConfig(engine=engine), device=dev)
+            app = ServeApp(EXACT(engine=engine), device=dev)
             reset_launches()
             t0 = time.perf_counter()
             rec, got = replay_answers(app)
@@ -3022,8 +3406,10 @@ def phase_serve_card_vs_cpu() -> dict:
     # fast path and its accounting) and pad their packed rows
     # differently (a snapshot's bytes); the answers agree
     engine_keys = ("path", "iterations", "delta_bucketed", "delta_programs",
+                   "delta_program_hits",
                    "snapshot_bytes")
-    row, packed = ([(st, {k: v for k, v in a.items() if k not in engine_keys})
+    row, packed = ([(st, {k: v for k, v in without_build(a).items()
+                          if k not in engine_keys})
                     for st, a in tenant[e][0]] for e in ("auto", "packed"))
     if row != packed:
         bad = next(i for i, (x, y) in enumerate(zip(row, packed)) if x != y)
@@ -3067,6 +3453,7 @@ def phase_serve_full_width(cap: Capture):
     import threading
 
     from distel_tpu_torch.config import ClassifierConfig
+    from distel_tpu_torch.core import bucketing
     from distel_tpu_torch.frontend.ontology_tools import snomed_shaped_ontology
     from distel_tpu_torch.ops.bitmatmul import LAUNCHES, reset_launches
     from distel_tpu_torch.runtime.classifier import ELClassifier
@@ -3081,7 +3468,7 @@ def phase_serve_full_width(cap: Capture):
     torch.cuda.reset_peak_memory_stats()
     memory = {"before_load": torch.cuda.memory_allocated()}
     # the warm tier holds the whole 64k state on the host (about 1.9 GB)
-    cfg = ClassifierConfig(storage_warm_budget_mb=16384)
+    cfg = EXACT(storage_warm_budget_mb=16384)
     app = ServeApp(cfg, device="cuda", workers=2, spill_dir=str(SERVE_DIR),
                    memory_budget_bytes=1 << 40)
     records = []
@@ -3128,7 +3515,7 @@ def phase_serve_full_width(cap: Capture):
             a from-scratch card classify of ``texts``."""
             t0 = time.perf_counter()
             served = request(f"taxonomy:{what}", oid, lambda: client.taxonomy(oid))
-            batch = ELClassifier(device="cuda").classify_text(
+            batch = ELClassifier(EXACT(), device="cuda").classify_text(
                 "\n".join(texts) + "\n")
             tax = batch.taxonomy
             if (served["parents"], served["equivalents"],
@@ -3177,6 +3564,9 @@ def phase_serve_full_width(cap: Capture):
                 raise AssertionError(f"serve 64k: {k} was never launched")
         # from here the card budget holds the 64k tenant alone
         state_a = _state_bytes(app.registry._entries[a].inc)
+        # the programs earlier phases left idle go now, not inside the
+        # evictions measured here (the budget would drop them first)
+        bucketing.drop_idle_programs("cuda")
         app.registry.memory_budget_bytes = state_a
         memory["before_evict"] = torch.cuda.memory_allocated()
         # round 1: the second tenant evicts the 64k one to the warm tier
@@ -3548,7 +3938,8 @@ def cpu_fleet_replay(tmp: Path):
 
     apps, servers = [], []
     for i in range(2):
-        apps.append(ReplicaApp(replica_id=f"r{i}", spill_dir=str(tmp), device="cpu"))
+        apps.append(ReplicaApp(EXACT(), replica_id=f"r{i}", spill_dir=str(tmp),
+                               device="cpu"))
         servers.append(make_server(apps[-1], "127.0.0.1", 0))
         threading.Thread(target=servers[-1].serve_forever, daemon=True).start()
     router = RouterApp([(f"r{i}", f"http://127.0.0.1:{s.server_address[1]}")
@@ -3619,7 +4010,7 @@ def phase_fleet_full_width(device: str = "cuda", n_big: int = 64000,
     on_card = device != "cpu"
 
     def classify_key(texts):
-        res = ELClassifier(device=device).classify_text("\n".join(texts) + "\n")
+        res = ELClassifier(EXACT(), device=device).classify_text("\n".join(texts) + "\n")
         key = taxonomy_key(res.taxonomy)
         del res
         if on_card:
@@ -3656,8 +4047,12 @@ def phase_fleet_full_width(device: str = "cuda", n_big: int = 64000,
     # 1. boot: both replicas started together, each timed to its serving line
     site = install_replica_hook()
     env = {**os.environ, "PYTHONPATH": os.pathsep.join([site, str(ROOT)])}
+    exact_props = FLEET_DIR / "exact.properties"
+    exact_props.parent.mkdir(parents=True, exist_ok=True)
+    exact_props.write_text("shape.buckets = false\n")
     sup = ReplicaSupervisor(2, spill_dir=str(FLEET_DIR),
-                            extra_args=["--device", device], env=env)
+                            extra_args=["--device", device,
+                                        "--config", str(exact_props)], env=env)
     served_at = {}
 
     def watch(rid, t0):
@@ -4241,7 +4636,7 @@ def phase_packed_full_width(row_res):
     from distel_tpu_torch.runtime.classifier import ELClassifier
 
     text = snomed_shaped_ontology(n_classes=64000, seed=42)
-    clf = ELClassifier(ClassifierConfig(engine="packed"), device="cuda")
+    clf = ELClassifier(EXACT(engine="packed"), device="cuda")
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     base = torch.cuda.memory_allocated()
@@ -4391,11 +4786,17 @@ def main() -> int:
     # every result line also to a file: a runner may keep only the tail
     # of standard output
     sys.stdout = Tee(sys.stdout, open(out / "smoke_stdout.txt", "w"))
+
+    def mark(what):
+        # the smoke's clock at each phase's end, for its time budget
+        log(f"[clock] {what} {time.perf_counter() - t_start:.1f} s")
+
     name = phase_probe()
     phase_kernels()
     andor_checks = phase_andor_kernel()
     phase_golden()
     phase_golden(engine="packed")
+    mark("goldens")
     cap = Capture()
     row8k = phase_card_vs_cpu(cap)
     phase_cross_engine(row8k)
@@ -4406,33 +4807,50 @@ def main() -> int:
     phase_verify()
     phase_xml_corpora()
     phase_incremental_card_vs_cpu()
+    mark("8k phases")
     launches, res = phase_default_full_width()
     phase_full_width(res)
-    phase_breakdown(res)
-    phase_threshold_ab(res)
-    phase_capture_64k(res, cap)
-    packed_launches, packed = phase_packed_full_width(res)
+    exact, exact_launches = phase_bucket_full_width(res)
+    bucket_operands(res.engine, res.result, cap)
+    bucket_rows = bucket_kernel_rows(cap, launches)
+    mark("64k bucketed")
     del res
+    torch.cuda.empty_cache()
+    # the phases that watch each launch from the host run the exact engine
+    phase_breakdown(exact)
+    phase_threshold_ab(exact)
+    phase_capture_64k(exact, cap)
+    packed_launches, packed = phase_packed_full_width(exact)
+    del exact
     torch.cuda.empty_cache()
     phase_packed_breakdown(packed)
     andor_row = phase_andor_operands(packed, packed_launches, andor_checks)
     del packed
     torch.cuda.empty_cache()
+    mark("64k exact and packed")
     checked = phase_multiplied_full_width(cap)
     torch.cuda.empty_cache()
+    mark("multiplied")
     batched_row = phase_partition_full_width()
     torch.cuda.empty_cache()
+    mark("partition")
     checked += phase_incremental_full_width(cap)
     torch.cuda.empty_cache()
+    mark("incremental")
     checked += phase_observed_full_width(cap)
     torch.cuda.empty_cache()
+    mark("observed")
     fused_rows = phase_fused_full_width()
     torch.cuda.empty_cache()
+    mark("fused")
     phase_serve_card_vs_cpu()
     checked += phase_serve_full_width(cap)
     torch.cuda.empty_cache()
+    mark("serve")
     phase_fleet_full_width()
-    rows, pairs = phase_kernel_line(launches, cap, checked)
+    mark("fleet")
+    rows, pairs = phase_kernel_line(launches, exact_launches, cap, checked)
+    rows.extend(bucket_rows)
     rows.append(andor_row)
     rows.append(batched_row)
     rows.extend(fused_rows)

@@ -30,6 +30,11 @@
   trace      fetch a recorded request trace from ``/debug/trace``
   runs       run observatory over run ledgers (``obs/ledger.py``):
              ``list`` chains, ``report`` one, ``watch`` a ledger file
+  warmup     build the bucket programs of sample corpora
+             (``runtime/warmup.py``): one JSON record per corpus and a
+             summary; ``serve --warmup`` (and ``fleet --warmup``, passed
+             to each replica) warms in a background thread before
+             traffic
 
 Every command reads OWL functional syntax, RDF/XML or OWL/XML.
 
@@ -451,13 +456,53 @@ def cmd_multiply(args) -> int:
     return 0
 
 
-#: the reference's serve and fleet flags whose modules the port does
-#: not have yet: flag -> (argument, the reference module it waits for)
+#: the reference's serve, fleet and warmup flags whose modules the port
+#: does not have yet: flag -> (argument, the reference module it waits
+#: for)
 REFUSED_SERVE_FLAGS = {
     "--artifacts-dir": ("artifacts_dir", "core/artifacts.py"),
     "--artifacts-require": ("artifacts_require", "core/artifacts.py"),
-    "--warmup": ("warmup", "runtime/warmup.py"),
 }
+
+
+def cmd_warmup(args) -> int:
+    """Warmup: resolve each sample corpus to its bucket and build that
+    bucket's programs into this process's registry (on a card, capture
+    their CUDA graphs).  Prints one JSON record per corpus (bucket
+    signature, build walls, registry hit) and a summary line.  Nothing
+    persists past the process (no disk cache of graphs yet): the command
+    measures a bucket's build cost; ``serve --warmup`` is the warm
+    path."""
+    from distel_tpu_torch.runtime.warmup import warmup_paths
+
+    _refuse_unported_flags(args)
+    cfg = _load_cfg(args)
+    t0 = time.time()
+    recs = warmup_paths(
+        args.ontologies,
+        cfg,
+        profile=args.profile,
+        max_iters=args.max_iters,
+        parallel=not args.serial,
+        device=args.device,
+    )
+    for rec in recs:
+        print(json.dumps(rec), flush=True)
+    print(
+        json.dumps(
+            {
+                "warmed_buckets": len({r["bucket_signature"] for r in recs}),
+                "corpora": len(recs),
+                "wall_s": round(time.time() - t0, 2),
+                "serial_compile_s": round(
+                    sum(r["compile_s"] + r["trace_lower_s"] for r in recs), 2
+                ),
+                "delta_programs": sum(r.get("delta_programs", 0) for r in recs),
+            }
+        ),
+        flush=True,
+    )
+    return 0
 
 
 def _refuse_unported_flags(args) -> None:
@@ -497,6 +542,7 @@ def cmd_serve(args) -> int:
         warm_budget_bytes=warm_budget,
         spill_dir=args.spill_dir,
         fast_path_min_concepts=args.fast_path_min_concepts,
+        warmup_paths=args.warmup or None,
     )
     if args.replica_id:
         # fleet worker: the same app plus the /fleet admin plane the
@@ -551,6 +597,8 @@ def cmd_fleet(args) -> int:
     ):
         if val is not None:
             extra += [flag, str(val)]
+    if args.warmup:
+        extra += ["--warmup", *args.warmup]
     sup = ReplicaSupervisor(n, spill_dir=args.spill_dir, extra_args=extra)
     router = None
     try:
@@ -701,8 +749,6 @@ def cmd_query(args) -> int:
 def _add_refused_flags(parser) -> None:
     """The reference's flags whose modules are not ported: accepted by
     the parser, refused by the command naming the flag."""
-    parser.add_argument("--warmup", nargs="*", default=None,
-                        metavar="ONTOLOGY", help="not supported yet (refused)")
     parser.add_argument("--artifacts-dir", default=None,
                         help="not supported yet (refused)")
     parser.add_argument("--artifacts-require", action="store_true",
@@ -826,6 +872,9 @@ def main(argv=None) -> int:
                          "the /fleet admin plane (load-with-id, "
                          "migrate-out, adopt) the router drives; "
                          "requires --spill-dir")
+    sv.add_argument("--warmup", nargs="*", default=None, metavar="ONTOLOGY",
+                    help="sample corpora whose bucket programs a "
+                         "background thread builds before traffic")
     _add_refused_flags(sv)
     sv.set_defaults(fn=cmd_serve)
     fl = sub.add_parser(
@@ -869,8 +918,35 @@ def main(argv=None) -> int:
                     help="per-replica host-RAM warm-tier budget")
     fl.add_argument("--fast-path-min-concepts", type=int, default=None,
                     help="per-replica delta fast-path cutoff override")
+    fl.add_argument("--warmup", nargs="*", default=None, metavar="ONTOLOGY",
+                    help="passed to every replica: sample corpora whose "
+                         "bucket programs each builds before traffic")
     _add_refused_flags(fl)
     fl.set_defaults(fn=cmd_fleet)
+    w = sub.add_parser(
+        "warmup",
+        help="build bucket programs from sample corpora (in-process "
+             "registry; on a card, captured CUDA graphs)",
+    )
+    w.add_argument("ontologies", nargs="+",
+                   help="one sample corpus per bucket to warm")
+    w.add_argument("--config", help="properties/config file")
+    w.add_argument("--profile", choices=("serve", "classify"),
+                   default="serve",
+                   help="which construction's programs to warm: the "
+                        "incremental/serve rebuild (default) or the "
+                        "one-shot classify engine")
+    w.add_argument("--max-iters", type=int, default=None,
+                   help="fixed-point budget (default: config)")
+    w.add_argument("--serial", action="store_true",
+                   help="warm buckets one at a time")
+    w.add_argument("--device", default=None,
+                   help="torch device (default: the first CUDA device)")
+    w.add_argument("--artifacts-dir", default=None,
+                   help="not supported yet (refused)")
+    w.add_argument("--artifacts-require", action="store_true",
+                   help=argparse.SUPPRESS)
+    w.set_defaults(fn=cmd_warmup)
     tr = sub.add_parser(
         "trace", help="fetch a request trace from a serve /debug/trace endpoint"
     )

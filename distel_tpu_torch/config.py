@@ -10,12 +10,13 @@ cache, the per-rule backends (``backend.CRn``, the hybrid of
 ``cohort.*`` formation), the serve fleet's (``fleet.*``) and the
 observed fixed point's (``sparse_tail.*``, ``pipeline.*``,
 ``obs.trace_rounds``, ``obs.ledger.*``) with its fused K-round window
-(``fused.rounds.*``).  Knobs of paths the port does not have yet (mesh,
-shape buckets, the artifact farm) are absent, or refused where a
-reference config could carry them over: ``shape_buckets`` must be off,
-``mesh.devices`` / ``NODES_LIST`` may name no device (a mesh of one
-device still changes the reference's automatic rules, so it is refused
-too), and ``artifacts.dir`` and the multi-process keys
+(``fused.rounds.*``), and shape buckets (``shape.buckets``, on by
+default as in the reference, and ``bucket.ratio``).  Knobs of paths the
+port does not have yet (mesh, the artifact farm) are absent, or refused
+where a reference config could carry them over: ``mesh.devices`` /
+``NODES_LIST`` may name no device (a mesh of one device still changes
+the reference's automatic rules, so it is refused too), and
+``artifacts.dir``, ``compile.cache.dir`` and the multi-process keys
 ``coordinator.address``, ``num.processes`` and ``process.id`` raise
 naming the key.
 The reference's ``matmul.dtype`` has no meaning for the port's exact
@@ -58,10 +59,16 @@ class ClassifierConfig:
     #: {"CR4": "host", ...}; rules routed to the host run through the
     #: hybrid saturator (``core/hybrid.py``, row-packed engine only)
     rule_backends: Dict[str, str] = field(default_factory=dict)
-    #: shape-bucketed programs exist to share compiled XLA executables;
-    #: the port runs eagerly and has no counterpart yet, so only False
-    #: is accepted (bucketing never changes a closure)
-    shape_buckets: bool = False
+    #: shape-bucketed programs (the reference's default): the row-packed
+    #: engine's layout and step structure quantize onto the
+    #: ``core/program_cache.bucket_dim`` ladder, so ontologies of one
+    #: bucket share one program — on a card one captured CUDA graph — in
+    #: the process-global ``PROGRAMS`` registry.  Bucketing never
+    #: changes a closure
+    shape_buckets: bool = True
+    #: the ladder's step (properties key ``bucket.ratio``): coarser
+    #: buckets share more programs and pad more
+    bucket_ratio: float = 1.25
     #: base concepts below which the incremental plane
     #: (``core/incremental.py``) rebuilds every increment instead of
     #: taking the delta fast path (properties key
@@ -174,10 +181,10 @@ class ClassifierConfig:
                 f"unknown engine {self.engine!r}: expected 'auto', "
                 "'rowpacked', 'packed' or 'dense'"
             )
-        if self.shape_buckets:
-            raise ValueError(
-                "shape_buckets=True is not supported by distel_tpu_torch yet"
-            )
+        if not self.bucket_ratio > 1.0:
+            # bucket_dim's own check, at load rather than inside the
+            # first engine build
+            raise ValueError(f"bucket ratio must be > 1, got {self.bucket_ratio}")
         from distel_tpu_torch.core.hybrid import split_backends
 
         split_backends(self.rule_backends)
@@ -235,6 +242,15 @@ class ClassifierConfig:
             cfg.engine = raw["engine"]
         if "shape.buckets" in raw:
             cfg.shape_buckets = flag("shape.buckets")
+        if "bucket.ratio" in raw:
+            cfg.bucket_ratio = float(raw["bucket.ratio"])
+        if "compile.cache.dir" in raw:
+            raise ValueError(
+                f"compile.cache.dir = {raw['compile.cache.dir']} names a "
+                "persistent cache of compiled XLA programs; distel_tpu_torch "
+                "has none yet (a CUDA graph cannot be written to disk; "
+                "core/artifacts.py is not ported)"
+            )
         if "fast.path.min.concepts" in raw:
             cfg.fast_path_min_concepts = int(raw["fast.path.min.concepts"])
         if "cr6.tiles.enable" in raw:
@@ -288,7 +304,8 @@ class ClassifierConfig:
         if "artifacts.dir" in raw:
             raise ValueError(
                 f"artifacts.dir = {raw['artifacts.dir']} names an AOT artifact "
-                "farm of compiled XLA programs; distel_tpu_torch has none"
+                "farm of compiled XLA programs; distel_tpu_torch has none "
+                "(core/artifacts.py is not ported)"
             )
         if "query.enable" in raw:
             cfg.query_enable = flag("query.enable")

@@ -31,14 +31,22 @@ rebuild.  Every state stays on the engines' device between increments.
 the unpacked closure on the host, then a full rebuild re-derives from
 the survivors.
 
-Not ported yet: shape-bucketed delta programs and
-``warm_delta_programs``, the cohort plane's canonical roster, and the
-observed rebuild (``obs.trace_rounds`` / ``obs.ledger``).
+With ``shape_buckets`` (the default) the rebuild's base engine is
+bucketed and the delta and cross engines are too, with the base's layout
+pinned (:func:`delta_program_kwargs`): their programs are pure functions
+of their bucket signatures and come from ``core/program_cache.PROGRAMS``,
+so a delta of a shape the process has run before builds nothing, and
+:func:`warm_delta_programs` builds the steady-state roster ahead of
+traffic.  At the reservation edge (the corpus grown into the base's last
+row) a delta runs the exact-shape engines, as in the reference
+(``_bucket_delta_eligible``); ``DISTEL_EXACT_DELTA_PROGRAMS=1`` forces
+them.  Not ported yet: the cohort plane's canonical roster.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
 from typing import List, Optional
 
 import numpy as np
@@ -103,30 +111,131 @@ def delta_program_kwargs(config: ClassifierConfig, base, *, bucket: bool) -> dic
     """The shape interlock of a delta or cross engine against the base:
     the base's state layout ``(nc, nl)`` exactly (the engines round-robin
     over ONE packed state) and its L-chunk length, on its device, with
-    the CR6 formulation the config selects.  ``bucket=True`` (the
-    reference's shape-bucketed delta programs) is not ported."""
-    if bucket:
-        raise ValueError("shape-bucketed delta engines are not ported")
-    return dict(
+    the CR6 formulation the config selects.  Shared by the fast path and
+    :func:`warm_delta_programs`: a warmed program pays off only when it
+    is the one live traffic asks for.  ``bucket=True`` (the reference's
+    steady-state posture) also makes the delta engines shape-bucketed
+    with the base layout pinned verbatim (``state_dims``), so their
+    programs are pure functions of their bucket signatures."""
+    kw = dict(
         pad_multiple=base.nc,
         min_links_pad=base.nl,
         l_chunk=base.lc,
         device=base.device,
         cr6_tiles=config.cr6_tiles_config(),
     )
+    if bucket:
+        kw.update(
+            bucket=True,
+            bucket_ratio=config.bucket_ratio,
+            state_dims=(base.nc, base.nl),
+        )
+    return kw
 
 
 class DeltaPlan:
     """One increment's fast-path roster: ``engines`` in round-robin
     order — the delta (B) engine, the cross engine when links grew, and
-    the BASE engine last."""
+    the BASE engine last; ``bucketed``: whether the delta engines run
+    shape-bucketed programs."""
 
-    __slots__ = ("engines", "base", "idx")
+    __slots__ = ("engines", "base", "bucketed", "idx")
 
-    def __init__(self, engines, base, idx):
+    def __init__(self, engines, base, bucketed, idx):
         self.engines = engines
         self.base = base
+        self.bucketed = bool(bucketed)
         self.idx = idx
+
+    def roster_key(self) -> tuple:
+        """Position-wise bucket signatures (equal keys: the same program
+        at every round-robin position)."""
+        return tuple(e.bucket_signature for e in self.engines)
+
+
+def warm_delta_programs(
+    config: ClassifierConfig,
+    base_engine,
+    idx,
+    max_iters: Optional[int] = None,
+) -> List[dict]:
+    """Build the steady-state delta programs of a warmed base ahead of
+    traffic, so even the first delta a restarted replica serves builds
+    nothing — the reference's roster: the B program of a class-only
+    delta (one NF1 row), of a link-creating one (one NF3 row, with CR6
+    over a chain row and CR5 when the corpus has bottom axioms), of the
+    two mixed, and the cross program (the full CR4/CR6 tables against a
+    one-link window over the link whose role joins the most table
+    families).  Content is irrelevant to a bucketed program, so
+    one-row tables over the base corpus give the rungs live deltas ask
+    for.  Returns one record per program.  (The reference's ``mesh`` and
+    ``cohort_sizes`` wait for the mesh and cohort planes.)"""
+    if not config.shape_buckets or base_engine is None:
+        return []
+    if not isinstance(base_engine, RowPackedSaturationEngine):
+        return []
+    if idx.n_concepts >= base_engine.nc or idx.n_links >= base_engine.nl:
+        return []  # no dead-row reserve: live deltas would run exact
+    kw = delta_program_kwargs(config, base_engine, bucket=True)
+    budget = max_iters or config.max_iterations
+    empty2 = np.zeros((0, 2), np.int64)
+    empty3 = np.zeros((0, 3), np.int64)
+    blank = dataclasses.replace(
+        idx, nf1=empty2, nf2=empty3, nf3=empty2, nf4=empty3,
+        chain_pairs=empty3,
+    )
+
+    def row_of(tab, width):
+        return (np.asarray(tab[:1]) if len(tab)
+                else np.zeros((1, width), np.int64))
+
+    one_nf1 = row_of(idx.nf1, 2)
+    link_tables = {"nf3": row_of(idx.nf3, 2)}
+    link_rules = {"CR3"}
+    if len(idx.chain_pairs):
+        link_tables["chain_pairs"] = row_of(idx.chain_pairs, 3)
+        link_rules.add("CR6")
+    if idx.has_bottom_axioms:
+        link_rules.add("CR5")
+    rosters = [
+        ("delta[CR1]", dataclasses.replace(blank, nf1=one_nf1),
+         frozenset({"CR1"}), None),
+        ("delta[link]", dataclasses.replace(blank, **link_tables),
+         frozenset(link_rules), None),
+        ("delta[mixed]",
+         dataclasses.replace(blank, nf1=one_nf1, **link_tables),
+         frozenset(link_rules | {"CR1"}), None),
+    ]
+    cross_rules = set()
+    if len(idx.nf4):
+        cross_rules.add("CR4")
+    if len(idx.chain_pairs):
+        cross_rules.add("CR6")
+    if cross_rules and idx.n_links:
+        h = np.asarray(idx.role_closure).astype(bool)
+
+        def covered(roles):
+            if not len(roles):
+                return np.zeros(h.shape[0], bool)
+            return h[:, np.unique(np.asarray(roles))].any(axis=1)
+
+        in4 = covered(idx.nf4[:, 0] if len(idx.nf4) else ())
+        in6 = covered(idx.chain_pairs[:, 0] if len(idx.chain_pairs) else ())
+        link_roles = np.asarray(idx.links[:, 0])
+        score = in4[link_roles].astype(int) + in6[link_roles].astype(int)
+        best = int(np.argmax(score))
+        rosters.append(("cross", idx, frozenset(cross_rules), (best, best + 1)))
+    out = []
+    for name, eng_idx, rules, window in rosters:
+        eng = RowPackedSaturationEngine(
+            eng_idx, rules=rules,
+            **(dict(kw, link_window=window) if window else kw),
+        )
+        rec = eng.precompile(budget, programs=("run",)).as_dict()
+        rec["program"] = name
+        rec["bucket_signature"] = eng.bucket_signature
+        out.append(rec)
+    return out
 
 
 class IncrementalClassifier:
@@ -177,9 +286,9 @@ class IncrementalClassifier:
         self._base_idx = None
         #: fast-path accounting of the last increment (None on a rebuild)
         self.last_delta_stats: Optional[dict] = None
-        #: the reference's program-build record of the last increment;
-        #: the port compiles no programs, so it stays None (the serve
-        #: registry's compile counters then record nothing)
+        #: program-build record of the last increment: the rebuild
+        #: engine's ``compile_stats``, or on the fast path the delta
+        #: programs' summed (the serve registry exports it to /metrics)
         self.last_compile = None
         #: the index :meth:`demote` keeps for :meth:`promote`
         self._warm_idx = None
@@ -313,6 +422,11 @@ class IncrementalClassifier:
                 "new_derivations": result.derivations,
                 # "fast": base engine reused; "rebuild": a fresh engine
                 "path": path,
+                **(
+                    self.last_compile.as_dict()
+                    if self.last_compile is not None
+                    else {}
+                ),
                 **(self.last_delta_stats or {}),
             }
         )
@@ -470,9 +584,24 @@ class IncrementalClassifier:
         self.last_result = None
         with self.timer.phase("saturate"):
             result = self._rebuild_saturate(engine, idx)
+        self.last_compile = getattr(engine, "compile_stats", None)
         if isinstance(engine, RowPackedSaturationEngine):
             self._base_engine, self._base_idx = engine, idx
         return result
+
+    def _bucket_delta_eligible(self, idx, base) -> bool:
+        """Whether this delta's B and cross engines run bucketed programs
+        (shared through the registry) rather than exact-shape ones.  The
+        bucketed plans OR their pad segments into the base layout's last
+        concept and link rows, which must lie past the corpus; at the
+        reservation edge the delta runs exact-shape engines — the same
+        closure, not shared, counted as ``delta_bucketed: false``.
+        ``DISTEL_EXACT_DELTA_PROGRAMS=1`` forces the exact-shape path."""
+        if not self.config.shape_buckets:
+            return False
+        if os.environ.get("DISTEL_EXACT_DELTA_PROGRAMS"):
+            return False
+        return idx.n_concepts < base.nc and idx.n_links < base.nl
 
     def _rebuild_saturate(self, engine, idx) -> SaturationResult:
         """The rebuild's fixed point: the observed loop for a traced
@@ -625,7 +754,8 @@ class IncrementalClassifier:
         # base's stale filler table cannot see
         if idx.has_bottom_axioms and (links_grew or not base._bottom):
             rules.add("CR5")
-        shape_kw = delta_program_kwargs(self.config, base, bucket=False)
+        bucket_delta = self._bucket_delta_eligible(idx, base)
+        shape_kw = delta_program_kwargs(self.config, base, bucket=bucket_delta)
         engines = []
         if rules:
             engines.append(
@@ -660,7 +790,8 @@ class IncrementalClassifier:
                 b, role_closure=np.asarray(clo_new)
             )
         engines.append(base)
-        return DeltaPlan(engines=engines, base=base, idx=idx)
+        return DeltaPlan(engines=engines, base=base, bucketed=bucket_delta,
+                         idx=idx)
 
     def _execute_delta_plan(self, plan: DeltaPlan) -> SaturationResult:
         """The round-robin joint fixed point over the delta/cross engines
@@ -692,9 +823,29 @@ class IncrementalClassifier:
             del r
             streak = streak + 1 if unproductive else 0
         final_total = count(*box[0])
+        # the increment's program cost: the delta programs only (the
+        # base's build was charged to its rebuild); compile-free only
+        # when every delta program hit the registry
+        from distel_tpu_torch.runtime.instrumentation import CompileStats
+
+        base = plan.base
+        agg = CompileStats(bucket_signature=base.bucket_signature,
+                           program="delta-programs")
+        n_programs = hits = 0
+        delta_sig = ""
+        for eng in engines:
+            if eng is not base:
+                agg.merge(eng.compile_stats)
+                n_programs += 1
+                hits += bool(eng.compile_stats.program_cache_hit)
+                delta_sig = delta_sig or eng.bucket_signature
+        agg.program_cache_hit = n_programs > 0 and hits == n_programs
+        self.last_compile = agg
         self.last_delta_stats = {
-            "delta_bucketed": False,
-            "delta_programs": len(engines) - 1,
+            "delta_bucketed": plan.bucketed,
+            "delta_programs": n_programs,
+            "delta_program_hits": hits,
+            "delta_signature": delta_sig,
         }
         return SaturationResult(
             packed_s=box[0][0],

@@ -37,7 +37,8 @@ What differs from the reference, and why:
 * The fixed point is a host loop with ``unroll`` semantics kept: one
   change check per group of ``unroll`` steps, ``iterations`` a multiple
   of ``unroll`` — the reference's ``lax.while_loop`` count, exactly.
-* ``mesh=`` and ``bucket=True`` are not ported (they raise).
+* ``mesh=`` is not ported (it raises); ``bucket=True`` is the
+  reference's shape-only bucketing (the layout on the ladder).
 * With nf4 axioms but no links, CR4 cannot fire, and this engine leaves
   their targets out of the S scatter.  The reference keeps them in its
   scatter plan with no matching source columns, which JAX broadcasts
@@ -90,17 +91,22 @@ class PackedSaturationEngine:
         unroll: int = 4,
         mesh=None,
         bucket: bool = False,
+        bucket_ratio: float = 1.25,
         temp_budget_bytes: Optional[int] = None,
     ):
+        """``bucket``: the reference's shape-only bucketing — the concept
+        and link padding ride the row-packed engine's ladder
+        (``core/program_cache.bucket_dim``, ``bucket_ratio`` steps) with
+        one row past the corpus, so the state layout is a rung's and
+        checkpoints interchange with a bucketed run of the same corpus;
+        the plans stay this corpus's (nothing is shared across
+        ontologies)."""
+        from distel_tpu_torch.core.program_cache import bucket_dim
+
         if mesh is not None:
             raise NotImplementedError(
                 "the packed engine's mesh mode is not ported to "
                 "distel_tpu_torch yet"
-            )
-        if bucket:
-            raise ValueError(
-                "bucket=True is not supported by distel_tpu_torch's packed "
-                "engine yet"
             )
         self.idx = idx
         self.device = dev = torch.device(device)
@@ -109,8 +115,13 @@ class PackedSaturationEngine:
             temp_budget_bytes = default_temp_budget(dev)
         self.temp_budget_bytes = int(temp_budget_bytes)
         pad_multiple = _pad_up(max(pad_multiple, 32), 32)
-        self.nc = _pad_up(max(idx.n_concepts, 2), pad_multiple)
-        self.nl = max(_pad_up(idx.n_links, 32), 32)
+        base_c = max(idx.n_concepts, 2)
+        base_l = idx.n_links
+        if bucket:
+            base_c = bucket_dim(base_c + 1, bucket_ratio)
+            base_l = bucket_dim(base_l + 1, bucket_ratio)
+        self.nc = _pad_up(base_c, pad_multiple)
+        self.nl = max(_pad_up(base_l, 32), 32)
         self.wc = self.nc // 32
         self.wl = self.nl // 32
 

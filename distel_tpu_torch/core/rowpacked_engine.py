@@ -128,6 +128,26 @@ from the reference's window, and why:
 * Captured graphs hold the addresses they were captured on: a card
   engine runs its windows on one state pair of its own, copied in at
   the start of a run and out at its end.
+
+**Shape buckets** (``bucket=True``, the default through
+``shape_buckets``): the layout quantizes onto the reference's ladder
+with a dead row past the corpus on each axis, and :meth:`saturate` runs
+the bucket's step program (``core/bucketing.py``) from
+:data:`~distel_tpu_torch.core.program_cache.PROGRAMS`: the plan below
+(chunks, windows, L-chunk grid, built over the exact-mode layout)
+padded to rungs, its content copied into the program's tables, its
+gates on the card, on a CUDA graph shared by every engine of the
+bucket.  Rounds, ``gate_rounds`` and the closure are the exact-mode
+engine's.  What differs from the reference's bucket mode, and why:
+
+* The reference buckets its scanned slabs (uniform ``rk``-row spans,
+  deferred group writes); the port has none, so it pads its own plan:
+  chunk count, rows a chunk, window slots a chunk and slot length on
+  ladder rungs.  Its CR3 pad segments write nothing, where the
+  reference's OR the dead concept row's bit into the dead link row.
+* The live-tile CR6 stays off (its schedule is not rung-canonical yet).
+* Fused windows are keyed by their content (the window body is this
+  plan, unpadded), so they are shared by engines with equal tables.
 """
 
 from __future__ import annotations
@@ -136,6 +156,7 @@ import contextlib
 import gc
 import threading
 import time
+import weakref
 from collections import OrderedDict, deque
 from dataclasses import dataclass
 from typing import List, NamedTuple, Optional, Tuple
@@ -160,10 +181,12 @@ from distel_tpu_torch.core.engine import (
     popcount_rows,
 )
 from distel_tpu_torch.core.indexing import BOTTOM_ID, TOP_ID, IndexedOntology
+from distel_tpu_torch.core.program_cache import PROGRAMS, bucket_dim, signature_of
 from distel_tpu_torch.ops import bitmatmul, graph_if
 from distel_tpu_torch.ops.nosync import NoHostReads
 from distel_tpu_torch.ops.bitmatmul import PackedColsMatmulPlan
 from distel_tpu_torch.runtime.instrumentation import (
+    CompileStats,
     DISPATCH_EVENTS,
     FRONTIER_EVENTS,
     FrontierStats,
@@ -195,18 +218,18 @@ GATE_MAX_STATE_BYTES = 5 << 29
 UNROLL2_MAX_STATE_BYTES = 9 << 29
 
 
+def cr5_reduce(sp, rp, fillers, bottom_idx, temp_budget: int) -> torch.Tensor:
+    """The OR of the R rows whose filler is unsatisfiable [wc] (in row
+    blocks within ``temp_budget``, so the masked copy stays bounded)."""
+    wc = sp.shape[1]
+    botf = bit_lookup_from(sp[bottom_idx].T, fillers, dtype=torch.bool)[:, 0]
+    blk = max(temp_budget // (4 * wc), 1)
+    red = torch.zeros(wc, dtype=torch.int32, device=sp.device)
+    for i in range(0, rp.shape[0], blk):
+        masked = torch.where(botf[i : i + blk, None], rp[i : i + blk], 0)
+        red |= or_reduce_any(masked, 0)
+    return red
 
-def bucket_dim(n: int, floor: int = 32) -> int:
-    """Smallest rung of the ladder ``floor * 2**k`` that is >= ``n``;
-    ``n <= 0`` maps to 0.  The ratio-2 family of
-    ``distel_tpu/core/program_cache.py``'s ``bucket_dim`` (the only one
-    the sparse tier's capacity rungs use), with the same rungs."""
-    if n <= 0:
-        return 0
-    rung = floor
-    while rung < n:
-        rung *= 2
-    return rung
 
 def _factored_closure_tables(h, nf4_roles, chain_roles):
     """``(m4, m6)``: ``h`` extended with one all-zero SENTINEL role row
@@ -461,6 +484,9 @@ class RowPackedSaturationEngine:
         sparse_tail=None,
         pipeline=None,
         fused_rounds=None,
+        bucket: bool = False,
+        bucket_ratio: float = 1.25,
+        state_dims: Optional[Tuple[int, int]] = None,
     ):
         """``rules``: subset of {"CR1".."CR6"} this engine applies (None
         = all).  ``cr6_tiles``: live-tile CR6 config (None = off; keys
@@ -494,7 +520,22 @@ class RowPackedSaturationEngine:
         ``capacity_floor``), ``pipeline`` (None = on at depth 2) and
         ``fused_rounds`` (None = K 1; ``enable``, ``rounds`` K,
         ``adaptive``).  Degenerate values raise here, not rounds into
-        a run."""
+        a run.
+
+        ``bucket``: shape-bucketed mode (``core/bucketing.py``, the
+        reference's default through ``shape_buckets``): the state layout
+        quantizes onto the ``bucket_dim`` ladder (``bucket_ratio``
+        steps) with one dead row past the corpus on each axis, and
+        :meth:`saturate` runs a program of :data:`PROGRAMS` whose
+        launches are a pure function of :attr:`bucket_signature`, so
+        ontologies of one bucket share it (on a card one CUDA graph).
+        The plan itself — row chunks, live windows, the L-chunk grid —
+        is the one this corpus gives in exact mode, so every round
+        equals the exact-mode engine's; the live-tile CR6 is off (its
+        structure is not rung-canonical yet).  ``state_dims``: pin the
+        layout ``(nc, nl)`` verbatim (the bucketed delta engines pin the
+        base's; bucket mode needs the last row of each axis past the
+        corpus)."""
         self._sparse_cfg = self._normalize_sparse_cfg(sparse_tail)
         self._pipeline_cfg = self._normalize_pipeline_cfg(pipeline)
         self._fused_cfg = self._normalize_fused_cfg(fused_rounds)
@@ -508,10 +549,53 @@ class RowPackedSaturationEngine:
             temp_budget_bytes = default_temp_budget(self.device)
         self.temp_budget_bytes = int(temp_budget_bytes)
         pad_multiple = _pad_up(max(pad_multiple, 32), 32)
-        self.nc = _pad_up(
+        self._bucket = bool(bucket)
+        self._bucket_ratio = float(bucket_ratio)
+        #: corpus-axis ladder (floor 32) and small-structure ladder
+        #: (floor 1: chunk counts, rows, window slots), and the seg-OR
+        #: histogram ladder (powers of two from 8), as the reference's
+        # (closures over the ratio, not over self: an engine must not sit
+        # in a reference cycle)
+        ratio = self._bucket_ratio
+        self._q = lambda n: bucket_dim(n, ratio)
+        self._q1 = lambda n: bucket_dim(n, ratio, floor=1)
+        self._qn = lambda n: bucket_dim(n, 2.0, floor=8)
+        # the exact-mode layout: the plan (chunks, windows, L-chunk grid)
+        # is built over it in both modes
+        nc_x = _pad_up(
             _pad_up(max(idx.n_concepts, min_concepts, 2), pad_multiple), 32
         )
-        self.nl = max(_pad_up(idx.n_links, 32), 32, _pad_up(min_links_pad, 32))
+        nl_x = max(_pad_up(idx.n_links, 32), 32, _pad_up(min_links_pad, 32))
+        if state_dims is not None:
+            nc_pin, nl_pin = (int(d) for d in state_dims)
+            reserve = 1 if self._bucket else 0
+            if nc_pin % 32 or nl_pin % 32:
+                raise ValueError(f"state_dims {state_dims} must be 32-aligned")
+            if nc_pin < max(idx.n_concepts + reserve, 2) or nl_pin < max(
+                idx.n_links + reserve, 32
+            ):
+                raise ValueError(
+                    f"state_dims {state_dims} too small for "
+                    f"{idx.n_concepts} concepts / {idx.n_links} links"
+                    + (" (+1 bucket dead-row reserve)" if reserve else "")
+                )
+            self.nc, self.nl = nc_pin, nl_pin
+            nc_x, nl_x = min(nc_x, nc_pin), min(nl_x, nl_pin)
+        elif self._bucket:
+            # +1 before quantizing: the last row of each axis is past the
+            # corpus, the dead row the quantized plans' pads aim at
+            self.nc = _pad_up(_pad_up(
+                self._q(max(idx.n_concepts + 1, min_concepts, 2)),
+                pad_multiple), 32)
+            self.nl = _pad_up(
+                self._q(max(idx.n_links + 1, min_links_pad, 32)), 32
+            )
+        else:
+            self.nc, self.nl = nc_x, nl_x
+        self._dead_c, self._dead_l = self.nc - 1, self.nl - 1
+        #: the link rows the plan's L-chunk grid covers
+        self._nl_plan = nl_x
+        wc_x = nc_x // 32
         self._link_window = link_window
         self._window_headroom = int(window_headroom)
         self.wc = self.nc // 32
@@ -586,7 +670,7 @@ class RowPackedSaturationEngine:
         # tables arrive role-sorted), so each chunk's live link set stays
         # small; runs merge greedily while the merged (rows × live links)
         # volume stays within ``waste`` of the parts' sum.
-        mm_rows = max(self.temp_budget_bytes // (4 * self.wc), 1)
+        mm_rows = max(self.temp_budget_bytes // (4 * wc_x), 1)
         link_cnt = (
             np.bincount(idx.links[:, 0], minlength=n_roles)
             if idx.n_links
@@ -596,7 +680,7 @@ class RowPackedSaturationEngine:
             len(idx.nf4) if self._has4 else 0,
             len(idx.chain_pairs) if self._has6 else 0,
         )
-        big_tables = rows_max * self.nl * self.nc >= ROLE_SPLIT_MIN_VOLUME
+        big_tables = rows_max * nl_x * nc_x >= ROLE_SPLIT_MIN_VOLUME
 
         def role_chunks(tab_roles):
             n = len(tab_roles)
@@ -639,6 +723,10 @@ class RowPackedSaturationEngine:
 
         spans4 = role_chunks(idx.nf4[:, 0]) if self._has4 else []
         spans6 = role_chunks(idx.chain_pairs[:, 0]) if self._has6 else []
+        #: every span, with or without a live window: the bucketed step
+        #: keeps them all, so its chunk count follows the table, not the
+        #: closure (a cross engine's link window drops spans by content)
+        self._spans4, self._spans6 = spans4, spans6
         max_rk = max([a1 - a0 for a0, a1 in spans4 + spans6], default=1)
 
         # ---- the L-chunk grid: the [rk, lc] int8 operand within half the
@@ -647,19 +735,19 @@ class RowPackedSaturationEngine:
         # then evened out over the chunk count as the reference does.
         # The grid may end past nl: windows there are cut at nl.
         if l_chunk is not None:
-            lc = min(_pad_up(max(l_chunk, 32), 32), self.nl)
+            lc = min(_pad_up(max(l_chunk, 32), 32), nl_x)
         else:
             lc = min(
                 _pad_up(max(self.temp_budget_bytes // 2 // max_rk, 32), 32),
-                self.nl,
+                nl_x,
             )
             if big_tables:
                 n_link_roles = max(
                     len(np.unique(idx.links[:, 0])) if idx.n_links else 1, 1
                 )
-                lc = min(lc, max(_pad_up(-(-self.nl // n_link_roles), 32), 256))
-        self.n_lchunks = -(-self.nl // lc)
-        lc = _pad_up(-(-self.nl // self.n_lchunks), 32)
+                lc = min(lc, max(_pad_up(-(-nl_x // n_link_roles), 32), 256))
+        self.n_lchunks = -(-nl_x // lc)
+        lc = _pad_up(-(-nl_x // self.n_lchunks), 32)
         self.lc = lc
         self._grid_end = self.n_lchunks * lc
         # CR4's windows may be finer; the frontier grid stays lc (a
@@ -721,6 +809,9 @@ class RowPackedSaturationEngine:
         self._tiles6 = None
         self.cr6_tiles_stats = {"active": False, "reason": "off"}
         tcfg = self._normalize_cr6_tiles_cfg(cr6_tiles)
+        if self._bucket and tcfg is not None:
+            tcfg = None
+            self.cr6_tiles_stats = {"active": False, "reason": "bucket mode"}
         self._chunks6 = []
         kept6, dropped6 = (
             window_spans(spans6, idx.chain_pairs, lc) if self._has6 else ([], [])
@@ -793,7 +884,9 @@ class RowPackedSaturationEngine:
         wmask[:full] = 0xFFFFFFFF
         if rem:
             wmask[full] = (1 << rem) - 1
+        self._wmask_np = wmask
         self._wmask = torch.as_tensor(wmask.view(np.int32)).to(dev)
+        self._m4_np, self._m6_np = m4, m6
         self._build_sparse_tables(m4, m6, kept4, kept6)
         #: per-round :class:`FrontierStats` of the last observed run
         self.frontier_rounds: list = []
@@ -818,6 +911,42 @@ class RowPackedSaturationEngine:
         self._fused_tab_cache = None
         self._fused_windows: "OrderedDict" = OrderedDict()
         self._fused_state = None
+        # ---- the bucketed program (core/bucketing.py): quantized CR1-CR3
+        # plans (pads gather the dead row itself), then the structure
+        # and argument tables of the step, and its signature
+        self._qplans = {}
+        self._btables = None
+        #: the bucketed windows this engine used, by (K, caps) (weak:
+        #: the registry owns them), and the digest that keys them
+        self._bucket_windows: dict = {}
+        self._digest = None
+        if self._bucket:
+            for key, tab, col, pad in (
+                ("1", nf1, 1, self._dead_c), ("2", nf2, 2, self._dead_c),
+                ("3", nf3, 1, self._dead_l),
+            ):
+                self._qplans[key] = SegmentedRowOr.quantized(
+                    tab[:, col], self._qn, pad, len(tab)
+                )
+            from distel_tpu_torch.core import bucketing
+
+            self._bstruct, self._btables = bucketing.bucket_plan(self)
+            self.bucket_signature = bucketing.signature(
+                self._bstruct, self._btables
+            )
+        else:
+            self._bstruct = None
+            self.bucket_signature = signature_of(
+                (self.plan_stats(), self.device.type),
+                f"exact{self.nc}x{self.nl}",
+            )
+        self._stats_lock = threading.Lock()
+        #: program-build cost accumulated by this engine (the reference's
+        #: record; exact engines build no program and keep zeros)
+        self.compile_stats = CompileStats(
+            bucket_signature=self.bucket_signature, program="total"
+        )
+        self.last_compile: Optional[CompileStats] = None
 
     def _plan(self, m, l) -> PackedColsMatmulPlan:
         """The product plan of an [m, l] operand against the state's
@@ -854,7 +983,7 @@ class RowPackedSaturationEngine:
             off = min(int(live[i]), self._grid_end - lcn)
             wins.append((
                 off,
-                min(off + lcn, self.nl),
+                min(off + lcn, self._nl_plan),
                 off // lc,
                 min((off + lcn - 1) // lc, self.n_lchunks - 1),
             ))
@@ -1059,7 +1188,8 @@ class RowPackedSaturationEngine:
             (self.n_lchunks, m4.shape[1]), bool
         )
         self._chunk_roles_np[
-            np.arange(self.nl) // self.lc, self._link_roles_np
+            np.arange(self._nl_plan) // self.lc,
+            self._link_roles_np[: self._nl_plan]
         ] = True
         self._max_dirty_roles = self._chunk_roles_np.any(axis=0)
         self._m4_any = (self._m4_full & self._max_dirty_roles).any(axis=1)
@@ -1120,19 +1250,12 @@ class RowPackedSaturationEngine:
         None when ``n`` overflows the largest of the
         ``capacity_buckets`` configured rungs — the caller then runs the
         dense step for the round."""
-        rung = bucket_dim(max(int(n), 1), floor=floor)
+        rung = bucket_dim(max(int(n), 1), 2.0, floor=floor)
         if rung > floor << (int(cfg["capacity_buckets"]) - 1):
             return None
         return rung
 
     # ------------------------------------------------------------- state
-
-    def _init_rows(self) -> np.ndarray:
-        rows = np.arange(self.nc)
-        sp = np.zeros((self.nc, self.wc), np.uint32)
-        sp[rows, rows >> 5] = np.uint32(1) << (rows & 31).astype(np.uint32)
-        sp[TOP_ID, :] = np.uint32(0xFFFFFFFF)
-        return sp
 
     def _to_state(self, sp: np.ndarray, rp: np.ndarray):
         return (
@@ -1142,10 +1265,13 @@ class RowPackedSaturationEngine:
 
     def initial_state(self) -> Tuple[torch.Tensor, torch.Tensor]:
         """S(X) = {X, ⊤}, R empty: the diagonal plus a full ⊤ row —
-        padded x columns evolve inertly and are masked from counts."""
-        return self._to_state(
-            self._init_rows(), np.zeros((self.nl, self.wc), np.uint32)
-        )
+        padded x columns evolve inertly and are masked from counts.
+        Built on the engine's device (:meth:`_fill_initial`)."""
+        dev = self.device
+        sp = torch.empty((self.nc, self.wc), dtype=torch.int32, device=dev)
+        rp = torch.empty((self.nl, self.wc), dtype=torch.int32, device=dev)
+        self._fill_initial(sp, rp)
+        return sp, rp
 
     def initial_frontier(self) -> Frontier:
         """Everything dirty: every rule runs on the first step (and on
@@ -1194,13 +1320,8 @@ class RowPackedSaturationEngine:
                         "(load_snapshot_state(path, idx=engine.idx)) or "
                         "pass allow_shrink=True to clip deliberately"
                     )
-        sp = self._init_rows()
-        na, nw = min(s_old.shape[0], self.nc), min(s_old.shape[1], self.wc)
-        sp[:na, :nw] |= s_old[:na, :nw]
-        rp = np.zeros((self.nl, self.wc), np.uint32)
-        nlr, nwr = min(r_old.shape[0], self.nl), min(r_old.shape[1], self.wc)
-        rp[:nlr, :nwr] = r_old[:nlr, :nwr]
-        return self._to_state(sp, rp)
+        return self._embed_device(*self._to_state(s_old, r_old),
+                                  allow_shrink=True)
 
     def _on_device(self, t: torch.Tensor) -> bool:
         """Whether ``t`` lies on this engine's device (an engine built
@@ -1231,19 +1352,27 @@ class RowPackedSaturationEngine:
                             f"holds bits past this engine's [{nr}, {nw}] arrays"
                         )
         dev = self.device
+        sp = torch.empty((self.nc, self.wc), dtype=torch.int32, device=dev)
+        rp = torch.empty((self.nl, self.wc), dtype=torch.int32, device=dev)
+        self._fill_initial(sp, rp)
+        na, nw = min(s_old.shape[0], self.nc), min(s_old.shape[1], self.wc)
+        sp[:na, :nw] |= s_old[:na, :nw]
+        nlr, nwr = min(r_old.shape[0], self.nl), min(r_old.shape[1], self.wc)
+        rp[:nlr, :nwr] = r_old[:nlr, :nwr]
+        return sp, rp
+
+    def _fill_initial(self, sp, rp) -> None:
+        """:meth:`initial_state` written into ``sp`` / ``rp`` in place on
+        their device: the diagonal and a full ⊤ row, R empty."""
+        dev = sp.device
         rows = torch.arange(self.nc, device=dev)
         bit = torch.from_numpy(
             (np.uint32(1) << np.arange(32, dtype=np.uint32)).view(np.int32)
         ).to(dev)
-        sp = torch.zeros((self.nc, self.wc), dtype=torch.int32, device=dev)
+        sp.zero_()
         sp[rows, rows >> 5] = bit[rows & 31]
         sp[TOP_ID] = -1
-        na, nw = min(s_old.shape[0], self.nc), min(s_old.shape[1], self.wc)
-        sp[:na, :nw] |= s_old[:na, :nw]
-        rp = torch.zeros((self.nl, self.wc), dtype=torch.int32, device=dev)
-        nlr, nwr = min(r_old.shape[0], self.nl), min(r_old.shape[1], self.wc)
-        rp[:nlr, :nwr] = r_old[:nlr, :nwr]
-        return sp, rp
+        rp.zero_()
 
     @staticmethod
     def _pack_x_major(s: np.ndarray, r: np.ndarray):
@@ -1394,17 +1523,8 @@ class RowPackedSaturationEngine:
             r_cvs.append((plan.device_targets(rp.device), cv))
 
     def _cr5_reduce(self, sp, rp) -> torch.Tensor:
-        """The OR of the R rows whose filler is unsatisfiable [wc] (in
-        row blocks, so the masked copy stays bounded)."""
-        botf = bit_lookup_from(
-            sp[self._bottom_idx].T, self._fillers, dtype=torch.bool
-        )[:, 0]                                            # [nl]
-        blk = max(self.temp_budget_bytes // (4 * self.wc), 1)
-        red = torch.zeros(self.wc, dtype=torch.int32, device=sp.device)
-        for i in range(0, self.nl, blk):
-            masked = torch.where(botf[i : i + blk, None], rp[i : i + blk], 0)
-            red |= or_reduce_any(masked, 0)
-        return red
+        return cr5_reduce(sp, rp, self._fillers, self._bottom_idx,
+                          self.temp_budget_bytes)
 
     def _cr5(self, sp, rp, s_cvs):
         """⊥ back-propagation: OR of the R rows whose filler is
@@ -1877,6 +1997,12 @@ class RowPackedSaturationEngine:
         # and windows: rebuild them on next use
         self._fused_tab_cache = None
         self._fused_windows.clear()
+        # the bucketed step reads masks and windows as table content
+        # (same structure, same signature); fused windows key on content
+        self._m4_np, self._m6_np = m4, m6
+        self._btables = None
+        self._bucket_windows = {}
+        self._digest = None
         self.idx = dataclasses.replace(idx, role_closure=h_new)
         return True
 
@@ -1908,6 +2034,10 @@ class RowPackedSaturationEngine:
         recounts under the full universe at the end); the result's
         ``derivations`` then means something only to that caller."""
         budget = _pad_up(max_iters, self.unroll)
+        if self._bucket:
+            return self._saturate_bucketed(
+                budget, initial, allow_incomplete, profile, init_total
+            )
         self._profile = bool(profile)
         self.gate_rounds = []
         try:
@@ -1942,6 +2072,151 @@ class RowPackedSaturationEngine:
             idx=self.idx,
             converged=converged,
         )
+
+    # ------------------------------------------------ the bucketed program
+
+    def _note_compile(self, stats: CompileStats) -> None:
+        with self._stats_lock:
+            self.compile_stats.merge(stats)
+            self.last_compile = stats
+
+    def _bucket_program(self):
+        """This engine's step program from :data:`PROGRAMS` (built, and
+        on a card captured, on a miss).  The engine keeps only a weak
+        reference, so a program the registry evicts frees its card
+        memory; the next run looks it up again."""
+        from distel_tpu_torch.core import bucketing
+
+        if self._btables is None:
+            struct, self._btables = bucketing.bucket_plan(self)
+            if struct != self._bstruct:
+                raise AssertionError("a rebind moved the bucket structure")
+        prog = self._prog_ref() if self._prog_ref is not None else None
+        if prog is None:
+            prog, stats = bucketing.get_program(
+                self._bstruct, self._btables, self.bucket_signature,
+                self.device,
+            )
+            self._note_compile(stats)
+            self._prog_ref = weakref.ref(prog)
+        return prog
+
+    _prog_ref = None
+
+    def _saturate_bucketed(self, budget, initial, allow_incomplete, profile,
+                           init_total) -> SaturationResult:
+        """:meth:`saturate` through the bucketed program: under the state
+        pair's lock the tables and the state are copied in, groups run
+        (one flag read each: the change flag and each step's gate
+        counts) until a group changes nothing or the budget is spent,
+        and the closure is copied out."""
+        prog = self._bucket_program()
+        pair = prog.pair
+        self._profile = bool(profile)
+        self.gate_rounds = []
+        try:
+            with pair.lock:
+                prog.load(self._btables)
+                if initial is None:
+                    self._timed("init", self._fill_initial, pair.sp, pair.rp)
+                    init_total = fresh_init_total(self.idx)
+                else:
+                    sp, rp = self._timed("init", self.embed_state, *initial)
+                    initial = None
+                    pair.sp.copy_(sp)
+                    pair.rp.copy_(rp)
+                    del sp, rp
+                    if init_total is None:
+                        init_total = self.count_live_bits(pair.sp, pair.rp)
+                prog.ms.fill_(True)
+                prog.dl.copy_(prog.T["dl_valid"])
+                it, changed = 0, True
+                while changed and it < budget:
+                    flags = self._timed("step", prog.run)
+                    self.host_reads["flags"] += 1
+                    changed = bool(flags[0])
+                    for u in range(self.unroll):
+                        c = [int(x) for x in flags[1 + 5 * u : 6 + 5 * u]]
+                        self.gate_rounds.append({
+                            "cr4": [c[0], c[1]], "cr6": [c[2], c[3]],
+                            "cr6_tiles": [0, 0],
+                            "cr5": bool(c[4]) if self._bottom else None,
+                        })
+                    it += self.unroll
+                total = self._timed("count", self.count_live_bits,
+                                    pair.sp, pair.rp)
+                sp, rp = pair.sp.clone(), pair.rp.clone()
+        finally:
+            self._profile = False
+        converged = not changed
+        if not converged and not allow_incomplete:
+            raise RuntimeError(
+                f"saturation did not converge within {budget} iterations"
+            )
+        return SaturationResult(
+            packed_s=sp,
+            packed_r=rp,
+            iterations=it,
+            derivations=total - init_total,
+            idx=self.idx,
+            converged=converged,
+        )
+
+    def precompile(self, max_iters: int = 10_000, *,
+                   programs: Tuple[str, ...] = ("run", "step", "fused"),
+                   ) -> CompileStats:
+        """Build (on a card, capture) this engine's program roster before
+        any run needs it — the reference's warmup half: the step program
+        (``"run"`` or ``"step"``; the port's fixed point is a host loop
+        over it) and, with the fused window configured, its windows at
+        the floor capacities for each K the config can dispatch.  Exact
+        engines build nothing.  Returns :attr:`compile_stats`.
+        ``max_iters`` is the reference's: the port's programs do not
+        depend on the budget."""
+        if not self._bucket:
+            return self.compile_stats
+        if "run" in programs or "step" in programs:
+            self._bucket_program()
+        if "fused" in programs and self._fused_eligible():
+            floor = self._sparse_cfg["capacity_floor"]
+            caps = (floor, floor if self._sp4 is not None else 0,
+                    floor if self._sp6 is not None else 0)
+            pair = self._fused_pair()
+            with pair.lock:
+                for k in self._fused_k_ladder(
+                    self._fused_cfg["rounds"], self._fused_cfg["adaptive"]
+                ):
+                    self._fused_window(k, caps, (pair.sp, pair.rp))
+        return self.compile_stats
+
+    def _content_digest(self) -> str:
+        """A digest of everything a fused window's captured body reads of
+        this engine: the index's tables, the plan's knobs and the
+        layout.  Two engines with equal digests hold equal tables."""
+        d = self._digest
+        if d is None:
+            import hashlib
+
+            h = hashlib.sha1()
+            idx = self.idx
+            for name in ("nf1", "nf2", "nf3", "nf4", "chain_pairs", "links",
+                         "role_closure"):
+                a = np.ascontiguousarray(getattr(idx, name))
+                h.update(repr((name, a.shape, str(a.dtype))).encode())
+                h.update(a.tobytes())
+            h.update(repr((
+                idx.n_concepts, idx.n_roles, idx.has_bottom_axioms,
+                self.plan_stats(), self._link_window, self._window_headroom,
+                self._sparse_cfg, self._gate_cr5, self.unroll,
+                self.device.type,
+            )).encode())
+            d = self._digest = h.hexdigest()[:16]
+        return d
+
+    def _fused_pair(self):
+        from distel_tpu_torch.core import bucketing
+
+        return bucketing.state_pair(self.device, self.nc, self.nl, self.wc)
 
     # ------------------------------------------- the fused K-round window
     #
@@ -2571,7 +2846,14 @@ class RowPackedSaturationEngine:
         the state pair ``state``: on a card its CUDA graph, captured on
         first use and kept (LRU, :data:`FUSED_CACHE_SIZE` entries; a
         card's runs all use the engine's own pair); on the CPU the
-        eager body."""
+        eager body.  A bucketed engine's windows live in
+        :data:`PROGRAMS` instead, keyed by the bucket signature, K, the
+        capacities and :meth:`_content_digest` (the window's body is
+        this engine's plan, which is not rung-canonical: windows are
+        shared by engines with equal tables), over the layout's state
+        pair; a window keeps the capturing engine's tables alive."""
+        if self._bucket:
+            return self._fused_window_bucketed(K, caps, state)
         key = (int(K), tuple(int(c) for c in caps))
         win = self._fused_windows.get(key)
         if win is not None:
@@ -2586,6 +2868,42 @@ class RowPackedSaturationEngine:
         while len(self._fused_windows) > self.FUSED_CACHE_SIZE:
             _k, old = self._fused_windows.popitem(last=False)
             old.release()
+        return win
+
+    def _fused_window_bucketed(self, K, caps, state) -> "_FusedWindow":
+        caps = tuple(int(c) for c in caps)
+        ref = self._bucket_windows.get((int(K), caps))
+        win = ref() if ref is not None else None
+        if win is not None and win.state[0] is state[0]:
+            return win          # this engine's earlier lookup
+        key = (self.bucket_signature, "fused", int(K), caps,
+               self._content_digest())
+        stats = CompileStats(bucket_signature=self.bucket_signature,
+                             program=f"fused[{int(K)}]")
+
+        def build():
+            t0 = time.perf_counter()
+            self._fused_tables()
+            win = _FusedWindow(self, int(K), caps, state)
+            # the layout's pair lives while a window captured on it does
+            win.pair = self._fused_pair()
+            # everything the body reads, as it is now (a later rebind
+            # swaps the engine's tables; the graph keeps reading these)
+            win.keep = {k: v for k, v in self.__dict__.items()
+                        if k not in ("_bucket_windows", "_fused_windows",
+                                     "_prog_ref")}
+            stats.trace_lower_s = time.perf_counter() - t0
+            if self.device.type == "cuda":
+                self._capture_window(win)
+                stats.compile_s = win.capture_s
+            return win
+
+        win, hit = PROGRAMS.get_or_build(key, build)
+        stats.program_cache_hit = hit
+        self._note_compile(stats)
+        if win.state[0] is not state[0]:
+            raise RuntimeError("a fused window runs on its own state pair")
+        self._bucket_windows[(int(K), caps)] = weakref.ref(win)
         return win
 
     def _capture_window(self, win) -> None:
@@ -2603,8 +2921,11 @@ class RowPackedSaturationEngine:
         child = torch.cuda.Stream(dev)
         t0 = time.perf_counter()
         self._capturing = (child, win.pool)
+        from distel_tpu_torch.core.bucketing import CAPTURE_LOCK
+
         try:
-            with _no_gc(), _OpCount() as ops, bitmatmul.recording(), \
+            with CAPTURE_LOCK, _no_gc(), _OpCount() as ops, \
+                    bitmatmul.recording(), \
                     torch.cuda.graph(graph, capture_error_mode="thread_local"):
                 self._window_body(win)
         finally:
@@ -2624,16 +2945,27 @@ class RowPackedSaturationEngine:
         graph nodes) and the card bytes of its memory pools (the
         graph's and its IF bodies'), as the allocator's segments count
         them."""
+        wins = (
+            [w for w in (r() for r in self._bucket_windows.values()) if w]
+            if self._bucket else self._fused_windows.values()
+        )
         return [
             {"K": w.K, "caps": list(w.caps), "capture_s": w.capture_s,
              "captured_ops": w.captured_ops, "card_bytes": w.card_bytes}
-            for w in self._fused_windows.values()
+            for w in wins
         ]
 
     def _fused_run_state(self, sp, rp):
         """The state pair a run's windows work on: on a card the
         engine's own pair (the captured graphs' addresses), with the
-        run's state copied in; on the CPU the run's own tensors."""
+        run's state copied in; on the CPU the run's own tensors.  A
+        bucketed engine's is the layout's shared pair on either device
+        (its caller holds the pair's lock)."""
+        if self._bucket:
+            pair = self._fused_pair()
+            pair.sp.copy_(sp)
+            pair.rp.copy_(rp)
+            return pair.sp, pair.rp
         if self.device.type != "cuda":
             return sp, rp
         if self._fused_state is None:
@@ -2643,7 +2975,16 @@ class RowPackedSaturationEngine:
         wr.copy_(rp)
         return ws, wr
 
-    def _saturate_fused(
+    def _saturate_fused(self, *args, **kw):
+        """:meth:`_saturate_fused_run`, under the layout's state-pair lock
+        when bucketed (its windows are shared)."""
+        if not self._bucket:
+            return self._saturate_fused_run(*args, **kw)
+        pair = self._fused_pair()
+        with pair.lock:
+            return self._saturate_fused_run(*args, **kw)
+
+    def _saturate_fused_run(
         self, cfg, K, sp, rp, init_total, budget, observer,
         frontier_observer, pipeline_depth: int = 1, adaptive: bool = False,
     ):

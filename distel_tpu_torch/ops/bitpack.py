@@ -290,6 +290,32 @@ def _next_pow2(counts: np.ndarray) -> np.ndarray:
     return np.where(half >= counts, half, b)    # log2 rounded up
 
 
+def reduce_segments(rows: torch.Tensor, buckets) -> torch.Tensor:
+    """OR-reduce ``rows`` [k, W] within the segments of a
+    :class:`SegmentedRowOr` bucket structure ``buckets`` ((padded length,
+    segments) pairs in emission order) → [segments, W]."""
+    outs, pos = [], 0
+    for blen, nseg in buckets:
+        chunk = rows[pos : pos + nseg * blen]
+        pos += nseg * blen
+        if blen == 1:
+            outs.append(chunk)
+        else:
+            outs.append(or_reduce(chunk.reshape(nseg, blen, rows.shape[1]), 1))
+    return outs[0] if len(outs) == 1 else torch.cat(outs, dim=0)
+
+
+def or_into_rows(state: torch.Tensor, targets: torch.Tensor,
+                 reduced: torch.Tensor, cols: slice = slice(None)) -> torch.Tensor:
+    """``state[targets, cols] |= reduced`` in place; returns which target
+    rows changed [n] bool, on the device.  A repeated target must carry
+    the same ``reduced`` row each time (all its copies write one value)."""
+    old = state[targets, cols]
+    merged = old | reduced
+    state[targets, cols] = merged
+    return (merged != old).any(dim=1)
+
+
 class SegmentedRowOr:
     """Static plan for OR-combining packed *rows* that share a target row.
 
@@ -321,6 +347,69 @@ class SegmentedRowOr:
         )
         blens = _next_pow2(counts)
         self._init_from_segments(seg_targets, counts, blens, first, order0)
+
+    @classmethod
+    def quantized(
+        cls, raw_targets: np.ndarray, quantize, pad_target: int,
+        pad_source: int,
+    ) -> "SegmentedRowOr":
+        """Canonical-structure plan for shape-bucketed engines (the
+        reference's): the per-power-of-two segment-count histogram is
+        quantized up through ``quantize`` (the bucket ladder) by
+        appending inert pad segments — ``order`` slot ``pad_source``
+        (the caller's appended source row: the engines append the dead
+        row itself, a self-loop, the identity under OR) reduced into
+        ``pad_target`` (the reserved dead state row).  Every
+        power-of-two length from 1 up to min(top level, 64) is always
+        present (at least ``quantize(1)`` segments), longer levels only
+        when the corpus has them.  Two same-bucket ontologies then share
+        ``structure()`` exactly, while ``order`` and ``targets`` differ
+        only in content."""
+        raw_targets = np.asarray(raw_targets, np.int64)
+        if raw_targets.size == 0:
+            return cls(raw_targets)
+        order0 = np.argsort(raw_targets, kind="stable")
+        sorted_t = raw_targets[order0]
+        seg_targets, first, counts = np.unique(
+            sorted_t, return_index=True, return_counts=True
+        )
+        blens = _next_pow2(counts)
+        present = dict(zip(*(a.tolist() for a in
+                             np.unique(blens, return_counts=True))))
+        bc = max(int(blens.max()), 8)
+        level = 1
+        pad_blens = []
+        while level <= bc:
+            cnt = present.get(level, 0)
+            if cnt or level <= 64:
+                pad_blens.extend([level] * (quantize(max(cnt, 1)) - cnt))
+            level *= 2
+        pad_blens = np.asarray(pad_blens, np.int64)
+        # order0 grows one trailing slot holding the pad source; pad
+        # segments (count 1, first = that slot) emit it blen times
+        order0 = np.append(order0, np.int64(pad_source))
+        plan = cls.__new__(cls)
+        plan._dev_cache = {}
+        plan._init_from_segments(
+            np.concatenate([seg_targets,
+                            np.full(len(pad_blens), pad_target, np.int64)]),
+            np.concatenate([counts, np.ones(len(pad_blens), np.int64)]),
+            np.concatenate([blens, pad_blens]),
+            np.concatenate(
+                [first, np.full(len(pad_blens), len(order0) - 1, np.int64)]
+            ),
+            order0,
+        )
+        return plan
+
+    def structure(self) -> tuple:
+        """What a bucket signature records of this plan: two engines
+        whose plans have equal structures run the same launches."""
+        return (self.k, self.n_targets, tuple(self._buckets))
+
+    @property
+    def n_targets(self) -> int:
+        return len(self.targets)
 
     def _init_from_segments(self, seg_targets, counts, blens, first, order0):
         """Build emission order + buckets from per-segment (target, member
@@ -357,17 +446,7 @@ class SegmentedRowOr:
         within each segment → [n_targets, W]."""
         if not self._buckets:
             return rows[:0]
-        outs = []
-        pos = 0
-        for blen, nseg in self._buckets:
-            chunk = rows[pos : pos + nseg * blen]
-            pos += nseg * blen
-            if blen == 1:
-                outs.append(chunk)
-            else:
-                chunk = chunk.reshape(nseg, blen, rows.shape[1])
-                outs.append(or_reduce(chunk, 1))
-        return outs[0] if len(outs) == 1 else torch.cat(outs, dim=0)
+        return reduce_segments(rows, self._buckets)
 
     def write(self, state: torch.Tensor, reduced: torch.Tensor,
               cols: slice = slice(None), track=True) -> torch.Tensor:
@@ -381,10 +460,6 @@ class SegmentedRowOr:
         if self.k == 0:
             shape = (0,) if track == "rows" else ()
             return torch.zeros(shape, dtype=torch.bool, device=state.device)
-        t = self.device_targets(state.device)
-        old = state[t, cols]
-        merged = old | reduced
-        state[t, cols] = merged
-        if track == "rows":
-            return (merged != old).any(dim=1)
-        return (merged != old).any()
+        changed = or_into_rows(state, self.device_targets(state.device),
+                               reduced, cols)
+        return changed if track == "rows" else changed.any()

@@ -13,7 +13,11 @@ the cache.  The engine is the row-packed one
 or the dense one (``engine="dense"``); ``rule_backends`` that route a
 rule to the host wrap the row-packed engine in the hybrid saturator.
 Everything runs on ``cuda`` unless the caller passes ``device="cpu"``;
-with no card and no device given, construction raises.
+with no card and no device given, construction raises.  Shape buckets
+are on by default (``shape_buckets``): the row-packed engine's program
+is built (on a card captured) in a phase of its own, ``compile``, which
+a registry hit makes ~0, and the result carries its
+:class:`~distel_tpu_torch.runtime.instrumentation.CompileStats`.
 """
 
 from __future__ import annotations
@@ -62,6 +66,9 @@ class ClassificationResult:
         Union[RowPackedSaturationEngine, PackedSaturationEngine,
               SaturationEngine, HybridSaturator]
     ] = None
+    #: program-build record (row-packed engines; None otherwise): bucket
+    #: signature, build and capture walls, program-cache hit
+    compile_stats: Optional[object] = None
 
     def summary(self) -> dict:
         if self.norm is not None:
@@ -119,7 +126,8 @@ def make_engine(
         )
     if config.engine == "packed":
         return PackedSaturationEngine(
-            idx, device=device, pad_multiple=config.pad_multiple
+            idx, device=device, pad_multiple=config.pad_multiple,
+            bucket=config.shape_buckets, bucket_ratio=config.bucket_ratio,
         )
     if config.engine == "dense":
         return SaturationEngine(
@@ -132,6 +140,11 @@ def make_engine(
     # the fused K-round window: rebuilds, stream, serve and the fleet's
     # replicas inherit K through here
     rowpacked_kw.setdefault("fused_rounds", config.fused_rounds_config())
+    # shape-bucketed programs: the config-driven builds (classify, the
+    # incremental rebuild, serve loads) quantize; callers that pin exact
+    # layouts construct directly
+    rowpacked_kw.setdefault("bucket", config.shape_buckets)
+    rowpacked_kw.setdefault("bucket_ratio", config.bucket_ratio)
     return RowPackedSaturationEngine(
         idx,
         device=device,
@@ -192,6 +205,11 @@ class ELClassifier:
                 idx = Indexer().index(norm)
         with timer.phase("plan"):
             engine = make_engine(cfg, idx, self.device)
+        # the program build as its own phase: a warm bucket (a registry
+        # hit) shows as compile ~0, apart from the saturation's time
+        if hasattr(engine, "precompile"):
+            with timer.phase("compile"):
+                engine.precompile(cfg.max_iterations, programs=("run",))
         initial = None
         if resume_from is not None:
             with timer.phase("resume(align)"):
@@ -222,7 +240,10 @@ class ELClassifier:
                     )
         if cfg.instrumentation:
             print(timer.report(), flush=True)
-        return ClassificationResult(result, taxonomy, norm, idx, timer, engine)
+        return ClassificationResult(
+            result, taxonomy, norm, idx, timer, engine,
+            compile_stats=getattr(engine, "compile_stats", None),
+        )
 
     def classify_file(self, path: str, **kw) -> ClassificationResult:
         with open(path, "r", encoding="utf-8-sig") as f:

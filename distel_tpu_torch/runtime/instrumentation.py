@@ -115,6 +115,48 @@ class PhaseAggregate:
 
 
 @dataclass
+class CompileStats:
+    """One program build's cost, with the reference's fields.  In the
+    port a program is a shape-bucketed engine's step group or fused
+    window (``core/rowpacked_engine.py``): ``trace_lower_s`` is the host
+    build of its argument tables at rung shapes, ``compile_s`` its CUDA
+    graph capture (on the CPU, where nothing is captured, the eager
+    program's allocation); both are 0.0 on a registry hit
+    (``program_cache_hit``: the process-global ``PROGRAMS`` served the
+    program).  The persistent-cache counters stay 0: there is no disk
+    cache of graphs yet (that waits for the artifacts slice)."""
+
+    bucket_signature: str = ""
+    program: str = ""
+    trace_lower_s: float = 0.0
+    compile_s: float = 0.0
+    program_cache_hit: bool = False
+    persistent_cache_hits: int = 0
+    persistent_cache_misses: int = 0
+
+    def as_dict(self) -> dict:
+        return {
+            "bucket_signature": self.bucket_signature,
+            "program": self.program,
+            "trace_lower_s": round(self.trace_lower_s, 4),
+            "compile_s": round(self.compile_s, 4),
+            "program_cache_hit": self.program_cache_hit,
+            "persistent_cache_hits": self.persistent_cache_hits,
+            "persistent_cache_misses": self.persistent_cache_misses,
+        }
+
+    def merge(self, other: "CompileStats") -> "CompileStats":
+        """Fold another program's build into this record (an engine
+        builds several programs; callers report one total)."""
+        self.trace_lower_s += other.trace_lower_s
+        self.compile_s += other.compile_s
+        self.program_cache_hit = self.program_cache_hit or other.program_cache_hit
+        self.persistent_cache_hits += other.persistent_cache_hits
+        self.persistent_cache_misses += other.persistent_cache_misses
+        return self
+
+
+@dataclass
 class FrontierStats:
     """One saturation round's frontier record — the telemetry the
     adaptive sparse-tail controller (``RowPackedSaturationEngine.

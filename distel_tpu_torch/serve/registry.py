@@ -53,17 +53,23 @@ why:
 * The warm view :meth:`OntologyRegistry._warm_result` wraps the
   demoted host state in the port's ``SaturationResult``, whose packed
   closure is a torch tensor.
-* :meth:`OntologyRegistry.cohort_key` keeps the reference's rule; the
-  port's engines have exact shapes (no ``_bucket``), so it answers None
-  and the scheduler's cohort lane never forms.
+* :meth:`OntologyRegistry.cohort_key` answers None: the cohort plane
+  (``core/cohort.py``) is not ported, so the scheduler's cohort lane
+  never forms (the reference's rule would group bucketed tenants).
   :meth:`OntologyRegistry.delta_cohort` raises ``NotImplementedError``.
-* ``inc.last_compile`` is always None in the port (it compiles no
-  programs), so the compile counters record nothing, as for a
-  reference increment that compiled nothing.  The delta-program cache
-  counters (``distel_delta_program_cache_{hits,misses}_total``) are
-  left out with the rest of ``server.NOT_YET_PORTED``: the port builds
-  its delta engines and fetches none from a program cache, so every
-  one would count as a miss.
+* ``inc.last_compile`` is the port's program-build record (bucketed
+  engines' ``CompileStats``: table build and CUDA-graph capture
+  seconds, registry hits), exported as the reference's compile and
+  program-cache counters; the persistent-cache counter is not exported
+  (no disk cache of graphs: ``server.NOT_YET_PORTED``).
+* The memory budget counts the bytes the program registry holds on the
+  registry's device (``core/bucketing.program_bytes``: the programs'
+  tables and graph pools and each layout's state pair) beside the
+  tenants' closures: programs outlive the tenants that built them.
+  Over the budget, programs no live engine uses go first
+  (``core/bucketing.drop_idle_programs``), then tenants; a tenant's
+  eviction leaves its programs idle when no other tenant shares them,
+  and the next pass drops them.
 * A tenant that leaves the card (export, eviction, a failed load or
   adopt) frees its cached blocks on the card at once
   (:meth:`OntologyRegistry._release_card`): other replica processes
@@ -459,21 +465,7 @@ class OntologyRegistry:
         the scheduler calls it while holding its own condition
         variable, and execution re-validates every member; a stale
         answer only costs a fallback, never correctness."""
-        with self._lock:
-            entry = self._entries.get(oid)
-        if entry is None:
-            return None
-        inc = entry.inc  # unlocked read: grouping hint only
-        if inc is None:
-            return None
-        base = inc._base_engine
-        if (
-            base is None
-            or getattr(base, "mesh", None) is not None
-            or not getattr(base, "_bucket", False)
-        ):
-            return None
-        return base.bucket_signature
+        return None
 
     def delta_cohort(self, items: List) -> Dict[str, object]:
         """The reference advances a cohort of same-bucket tenants under
@@ -918,14 +910,18 @@ class OntologyRegistry:
                     e.resident_bytes
                     for e in self._entries.values()
                     if e.inc is not None
-                )
+                ) + self._program_bytes()
                 victims = [
                     e
                     for e in self._entries.values()
                     if e.inc is not None and e.oid != keep
                 ]
-                if total <= self.memory_budget_bytes or not victims:
-                    break
+            if total <= self.memory_budget_bytes:
+                break
+            if self._drop_idle_programs():
+                continue
+            if not victims:
+                break
             victim = self._pick_victim(victims)
             if not victim.lock.acquire(blocking=False):
                 return  # busy: let the in-flight request finish first
@@ -949,6 +945,22 @@ class OntologyRegistry:
             finally:
                 victim.lock.release()
         self._shed_warm(keep)
+
+    def _program_bytes(self) -> int:
+        """Bytes the program registry holds on this registry's device."""
+        from distel_tpu_torch.core.bucketing import program_bytes
+
+        return program_bytes(self.device)
+
+    def _drop_idle_programs(self) -> int:
+        """Evict the registry's programs no live engine uses; their card
+        blocks go back at once."""
+        from distel_tpu_torch.core.bucketing import drop_idle_programs
+
+        n = drop_idle_programs(self.device)
+        if n:
+            self._release_card()
+        return n
 
     def _pick_victim(self, victims: List[_Entry]) -> _Entry:
         """Lowest-traffic entry (EWMA scored OUTSIDE the registry
@@ -1000,7 +1012,7 @@ class OntologyRegistry:
                 e.resident_bytes
                 for e in self._entries.values()
                 if e.inc is not None
-            )
+            ) + self._program_bytes()
             # promotion cost = what the entry RESIDENTLY weighed when
             # last hot (warm bytes track it closely; cold_bytes are
             # compressed — often 100x+ smaller than the restore would
@@ -1098,6 +1110,19 @@ class OntologyRegistry:
                 # keep reading correctly
                 self._count("distel_cohort_deltas_total")
             self._count("distel_deltas_fast_path_total")
+            n = rec.get("delta_programs", 0)
+            if n:
+                hits = rec.get("delta_program_hits", 0)
+                if hits:
+                    self.metrics.counter_inc(
+                        "distel_delta_program_cache_hits_total",
+                        value=hits,
+                    )
+                if n - hits:
+                    self.metrics.counter_inc(
+                        "distel_delta_program_cache_misses_total",
+                        value=n - hits,
+                    )
             st = inc.last_compile
             if st is not None:
                 self.metrics.observe(

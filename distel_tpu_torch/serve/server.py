@@ -39,10 +39,14 @@ why:
   left out, in one place: :data:`NOT_YET_PORTED` names each metric
   series and route that goes with it, and the module it waits for —
   the artifact-farm install and its counters, the program-cache
-  eviction counter, the startup warmup (``warmup_paths`` raises), and
-  the compile counters,
-  which only a compiled-program plane records.  Every other route,
-  metric and gauge keeps the reference's name and meaning.
+  counters and the persistent compile-cache counter, which wait for
+  ``core/artifacts.py`` (a CUDA graph cannot be written to disk).  The
+  program-cache, compile and warmup series are the reference's: a
+  program is a bucketed engine's step group or fused window, captured
+  as a CUDA graph on a card (``core/bucketing.py``), and
+  ``warmup_paths`` builds them in a background thread before traffic
+  (``runtime/warmup.py``).  Every other route, metric and gauge keeps
+  the reference's name and meaning.
 """
 
 from __future__ import annotations
@@ -85,17 +89,7 @@ NOT_YET_PORTED = {
     "distel_artifact_hlo_hits_total": "core/artifacts.py",
     "distel_artifact_misses_total": "core/artifacts.py",
     "distel_artifact_rejected_total": "core/artifacts.py",
-    "distel_program_cache_evictions_total": "core/program_cache.py",
-    "distel_program_cache_hits_total": "core/program_cache.py",
-    "distel_program_cache_misses_total": "core/program_cache.py",
-    "distel_compile_seconds": "core/program_cache.py",
-    "distel_delta_compile_seconds": "core/program_cache.py",
-    "distel_delta_program_cache_hits_total": "core/program_cache.py",
-    "distel_delta_program_cache_misses_total": "core/program_cache.py",
-    "distel_persistent_cache_hits_total": "core/program_cache.py",
-    "distel_warmup_done": "runtime/warmup.py",
-    "distel_warmup_programs_total": "runtime/warmup.py",
-    "distel_warmup_errors_total": "runtime/warmup.py",
+    "distel_persistent_cache_hits_total": "core/artifacts.py",
 }
 
 #: request-body ceiling (64 MiB — a multiplied corpus is tens of MB; a
@@ -251,11 +245,6 @@ class ServeApp:
         warm_budget_bytes: Optional[int] = None,
     ):
         self.config = config or ClassifierConfig()
-        if warmup_paths:
-            raise ValueError(
-                "warmup_paths: the startup warmup precompiles XLA programs "
-                "(runtime/warmup.py); distel_tpu_torch compiles none"
-            )
         self.default_deadline_s = deadline_s
         self.metrics = Metrics()
         self.phases = PhaseAggregate()
@@ -369,9 +358,21 @@ class ServeApp:
             "ontology loads that had to compile their bucket program",
         )
         self.metrics.describe(
-            "distel_persistent_cache_hits_total",
-            "XLA compiles served from the persistent disk cache",
+            "distel_warmup_programs_total",
+            "bucket programs precompiled by the startup warmup",
         )
+        from distel_tpu_torch.core.program_cache import PROGRAMS
+
+        def _program_counters():
+            return {"distel_program_cache_evictions_total":
+                    PROGRAMS.stats()["evictions"]}
+
+        self.metrics.describe(
+            "distel_program_cache_evictions_total",
+            "compiled programs evicted from the in-process registry "
+            "by LRU capacity pressure",
+        )
+        self.metrics.counter_group(_program_counters)
         # ---- read plane (query snapshots) + storage-tier accounting
         self.metrics.describe(
             "distel_read_seconds",
@@ -634,6 +635,45 @@ class ServeApp:
                 name="distel-tier-promoter",
             )
             self._promoter.start()
+        # ---- background warmup: build the configured buckets' programs
+        # into the registry before traffic; a failure leaves them cold
+        # (the error counter says so) and never blocks serving
+        self._warmup_done = threading.Event()
+        if warmup_paths:
+            self.metrics.gauge_set("distel_warmup_done", 0)
+            threading.Thread(
+                target=self._run_warmup,
+                args=(list(warmup_paths),),
+                daemon=True,
+                name="distel-warmup",
+            ).start()
+        else:
+            self._warmup_done.set()
+
+    def _run_warmup(self, paths: List[str]) -> None:
+        try:
+            from distel_tpu_torch.runtime import warmup as warmup_mod
+
+            recs = warmup_mod.warmup_paths(
+                paths, self.config, profile="serve",
+                device=self.registry.device,
+            )
+            for rec in recs:
+                self.metrics.counter_inc("distel_warmup_programs_total")
+                self.metrics.observe(
+                    "distel_compile_seconds",
+                    rec.get("compile_s", 0.0) + rec.get("trace_lower_s", 0.0),
+                )
+        except Exception:
+            self.metrics.counter_inc("distel_warmup_errors_total")
+        finally:
+            self.metrics.gauge_set("distel_warmup_done", 1)
+            self._warmup_done.set()
+
+    def warmup_wait(self, timeout: Optional[float] = None) -> bool:
+        """Block until the startup warmup finished (tests; probes read
+        the ``distel_warmup_done`` gauge instead)."""
+        return self._warmup_done.wait(timeout)
 
     def _promote_loop(self, interval_s: float) -> None:
         while not self._stop_promoter.wait(interval_s):
@@ -900,8 +940,7 @@ class ServeApp:
             "status": "draining" if self._closed else "ok",
             "uptime_s": round(time.time() - self.started, 1),
             "queue_depth": self.scheduler.depth(),
-            # no startup warmup in the port: always done
-            "warmup_done": True,
+            "warmup_done": self._warmup_done.is_set(),
             **self.registry.stats(),
         }
         if self.query is not None:

@@ -47,8 +47,10 @@ def _ref_classifier():
 
 def _port_classifier():
     # the Python load plane, as the reference classifier's: the tests
-    # compare ids and wire state, which differ between the planes
-    return ELClassifier(ClassifierConfig(use_native_loader=False), device="cpu")
+    # compare ids and wire state, which differ between the planes; and
+    # exact shapes, as the reference classifier's (the wire layout)
+    return ELClassifier(ClassifierConfig(use_native_loader=False, shape_buckets=False),
+                        device="cpu")
 
 
 def _tax_key(tax):
@@ -291,8 +293,10 @@ def test_config_from_properties(tmp_path):
     )
     cfg = ClassifierConfig.from_properties(str(props))
     assert cfg.max_iterations == 77 and cfg.cr6_tiles_config() is None
-    props.write_text("shape.buckets = true\n")
-    with pytest.raises(ValueError, match="shape_buckets"):
+    assert cfg.shape_buckets is False
+    # shape buckets are ported and the default; a bad ladder step raises
+    props.write_text("shape.buckets = true\nbucket.ratio = 0.5\n")
+    with pytest.raises(ValueError, match="bucket ratio"):
         ClassifierConfig.from_properties(str(props))
     props.write_text("engine = dense\nnative.loader = false\n"
                      "normalize.cache.path = /x/cache.json\n")
@@ -315,7 +319,8 @@ def _ref_packed_classifier():
 
 def _port_packed_classifier():
     return ELClassifier(
-        ClassifierConfig(**PACKED, use_native_loader=False), device="cpu"
+        ClassifierConfig(**PACKED, use_native_loader=False, shape_buckets=False),
+        device="cpu"
     )
 
 

@@ -42,6 +42,12 @@ ROUTE = {False: {"packed_cols_dense": 1},
 
 pytestmark = pytest.mark.cuda
 
+#: a bucketed engine's program record (its signature names the device;
+#: the build walls are the device's)
+COMPILE_KEYS = {"bucket_signature", "program", "trace_lower_s", "compile_s",
+                "program_cache_hit", "persistent_cache_hits",
+                "persistent_cache_misses", "delta_signature"}
+
 
 @pytest.fixture
 def card():
@@ -517,7 +523,10 @@ def test_exported_tenant_returns_its_card_memory(card, tmp_path):
     before the load."""
     from distel_tpu_torch.serve.registry import OntologyRegistry
 
-    reg = OntologyRegistry(device=card, spill_dir=str(tmp_path))
+    # exact shapes: a bucketed tenant's program (graph pool, tables,
+    # state pair) outlives it in the registry by design
+    reg = OntologyRegistry(ClassifierConfig(shape_buckets=False), device=card,
+                           spill_dir=str(tmp_path))
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     base = torch.cuda.memory_reserved()
@@ -560,7 +569,9 @@ def test_dense_classify_on_the_card_equals_the_cpu(card, text):
     cfg = ClassifierConfig(engine="dense")
     gpu = ELClassifier(cfg, device="cuda").classify_text(text)
     cpu = ELClassifier(cfg, device="cpu").classify_text(text)
-    row = ELClassifier(device="cuda").classify_text(text)
+    # the exact-shape row-packed layout, word for word the dense one's
+    row = ELClassifier(ClassifierConfig(shape_buckets=False),
+                       device="cuda").classify_text(text)
     for g, c, r in zip(gpu.result.wire(), cpu.result.wire(), row.result.wire()):
         assert np.array_equal(g, c) and np.array_equal(g, r)
     assert gpu.result.iterations == cpu.result.iterations
@@ -623,6 +634,9 @@ def test_incremental_state_stays_on_the_card(card, monkeypatch):
         inc._FAST_PATH_MIN_CONCEPTS = 0
         inc.add_text(base)
         runs[str(dev)] = (inc.add_text(delta).wire(), inc.history[-1])
+    # the program records name their device (its signature and build)
+    runs = {d: (w, {k: v for k, v in h.items() if k not in COMPILE_KEYS})
+            for d, (w, h) in runs.items()}
     assert runs["cuda"][1] == runs["cpu"][1] and runs["cuda"][1]["path"] == "fast"
     assert all(np.array_equal(x, y) for x, y in zip(runs["cuda"][0], runs["cpu"][0]))
     eng = RowPackedSaturationEngine(inc.last_result.idx, device="cuda")
@@ -817,8 +831,9 @@ def _fleet_answers(device, spill):
             s.server_close()
         for app in apps:
             app.close(final_spill=False)
-    clock = ("published_unix", "wall_s")
-    return [{k: v for k, v in d.items() if k not in clock} for d in out], launches
+    # clock readings, and the program records, which name their device
+    drop = {"published_unix", "wall_s", *COMPILE_KEYS}
+    return [{k: v for k, v in d.items() if k not in drop} for d in out], launches
 
 
 def test_fleet_migrates_and_recovers_on_the_card(card, tmp_path):
@@ -1015,3 +1030,107 @@ def test_fused_window_on_the_card_equals_the_cpu(card, corpus, sparse, depth):
     if sparse is OVERFLOW_8:
         assert got[4]["fallouts"] > 0
 
+
+
+# ------------------------------------------------------------ shape buckets
+
+
+def _pair_texts(n=240):
+    """Two ontologies of one bucket with different wiring (the
+    reference's ``tests/test_bucketing.py`` pair)."""
+    def onto(shift):
+        lines = [f"SubClassOf(C{i} C{(i + shift) % n})" for i in range(n)]
+        for i in range(0, n, 4):
+            lines.append(f"SubClassOf(C{i} ObjectSomeValuesFrom(r D{i % 16}))")
+            lines.append(f"SubClassOf(ObjectSomeValuesFrom(r D{(i + shift) % 16})"
+                         f" E{i % 8})")
+        return "\n".join(lines)
+
+    return onto(1), onto(3)
+
+
+def test_same_bucket_engine_replays_the_captured_step(card):
+    """The second engine of a bucket replays the first one's captured
+    step group (capture 0.0 s, a registry hit) and computes its own
+    closure, equal to the CPU's; the graph's launches are counted."""
+    from distel_tpu_torch.core.program_cache import PROGRAMS
+    from distel_tpu_torch.core.rowpacked_engine import RowPackedSaturationEngine
+
+    PROGRAMS.clear()
+    idxs = [ELClassifier(device="cpu").classify_text(t).idx for t in _pair_texts()]
+    engines = [RowPackedSaturationEngine(i, device="cuda", bucket=True) for i in idxs]
+    assert engines[0].bucket_signature == engines[1].bucket_signature
+    before = sum(LAUNCHES.values())
+    got = [e.saturate() for e in engines]
+    torch.cuda.synchronize()
+    assert sum(LAUNCHES.values()) > before
+    first, second = (e.compile_stats for e in engines)
+    assert not first.program_cache_hit and first.compile_s > 0.0
+    assert second.program_cache_hit and second.compile_s == 0.0
+    for idx, res in zip(idxs, got):
+        want = RowPackedSaturationEngine(idx, device="cpu", bucket=True).saturate()
+        assert res.iterations == want.iterations
+        assert res.derivations == want.derivations
+        assert torch.equal(res.packed_s.cpu(), want.packed_s)
+        assert torch.equal(res.packed_r.cpu(), want.packed_r)
+
+
+def test_same_corpus_engine_replays_the_fused_windows(card):
+    """A second bucketed engine of the same corpus replays the first
+    one's captured fused windows (capture 0.0 s), round for round."""
+    from distel_tpu_torch.core.program_cache import PROGRAMS
+    from distel_tpu_torch.core.rowpacked_engine import RowPackedSaturationEngine
+
+    PROGRAMS.clear()
+    text = chain_tailed_ontology(400, 12) + "\nDisjointClasses(TailChain3 TailChain7)"
+    idx = ELClassifier(device="cpu").classify_text(text).idx
+    runs = []
+    for _ in range(2):
+        eng = RowPackedSaturationEngine(idx, device="cuda", unroll=1, bucket=True)
+        runs.append((_fused_records(eng, idx, FORCED_WIDE, 4), eng.compile_stats))
+    (a, sa), (b, sb) = runs
+    assert not sa.program_cache_hit and sa.compile_s > 0.0
+    assert sb.program_cache_hit and sb.compile_s == 0.0
+    assert a[0] == b[0] and a[1] == b[1]
+    assert torch.equal(a[2].packed_s, b[2].packed_s)
+    want = _fused_records(RowPackedSaturationEngine(idx, device="cpu", unroll=1),
+                          idx, FORCED_WIDE, 4)
+    assert a[1] == want[1]
+
+
+def test_evicted_program_frees_its_card_blocks(card):
+    """A program the registry evicts gives its card memory back (its
+    graph pool, tables and its layout's state pair) with no garbage
+    collection: engines hold programs weakly."""
+    import gc
+
+    from distel_tpu_torch.core import bucketing
+    from distel_tpu_torch.core.program_cache import PROGRAMS
+    from distel_tpu_torch.core.rowpacked_engine import RowPackedSaturationEngine
+
+    PROGRAMS.clear()
+    torch.cuda.synchronize()
+    gc.collect()
+    base = torch.cuda.memory_allocated()
+    idx = ELClassifier(device="cpu").classify_text(
+        snomed_shaped_ontology(n_classes=2000)).idx
+    eng = RowPackedSaturationEngine(idx, device="cuda", bucket=True)
+    res = eng.saturate()
+    held = bucketing.program_bytes("cuda")
+    assert held > 0
+    del res
+    torch.cuda.synchronize()
+    with_program = torch.cuda.memory_allocated()
+    gc_was = gc.isenabled()
+    gc.disable()
+    try:
+        PROGRAMS.clear()
+        torch.cuda.synchronize()
+        freed = with_program - torch.cuda.memory_allocated()
+    finally:
+        if gc_was:
+            gc.enable()
+    assert bucketing.program_bytes("cuda") == 0
+    # at least the layout's state pair comes back
+    assert freed >= (eng.nc + eng.nl) * eng.wc * 4, (freed, held)
+    assert torch.cuda.memory_allocated() - base < with_program - base

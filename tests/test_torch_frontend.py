@@ -125,6 +125,19 @@ def test_module_is_a_copy_apart_from_imports(rel):
     assert imports and all(ln.startswith("from distel_tpu_torch.") for ln in imports)
 
 
+#: copied modules that import nothing of either package, pinned byte
+#: for byte
+VERBATIM = ("core/program_cache.py",)
+
+
+@pytest.mark.parametrize("rel", VERBATIM)
+def test_import_free_module_is_a_verbatim_copy(rel):
+    port = (ROOT / "distel_tpu_torch" / rel).read_text()
+    assert "distel_tpu" not in "\n".join(
+        ln for ln in port.splitlines() if ln.lstrip().startswith(("from ", "import ")))
+    assert port == (ROOT / "distel_tpu" / rel).read_text()
+
+
 @pytest.mark.parametrize("name", ["split_backends", "apply_rules_host",
                                   "ALL_RULES", "_HOST_ALIASES", "_TPU_ALIASES"])
 def test_hybrid_routing_is_a_copy(name):

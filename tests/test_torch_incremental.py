@@ -76,7 +76,9 @@ def _assert_same_step(ref, port, ref_res, port_res, reused):
 
 def _pair(ref_cfg=None, port_cfg=None, fast_min=0, **attrs):
     ref = RefInc(ref_cfg or RefConfig(shape_buckets=False))
-    port = IncrementalClassifier(port_cfg or ClassifierConfig(), device="cpu")
+    # exact shapes, as the reference's (the compared states' layouts)
+    port = IncrementalClassifier(port_cfg or ClassifierConfig(shape_buckets=False),
+                                 device="cpu")
     for inc in (ref, port):
         if fast_min is not None:
             inc._FAST_PATH_MIN_CONCEPTS = fast_min
@@ -420,7 +422,7 @@ def test_cli_stream_matches_reference(tmp_path, capsys):
     props = tmp_path / "p.properties"
     props.write_text("fast.path.min.concepts = 0\nshape.buckets = false\n")
     port_props = tmp_path / "q.properties"
-    port_props.write_text("fast.path.min.concepts = 0\n")
+    port_props.write_text("fast.path.min.concepts = 0\nshape.buckets = false\n")
     prefix = str(tmp_path / "snap")
     assert cli.main(["stream", *files, "--config", str(port_props),
                      "--device", "cpu", "--snapshot-prefix", prefix]) == 0
@@ -429,8 +431,13 @@ def test_cli_stream_matches_reference(tmp_path, capsys):
     ref_out = [json.loads(ln) for ln in capsys.readouterr().out.splitlines()
                if ln.startswith("{")]
     assert len(port_out) == len(ref_out) == 4
+    # each package's program-build record is its own (the reference's
+    # exact-shape engines compile, the port's build nothing)
+    build = {"bucket_signature", "program", "trace_lower_s", "compile_s",
+             "program_cache_hit", "persistent_cache_hits", "persistent_cache_misses",
+             "delta_signature"}
     for p, r in zip(port_out, ref_out):
-        shared = set(p) & set(r) - {"wall_s"}
+        shared = set(p) & set(r) - {"wall_s"} - build
         assert shared >= ({"path", "iterations", "new_derivations", "file"}
                           if "file" in p else {"increments", "total_derivations"})
         assert {k: p[k] for k in shared} == {k: r[k] for k in shared}

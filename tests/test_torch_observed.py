@@ -265,12 +265,14 @@ def test_degenerate_sparse_cfg_rejected_at_build(bad, corpus):
 
 @pytest.mark.parametrize("floor", [8, 32, 64])
 def test_capacity_rungs_are_the_references(floor):
-    """The port's ``bucket_dim`` is the reference's ratio-2 ladder."""
+    """The ladder the sparse tier's capacity rungs ride (the port's
+    ``bucket_dim``, now the pinned copy of the reference's
+    ``core/program_cache.py``) is the reference's ratio-2 ladder."""
     from distel_tpu.core.program_cache import bucket_dim as ref_bucket_dim
     from distel_tpu_torch.core.rowpacked_engine import bucket_dim
 
     for n in [-3, 0, 1, floor - 1, floor, floor + 1, 3 * floor,
               1000, 8191, 8192, 8193, 131_072, 200_000]:
-        assert bucket_dim(n, floor=floor) == ref_bucket_dim(
+        assert bucket_dim(n, 2.0, floor=floor) == ref_bucket_dim(
             n, 2.0, floor=floor
         ), n

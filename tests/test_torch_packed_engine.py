@@ -181,8 +181,9 @@ def test_refusals(indexes):
         eng.embed_state(big, np.zeros((eng.nc, eng.nl), bool))
     with pytest.raises(NotImplementedError, match="mesh"):
         PackedSaturationEngine(idx, device="cpu", mesh=object())
-    with pytest.raises(ValueError, match="bucket"):
-        PackedSaturationEngine(idx, device="cpu", bucket=True)
+    # bucket=True is the reference's shape-only bucketing now (no refusal)
+    bucketed = PackedSaturationEngine(idx, device="cpu", bucket=True)
+    assert bucketed.nc > idx.n_concepts and bucketed.nl > idx.n_links
     assert not PackedSaturationEngine.accepts_wire_state
     assert RowPackedSaturationEngine.accepts_wire_state
     assert isinstance(res.packed_s, torch.Tensor) and res.packed_s.dtype == torch.int32

@@ -21,6 +21,7 @@ import pytest
 import torch
 
 from distel_tpu.config import ClassifierConfig as RefConfig
+from distel_tpu_torch.config import ClassifierConfig
 from distel_tpu.core import retract as ref_retract
 from distel_tpu.core.incremental import IncrementalClassifier as RefInc
 from distel_tpu.runtime.taxonomy import extract_taxonomy as ref_taxonomy
@@ -56,7 +57,9 @@ class Both:
 
     def __init__(self, texts=()):
         self.ref = RefInc(RefConfig(shape_buckets=False))
-        self.port = IncrementalClassifier(device="cpu")
+        # exact shapes, as the reference's (snapshots cross packages)
+        self.port = IncrementalClassifier(ClassifierConfig(shape_buckets=False),
+                                          device="cpu")
         for t in texts:
             self.add(t)
 
