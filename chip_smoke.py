@@ -26,13 +26,14 @@ Phases, each of which raises on failure:
    on the CPU gives identical packed S and R, derivation count and
    taxonomy; then ``engine="packed"`` on the card gives the same
    x-major S and R (compared in row blocks against the transposed
-   row-packed state), derivations and taxonomy.  Then the frontier
-   gating at 8k: the gated fixed point stepped on the
-   card and on the CPU, every round's S, R and frontier flags equal
-   (the default plan, and 256-link L-chunks with the live-tile CR6
-   forced); ``engine="dense"`` on the card and the CPU, equal to the
-   row-packed card run; ``backend.CRn = host`` (CR5, and CR1 with CR6,
-   through the hybrid saturator) equal to the all-device card run;
+   row-packed state), derivations and taxonomy.  Then, at the cut depth
+   (:data:`CUT_CLASSES`, 3,500 classes of the same generator and seed),
+   the frontier gating: the gated fixed point stepped on the card and on
+   the CPU, every round's S, R and frontier flags equal (the default
+   plan, and 256-link L-chunks with the live-tile CR6 forced);
+   ``engine="dense"`` on the card and the CPU, equal to the row-packed
+   card run; and ``backend.CRn = host`` (CR5, and CR1 with CR6, through
+   the hybrid saturator) equal to the all-device card run;
    ``verify=True`` (the closure against the CPU oracle) on every golden
    fixture through the row-packed and the dense engine, and on the 8k
    corpus; and the XML readers: the RDF/XML corpora of
@@ -60,7 +61,7 @@ Phases, each of which raises on failure:
    bucketed engines, the second replaying the first's windows, both
    equal round for round to the exact per-round run; ``warmup_paths``
    (serve profile) on the 64k corpus, then a fresh ``ServeApp``'s load
-   and class-only delta, both building nothing; the 8k corpus bucketed
+   and class-only delta, both building nothing; the cut corpus bucketed
    on the card and on the CPU, equal; and one step group of the 64k
    program run eagerly under the capture, whose heaviest operand of
    each route goes through both row-count variants against the plain
@@ -127,7 +128,8 @@ Phases, each of which raises on failure:
    forced rebuild of the class-only delta on a second classifier; then
    the delta, cross and rebound-base engines rerun under the capture,
    whose heaviest operand pair per site, engine and kernel is checked
-   as in phase 6 and joins the kernel line.
+   as in phase 6 and joins the kernel line.  (The card-and-CPU part
+   runs at the cut depth, 3,500 classes.)
 10. the observed fixed point (``saturate_observed``: the adaptive
    dense/sparse controller with pipelined dense rounds) at full width:
    ``chain_tailed_ontology(64000, 64)`` (the reference's sparse-tier
@@ -142,7 +144,7 @@ Phases, each of which raises on failure:
    in phase 6 and join the kernel line; the 64k base rebuild of the
    incremental plane with ``obs.ledger.enable`` (observed, one ledger
    record a round, ``cli runs report`` over it) beside the unobserved
-   rebuild; the 8k corpus forced on the card and on the CPU, every
+   rebuild; the cut corpus forced on the card and on the CPU, every
    round equal.
 10b. the fused K-round window (``fused_rounds``: K rounds of the
    adaptive controller a captured CUDA graph of IF nodes, one host read
@@ -153,18 +155,33 @@ Phases, each of which raises on failure:
    ``graph_if_set`` are read from that run alone, and must be > 0) and
    K = 8 adaptive, each cold and warm; the forced 64k tier at K = 8;
    the 64k ledgered rebuild with ``fused.rounds.k = 8`` from a
-   properties file against the unfused rebuild; the 8k corpus forced
+   properties file against the unfused rebuild; the cut corpus forced
    and with a one-rung overflow on the card and on the CPU, record for
    record, fallouts included; the row-count variants at the heaviest
    CR4 and CR6 windows of the forced run's final state (both routes,
    row counts 0, 1, half and all) and the IF node against a Python
    ``if``, for the kernel line.
+10c. the artifact farm (``core/artifacts.py``) across fresh processes:
+   ``cli farm-build`` of the serve tenant's 64k text with the class-only
+   delta (the rebuild's and the delta plane's program specs, the kernel
+   libraries), and again, writing nothing; a ``cli serve`` process with
+   no ``nvcc`` on ``PATH``, no ``CUDA_HOME`` and an empty build
+   directory consuming it (``--artifacts-require``): the load and the
+   delta over HTTP with ``compile_s`` 0.0 and exe hits, the taxonomy
+   equal to this process's classify, the farm's five ``/metrics``
+   series, its own launches (a ``sitecustomize`` count) of the step's
+   kernels; each kernel of the path from the farm's library in a child
+   of the same environment at the heaviest bucketed 64k operand of each
+   route, against the plain version (the kernel line's ``farm`` rows);
+   a copy with one spec byte flipped refused under
+   ``--artifacts-require`` before binding and served without it, built
+   from the engine's tables, the same taxonomy.
 11. the serve plane on the card and on the CPU (``ServeApp`` through
-   ``dispatch``): the bench's traffic over the 8k corpus without its
-   range axiom, the scheduled and snapshot reads after each write, every
+   ``dispatch``): the bench's traffic over the cut corpus (3,500
+   classes) without its range axiom, the scheduled and snapshot reads after each write, every
    answer equal; the tracked mixed trace replayed over loopback HTTP on
    both, with the row-packed and with the packed engine, every answer
-   equal; the 8k corpus and the class-only delta served by the packed
+   equal; the cut corpus and the class-only delta served by the packed
    engine on the card, its answers equal to the row-packed engine's.
 12. the resident server at full width: ``ServeApp(device="cuda")``
    behind ``make_server``, two workers, a card-memory budget (once the
@@ -229,7 +246,10 @@ unledgered rebuilds), ``{"fused_full_width": ...}`` (per run: cold and
 warm walls, rounds each window retired, fallouts, dropped windows,
 dispatch counters, the host's blocking reads, launches, and each
 captured window's K, capacities, capture seconds, recorded operations
-and card bytes),
+and card bytes), ``{"farm_full_width": ...}`` (the bake's records,
+stats and wall, the re-bake's, the consumer's start-to-serving wall,
+install record, load and delta, ``/metrics`` series and launches, the
+kernel check, the refusal and the lenient consumer),
 ``{"serve_card_vs_cpu": ...}`` and ``{"serve_full_width": ...}`` (per
 request: client wall, path, iterations, phases, launches, snapshot
 publish seconds, host peak RSS, card memory; the bytes an eviction
@@ -243,7 +263,9 @@ path launching the row-count forms, whose rows ``(bucketed step)`` are
 at the 64k program's heaviest operands;
 the sparse row also carries the listing kernel's time and launches;
 the batched dense row's numbers are from the component phase; the
-row-count variants' and the IF setter's from the fused phase),
+row-count variants' and the IF setter's from the fused phase; the rows
+marked ``"library": "farm"`` from the farm phase, their launches the
+consumer process's),
 and as its last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 Without a CUDA device it exits non-zero and prints no result.
@@ -602,9 +624,19 @@ def phase_cross_engine(row_run) -> None:
     log("[8k] packed engine identical to the row-packed engine")
 
 
-def phase_gating() -> dict:
-    """The gated fixed point at 8k, step by step on the card and on the
-    CPU from the same index: every round's S and R words and frontier
+#: the depth of the phases that hold the card to a CPU run at a cut size
+#: (``gating``, ``dense``, ``hybrid``, ``incremental_card_vs_cpu``, the
+#: CPU halves of ``bucket_full_width``, ``observed_full_width`` and
+#: ``fused_full_width``, ``serve_card_vs_cpu``): the 8k corpus's
+#: generator and seed at fewer classes, the host's share of the smoke's
+#: time budget cut so the farm phase fits; 3,500 classes keep every
+#: target of the class-only delta (``Find0``-``Find693``) a class
+CUT_CLASSES = 3500
+
+
+def phase_gating(n_classes: int = CUT_CLASSES) -> dict:
+    """The gated fixed point at the cut depth, step by step on the card
+    and on the CPU from the same index: every round's S and R words and frontier
     flags equal, and the same windows contracted and skipped — with the
     default plan, and with many L-chunks and the live-tile CR6 forced."""
     from distel_tpu_torch.config import ClassifierConfig
@@ -612,7 +644,7 @@ def phase_gating() -> dict:
     from distel_tpu_torch.frontend.ontology_tools import snomed_shaped_ontology
     from distel_tpu_torch.owl import native_loader
 
-    idx = native_loader.load_indexed(snomed_shaped_ontology(n_classes=8000, seed=42))
+    idx = native_loader.load_indexed(snomed_shaped_ontology(n_classes=n_classes, seed=42))
     # one temporary budget on both devices, so both plan alike
     budget = 1 << 28
     plans = {
@@ -620,7 +652,7 @@ def phase_gating() -> dict:
         "lc256+tiles": {"l_chunk": 256,
                         "cr6_tiles": {"density_threshold": 100.0}},
     }
-    out = {}
+    out = {"n_classes": n_classes}
     for what, kw in plans.items():
         gpu = RowPackedSaturationEngine(idx, device="cuda",
                                         temp_budget_bytes=budget, **kw)
@@ -641,14 +673,14 @@ def phase_gating() -> dict:
             t_gpu, t_cpu = t_gpu + t1 - t0, t_cpu + t2 - t1
             rnd = len(gpu.gate_rounds)
             if not (torch.equal(gs.cpu(), cs) and torch.equal(gr.cpu(), cr)):
-                raise AssertionError(f"8k gating ({what}): S/R differ in round {rnd}")
+                raise AssertionError(f"gating ({what}): S/R differ in round {rnd}")
             for a in ("changed", "dirty_l", "f4", "f6", "fd6", "cr5"):
                 if not np.array_equal(getattr(gf, a), getattr(cf, a)):
-                    raise AssertionError(f"8k gating ({what}): {a} differs in round {rnd}")
+                    raise AssertionError(f"gating ({what}): {a} differs in round {rnd}")
             if gpu.gate_rounds[-1] != cpu.gate_rounds[-1]:
-                raise AssertionError(f"8k gating ({what}): window counts differ")
+                raise AssertionError(f"gating ({what}): window counts differ")
             if rnd > 200:
-                raise AssertionError(f"8k gating ({what}): no fixed point")
+                raise AssertionError(f"gating ({what}): no fixed point")
         out[what] = {
             "rounds": len(gpu.gate_rounds),
             "windows": gpu.gate_totals(),
@@ -657,24 +689,25 @@ def phase_gating() -> dict:
             "card_steps_s": t_gpu,
             "cpu_steps_s": t_cpu,
         }
-    log(f"[8k gating] {json.dumps(out)}")
+    log(f"[gating] {json.dumps(out)}")
     print(json.dumps({"gating": out}), flush=True)
     if not sum(v["skipped"] for v in out["lc256+tiles"]["windows"].values()):
-        raise AssertionError("8k gating: no window was ever skipped")
+        raise AssertionError("gating: no window was ever skipped")
     return out
 
 
-def phase_dense(row_run) -> dict:
-    """``engine="dense"`` on the 8k corpus, on the card and on the CPU:
-    the same S and R as each other and as the row-packed card run, the
-    same derivations and taxonomy.  It runs no kernel of the port (its
-    products are matmuls), which its launch counts show."""
+def phase_dense(n_classes: int = CUT_CLASSES) -> dict:
+    """``engine="dense"`` on the cut corpus, on the card and on the CPU:
+    the same S and R as each other and as the row-packed card run of the
+    same text, the same derivations and taxonomy.  It runs no kernel of
+    the port (its products are matmuls), which its launch counts show."""
     from distel_tpu_torch.config import ClassifierConfig
     from distel_tpu_torch.frontend.ontology_tools import snomed_shaped_ontology
     from distel_tpu_torch.ops.bitmatmul import LAUNCHES, reset_launches
     from distel_tpu_torch.runtime.classifier import ELClassifier
 
-    text = snomed_shaped_ontology(n_classes=8000, seed=42)
+    text = snomed_shaped_ontology(n_classes=n_classes, seed=42)
+    row_run = ELClassifier(EXACT(), device="cuda").classify_text(text)
     cfg = ClassifierConfig(engine="dense")
     runs, walls = {}, {}
     torch.cuda.empty_cache()
@@ -691,14 +724,15 @@ def phase_dense(row_run) -> dict:
     for dev, res in runs.items():
         for x, y in zip(res.result.wire(), row_run.result.wire()):
             if not np.array_equal(x, y):
-                raise AssertionError(f"8k dense ({dev}): S/R differ from the row-packed run")
+                raise AssertionError(f"dense ({dev}): S/R differ from the row-packed run")
         if res.result.derivations != row_run.result.derivations:
-            raise AssertionError(f"8k dense ({dev}): derivations differ")
+            raise AssertionError(f"dense ({dev}): derivations differ")
         if taxonomy_key(res.taxonomy) != taxonomy_key(row_run.taxonomy):
-            raise AssertionError(f"8k dense ({dev}): taxonomy differs")
+            raise AssertionError(f"dense ({dev}): taxonomy differs")
     if runs["cuda"].result.iterations != runs["cpu"].result.iterations:
-        raise AssertionError("8k dense: card and CPU iteration counts differ")
+        raise AssertionError("dense: card and CPU iteration counts differ")
     out = {
+        "n_classes": n_classes,
         **runs["cuda"].summary(),
         "wall_s": walls["cuda"],
         "cpu_wall_s": walls["cpu"],
@@ -707,7 +741,7 @@ def phase_dense(row_run) -> dict:
         "launches": launches,
         "rowpacked_iterations": row_run.result.iterations,
     }
-    log(f"[8k dense] {json.dumps(out)}")
+    log(f"[dense] {json.dumps(out)}")
     print(json.dumps({"dense": out}), flush=True)
     return out
 
@@ -838,19 +872,20 @@ def phase_xml_corpora() -> dict:
     return out
 
 
-def phase_hybrid(row_run) -> dict:
-    """``backend.CRn = host`` at 8k on the card: CR5, and CR1 with CR6,
-    routed to the host through the hybrid saturator; the same S, R,
-    derivations and taxonomy as the all-device card run."""
-    from distel_tpu_torch.config import ClassifierConfig
+def phase_hybrid(n_classes: int = CUT_CLASSES) -> dict:
+    """``backend.CRn = host`` at the cut depth on the card: CR5, and CR1
+    with CR6, routed to the host through the hybrid saturator; the same
+    S, R, derivations and taxonomy as the all-device card run of the same
+    text."""
     from distel_tpu_torch.core.hybrid import HybridSaturator
     from distel_tpu_torch.frontend.ontology_tools import snomed_shaped_ontology
     from distel_tpu_torch.ops.bitmatmul import LAUNCHES, reset_launches
     from distel_tpu_torch.runtime.classifier import ELClassifier
 
-    text = snomed_shaped_ontology(n_classes=8000, seed=42)
+    text = snomed_shaped_ontology(n_classes=n_classes, seed=42)
+    row_run = ELClassifier(EXACT(), device="cuda").classify_text(text)
     idx = row_run.idx
-    out = {}
+    out = {"n_classes": n_classes}
     for routed in ({"CR5": "host"}, {"CR1": "host", "CR6": "host"}):
         what = "+".join(sorted(routed))
         reset_launches()
@@ -877,7 +912,7 @@ def phase_hybrid(row_run) -> dict:
             "launches": dict(LAUNCHES),
         }
     out["all_device_iterations"] = row_run.result.iterations
-    log(f"[8k hybrid] {json.dumps(out)}")
+    log(f"[hybrid] {json.dumps(out)}")
     print(json.dumps({"hybrid": out}), flush=True)
     return out
 
@@ -1883,28 +1918,43 @@ def bucket_operands(engine, res, cap: "Capture") -> None:
             raise AssertionError("64k bucketed: a step on the fixed point changed it")
 
 
-def bucket_kernel_rows(cap: "Capture", launches: dict) -> list:
-    """The bucketed 64k step's heaviest operand of each route (the pairs
-    :func:`bucket_operands` captured), through both row-count variants
-    against the plain version (0 differing words) and timed: one kernel
-    row each, with the main path's launches of the variant."""
+def bucket_heaviest(cap: "Capture") -> dict:
+    """``{variant: (site, A, B, sparse route)}``: the bucketed 64k step's
+    heaviest operand (rows × links × words) of each route, out of the
+    pairs :func:`bucket_operands` captured (taken from ``cap``)."""
     ops = []
     for (run, site, kern, bucket) in sorted(cap.pairs):
         if run != "64k-bucketed":
             continue
         n, nnz, a, b = cap.pairs.pop((run, site, kern, bucket))
-        ops.append((site, kern, nnz, a.cuda(), b.cuda()))
+        ops.append((site, kern, nnz, a, b))
+    out = {}
+    for kern, variant in (("packed_cols_dense", "packed_cols_dense_n"),
+                          ("packed_cols_sparse", "packed_cols_list_n")):
+        pool = [o for o in ops if o[1] == kern]
+        if pool:
+            site, _k, _nnz, a, b = max(pool, key=lambda o: o[3].shape[0]
+                                       * o[3].shape[1] * o[4].shape[1])
+            out[variant] = (site, a, b, kern.endswith("sparse"))
+    return out
+
+
+def bucket_kernel_rows(cap: "Capture", launches: dict) -> list:
+    """The bucketed 64k step's heaviest operand of each route
+    (:func:`bucket_heaviest`), through both row-count variants against
+    the plain version (0 differing words) and timed: one kernel row
+    each, with the main path's launches of the variant."""
     rows = []
+    heaviest = bucket_heaviest(cap)
     for kern, variant, replaces in (
         ("packed_cols_dense", "packed_cols_dense_n", REPLACES["packed_cols_dense"]),
         ("packed_cols_sparse", "packed_cols_list_n", REPLACES["packed_cols_sparse"]),
     ):
-        pool = [o for o in ops if o[1] == kern]
-        if not pool:
+        if variant not in heaviest:
             continue
-        site, _k, _nnz, a, b = max(pool, key=lambda o: o[3].shape[0] * o[3].shape[1]
-                                   * o[4].shape[1])
-        checks = check_variants([(site, a, b, kern.endswith("sparse"))])
+        site, a, b, sparse = heaviest[variant]
+        a, b = a.cuda(), b.cuda()
+        checks = check_variants([(site, a, b, sparse)])
         mine = [c for c in checks if c["kernel"] == variant]
         top = mine[0]
         row = {
@@ -1927,7 +1977,7 @@ def bucket_kernel_rows(cap: "Capture", launches: dict) -> list:
 
 def phase_bucket_full_width(default, device: str = "cuda", n_classes: int = 64000,
                             n_chain: int = 64000, chain_depth: int = 64,
-                            n_small: int = 8000, seeds=BUCKET_SEEDS):
+                            n_small: int = CUT_CLASSES, seeds=BUCKET_SEEDS):
     """Shape buckets at full width.  ``default`` is the main path's
     bucketed 64k classify (seed 42), which captured its bucket's step
     program.
@@ -2110,8 +2160,8 @@ def phase_bucket_full_width(default, device: str = "cuda", n_classes: int = 6400
             or not torch.equal(c.result.packed_s.cpu(), h.result.packed_s) \
             or not torch.equal(c.result.packed_r.cpu(), h.result.packed_r) \
             or taxonomy_key(c.taxonomy) != taxonomy_key(h.taxonomy):
-        raise AssertionError("8k bucketed: card and CPU differ")
-    out["card_vs_cpu_8k"] = small
+        raise AssertionError("cut bucketed: card and CPU differ")
+    out["card_vs_cpu_cut"] = small
     out["registry"] = PROGRAMS.stats()
     out["phase_s"] = time.perf_counter() - t_phase
     print(json.dumps({"bucket_full_width": out}), flush=True)
@@ -2204,8 +2254,8 @@ def incremental_steps(text: str):
             ("add", INC_CLOSURE_DELTA), ("retract", INC_CLASS_DELTA)]
 
 
-def phase_incremental_card_vs_cpu() -> dict:
-    """The bench's incremental traffic over the 8k corpus (without its
+def phase_incremental_card_vs_cpu(n_classes: int = CUT_CLASSES) -> dict:
+    """The bench's incremental traffic over the cut corpus (without its
     one range axiom, so that the retraction is not refused), the default
     config (the fast path engages above 2,048 concepts), on the card and
     on the CPU: after every increment, the retraction and a restore from
@@ -2214,7 +2264,7 @@ def phase_incremental_card_vs_cpu() -> dict:
     from distel_tpu_torch.core.incremental import IncrementalClassifier
     from distel_tpu_torch.frontend.ontology_tools import snomed_shaped_ontology
 
-    text = without_ranges(snomed_shaped_ontology(n_classes=8000, seed=42))
+    text = without_ranges(snomed_shaped_ontology(n_classes=n_classes, seed=42))
     steps = incremental_steps(text)
     log_ops = [t for _op, t in steps[:-1]] + [{"op": "retract", "text": INC_CLASS_DELTA}]
     SNAPSHOT_DIR.mkdir(parents=True, exist_ok=True)
@@ -2226,7 +2276,7 @@ def phase_incremental_card_vs_cpu() -> dict:
         for op, t in steps:
             res = inc.add_text(t) if op == "add" else inc.retract(t)
             wires.append(res.wire())
-        path = str(SNAPSHOT_DIR / f"inc8k-{dev}.npz")
+        path = str(SNAPSHOT_DIR / f"inc-cut-{dev}.npz")
         inc.snapshot(path, compressed=False)
         back = IncrementalClassifier.restore(log_ops, path, EXACT(), device=dev)
         wires.append(back.last_result.wire())
@@ -2246,8 +2296,8 @@ def phase_incremental_card_vs_cpu() -> dict:
         raise AssertionError(f"incremental 8k: paths {paths}")
     if hc[-1]["new_derivations"] != 0:
         raise AssertionError("incremental 8k: the restore derived something")
-    out = {"history": hc, "cuda_s": tc, "cpu_s": tp}
-    log(f"[incremental 8k] {json.dumps(out)}")
+    out = {"n_classes": n_classes, "history": hc, "cuda_s": tc, "cpu_s": tp}
+    log(f"[incremental card/cpu] {json.dumps(out)}")
     print(json.dumps({"incremental_card_vs_cpu": out}), flush=True)
     return out
 
@@ -2526,7 +2576,7 @@ def same_closure(a, b) -> bool:
 
 def phase_observed_full_width(cap: Capture, device: str = "cuda",
                               n_chain: int = 64000, chain_depth: int = 64,
-                              n_big: int = 64000, n_small: int = 8000,
+                              n_big: int = 64000, n_small: int = CUT_CLASSES,
                               min_sparse: int = 20):
     """The observed fixed point (``saturate_observed``: the adaptive
     dense/sparse controller, pipelined dense rounds) at full width:
@@ -2551,7 +2601,7 @@ def phase_observed_full_width(cap: Capture, device: str = "cuda",
        rebuild's and the classify's, its ledger holds one record a
        retired round and ``cli runs report`` reads its chain; both
        rebuilds' walls;
-    4. the 8k corpus, forced tier, ``unroll=1``, on the card and on the
+    4. the cut corpus, forced tier, ``unroll=1``, on the card and on the
        CPU: every round's record, the observer's sequence, S and R
        equal.
 
@@ -2769,8 +2819,8 @@ def phase_observed_full_width(cap: Capture, device: str = "cuda",
                      sparse_tail=FORCED_WIDE)
     if round_records(g[1]) != round_records(c[1]) or g[0] != c[0] \
             or not same_closure(g[2], c[2]):
-        raise AssertionError("8k forced: card and CPU rounds differ")
-    out["card_vs_cpu_8k"] = {
+        raise AssertionError("cut forced: card and CPU rounds differ")
+    out["card_vs_cpu_cut"] = {
         "concepts": idx8.n_concepts, "tiers": tier_string(g[1]),
         "rounds": len(g[1]), "wall_s": {"card": g[3], "cpu": c[3]},
         "sparse_round_launches": sparse_launches(g[1]),
@@ -2778,7 +2828,7 @@ def phase_observed_full_width(cap: Capture, device: str = "cuda",
     del g, c
     free()
     out["phase_s"] = time.perf_counter() - t_phase
-    log(f"[observed] {json.dumps(out['card_vs_cpu_8k'])} phase {out['phase_s']:.1f} s")
+    log(f"[observed] {json.dumps(out['card_vs_cpu_cut'])} phase {out['phase_s']:.1f} s")
     print(json.dumps({"observed_full_width": out}), flush=True)
     return pairs
 
@@ -2947,7 +2997,7 @@ def graph_if_check() -> dict:
 
 def phase_fused_full_width(device: str = "cuda", n_chain: int = 64000,
                            chain_depth: int = 64, n_big: int = 64000,
-                           n_small: int = 8000):
+                           n_small: int = CUT_CLASSES):
     """The fused K-round window (``fused_rounds``: K rounds of the
     adaptive controller a captured CUDA graph, one host read a window)
     at full width, each run held round for round and in closure to the
@@ -2969,7 +3019,7 @@ def phase_fused_full_width(device: str = "cuda", n_chain: int = 64000,
        ``obs.ledger.enable = true`` and ``fused.rounds.k = 8`` read from
        a properties file: the closure of the unfused (unobserved)
        rebuild, ledger records with ``rounds_in_window`` > 1;
-    4. the 8k corpus, K = 4, forced and with the one-rung overflow
+    4. the cut corpus, K = 4, forced and with the one-rung overflow
        config, on the card and on the CPU: every record (window sizes
        and occupancy included), the observer's sequence, S and R equal.
 
@@ -3114,7 +3164,7 @@ def phase_fused_full_width(device: str = "cuda", n_chain: int = 64000,
 
     # 4. card vs CPU at 8k: forced and overflow, K = 4
     idx8 = native_loader.load_indexed(snomed_shaped_ontology(n_classes=n_small, seed=42))
-    out["card_vs_cpu_8k"] = {}
+    out["card_vs_cpu_cut"] = {}
     for label, sparse in (("forced", FORCED_WIDE), ("overflow", OVERFLOW_8)):
         g, ginfo = fused_run(RowPackedSaturationEngine(idx8, device=device, unroll=1),
                              sparse_tail=sparse, fused_rounds={"rounds": 4})
@@ -3126,8 +3176,8 @@ def phase_fused_full_width(device: str = "cuda", n_chain: int = 64000,
                   for x, r in zip(fused_records(c[1]), c[1])]
         if recs_g != recs_c or g[0] != c[0] or not same_closure(g[2], c[2]) \
                 or ginfo["fallouts"] != cinfo["fallouts"]:
-            raise AssertionError(f"8k {label}: card and CPU fused runs differ")
-        out["card_vs_cpu_8k"][label] = {
+            raise AssertionError(f"cut {label}: card and CPU fused runs differ")
+        out["card_vs_cpu_cut"][label] = {
             "tiers": tier_string(g[1]), "window_rounds": ginfo["windows"],
             "fallouts": ginfo["fallouts"], "wall_s": {"card": g[3], "cpu": c[3]},
         }
@@ -3135,7 +3185,7 @@ def phase_fused_full_width(device: str = "cuda", n_chain: int = 64000,
     free()
     if_check = graph_if_check()
     out["phase_s"] = time.perf_counter() - t_phase
-    log(f"[fused] 8k {json.dumps(out['card_vs_cpu_8k'])} phase {out['phase_s']:.1f} s")
+    log(f"[fused] cut {json.dumps(out['card_vs_cpu_cut'])} phase {out['phase_s']:.1f} s")
     print(json.dumps({"fused_full_width": out}), flush=True)
 
     rows = []
@@ -3297,15 +3347,15 @@ def replay_answers(app):
     return rec, client.answers
 
 
-def phase_serve_card_vs_cpu() -> dict:
+def phase_serve_card_vs_cpu(n_classes: int = CUT_CLASSES) -> dict:
     """The serve plane on the card and on the CPU: ``ServeApp()`` (the
     card by default) and ``ServeApp(device="cpu")`` driven through
-    ``dispatch`` with the bench's traffic over the 8k corpus without its
+    ``dispatch`` with the bench's traffic over the cut corpus without its
     range axiom (load, the three deltas, the retraction; the scheduled
     and snapshot reads after each write), every answer equal; then the
     tracked mixed trace replayed over loopback HTTP against a card and a
     CPU server, and again with ``engine = packed``, whose card app then
-    also serves the 8k corpus and the class-only delta — every answer
+    also serves the cut corpus and the class-only delta — every answer
     equal.  Launch counts are zeroed just before each card app's traffic
     and read just after."""
     from distel_tpu_torch.config import ClassifierConfig
@@ -3315,13 +3365,13 @@ def phase_serve_card_vs_cpu() -> dict:
 
     from distel_tpu_torch.runtime.classifier import resolve_device
 
-    text8 = snomed_shaped_ontology(n_classes=8000, seed=42)
+    text8 = snomed_shaped_ontology(n_classes=n_classes, seed=42)
     text = without_ranges(text8)
-    out, answers = {}, {}
+    out, answers = {"n_classes": n_classes}, {}
     for dev in ("cuda", "cpu"):
         app = ServeApp(EXACT()) if dev == "cuda" else ServeApp(EXACT(), device="cpu")
         if app.registry.device != resolve_device(dev):
-            raise AssertionError(f"serve 8k: ServeApp runs on {app.registry.device}")
+            raise AssertionError(f"serve card/cpu: ServeApp runs on {app.registry.device}")
         reset_launches()
         t0 = time.perf_counter()
         answers[dev] = serve_steps(app, text)
@@ -3336,7 +3386,7 @@ def phase_serve_card_vs_cpu() -> dict:
     torch.cuda.empty_cache()
     for i, (c, p) in enumerate(zip(answers["cuda"], answers["cpu"])):
         if without_build(c) != without_build(p):
-            raise AssertionError(f"serve 8k: answer {i} differs card/cpu: "
+            raise AssertionError(f"serve card/cpu: answer {i} differs card/cpu: "
                                  f"{str(c)[:300]} / {str(p)[:300]}")
     # BenchDelta3 is unknown (404) to the reads naming it before the
     # class-only delta adds it, and to the taxonomy's subsumers after its
@@ -3345,15 +3395,15 @@ def phase_serve_card_vs_cpu() -> dict:
     refused = {i: st for i, (st, _a) in enumerate(answers["cuda"]) if st not in (200, 201)}
     if len(answers["cuda"]) != len(answers["cpu"]) or \
             refused != {2: 404, 3: 404, 30: 404}:
-        raise AssertionError(f"serve 8k: requests refused: {refused}")
+        raise AssertionError(f"serve card/cpu: requests refused: {refused}")
     writes = [a for st, a in answers["cuda"] if st in (200, 201) and "path" in a]
     out["paths"] = [w["path"] for w in writes]
     if out["paths"] != ["rebuild", "fast", "fast", "fast", "retract"] and \
             out["paths"] != ["rebuild", "fast", "fast", "rebuild", "retract"]:
-        raise AssertionError(f"serve 8k: paths {out['paths']}")
+        raise AssertionError(f"serve card/cpu: paths {out['paths']}")
     for k in out["chosen"]:
         if out["launches"][k] == 0:
-            raise AssertionError(f"serve 8k: {k} was never launched")
+            raise AssertionError(f"serve card/cpu: {k} was never launched")
     out["answers"] = len(answers["cuda"])
     # the tracked trace on the card and the CPU; then the card app also
     # serves the 8k corpus and the class-only delta, and the packed
@@ -3391,13 +3441,13 @@ def phase_serve_card_vs_cpu() -> dict:
         out[f"replay_{engine}"] = {"record": rc, "answers": len(gc_),
                                    "cuda_s": tc, "cpu_s": tp, "launches": lc}
         ops, t8, l8 = tenant[engine]
-        out[f"tenant8k_{engine}"] = {"wall_s": t8, "launches": l8,
+        out[f"tenant_{engine}"] = {"wall_s": t8, "launches": l8,
                                      "paths": [a["path"] for _s, a in ops[:2]]}
     # the trace's toy tenants reach the packed-columns kernels through
     # their taxonomy products at least; the packed tenant's CR4/CR6 run
     # the packed-contraction route
     for engine, lc in (("auto", out["replay_auto"]["launches"]),
-                       ("packed", out["tenant8k_packed"]["launches"])):
+                       ("packed", out["tenant_packed"]["launches"])):
         ran = lc["packed_andor_list"] if engine == "packed" else \
             lc["packed_cols_dense"] + lc["packed_cols_sparse"]
         if ran == 0:
@@ -3413,9 +3463,9 @@ def phase_serve_card_vs_cpu() -> dict:
                     for st, a in tenant[e][0]] for e in ("auto", "packed"))
     if row != packed:
         bad = next(i for i, (x, y) in enumerate(zip(row, packed)) if x != y)
-        raise AssertionError(f"serve 8k: the packed engine's answer {bad} differs: "
+        raise AssertionError(f"serve card/cpu: the packed engine's answer {bad} differs: "
                              f"{str(packed[bad])[:300]} / {str(row[bad])[:300]}")
-    log(f"[serve 8k] {json.dumps(out)}")
+    log(f"[serve card/cpu] {json.dumps(out)}")
     print(json.dumps({"serve_card_vs_cpu": out}), flush=True)
     return out
 
@@ -3695,7 +3745,8 @@ FLEET_COUNTS = ROOT / "build" / "smoke_fleet_counts"
 COUNTS_PERIOD_S = 0.25
 
 #: The replicas' ``sitecustomize``: in a process started with
-#: ``--replica-id``, a thread writes the process's kernel launches
+#: ``--replica-id`` (or with ``SMOKE_COUNTS_RID`` in its environment, the
+#: farm phase's consumer), a thread writes the process's kernel launches
 #: (``ops.bitmatmul.LAUNCHES``, which count from 0 at import) and its
 #: CUDA caching allocator's bytes to ``<counts>/<rid>_<pid>.json`` every
 #: ``COUNTS_PERIOD_S`` and once more at exit (a graceful stop returns
@@ -3722,8 +3773,9 @@ if _spec is not None and _spec.loader is not None:
 with open("/proc/self/cmdline", "rb") as _f:
     _ARGV = _f.read().decode().split("\\0")
 
-if "--replica-id" in _ARGV:
-    _RID = _ARGV[_ARGV.index("--replica-id") + 1]
+_RID = (_ARGV[_ARGV.index("--replica-id") + 1] if "--replica-id" in _ARGV
+        else os.environ.get("SMOKE_COUNTS_RID"))
+if _RID:
     _PATH = os.path.join(COUNTS, "%s_%d.json" % (_RID, os.getpid()))
     _STARTED = time.time()
 
@@ -4755,6 +4807,449 @@ def phase_andor_operands(packed, launches: dict, checks: list) -> dict:
     }
 
 
+# ------------------------------------------------------- the artifact farm
+
+FARM_DIR = ROOT / "build" / "smoke_farm"
+FARM_WORK = ROOT / "build" / "smoke_farm_work"
+
+#: the child that checks the farm's kernels: it installs the farm's
+#: libraries with no toolkit in reach (its build directory empty; the
+#: programs it would not run are not built), then runs both row-count
+#: variants on the heaviest bucketed 64k operand of each route against
+#: the plain version (:func:`check_variants`), loaded from them
+FARM_CHECK = r'''
+import json, sys
+import torch
+sys.path.insert(0, sys.argv[1])
+import chip_smoke as S
+from distel_tpu_torch.core import artifacts
+from distel_tpu_torch.ops import build
+
+store = artifacts.ArtifactStore(sys.argv[2])
+if store.env_mismatch("cuda") is not None:
+    raise artifacts.ArtifactError(store.env_mismatch("cuda"))
+before = build.CACHE_EVENTS.snapshot()
+libraries = store.install_libraries(require=True)
+for name in libraries:
+    build.load(name)
+after = build.CACHE_EVENTS.snapshot()
+ops = torch.load(sys.argv[3])
+checks = S.check_variants([(o["site"], o["a"].cuda(), o["b"].cuda(),
+                            o["sparse"]) for o in ops])
+print(json.dumps({"libraries": libraries,
+                  "nvcc_runs": after["misses"] - before["misses"],
+                  "persistent_cache_hits": after["hits"] - before["hits"],
+                  "checks": checks}))
+'''
+
+
+def toolkit_free_env(build_dir: Path, rid=None) -> dict:
+    """This process's environment with no CUDA toolkit in reach: no
+    ``nvcc`` on ``PATH``, a ``CUDA_HOME`` that does not exist, an empty
+    kernel build directory; the tree (and, with ``rid``, the counting
+    ``sitecustomize`` of :data:`REPLICA_HOOK`) on ``PYTHONPATH``."""
+    path = os.pathsep.join(d for d in os.environ.get("PATH", "").split(os.pathsep)
+                           if d and not os.path.exists(os.path.join(d, "nvcc")))
+    if shutil.which("nvcc", path=path):
+        raise AssertionError("farm: nvcc still on the consumer's PATH")
+    shutil.rmtree(build_dir, ignore_errors=True)
+    build_dir.mkdir(parents=True)
+    env = {**os.environ, "PATH": path, "CUDA_HOME": str(FARM_WORK / "no-cuda"),
+           "DISTEL_TORCH_BUILD_DIR": str(build_dir),
+           "PYTHONPATH": str(ROOT)}
+    if rid is not None:
+        env["SMOKE_COUNTS_RID"] = rid
+        env["PYTHONPATH"] = os.pathsep.join([str(FLEET_SITE), str(ROOT)])
+    return env
+
+
+def spawn_serve(args, env, log_path: Path):
+    """``cli serve`` on an ephemeral port in a fresh process, its output
+    to ``log_path``."""
+    with open(log_path, "w") as log:
+        return subprocess.Popen(
+            [sys.executable, "-m", "distel_tpu_torch.cli", "serve", "--host",
+             "127.0.0.1", "--port", "0", "--device", "cuda", *args],
+            stdout=log, stderr=subprocess.STDOUT, env=env, cwd=str(ROOT))
+
+
+def start_serve(args, env, log_path: Path, timeout_s: float = 300, proc=None):
+    """``cli serve`` in a fresh process (or ``proc``, spawned by
+    :func:`spawn_serve`); returns the process and its start line (None
+    when it exited first)."""
+    if proc is None:
+        proc = spawn_serve(args, env, log_path)
+    deadline = time.monotonic() + timeout_s
+    while time.monotonic() < deadline:
+        for ln in log_path.read_text().splitlines():
+            if ln.startswith('{"serving"'):
+                return proc, json.loads(ln)
+        if proc.poll() is not None:
+            return proc, None
+        time.sleep(0.1)
+    proc.kill()
+    raise AssertionError(f"farm: serve {args} printed no start line in {timeout_s} s")
+
+
+def stop(proc, timeout_s: float = 60) -> int:
+    if proc.poll() is None:
+        proc.terminate()
+        try:
+            proc.wait(timeout=timeout_s)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait(timeout=30)
+    return proc.returncode
+
+
+def bake_process(cmd, prefix: Path, env=None):
+    """``cmd`` in a fresh process, its output to ``<prefix>.out/.err``."""
+    with open(f"{prefix}.out", "w") as fo, open(f"{prefix}.err", "w") as fe:
+        return subprocess.Popen(cmd, stdout=fo, stderr=fe, cwd=str(ROOT), env=env)
+
+
+def bake_result(proc, prefix: Path, timeout_s: float = 600):
+    """Wait for a :func:`bake_process`; its standard output and error."""
+    proc.wait(timeout=timeout_s)
+    return Path(f"{prefix}.out").read_text(), Path(f"{prefix}.err").read_text()
+
+
+def farm_metric(page: str, name: str):
+    m = re.search(rf"^{name} (\S+)$", page, re.M)
+    return float(m.group(1)) if m else None
+
+
+FARM_SERIES = ("distel_artifact_exe_hits_total", "distel_artifact_hlo_hits_total",
+               "distel_artifact_misses_total", "distel_artifact_rejected_total",
+               "distel_persistent_cache_hits_total")
+
+
+def phase_farm_full_width(n_classes: int = 64000):
+    """The artifact farm (``core/artifacts.py``) at full width, across
+    fresh processes on the card:
+
+    1. bake: ``cli farm-build --profile serve --delta <the 100-axiom
+       class-only delta>`` on the 64k corpus without its range axiom (the
+       serve tenant's text), so the farm holds the rebuild's and the
+       delta plane's program specs and the kernel libraries; its records,
+       the manifest's stats and its wall; the same command again must
+       write nothing;
+    2. consume: ``cli serve --artifacts-dir ... --artifacts-require`` in
+       a fresh process with no ``nvcc`` on ``PATH``, a ``CUDA_HOME`` that
+       does not exist and an empty build directory: its install record
+       (0 ``nvcc`` runs, the libraries as persistent-cache hits, each
+       program's capture seconds and bytes); the text loaded over HTTP,
+       then the class-only delta, both with ``compile_s`` 0.0 and exe
+       hits, the delta on the fast path; the served taxonomy equal to
+       this process's classify of the same text; ``/metrics`` with the
+       farm's five series; the process's own launches (its
+       ``sitecustomize`` counts) of the step's kernels > 0;
+    3. in a ``python -c`` child with the same environment, each kernel
+       of the path (both row-count variants) on the heaviest bucketed
+       64k operand of each route against its plain version, loaded from
+       the farm's library: 0 differing words (the kernel line's ``farm``
+       rows);
+    4. refuse: one byte of the load's program spec flipped in a copy of
+       the farm: ``serve --artifacts-require`` exits non-zero before it
+       binds, naming the checksum; without ``--artifacts-require`` it
+       serves the load and the delta, the rejection counted, the program
+       built from the engine's tables, the same taxonomy.  Beside them, a
+       fresh ``cli serve`` with no farm and an empty build directory
+       (``nvcc`` in reach; booted during step 3, its requests held until
+       the kernel check is done), its load and delta building their
+       programs and the library: the cold start without the farm.  These
+       three, and the re-bake of step 1, run side by side (their walls
+       are taken beside each other: step 2 runs alone).
+
+    Returns the kernel line's farm rows."""
+    from distel_tpu_torch.core import artifacts
+    from distel_tpu_torch.frontend.ontology_tools import snomed_shaped_ontology
+    from distel_tpu_torch.runtime.classifier import ELClassifier
+    from distel_tpu_torch.serve.client import ServeClient
+
+    import threading
+
+    from distel_tpu_torch.core.program_cache import PROGRAMS
+
+    t_phase = time.perf_counter()
+    # the card is shared with up to four processes of this phase: the
+    # programs earlier phases left in this process's registry go first
+    PROGRAMS.clear()
+    torch.cuda.empty_cache()
+    out = {}
+    shutil.rmtree(FARM_DIR, ignore_errors=True)
+    shutil.rmtree(FARM_WORK, ignore_errors=True)
+    FARM_WORK.mkdir(parents=True)
+    text = without_ranges(snomed_shaped_ontology(n_classes=n_classes, seed=42))
+    corpus, delta = FARM_WORK / "serve64k.ofn", FARM_WORK / "class_delta.ofn"
+    corpus.write_text(text)
+    delta.write_text(INC_CLASS_DELTA + "\n")
+    bake_cmd = [sys.executable, "-m", "distel_tpu_torch.cli", "farm-build",
+                str(corpus), "--out", str(FARM_DIR), "--profile", "serve",
+                "--delta", str(delta), "--device", "cuda"]
+    procs = []
+    check_done = threading.Event()
+    try:
+        # 1. the bake, beside this process's classify of the text and
+        # the delta (the taxonomy every consumer is held to) and the
+        # heaviest operand of each route of its bucketed step
+        t0 = time.perf_counter()
+        bake = bake_process(bake_cmd, FARM_WORK / "bake")
+        procs.append(bake)
+        ref = ELClassifier(device="cuda").classify_text(
+            text + "\n" + INC_CLASS_DELTA + "\n")
+        want = taxonomy_key(ref.taxonomy)
+        ops_cap = Capture()
+        bucket_operands(ref.engine, ref.result, ops_cap)
+        ops = [{"site": site, "a": a.cpu(), "b": b.cpu(), "sparse": sparse}
+               for _variant, (site, a, b, sparse) in
+               sorted(bucket_heaviest(ops_cap).items())]
+        del ref, ops_cap
+        torch.cuda.empty_cache()
+        ops_path = FARM_WORK / "operands.pt"
+        torch.save(ops, ops_path)
+        stdout, stderr = bake_result(bake, FARM_WORK / "bake")
+        out["bake_s"] = time.perf_counter() - t0
+        if bake.returncode != 0:
+            raise AssertionError(f"farm-build exited {bake.returncode}: {stderr[-3000:]}")
+        lines = [json.loads(ln) for ln in stdout.splitlines() if ln.startswith("{")]
+        out["bake"] = lines[-1]
+        out["bake_records"] = [{k: r.get(k) for k in (
+            "profile", "bucket_signature", "path", "compile_s", "delta_programs",
+            "artifact_serialized", "artifact_unserializable", "wall_s")}
+            for r in lines[:-1]]
+        stats = lines[-1]
+        log(f"[farm bake] {out['bake_s']:.2f} s {json.dumps(stats)}")
+        # the phase's clock at each step's end (s)
+        out["clock_s"] = {"bake": time.perf_counter() - t_phase}
+        if stats["exe"] < 2 or stats["kernels"] != 2 or not stats["nvcc"]:
+            raise AssertionError(f"farm: the bake shipped {stats}")
+
+        # 2. a fresh serve process with no toolkit consumes it
+        install_replica_hook()
+        env = toolkit_free_env(FARM_WORK / "consumer_build", rid="farm")
+        t0 = time.perf_counter()
+        proc, start = start_serve(["--artifacts-dir", str(FARM_DIR),
+                                   "--artifacts-require"], env,
+                                  FARM_WORK / "consumer.log")
+        procs.append(proc)
+        boot_s = time.perf_counter() - t0
+        if start is None:
+            raise AssertionError("farm: the consumer did not start: "
+                                 + (FARM_WORK / "consumer.log").read_text()[-3000:])
+        inst = start["artifacts"]
+        if not inst["installed"] or inst["nvcc_runs"] != 0 or \
+                inst["persistent_cache_hits"] != stats["kernels"] or \
+                inst["programs_built"] != stats["exe"]:
+            raise AssertionError(f"farm: the consumer's install {inst}")
+        client = ServeClient(f"http://127.0.0.1:{start['port']}", timeout=600)
+        # the launches of the load and the delta: the counts after them
+        # less those after the install (its warm-up launches)
+        counts0 = fresh_counts({"farm": proc.pid})["farm"]["launches"] or {}
+        t0 = time.perf_counter()
+        load = client.load(text)
+        load_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        drec = client.delta(load["id"], INC_CLASS_DELTA)
+        delta_s = time.perf_counter() - t0
+        # the kernel check's child starts now: the consumer's card work is
+        # done, what is left of it (its reads and its exit) is the host's
+        t_check = time.perf_counter()
+        check_proc = bake_process(
+            [sys.executable, "-c", FARM_CHECK, str(ROOT), str(FARM_DIR), str(ops_path)],
+            FARM_WORK / "check", env=toolkit_free_env(FARM_WORK / "check_build"))
+        procs.append(check_proc)
+        # the cold consumer (no farm) boots now too; its requests wait for
+        # the kernel check's end
+        cold_env = {**os.environ, "PYTHONPATH": str(ROOT),
+                    "DISTEL_TORCH_BUILD_DIR": str(FARM_WORK / "cold_build")}
+        cold = spawn_serve([], cold_env, FARM_WORK / "cold.log")
+        procs.append(cold)
+        cold_out = {}
+
+        def cold_start():
+            """The cold consumer's start, then (once the kernel check is
+            done) its load and delta: a thread, the lenient consumer's
+            requests run meanwhile."""
+            t_cold = time.perf_counter()
+            _p, st = start_serve([], cold_env, FARM_WORK / "cold.log", proc=cold)
+            if st is None:
+                return
+            cold_out["boot_s"] = time.perf_counter() - t_cold
+            check_done.wait(timeout=600)
+            c = ServeClient(f"http://127.0.0.1:{st['port']}", timeout=600)
+            t1 = time.perf_counter()
+            cold_out["load"] = c.load(text)
+            cold_out["load_s"] = time.perf_counter() - t1
+            t1 = time.perf_counter()
+            cold_out["delta"] = c.delta(cold_out["load"]["id"], INC_CLASS_DELTA)
+            cold_out["delta_s"] = time.perf_counter() - t1
+
+        cold_thread = threading.Thread(target=cold_start, name="farm-cold",
+                                       daemon=True)
+        cold_thread.start()
+        served = client.taxonomy(load["id"])
+        page = client.metrics_text()
+        counts = fresh_counts({"farm": proc.pid})["farm"]
+        proc.terminate()
+        keys = ("compile_s", "trace_lower_s", "program_cache_hit", "artifact_hits",
+                "path", "iterations", "bucket_signature", "delta_programs",
+                "delta_program_hits")
+        out["consumer"] = {
+            "boot_s": boot_s, "install_s": inst["install_s"],
+            "libraries": inst["libraries"], "nvcc_runs": inst["nvcc_runs"],
+            "persistent_cache_hits": inst["persistent_cache_hits"],
+            "programs": inst["programs"],
+            "load_s": load_s, "delta_s": delta_s,
+            "load": {k: load.get(k) for k in keys},
+            "delta": {k: drec.get(k) for k in keys},
+            "metrics": {n: farm_metric(page, n) for n in FARM_SERIES},
+            "launches": {k: v - counts0.get(k, 0)
+                         for k, v in (counts["launches"] or {}).items()
+                         if v - counts0.get(k, 0)},
+        }
+        log(f"[farm consumer] {json.dumps(out['consumer'])}")
+        out["clock_s"]["consumer"] = time.perf_counter() - t_phase
+        for what, rec in (("load", load), ("delta", drec)):
+            if rec.get("compile_s") != 0.0 or \
+                    not (rec.get("artifact_hits") or {}).get("exe_hits"):
+                raise AssertionError(f"farm: the consumer's {what} built: {rec}")
+        if drec.get("path") != "fast":
+            raise AssertionError(f"farm: the delta took {drec.get('path')}")
+        if (served["parents"], served["equivalents"],
+                sorted(served["unsatisfiable"])) != want:
+            raise AssertionError("farm: the served taxonomy differs from the classify")
+        met = out["consumer"]["metrics"]
+        if None in met.values() or not met["distel_artifact_exe_hits_total"] or \
+                met["distel_artifact_rejected_total"] != 0:
+            raise AssertionError(f"farm: the consumer's /metrics {met}")
+        for k in ("packed_cols_dense_n", "packed_cols_list_n", "packed_cols_sparse"):
+            if not out["consumer"]["launches"].get(k):
+                raise AssertionError(f"farm: the consumer never launched {k}")
+
+        # 3. the path's kernels from the farm's library, in the child
+        stdout, stderr = bake_result(check_proc, FARM_WORK / "check", timeout_s=300)
+        if check_proc.returncode != 0:
+            raise AssertionError(f"farm: the kernel check exited "
+                                 f"{check_proc.returncode}: {stderr[-3000:]}")
+        check = json.loads(stdout.splitlines()[-1])
+        out["check"] = {"wall_s": time.perf_counter() - t_check,
+                        **{k: check[k] for k in ("libraries", "nvcc_runs",
+                                                 "persistent_cache_hits")}}
+        if check["nvcc_runs"] != 0 or any(c["max_abs_err"] for c in check["checks"]):
+            raise AssertionError(f"farm: the kernel check {check}")
+        out["clock_s"]["check"] = time.perf_counter() - t_phase
+
+        # 4. a corrupt copy, with and without --artifacts-require; the
+        # re-bake beside it
+        rebake = bake_process(bake_cmd, FARM_WORK / "rebake")
+        procs.append(rebake)
+        t_rebake = time.perf_counter()
+        bad = FARM_WORK / "bad_farm"
+        shutil.copytree(FARM_DIR, bad)
+        manifest = json.loads((bad / artifacts.MANIFEST_NAME).read_text())
+        spec = next(e["file"] for e in manifest["artifacts"].values()
+                    if e.get("kind") == "step"
+                    and e.get("bucket_signature") == load["bucket_signature"])
+        blob = bytearray((bad / spec).read_bytes())
+        blob[len(blob) // 2] ^= 0xFF
+        (bad / spec).write_bytes(bytes(blob))
+        t0 = time.perf_counter()
+        refused = bake_process(
+            [sys.executable, "-m", "distel_tpu_torch.cli", "serve", "--port", "0",
+             "--device", "cuda", "--artifacts-dir", str(bad), "--artifacts-require"],
+            FARM_WORK / "refused", env=toolkit_free_env(FARM_WORK / "refused_build"))
+        procs.append(refused)
+        check_done.set()
+        proc, start = start_serve(["--artifacts-dir", str(bad)],
+                                  toolkit_free_env(FARM_WORK / "lenient_build"),
+                                  FARM_WORK / "lenient.log")
+        procs.append(proc)
+        if start is None:
+            raise AssertionError("farm: the lenient consumer did not start: "
+                                 + (FARM_WORK / "lenient.log").read_text()[-3000:])
+        client = ServeClient(f"http://127.0.0.1:{start['port']}", timeout=600)
+        lload = client.load(text)
+        ldelta = client.delta(lload["id"], INC_CLASS_DELTA)
+        lserved = client.taxonomy(lload["id"])
+        lpage = client.metrics_text()
+        proc.terminate()
+        out["lenient"] = {
+            "wall_s": time.perf_counter() - t0,
+            "install": {k: start["artifacts"].get(k) for k in (
+                "installed", "programs_built", "install_s")},
+            "load": {k: lload.get(k) for k in keys},
+            "delta": {k: ldelta.get(k) for k in keys},
+            "rejected": farm_metric(lpage, "distel_artifact_rejected_total"),
+        }
+        log(f"[farm lenient] {json.dumps(out['lenient'])}")
+        if out["lenient"]["rejected"] != 1 or lload.get("program_cache_hit") or \
+                not lload.get("compile_s"):
+            raise AssertionError(f"farm: the corrupt farm without require {out['lenient']}")
+        if (lserved["parents"], lserved["equivalents"],
+                sorted(lserved["unsatisfiable"])) != want:
+            raise AssertionError("farm: the lenient taxonomy differs from the classify")
+        cold_thread.join(timeout=600)
+        cold.terminate()
+        if "delta" not in cold_out:
+            raise AssertionError("farm: the cold consumer did not serve: "
+                                 + (FARM_WORK / "cold.log").read_text()[-3000:])
+        out["cold"] = {"boot_s": cold_out["boot_s"], "load_s": cold_out["load_s"],
+                       "delta_s": cold_out["delta_s"],
+                       "load": {k: cold_out["load"].get(k) for k in keys + (
+                           "persistent_cache_misses",)},
+                       "delta": {k: cold_out["delta"].get(k) for k in keys}}
+        # the library the cold process built with nvcc
+        out["cold"]["built"] = sorted(p.name for p in
+                                      (FARM_WORK / "cold_build").glob("lib*.so"))
+        log(f"[farm cold] {json.dumps(out['cold'])}")
+        if not out["cold"]["load"]["compile_s"] or not out["cold"]["built"]:
+            raise AssertionError(f"farm: the cold consumer built nothing {out['cold']}")
+        stdout, stderr = bake_result(refused, FARM_WORK / "refused", timeout_s=300)
+        out["refused"] = {"exit": refused.returncode,
+                          "error": stderr.strip().splitlines()[-1][-300:]
+                          if stderr.strip() else ""}
+        if refused.returncode == 0 or '"serving"' in stdout or "sha256" not in stderr:
+            raise AssertionError(f"farm: the corrupt farm under require {out['refused']}")
+        stdout, stderr = bake_result(rebake, FARM_WORK / "rebake")
+        out["rebake_s"] = time.perf_counter() - t_rebake
+        if rebake.returncode != 0:
+            raise AssertionError(f"farm re-bake exited {rebake.returncode}: {stderr[-3000:]}")
+        again = json.loads(stdout.splitlines()[-1])
+        out["rebake"] = {k: again[k] for k in ("written", "manifest_written", "exe",
+                                               "hlo_cache_keys", "kernels", "wall_s")}
+        if again["written"] != 0 or again["manifest_written"]:
+            raise AssertionError(f"farm: the re-bake wrote {out['rebake']}")
+    finally:
+        check_done.set()
+        for p in procs:
+            stop(p, timeout_s=30)
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(json.dumps({"farm_full_width": out}), flush=True)
+
+    rows = []
+    by_kernel = {c["kernel"]: c for c in check["checks"] if c["main_path"]}
+    for variant in ("packed_cols_dense_n", "packed_cols_list_n"):
+        c = by_kernel[variant]
+        base = "packed_cols_dense" if variant == "packed_cols_dense_n" \
+            else "packed_cols_sparse"
+        row = {
+            "name": f"{variant} (farm consumer)", "route": "cuda", "source": SOURCE,
+            "replaces": REPLACES[base],
+            "launches": out["consumer"]["launches"].get(variant, 0),
+            "max_abs_err": max(x["max_abs_err"] for x in check["checks"]),
+            "ms": c["ms"], "plain_ms": c["plain_ms"], "bound_ms": c["bound_ms"],
+            "bound_by": c["bound_by"], "library_ms": None, "dead_ms": c["dead_ms"],
+            "library": "farm", "at": {"run": "64k-bucketed", "site": c["rule"],
+                                      "shape": c["shape"]},
+        }
+        if variant == "packed_cols_list_n":
+            row["sparse_launches"] = out["consumer"]["launches"].get(
+                "packed_cols_sparse", 0)
+        rows.append(row)
+    return rows
+
+
 class Tee:
     """A text stream that writes to two (flushing both)."""
 
@@ -4801,8 +5296,8 @@ def main() -> int:
     row8k = phase_card_vs_cpu(cap)
     phase_cross_engine(row8k)
     phase_gating()
-    phase_dense(row8k)
-    phase_hybrid(row8k)
+    phase_dense()
+    phase_hybrid()
     del row8k
     phase_verify()
     phase_xml_corpora()
@@ -4843,6 +5338,9 @@ def main() -> int:
     fused_rows = phase_fused_full_width()
     torch.cuda.empty_cache()
     mark("fused")
+    farm_rows = phase_farm_full_width()
+    torch.cuda.empty_cache()
+    mark("farm")
     phase_serve_card_vs_cpu()
     checked += phase_serve_full_width(cap)
     torch.cuda.empty_cache()
@@ -4854,6 +5352,7 @@ def main() -> int:
     rows.append(andor_row)
     rows.append(batched_row)
     rows.extend(fused_rows)
+    rows.extend(farm_rows)
     (out / "kernel_pairs.json").write_text(json.dumps(pairs, indent=1))
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": rows}), flush=True)

@@ -35,6 +35,12 @@
              summary; ``serve --warmup`` (and ``fleet --warmup``, passed
              to each replica) warms in a background thread before
              traffic
+  farm-build bake the artifact farm (``core/artifacts.py``): the kernel
+             libraries and the spec of every bucket program the sample
+             corpora (and ``--delta``) build, under a checksummed
+             manifest that ``--artifacts-dir`` installs in a fresh
+             process (no ``nvcc``, ``compile_s == 0.0`` on its first
+             load and delta)
 
 Every command reads OWL functional syntax, RDF/XML or OWL/XML.
 
@@ -48,6 +54,7 @@ Usage: python -m distel_tpu_torch.cli classify FILE [--device cpu] ...
        python -m distel_tpu_torch.cli query OID subsumers CLASS [--url URL]
        python -m distel_tpu_torch.cli trace [TRACE_ID] [--format chrome]
        python -m distel_tpu_torch.cli runs list|report|watch LEDGER ...
+       python -m distel_tpu_torch.cli farm-build FILE --out DIR [--delta D]
 """
 
 from __future__ import annotations
@@ -69,10 +76,28 @@ def _load_cfg(args):
     )
 
 
+def _install_farm(cfg, args, device) -> bool:
+    """Install the config's artifact farm (``--artifacts-dir`` and
+    ``--artifacts-require`` override its keys) for ``device``; print the
+    install record when there is a farm.  Returns whether one was
+    installed."""
+    from distel_tpu_torch.core import artifacts
+
+    if getattr(args, "artifacts_dir", None):
+        cfg.artifacts_dir = args.artifacts_dir
+    if getattr(args, "artifacts_require", False):
+        cfg.artifacts_require = True
+    rec = artifacts.install_from_config(cfg, device=device)
+    if rec is not None:
+        print(json.dumps({"artifacts": rec}), flush=True)
+    return bool(rec and rec.get("installed"))
+
+
 def cmd_classify(args) -> int:
-    from distel_tpu_torch.runtime.classifier import ELClassifier
+    from distel_tpu_torch.runtime.classifier import ELClassifier, resolve_device
 
     cfg = _load_cfg(args)
+    warm_farm = _install_farm(cfg, args, resolve_device(args.device))
     cfg.instrumentation = args.instrument
     if args.budget_s is not None:
         # launch budget guard: predict the wall from the fitted cost
@@ -94,6 +119,7 @@ def cmd_classify(args) -> int:
         n = ontology_stats(args.ontology)["classes"]
         guard = costmodel.guard_launch(
             model, n, args.budget_s, force=args.force,
+            warm_artifacts=warm_farm,
         )
         print(json.dumps({"launch_guard": guard}), flush=True)
         if not guard["allowed"]:
@@ -456,27 +482,21 @@ def cmd_multiply(args) -> int:
     return 0
 
 
-#: the reference's serve, fleet and warmup flags whose modules the port
-#: does not have yet: flag -> (argument, the reference module it waits
-#: for)
-REFUSED_SERVE_FLAGS = {
-    "--artifacts-dir": ("artifacts_dir", "core/artifacts.py"),
-    "--artifacts-require": ("artifacts_require", "core/artifacts.py"),
-}
-
-
 def cmd_warmup(args) -> int:
     """Warmup: resolve each sample corpus to its bucket and build that
     bucket's programs into this process's registry (on a card, capture
     their CUDA graphs).  Prints one JSON record per corpus (bucket
-    signature, build walls, registry hit) and a summary line.  Nothing
-    persists past the process (no disk cache of graphs yet): the command
-    measures a bucket's build cost; ``serve --warmup`` is the warm
-    path."""
+    signature, build walls, registry hit, the artifact farm's share) and
+    a summary line.  Nothing persists past the process: ``farm-build``
+    bakes programs for other processes, ``serve --warmup`` is the warm
+    path of one."""
+    from distel_tpu_torch.runtime.classifier import resolve_device
     from distel_tpu_torch.runtime.warmup import warmup_paths
 
-    _refuse_unported_flags(args)
     cfg = _load_cfg(args)
+    # consume a farm during warmup: the programs it covers come from
+    # their specs instead of the corpora's tables
+    _install_farm(cfg, args, resolve_device(args.device))
     t0 = time.time()
     recs = warmup_paths(
         args.ontologies,
@@ -498,6 +518,16 @@ def cmd_warmup(args) -> int:
                     sum(r["compile_s"] + r["trace_lower_s"] for r in recs), 2
                 ),
                 "delta_programs": sum(r.get("delta_programs", 0) for r in recs),
+                "delta_compile_s": round(
+                    sum(r.get("delta_compile_s", 0) for r in recs), 2
+                ),
+                # the artifact farm's share of the roster
+                "artifact_exe_hits": sum(
+                    r.get("artifact_exe_hits", 0) for r in recs
+                ),
+                "artifact_hlo_hits": sum(
+                    r.get("artifact_hlo_hits", 0) for r in recs
+                ),
             }
         ),
         flush=True,
@@ -505,23 +535,123 @@ def cmd_warmup(args) -> int:
     return 0
 
 
-def _refuse_unported_flags(args) -> None:
-    for flag, (attr, module) in REFUSED_SERVE_FLAGS.items():
-        if getattr(args, attr):
-            raise ValueError(
-                f"{flag} is not supported by distel_tpu_torch yet: it needs "
-                f"the reference's {module}, which is not ported"
-            )
+def cmd_farm_build(args) -> int:
+    """Artifact farm bake: build the bucket-program roster of each
+    sample corpus (and, with ``--delta``, of a representative increment
+    replayed on it) with the farm as the registry's sink, so every step
+    program's spec lands in the farm and every fused window's key is
+    recorded; on a card, ship the kernel libraries too.  Point serving
+    processes at the output with ``--artifacts-dir`` (or drop it at
+    ``<spill_dir>/artifacts`` and the fleet supervisor hands it to every
+    replica).  Idempotent: a re-bake installs the farm first, so its
+    programs come off their specs, and writes nothing (``written ==
+    0``)."""
+    from dataclasses import replace
+
+    from distel_tpu_torch.config import enable_compile_cache
+    from distel_tpu_torch.core import artifacts
+    from distel_tpu_torch.core.incremental import IncrementalClassifier
+    from distel_tpu_torch.core.program_cache import PROGRAMS
+    from distel_tpu_torch.ops import build
+    from distel_tpu_torch.runtime.classifier import resolve_device
+    from distel_tpu_torch.runtime.warmup import warmup_paths
+
+    cfg = _load_cfg(args)
+    enable_compile_cache(cfg.compile_cache_dir)
+    device = resolve_device(args.device)
+    out = os.path.abspath(args.out)
+    try:
+        store = artifacts.ArtifactStore(out, writable=True, device=device)
+        mismatch = store.env_mismatch(device)
+    except artifacts.ArtifactError as e:
+        mismatch = str(e)
+    if mismatch is not None:
+        # extending someone else's farm would mix environments in one
+        # manifest — bake a fresh directory instead
+        print(f"refusing farm-build: {mismatch}", file=sys.stderr)
+        return 3
+    t0 = time.time()
+    store.install_libraries()
+    if device.type == "cuda":
+        build.build_all(build.sources())
+    store.build_programs(device)
+    # source AND sink: the farm's own programs are handed over (nothing
+    # rebuilds, nothing rewrites); fresh keys build once and land
+    # through the sink
+    PROGRAMS.artifact_source = store
+    PROGRAMS.artifact_sink = store
+    try:
+        recs = warmup_paths(
+            args.ontologies,
+            cfg,
+            profile=args.profile,
+            max_iters=args.max_iters,
+            parallel=not args.serial,
+            device=device,
+        )
+        if args.delta:
+            # replay a representative increment per corpus with the
+            # sink attached: the delta plane's programs for this
+            # delta's rungs land too, so a consumer's first delta
+            # builds nothing.  fast_path_min_concepts=0 forces the
+            # delta plane whatever the corpus size
+            with open(args.delta, encoding="utf-8") as f:
+                delta_text = f.read()
+            rcfg = replace(cfg, fast_path_min_concepts=0)
+            for path in args.ontologies:
+                with open(path, encoding="utf-8") as f:
+                    corpus = f.read()
+                td = time.time()
+                inc = IncrementalClassifier(rcfg, device=device)
+                inc.add_text(corpus)
+                inc.add_text(delta_text)
+                recs.append({
+                    "profile": "delta-replay",
+                    "file": path,
+                    "delta": args.delta,
+                    "path": inc.history[-1].get("path"),
+                    "compile_s": inc.history[-1].get("compile_s"),
+                    "wall_s": round(time.time() - td, 3),
+                })
+                del inc
+    finally:
+        PROGRAMS.artifact_sink = None
+        PROGRAMS.artifact_source = None
+        store.drop_held(device.type)
+    for rec in recs:
+        print(json.dumps(rec), flush=True)
+    adopted = store.adopt_libraries() if device.type == "cuda" else 0
+    wrote_manifest = store.flush()
+    print(
+        json.dumps(
+            {
+                "farm": out,
+                "manifest": os.path.join(out, artifacts.MANIFEST_NAME),
+                "manifest_written": wrote_manifest,
+                "libraries_adopted": adopted,
+                "corpora": len(recs),
+                "wall_s": round(time.time() - t0, 2),
+                **store.stats(),
+            }
+        ),
+        flush=True,
+    )
+    return 0
 
 
 def cmd_serve(args) -> int:
     """Resident classification service: one incremental classifier per
     loaded ontology, its closure resident on the card, behind a
     bounded-queue scheduler; see ``distel_tpu_torch/serve/``."""
+    from distel_tpu_torch.config import enable_compile_cache
     from distel_tpu_torch.serve.server import ServeApp, serve_forever
 
-    _refuse_unported_flags(args)
     cfg = _load_cfg(args)
+    enable_compile_cache(cfg.compile_cache_dir)
+    if args.artifacts_dir:
+        cfg.artifacts_dir = args.artifacts_dir
+    if args.artifacts_require:
+        cfg.artifacts_require = True
     budget = (
         int(args.memory_budget_mb * (1 << 20))
         if args.memory_budget_mb is not None
@@ -580,7 +710,6 @@ def cmd_fleet(args) -> int:
     from distel_tpu_torch.serve.fleet.supervisor import ReplicaSupervisor
     from distel_tpu_torch.serve.server import make_server
 
-    _refuse_unported_flags(args)
     cfg = _load_cfg(args)
     n = args.replicas if args.replicas is not None else cfg.fleet_replicas
     extra = []
@@ -594,9 +723,17 @@ def cmd_fleet(args) -> int:
         ("--memory-budget-mb", args.memory_budget_mb),
         ("--warm-budget-mb", args.warm_budget_mb),
         ("--fast-path-min-concepts", args.fast_path_min_concepts),
+        ("--artifacts-dir", args.artifacts_dir),
     ):
         if val is not None:
             extra += [flag, str(val)]
+    if args.artifacts_require:
+        extra += ["--artifacts-require"]
+        if args.artifacts_dir:
+            # every replica would refuse to start: refuse before any does
+            from distel_tpu_torch.core.artifacts import ArtifactStore
+
+            ArtifactStore(args.artifacts_dir)
     if args.warmup:
         extra += ["--warmup", *args.warmup]
     sup = ReplicaSupervisor(n, spill_dir=args.spill_dir, extra_args=extra)
@@ -746,15 +883,6 @@ def cmd_query(args) -> int:
     return 0
 
 
-def _add_refused_flags(parser) -> None:
-    """The reference's flags whose modules are not ported: accepted by
-    the parser, refused by the command naming the flag."""
-    parser.add_argument("--artifacts-dir", default=None,
-                        help="not supported yet (refused)")
-    parser.add_argument("--artifacts-require", action="store_true",
-                        help="not supported yet (refused)")
-
-
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(prog="distel_tpu_torch", description=__doc__)
     sub = p.add_subparsers(dest="cmd", required=True)
@@ -788,6 +916,11 @@ def main(argv=None) -> int:
     c.add_argument("--model-from", nargs="*", default=None, metavar="FILE",
                    help="ledger/probe files the cost model fits from "
                         "(default: the repo's runs/*.ledger.jsonl)")
+    c.add_argument("--artifacts-dir", default=None,
+                   help="install a farm-build output: covered bucket "
+                        "programs come from their specs, the kernels from "
+                        "its libraries, and the --budget-s guard drops its "
+                        "compile term")
     c.set_defaults(fn=cmd_classify)
     st = sub.add_parser("stream", help="incremental streaming classification")
     st.add_argument("base")
@@ -875,7 +1008,14 @@ def main(argv=None) -> int:
     sv.add_argument("--warmup", nargs="*", default=None, metavar="ONTOLOGY",
                     help="sample corpora whose bucket programs a "
                          "background thread builds before traffic")
-    _add_refused_flags(sv)
+    sv.add_argument("--artifacts-dir", default=None,
+                    help="install a farm-build output before binding: the "
+                         "kernel libraries (no nvcc) and every program "
+                         "spec, built before traffic, so a covered load "
+                         "or delta has compile_s == 0 on first request")
+    sv.add_argument("--artifacts-require", action="store_true",
+                    help="refuse to start when the artifact farm cannot "
+                         "be installed whole (default: warn and build)")
     sv.set_defaults(fn=cmd_serve)
     fl = sub.add_parser(
         "fleet",
@@ -921,7 +1061,13 @@ def main(argv=None) -> int:
     fl.add_argument("--warmup", nargs="*", default=None, metavar="ONTOLOGY",
                     help="passed to every replica: sample corpora whose "
                          "bucket programs each builds before traffic")
-    _add_refused_flags(fl)
+    fl.add_argument("--artifacts-dir", default=None,
+                    help="farm directory every replica installs "
+                         "(default: <spill_dir>/artifacts when its "
+                         "manifest exists)")
+    fl.add_argument("--artifacts-require", action="store_true",
+                    help="replicas refuse to start without a usable "
+                         "artifact farm")
     fl.set_defaults(fn=cmd_fleet)
     w = sub.add_parser(
         "warmup",
@@ -943,10 +1089,42 @@ def main(argv=None) -> int:
     w.add_argument("--device", default=None,
                    help="torch device (default: the first CUDA device)")
     w.add_argument("--artifacts-dir", default=None,
-                   help="not supported yet (refused)")
+                   help="install a farm-build output while warming: "
+                        "covered programs come from their specs")
     w.add_argument("--artifacts-require", action="store_true",
-                   help=argparse.SUPPRESS)
+                   help="refuse to warm when the artifact farm cannot be "
+                        "installed whole")
     w.set_defaults(fn=cmd_warmup)
+    fb = sub.add_parser(
+        "farm-build",
+        help="artifact farm: bake the kernel libraries and the bucket "
+             "programs' specs of sample corpora into a directory that "
+             "fresh processes install with --artifacts-dir",
+    )
+    fb.add_argument("ontologies", nargs="+",
+                    help="one sample corpus per bucket to bake")
+    fb.add_argument("--out", required=True,
+                    help="farm output directory (manifest.json + exe/ + "
+                         "kernels/); ship it to <spill_dir>/artifacts for "
+                         "the fleet's replicas")
+    fb.add_argument("--config", help="properties/config file")
+    fb.add_argument("--profile", choices=("serve", "classify"),
+                    default="serve",
+                    help="which construction's programs to bake "
+                         "(default: the serve/incremental roster)")
+    fb.add_argument("--max-iters", type=int, default=None,
+                    help="fixed-point budget (default: config)")
+    fb.add_argument("--delta", metavar="FILE", default=None,
+                    help="representative increment replayed on each "
+                         "corpus during the bake: its delta-plane "
+                         "programs land in the farm too, so a consumer's "
+                         "first delta builds nothing")
+    fb.add_argument("--serial", action="store_true",
+                    help="bake buckets one at a time")
+    fb.add_argument("--device", default=None,
+                    help="torch device the bake builds on (default: the "
+                         "first CUDA device); consumers must match it")
+    fb.set_defaults(fn=cmd_farm_build)
     tr = sub.add_parser(
         "trace", help="fetch a request trace from a serve /debug/trace endpoint"
     )

@@ -10,15 +10,16 @@ cache, the per-rule backends (``backend.CRn``, the hybrid of
 ``cohort.*`` formation), the serve fleet's (``fleet.*``) and the
 observed fixed point's (``sparse_tail.*``, ``pipeline.*``,
 ``obs.trace_rounds``, ``obs.ledger.*``) with its fused K-round window
-(``fused.rounds.*``), and shape buckets (``shape.buckets``, on by
-default as in the reference, and ``bucket.ratio``).  Knobs of paths the
-port does not have yet (mesh, the artifact farm) are absent, or refused
-where a reference config could carry them over: ``mesh.devices`` /
-``NODES_LIST`` may name no device (a mesh of one device still changes
-the reference's automatic rules, so it is refused too), and
-``artifacts.dir``, ``compile.cache.dir`` and the multi-process keys
-``coordinator.address``, ``num.processes`` and ``process.id`` raise
-naming the key.
+(``fused.rounds.*``), shape buckets (``shape.buckets``, on by
+default as in the reference, and ``bucket.ratio``) and the artifact
+farm (``artifacts.dir``, ``artifacts.require``; ``compile.cache.dir``
+names the directory the kernel libraries build into, see
+:func:`enable_compile_cache`).  Knobs of paths the port does not have
+yet (the mesh) are absent, or refused where a reference config could
+carry them over: ``mesh.devices`` / ``NODES_LIST`` may name no device
+(a mesh of one device still changes the reference's automatic rules, so
+it is refused too), and the multi-process keys ``coordinator.address``,
+``num.processes`` and ``process.id`` raise naming the key.
 The reference's ``matmul.dtype`` has no meaning for the port's exact
 bit kernels and is ignored with the other unknown keys.
 
@@ -30,6 +31,19 @@ from __future__ import annotations
 
 from dataclasses import dataclass, field
 from typing import Dict, Optional
+
+
+def enable_compile_cache(cache_dir: Optional[str] = None) -> None:
+    """Point the kernel libraries' build directory at ``cache_dir`` (the
+    config's ``compile.cache.dir``): libraries built there, by this
+    process, an earlier one or an installed artifact farm, load without
+    ``nvcc``.  None keeps the default (``build/torch_kernels/``);
+    ``DISTEL_TORCH_BUILD_DIR`` wins when set.  Called by the entry points
+    (classify, serve, fleet, warmup, farm-build), never on import."""
+    if cache_dir:
+        from distel_tpu_torch.ops import build
+
+        build.set_cache_dir(cache_dir)
 
 
 #: the reference's multi-controller keys: with a coordinator it joins a
@@ -69,6 +83,10 @@ class ClassifierConfig:
     #: the ladder's step (properties key ``bucket.ratio``): coarser
     #: buckets share more programs and pad more
     bucket_ratio: float = 1.25
+    #: directory the kernel libraries build into and load from
+    #: (properties key ``compile.cache.dir``; None = the default under
+    #: ``build/torch_kernels/``)
+    compile_cache_dir: Optional[str] = None
     #: base concepts below which the incremental plane
     #: (``core/incremental.py``) rebuilds every increment instead of
     #: taking the delta fast path (properties key
@@ -117,6 +135,16 @@ class ClassifierConfig:
     #: halve K down the ladder K, K/2, ..., 2 once the derivation tail's
     #: geometric decay predicts fewer rounds than half a window
     fused_rounds_adaptive: bool = False
+    #: artifact farm (``core/artifacts.py``): a ``cli farm-build``
+    #: output — the kernel libraries and the bucket programs' specs
+    #: under a checksummed manifest.  Set, every entry point installs it
+    #: before traffic, so covered programs come with ``compile_s == 0.0``
+    #: and no ``nvcc`` runs; None = build as before
+    artifacts_dir: Optional[str] = None
+    #: refuse to start when ``artifacts_dir`` is set but the farm cannot
+    #: be installed whole (missing or corrupt manifest, a checksum, a
+    #: foreign environment); default: warn and build
+    artifacts_require: bool = False
     #: request tracing (``obs/trace.py``): ``obs_enable=False`` takes
     #: every span off-path; the flight recorder stays on
     obs_enable: bool = True
@@ -245,12 +273,7 @@ class ClassifierConfig:
         if "bucket.ratio" in raw:
             cfg.bucket_ratio = float(raw["bucket.ratio"])
         if "compile.cache.dir" in raw:
-            raise ValueError(
-                f"compile.cache.dir = {raw['compile.cache.dir']} names a "
-                "persistent cache of compiled XLA programs; distel_tpu_torch "
-                "has none yet (a CUDA graph cannot be written to disk; "
-                "core/artifacts.py is not ported)"
-            )
+            cfg.compile_cache_dir = raw["compile.cache.dir"]
         if "fast.path.min.concepts" in raw:
             cfg.fast_path_min_concepts = int(raw["fast.path.min.concepts"])
         if "cr6.tiles.enable" in raw:
@@ -302,11 +325,9 @@ class ClassifierConfig:
         if "obs.flight.capacity" in raw:
             cfg.obs_flight_capacity = int(raw["obs.flight.capacity"])
         if "artifacts.dir" in raw:
-            raise ValueError(
-                f"artifacts.dir = {raw['artifacts.dir']} names an AOT artifact "
-                "farm of compiled XLA programs; distel_tpu_torch has none "
-                "(core/artifacts.py is not ported)"
-            )
+            cfg.artifacts_dir = raw["artifacts.dir"]
+        if "artifacts.require" in raw:
+            cfg.artifacts_require = flag("artifacts.require")
         if "query.enable" in raw:
             cfg.query_enable = flag("query.enable")
         if "query.row.cache" in raw:

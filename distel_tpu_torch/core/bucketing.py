@@ -44,10 +44,17 @@ link row as the reference's do, are masked to nothing, so every row of
 the state is the host-gated step's), pad chunk rows carry all-zero
 masks and target the dead row, and pad window slots and links contract
 nothing.
+
+A program is a function of its structure and its tables' shapes alone,
+so :func:`program_spec` writes it down as plain data and
+:meth:`BucketProgram.from_spec` rebuilds it (and on a card captures it)
+in another process, with no corpus: the artifact farm's ``"exe"`` tier
+(``core/artifacts.py``).
 """
 
 from __future__ import annotations
 
+import dataclasses
 import threading
 import time
 import weakref
@@ -262,11 +269,61 @@ def bucket_plan(engine) -> Tuple[BucketStruct, Dict[str, np.ndarray]]:
     return struct, tabs
 
 
+def table_shapes(tabs: Dict[str, np.ndarray]) -> Dict[str, tuple]:
+    """Each table's ``(shape, dtype name)``: all a program reads of its
+    tables when it is built."""
+    return {k: (tuple(int(d) for d in v.shape), str(v.dtype))
+            for k, v in tabs.items()}
+
+
 def signature(struct: BucketStruct, tabs: Dict[str, np.ndarray]) -> str:
     """``signature_of`` the structure and every table's shape and type
     (equal signatures: the same launches over the same buffers)."""
-    shapes = tuple(sorted((k, v.shape, str(v.dtype)) for k, v in tabs.items()))
-    return signature_of((1, struct, shapes), f"b{struct.nc}x{struct.nl}")
+    return shape_signature(struct, table_shapes(tabs))
+
+
+def shape_signature(struct: BucketStruct, shapes: Dict[str, tuple]) -> str:
+    """:func:`signature` from :func:`table_shapes`."""
+    parts = tuple(sorted((k, shape, dt) for k, (shape, dt) in shapes.items()))
+    return signature_of((1, struct, parts), f"b{struct.nc}x{struct.nl}")
+
+
+# ------------------------------------------------------------- the spec
+
+#: version of :func:`program_spec`'s document
+SPEC_FORMAT = 1
+
+
+def program_spec(prog: "BucketProgram") -> dict:
+    """``prog`` as plain data: its structure and each table's name,
+    shape and dtype (JSON-ready)."""
+    return {
+        "format": SPEC_FORMAT,
+        "struct": dataclasses.asdict(prog.struct),
+        "tables": [[k, list(shape), dt]
+                   for k, (shape, dt) in sorted(prog.shapes.items())],
+    }
+
+
+def _tuples(x):
+    """JSON lists back into the tuples a structure holds."""
+    return tuple(_tuples(v) for v in x) if isinstance(x, (list, tuple)) else x
+
+
+def spec_parts(spec: dict) -> Tuple[BucketStruct, Dict[str, tuple]]:
+    """The structure and table shapes of a :func:`program_spec`."""
+    if spec.get("format") != SPEC_FORMAT:
+        raise ValueError(f"program spec format {spec.get('format')!r} != "
+                         f"supported {SPEC_FORMAT}")
+    d = dict(spec["struct"])
+    for key in ("cr4", "cr6"):
+        if d[key] is not None:
+            d[key] = RuleStruct(**d[key])
+    for key in ("p1", "p2", "p3"):
+        d[key] = _tuples(d[key])
+    shapes = {k: (tuple(int(x) for x in shape), str(np.dtype(dt)))
+              for k, shape, dt in spec["tables"]}
+    return BucketStruct(**d), shapes
 
 
 # --------------------------------------------------------- the state pair
@@ -450,15 +507,16 @@ class BucketProgram:
     state pair it runs on, and on a card the CUDA graph of ``unroll``
     steps.  ``flags`` = [changed, then 5 gate counts a step]."""
 
-    def __init__(self, struct: BucketStruct, tabs: Dict[str, np.ndarray],
+    def __init__(self, struct: BucketStruct, shapes: Dict[str, tuple],
                  device):
         dev = torch.device(device)
         self.struct = struct
+        self.shapes = dict(shapes)
         self.device = dev
         self.pair = state_pair(dev, struct.nc, struct.nl, struct.wc)
         self.T = {
-            k: torch.zeros(v.shape, dtype=_TORCH[v.dtype.str[1:]], device=dev)
-            for k, v in tabs.items()
+            k: torch.zeros(shape, dtype=_TORCH[dt], device=dev)
+            for k, (shape, dt) in self.shapes.items()
         }
         self.ms = torch.zeros(struct.nc, dtype=torch.bool, device=dev)
         self.dl = torch.zeros(struct.lchunk_slots, dtype=torch.bool,
@@ -470,6 +528,13 @@ class BucketProgram:
         self.launches: dict = {}
         self.capture_s = 0.0
         self.graph_bytes = 0
+
+    @classmethod
+    def from_spec(cls, spec: dict, device) -> "BucketProgram":
+        """The program a :func:`program_spec` describes, on ``device``
+        (not captured: :meth:`capture` does that)."""
+        struct, shapes = spec_parts(spec)
+        return cls(struct, shapes, device)
 
     @property
     def nbytes(self) -> int:
@@ -533,26 +598,32 @@ class BucketProgram:
         return self.flags.cpu().numpy()
 
 
-_TORCH = {"i8": torch.int64, "i4": torch.int32, "i1": torch.int8,
-          "b1": torch.bool}
+_TORCH = {"int64": torch.int64, "int32": torch.int32, "int8": torch.int8,
+          "bool": torch.bool}
 
 
 def get_program(struct, tabs, sig: str, device):
     """``(program, CompileStats)`` for ``sig`` from :data:`PROGRAMS`:
     built (and on a card captured) on a miss, with ``trace_lower_s``
-    the buffer build and ``compile_s`` the capture; both 0.0 on a hit."""
-    from distel_tpu_torch.runtime.instrumentation import CompileStats
+    the buffer build, ``compile_s`` the capture and the persistent-cache
+    counters the kernel libraries the capture loaded; all 0 on a hit (a
+    program an installed artifact farm hands over is one)."""
+    from distel_tpu_torch.runtime.instrumentation import (
+        CompileStats,
+        library_loads,
+    )
 
     stats = CompileStats(bucket_signature=sig, program="step")
 
     def build():
-        t0 = time.perf_counter()
-        prog = BucketProgram(struct, tabs, device)
-        t1 = time.perf_counter()
-        if prog.device.type == "cuda":
-            prog.capture()
-        stats.trace_lower_s = t1 - t0
-        stats.compile_s = time.perf_counter() - t1
+        with library_loads(stats):
+            t0 = time.perf_counter()
+            prog = BucketProgram(struct, table_shapes(tabs), device)
+            t1 = time.perf_counter()
+            if prog.device.type == "cuda":
+                prog.capture()
+            stats.trace_lower_s = t1 - t0
+            stats.compile_s = time.perf_counter() - t1
         return prog
 
     prog, hit = PROGRAMS.get_or_build((sig, "step"), build)
@@ -566,14 +637,24 @@ def _on(p, kind: str) -> bool:
     return p.pair.sp.device.type == kind
 
 
+def _held_programs() -> list:
+    """The programs an installed artifact farm holds until an engine
+    asks for them (``core/artifacts.py``)."""
+    src = PROGRAMS.artifact_source
+    held = getattr(src, "held_programs", None)
+    return held() if held is not None else []
+
+
 def program_bytes(device="cuda") -> int:
     """Bytes the registry's programs hold on devices of ``device``'s
     type: each step program's tables, carries and graph pool, each fused
-    window's graph pools, and each state pair once."""
+    window's graph pools, and each state pair once; with the programs an
+    installed artifact farm still holds."""
     kind = torch.device(device).type
     total, pairs = 0, {}
     with PROGRAMS._lock:
         progs = [p for p in PROGRAMS._programs.values() if _on(p, kind)]
+    progs += [p for p in _held_programs() if _on(p, kind)]
     for p in progs:
         total += p.nbytes if isinstance(p, BucketProgram) else p.card_bytes
         pairs[id(p.pair)] = p.pair.nbytes
@@ -584,9 +665,11 @@ def drop_idle_programs(device="cuda") -> int:
     """Evict from :data:`PROGRAMS` every program on devices of
     ``device``'s type that no live engine uses (engines hold their
     programs and windows weakly, so each weak reference is a user);
-    counted as evictions.  A memory budget's first resort, before it
-    evicts a tenant: programs outlive the tenants that built them.
-    Returns how many went."""
+    counted as evictions; and every program an installed artifact farm
+    still holds (a later request for one builds it from its engine's
+    tables).  A memory budget's first resort, before it evicts a tenant:
+    programs outlive the tenants that built them.  Returns how many
+    went."""
     kind = torch.device(device).type
     with PROGRAMS._lock:
         idle = [k for k, p in PROGRAMS._programs.items()
@@ -594,4 +677,5 @@ def drop_idle_programs(device="cuda") -> int:
         for k in idle:
             del PROGRAMS._programs[k]
         PROGRAMS.evictions += len(idle)
-    return len(idle)
+    drop = getattr(PROGRAMS.artifact_source, "drop_held", None)
+    return len(idle) + (drop(kind) if drop is not None else 0)

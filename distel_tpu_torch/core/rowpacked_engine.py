@@ -190,6 +190,7 @@ from distel_tpu_torch.runtime.instrumentation import (
     DISPATCH_EVENTS,
     FRONTIER_EVENTS,
     FrontierStats,
+    library_loads,
 )
 from distel_tpu_torch.ops.bitpack import (
     SegmentedRowOr,
@@ -2882,6 +2883,10 @@ class RowPackedSaturationEngine:
                              program=f"fused[{int(K)}]")
 
         def build():
+            with library_loads(stats):
+                return build_window()
+
+        def build_window():
             t0 = time.perf_counter()
             self._fused_tables()
             win = _FusedWindow(self, int(K), caps, state)

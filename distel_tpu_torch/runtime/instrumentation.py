@@ -20,9 +20,13 @@ What differs from the reference, and why:
   nothing in the port records into the other two yet (a profiled
   capture and the cohort plane), so the serve plane's gauges over them
   read zeros, as they do in the reference's runs without those.
-* ``CompileStats``, the persistent-cache counter, ``compile_watch`` and
-  ``trace_to`` count and capture XLA compilation; the port compiles
-  nothing, so they are not ported.
+* :class:`CompileStats` keeps the reference's fields for the port's
+  program builds; its persistent-cache counters count the kernel
+  libraries a build loaded — found built (an artifact farm's, or an
+  earlier process's) or built by ``nvcc`` — read from
+  ``ops/build.CACHE_EVENTS`` (:func:`library_loads`).  The reference's
+  ``compile_watch`` and ``trace_to`` capture XLA compilation, which the
+  port does not have, so they are not ported.
 """
 
 from __future__ import annotations
@@ -123,8 +127,9 @@ class CompileStats:
     graph capture (on the CPU, where nothing is captured, the eager
     program's allocation); both are 0.0 on a registry hit
     (``program_cache_hit``: the process-global ``PROGRAMS`` served the
-    program).  The persistent-cache counters stay 0: there is no disk
-    cache of graphs yet (that waits for the artifacts slice)."""
+    program).  ``persistent_cache_hits`` / ``_misses`` count the
+    kernel libraries the build loaded found built / built by ``nvcc``
+    (:func:`library_loads`); 0 once a process has loaded them."""
 
     bucket_signature: str = ""
     program: str = ""
@@ -154,6 +159,22 @@ class CompileStats:
         self.persistent_cache_hits += other.persistent_cache_hits
         self.persistent_cache_misses += other.persistent_cache_misses
         return self
+
+
+@contextlib.contextmanager
+def library_loads(stats: CompileStats):
+    """Add the kernel-library lookups made inside the block to
+    ``stats``'s persistent-cache counters (``ops/build.CACHE_EVENTS``:
+    a library found built is a hit, an ``nvcc`` run a miss)."""
+    from distel_tpu_torch.ops.build import CACHE_EVENTS
+
+    before = CACHE_EVENTS.snapshot()
+    try:
+        yield stats
+    finally:
+        after = CACHE_EVENTS.snapshot()
+        stats.persistent_cache_hits += after["hits"] - before["hits"]
+        stats.persistent_cache_misses += after["misses"] - before["misses"]
 
 
 @dataclass

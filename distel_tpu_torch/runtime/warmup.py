@@ -7,7 +7,10 @@ sample corpora (one per bucket traffic is expected in) and it builds
 each bucket's roster into ``core/program_cache.PROGRAMS`` — on a card
 each program's CUDA graph is captured here.  Ontologies that later land
 in a warmed bucket classify with ``compile_s == 0.0`` (a registry hit).
-Nothing survives the process: there is no disk cache of graphs.
+Nothing survives the process; ``cli farm-build`` runs this module with
+the artifact farm (``core/artifacts.py``) as the registry's sink, so the
+programs' specs do, and each record attributes the farm's share of its
+roster (``artifact_*``: hits off an installed farm, specs written).
 
 Two construction profiles, as in the reference:
 
@@ -65,9 +68,12 @@ def warmup_text(
     count and build seconds."""
     from distel_tpu_torch.runtime.classifier import resolve_device
 
+    from distel_tpu_torch.core.artifacts import ARTIFACT_EVENTS
+
     config = config or ClassifierConfig()
     dev = resolve_device(device)
     t0 = time.monotonic()
+    art0 = ARTIFACT_EVENTS.snapshot()
     idx = _index_text(text, config)
     if profile == "serve":
         from distel_tpu_torch.core.incremental import rebuild_engine
@@ -93,11 +99,23 @@ def warmup_text(
 
         delta_recs = warm_delta_programs(config, engine, idx,
                                          max_iters=max_iters)
+    # the artifact farm's share of this corpus's roster: hits off an
+    # installed farm, or specs a bake wrote (counts of the process-wide
+    # aggregate over this call)
+    art1 = ARTIFACT_EVENTS.snapshot()
+    art = {
+        k: art1[k] - art0[k]
+        for k in ("exe_hits", "hlo_hits", "serialized", "unserializable")
+    }
     return {
         "profile": profile,
         "concepts": idx.n_concepts,
         "links": idx.n_links,
         "wall_s": round(time.monotonic() - t0, 3),
+        "artifact_exe_hits": art["exe_hits"],
+        "artifact_hlo_hits": art["hlo_hits"],
+        "artifact_serialized": art["serialized"],
+        "artifact_unserializable": art["unserializable"],
         "sparse_programs": 0,
         "fused_programs": len(getattr(engine, "fused_window_stats",
                                       lambda: [])()),

@@ -22,10 +22,11 @@ differs, and why:
   are the port's serve processes (there is no compile cache to share).
   The device rides ``extra_args`` (``cli fleet`` passes its
   ``--device`` to every replica).
-* ``_farm_args`` is gone: the port has no AOT artifact farm and its
-  ``serve`` refuses ``--artifacts-dir``, so a manifest a reference farm
-  left in a shared spill dir must not be handed to every replica (each
-  would fail at startup).
+* ``_farm_args`` is the reference's (its docstring's first line names
+  no ticket): a port farm (``core/artifacts.py``) at
+  ``<spill_dir>/artifacts`` reaches every spawned and respawned replica
+  (a manifest of another environment is refused by each replica's
+  install, loudly, and the replica builds).
 """
 
 from __future__ import annotations
@@ -130,6 +131,20 @@ class ReplicaSupervisor:
 
     # ----------------------------------------------------------- spawns
 
+    def _farm_args(self) -> List[str]:
+        """The shared spill-dir artifact wire: when the farm
+        manifest sits at ``<spill_dir>/artifacts/manifest.json``, every
+        spawned/respawned replica consumes it automatically — an
+        autoscaled replica serves its first request with zero
+        trace/compile without the operator re-plumbing flags.  An
+        explicit ``--artifacts-dir`` in ``extra_args`` wins."""
+        if "--artifacts-dir" in self.extra_args:
+            return []
+        farm = os.path.join(self.spill_dir, "artifacts")
+        if os.path.exists(os.path.join(farm, "manifest.json")):
+            return ["--artifacts-dir", farm]
+        return []
+
     def _spawn(self, rid: str) -> None:
         log_path = os.path.join(self.log_dir, f"{rid}.log")
         log = open(log_path, "w", encoding="utf-8")
@@ -140,6 +155,7 @@ class ReplicaSupervisor:
                     "--host", self.host, "--port", "0",
                     "--replica-id", rid,
                     "--spill-dir", self.spill_dir,
+                    *self._farm_args(),
                     *self.extra_args,
                 ],
                 stdout=log,

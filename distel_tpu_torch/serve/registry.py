@@ -45,11 +45,6 @@ why:
   every classifier on it, through :meth:`OntologyRegistry._new_inc` and
   the cold restore.  Nothing falls back to the CPU: a request that fails
   on the card fails, and is counted, as in the reference.
-* The per-request artifact attribution (the reference's
-  ``_artifact_window``, which stamps farm hits onto a record) is left
-  out: the port has no artifact farm (``core/artifacts.py`` waits for
-  the graph-captured round), and with none installed the reference's
-  window adds nothing to a record either.
 * The warm view :meth:`OntologyRegistry._warm_result` wraps the
   demoted host state in the port's ``SaturationResult``, whose packed
   closure is a torch tensor.
@@ -59,9 +54,9 @@ why:
   :meth:`OntologyRegistry.delta_cohort` raises ``NotImplementedError``.
 * ``inc.last_compile`` is the port's program-build record (bucketed
   engines' ``CompileStats``: table build and CUDA-graph capture
-  seconds, registry hits), exported as the reference's compile and
-  program-cache counters; the persistent-cache counter is not exported
-  (no disk cache of graphs: ``server.NOT_YET_PORTED``).
+  seconds, registry hits, the kernel libraries a build loaded), exported
+  as the reference's compile, program-cache and persistent-cache
+  counters.
 * The memory budget counts the bytes the program registry holds on the
   registry's device (``core/bucketing.program_bytes``: the programs'
   tables and graph pools and each layout's state pair) beside the
@@ -101,6 +96,28 @@ class ColdSpillCorrupted(RuntimeError):
     file).  Restoring it would warm-start saturation from garbage and
     monotone EL+ would keep every wrong bit, so the restore refuses
     loudly instead."""
+
+
+def _artifact_window():
+    """Per-request artifact attribution: snapshot the process-global
+    farm aggregate before the work, and stamp the per-tier hit delta
+    onto the response record after — the scheduler serializes writes
+    per ontology, so the window is attributable in practice even
+    though the aggregate is global."""
+    from distel_tpu_torch.core.artifacts import ARTIFACT_EVENTS
+
+    before = ARTIFACT_EVENTS.snapshot()
+
+    def close(rec: dict) -> dict:
+        after = ARTIFACT_EVENTS.snapshot()
+        delta = {
+            k: after[k] - before[k] for k in ("exe_hits", "hlo_hits")
+        }
+        if any(delta.values()):
+            rec["artifact_hits"] = delta
+        return rec
+
+    return close
 
 
 def _file_sha256(path: str) -> str:
@@ -322,6 +339,7 @@ class OntologyRegistry:
             if oid in self._entries:
                 raise ValueError(f"ontology id already loaded: {oid}")
             entry = self._entries[oid] = _Entry(oid)
+        art = _artifact_window()
         try:
             with entry.lock:
                 inc = self._new_inc()
@@ -350,7 +368,7 @@ class OntologyRegistry:
         )
         if version is not None:
             rec["version"] = version
-        return rec
+        return art(rec)
 
     def delta(self, oid: str, texts: List[str]) -> dict:
         """Apply one or more delta texts as ONE increment (the
@@ -361,6 +379,7 @@ class OntologyRegistry:
         from distel_tpu_torch.owl import loader as owl_loader
 
         entry = self._entry(oid)
+        art = _artifact_window()
         with entry.lock:
             self._check_live(entry)
             inc = self._resident(entry)
@@ -380,7 +399,7 @@ class OntologyRegistry:
         self.traffic.note_write(oid)
         self._note_path(inc)
         self._maybe_evict(keep=oid)
-        return rec
+        return art(rec)
 
     def retract(self, oid: str, text: str) -> dict:
         """Retract a previously-applied text and commit the DRed-repaired

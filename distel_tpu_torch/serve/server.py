@@ -35,18 +35,24 @@ why:
   is none), and times every request's phases with the port's
   card-synchronised ``PhaseTimer`` (device-wide: with several workers
   on one card, one request's phases also wait for the others' work).
+* The artifact farm (``core/artifacts.py``) installs for the app's
+  device before the registry exists, as in the reference; its record
+  (:attr:`ServeApp.artifacts_install`: the libraries, each program's
+  capture seconds and bytes, ``install_s``) is printed on the start
+  line, since the install pays the captures the requests then skip.
+  ``distel_persistent_cache_hits_total`` is the process's kernel
+  libraries found built (``ops/build.CACHE_EVENTS``: the farm's, at
+  install, among them), where the reference counts XLA disk-cache hits.
 * Every call into a reference module the port does not have yet is
   left out, in one place: :data:`NOT_YET_PORTED` names each metric
-  series and route that goes with it, and the module it waits for —
-  the artifact-farm install and its counters, the program-cache
-  counters and the persistent compile-cache counter, which wait for
-  ``core/artifacts.py`` (a CUDA graph cannot be written to disk).  The
-  program-cache, compile and warmup series are the reference's: a
-  program is a bucketed engine's step group or fused window, captured
-  as a CUDA graph on a card (``core/bucketing.py``), and
-  ``warmup_paths`` builds them in a background thread before traffic
-  (``runtime/warmup.py``).  Every other route, metric and gauge keeps
-  the reference's name and meaning.
+  series and route that goes with it, and the module it waits for
+  (none are left).  The program-cache, compile, warmup and artifact
+  series are the reference's: a program is a bucketed engine's step
+  group or fused window, captured as a CUDA graph on a card
+  (``core/bucketing.py``), and ``warmup_paths`` builds them in a
+  background thread before traffic (``runtime/warmup.py``).  Every
+  other route, metric and gauge keeps the reference's name and
+  meaning.
 """
 
 from __future__ import annotations
@@ -84,13 +90,7 @@ from distel_tpu_torch.serve.scheduler import (
 #: what the reference's serve plane exports and the port leaves out:
 #: metric series and routes, each with the reference module it waits
 #: for (ROADMAP Queue 1 lists the items that bring them)
-NOT_YET_PORTED = {
-    "distel_artifact_exe_hits_total": "core/artifacts.py",
-    "distel_artifact_hlo_hits_total": "core/artifacts.py",
-    "distel_artifact_misses_total": "core/artifacts.py",
-    "distel_artifact_rejected_total": "core/artifacts.py",
-    "distel_persistent_cache_hits_total": "core/artifacts.py",
-}
+NOT_YET_PORTED: dict = {}
 
 #: request-body ceiling (64 MiB — a multiplied corpus is tens of MB; a
 #: larger body is almost certainly a mistake, and an unbounded read is a
@@ -245,6 +245,15 @@ class ServeApp:
         warm_budget_bytes: Optional[int] = None,
     ):
         self.config = config or ClassifierConfig()
+        # ---- artifact farm: install the kernel libraries and build the
+        # farm's programs BEFORE anything can build a program, so every
+        # load/delta in this process resolves against it
+        from distel_tpu_torch.core import artifacts as _artifacts
+        from distel_tpu_torch.runtime.classifier import resolve_device
+
+        self.artifacts_install = _artifacts.install_from_config(
+            self.config, device=resolve_device(device)
+        )
         self.default_deadline_s = deadline_s
         self.metrics = Metrics()
         self.phases = PhaseAggregate()
@@ -361,18 +370,48 @@ class ServeApp:
             "distel_warmup_programs_total",
             "bucket programs precompiled by the startup warmup",
         )
-        from distel_tpu_torch.core.program_cache import PROGRAMS
-
-        def _program_counters():
-            return {"distel_program_cache_evictions_total":
-                    PROGRAMS.stats()["evictions"]}
-
         self.metrics.describe(
-            "distel_program_cache_evictions_total",
-            "compiled programs evicted from the in-process registry "
-            "by LRU capacity pressure",
+            "distel_persistent_cache_hits_total",
+            "kernel libraries found built (an artifact farm's or an "
+            "earlier process's), so no nvcc ran",
         )
-        self.metrics.counter_group(_program_counters)
+        # ---- artifact farm: program-registry churn + per-tier artifact
+        # attribution, live-sampled from the process-global aggregates
+        # (cumulative, so TYPE counter)
+        from distel_tpu_torch.core.artifacts import ARTIFACT_EVENTS
+        from distel_tpu_torch.core.program_cache import PROGRAMS
+        from distel_tpu_torch.ops.build import CACHE_EVENTS
+
+        _ARTIFACT_COUNTERS = (
+            ("distel_program_cache_evictions_total", "evictions",
+             "compiled programs evicted from the in-process registry "
+             "by LRU capacity pressure"),
+            ("distel_artifact_exe_hits_total", "exe_hits",
+             "program builds served by a farm exe artifact (a program "
+             "built from its spec at install: no build in the request)"),
+            ("distel_artifact_hlo_hits_total", "hlo_hits",
+             "program builds covered by a farm hlo-cache entry (a fused "
+             "window, built from the engine's tables)"),
+            ("distel_artifact_misses_total", "misses",
+             "program builds the installed farm manifest did not cover"),
+            ("distel_artifact_rejected_total", "rejected",
+             "artifacts rejected at install (checksum, signature, "
+             "library name, or environment mismatch) — built instead"),
+        )
+
+        def _artifact_counters():
+            snap = dict(ARTIFACT_EVENTS.snapshot())
+            snap["evictions"] = PROGRAMS.stats()["evictions"]
+            out = {m: snap[k] for m, k, _ in _ARTIFACT_COUNTERS}
+            # the process aggregate: every count the registry adds per
+            # request is in it, the install's library loads too
+            out["distel_persistent_cache_hits_total"] = \
+                CACHE_EVENTS.snapshot()["hits"]
+            return out
+
+        for metric, _, help_text in _ARTIFACT_COUNTERS:
+            self.metrics.describe(metric, help_text)
+        self.metrics.counter_group(_artifact_counters)
         # ---- read plane (query snapshots) + storage-tier accounting
         self.metrics.describe(
             "distel_read_seconds",
@@ -1162,6 +1201,7 @@ def serve_forever(app: ServeApp, host: str, port: int) -> List[str]:
                 "host": host,
                 "port": bound,
                 "spill_dir": app.registry.spill_dir,
+                "artifacts": app.artifacts_install,
             }
         ),
         flush=True,

@@ -551,11 +551,12 @@ def test_config_buckets_by_default(tmp_path):
     p.write_text("bucket.ratio = 1.0\n")
     with pytest.raises(ValueError, match="bucket ratio must be > 1"):
         ClassifierConfig.from_properties(str(p))
-    for key in ("compile.cache.dir", "artifacts.dir"):
-        p.write_text(f"{key} = /tmp/x\n")
-        with pytest.raises(ValueError, match=r"core/artifacts\.py") as e:
-            ClassifierConfig.from_properties(str(p))
-        assert key in str(e.value)
+    # the artifact farm's keys parse since the farm is ported
+    p.write_text("compile.cache.dir = /tmp/x\nartifacts.dir = /tmp/y\n"
+                 "artifacts.require = true\n")
+    cfg = ClassifierConfig.from_properties(str(p))
+    assert (cfg.compile_cache_dir, cfg.artifacts_dir, cfg.artifacts_require) \
+        == ("/tmp/x", "/tmp/y", True)
 
 
 @pytest.mark.parametrize("direction", ["port_to_ref", "ref_to_port"])

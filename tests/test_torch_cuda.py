@@ -8,6 +8,7 @@ package, so it runs on a machine that has only PyTorch:
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_cuda.py
 """
 
+import json
 from pathlib import Path
 
 import numpy as np
@@ -1134,3 +1135,119 @@ def test_evicted_program_frees_its_card_blocks(card):
     # at least the layout's state pair comes back
     assert freed >= (eng.nc + eng.nl) * eng.wc * 4, (freed, held)
     assert torch.cuda.memory_allocated() - base < with_program - base
+
+
+#: a fresh process that installs a farm with no toolkit in reach, then
+#: runs each packed-columns route (plain and row-count forms) against
+#: the plain version
+_FARM_CONSUMER = r"""
+import json, sys
+import torch
+from distel_tpu_torch.core import artifacts
+from distel_tpu_torch.ops.bitmatmul import (
+    LAUNCHES, PackedColsMatmulPlan, plain_packed_cols)
+
+rec = artifacts.install(sys.argv[1], require=True, device="cuda")
+gen = torch.Generator(device="cuda").manual_seed(5)
+bad = 0
+for skip in (False, True):
+    for rows in (None, 0, 150, 300):
+        a = (torch.rand((300, 1000), generator=gen, device="cuda") < 0.05
+             ).to(torch.int8)
+        b = torch.randint(-2**31, 2**31, (1000, 40), generator=gen,
+                          device="cuda", dtype=torch.int64).to(torch.int32)
+        out = torch.zeros((300, 40), dtype=torch.int32, device="cuda")
+        n = None if rows is None else torch.tensor([rows], dtype=torch.int32,
+                                                   device="cuda")
+        PackedColsMatmulPlan(300, 1000, 40, skip_zero_tiles=skip)(
+            a, b, out=out, n_rows=n)
+        want = torch.zeros_like(out)
+        k = 300 if rows is None else rows
+        want[:k] = plain_packed_cols(a[:k], b)
+        bad += int((out != want).sum())
+torch.cuda.synchronize()
+print(json.dumps({"libraries": rec["libraries"], "nvcc_runs": rec["nvcc_runs"],
+                  "hits": rec["persistent_cache_hits"], "bad": bad,
+                  "launches": {k: v for k, v in LAUNCHES.items() if v}}))
+"""
+
+
+def test_farm_library_loads_without_nvcc(card, tmp_path):
+    """A farm's kernel libraries, installed by a fresh process into an
+    empty build directory with ``nvcc`` out of reach, load with no build
+    and compute what the plain version does, every route and row
+    count."""
+    import os
+    import shutil
+    import subprocess
+    import sys
+
+    from distel_tpu_torch.core import artifacts
+    from distel_tpu_torch.ops import build
+
+    build.build_all(build.sources())
+    store = artifacts.ArtifactStore(str(tmp_path / "farm"), writable=True,
+                                    device="cuda")
+    assert store.adopt_libraries() == len(build.sources())
+    assert store.flush()
+    path = os.pathsep.join(
+        d for d in os.environ.get("PATH", "").split(os.pathsep)
+        if d and not os.path.exists(os.path.join(d, "nvcc")))
+    env = dict(os.environ, PATH=path, CUDA_HOME=str(tmp_path / "no-cuda"),
+               DISTEL_TORCH_BUILD_DIR=str(tmp_path / "empty"),
+               PYTHONPATH=str(Path(__file__).resolve().parent.parent))
+    assert shutil.which("nvcc", path=path) is None
+    r = subprocess.run([sys.executable, "-c", _FARM_CONSUMER,
+                        str(tmp_path / "farm")],
+                       capture_output=True, text=True, timeout=600, env=env)
+    assert r.returncode == 0, r.stderr
+    doc = json.loads(r.stdout.splitlines()[-1])
+    assert doc["libraries"] == build.sources()
+    assert doc["nvcc_runs"] == 0 and doc["hits"] == len(build.sources())
+    assert doc["bad"] == 0
+    for k in ("packed_cols_dense", "packed_cols_dense_n", "packed_cols_list",
+              "packed_cols_list_n", "packed_cols_sparse"):
+        assert doc["launches"].get(k, 0) > 0, (k, doc["launches"])
+
+
+def _program_run(prog, engine) -> tuple:
+    """``prog`` over ``engine``'s tables from the fresh initial state:
+    every group's flags, then S and R."""
+    pair = prog.pair
+    with pair.lock:
+        prog.load(engine._btables)
+        engine._fill_initial(pair.sp, pair.rp)
+        prog.ms.fill_(True)
+        prog.dl.copy_(prog.T["dl_valid"])
+        flags = []
+        while True:
+            f = prog.run()
+            flags.append(f.tolist())
+            if not f[0]:
+                break
+        return flags, pair.sp.clone(), pair.rp.clone()
+
+
+def test_spec_program_captures_and_replays_as_the_engine_built(card):
+    """A step program rebuilt from its spec captures on the card, and
+    its replays give the engine-built program's flags and state, group
+    for group."""
+    from distel_tpu_torch.core import bucketing
+    from distel_tpu_torch.core.program_cache import PROGRAMS
+    from distel_tpu_torch.core.rowpacked_engine import RowPackedSaturationEngine
+
+    PROGRAMS.clear()
+    idx = ELClassifier(device="cpu").classify_text(
+        snomed_shaped_ontology(n_classes=2000)).idx
+    engine = RowPackedSaturationEngine(idx, device="cuda", bucket=True)
+    prog = engine._bucket_program()
+    assert prog.graph is not None
+    spec = json.loads(json.dumps(bucketing.program_spec(prog)))
+    back = bucketing.BucketProgram.from_spec(spec, "cuda")
+    assert bucketing.shape_signature(back.struct, back.shapes) == \
+        engine.bucket_signature
+    back.capture()
+    assert back.graph is not None and back.launches == prog.launches
+    want, got = _program_run(prog, engine), _program_run(back, engine)
+    assert got[0] == want[0] and len(want[0]) > 1
+    assert torch.equal(got[1], want[1]) and torch.equal(got[2], want[2])

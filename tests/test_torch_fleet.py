@@ -822,9 +822,14 @@ def test_fleet_metric_families_are_the_reference_minus_not_yet_ported(parity):
     (_, _, _, ref), (_, _, _, port) = parity
     ref_names, port_names = _series(ref), _series(port)
     # the reference's exact-shape replicas fill the compile series from
-    # their XLA compiles; the port's exact-shape engines build no program
+    # their XLA compiles; the port's exact-shape engines build no program;
+    # the port's replicas sample the persistent-cache series from a
+    # process aggregate (kernel libraries found built), always there
     exact_build = {"distel_compile_seconds", "distel_program_cache_misses_total"}
-    assert port_names == ref_names - set(NOT_YET_PORTED) - exact_build
+    process = {"distel_persistent_cache_hits_total"}
+    assert port_names - process == \
+        ref_names - set(NOT_YET_PORTED) - exact_build - process
+    assert process <= port_names
     for name in ("distel_fleet_replicas_healthy", "distel_router_reads_total",
                  "distel_requests_total", "distel_registry_exports_total"):
         assert name in port_names, name
@@ -927,11 +932,12 @@ def _lockdep_reference_form(port):
 
 
 #: the supervisor's adapted sentences, cut from both texts: what a
-#: replica process holds (the opening paragraph) and what its startup
-#: costs (:meth:`start`)
+#: replica process holds (the opening paragraph), what its startup
+#: costs (:meth:`start`) and the first line of ``_farm_args``' docstring
 _SUPERVISOR_ADAPTED = [
     ("each its own Python interpreter", "\n\nThe supervisor owns"),
     ("Spawns are issued in parallel", "and awaited together."),
+    ("The shared spill-dir artifact wire", ": when the farm"),
 ]
 
 
@@ -953,24 +959,16 @@ def _replica_reference_form(port):
     return port[:port.index("\n\n\ndef _is_journal_op(op)")] + "\n"
 
 
-def _supervisor_without_farm(ref):
-    start = ref.index("    def _farm_args(self)")
-    end = ref.index("    def _spawn(self, rid: str)")
-    return _supervisor_sentences_cut((ref[:start] + ref[end:]).replace(
-        "                    *self._farm_args(),\n", ""))
-
-
 @pytest.mark.parametrize("rel,to_ref,from_ref", [
     ("testing/lockdep.py", _lockdep_reference_form, lambda r: r),
     ("serve/fleet/supervisor.py", _supervisor_reference_form,
-     _supervisor_without_farm),
+     _supervisor_sentences_cut),
     ("serve/fleet/replica.py", _replica_reference_form, lambda r: r),
 ], ids=["lockdep", "supervisor", "replica"])
 def test_adapted_module_is_the_reference_but_its_named_lines(rel, to_ref, from_ref):
     """The adapted copies equal the reference's text but the lines their
     docstrings name: lockdep's tracked path, the supervisor's spawned
-    module and its artifact-farm wire, the replica's check of a
-    journal."""
+    module, the replica's check of a journal."""
     port = (ROOT / "distel_tpu_torch" / rel).read_text()
     ref = (ROOT / "distel_tpu" / rel).read_text()
     assert _strip_imports(to_ref(_without_port_note(port))) == \
@@ -981,7 +979,9 @@ def test_adapted_module_is_the_reference_but_its_named_lines(rel, to_ref, from_r
 def test_supervisor_spawns_the_port_and_hands_no_farm_on(tmp_path, monkeypatch):
     """A replica is ``python -m distel_tpu_torch.cli serve`` with the
     caller's arguments (``--device`` among them); an artifact-farm
-    manifest in the shared spill dir is not handed on."""
+    manifest in the shared spill dir is handed on to every replica
+    (``_farm_args``), and an explicit ``--artifacts-dir`` wins.  (The
+    name is kept from when the port had no farm and handed none on.)"""
     farm = tmp_path / "spill" / "artifacts"
     farm.mkdir(parents=True)
     (farm / "manifest.json").write_text("{}")
@@ -1006,8 +1006,11 @@ def test_supervisor_spawns_the_port_and_hands_no_farm_on(tmp_path, monkeypatch):
         assert argv[1:4] == ["-m", "distel_tpu_torch.cli", "serve"]
         assert argv[argv.index("--replica-id") + 1] == rid
         assert argv[-2:] == ["--device", "cpu"]
-        assert "--artifacts-dir" not in argv
+        assert argv[argv.index("--artifacts-dir") + 1] == str(farm)
         assert kw["env"] == {"X": "1"}
+    explicit = ReplicaSupervisor(1, spill_dir=str(tmp_path / "spill"),
+                                 extra_args=["--artifacts-dir", "other"])
+    assert explicit._farm_args() == []
 
 
 def test_lockdep_tracks_the_ports_locks():

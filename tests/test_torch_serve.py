@@ -77,13 +77,11 @@ CLOCK_KEYS = {"published_unix", "wall_s"}
 CALLS = ("load", "delta", "retract", "taxonomy", "subsumers",
          "query_subsumers", "snapshot_version")
 #: what the port's serve plane leaves out, and the module each waits for
-NOT_YET_PORTED = {
-    "distel_artifact_exe_hits_total": "core/artifacts.py",
-    "distel_artifact_hlo_hits_total": "core/artifacts.py",
-    "distel_artifact_misses_total": "core/artifacts.py",
-    "distel_artifact_rejected_total": "core/artifacts.py",
-    "distel_persistent_cache_hits_total": "core/artifacts.py",
-}
+NOT_YET_PORTED: dict = {}
+#: a series the port samples from a process aggregate, so it is always
+#: there (kernel libraries found built); the reference's counts its XLA
+#: disk-cache hits and appears once one happened
+PROCESS_SERIES = {"distel_persistent_cache_hits_total"}
 #: series the reference's exact-shape runs fill from their XLA compiles;
 #: the port's exact-shape engines build no program, so its exact runs
 #: record none (bucketed runs do: ``tests/test_torch_warmup.py``)
@@ -182,7 +180,9 @@ def test_metrics_series_are_the_reference_minus_not_yet_ported(replays):
     (_, _, rmet), (_, _, pmet) = replays
     assert serve_server.NOT_YET_PORTED == NOT_YET_PORTED
     ref, port = _series(rmet), _series(pmet)
-    assert port == ref - set(NOT_YET_PORTED) - EXACT_BUILD_SERIES
+    assert port - PROCESS_SERIES == \
+        ref - set(NOT_YET_PORTED) - EXACT_BUILD_SERIES - PROCESS_SERIES
+    assert PROCESS_SERIES <= port
     assert "distel_requests_total" in port and "distel_retract_total" in port
 
 
@@ -250,7 +250,8 @@ def _counters(text):
     for ln in text.splitlines():
         name, _, value = ln.rpartition(" ")
         if name.startswith("distel_") and "_total" in name and \
-                name.split("{")[0] not in {*NOT_YET_PORTED, *EXACT_BUILD_SERIES}:
+                name.split("{")[0] not in {*NOT_YET_PORTED, *EXACT_BUILD_SERIES,
+                                           *PROCESS_SERIES}:
             out[name] = float(value)
     return out
 
@@ -388,8 +389,10 @@ def test_snapshot_is_a_copy_of_the_state():
 # --------------------------------------------------------------- refusals
 
 #: keys of paths the port does not have (``fused.rounds.k`` > 1 runs the
-#: fused window since it was ported: ``tests/test_torch_fused.py``)
-REFUSED_KEYS = {"artifacts.dir": "/srv/farm"}
+#: fused window since it was ported: ``tests/test_torch_fused.py``;
+#: ``artifacts.dir`` parses since the farm was ported:
+#: ``tests/test_torch_artifacts.py``)
+REFUSED_KEYS = {"mesh.devices": "2", "coordinator.address": "host:1234"}
 
 
 @pytest.mark.parametrize("key", sorted(REFUSED_KEYS))
@@ -442,26 +445,33 @@ def test_warmup_paths_are_refused():
         app.close(final_spill=False)
 
 
-#: the farm's flags are refused by name; ``--warmup`` is ported, so its
-#: case carries a farm flag, which is refused before anything starts
-REFUSED_FLAGS = [["--warmup", "a.ofn", "--artifacts-dir", "farm"],
-                 ["--artifacts-dir", "farm"], ["--artifacts-require"]]
-
-
-def _refused(flag):
-    return next(f for f in flag if f.startswith("--artifacts"))
+#: the farm's flags are ported: under ``--artifacts-require`` a farm
+#: that is not there is refused before anything binds or starts
+REFUSED_FLAGS = [["--warmup", "a.ofn", "--artifacts-dir", "no-such-farm",
+                  "--artifacts-require"],
+                 ["--artifacts-dir", "no-such-farm", "--artifacts-require"],
+                 ["--artifacts-require", "--artifacts-dir", "no-such-farm"]]
 
 
 @pytest.mark.parametrize("flag", REFUSED_FLAGS, ids=lambda f: f[0])
 def test_refused_serve_flags_raise(flag):
-    with pytest.raises(ValueError, match=re.escape(_refused(flag))):
-        cli.main(["serve", "--device", "cpu", *flag])
+    """``cli serve --artifacts-require`` with no farm raises before it
+    binds.  (The name is kept from when the port refused the farm's
+    flags.)"""
+    from distel_tpu_torch.core.artifacts import ArtifactError
+
+    with pytest.raises(ArtifactError, match="no artifact manifest"):
+        cli.main(["serve", "--device", "cpu", "--port", "0", *flag])
 
 
 @pytest.mark.parametrize("flag", REFUSED_FLAGS, ids=lambda f: f[0])
 def test_refused_fleet_flags_raise(flag, tmp_path):
-    """``cli fleet`` refuses them before it starts a replica."""
-    with pytest.raises(ValueError, match=re.escape(_refused(flag))):
+    """``cli fleet --artifacts-require`` with no farm raises before it
+    starts a replica.  (The name is kept from when the port refused the
+    farm's flags.)"""
+    from distel_tpu_torch.core.artifacts import ArtifactError
+
+    with pytest.raises(ArtifactError, match="no artifact manifest"):
         cli.main(["fleet", "--device", "cpu", "--spill-dir", str(tmp_path),
                   *flag])
     assert not (tmp_path / "logs").exists()

@@ -3,12 +3,11 @@
 
 ``warmup_paths`` on both profiles builds a sample corpus's programs
 into ``core/program_cache.PROGRAMS``; its records carry the reference's
-keys less the artifact farm's (``core/artifacts.py`` is not ported),
-and a same-bucket classify or serve load afterwards builds nothing.
-The serve plane's background warmup moves the reference's warmup and
-program-cache series, and ``/metrics`` names every series the
-reference's serve app names except the five that wait for the artifact
-farm.
+keys, the artifact farm's attribution among them, and a same-bucket
+classify or serve load afterwards builds nothing.  The serve plane's
+background warmup moves the reference's warmup and program-cache
+series, and ``/metrics`` names every series the reference's serve app
+names, the artifact farm's five among them.
 """
 
 import json
@@ -36,7 +35,7 @@ ARTIFACT_SERIES = {
     "distel_artifact_misses_total", "distel_artifact_rejected_total",
     "distel_persistent_cache_hits_total",
 }
-#: record keys of the reference's warmup that name the artifact farm
+#: record keys of the warmup that name the artifact farm
 ARTIFACT_KEYS = {"artifact_exe_hits", "artifact_hlo_hits",
                  "artifact_serialized", "artifact_unserializable"}
 
@@ -58,7 +57,8 @@ def test_warmup_paths_builds_the_bucket(pair, profile):
     recs = warmup.warmup_paths([pa], cfg, profile=profile, device="cpu")
     ref_recs = ref_warmup.warmup_paths([pa], RefConfig(fast_path_min_concepts=0),
                                        profile=profile)
-    assert set(recs[0]) == set(ref_recs[0]) - ARTIFACT_KEYS
+    assert set(recs[0]) == set(ref_recs[0])
+    assert ARTIFACT_KEYS <= set(recs[0])
     rec = recs[0]
     assert rec["file"] == pa and rec["profile"] == profile
     assert rec["program_cache_hit"] is False and rec["trace_lower_s"] > 0
@@ -130,6 +130,9 @@ def _names(app):
 
 
 def test_metrics_names_are_the_reference_minus_the_farm():
+    """The port's ``/metrics`` names every series the reference's does,
+    the farm's five among them.  (The name is kept from when the farm's
+    series were not ported.)"""
     ref = RefApp(RefConfig())
     port = ServeApp(device="cpu")
     try:
@@ -137,8 +140,12 @@ def test_metrics_names_are_the_reference_minus_the_farm():
     finally:
         ref.close(final_spill=False)
         port.close(final_spill=False)
-    assert set(serve_server.NOT_YET_PORTED) == ARTIFACT_SERIES
-    assert got == want - ARTIFACT_SERIES
+    assert not set(serve_server.NOT_YET_PORTED) & ARTIFACT_SERIES
+    # the persistent-cache series is the port's process aggregate (kernel
+    # libraries found built), always there; the reference's appears
+    # once an XLA disk-cache hit happened
+    process = {"distel_persistent_cache_hits_total"}
+    assert got - process == want - process and ARTIFACT_SERIES <= got
     assert "distel_program_cache_evictions_total" in got
 
 
@@ -151,8 +158,16 @@ def test_cli_warmup(pair, capsys):
     assert [r["file"] for r in lines[:2]] == [pa, pb]
     assert lines[1]["program_cache_hit"] is True
     assert lines[2]["warmed_buckets"] == 1 and lines[2]["corpora"] == 2
-    with pytest.raises(ValueError, match=r"core/artifacts\.py"):
-        cli.main(["warmup", pa, "--device", "cpu", "--artifacts-dir", "farm"])
+    # a farm that is not there: refused under --artifacts-require, and
+    # without it warned about while the corpora warm all the same
+    from distel_tpu_torch.core.artifacts import ArtifactError
+
+    with pytest.raises(ArtifactError, match="no artifact manifest"):
+        cli.main(["warmup", pa, "--device", "cpu", "--artifacts-dir",
+                  "no-such-farm", "--artifacts-require"])
+    with pytest.warns(RuntimeWarning, match="NOT installed"):
+        assert cli.main(["warmup", pa, "--device", "cpu", "--artifacts-dir",
+                         "no-such-farm"]) == 0
 
 
 def test_cli_fleet_passes_warmup_to_its_replicas(monkeypatch, tmp_path):
