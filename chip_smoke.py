@@ -176,6 +176,27 @@ Phases, each of which raises on failure:
    a copy with one spec byte flipped refused under
    ``--artifacts-require`` before binding and served without it, built
    from the engine's tables, the same taxonomy.
+10d. the cohort plane (``core/cohort.py``): an in-process
+   ``OntologyRegistry`` on the card, four 64k tenants (seed 42 three
+   times, seed 41 once) and one ``delta_cohort`` call with their deltas,
+   each family within the seg-OR ladder's floor rung (8 rows) so that
+   they share one roster key: the bench's class-only delta's first 8
+   axioms, 8 ∃-assertions over existing links, both, the class-only
+   rows again), launch counts zeroed just before and read just after (the
+   batched row-count kernels must launch); each member's roster key
+   and path, the rung, the votes and their walls, the cohort programs'
+   capture seconds and card bytes, peak memory; every cohort member
+   held to its plan run solo on the card from its pre-cohort state (S,
+   R, derivations, iterations, taxonomy), a fallback member to a
+   from-scratch classify; one eager group of the base position's
+   cohort program on the joint fixed point, whose heaviest operand of
+   each route goes through the batched kernels at rungs 2, 4 and 8
+   against the plain version (the ``(cohort step)`` rows of the kernel
+   line); then cohorts of 2, 3 and 5 (rungs 2, 4, 8) of the cut corpus
+   on the card, against the same increments run solo on the CPU, every
+   record and taxonomy equal; and a card
+   ``ServeApp`` over loopback HTTP whose scheduler forms a cohort from
+   three tenants' concurrent deltas, answers equal to the CPU's.
 11. the serve plane on the card and on the CPU (``ServeApp`` through
    ``dispatch``): the bench's traffic over the cut corpus (3,500
    classes) without its range axiom, the scheduled and snapshot reads after each write, every
@@ -250,6 +271,9 @@ and card bytes), ``{"farm_full_width": ...}`` (the bake's records,
 stats and wall, the re-bake's, the consumer's start-to-serving wall,
 install record, load and delta, ``/metrics`` series and launches, the
 kernel check, the refusal and the lenient consumer),
+``{"cohort_full_width": ...}`` (the 64k cohort's members, key, rung,
+votes, vote walls beside the solo walls, programs, events, launches,
+solo checks, batched kernel checks; the cut cohorts; the HTTP cohort),
 ``{"serve_card_vs_cpu": ...}`` and ``{"serve_full_width": ...}`` (per
 request: client wall, path, iterations, phases, launches, snapshot
 publish seconds, host peak RSS, card memory; the bytes an eviction
@@ -265,7 +289,8 @@ the sparse row also carries the listing kernel's time and launches;
 the batched dense row's numbers are from the component phase; the
 row-count variants' and the IF setter's from the fused phase; the rows
 marked ``"library": "farm"`` from the farm phase, their launches the
-consumer process's),
+consumer process's; the ``(cohort step)`` rows from the cohort phase,
+their launches the 64k cohort's),
 and as its last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 Without a CUDA device it exits non-zero and prints no result.
@@ -5266,6 +5291,556 @@ class Tee:
             st.flush()
 
 
+# ------------------------------------------------------ the cohort plane
+
+#: the cohort plane's phase: rows a delta family of the 64k cohort
+#: (the seg-OR ladder's floor rung, 8 segments a level: class-only, link
+#: and mixed deltas share one roster key only within it)
+COHORT_FLOOR_ROWS = 8
+COHORT_BATCHED = ("packed_cols_dense_n_batched", "packed_cols_list_n_batched",
+                  "packed_cols_sparse_batched")
+
+
+def cohort_nf3_delta(idx, n: int = 50) -> str:
+    """``n`` ∃-assertions over existing classes and links of ``idx``:
+    ``SubClassOf(Find_k ObjectSomeValuesFrom(r B))`` for the first ``n``
+    links (r, B) whose filler is a named class, each with its own
+    subject; no link, class or role is new."""
+    names, roles = idx.concept_names, idx.role_names
+    named = set(int(i) for i in idx.original_classes)
+    lines, seen = [], set()
+    for r, f in np.asarray(idx.links).tolist():
+        if f not in named or (r, f) in seen:
+            continue
+        seen.add((r, f))
+        lines.append(f"SubClassOf(Find{3 * len(lines) + 1} "
+                     f"ObjectSomeValuesFrom({roles[r]} {names[f]}))")
+        if len(lines) == n:
+            break
+    if len(lines) < n:
+        raise AssertionError(f"cohort: only {len(lines)} named links for the ∃-delta")
+    return "\n".join(lines)
+
+
+def cohort_cut_delta(r: int, i: int) -> str:
+    """Round ``r``'s delta of tenant ``i`` on the cut corpus, within the
+    canonical floor rung (so the default config forms one key): kinds
+    cycle class-only (4 axioms), link (2 new links), mixed."""
+    cls = "\n".join(f"SubClassOf(CohortC{r}x{i}y{j} Find{7 * j + i + r})"
+                    for j in range(4))
+    link = "\n".join(f"SubClassOf(Find{11 * j + i} ObjectSomeValuesFrom(attr1 "
+                     f"CohortL{r}x{i}y{j}))" for j in range(2))
+    return (cls, link, cls + "\n" + link)[i % 3]
+
+
+#: the cohort cut's rounds: tenant indices per cohort (rungs 2, 4, 8)
+COHORT_CUT_ROUNDS = [[0, 1], [2, 3, 4], [0, 1, 2, 3, 4]]
+
+
+def as_json(x):
+    """``x`` through JSON (tuples become lists, keys strings): the form
+    in which a child process's answers compare with this one's."""
+    return json.loads(json.dumps(x, sort_keys=True))
+
+
+def cohort_cut_load(cut_text: str, dev: str) -> dict:
+    """Five registry tenants of ``cut_text`` on ``dev``."""
+    from distel_tpu_torch.config import ClassifierConfig
+    from distel_tpu_torch.serve.metrics import Metrics
+    from distel_tpu_torch.serve.registry import OntologyRegistry
+
+    reg = OntologyRegistry(ClassifierConfig(), device=dev, metrics=Metrics())
+    oids = [reg.new_id() for _ in range(5)]
+    t0 = time.perf_counter()
+    for oid in oids:
+        reg.load(oid, cut_text)
+    return {"reg": reg, "oids": oids, "load_s": time.perf_counter() - t0}
+
+
+def cohort_cut_rounds(box: dict, solo: bool = False) -> dict:
+    """The cut rounds over ``box``'s tenants through ``delta_cohort``:
+    one call a round, or with ``solo`` one call a member (each alone:
+    the registry's solo fallback, the same canonical plan run solo).
+    Returns the records (without build keys), walls and taxonomies
+    (after the second round for tenants 0-2, and at the end)."""
+    from distel_tpu_torch.runtime.taxonomy import extract_taxonomy
+
+    def tax(res):
+        return as_json(taxonomy_key(extract_taxonomy(res)))
+
+    reg, oids = box.pop("reg"), box["oids"]
+    recs, walls, taxes = [], [], {}
+    for r, group in enumerate(COHORT_CUT_ROUNDS):
+        items = [(oids[i], [cohort_cut_delta(r, i)]) for i in group]
+        t0 = time.perf_counter()
+        got = {}
+        for part in ([[it] for it in items] if solo else [items]):
+            got.update(reg.delta_cohort(part))
+        if reg.device.type == "cuda":
+            sync()
+        walls.append(time.perf_counter() - t0)
+        for i in group:
+            if isinstance(got[oids[i]], BaseException):
+                raise got[oids[i]]
+        recs.append([as_json(without_build(got[oids[i]])) for i in group])
+        if r == 1:      # tenants 0, 1, 2 after their first delta
+            taxes = {str(i): tax(reg.classifier(oids[i]).last_result)
+                     for i in range(3)}
+    box.update(walls_s=walls, records=recs, first_taxonomies=taxes,
+               final=[tax(reg.classifier(oid).last_result) for oid in oids])
+    return box
+
+
+def cohort_cut_cpu(cut_classes: int, out: str) -> None:
+    """The cohort cut's CPU half, in a child process (no card): five
+    tenants, each round's increments each alone; the result as JSON to
+    ``out``."""
+    from distel_tpu_torch.frontend.ontology_tools import snomed_shaped_ontology
+
+    # half the cores: the card's process keeps the rest
+    torch.set_num_threads(max(1, (os.cpu_count() or 2) // 2))
+    text = without_ranges(snomed_shaped_ontology(n_classes=cut_classes, seed=42))
+    box = cohort_cut_rounds(cohort_cut_load(text, "cpu"), solo=True)
+    Path(out).write_text(json.dumps(box))
+
+
+class BatchedRowsCapture:
+    """While active, keeps per route the operand of ``batched_rows`` with
+    the most work (copies × rows × links × words, copied on the card) and
+    its row counts."""
+
+    def __init__(self):
+        from distel_tpu_torch.ops.bitmatmul import PackedColsMatmulPlan
+
+        self.cls = PackedColsMatmulPlan
+        self._orig = PackedColsMatmulPlan.batched_rows
+        self.top = {}
+
+    def __enter__(self):
+        cap = self
+
+        def batched_rows(plan, a, b, out, n_rows):
+            route = "list" if plan.skip_zero_tiles else "dense"
+            work = int(n_rows.sum()) * plan.l * plan.w
+            if work > cap.top.get(route, (-1,))[0]:
+                cap.top[route] = (work, a.clone(), b.clone(), out.clone(),
+                                  n_rows.clone())
+            return cap._orig(plan, a, b, out, n_rows)
+
+        self.cls.batched_rows = batched_rows
+        return self
+
+    def __exit__(self, *exc):
+        self.cls.batched_rows = self._orig
+
+
+def batched_rows_bound_ms(a, b, n_rows):
+    """:func:`bound_ms` of a batched row-count call: per copy its rows
+    below the count (A once, the B rows some nonzero selects, C once;
+    one W-word OR a nonzero), summed over the copies."""
+    w = b.shape[2]
+    nbytes = ops = 0
+    for k in range(a.shape[0]):
+        n = int(n_rows[k])
+        nz = a[k, :n] != 0
+        nbytes += n * a.shape[2] + 4 * w * int(nz.any(dim=0).sum()) + 4 * n * w
+        ops += 2 * 32 * int(nz.sum()) * w
+    t_bytes, t_ops = nbytes / PEAK_BYTES_S, ops / PEAK_INT8_OPS_S
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def check_batched_rows(route: str, a, b, out, n_rows) -> dict:
+    """One captured batched operand through its route's kernels at its
+    rung and, re-stacked, at rungs 2 and 8 with mixed row counts (0,
+    all, half, the captured ones): 0 differing words against
+    ``plain_packed_cols_rows_batched``; then timed (CUDA events) beside
+    the plain version, with the bound."""
+    from distel_tpu_torch.ops.bitmatmul import (
+        PackedColsMatmulPlan, plain_packed_cols_rows_batched,
+    )
+
+    nb, m, l = a.shape
+    w = b.shape[2]
+    plan = PackedColsMatmulPlan(m, l, w, skip_zero_tiles=(route == "list"))
+    err, rungs = 0, {}
+    for rung in sorted({2, nb, 8}):
+        pick = torch.arange(rung, device=a.device) % nb
+        aa, bb, oo = a[pick].contiguous(), b[pick].contiguous(), out[pick].contiguous()
+        mix = torch.tensor([(int(n_rows[k % nb]), 0, m, m // 2)[k % 4]
+                            for k in range(rung)], dtype=torch.int32, device=a.device)
+        got = plan.batched_rows(aa, bb, oo.clone(), mix)
+        sync()
+        want = plain_packed_cols_rows_batched(aa, bb, oo.clone(), mix)
+        diff = int((got != want).sum())
+        rungs[rung] = diff
+        err = max(err, diff)
+        del aa, bb, oo, got, want
+    if err:
+        raise AssertionError(f"cohort: {route} batched kernels differ from plain "
+                             f"by {rungs} words")
+    c = out.clone()
+    rec = {
+        "route": route, "shape": [nb, m, l, w], "n_rows": n_rows.tolist(),
+        "max_abs_err": err, "rung_diffs": rungs,
+        "ms": time_ms(lambda: plan.batched_rows(a, b, c, n_rows)),
+        "plain_ms": time_ms(lambda: plain_packed_cols_rows_batched(a, b, c, n_rows),
+                            reps=3),
+    }
+    if route == "list":
+        lists = plan._list_n_batched(a, n_rows, plan._lists[(a.device, "batched", nb)])
+        rec["list_ms"] = time_ms(lambda: plan._list_n_batched(
+            a, n_rows, plan._lists[(a.device, "batched", nb)]))
+        rec["sparse_kernel_ms"] = time_ms(lambda: plan._sparse_batched(b, lists, c, m))
+        rec["slabs"] = len(plan._batched_slabs(a.device, nb))
+    dead = torch.zeros_like(n_rows)
+    rec["dead_ms"] = time_ms(lambda: plan.batched_rows(a, b, c, dead))
+    rec["bound_ms"], rec["bound_by"] = batched_rows_bound_ms(a, b, n_rows)
+    log(f"[cohort] batched {json.dumps(rec)}")
+    return rec
+
+
+def start_cohort_cpu(cut_classes: int = CUT_CLASSES):
+    """Start :func:`cohort_cut_cpu` in a child process with no card:
+    ``(process, result path)``.  The process is killed when this one
+    exits (and by :func:`phase_cohort_full_width` when done)."""
+    import atexit
+
+    out = ROOT / "build" / "smoke_cohort_cpu.json"
+    out.parent.mkdir(parents=True, exist_ok=True)
+    out.unlink(missing_ok=True)
+    child = subprocess.Popen(
+        [sys.executable, "-c",
+         f"import sys; sys.path.insert(0, {str(ROOT)!r}); import chip_smoke as cs; "
+         f"cs.cohort_cut_cpu({cut_classes}, {str(out)!r})"],
+        env={**os.environ, "CUDA_VISIBLE_DEVICES": ""},
+    )
+    atexit.register(lambda: child.poll() is None and (child.kill(), child.wait()))
+    return child, out
+
+
+def phase_cohort_full_width(device: str = "cuda", n_classes: int = 64000,
+                            cut_classes: int = CUT_CLASSES,
+                            rows: int = COHORT_FLOOR_ROWS, cpu=None) -> list:
+    """The cohort plane: same-bucket tenants' deltas advanced by one
+    batched step program a vote (``core/cohort.py``).
+
+    1. Full width, an in-process ``OntologyRegistry`` on the card:
+       tenants a, b, c (the 64k corpus, seed 42, without its range
+       axiom) and d (seed 41); deltas of ``rows`` axioms a family (the
+       floor rung, so all four share one roster key) a: the bench's
+       class-only delta's first ``rows`` axioms, b: ``rows``
+       ∃-assertions over existing classes and links, c: both, d: a's.
+       One ``delta_cohort`` call: each member's path and roster key,
+       the rung, the votes and their walls, the cohort programs' capture
+       seconds and card bytes, ``max_memory_allocated``; launches counted
+       from 0 around that call (the batched kernels must launch).  Each
+       cohort member is held to the same plan run solo on the card from
+       its pre-cohort state (S, R, derivations, iterations, taxonomy);
+       a fallback member to a from-scratch classify.  Then one eager
+       group of the base position's cohort program on the final stacked
+       state gives the batched kernels' heaviest operands: checked at
+       rungs 2, 4 and 8 and timed (the ``kernels`` rows).
+    2. Cut, card against CPU: five tenants of the cut corpus, cohorts of
+       2, 3 and 5 (rungs 2, 4, 8) through ``delta_cohort`` with the
+       default config on the card; on the CPU the same increments each
+       alone (the registry's solo fallback: the same canonical plan run
+       solo), in a child process (``cohort_cut_cpu``, no card; ``cpu``:
+       one started earlier by :func:`start_cohort_cpu`) beside the card's
+       work; every record (bar the cohort's own keys) and taxonomy
+       equal.
+    3. A card ``ServeApp`` over loopback HTTP: three tenants, their
+       deltas from three threads at once; the scheduler forms a cohort
+       (``distel_cohort_formed_total`` >= 1) and the answers equal the
+       CPU's."""
+    t_phase = time.perf_counter()
+    # the cut part's CPU half runs in a child process (no card) beside
+    # the card's work; ``cpu``: one the caller started earlier
+    child, cpu_out = cpu if cpu is not None else start_cohort_cpu(cut_classes)
+    try:
+        return _cohort_phase(device, n_classes, cut_classes, rows, child,
+                             cpu_out, t_phase)
+    finally:
+        if child.poll() is None:
+            child.kill()
+            child.wait()
+        cpu_out.unlink(missing_ok=True)
+
+
+def _cohort_phase(device, n_classes, cut_classes, rows, child, cpu_out,
+                  t_phase) -> list:
+    """:func:`phase_cohort_full_width`'s card half."""
+    import threading
+
+    from distel_tpu_torch.config import ClassifierConfig
+    from distel_tpu_torch.core import bucketing
+    from distel_tpu_torch.core import cohort as cohort_mod
+    from distel_tpu_torch.core.program_cache import PROGRAMS
+    from distel_tpu_torch.frontend.ontology_tools import snomed_shaped_ontology
+    from distel_tpu_torch.ops.bitmatmul import LAUNCHES, reset_launches
+    from distel_tpu_torch.runtime.classifier import ELClassifier
+    from distel_tpu_torch.runtime.instrumentation import COHORT_EVENTS
+    from distel_tpu_torch.runtime.taxonomy import extract_taxonomy
+    from distel_tpu_torch.serve.metrics import Metrics
+    from distel_tpu_torch.serve.registry import OntologyRegistry
+
+    out = {}
+
+    def tax(res):
+        return taxonomy_key(extract_taxonomy(res))
+
+    # ---- 1. full width
+    texts = {"a": without_ranges(snomed_shaped_ontology(n_classes=n_classes, seed=42))}
+    texts["d"] = without_ranges(snomed_shaped_ontology(n_classes=n_classes, seed=41))
+    metrics = Metrics()
+    cfg = ClassifierConfig()
+    reg = OntologyRegistry(cfg, device=device, metrics=metrics)
+    ids = {}
+    t0 = time.perf_counter()
+    for who in "abcd":
+        ids[who] = reg.new_id()
+        reg.load(ids[who], texts["d" if who == "d" else "a"])
+    out["load_s"] = time.perf_counter() - t0
+    nf3 = cohort_nf3_delta(reg.classifier(ids["b"])._base_idx, rows)
+    nf1 = "\n".join(INC_CLASS_DELTA.splitlines()[:rows])
+    deltas = {"a": nf1, "b": nf3, "c": nf1 + "\n" + nf3, "d": nf1}
+    out["cohort_keys"] = {w: reg.cohort_key(ids[w]) for w in "abcd"}
+    runs = []
+    orig = cohort_mod.execute_delta_cohort
+
+    def hooked(members, max_iters=None, **kw):
+        saved = [(inc, plan, batch, (inc._state[0].clone(), inc._state[1].clone()))
+                 for inc, plan, batch in members]
+        runs.append({"members": saved, "keys": [p.roster_key() for _i, p, _b in members]})
+        res = orig(members, max_iters, **kw)
+        runs[-1]["results"] = res
+        return res
+
+    if device == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    free_before = cohort_mod.free_bytes(device)
+    ev0 = COHORT_EVENTS.snapshot()
+    cohort_mod.execute_delta_cohort = hooked
+    try:
+        sync()
+        reset_launches()
+        t0 = time.perf_counter()
+        answers = reg.delta_cohort([(ids[w], [deltas[w]]) for w in "abcd"])
+        sync()
+        wall = time.perf_counter() - t0
+        launches = dict(LAUNCHES)
+    finally:
+        cohort_mod.execute_delta_cohort = orig
+    ev1 = COHORT_EVENTS.snapshot()
+    if len(runs) != 1:
+        raise AssertionError(f"cohort: {len(runs)} cohorts formed at 64k, one wanted")
+    stats = runs[0]["members"][0][0].last_cohort
+    for w in "abcd":
+        if isinstance(answers[ids[w]], BaseException):
+            raise answers[ids[w]]
+    run = runs[0]
+    members = {ids[w]: w for w in "abcd"}
+    in_cohort = [members[next(o for o, e in reg._entries.items() if e.inc is inc)]
+                 for inc, _p, _b, _s in run["members"]]
+    full = {
+        "tenants": {w: {"id": ids[w], "path": answers[ids[w]]["path"],
+                        "iterations": answers[ids[w]]["iterations"],
+                        "new_derivations": answers[ids[w]]["new_derivations"],
+                        "batch_axioms": answers[ids[w]]["batch_axioms"]}
+                    for w in "abcd"},
+        "in_cohort": in_cohort,
+        "roster_keys_equal": len(set(run["keys"])) == 1,
+        "roster_key": list(run["keys"][0]),
+        "delta_cohort_wall_s": wall,
+        "rung": stats["rung"], "votes": stats["votes"],
+        "vote_walls_s": stats["vote_walls_s"],
+        "programs": stats["programs"], "cohort_pair_bytes": stats["pair_bytes"],
+        "events": {k: ev1[k] - ev0[k] for k in ev1 if k not in ("last_size", "last_rung")},
+        "launches": {k: v for k, v in launches.items() if v},
+        "registry_program_bytes": bucketing.program_bytes(device),
+        # the memory check's room before the call (the hook's saved
+        # states take 4 lanes of it)
+        "free_bytes_before": free_before,
+        "phases_s": {w: reg.classifier(ids[w]).last_phases for w in "abcd"},
+    }
+    if device == "cuda":
+        full["max_memory_allocated"] = torch.cuda.max_memory_allocated()
+    if set("abc") - set(in_cohort):
+        raise AssertionError(f"cohort: a, b, c must share one cohort, got {in_cohort}")
+    if stats["rung"] != cohort_mod.cohort_rung(len(in_cohort)):
+        raise AssertionError("cohort: wrong rung")
+    if device == "cuda" and not all(launches[k] for k in COHORT_BATCHED[:2]):
+        raise AssertionError(f"cohort: the batched kernels did not launch: {launches}")
+    if full["events"]["solo_dispatches"] != (0 if "d" in in_cohort else
+                                             full["events"]["solo_dispatches"]):
+        raise AssertionError("cohort: a full cohort ran a solo dispatch")
+    # each member against its plan run solo on the card from its
+    # pre-cohort state, then given its cohort answer back
+    checks, solo_walls = {}, []
+    for (inc, plan, _b, state), res in zip(run["members"], run["results"]):
+        who = members[next(o for o, e in reg._entries.items() if e.inc is inc)]
+        inc._state = state
+        sync()
+        t0 = time.perf_counter()
+        solo = inc._execute_delta_plan(plan)
+        sync()
+        solo_walls.append(time.perf_counter() - t0)
+        same = {
+            "S": bool(torch.equal(solo.packed_s, res.packed_s)),
+            "R": bool(torch.equal(solo.packed_r, res.packed_r)),
+            "derivations": solo.derivations == res.derivations,
+            "iterations": solo.iterations == res.iterations,
+        }
+        same["taxonomy"] = tax(solo) == tax(res)
+        checks[who] = same
+        inc._state = (res.packed_s, res.packed_r)
+        inc.last_result = res
+        del solo, state
+        if not all(same.values()):
+            raise AssertionError(f"cohort: member {who} differs from its solo run: {same}")
+    run["members"] = None
+    full["solo_checks"] = checks
+    full["solo_walls_s"] = solo_walls
+    full["solo_walls_sum_s"] = sum(solo_walls)
+    full["vote_walls_sum_s"] = sum(stats["vote_walls_s"])
+    for w in set("abcd") - set(in_cohort):
+        whole = ELClassifier(device=device).classify_text(
+            texts["d" if w == "d" else "a"] + deltas[w])
+        same = named_closure_equal(reg.classifier(ids[w]).last_result, whole.result)
+        checks[w] = {"fallback": True, "equal_to_classify": bool(same)}
+        if not same:
+            raise AssertionError(f"cohort: fallback member {w} differs from a classify")
+        del whole
+    # the batched kernels' heaviest operands: one eager group of the base
+    # position's cohort program on the final stacked state
+    base_sig = run["keys"][0][-1]
+    prog = next(p for k, p in list(PROGRAMS._programs.items()) if k[0] == base_sig
+                and k[1] == "cohort_run" and k[3] == stats["rung"])
+    base_tabs = [reg.classifier(ids[w])._base_engine.bucket_tables() for w in in_cohort]
+    with prog.pair.lock, BatchedRowsCapture() as bcap:
+        before = prog.pair.sp.clone()
+        prog.load(base_tabs + [base_tabs[-1]] * (prog.rung - len(base_tabs)))
+        prog.ms.fill_(True)
+        prog.dl.copy_(prog.T["dl_valid"])
+        prog._group()
+        sync()
+        if bool(prog.flags[:, 0].any()) or not torch.equal(prog.pair.sp, before):
+            raise AssertionError("cohort: a group on the joint fixed point changed it")
+        del before
+    rows = []
+    if device == "cuda":
+        recs = [check_batched_rows(route, *top[1:])
+                for route, top in sorted(bcap.top.items())]
+        for rec in recs:
+            names = (("packed_cols_list_n_batched", "packed_cols_sparse_batched")
+                     if rec["route"] == "list" else ("packed_cols_dense_n_batched",))
+            row = {
+                "name": f"{names[0]} (cohort step)", "route": "cuda", "source": SOURCE,
+                "replaces": REPLACES["packed_cols_sparse" if rec["route"] == "list"
+                                     else "packed_cols_dense"],
+                "launches": launches[names[0]],
+                "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
+                "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
+                "bound_by": rec["bound_by"], "library_ms": None,
+                "dead_ms": rec["dead_ms"], "rung_diffs": rec["rung_diffs"],
+                "at": {"run": "64k-cohort", "shape": rec["shape"],
+                       "n_rows": rec["n_rows"]},
+                "main_path": True,
+            }
+            if rec["route"] == "list":
+                row.update(sparse_launches=launches["packed_cols_sparse_batched"],
+                           list_ms=rec["list_ms"], sparse_kernel_ms=rec["sparse_kernel_ms"],
+                           slabs=rec["slabs"])
+            rows.append(row)
+        full["kernel_checks"] = recs
+    bcap.top.clear()
+    del reg, run, runs, answers, prog
+    out["full_width"] = full
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    log(f"[cohort] 64k: {json.dumps({k: full[k] for k in ('in_cohort', 'rung', 'votes', 'vote_walls_sum_s', 'solo_walls_sum_s')})}")
+
+    # ---- 2. cut, card against CPU: cohorts of 2, 3 and 5
+    cut_text = without_ranges(snomed_shaped_ontology(n_classes=cut_classes, seed=42))
+    card = cohort_cut_rounds(cohort_cut_load(cut_text, device))
+    rounds = COHORT_CUT_ROUNDS
+    for r, group in enumerate(rounds):
+        for rec in card["records"][r]:
+            if rec["path"] != "cohort" or rec["cohort_rung"] != cohort_mod.cohort_rung(len(group)):
+                raise AssertionError(f"cohort cut: round {r} did not form: {rec}")
+
+    # ---- 3. a card ServeApp over loopback HTTP: concurrent deltas
+    from distel_tpu_torch.serve.client import ServeClient
+    from distel_tpu_torch.serve.server import ServeApp
+
+    app = ServeApp(ClassifierConfig(cohort_max_wait_ms=2000.0), device=device,
+                   workers=4)
+    http = {}
+    try:
+        with http_serving(app) as url:
+            client = ServeClient(url, timeout=600)
+            oids = [client.load(cut_text)["id"] for _ in range(3)]
+            first = {0: 0, 1: 0, 2: 1}       # the cut rounds' first deltas
+            recs, errors = {}, []
+
+            def send(i):
+                try:
+                    recs[i] = client.delta(oids[i], cohort_cut_delta(first[i], i))
+                except Exception as e:  # noqa: BLE001 — reported below
+                    errors.append(e)
+
+            threads = [threading.Thread(target=send, args=(i,)) for i in range(3)]
+            t0 = time.perf_counter()
+            for th in threads:
+                th.start()
+            for th in threads:
+                th.join()
+            http["deltas_wall_s"] = time.perf_counter() - t0
+            if errors:
+                raise errors[0]
+            http["paths"] = [recs[i]["path"] for i in range(3)]
+            http["cohort_sizes"] = [recs[i].get("cohort_size") for i in range(3)]
+            http["formed"] = app.metrics.counter_value("distel_cohort_formed_total")
+            got = {i: tax(app.registry.classifier(oids[i]).last_result) for i in range(3)}
+    finally:
+        app.close(final_spill=False)
+    t0 = time.perf_counter()
+    if child.wait(timeout=900) != 0:
+        raise AssertionError(f"cohort cut: the CPU child exited {child.returncode}")
+    cpu = json.loads(cpu_out.read_text())
+    # what only a cohort (or only the solo path) records, and registry
+    # hits, which depend on what the process built before
+    own = {"path", "cohort_size", "cohort_rung", "cohort_dispatches",
+           "delta_programs", "delta_program_hits"}
+
+    def shared(recs):
+        return [[{k: v for k, v in rec.items() if k not in own} for rec in rr]
+                for rr in recs]
+
+    if any(rec["path"] != "fast" for rr in cpu["records"] for rec in rr):
+        raise AssertionError("cohort cut: a CPU member left the fast path")
+    if shared(card["records"]) != shared(cpu["records"]) or card["final"] != cpu["final"]:
+        raise AssertionError("cohort cut: card and CPU differ")
+    out["cut"] = {
+        "classes": cut_classes, "rungs": [cohort_mod.cohort_rung(len(g)) for g in rounds],
+        "card_equals_cpu": True,
+        "card": {k: card[k] for k in ("load_s", "walls_s")},
+        "cpu": {k: cpu[k] for k in ("load_s", "walls_s")},
+        "cpu_wait_s": time.perf_counter() - t0,
+        "iterations": [[rec["iterations"] for rec in rr] for rr in card["records"]],
+        "votes": [rr[0]["cohort_dispatches"] for rr in card["records"]],
+    }
+    log(f"[cohort] cut: {json.dumps(out['cut'])}")
+    if http["formed"] < 1:
+        raise AssertionError(f"cohort http: no cohort formed: {http}")
+    if as_json({str(i): t for i, t in got.items()}) != cpu["first_taxonomies"]:
+        raise AssertionError("cohort http: answers differ from the CPU's")
+    http["equal_to_cpu"] = True
+    out["http"] = http
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(json.dumps({"cohort_full_width": out}, default=str), flush=True)
+    return rows
+
+
 def main() -> int:
     # the port first: in a directory without it this fails before any
     # result is printed
@@ -5338,9 +5913,15 @@ def main() -> int:
     fused_rows = phase_fused_full_width()
     torch.cuda.empty_cache()
     mark("fused")
+    # the cohort phase's CPU half, a child process with no card, runs
+    # beside the farm phase and the cohort phase's card half
+    cohort_cpu = start_cohort_cpu()
     farm_rows = phase_farm_full_width()
     torch.cuda.empty_cache()
     mark("farm")
+    cohort_rows = phase_cohort_full_width(cpu=cohort_cpu)
+    torch.cuda.empty_cache()
+    mark("cohort")
     phase_serve_card_vs_cpu()
     checked += phase_serve_full_width(cap)
     torch.cuda.empty_cache()
@@ -5353,6 +5934,7 @@ def main() -> int:
     rows.append(batched_row)
     rows.extend(fused_rows)
     rows.extend(farm_rows)
+    rows.extend(cohort_rows)
     (out / "kernel_pairs.json").write_text(json.dumps(pairs, indent=1))
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": rows}), flush=True)

@@ -170,12 +170,19 @@ class ClassifierConfig:
     query_enable: bool = True
     #: decoded-row LRU capacity per snapshot
     query_row_cache: int = 256
-    #: the scheduler's cohort-formation lane (``serve/scheduler.py``):
-    #: it forms only over bucketed base programs, so with the port's
-    #: exact-shape engines every delta runs solo
+    #: the scheduler's cohort-formation lane (``serve/scheduler.py``)
+    #: and the cohort plane (``core/cohort.py``): same-bucket tenants'
+    #: deltas advanced by one batched step program a vote.  It forms
+    #: only over bucketed base programs (exact-shape engines run every
+    #: delta solo); cohorts pad to a power-of-two rung, so
+    #: ``cohort_max_size`` also bounds the cohort programs' rungs
     cohort_enable: bool = True
     cohort_max_size: int = 8
     cohort_max_wait_ms: float = 25.0
+    #: comma-separated cohort sizes ``warm_delta_programs`` builds the
+    #: canonical delta roster's cohort programs for ("" = none): a
+    #: warmed process's first cohort then builds nothing
+    cohort_warm_sizes: str = ""
     #: compress registry cold spills (``np.savez_compressed``)
     storage_compress_spills: bool = True
     #: host-RAM warm-tier budget (MiB); 0 = hot evictions spill
@@ -338,6 +345,8 @@ class ClassifierConfig:
             cfg.cohort_max_size = int(raw["cohort.max_size"])
         if "cohort.max_wait_ms" in raw:
             cfg.cohort_max_wait_ms = float(raw["cohort.max_wait_ms"])
+        if "cohort.warm.sizes" in raw:
+            cfg.cohort_warm_sizes = raw["cohort.warm.sizes"]
         if "storage.compress.spills" in raw:
             cfg.storage_compress_spills = flag("storage.compress.spills")
         if "storage.warm.budget.mb" in raw:
@@ -367,6 +376,14 @@ class ClassifierConfig:
                 cfg.rule_backends[k[len("backend."):]] = v
         cfg.validate()
         return cfg
+
+    def cohort_warm_size_list(self) -> list:
+        """Parsed ``cohort.warm.sizes`` (empty = no cohort warmup)."""
+        return [
+            int(s)
+            for s in self.cohort_warm_sizes.replace(",", " ").split()
+            if s
+        ]
 
     def sparse_tail_config(self) -> Optional[dict]:
         """The row-packed engine's ``sparse_tail=`` kwarg for this

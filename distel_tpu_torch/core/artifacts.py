@@ -18,7 +18,11 @@ traffic and with no corpus.  Per entry, recorded in the manifest:
 * ``"exe"`` — a step program's spec (``bucketing.program_spec``: its
   ``BucketStruct`` and each table's name, shape and dtype), for every
   ``(bucket_signature, "step")`` key the bake built: the base step, the
-  serve rebuild's engine, the delta plane's programs.  :func:`install`
+  serve rebuild's engine, the delta plane's programs; and a cohort
+  program's (``core/cohort.py``, every ``(bucket_signature,
+  "cohort_run", budget, rung)`` key the bake's ``cohort.warm.sizes``
+  built) as the solo program's spec plus ``{"cohort": {"rung",
+  "budget"}}``.  :func:`install`
   builds each one on the device (on a card, captures it, under
   ``bucketing.CAPTURE_LOCK``) and holds it; the first engine that asks
   the ``PROGRAMS`` registry for the key is handed it, so no build runs
@@ -411,6 +415,7 @@ class ArtifactStore:
             shape_signature,
             spec_parts,
         )
+        from distel_tpu_torch.core.cohort import CohortProgram
 
         dev = _device(device)
         recs = []
@@ -425,9 +430,14 @@ class ArtifactStore:
                     blob = f.read()
                 if _sha256_bytes(blob) != ent["sha256"]:
                     raise ArtifactError("sha256 mismatch")
-                struct, shapes = spec_parts(json.loads(blob))
+                spec = json.loads(blob)
+                struct, shapes = spec_parts(spec)
                 sig = shape_signature(struct, shapes)
-                if artifact_id((sig, "step")) != aid:
+                cohort = spec.get("cohort")
+                key = (sig, "step") if cohort is None else (
+                    sig, "cohort_run", int(cohort["budget"]),
+                    int(cohort["rung"]))
+                if artifact_id(key) != aid:
                     raise ArtifactError(
                         f"its signature {sig} does not recompute the key it "
                         "was filed under"
@@ -449,11 +459,13 @@ class ArtifactStore:
                 )
                 continue
             t0 = time.perf_counter()
-            prog = BucketProgram(struct, shapes, dev)
+            prog = (BucketProgram(struct, shapes, dev) if cohort is None
+                    else CohortProgram(struct, shapes, key[3], dev))
             if dev.type == "cuda":
                 prog.capture()
             recs.append({
                 "bucket_signature": sig,
+                **({} if cohort is None else {"rung": key[3]}),
                 "build_s": round(time.perf_counter() - t0, 4),
                 "capture_s": round(prog.capture_s, 4),
                 "bytes": prog.nbytes,
@@ -474,16 +486,20 @@ class ArtifactStore:
                 artifact_id(key), {}
             ).get("tier", "")
         from distel_tpu_torch.core.bucketing import BucketProgram, program_spec
+        from distel_tpu_torch.core.cohort import CohortProgram
 
         aid = artifact_id(key)
         with self._lock:
             ent = self._doc["artifacts"].get(aid)
         if ent is not None:
             return ent["tier"]
-        if not (isinstance(prog, BucketProgram) and len(key) == 2
-                and key[1] == "step"):
-            # a fused window: the registry holds only step programs and
-            # fused windows
+        step = (type(prog) is BucketProgram and len(key) == 2
+                and key[1] == "step")
+        cohort = (isinstance(prog, CohortProgram) and len(key) == 4
+                  and key[1] == "cohort_run")
+        if not (step or cohort):
+            # a fused window: the registry holds only step and cohort
+            # programs and fused windows
             ARTIFACT_EVENTS.record("unserializable")
             ent = {
                 **describe_key(key),
@@ -495,7 +511,10 @@ class ArtifactStore:
                 self._doc["artifacts"].setdefault(aid, ent)
                 self._dirty = True
             return "hlo-cache"
-        blob = json.dumps(program_spec(prog), sort_keys=True).encode()
+        spec = program_spec(prog)
+        if cohort:
+            spec["cohort"] = {"rung": int(key[3]), "budget": int(key[2])}
+        blob = json.dumps(spec, sort_keys=True).encode()
         rel = os.path.join("exe", f"{aid}.json")
         path = os.path.join(self.root, rel)
         tmp = f"{path}.tmp.{os.getpid()}"

@@ -331,11 +331,14 @@ def spec_parts(spec: dict) -> Tuple[BucketStruct, Dict[str, tuple]]:
 
 class StatePair:
     """The card (or CPU) state a layout's programs run on, with the lock
-    a run holds from copy-in to copy-out."""
+    a run holds from copy-in to copy-out; with ``lanes`` > 0 a stacked
+    state of that many lanes (``[lanes, nc, wc]`` and ``[lanes, nl,
+    wc]``: a cohort's, ``core/cohort.py``)."""
 
-    def __init__(self, device, nc: int, nl: int, wc: int):
-        self.sp = torch.zeros((nc, wc), dtype=torch.int32, device=device)
-        self.rp = torch.zeros((nl, wc), dtype=torch.int32, device=device)
+    def __init__(self, device, nc: int, nl: int, wc: int, lanes: int = 0):
+        lead = (lanes,) if lanes else ()
+        self.sp = torch.zeros((*lead, nc, wc), dtype=torch.int32, device=device)
+        self.rp = torch.zeros((*lead, nl, wc), dtype=torch.int32, device=device)
         self.lock = threading.RLock()
 
     @property
@@ -354,17 +357,17 @@ _PAIRS: "weakref.WeakValueDictionary" = weakref.WeakValueDictionary()
 _PAIRS_LOCK = threading.Lock()
 
 
-def state_pair(device, nc: int, nl: int, wc: int) -> StatePair:
-    """The pair of this layout on ``device``, shared while any program
-    holds it (freed with the last one)."""
+def state_pair(device, nc: int, nl: int, wc: int, lanes: int = 0) -> StatePair:
+    """The pair of this layout (and lane count) on ``device``, shared
+    while any program holds it (freed with the last one)."""
     dev = torch.device(device)
     if dev.type == "cuda" and dev.index is None:
         dev = torch.device("cuda", torch.cuda.current_device())
-    key = (str(dev), nc, nl, wc)
+    key = (str(dev), nc, nl, wc, lanes)
     with _PAIRS_LOCK:
         pair = _PAIRS.get(key)
         if pair is None:
-            pair = StatePair(dev, nc, nl, wc)
+            pair = StatePair(dev, nc, nl, wc, lanes)
             _PAIRS[key] = pair
         return pair
 
@@ -378,6 +381,10 @@ class _Step:
 
     def __init__(self, struct: BucketStruct, T: dict, device):
         self.s, self.T = struct, T
+        #: the leading lane shape of the state, carries and counts
+        #: (``()`` solo; ``(R,)`` a cohort's, ``core/cohort.py``)
+        self.lead = ()
+        self.word_block = struct.word_block
         self.plans = {}
         self.pos = {}
         self.bottom_idx = torch.full((1,), BOTTOM_ID, dtype=torch.int64,
@@ -391,29 +398,35 @@ class _Step:
                 )
                 self.pos[key] = torch.arange(rs.rows, device=device)
 
+    def _reduce(self, rows, buckets):
+        """The seg-OR of gathered ``rows`` [k, W] → [segments, W]."""
+        return reduce_segments(rows, buckets)
+
     def row_rules(self, sp, rp, s_cvs, r_cvs):
+        """CR1-CR3 over the (lane-flattened) state, word block by word
+        block; each index table read flat."""
         s, T = self.s, self.T
         cv = [None, None, None]
-        for off in range(0, s.wc, s.word_block):
-            blk = slice(off, min(off + s.word_block, s.wc))
+        for off in range(0, s.wc, self.word_block):
+            blk = slice(off, min(off + self.word_block, s.wc))
             if s.p1[0]:
-                red = reduce_segments(sp[T["src1"], blk], s.p1[2])
-                c = or_into_rows(sp, T["t1"], red, blk)
+                red = self._reduce(sp[T["src1"].view(-1), blk], s.p1[2])
+                c = or_into_rows(sp, T["t1"].view(-1), red, blk)
                 cv[0] = c if cv[0] is None else cv[0] | c
             if s.p2[0]:
-                red = reduce_segments(sp[T["src2a"], blk] & sp[T["src2b"], blk],
-                                      s.p2[2])
-                c = or_into_rows(sp, T["t2"], red, blk)
+                red = self._reduce(sp[T["src2a"].view(-1), blk]
+                                   & sp[T["src2b"].view(-1), blk], s.p2[2])
+                c = or_into_rows(sp, T["t2"].view(-1), red, blk)
                 cv[1] = c if cv[1] is None else cv[1] | c
             if s.p3[0]:
-                red = reduce_segments(sp[T["src3"], blk], s.p3[2]) \
-                    & T["keep3"][:, None]
-                c = or_into_rows(rp, T["t3"], red, blk)
+                red = self._reduce(sp[T["src3"].view(-1), blk], s.p3[2]) \
+                    & T["keep3"].view(-1)[:, None]
+                c = or_into_rows(rp, T["t3"].view(-1), red, blk)
                 cv[2] = c if cv[2] is None else cv[2] | c
         for key, c, out in (("1", cv[0], s_cvs), ("2", cv[1], s_cvs),
                             ("3", cv[2], r_cvs)):
             if c is not None:
-                out.append((T["t" + key], c))
+                out.append((T["t" + key].view(-1), c))
 
     def contract(self, key, rs, bits_state, rp, target, flags, dl, cvs):
         """One CR4/CR6 table, chunk by chunk (each written before the
@@ -465,38 +478,45 @@ class _Step:
     def __call__(self, sp, rp, ms, dl):
         """One step in place from the frontier ``(ms, dl)``; returns
         ``(changed, ms_next, dl_next, counts)`` on the device, counts
-        = [cr4 contracted, skipped, cr6 contracted, skipped, cr5 ran]."""
-        s, T = self.s, self.T
+        = [cr4 contracted, skipped, cr6 contracted, skipped, cr5 ran];
+        each with the leading lane shape :attr:`lead`.  The row rules
+        and the CR4/CR6 tables run on the state flattened over the
+        lanes (a cohort's index tables are offset into their lane)."""
+        s, T, lead = self.s, self.T, self.lead
+        lanes = lead[0] if lead else 1
         dev = sp.device
-        zero = torch.zeros((), dtype=torch.int64, device=dev)
+        spf, rpf = sp.view(-1, s.wc), rp.view(-1, s.wc)
+        msf, dlf = ms.reshape(-1), dl.reshape(-1)
+        zero = torch.zeros(lead, dtype=torch.int64, device=dev)
         s_cvs, r_cvs = [], []
-        self.row_rules(sp, rp, s_cvs, r_cvs)
+        self.row_rules(spf, rpf, s_cvs, r_cvs)
         counts = [zero, zero, zero, zero, zero]
         if s.cr4 is not None:
-            f4 = ms[T["src4"]].any(dim=1)
-            run, valid = self.contract("4", s.cr4, sp, rp, sp, f4, dl, s_cvs)
+            f4 = msf[T["src4"]].any(dim=-1)
+            run, valid = self.contract("4", s.cr4, spf, rpf, spf, f4, dlf, s_cvs)
             counts[0], counts[1] = run, valid - run
         if s.cr6 is not None:
-            f6 = dl[T["lch6"]].any(dim=1)
-            run, valid = self.contract("6", s.cr6, rp, rp, rp, f6, dl, r_cvs)
+            f6 = dlf[T["lch6"]].any(dim=-1)
+            run, valid = self.contract("6", s.cr6, rpf, rpf, rpf, f6, dlf, r_cvs)
             counts[2], counts[3] = run, valid - run
         if s.bottom:
             counts[4] = self.cr5(sp, rp, ms, dl, s_cvs).to(torch.int64)
 
         def fold(cvs, n):
-            m = torch.zeros(n, dtype=torch.int32, device=dev)
+            m = torch.zeros(lanes * n, dtype=torch.int32, device=dev)
             if cvs:
                 m.index_add_(0, torch.cat([t for t, _ in cvs]),
                              torch.cat([c for _, c in cvs]).to(torch.int32))
-            return m > 0
+            return (m > 0).view(*lead, n)
 
         mask_s = fold(s_cvs, s.nc)
         mask_r = fold(r_cvs, s.nl)
-        dl_n = torch.zeros(s.lchunk_slots, dtype=torch.int32, device=dev)
-        dl_n.index_add_(0, T["lchunk"], mask_r.to(torch.int32))
-        dl_n = (dl_n > 0) & T["dl_valid"]
-        changed = mask_s.any() | dl_n.any()
-        return changed, mask_s, dl_n, torch.stack(counts)
+        dl_n = torch.zeros(lanes * s.lchunk_slots, dtype=torch.int32,
+                           device=dev)
+        dl_n.index_add_(0, T["lchunk"].view(-1), mask_r.view(-1).to(torch.int32))
+        dl_n = (dl_n.view(*lead, s.lchunk_slots) > 0) & T["dl_valid"]
+        changed = mask_s.any(dim=-1) | dl_n.any(dim=-1)
+        return changed, mask_s, dl_n, torch.stack(counts, dim=-1)
 
 
 # -------------------------------------------------------------- the program
@@ -505,29 +525,36 @@ class _Step:
 class BucketProgram:
     """A bucket's step group: its argument tables on its device, the
     state pair it runs on, and on a card the CUDA graph of ``unroll``
-    steps.  ``flags`` = [changed, then 5 gate counts a step]."""
+    steps.  ``flags`` = [changed, then 5 gate counts a step].  With
+    ``lanes`` > 0 every buffer has that leading lane axis (a cohort
+    program, ``core/cohort.py``)."""
 
     def __init__(self, struct: BucketStruct, shapes: Dict[str, tuple],
-                 device):
+                 device, lanes: int = 0):
         dev = torch.device(device)
+        lead = (lanes,) if lanes else ()
         self.struct = struct
         self.shapes = dict(shapes)
         self.device = dev
-        self.pair = state_pair(dev, struct.nc, struct.nl, struct.wc)
+        self.pair = state_pair(dev, struct.nc, struct.nl, struct.wc,
+                               lanes=lanes)
         self.T = {
-            k: torch.zeros(shape, dtype=_TORCH[dt], device=dev)
+            k: torch.zeros((*lead, *shape), dtype=_TORCH[dt], device=dev)
             for k, (shape, dt) in self.shapes.items()
         }
-        self.ms = torch.zeros(struct.nc, dtype=torch.bool, device=dev)
-        self.dl = torch.zeros(struct.lchunk_slots, dtype=torch.bool,
+        self.ms = torch.zeros((*lead, struct.nc), dtype=torch.bool, device=dev)
+        self.dl = torch.zeros((*lead, struct.lchunk_slots), dtype=torch.bool,
                               device=dev)
-        self.flags = torch.zeros(1 + 5 * struct.unroll, dtype=torch.int64,
-                                 device=dev)
-        self.step = _Step(struct, self.T, dev)
+        self.flags = torch.zeros((*lead, 1 + 5 * struct.unroll),
+                                 dtype=torch.int64, device=dev)
+        self.step = self._new_step()
         self.graph = None
         self.launches: dict = {}
         self.capture_s = 0.0
         self.graph_bytes = 0
+
+    def _new_step(self) -> _Step:
+        return _Step(self.struct, self.T, self.device)
 
     @classmethod
     def from_spec(cls, spec: dict, device) -> "BucketProgram":
@@ -553,7 +580,8 @@ class BucketProgram:
     def _group(self) -> None:
         sp, rp = self.pair.sp, self.pair.rp
         ms, dl = self.ms, self.dl
-        changed = torch.zeros((), dtype=torch.bool, device=self.device)
+        changed = torch.zeros(self.step.lead, dtype=torch.bool,
+                              device=self.device)
         counts = []
         for _ in range(self.struct.unroll):
             ch, ms, dl, c = self.step(sp, rp, ms, dl)
@@ -561,8 +589,8 @@ class BucketProgram:
             counts.append(c)
         self.ms.copy_(ms)
         self.dl.copy_(dl)
-        torch.cat([changed.to(torch.int64).view(1), torch.cat(counts)],
-                  out=self.flags)
+        torch.cat([changed.to(torch.int64).unsqueeze(-1),
+                   torch.cat(counts, dim=-1)], dim=-1, out=self.flags)
 
     def capture(self) -> None:
         """Capture one group into a CUDA graph on the pair.  A failed
@@ -647,9 +675,10 @@ def _held_programs() -> list:
 
 def program_bytes(device="cuda") -> int:
     """Bytes the registry's programs hold on devices of ``device``'s
-    type: each step program's tables, carries and graph pool, each fused
-    window's graph pools, and each state pair once; with the programs an
-    installed artifact farm still holds."""
+    type: each step or cohort program's tables, carries and graph pool,
+    each fused window's graph pools, and each state pair once (a cohort
+    program's is its stacked pair, one per layout and rung); with the
+    programs an installed artifact farm still holds."""
     kind = torch.device(device).type
     total, pairs = 0, {}
     with PROGRAMS._lock:
@@ -664,7 +693,8 @@ def program_bytes(device="cuda") -> int:
 def drop_idle_programs(device="cuda") -> int:
     """Evict from :data:`PROGRAMS` every program on devices of
     ``device``'s type that no live engine uses (engines hold their
-    programs and windows weakly, so each weak reference is a user);
+    programs and windows weakly, so each weak reference is a user; no
+    engine holds a cohort program, so one is idle between cohorts);
     counted as evictions; and every program an installed artifact farm
     still holds (a later request for one builds it from its engine's
     tables).  A memory budget's first resort, before it evicts a tenant:

@@ -40,7 +40,15 @@ so a delta of a shape the process has run before builds nothing, and
 traffic.  At the reservation edge (the corpus grown into the base's last
 row) a delta runs the exact-shape engines, as in the reference
 (``_bucket_delta_eligible``); ``DISTEL_EXACT_DELTA_PROGRAMS=1`` forces
-them.  Not ported yet: the cohort plane's canonical roster.
+them.
+
+The cohort plane (``core/cohort.py``) reuses the planner per tenant and
+replaces only the executor: ``_delta_fast_plan(idx, cohort_shape=True)``
+normalises a small delta to the canonical roster
+(:meth:`IncrementalClassifier._canonical_delta_tables`), so class-only,
+link and mixed deltas of one bucket share a roster key, and
+``execute_delta_cohort`` runs one batched step program a vote for the
+whole cohort.
 """
 
 from __future__ import annotations
@@ -158,6 +166,7 @@ def warm_delta_programs(
     base_engine,
     idx,
     max_iters: Optional[int] = None,
+    cohort_sizes: Optional[List[int]] = None,
 ) -> List[dict]:
     """Build the steady-state delta programs of a warmed base ahead of
     traffic, so even the first delta a restarted replica serves builds
@@ -168,8 +177,12 @@ def warm_delta_programs(
     one-link window over the link whose role joins the most table
     families).  Content is irrelevant to a bucketed program, so
     one-row tables over the base corpus give the rungs live deltas ask
-    for.  Returns one record per program.  (The reference's ``mesh`` and
-    ``cohort_sizes`` wait for the mesh and cohort planes.)"""
+    for.  Returns one record per program.  ``cohort_sizes`` (None =
+    ``config.cohort_warm_size_list()``): also build the cohort programs
+    (``core/cohort.py``) of the canonical roster — the mixed delta
+    program, the cross program and the base program — at those sizes'
+    rungs, so a warmed process's first cohort builds nothing.  (The
+    reference's ``mesh`` waits for the mesh plane.)"""
     if not config.shape_buckets or base_engine is None:
         return []
     if not isinstance(base_engine, RowPackedSaturationEngine):
@@ -226,6 +239,7 @@ def warm_delta_programs(
         best = int(np.argmax(score))
         rosters.append(("cross", idx, frozenset(cross_rules), (best, best + 1)))
     out = []
+    engines = []
     for name, eng_idx, rules, window in rosters:
         eng = RowPackedSaturationEngine(
             eng_idx, rules=rules,
@@ -235,6 +249,22 @@ def warm_delta_programs(
         rec["program"] = name
         rec["bucket_signature"] = eng.bucket_signature
         out.append(rec)
+        engines.append((name, eng))
+    if cohort_sizes is None:
+        cohort_sizes = config.cohort_warm_size_list()
+    if cohort_sizes and config.cohort_enable:
+        from distel_tpu_torch.core.cohort import warm_cohort_programs
+
+        # cohort traffic asks for the CANONICAL roster (the planner's
+        # cohort_shape resolves every small delta to the delta[mixed]
+        # shape, the cross program and the base program)
+        warm_names = {"delta[mixed]", "cross"}
+        roster = [(name, eng) for name, eng in engines
+                  if name in warm_names] + [("base", base_engine)]
+        for name, eng in roster:
+            for rec in warm_cohort_programs([eng], cohort_sizes, budget):
+                rec["program"] = f"cohort[{name}x{rec['rung']}]"
+                out.append(rec)
     return out
 
 
@@ -286,6 +316,9 @@ class IncrementalClassifier:
         self._base_idx = None
         #: fast-path accounting of the last increment (None on a rebuild)
         self.last_delta_stats: Optional[dict] = None
+        #: the record of the cohort the last increment ran in
+        #: (``core/cohort.execute_delta_cohort``; None when it ran solo)
+        self.last_cohort: Optional[dict] = None
         #: program-build record of the last increment: the rebuild
         #: engine's ``compile_stats``, or on the fast path the delta
         #: programs' summed (the serve registry exports it to /metrics)
@@ -405,6 +438,7 @@ class IncrementalClassifier:
         with self.timer.phase("ingest"):
             idx, batch = self._ingest(onto, source_text=source_text)
         self.last_delta_stats = None
+        self.last_cohort = None
         result = self._delta_fast_path(idx)
         path = "fast" if result is not None else "rebuild"
         if result is None:
@@ -676,7 +710,85 @@ class IncrementalClassifier:
         with self.timer.phase("saturate"):
             return self._execute_delta_plan(plan)
 
-    def _delta_fast_plan(self, idx) -> Optional[DeltaPlan]:
+    def _canonical_delta_tables(self, idx, b, delta_idx, links_grew):
+        """The canonical cohort roster's tables, or None when this delta
+        cannot take the canonical shape (the reference's rule).
+
+        Canonical = the base-structure-determined union of the two
+        traffic shapes of the reference's streaming scenario (class
+        assertions and property assertions) — the ``delta[mixed]``
+        roster :func:`warm_delta_programs` warms.  A member whose delta
+        lacks a family rides an INERT REPLAY row of the base instead:
+        re-deriving a base axiom against a closure that holds its
+        consequences sets no new bit (monotone, idempotent), so padding
+        changes neither the fixed point nor the solo run of the same
+        plan; it aligns the tables' rungs so heterogeneous deltas share
+        one signature.  A family's rows still quantize on the seg-OR
+        ladder, so deltas share a key only while each family stays
+        within the ladder's floor rung (8 segments a level).  Returns
+        ``(canon_idx, rules, link_window | None)``."""
+        from distel_tpu_torch.core.indexing import TOP_ID
+
+        # only the canonical families can be padded; a delta carrying
+        # nf2/nf4 rows (or chain axioms over a chainless base, where no
+        # inert chain row exists for its peers) keeps its content shape
+        if len(delta_idx.nf2) or len(delta_idx.nf4):
+            return None
+        if len(delta_idx.chain_pairs) and not len(b.chain_pairs):
+            return None
+        tables = {}
+        rules = {"CR1"}
+        inert1 = (
+            np.asarray(b.nf1[:1])
+            if len(b.nf1)
+            else np.asarray([[TOP_ID, TOP_ID]], np.int64)
+        )
+        tables["nf1"] = (
+            np.asarray(delta_idx.nf1) if len(delta_idx.nf1) else inert1
+        )
+        if len(b.nf3):
+            rules.add("CR3")
+            tables["nf3"] = (
+                np.asarray(delta_idx.nf3)
+                if len(delta_idx.nf3)
+                else np.asarray(b.nf3[:1])
+            )
+            if len(b.chain_pairs):
+                rules.add("CR6")
+                tables["chain_pairs"] = (
+                    np.asarray(delta_idx.chain_pairs)
+                    if len(delta_idx.chain_pairs)
+                    else np.asarray(b.chain_pairs[:1])
+                )
+        elif len(delta_idx.nf3):
+            # link-creating delta over an nf3-less base: class-only
+            # peers would have no inert nf3 row to pad with
+            return None
+        if idx.has_bottom_axioms:
+            # uniform across link-creating and class-only members (the
+            # solo roster gates CR5 on links_grew; the extra sweep here
+            # is an idempotent re-derivation)
+            rules.add("CR5")
+        canon_idx = dataclasses.replace(
+            delta_idx,  # nf2/nf4 stay the (guarded) empty delta tables
+            nf1=tables["nf1"],
+            nf3=tables.get("nf3", delta_idx.nf3),
+            chain_pairs=tables.get("chain_pairs", delta_idx.chain_pairs),
+        )
+        # the cross program joins the FULL nf4/chain tables against a
+        # link window: the delta's new links when they exist, else ONE
+        # existing base link (inert replay) so class-only members share
+        # the cross position too (window bounds are table content)
+        window = None
+        if len(idx.nf4) or len(idx.chain_pairs):
+            if links_grew:
+                window = (b.n_links, idx.n_links)
+            elif b.n_links:
+                window = (b.n_links - 1, b.n_links)
+        return canon_idx, rules, window
+
+    def _delta_fast_plan(self, idx, *, cohort_shape: bool = False
+                         ) -> Optional[DeltaPlan]:
         """The fast path's guards and engine roster.  May rebind the base
         engine's closure, so a returned plan must be executed.
 
@@ -684,7 +796,10 @@ class IncrementalClassifier:
         its new links the reserved link rows, and the base tables
         survive as a prefix (nf1-nf3, links) or a subset (the sorted
         nf4 and chain pairs).  New roles are invisible to the base
-        engine; a closure grown between base roles is rebound."""
+        engine; a closure grown between base roles is rebound.
+        ``cohort_shape``: normalise the roster to the canonical cohort
+        shape (:meth:`_canonical_delta_tables`) when the delta programs
+        are bucketed and the delta allows it; else the content roster."""
         base, b = self._base_engine, self._base_idx
         if base is None or self._state is None:
             return None
@@ -756,20 +871,39 @@ class IncrementalClassifier:
             rules.add("CR5")
         bucket_delta = self._bucket_delta_eligible(idx, base)
         shape_kw = delta_program_kwargs(self.config, base, bucket=bucket_delta)
+        canon = None
+        if cohort_shape and bucket_delta:
+            canon = self._canonical_delta_tables(idx, b, delta_idx, links_grew)
+        cross_rules = set()
+        if len(idx.nf4):
+            cross_rules.add("CR4")
+        if len(idx.chain_pairs):
+            cross_rules.add("CR6")
         engines = []
-        if rules:
+        if canon is not None:
+            canon_idx, canon_rules, window = canon
             engines.append(
                 RowPackedSaturationEngine(
-                    delta_idx, rules=frozenset(rules), **shape_kw
+                    canon_idx, rules=frozenset(canon_rules), **shape_kw
                 )
             )
-        if links_grew:
-            cross_rules = set()
-            if len(idx.nf4):
-                cross_rules.add("CR4")
-            if len(idx.chain_pairs):
-                cross_rules.add("CR6")
-            if cross_rules:
+            if window is not None:
+                engines.append(
+                    RowPackedSaturationEngine(
+                        idx,  # FULL tables × the (possibly inert) window
+                        rules=frozenset(cross_rules),
+                        link_window=window,
+                        **shape_kw,
+                    )
+                )
+        else:
+            if rules:
+                engines.append(
+                    RowPackedSaturationEngine(
+                        delta_idx, rules=frozenset(rules), **shape_kw
+                    )
+                )
+            if links_grew and cross_rules:
                 engines.append(
                     RowPackedSaturationEngine(
                         idx,  # FULL tables × the new-link window only

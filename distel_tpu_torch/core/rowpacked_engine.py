@@ -186,6 +186,7 @@ from distel_tpu_torch.ops import bitmatmul, graph_if
 from distel_tpu_torch.ops.nosync import NoHostReads
 from distel_tpu_torch.ops.bitmatmul import PackedColsMatmulPlan
 from distel_tpu_torch.runtime.instrumentation import (
+    COHORT_EVENTS,
     CompileStats,
     DISPATCH_EVENTS,
     FRONTIER_EVENTS,
@@ -2050,6 +2051,9 @@ class RowPackedSaturationEngine:
                 initial = None  # the embed copied it
                 if init_total is None:
                     init_total = self.count_live_bits(sp, rp)
+            # one single-tenant fixed-point run: the solo half of the
+            # solo-vs-cohort dispatch tally (core/cohort.py)
+            COHORT_EVENTS.record_solo()
             it, fr, changed = 0, None, True
             while changed and it < budget:
                 changed = False
@@ -2088,21 +2092,28 @@ class RowPackedSaturationEngine:
         memory; the next run looks it up again."""
         from distel_tpu_torch.core import bucketing
 
-        if self._btables is None:
-            struct, self._btables = bucketing.bucket_plan(self)
-            if struct != self._bstruct:
-                raise AssertionError("a rebind moved the bucket structure")
+        tables = self.bucket_tables()
         prog = self._prog_ref() if self._prog_ref is not None else None
         if prog is None:
             prog, stats = bucketing.get_program(
-                self._bstruct, self._btables, self.bucket_signature,
-                self.device,
+                self._bstruct, tables, self.bucket_signature, self.device,
             )
             self._note_compile(stats)
             self._prog_ref = weakref.ref(prog)
         return prog
 
     _prog_ref = None
+
+    def bucket_tables(self) -> dict:
+        """The argument tables of this engine's bucketed step (rebuilt
+        after a rebind), at the shapes its structure fixes."""
+        from distel_tpu_torch.core import bucketing
+
+        if self._btables is None:
+            struct, self._btables = bucketing.bucket_plan(self)
+            if struct != self._bstruct:
+                raise AssertionError("a rebind moved the bucket structure")
+        return self._btables
 
     def _saturate_bucketed(self, budget, initial, allow_incomplete, profile,
                            init_total) -> SaturationResult:
@@ -2129,6 +2140,7 @@ class RowPackedSaturationEngine:
                     del sp, rp
                     if init_total is None:
                         init_total = self.count_live_bits(pair.sp, pair.rp)
+                COHORT_EVENTS.record_solo()
                 prog.ms.fill_(True)
                 prog.dl.copy_(prog.T["dl_valid"])
                 it, changed = 0, True

@@ -37,7 +37,12 @@ one, and either can take a row count that lies on the card
 (``n_rows=``): only rows below it are computed and ORed into C, which
 lets a captured CUDA graph skip work no host decision can skip
 (``packed_cols_list_n`` / ``packed_cols_dense_n``; their plain version
-is :func:`plain_packed_cols_rows`).
+is :func:`plain_packed_cols_rows`).  :meth:`PackedColsMatmulPlan.batched_rows`
+is that row-count call over a batch of independent products, one row
+count a copy (the cohort plane's lanes, ``core/cohort.py``), by the
+route the plan picks for one copy: ``packed_cols_dense_n_batched``, or
+``packed_cols_list_n_batched`` + ``packed_cols_sparse_batched``; its
+plain version is :func:`plain_packed_cols_rows_batched`.
 
 The second, the packed-contraction product, is the packed engine's
 (CR4 and CR6 over the x-major R):
@@ -83,6 +88,9 @@ LAUNCHES = {
     "packed_cols_dense_batched": 0,
     "packed_cols_list_n": 0,
     "packed_cols_dense_n": 0,
+    "packed_cols_dense_n_batched": 0,
+    "packed_cols_list_n_batched": 0,
+    "packed_cols_sparse_batched": 0,
 }
 
 #: the packed-columns kernels' row block and the listing kernel's
@@ -181,6 +189,18 @@ def _lib():
             [vp, vp, vp, ci, ci, ci, ci, ll, ll, ll, ci, vp]
         )
         lib.packed_cols_dense_batched.restype = ci
+        lib.packed_cols_dense_n_batched.argtypes = (
+            [vp, vp, vp, ci, ci, ci, ci, ll, ll, ll, vp, vp]
+        )
+        lib.packed_cols_dense_n_batched.restype = ci
+        lib.packed_cols_list_n_batched.argtypes = (
+            [vp, vp, vp, vp, ci, ci, ci, ll, vp, vp]
+        )
+        lib.packed_cols_list_n_batched.restype = ci
+        lib.packed_cols_sparse_batched.argtypes = (
+            [vp, vp, vp, vp, vp, ci, ci, ci, ci, ll, ll, ci, vp]
+        )
+        lib.packed_cols_sparse_batched.restype = ci
         lib.packed_cols_sparse.argtypes = [vp, vp, vp, vp, vp, ci, ci, ci, ci, vp]
         lib.packed_cols_sparse.restype = ci
         lib.packed_andor_list.argtypes = [vp] * 4 + [ci, ci, ci, vp]
@@ -274,22 +294,28 @@ def _chunks(l: int) -> int:
     return max(-(-l // LIST_CHUNK), 1)
 
 
-def _list_slabs(m: int, l: int, budget: Optional[int], device) -> list:
+def _list_slabs(m: int, l: int, budget: Optional[int], device,
+                copies: int = 1) -> list:
     """Row ranges (whole row blocks) of an m-row A whose lists over ``l``
-    contraction indices fit ``budget`` bytes (None =
-    :func:`default_temp_budget` of the device)."""
+    contraction indices, for each of ``copies`` copies, fit ``budget``
+    bytes together (None = :func:`default_temp_budget` of the
+    device)."""
     if budget is None:
         budget = default_temp_budget(device)
-    rows = max(budget // (12 * _chunks(l) * LIST_CHUNK), 1) * KERNEL_TM
+    per_block = 12 * _chunks(l) * LIST_CHUNK * max(copies, 1)
+    rows = max(budget // per_block, 1) * KERNEL_TM
     return [(r, min(r + rows, m)) for r in range(0, m, rows)]
 
 
-def _new_lists(rows: int, l: int, device) -> ColumnLists:
+def _new_lists(rows: int, l: int, device, copies: int = 1) -> ColumnLists:
+    """List buffers of ``rows`` rows over ``l`` indices; with ``copies``
+    > 1 one region a copy, laid out one after another."""
     gm, nch = -(-rows // KERNEL_TM), _chunks(l)
+    lead = (copies, gm) if copies > 1 else (gm,)
     return ColumnLists(
-        torch.empty((gm, nch, LIST_CHUNK), dtype=torch.int32, device=device),
-        torch.empty((gm, nch, LIST_CHUNK), dtype=torch.int64, device=device),
-        torch.empty((gm, nch), dtype=torch.int32, device=device),
+        torch.empty((*lead, nch, LIST_CHUNK), dtype=torch.int32, device=device),
+        torch.empty((*lead, nch, LIST_CHUNK), dtype=torch.int64, device=device),
+        torch.empty((*lead, nch), dtype=torch.int32, device=device),
     )
 
 
@@ -527,6 +553,139 @@ class PackedColsMatmulPlan:
         _count_launch("packed_cols_dense")
         return c
 
+    # ------------------------------------------------ batched row counts
+
+    def batched_rows(self, a: torch.Tensor, b: torch.Tensor, out: torch.Tensor,
+                     n_rows: torch.Tensor) -> torch.Tensor:
+        """``out[k, r] |= (A[k] ⊙ B[k])[r]`` for every copy k and its rows
+        ``r < n_rows[k]``: a [nb, m, l] int8/bool, b [nb, l, w] int32 and
+        out [nb, m, w] int32, all contiguous (out not overlapping A or
+        B); ``n_rows`` [nb] int32 on their device, read by the kernels
+        when they start — no host read.  On a card the plan's route for
+        one copy, every copy in each launch: ``packed_cols_dense_n_batched``
+        (one launch), or per slab of rows (the lists of all copies within
+        the temp budget) ``packed_cols_list_n_batched`` +
+        ``packed_cols_sparse_batched``; on the CPU
+        :func:`plain_packed_cols_rows_batched`."""
+        if a.dtype == torch.bool:
+            a = a.view(torch.int8)
+        if a.dtype != torch.int8 or b.dtype != torch.int32:
+            raise TypeError(
+                f"batched_rows wants int8 A and int32 B, got {a.dtype} and "
+                f"{b.dtype}"
+            )
+        nb = a.shape[0] if a.dim() == 3 else -1
+        if (tuple(a.shape) != (nb, self.m, self.l)
+                or tuple(b.shape) != (nb, self.l, self.w)
+                or tuple(out.shape) != (nb, self.m, self.w)
+                or out.dtype != torch.int32):
+            raise ValueError(
+                f"PackedColsMatmulPlan({self.m}, {self.l}, {self.w}).batched_rows "
+                f"got A {tuple(a.shape)}, B {tuple(b.shape)}, out "
+                f"{out.dtype} {tuple(out.shape)}"
+            )
+        if (n_rows.dtype != torch.int32 or tuple(n_rows.shape) != (nb,)
+                or not n_rows.is_contiguous()):
+            raise ValueError(
+                f"n_rows must be {nb} contiguous int32, got {n_rows.dtype} "
+                f"{tuple(n_rows.shape)}"
+            )
+        dev = a.device
+        if not all(t.device == dev for t in (b, out, n_rows)):
+            raise ValueError("A, B, out and n_rows must share a device")
+        if not (a.is_contiguous() and b.is_contiguous() and out.is_contiguous()):
+            raise ValueError("batched_rows takes contiguous A, B and out")
+        if _overlaps(out, a) or _overlaps(out, b):
+            raise ValueError("out must not overlap A or B")
+        if dev.type == "cpu":
+            return plain_packed_cols_rows_batched(a, b, out, n_rows)
+        if dev.type != "cuda":
+            raise ValueError(f"no packed-columns kernel for {dev}")
+        if nb == 0 or self.m == 0 or self.w == 0 or self.l == 0:
+            return out
+        if not self.skip_zero_tiles:
+            return self._dense_n_batched(a, b, out, n_rows)
+        slabs = self._batched_slabs(dev, nb)
+        key = (dev, "batched", nb)
+        bufs = self._lists.get(key)
+        if bufs is None:
+            bufs = self._lists[key] = _new_lists(
+                slabs[0][1] - slabs[0][0], self.l, dev, copies=nb
+            )
+        for r0, r1 in slabs:
+            n = n_rows if r0 == 0 else (n_rows - r0).to(torch.int32)
+            lists = self._list_n_batched(a[:, r0:r1], n, bufs)
+            self._sparse_batched(b, lists, out[:, r0:r1], r1 - r0)
+        return out
+
+    def _batched_slabs(self, device, nb: int) -> list:
+        """Row ranges whose lists for all ``nb`` copies fit the budget."""
+        key = (torch.device(device), "batched", nb)
+        got = self._slabs.get(key)
+        if got is None:
+            got = self._slabs[key] = _list_slabs(
+                self.m, self.l, self.temp_budget_bytes, device, copies=nb
+            )
+        return got
+
+    def _dense_n_batched(self, a, b, c, n_rows) -> torch.Tensor:
+        nb = a.shape[0]
+        lib = _lib()
+        code = lib.packed_cols_dense_n_batched(
+            a.data_ptr(), b.data_ptr(), c.data_ptr(), nb, self.m, self.l,
+            self.w, self.m * self.l, self.l * self.w, self.m * self.w,
+            n_rows.data_ptr(), _stream(a),
+        )
+        _check_launch(lib.packed_cols_error_string, code,
+                      "packed_cols_dense_n_batched")
+        _count_launch("packed_cols_dense_n_batched")
+        return c
+
+    def _list_n_batched(self, a, n_rows, into: ColumnLists) -> ColumnLists:
+        """``packed_cols_list_n_batched`` on a [nb, rows, l] (rows a slab:
+        each copy's rows contiguous, copies ``a.stride(0)`` apart) into
+        the leading regions of ``into``."""
+        nb, rows, l = a.shape
+        gm, nch = -(-rows // KERNEL_TM), _chunks(l)
+        n = nb * gm * nch
+        if into.counts.numel() < n:
+            raise ValueError(f"list buffers hold {into.counts.numel()} "
+                             f"chunks, {n} wanted")
+        lists = ColumnLists(
+            into.cols.view(-1)[: n * LIST_CHUNK].view(nb, gm, nch, LIST_CHUNK),
+            into.masks.view(-1)[: n * LIST_CHUNK].view(nb, gm, nch, LIST_CHUNK),
+            into.counts.view(-1)[:n].view(nb, gm, nch),
+        )
+        if a.stride(2) != 1 or a.stride(1) != l:
+            raise ValueError(f"each copy's A rows must be contiguous, got "
+                             f"strides {a.stride()}")
+        lib = _lib()
+        code = lib.packed_cols_list_n_batched(
+            a.data_ptr(), lists.cols.data_ptr(), lists.masks.data_ptr(),
+            lists.counts.data_ptr(), nb, rows, l, a.stride(0),
+            n_rows.data_ptr(), _stream(a),
+        )
+        _check_launch(lib.packed_cols_error_string, code,
+                      "packed_cols_list_n_batched")
+        _count_launch("packed_cols_list_n_batched")
+        return lists
+
+    def _sparse_batched(self, b, lists: ColumnLists, c, rows: int) -> torch.Tensor:
+        """``packed_cols_sparse_batched``: every copy's B [l, w] over its
+        lists, ORed into its C rows (c [nb, rows, w], a slab of each
+        copy's rows, copies ``c.stride(0)`` apart)."""
+        nb = b.shape[0]
+        lib = _lib()
+        code = lib.packed_cols_sparse_batched(
+            b.data_ptr(), lists.cols.data_ptr(), lists.masks.data_ptr(),
+            lists.counts.data_ptr(), c.data_ptr(), nb, rows, self.l, self.w,
+            b.stride(0), c.stride(0), 1, _stream(b),
+        )
+        _check_launch(lib.packed_cols_error_string, code,
+                      "packed_cols_sparse_batched")
+        _count_launch("packed_cols_sparse_batched")
+        return c
+
 
 def packed_cols_dense_batched(a: torch.Tensor, b: torch.Tensor,
                               out: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -651,6 +810,18 @@ def plain_packed_cols_rows(a: torch.Tensor, b_packed: torch.Tensor,
         n = min(max(int(n_rows.reshape(())), 0), a.shape[0])
         if n:
             plain_packed_cols(a[:n], b_packed, out[:n])
+    return out
+
+
+def plain_packed_cols_rows_batched(a: torch.Tensor, b_packed: torch.Tensor,
+                                   out: torch.Tensor,
+                                   n_rows: torch.Tensor) -> torch.Tensor:
+    """The plain PyTorch version of :meth:`PackedColsMatmulPlan.batched_rows`
+    (``packed_cols_dense_n_batched``, and ``packed_cols_list_n_batched``
+    + ``packed_cols_sparse_batched``): :func:`plain_packed_cols_rows` on
+    each copy, ORed into ``out`` on the rows below that copy's count."""
+    for k in range(a.shape[0]):
+        plain_packed_cols_rows(a[k], b_packed[k], out[k], n_rows[k : k + 1])
     return out
 
 

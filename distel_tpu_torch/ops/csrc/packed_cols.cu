@@ -13,7 +13,7 @@
 // overwriting it (C must not alias A or B).
 //
 // Five entry points, two of them also with a row count read from card
-// memory (the `_n` forms below):
+// memory (the `_n` forms below), and batched forms of those:
 //
 //   packed_cols_list    one pass over A: per 64-row block, the ascending
 //                       list of contraction indices l that some row of
@@ -27,6 +27,15 @@
 //   packed_cols_dense_batched
 //                       the same kernel over a batch of independent
 //                       products, one grid axis over the copies
+//
+// The batched row-count forms, packed_cols_dense_n_batched,
+// packed_cols_list_n_batched and packed_cols_sparse_batched, run one
+// product per copy of a batch in one launch, each copy with its own
+// operands, its own list region and (the _n forms) its own row count
+// n_rows[copy] on the card: the cohort plane's step (a lane a tenant)
+// contracts one window slot for every lane at once, and a lane whose
+// window is clean gets 0 rows.  Copy offsets are 64-bit (one lane's
+// state is past 2^31 words at 64k classes).
 //
 // packed_cols_list_n and packed_cols_dense_n are packed_cols_list and
 // packed_cols_dense with a row count n read from card memory when the
@@ -110,12 +119,23 @@ template <bool A16>
 __global__ void __launch_bounds__(LIST_THREADS) packed_cols_list_kernel(
     const int8_t* __restrict__ A, int32_t* __restrict__ cols,
     uint64_t* __restrict__ masks, int32_t* __restrict__ counts, int M, int L,
-    int NCH, const int* __restrict__ n_rows) {
+    int NCH, const int* __restrict__ n_rows, long long sa) {
   __shared__ uint32_t half_mask[2][LSEG];
   __shared__ int warp_live[LSEG / 32];
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int half = warp & 1, cg = warp >> 1;
   const int g = blockIdx.y, c = blockIdx.x;
+  // copy blockIdx.z of a batch (0 unbatched): its A, its list region
+  // and its row count
+  {
+    const long long copy = blockIdx.z;
+    const long long chunks = (long long)gridDim.y * NCH;
+    A += copy * sa;
+    cols += copy * chunks * LCHUNK;
+    masks += copy * chunks * LCHUNK;
+    counts += copy * chunks;
+    if (n_rows != nullptr) n_rows += copy;
+  }
   // rows past the card-held count list nothing (a whole block past it
   // writes an empty list and stops)
   if (n_rows != nullptr) M = min(M, max(__ldg(n_rows), 0));
@@ -429,12 +449,25 @@ template <bool B16>
 __global__ void __launch_bounds__(SP_THREADS) packed_cols_sparse_kernel(
     const int32_t* __restrict__ B, const int32_t* __restrict__ cols,
     const uint64_t* __restrict__ masks, const int32_t* __restrict__ counts,
-    int32_t* __restrict__ C, int M, int W, int NCH, int accumulate) {
+    int32_t* __restrict__ C, int M, int W, int NCH, int accumulate,
+    long long sb, long long sc) {
   __shared__ __align__(16) uint32_t Cs[TM][SP_TW];
   __shared__ __align__(16) uint32_t ring[SP_NST][SP_SE][SP_TW];
   __shared__ __align__(16) uint64_t mring[SP_NST][SP_SE];
   const int t = threadIdx.x;
-  const int g = blockIdx.y, w0 = blockIdx.x * SP_TW, m0 = g * TM;
+  // grid y runs over (copy, row block) pairs, GM row blocks a copy:
+  // copy k reads B + k·sb and its own lists, and writes C + k·sc
+  const int GM = (M + TM - 1) / TM;
+  const int g = blockIdx.y % GM, w0 = blockIdx.x * SP_TW, m0 = g * TM;
+  {
+    const long long copy = blockIdx.y / GM;
+    const long long chunks = (long long)GM * NCH;
+    B += copy * sb;
+    C += copy * sc;
+    cols += copy * chunks * LCHUNK;
+    masks += copy * chunks * LCHUNK;
+    counts += copy * chunks;
+  }
   const int splits = gridDim.z;
   const int32_t* cnt = counts + (size_t)g * NCH;
   const size_t row0 = (size_t)g * NCH * LCHUNK;
@@ -596,7 +629,8 @@ __device__ __forceinline__ void mma_s8(int (&c)[4], const uint32_t (&a)[4],
 
 // BATCH: blockIdx.x runs over (copy, word tile) pairs, ntw word tiles a
 // copy, and copy b reads A + b·sa and B + b·sb and writes C + b·sc
-// (strides in elements): one launch for every copy of a batch.
+// (strides in elements, 64-bit offsets) and, with n_rows, its own row
+// count n_rows[b]: one launch for every copy of a batch.
 template <bool A16, bool B16, bool BATCH>
 __global__ void __launch_bounds__(DTHREADS) packed_cols_dense_kernel(
     const int8_t* __restrict__ A, const int32_t* __restrict__ B,
@@ -608,8 +642,9 @@ __global__ void __launch_bounds__(DTHREADS) packed_cols_dense_kernel(
   const int g = lane >> 2, t = lane & 3;        // mma fragment coordinates
   const int wm = warp & 1, wn = warp >> 1;      // warp tile: rows 32wm.., planes 8wn..
   int bx = blockIdx.x;
+  int copy = 0;
   if (BATCH) {
-    const int copy = bx / ntw;
+    copy = bx / ntw;
     bx -= copy * ntw;
     A += copy * sa;
     B += copy * sb;
@@ -617,8 +652,9 @@ __global__ void __launch_bounds__(DTHREADS) packed_cols_dense_kernel(
   }
   const int w0 = bx * DTW, m0 = blockIdx.y * TM;
   // rows past the card-held count are neither read nor written (the
-  // wrapper then always accumulates, so C keeps them)
-  if (n_rows != nullptr) M = min(M, max(__ldg(n_rows), 0));
+  // wrapper then always accumulates, so C keeps them); a batch holds
+  // one count a copy
+  if (n_rows != nullptr) M = min(M, max(__ldg(n_rows + copy), 0));
   if (m0 >= M) return;
   for (int i = tid; i < TM * DTW; i += DTHREADS) sm.Cw[i / DTW][i % DTW] = 0u;
   int acc[2][8][4];
@@ -728,30 +764,43 @@ int packed_cols_list_chunk() { return LCHUNK; }
 // (0 = launched); it neither synchronises nor allocates.
 
 static int list_launch(const void* A, void* cols, void* masks, void* counts,
-                       int M, int L, const void* n_rows, void* stream) {
+                       int NB, int M, int L, long long sa, const void* n_rows,
+                       void* stream) {
   const int nch = (L + LCHUNK - 1) / LCHUNK;
-  dim3 grid(nch, (M + TM - 1) / TM);
+  if (NB > 65535) return (int)cudaErrorInvalidConfiguration;
+  dim3 grid(nch, (M + TM - 1) / TM, NB);
   cudaStream_t st = (cudaStream_t)stream;
   const int* n = (const int*)n_rows;
-  if (L % 16 == 0 && (uintptr_t)A % 16 == 0)
+  if (L % 16 == 0 && (uintptr_t)A % 16 == 0 && sa % 16 == 0)
     packed_cols_list_kernel<true><<<grid, LIST_THREADS, 0, st>>>(
-        (const int8_t*)A, (int32_t*)cols, (uint64_t*)masks, (int32_t*)counts, M, L, nch, n);
+        (const int8_t*)A, (int32_t*)cols, (uint64_t*)masks, (int32_t*)counts, M, L, nch, n, sa);
   else
     packed_cols_list_kernel<false><<<grid, LIST_THREADS, 0, st>>>(
-        (const int8_t*)A, (int32_t*)cols, (uint64_t*)masks, (int32_t*)counts, M, L, nch, n);
+        (const int8_t*)A, (int32_t*)cols, (uint64_t*)masks, (int32_t*)counts, M, L, nch, n, sa);
   return (int)cudaGetLastError();
 }
 
 int packed_cols_list(const void* A, void* cols, void* masks, void* counts,
                      int M, int L, void* stream) {
-  return list_launch(A, cols, masks, counts, M, L, nullptr, stream);
+  return list_launch(A, cols, masks, counts, 1, M, L, 0, nullptr, stream);
 }
 
 // packed_cols_list over rows m < *n_rows only (n_rows: one int32 on the
 // card, read when the kernel starts).
 int packed_cols_list_n(const void* A, void* cols, void* masks, void* counts,
                        int M, int L, const void* n_rows, void* stream) {
-  return list_launch(A, cols, masks, counts, M, L, n_rows, stream);
+  return list_launch(A, cols, masks, counts, 1, M, L, 0, n_rows, stream);
+}
+
+// NB copies of packed_cols_list_n in one launch: copy b lists A + b·sa
+// [M, L] (elements) over its rows m < n_rows[b] into the b-th list
+// region, ceil(M / TM)·ceil(L / LCHUNK) chunks a copy, laid out one
+// copy after another in cols, masks and counts.
+int packed_cols_list_n_batched(const void* A, void* cols, void* masks,
+                               void* counts, int NB, int M, int L,
+                               long long sa, const void* n_rows,
+                               void* stream) {
+  return list_launch(A, cols, masks, counts, NB, M, L, sa, n_rows, stream);
 }
 
 // Lists with ceil(K / LCHUNK) chunks a row block (one when K == 0), as
@@ -766,11 +815,14 @@ int packed_andor_list(const void* A, void* cols, void* masks, void* counts,
   return (int)cudaGetLastError();
 }
 
-int packed_cols_sparse(const void* B, const void* cols, const void* masks,
-                       const void* counts, void* C, int M, int L, int W,
-                       int accumulate, void* stream) {
+static int sparse_launch(const void* B, const void* cols, const void* masks,
+                         const void* counts, void* C, int NB, int M, int L,
+                         int W, long long sb, long long sc, int accumulate,
+                         void* stream) {
   const int nch = (L + LCHUNK - 1) / LCHUNK;
-  const long long tiles = (long long)((W + SP_TW - 1) / SP_TW) * ((M + TM - 1) / TM);
+  const long long gm = (M + TM - 1) / TM;
+  if (gm * NB > 65535) return (int)cudaErrorInvalidConfiguration;
+  const long long tiles = (long long)((W + SP_TW - 1) / SP_TW) * gm * NB;
   int dev = 0, sms = 0;
   cudaGetDevice(&dev);
   cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
@@ -779,19 +831,40 @@ int packed_cols_sparse(const void* B, const void* cols, const void* masks,
   const int splits = share < 1 ? 1 : share > SP_MAX_SPLITS ? SP_MAX_SPLITS : (int)share;
   cudaStream_t st = (cudaStream_t)stream;
   if (splits > 1 && !accumulate) {       // the shares OR into a zeroed C
-    const cudaError_t err = cudaMemsetAsync(C, 0, (size_t)M * W * sizeof(int32_t), st);
+    const size_t row = (size_t)M * W * sizeof(int32_t);
+    const cudaError_t err =
+        NB == 1 ? cudaMemsetAsync(C, 0, row, st)
+                : cudaMemset2DAsync(C, (size_t)sc * sizeof(int32_t), 0, row, NB, st);
     if (err != cudaSuccess) return (int)err;
   }
-  dim3 grid((W + SP_TW - 1) / SP_TW, (M + TM - 1) / TM, splits);
-  if (W % 4 == 0 && (uintptr_t)B % 16 == 0)
+  dim3 grid((W + SP_TW - 1) / SP_TW, (unsigned)(gm * NB), splits);
+  if (W % 4 == 0 && (uintptr_t)B % 16 == 0 && sb % 4 == 0)
     packed_cols_sparse_kernel<true><<<grid, SP_THREADS, 0, st>>>(
         (const int32_t*)B, (const int32_t*)cols, (const uint64_t*)masks,
-        (const int32_t*)counts, (int32_t*)C, M, W, nch, accumulate);
+        (const int32_t*)counts, (int32_t*)C, M, W, nch, accumulate, sb, sc);
   else
     packed_cols_sparse_kernel<false><<<grid, SP_THREADS, 0, st>>>(
         (const int32_t*)B, (const int32_t*)cols, (const uint64_t*)masks,
-        (const int32_t*)counts, (int32_t*)C, M, W, nch, accumulate);
+        (const int32_t*)counts, (int32_t*)C, M, W, nch, accumulate, sb, sc);
   return (int)cudaGetLastError();
+}
+
+int packed_cols_sparse(const void* B, const void* cols, const void* masks,
+                       const void* counts, void* C, int M, int L, int W,
+                       int accumulate, void* stream) {
+  return sparse_launch(B, cols, masks, counts, C, 1, M, L, W, 0, 0, accumulate,
+                       stream);
+}
+
+// NB copies of packed_cols_sparse in one launch: copy b reads B + b·sb
+// [L, W] and the b-th list region (as packed_cols_list_n_batched lays
+// them out) and writes C + b·sc [M, W] (strides in elements).
+int packed_cols_sparse_batched(const void* B, const void* cols,
+                               const void* masks, const void* counts, void* C,
+                               int NB, int M, int L, int W, long long sb,
+                               long long sc, int accumulate, void* stream) {
+  return sparse_launch(B, cols, masks, counts, C, NB, M, L, W, sb, sc,
+                       accumulate, stream);
 }
 
 static int dense_launch(const void* A, const void* B, void* C, int M, int L,
@@ -832,9 +905,10 @@ int packed_cols_dense_n(const void* A, const void* B, void* C, int M, int L,
 // B + b·sb [L, W] and C + b·sc [M, W] (strides in elements; each copy's
 // rows contiguous).  The component plane's batched groups run every
 // copy's CR4/CR6 window through it.
-int packed_cols_dense_batched(const void* A, const void* B, void* C, int NB,
-                              int M, int L, int W, long long sa, long long sb,
-                              long long sc, int accumulate, void* stream) {
+static int dense_batched_launch(const void* A, const void* B, void* C, int NB,
+                                int M, int L, int W, long long sa, long long sb,
+                                long long sc, int accumulate, const void* n_rows,
+                                void* stream) {
   const long long ntw = (W + DTW - 1) / DTW;
   if (ntw * NB > 0x7fffffffLL || (M + TM - 1) / TM > 65535)
     return (int)cudaErrorInvalidConfiguration;
@@ -845,15 +919,34 @@ int packed_cols_dense_batched(const void* A, const void* B, void* C, int NB,
   const int8_t* a = (const int8_t*)A;
   const int32_t* b = (const int32_t*)B;
   int32_t* c = (int32_t*)C;
+  const int* n = (const int*)n_rows;
   if (a16 && b16)
-    packed_cols_dense_kernel<true, true, true><<<grid, DTHREADS, 0, st>>>(a, b, c, M, L, W, accumulate, sa, sb, sc, (int)ntw, nullptr);
+    packed_cols_dense_kernel<true, true, true><<<grid, DTHREADS, 0, st>>>(a, b, c, M, L, W, accumulate, sa, sb, sc, (int)ntw, n);
   else if (a16)
-    packed_cols_dense_kernel<true, false, true><<<grid, DTHREADS, 0, st>>>(a, b, c, M, L, W, accumulate, sa, sb, sc, (int)ntw, nullptr);
+    packed_cols_dense_kernel<true, false, true><<<grid, DTHREADS, 0, st>>>(a, b, c, M, L, W, accumulate, sa, sb, sc, (int)ntw, n);
   else if (b16)
-    packed_cols_dense_kernel<false, true, true><<<grid, DTHREADS, 0, st>>>(a, b, c, M, L, W, accumulate, sa, sb, sc, (int)ntw, nullptr);
+    packed_cols_dense_kernel<false, true, true><<<grid, DTHREADS, 0, st>>>(a, b, c, M, L, W, accumulate, sa, sb, sc, (int)ntw, n);
   else
-    packed_cols_dense_kernel<false, false, true><<<grid, DTHREADS, 0, st>>>(a, b, c, M, L, W, accumulate, sa, sb, sc, (int)ntw, nullptr);
+    packed_cols_dense_kernel<false, false, true><<<grid, DTHREADS, 0, st>>>(a, b, c, M, L, W, accumulate, sa, sb, sc, (int)ntw, n);
   return (int)cudaGetLastError();
+}
+
+int packed_cols_dense_batched(const void* A, const void* B, void* C, int NB,
+                              int M, int L, int W, long long sa, long long sb,
+                              long long sc, int accumulate, void* stream) {
+  return dense_batched_launch(A, B, C, NB, M, L, W, sa, sb, sc, accumulate,
+                              nullptr, stream);
+}
+
+// C[b] |= A[b] ⊙ B[b] over the rows m < n_rows[b] of each copy b
+// (n_rows: NB int32 on the card, read when the kernel starts); the
+// other rows keep their words.
+int packed_cols_dense_n_batched(const void* A, const void* B, void* C, int NB,
+                                int M, int L, int W, long long sa, long long sb,
+                                long long sc, const void* n_rows,
+                                void* stream) {
+  return dense_batched_launch(A, B, C, NB, M, L, W, sa, sb, sc, 1, n_rows,
+                              stream);
 }
 
 const char* packed_cols_error_string(int code) {

@@ -18,7 +18,8 @@ Two construction profiles, as in the reference:
   (``core/incremental.rebuild_engine``: concept-lane and link-row
   headroom, rebind window slots), i.e. the programs serve loads, deltas
   and restores ask for, plus the delta plane's roster
-  (``warm_delta_programs``);
+  (``warm_delta_programs``, with the canonical roster's cohort programs
+  at the rungs of ``cohort.warm.sizes``);
 * ``"classify"`` — ``runtime/classifier.make_engine``'s, as
   ``cli classify`` builds it.
 

@@ -48,10 +48,6 @@ why:
 * The warm view :meth:`OntologyRegistry._warm_result` wraps the
   demoted host state in the port's ``SaturationResult``, whose packed
   closure is a torch tensor.
-* :meth:`OntologyRegistry.cohort_key` answers None: the cohort plane
-  (``core/cohort.py``) is not ported, so the scheduler's cohort lane
-  never forms (the reference's rule would group bucketed tenants).
-  :meth:`OntologyRegistry.delta_cohort` raises ``NotImplementedError``.
 * ``inc.last_compile`` is the port's program-build record (bucketed
   engines' ``CompileStats``: table build and CUDA-graph capture
   seconds, registry hits, the kernel libraries a build loaded), exported
@@ -82,7 +78,7 @@ from typing import Dict, List, Optional
 
 from distel_tpu_torch.config import ClassifierConfig
 from distel_tpu_torch.obs import trace as obs_trace
-from distel_tpu_torch.runtime.classifier import resolve_device
+from distel_tpu_torch.runtime.classifier import PhaseTimer, resolve_device
 from distel_tpu_torch.serve.storage.tiers import TierTraffic
 
 
@@ -484,18 +480,157 @@ class OntologyRegistry:
         the scheduler calls it while holding its own condition
         variable, and execution re-validates every member; a stale
         answer only costs a fallback, never correctness."""
-        return None
+        with self._lock:
+            entry = self._entries.get(oid)
+        if entry is None:
+            return None
+        inc = entry.inc  # unlocked read: grouping hint only
+        if inc is None:
+            return None
+        base = inc._base_engine
+        if base is None or not getattr(base, "_bucket", False):
+            return None
+        return base.bucket_signature
 
     def delta_cohort(self, items: List) -> Dict[str, object]:
-        """The reference advances a cohort of same-bucket tenants under
-        shared vmapped dispatches (``core/cohort.py``).  The port has no
-        cohort plane yet (ROADMAP Queue 1, "The cohort plane"), and
-        :meth:`cohort_key` never groups its exact-shape engines, so the
-        scheduler never calls this."""
-        raise NotImplementedError(
-            "delta_cohort: distel_tpu_torch has no cohort plane yet "
-            "(ROADMAP Queue 1, the cohort plane)"
-        )
+        """Apply one delta increment per ontology, advancing every
+        cohort-compatible member under shared batched step programs
+        (``core/cohort.py``) — one run of a cohort program per joint
+        vote instead of one per tenant.  ``items``: ``(oid, texts)``
+        pairs, each member one increment (the scheduler's per-lane
+        coalescing already merged its texts).  Returns ``{oid: record |
+        BaseException}`` — per-member failures (parse errors, unknown
+        ids) never poison the cohort, and members whose plans cannot
+        share a roster fall back to inline execution with the same
+        records a solo :meth:`delta` would produce.
+
+        Locking: every member's entry lock is acquired in SORTED oid
+        order (two concurrent cohorts can never deadlock), and eviction
+        is deferred to the end, outside the locks — the solo path's
+        promote-time eviction could otherwise pick a co-held member as
+        its victim and demote a classifier mid-cohort."""
+        from distel_tpu_torch.core import cohort as cohort_mod
+        from distel_tpu_torch.owl import loader as owl_loader
+
+        out: Dict[str, object] = {}
+        entries = []
+        for oid, texts in items:
+            try:
+                entries.append((oid, list(texts), self._entry(oid)))
+            except UnknownOntology as e:
+                out[oid] = e
+        entries.sort(key=lambda t: t[0])
+        acquired = []
+        committed = []  # (oid, entry, inc) — publish/record done inside
+        try:
+            for _oid, _texts, entry in entries:
+                entry.lock.acquire()
+                acquired.append(entry)
+            planned = []  # (oid, entry, inc, plan, batch, idx, n_texts)
+            solo = []
+            for oid, texts, entry in entries:
+                try:
+                    self._check_live(entry)
+                    inc = self._resident(entry, evict=False)
+                    text = "\n".join(texts)
+                    # parse FIRST, record the text BEFORE saturating —
+                    # the solo delta path's ingestion contract
+                    onto = owl_loader.load(text)
+                    entry.texts.append(text)
+                    inc.last_compile = None
+                    inc.last_delta_stats = None
+                    inc.timer = PhaseTimer(inc.device)
+                    with inc.timer.phase("ingest"):
+                        idx, batch = inc._ingest(onto, source_text=text)
+                    with inc.timer.phase("plan"):
+                        plan = inc._delta_fast_plan(idx, cohort_shape=True)
+                    rec = (oid, entry, inc, plan, batch, idx, len(texts))
+                    if plan is not None and cohort_mod.delta_cohort_ready(
+                        inc, plan
+                    ):
+                        planned.append(rec)
+                    else:
+                        solo.append(rec)
+                except BaseException as e:  # noqa: BLE001 — per-member
+                    out[oid] = e
+            groups: Dict[tuple, List] = {}
+            for rec in planned:
+                groups.setdefault(rec[3].roster_key(), []).append(rec)
+            # a group that does not fit the card (or the budget) splits
+            # in halves down the rung ladder; a lone member runs solo
+            pending = list(groups.values())
+            while pending:
+                grp = pending.pop()
+                if len(grp) < 2:
+                    solo.extend(grp)
+                    continue
+                if not self._run_cohort(grp, out, committed):
+                    half = cohort_mod.cohort_rung(len(grp)) // 2
+                    pending += [grp[i:i + half]
+                                for i in range(0, len(grp), half)]
+            for oid, entry, inc, plan, batch, idx, n in solo:
+                try:
+                    self._count("distel_cohort_fallback_total")
+                    with inc.timer.phase("saturate"):
+                        if plan is not None:
+                            res = inc._execute_delta_plan(plan)
+                            path = "fast"
+                        else:
+                            res = inc._full_rebuild(idx)
+                            path = "rebuild"
+                    inc._finish_increment(batch, res, path)
+                    out[oid] = self._commit_delta(oid, entry, inc, n)
+                    committed.append((oid, entry, inc))
+                except BaseException as e:  # noqa: BLE001
+                    out[oid] = e
+        finally:
+            for entry in reversed(acquired):
+                entry.lock.release()
+        for oid, _entry, inc in committed:
+            self.traffic.note_write(oid)
+            self._note_path(inc)
+        self._maybe_evict()
+        return out
+
+    def _run_cohort(self, grp, out, committed) -> bool:
+        """One cohort over ``grp``'s planned members (their entry locks
+        held): executed, each member committed into ``out`` and
+        ``committed``.  False when it does not fit (no state moved, its
+        idle programs dropped); a failure is every member's answer."""
+        from distel_tpu_torch.core import cohort as cohort_mod
+
+        def spare():
+            if self.memory_budget_bytes is None:
+                return None
+            return self.memory_budget_bytes - (self.resident_bytes()
+                                               + self._program_bytes())
+
+        fits = True
+        try:
+            timer = grp[0][2].timer
+            with timer.phase("saturate"):
+                cohort_mod.execute_delta_cohort(
+                    [(inc, plan, batch)
+                     for (_o, _e, inc, plan, batch, _i, _n) in grp],
+                    spare_bytes=spare,
+                )
+            for member in grp[1:]:  # one joint run, every member's
+                member[2].timer.phases["saturate"] = timer.phases["saturate"]
+            self._count("distel_cohort_formed_total")
+            for oid, entry, inc, _plan, _batch, _idx, n in grp:
+                out[oid] = self._commit_delta(oid, entry, inc, n)
+                committed.append((oid, entry, inc))
+        except cohort_mod.CohortDoesNotFit:
+            fits = False
+        except BaseException as e:  # noqa: BLE001
+            # a failed joint run replaces no member's closure: each
+            # keeps its pre-delta state with its axioms ingested, which
+            # its next increment derives — every member gets the error
+            for oid, *_rest in grp:
+                out[oid] = e
+        if not fits:
+            self._drop_idle_programs()
+        return fits
 
     def _commit_delta(self, oid, entry, inc, n_texts) -> dict:
         """Post-increment bookkeeping shared by the solo :meth:`delta`

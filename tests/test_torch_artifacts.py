@@ -763,3 +763,56 @@ def test_persistent_cache_counters_read_the_library_aggregate(tmp_path,
         assert build._compile(name) == 0.0
     assert (stats.persistent_cache_hits, stats.persistent_cache_misses) == (1, 0)
     assert np.all(np.array(list(build.CACHE_EVENTS.snapshot().values())) >= 0)
+
+
+def test_farm_records_and_installs_cohort_programs(tmp_path):
+    """A bake under ``cohort.warm.sizes`` records each cohort program at
+    the ``"exe"`` tier as the solo program's spec plus its rung (and the
+    budget its key holds); a consumer builds it at install, and the
+    first cohort of two tenants is handed the programs: ``compile_s``
+    0.0, exe hits, each member's closure the one the bake's process
+    computes."""
+    from distel_tpu_torch.core import cohort
+    from distel_tpu_torch.owl import loader
+
+    cfg = ClassifierConfig(cohort_warm_sizes="2", **CFG)
+    root = str(tmp_path / "farm")
+    store = ArtifactStore(root, writable=True, device="cpu")
+    PROGRAMS.clear()
+    PROGRAMS.artifact_sink = store
+    try:
+        warmup_texts([BASE], cfg, parallel=False, device="cpu")
+    finally:
+        PROGRAMS.artifact_sink = None
+    store.flush()
+    doc = json.loads((tmp_path / "farm" / artifacts.MANIFEST_NAME).read_text())
+    ents = [e for e in doc["artifacts"].values() if e.get("kind") == "cohort_run"]
+    assert len(ents) == 3 and {e["rung"] for e in ents} == {2}
+    assert all(e["tier"] == "exe" for e in ents)
+    for e in ents:
+        spec = json.loads((tmp_path / "farm" / e["file"]).read_text())
+        assert spec["cohort"]["rung"] == 2
+        assert set(spec) == {"format", "struct", "tables", "cohort"}
+
+    def cohort_run():
+        members = []
+        for delta in ("SubClassOf(Q0 A)", "SubClassOf(Q1 ObjectSomeValuesFrom(r C))"):
+            inc = IncrementalClassifier(cfg, device="cpu")
+            inc.add_text(BASE)
+            idx, batch = inc._ingest(loader.load(delta))
+            members.append((inc, inc._delta_fast_plan(idx, cohort_shape=True),
+                            batch))
+        return members, cohort.execute_delta_cohort(members)
+
+    _m, want = cohort_run()
+    PROGRAMS.clear()
+    rec = artifacts.install(root, require=True, device="cpu")
+    assert sum(1 for p in rec["programs"] if p.get("rung") == 2) == 3
+    ARTIFACT_EVENTS.reset()
+    members, got = cohort_run()
+    assert ARTIFACT_EVENTS.snapshot()["exe_hits"] >= 3
+    for (inc, _plan, _batch), g, w in zip(members, got, want):
+        st = inc.last_compile
+        assert st.program_cache_hit is True and st.compile_s == 0.0
+        assert torch.equal(g.packed_s, w.packed_s)
+        assert torch.equal(g.packed_r, w.packed_r)

@@ -247,3 +247,66 @@ def test_out_checks():
         plan(a, b, out=a.view(torch.int32))
     out = torch.zeros((4, 2), dtype=torch.int32)
     assert plan(a, b, out=out) is out
+
+
+@pytest.mark.parametrize("nb", [2, 4, 8])
+@pytest.mark.parametrize("shape", [(37, 70, 130), (70, 33, 40), (1, 1, 1)])
+def test_batched_row_counts_match_per_copy(nb, shape):
+    """``batched_rows`` (the plain version of ``packed_cols_dense_n_batched``
+    and ``packed_cols_list_n_batched`` + ``packed_cols_sparse_batched``)
+    at random row counts, 0 and all included: copy k equals the per-copy
+    ``plain_packed_cols_rows`` and the reference's ``use_xla`` contract
+    on its rows below the count, ORed into a seeded C; the rows past it
+    keep C's words; no kernel counts on the CPU."""
+    m, l, x = shape
+    rng = np.random.default_rng(nb * 100 + m)
+    ops = [_operands(int(rng.integers(1 << 30)), m, l, x, 0.1)
+           for _ in range(nb)]
+    a = torch.from_numpy(np.stack([o[0] for o in ops]).astype(np.int8))
+    bp = np.stack([o[2] for o in ops])
+    w = bp.shape[2]
+    c0 = rng.integers(0, 2**32, (nb, m, w), dtype=np.uint64).astype(np.uint32)
+    c0[:, :, 0] |= 0x80000000
+    counts = rng.integers(0, m + 1, nb)
+    counts[0], counts[-1] = 0, m
+    n_rows = torch.tensor(counts, dtype=torch.int32)
+    before = dict(LAUNCHES)
+    for skip in (False, True):
+        plan = PackedColsMatmulPlan(m, l, w, skip_zero_tiles=skip)
+        out = to_words(c0.copy())
+        got = plan.batched_rows(a, to_words(bp), out, n_rows)
+        assert got is out
+        for k in range(nb):
+            want = to_words(c0[k].copy())
+            bitmatmul.plain_packed_cols_rows(a[k], to_words(bp[k]), want,
+                                             n_rows[k : k + 1])
+            assert torch.equal(got[k], want), (k, counts[k])
+            ref = np.asarray(RefPlan(m, l, w, use_xla=True)(
+                jnp.asarray(a[k].numpy()), jnp.asarray(bp[k])
+            )).astype(np.uint32)
+            rows = int(counts[k])
+            assert (from_words(got[k])[:rows] == (ref | c0[k])[:rows]).all()
+            assert (from_words(got[k])[rows:] == c0[k][rows:]).all()
+    assert dict(LAUNCHES) == before
+
+
+def test_batched_rows_checks():
+    """``batched_rows`` wants [nb, m, l] / [nb, l, w] / [nb, m, w]
+    operands and one int32 count a copy."""
+    plan = PackedColsMatmulPlan(4, 8, 2)
+    a = torch.zeros((3, 4, 8), dtype=torch.int8)
+    b = torch.zeros((3, 8, 2), dtype=torch.int32)
+    out = torch.zeros((3, 4, 2), dtype=torch.int32)
+    n = torch.zeros(3, dtype=torch.int32)
+    assert plan.batched_rows(a, b, out, n) is out
+    with pytest.raises(ValueError, match="batched_rows got"):
+        plan.batched_rows(a[:, :3], b, out, n)
+    with pytest.raises(ValueError, match="n_rows must be 3"):
+        plan.batched_rows(a, b, out, n[:2])
+    with pytest.raises(ValueError, match="n_rows must be 3"):
+        plan.batched_rows(a, b, out, n.to(torch.int64))
+    with pytest.raises(ValueError, match="overlap"):
+        plan.batched_rows(a, b, b.view(-1)[:24].view(3, 4, 2), n)
+    with pytest.raises(ValueError, match="contiguous"):
+        plan.batched_rows(a, b, torch.zeros((3, 2, 4), dtype=torch.int32)
+                          .transpose(1, 2), n)

@@ -1251,3 +1251,122 @@ def test_spec_program_captures_and_replays_as_the_engine_built(card):
     want, got = _program_run(prog, engine), _program_run(back, engine)
     assert got[0] == want[0] and len(want[0]) > 1
     assert torch.equal(got[1], want[1]) and torch.equal(got[2], want[2])
+
+
+# ------------------------------------------------------ the cohort plane
+
+#: (m, l, w, density) of the batched row-count forms: a CR4 window
+#: chunk of the 64k step's shape, a sparse-route shape, one row block,
+#: unaligned everywhere
+BATCHED_CASES = [(239, 1152, 3084, 0.01), (332, 1056, 64, 0.02),
+                 (64, 64, 8, 0.3), (130, 96, 40, 0.05)]
+
+
+def _batched_operands(gen, nb, m, l, w, density):
+    ops = [_operands(gen, m, l, w, density) for _ in range(nb)]
+    return (torch.stack([a for a, _ in ops]).contiguous(),
+            torch.stack([b for _, b in ops]).contiguous())
+
+
+@pytest.mark.parametrize("sparse", [False, True],
+                         ids=["dense_n_batched", "list_n_batched"])
+@pytest.mark.parametrize("rung", [2, 4, 8])
+@pytest.mark.parametrize("m,l,w,density", BATCHED_CASES)
+def test_batched_row_count_variants_match_plain(card, m, l, w, density,
+                                                 rung, sparse):
+    """``packed_cols_dense_n_batched`` and ``packed_cols_list_n_batched`` +
+    ``packed_cols_sparse_batched``: one launch each for every copy, each
+    copy with its own row count on the card (0, 1, half, all, past the
+    rows), ORed into a seeded C: 0 differing words against the plain
+    version and against the per-copy row-count kernels."""
+    gen = torch.Generator(device="cuda").manual_seed(rung * 1000 + m)
+    a, b = _batched_operands(gen, rung, m, l, w, density)
+    c0 = torch.randint(-2**31, 2**31, (rung, m, w), generator=gen,
+                       device="cuda", dtype=torch.int64).to(torch.int32)
+    counts = [(0, 1, m // 2, m, m + 7)[i % 5] for i in range(rung)]
+    n_rows = torch.tensor(counts, dtype=torch.int32, device="cuda")
+    plan = PackedColsMatmulPlan(m, l, w, skip_zero_tiles=sparse)
+    names = (("packed_cols_list_n_batched", "packed_cols_sparse_batched")
+             if sparse else ("packed_cols_dense_n_batched",))
+    before = dict(LAUNCHES)
+    got = plan.batched_rows(a, b, c0.clone(), n_rows)
+    torch.cuda.synchronize()
+    slabs = len(plan._batched_slabs(a.device, rung)) if sparse else 1
+    for k in LAUNCHES:
+        assert LAUNCHES[k] - before[k] == (slabs if k in names else 0), k
+    want = bitmatmul.plain_packed_cols_rows_batched(
+        a.cpu(), b.cpu(), c0.cpu(), n_rows.cpu())
+    assert torch.equal(got.cpu(), want)
+    for k in range(rung):
+        one = plan(a[k], b[k], out=c0[k].clone(), n_rows=n_rows[k : k + 1])
+        assert torch.equal(got[k], one)
+
+
+def test_batched_sparse_route_runs_in_slabs(card):
+    """A temp budget that holds one row block's lists for every copy
+    splits the batched sparse route into slabs, each one listing and one
+    product launch for all copies; the words are the plain version's."""
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    nb, m, l, w = 4, 300, 600, 40
+    a, b = _batched_operands(gen, nb, m, l, w, 0.02)
+    c0 = torch.zeros((nb, m, w), dtype=torch.int32, device="cuda")
+    n_rows = torch.tensor([300, 0, 150, 299], dtype=torch.int32, device="cuda")
+    budget = 12 * 3 * 256 * nb            # one row block of lists a slab
+    plan = PackedColsMatmulPlan(m, l, w, skip_zero_tiles=True,
+                                temp_budget_bytes=budget)
+    slabs = plan._batched_slabs(a.device, nb)
+    assert len(slabs) == -(-m // 64)
+    before = dict(LAUNCHES)
+    got = plan.batched_rows(a, b, c0.clone(), n_rows)
+    torch.cuda.synchronize()
+    assert LAUNCHES["packed_cols_list_n_batched"] - \
+        before["packed_cols_list_n_batched"] == len(slabs)
+    assert LAUNCHES["packed_cols_sparse_batched"] - \
+        before["packed_cols_sparse_batched"] == len(slabs)
+    want = bitmatmul.plain_packed_cols_rows_batched(
+        a.cpu(), b.cpu(), c0.cpu(), n_rows.cpu())
+    assert torch.equal(got.cpu(), want)
+
+
+def _cohort_members(device, spec):
+    from distel_tpu_torch.core.incremental import IncrementalClassifier
+    from distel_tpu_torch.owl import loader
+
+    members = []
+    for p, delta in spec:
+        base = (f"SubClassOf({p}A {p}B)\nSubClassOf({p}B {p}C)\n"
+                f"SubClassOf({p}C ObjectSomeValuesFrom(r {p}D))\n"
+                f"SubClassOf(ObjectSomeValuesFrom(r {p}D) {p}E)\n"
+                f"SubClassOf({p}E {p}F)\n"
+                "SubObjectPropertyOf(ObjectPropertyChain(r r) r)\n")
+        inc = IncrementalClassifier(ClassifierConfig(fast_path_min_concepts=0),
+                                    device=device)
+        inc.add_text(base)
+        idx, batch = inc._ingest(loader.load(delta.format(p=p)))
+        members.append((inc, inc._delta_fast_plan(idx, cohort_shape=True), batch))
+    return members
+
+
+@pytest.mark.parametrize("size", [2, 3, 5])
+def test_cohort_on_the_card_equals_the_cpu(card, size):
+    """A cohort on the card (rungs 2, 4, 8: captured cohort programs
+    over a stacked state pair) equals the same cohort on the CPU in
+    every member's S, R, derivations and iterations, and launches the
+    batched row-count kernels."""
+    from distel_tpu_torch.core import cohort
+
+    deltas = ["SubClassOf({p}N0 {p}A)\nSubClassOf({p}N1 {p}N0)\n",
+              "SubClassOf({p}L ObjectSomeValuesFrom(r {p}B))\n",
+              "SubClassOf({p}N0 {p}A)\nSubClassOf({p}M ObjectSomeValuesFrom(r {p}C))\n"]
+    spec = [(f"C{size}x{i}", deltas[i % 3]) for i in range(size)]
+    want = cohort.execute_delta_cohort(_cohort_members("cpu", spec))
+    before = dict(LAUNCHES)
+    got = cohort.execute_delta_cohort(_cohort_members("cuda", spec))
+    torch.cuda.synchronize()
+    batched = sum(LAUNCHES[k] - before[k] for k in (
+        "packed_cols_dense_n_batched", "packed_cols_list_n_batched"))
+    assert batched > 0
+    for g, w in zip(got, want):
+        assert torch.equal(g.packed_s.cpu(), w.packed_s)
+        assert torch.equal(g.packed_r.cpu(), w.packed_r)
+        assert (g.derivations, g.iterations) == (w.derivations, w.iterations)

@@ -486,12 +486,21 @@ def test_serve_replica_id_needs_a_spill_dir(capsys):
 
 
 def test_cohort_lane_never_forms_on_exact_engines():
-    reg = OntologyRegistry(device="cpu", fast_path_min_concepts=0)
+    """An exact-shape base has no cohort key, and ``delta_cohort``
+    answers such a member through the solo fallback (counted), as the
+    reference's registry does."""
+    from distel_tpu_torch.serve.metrics import Metrics
+
+    metrics = Metrics()
+    reg = OntologyRegistry(ClassifierConfig(shape_buckets=False), device="cpu",
+                           metrics=metrics, fast_path_min_concepts=0)
     oid = reg.new_id()
     reg.load(oid, TIER_OTHER)
     assert reg.cohort_key(oid) is None
-    with pytest.raises(NotImplementedError, match="cohort"):
-        reg.delta_cohort([(oid, ["SubClassOf(Q Find1)"])])
+    out = reg.delta_cohort([(oid, ["SubClassOf(Q Find1)"])])
+    assert out[oid]["path"] == "fast", out[oid]
+    assert metrics.counter_value("distel_cohort_fallback_total") == 1
+    assert metrics.counter_value("distel_cohort_formed_total") == 0
 
 
 # ------------------------------------------------- threads and the CLI

@@ -194,3 +194,40 @@ def test_cli_fleet_passes_warmup_to_its_replicas(monkeypatch, tmp_path):
     assert rc == 1 and seen["n"] == 2 and seen["stopped"] is False
     i = seen["extra"].index("--warmup")
     assert seen["extra"][i:i + 3] == ["--warmup", "a.ofn", "b.ofn"]
+
+
+def test_cli_warmup_builds_the_cohort_programs(tmp_path, capsys):
+    """``cohort.warm.sizes`` in the ``--config`` of ``cli warmup``: the
+    canonical delta roster's cohort programs (mixed delta, cross, base)
+    are built at the sizes' rungs, so the process's first cohort of two
+    same-bucket tenants builds nothing (``compile_s`` 0.0, registry
+    hits)."""
+    from distel_tpu_torch.core import cohort
+    from distel_tpu_torch.core.incremental import IncrementalClassifier
+    from distel_tpu_torch.owl import loader
+
+    base = "\n".join([f"SubClassOf(W{i} W{i + 1})" for i in range(8)]
+                     + ["SubClassOf(W1 ObjectSomeValuesFrom(r W3))",
+                        "SubObjectPropertyOf(ObjectPropertyChain(r r) r)"])
+    path = tmp_path / "base.ofn"
+    path.write_text(base)
+    props = tmp_path / "c.properties"
+    props.write_text("cohort.warm.sizes = 2, 3\nfast.path.min.concepts = 0\n")
+    PROGRAMS.clear()
+    assert cli.main(["warmup", str(path), "--device", "cpu", "--config",
+                     str(props)]) == 0
+    capsys.readouterr()
+    rungs = sorted(k[3] for k in PROGRAMS._programs if k[1] == "cohort_run")
+    assert rungs == [2, 2, 2, 4, 4, 4]
+    cfg = ClassifierConfig.from_properties(str(props))
+    members = []
+    for delta in ("SubClassOf(Nx W2)", "SubClassOf(W5 ObjectSomeValuesFrom(r W0))"):
+        inc = IncrementalClassifier(cfg, device="cpu")
+        inc.add_text(base)
+        idx, batch = inc._ingest(loader.load(delta))
+        members.append((inc, inc._delta_fast_plan(idx, cohort_shape=True), batch))
+    cohort.execute_delta_cohort(members)
+    for inc, _plan, _batch in members:
+        st = inc.last_compile
+        assert st.program_cache_hit is True and st.compile_s == 0.0, st.as_dict()
+        assert inc.history[-1]["path"] == "cohort"
