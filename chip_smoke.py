@@ -91,6 +91,24 @@ Phases, each of which raises on failure:
    which the route must reproduce the plain product and its listing the
    plain listing bit for bit, the listing and the product each timed
    beside the plain version and the bound;
+7b. the mesh plane (``mesh_full_width``): five ``cli classify`` runs,
+   started after the build, beside the first phases, each its own
+   process tree: the 64k corpus at ``--mesh 2``, two gloo ranks sharing
+   the card (default config: bucketed, gated, native plane; the step
+   program runs uncaptured, a graph cannot hold a gloo collective), and
+   again with ``engine = packed`` in exact layout; on the cut corpus the
+   dense engine at ``--mesh 2``, a mesh of one over NCCL (the
+   coordinator keys, one process) and the CPU port's mesh of one.
+   Every rank of a run must gather one closure; the dense run is held
+   to the solo dense card run, the NCCL mesh of one to the CPU's; once
+   phases 5 and 7 have run, the 64k runs are held to them (the solo
+   card classify of the same text, and the packed run: closure digest
+   on every rank, derivations, iterations, taxonomy).  Each rank's
+   wall, phases, peak memory, collectives (calls, bytes, seconds),
+   windows, launches and shard-local product shapes are printed; then
+   the bucketed step's heaviest operands at each rank's word window go
+   through both row-count routes against the plain version (the
+   ``(mesh 2, rank window)`` rows of the kernel line);
 8. the weak-scaling corpus at full width: the OpenGALEN module read
    through the RDF/XML reader, multiplied into 600 crossed copies
    (88,802 concepts), written as OFN and classified by the default
@@ -271,6 +289,8 @@ and card bytes), ``{"farm_full_width": ...}`` (the bake's records,
 stats and wall, the re-bake's, the consumer's start-to-serving wall,
 install record, load and delta, ``/metrics`` series and launches, the
 kernel check, the refusal and the lenient consumer),
+``{"mesh_full_width": ...}`` (each mesh run's summary and rank
+records, its comparisons, and the rank-window kernel checks),
 ``{"cohort_full_width": ...}`` (the 64k cohort's members, key, rung,
 votes, vote walls beside the solo walls, programs, events, launches,
 solo checks, batched kernel checks; the cut cohorts; the HTTP cohort),
@@ -1964,13 +1984,12 @@ def bucket_heaviest(cap: "Capture") -> dict:
     return out
 
 
-def bucket_kernel_rows(cap: "Capture", launches: dict) -> list:
+def bucket_kernel_rows(heaviest: dict, launches: dict) -> list:
     """The bucketed 64k step's heaviest operand of each route
     (:func:`bucket_heaviest`), through both row-count variants against
     the plain version (0 differing words) and timed: one kernel row
     each, with the main path's launches of the variant."""
     rows = []
-    heaviest = bucket_heaviest(cap)
     for kern, variant, replaces in (
         ("packed_cols_dense", "packed_cols_dense_n", REPLACES["packed_cols_dense"]),
         ("packed_cols_sparse", "packed_cols_list_n", REPLACES["packed_cols_sparse"]),
@@ -5841,6 +5860,227 @@ def _cohort_phase(device, n_classes, cut_classes, rows, child, cpu_out,
     return rows
 
 
+# ------------------------------------------------------------ the mesh plane
+
+MESH_DIR = ROOT / "build" / "smoke_mesh"
+
+
+def closure_digest(result) -> str:
+    """The digest of a result's live closure, as the ranks of ``cli
+    classify --mesh`` report theirs (layouts of different padding
+    compare)."""
+    return result.live_digest()
+
+
+def mesh_cli(args, device: str = "cuda", env=None):
+    """``cli classify ARGS --device DEVICE`` started in a child process
+    at a lower scheduling priority (its ranks inherit it: the smoke's
+    own phases keep the host's cores first); :func:`mesh_result` reads
+    it."""
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "distel_tpu_torch.cli", "classify", *args,
+         "--device", device],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, cwd=str(ROOT),
+        env=env, preexec_fn=lambda: os.nice(10))
+    proc.t0 = time.perf_counter()
+    return proc
+
+
+def mesh_result(proc, what: str) -> dict:
+    """A :func:`mesh_cli` child's JSON summary, with ``read_after_s``,
+    the seconds from its start until the smoke read it (its process
+    wall when nothing was read before it).  A failed run (any rank)
+    fails the phase; so do ranks that gathered different closures."""
+    stdout, stderr = proc.communicate(timeout=900)
+    if proc.returncode != 0:
+        raise AssertionError(f"mesh {what}: cli classify exited {proc.returncode}:\n"
+                             f"{stderr[-6000:]}")
+    summary = json.loads(stdout[: stdout.rindex("}") + 1])
+    summary["read_after_s"] = time.perf_counter() - proc.t0
+    if len({r["closure_sha256"] for r in summary["mesh"]["ranks"]}) != 1:
+        raise AssertionError(f"mesh {what}: the ranks gathered different closures")
+    log(f"[mesh] {what}: {json.dumps(summary)}")
+    return summary
+
+
+def mesh_ranks_agree(summary, what: str, digest: str) -> None:
+    """Every rank gathered the closure ``digest`` names."""
+    got = {r["closure_sha256"] for r in summary["mesh"]["ranks"]}
+    if got != {digest}:
+        raise AssertionError(f"mesh {what}: rank closures {sorted(got)} != {digest}")
+
+
+def _props(path: Path, **kv) -> str:
+    path.write_text("".join(f"{k} = {v}\n" for k, v in kv.items()))
+    return str(path)
+
+
+def closure_ref(res, name: str) -> dict:
+    """A classify's digest, derivations, iterations and taxonomy, for a
+    mesh run to be held to; the digest and the taxonomy file are made
+    by a background thread (``"done"``, a future), beside the phases
+    that follow."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    MESH_DIR.mkdir(parents=True, exist_ok=True)
+    path = MESH_DIR / f"tax_{name}.txt"
+    ref = {"derivations": res.result.derivations,
+           "iterations": res.result.iterations, "taxonomy_file": str(path)}
+
+    def work(result=res.result, taxonomy=res.taxonomy):
+        taxonomy.write(str(path))
+        ref["closure_sha256"] = closure_digest(result)
+
+    pool = ThreadPoolExecutor(max_workers=1)
+    ref["done"] = pool.submit(work)
+    pool.shutdown(wait=False)
+    return ref
+
+
+def start_mesh_runs(n_classes: int = 64000, device: str = "cuda") -> dict:
+    """Start the mesh phase's five ``cli classify`` runs (the module
+    docstring's 7b), each its own process tree: the 64k corpus at
+    ``--mesh 2`` (the default config, and ``engine = packed`` in exact
+    layout), and on the cut corpus the dense engine at ``--mesh 2``, an
+    NCCL mesh of one (the coordinator keys, one process) and the CPU's
+    mesh of one.  They run beside the smoke's first phases (their
+    start-up — each process imports torch and reaches the card — and
+    their exchanges are host work), so a rank's wall here is under that
+    load; PERF.md gives each run's wall alone."""
+    import socket
+
+    from distel_tpu_torch.frontend.ontology_tools import snomed_shaped_ontology
+
+    shutil.rmtree(MESH_DIR, ignore_errors=True)
+    MESH_DIR.mkdir(parents=True)
+    cut = MESH_DIR / "cut.ofn"
+    cut.write_text(snomed_shaped_ontology(n_classes=CUT_CLASSES, seed=42))
+    big = MESH_DIR / "s64k.ofn"
+    big.write_text(snomed_shaped_ontology(n_classes=n_classes, seed=42))
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    nccl = _props(MESH_DIR / "nccl.properties",
+                  **{"coordinator.address": f"127.0.0.1:{port}",
+                     "num.processes": 1, "process.id": 0})
+    dense = _props(MESH_DIR / "dense.properties", engine="dense")
+    packed = _props(MESH_DIR / "packed.properties", engine="packed",
+                    **{"shape.buckets": "false"})
+    cpu_env = {**os.environ, "CUDA_VISIBLE_DEVICES": "", "OMP_NUM_THREADS": "2"}
+    procs = {
+        "row": mesh_cli([str(big), "--mesh", "2",
+                         "-o", str(MESH_DIR / "tax_mesh.txt")], device),
+        "packed": mesh_cli([str(big), "--mesh", "2", "--config", packed,
+                            "-o", str(MESH_DIR / "tax_packed_mesh.txt")], device),
+        "dense": mesh_cli([str(cut), "--mesh", "2", "--config", dense], device),
+        "nccl": mesh_cli([str(cut), "--config", nccl], device),
+        "cpu": mesh_cli([str(cut), "--mesh", "1"], "cpu", env=cpu_env),
+    }
+    for proc in procs.values():
+        proc.started = time.perf_counter()
+    return {"procs": procs, "cut": cut, "t0": time.perf_counter()}
+
+
+def finish_mesh_runs(runs: dict, device: str = "cuda") -> dict:
+    """Wait for the mesh runs and hold the cut corpus's to their
+    references: the dense mesh of two to the solo dense card run (here),
+    the NCCL mesh of one to the CPU's mesh of one.  Returns the runs'
+    records; every process is stopped whatever happens."""
+    from distel_tpu_torch.config import ClassifierConfig
+    from distel_tpu_torch.runtime.classifier import ELClassifier
+
+    procs, out = runs["procs"], {}
+    try:
+        for key, what in (("row", "64k row-packed"), ("packed", "64k packed"),
+                          ("dense", "cut dense"), ("nccl", "cut NCCL mesh of one"),
+                          ("cpu", "cut CPU mesh of one")):
+            out[key] = mesh_result(procs[key], what)
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    out["runs_wall_s"] = time.perf_counter() - runs["t0"]
+    solo = ELClassifier(ClassifierConfig(engine="dense"), device=device) \
+        .classify_text(runs["cut"].read_text())
+    dense = out["dense"]
+    mesh_ranks_agree(dense, "cut dense", closure_digest(solo.result))
+    if (dense["derivations"], dense["iterations"]) != (solo.result.derivations,
+                                                       solo.result.iterations):
+        raise AssertionError("mesh cut dense: derivations or iterations differ")
+    dense["equal_to_solo"] = True
+    nccl, cpu = out["nccl"], out.pop("cpu")
+    if nccl["mesh"]["ranks"][0]["backend"] != ("nccl" if device == "cuda" else "gloo"):
+        raise AssertionError(f"mesh of one: backend {nccl['mesh']['ranks'][0]['backend']}")
+    mesh_ranks_agree(nccl, "cut NCCL mesh of one", cpu["mesh"]["ranks"][0]["closure_sha256"])
+    if (nccl["derivations"], nccl["iterations"]) != (cpu["derivations"], cpu["iterations"]):
+        raise AssertionError("mesh of one: card and CPU derivations or iterations differ")
+    nccl["equal_to_cpu"] = True
+    nccl["cpu_wall_s"] = cpu["mesh"]["ranks"][0]["wall_s"]
+    for key in ("row", "packed"):
+        for rec in out[key]["mesh"]["ranks"] if device == "cuda" else ():
+            for k in (("packed_cols_dense_n", "packed_cols_list_n", "packed_cols_sparse")
+                      if key == "row" else ("packed_andor_list",)):
+                if not rec["launches"].get(k):
+                    raise AssertionError(f"mesh 64k {key} rank {rec['rank']}: "
+                                         f"{k} never launched")
+    return out
+
+
+def phase_mesh_full_width(mesh: dict, solo_ref: dict, packed_ref: dict,
+                          heaviest: dict, device: str = "cuda") -> list:
+    """The 64k mesh runs held to the solo card classify of the same text
+    (``solo_ref``: phase 5's default classify) and to phase 7's packed
+    run (``packed_ref``) — the gathered closure's digest on every rank,
+    derivations, iterations, the taxonomy rank 0 wrote; then the
+    bucketed step's heaviest operands (``heaviest``) at each rank's word
+    window through both row-count routes against the plain version (the
+    kernel line's ``(mesh 2, rank window)`` rows, their launches the
+    mesh run's).  Prints the phase's line; returns the rows."""
+    for key, ref, tax in (("row", solo_ref, "tax_mesh.txt"),
+                          ("packed", packed_ref, "tax_packed_mesh.txt")):
+        ref.pop("done").result()
+        run = mesh[key]
+        mesh_ranks_agree(run, f"64k {key}", ref["closure_sha256"])
+        for k in ("derivations", "iterations"):
+            if run[k] != ref[k]:
+                raise AssertionError(f"mesh 64k {key}: {k} {run[k]} != {ref[k]}")
+        if (MESH_DIR / tax).read_text() != Path(ref["taxonomy_file"]).read_text():
+            raise AssertionError(f"mesh 64k {key}: taxonomy differs from the solo run's")
+        run["solo"] = ref
+        run["equal_to_solo"] = True
+    rows, checks, launches = [], [], {}
+    for rec in mesh["row"]["mesh"]["ranks"]:
+        for k, v in rec["launches"].items():
+            launches[k] = launches.get(k, 0) + v
+    for variant, (site, a, b, sparse) in sorted(heaviest.items()):
+        if device != "cuda":
+            break
+        wl = b.shape[1] // 2
+        a = a.cuda()
+        ops = [(f"{site} rank {r}", a, b[:, r * wl:(r + 1) * wl].contiguous().cuda(),
+                sparse) for r in range(2)]
+        mine = [c for c in check_variants(ops) if c["kernel"] == variant]
+        checks += mine
+        top = mine[-1]
+        rows.append({
+            "name": f"{variant} (mesh 2, rank window)", "route": "cuda",
+            "source": SOURCE,
+            "replaces": REPLACES["packed_cols_sparse" if sparse else "packed_cols_dense"],
+            "launches": launches.get(variant, 0),
+            "max_abs_err": max(c["max_abs_err"] for c in mine),
+            "ms": top["ms"], "plain_ms": top["plain_ms"], "bound_ms": top["bound_ms"],
+            "bound_by": top["bound_by"], "library_ms": None, "dead_ms": top["dead_ms"],
+            "at": {"run": "64k-mesh2", "site": site, "shape": top["shape"],
+                   "ranks_ms": [c["ms"] for c in mine]},
+            "main_path": True,
+        })
+        del a, ops
+    mesh["rank_window_checks"] = checks
+    print(json.dumps({"mesh_full_width": mesh}, default=str), flush=True)
+    return rows
+
+
 def main() -> int:
     # the port first: in a directory without it this fails before any
     # result is printed
@@ -5862,6 +6102,9 @@ def main() -> int:
         log(f"[clock] {what} {time.perf_counter() - t_start:.1f} s")
 
     name = phase_probe()
+    # the mesh plane's runs, beside the first phases (7b; they load the
+    # kernels the probe built)
+    mesh_runs = start_mesh_runs()
     phase_kernels()
     andor_checks = phase_andor_kernel()
     phase_golden()
@@ -5878,11 +6121,15 @@ def main() -> int:
     phase_xml_corpora()
     phase_incremental_card_vs_cpu()
     mark("8k phases")
+    mesh = finish_mesh_runs(mesh_runs)
+    mark("mesh runs")
     launches, res = phase_default_full_width()
+    solo_ref = closure_ref(res, "solo")
     phase_full_width(res)
     exact, exact_launches = phase_bucket_full_width(res)
     bucket_operands(res.engine, res.result, cap)
-    bucket_rows = bucket_kernel_rows(cap, launches)
+    heaviest = bucket_heaviest(cap)
+    bucket_rows = bucket_kernel_rows(heaviest, launches)
     mark("64k bucketed")
     del res
     torch.cuda.empty_cache()
@@ -5895,8 +6142,11 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase_packed_breakdown(packed)
     andor_row = phase_andor_operands(packed, packed_launches, andor_checks)
+    packed_ref = closure_ref(packed, "packed")
     del packed
     torch.cuda.empty_cache()
+    mesh_rows = phase_mesh_full_width(mesh, solo_ref, packed_ref, heaviest)
+    del heaviest
     mark("64k exact and packed")
     checked = phase_multiplied_full_width(cap)
     torch.cuda.empty_cache()
@@ -5935,6 +6185,7 @@ def main() -> int:
     rows.extend(fused_rows)
     rows.extend(farm_rows)
     rows.extend(cohort_rows)
+    rows.extend(mesh_rows)
     (out / "kernel_pairs.json").write_text(json.dumps(pairs, indent=1))
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": rows}), flush=True)

@@ -4,7 +4,10 @@
              from --config: ``engine = rowpacked``, ``packed`` or
              ``dense``; ``backend.CRn = host`` routes a rule to the
              host); ``--verify`` diffs the closure against the CPU
-             oracle
+             oracle; ``--mesh N`` shards the fixed point over N local
+             ranks (``parallel/mesh.py``; rank 0 prints and writes);
+             with the coordinator keys in ``--config`` the process is
+             one rank of an external group
   stream     classify a base ontology, then add each delta file on top
              of the running closure (``core/incremental.py``): one JSON
              record per file, then the totals
@@ -44,7 +47,7 @@
 
 Every command reads OWL functional syntax, RDF/XML or OWL/XML.
 
-Usage: python -m distel_tpu_torch.cli classify FILE [--device cpu] ...
+Usage: python -m distel_tpu_torch.cli classify FILE [--device cpu] [--mesh N] ...
        python -m distel_tpu_torch.cli stream BASE [DELTA ...] [--device cpu]
        python -m distel_tpu_torch.cli diff FILE [--device cpu]
        python -m distel_tpu_torch.cli multiply FILE N -o OUT [--crossed]
@@ -125,20 +128,124 @@ def cmd_classify(args) -> int:
         if not guard["allowed"]:
             print(f"refusing launch: {guard['reason']}", file=sys.stderr)
             return 3
+    if args.mesh is not None and args.mesh > 1:
+        from distel_tpu_torch.parallel.mesh import launch_local
+
+        cfg.mesh_devices = args.mesh
+        t0 = time.perf_counter()
+        ranks = launch_local(args.mesh, _classify_rank, cfg, args.ontology,
+                             args.verify, args.resume, bool(args.snapshot),
+                             device=args.device)
+        summary = dict(ranks[0]["summary"])
+        summary["mesh"] = {"size": args.mesh, "launch_s": time.perf_counter() - t0,
+                           "ranks": [r["rank"] for r in ranks]}
+        print(json.dumps(summary, indent=2))
+        _write_outputs(args, ranks[0]["taxonomy"], ranks[0]["snapshot"])
+        return 0
+    if args.mesh is not None:
+        cfg.mesh_devices = args.mesh
     clf = ELClassifier(cfg, device=args.device)
+    if clf.mesh is not None:
+        # a mesh of one, or one rank of an external group (the
+        # coordinator keys): every rank classifies and reports itself,
+        # rank 0 prints the summary and writes
+        rec = _classify_rank(clf.device, cfg, args.ontology, args.verify,
+                             args.resume, bool(args.snapshot), clf=clf)
+        if clf.mesh.rank == 0:
+            summary = dict(rec["summary"], mesh={"size": clf.mesh.size,
+                                                 "ranks": [rec["rank"]]})
+            print(json.dumps(summary, indent=2))
+            _write_outputs(args, rec["taxonomy"], rec["snapshot"])
+        else:
+            print(json.dumps({"mesh_rank": rec["rank"]}))
+        return 0
     res = clf.classify_file(
         args.ontology, verify=args.verify, resume_from=args.resume
     )
     print(json.dumps(res.summary(), indent=2))
+    _write_outputs(args, res.taxonomy, res.result if args.snapshot else None)
+    return 0
+
+
+def _write_outputs(args, taxonomy, snapshot_result) -> None:
     if args.output:
-        res.taxonomy.write(args.output)
+        taxonomy.write(args.output)
         print(f"taxonomy written to {args.output}")
     if args.snapshot:
         from distel_tpu_torch.runtime.checkpoint import save_snapshot
 
-        save_snapshot(args.snapshot, res.result)
+        save_snapshot(args.snapshot, snapshot_result)
         print(f"snapshot written to {args.snapshot}")
-    return 0
+
+
+def _classify_rank(device, cfg, path, verify, resume, snapshot=False,
+                   clf=None) -> dict:
+    """One rank of ``classify --mesh``: the classify on this rank's
+    shard, and what the rank saw — its wall and phases, its peak card
+    memory, its collectives (calls, bytes, seconds), its windows
+    contracted and skipped, its kernel launches and their shard-local
+    product shapes, and the digest of the gathered closure
+    (``SaturationResult.live_digest``).  Rank 0
+    also returns the summary, the taxonomy and (for ``--snapshot``) the
+    result, moved to the host."""
+    import torch
+
+    from distel_tpu_torch.ops import bitmatmul
+    from distel_tpu_torch.parallel.shard_compat import COLLECTIVES
+    from distel_tpu_torch.runtime.classifier import ELClassifier
+
+    COLLECTIVES.reset()
+    before = dict(bitmatmul.LAUNCHES)
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
+    t0 = time.perf_counter()
+    if clf is None:
+        clf = ELClassifier(cfg, device=device)
+    res = clf.classify_file(path, verify=verify, resume_from=resume)
+    wall = time.perf_counter() - t0
+    engine = res.engine
+    shards = res.result.shards
+    rec = {
+        "rank": clf.mesh.rank,
+        "device": str(device),
+        "backend": clf.mesh.backend,
+        "wall_s": wall,
+        "phases_ms": res.summary()["phases_ms"],
+        "max_memory_allocated": (torch.cuda.max_memory_allocated(device)
+                                 if device.type == "cuda" else None),
+        "collectives": COLLECTIVES.snapshot(),
+        "windows": (engine.gate_totals() if hasattr(engine, "gate_totals")
+                    else None),
+        "launches": {k: v - before.get(k, 0)
+                     for k, v in bitmatmul.LAUNCHES.items() if v - before.get(k, 0)},
+        "product_shapes": _product_shapes(engine),
+        "shard_shapes": ([list(t.shape) for t in shards] if shards is not None
+                         else None),
+        "closure_sha256": res.result.live_digest(),
+    }
+    out = {"rank": rec, "summary": None, "taxonomy": None, "snapshot": None}
+    if clf.mesh.rank == 0:
+        out["summary"] = res.summary()
+        out["taxonomy"] = res.taxonomy
+        if snapshot:
+            res.result.packed_s, res.result.packed_r = (
+                res.result.packed_s.cpu(), res.result.packed_r.cpu())
+            res.result.shards = None
+            out["snapshot"] = res.result
+    return out
+
+
+def _product_shapes(engine) -> list:
+    """The packed-columns and and-or products ``engine``'s plans launch,
+    as ``[m, l, words]`` / ``[m, word rows, columns]`` (on a mesh the
+    words are the rank's window)."""
+    plans = list(getattr(engine, "_plans", {}).values())
+    ref = getattr(engine, "_prog_ref", None)
+    prog = ref() if ref is not None else None
+    if prog is not None:
+        plans += list(prog.step.plans.values())
+    return sorted({(p.m, p.l, p.w) if hasattr(p, "w") else (p.m, p.kw, p.n)
+                   for p in plans})
 
 
 def cmd_stream(args) -> int:
@@ -362,7 +469,10 @@ def cmd_partition(args) -> int:
     from distel_tpu_torch.owl import loader as owl_loader
     from distel_tpu_torch.runtime.classifier import resolve_device
 
+    from distel_tpu_torch.parallel.mesh import refuse_mesh
+
     cfg = _load_cfg(args)
+    refuse_mesh(cfg, "the component plane (cli partition)")
     device = resolve_device(args.device)
 
     def ingest(text):
@@ -921,6 +1031,11 @@ def main(argv=None) -> int:
                         "programs come from their specs, the kernels from "
                         "its libraries, and the --budget-s guard drops its "
                         "compile term")
+    c.add_argument("--mesh", type=int, default=None,
+                   help="shard the fixed point over this many local ranks "
+                        "(the cards, gloo ranks sharing one when there are "
+                        "fewer; all on the CPU with --device cpu); rank 0 "
+                        "prints and writes")
     c.set_defaults(fn=cmd_classify)
     st = sub.add_parser("stream", help="incremental streaming classification")
     st.add_argument("base")

@@ -11,15 +11,14 @@ cache, the per-rule backends (``backend.CRn``, the hybrid of
 observed fixed point's (``sparse_tail.*``, ``pipeline.*``,
 ``obs.trace_rounds``, ``obs.ledger.*``) with its fused K-round window
 (``fused.rounds.*``), shape buckets (``shape.buckets``, on by
-default as in the reference, and ``bucket.ratio``) and the artifact
+default as in the reference, and ``bucket.ratio``), the artifact
 farm (``artifacts.dir``, ``artifacts.require``; ``compile.cache.dir``
 names the directory the kernel libraries build into, see
-:func:`enable_compile_cache`).  Knobs of paths the port does not have
-yet (the mesh) are absent, or refused where a reference config could
-carry them over: ``mesh.devices`` / ``NODES_LIST`` may name no device
-(a mesh of one device still changes the reference's automatic rules, so
-it is refused too), and the multi-process keys ``coordinator.address``,
-``num.processes`` and ``process.id`` raise naming the key.
+:func:`enable_compile_cache`) and the mesh plane
+(``parallel/mesh.py``): ``mesh.devices`` / ``NODES_LIST`` (the mesh
+size; a node list counts its nodes) and the multi-process keys
+``coordinator.address``, ``num.processes`` and ``process.id`` (one rank
+of a process group, one shard a rank).
 The reference's ``matmul.dtype`` has no meaning for the port's exact
 bit kernels and is ignored with the other unknown keys.
 
@@ -46,14 +45,22 @@ def enable_compile_cache(cache_dir: Optional[str] = None) -> None:
         build.set_cache_dir(cache_dir)
 
 
-#: the reference's multi-controller keys: with a coordinator it joins a
-#: multi-process runtime, which the port does not have, so each of them
-#: raises rather than run every process alone
+#: the reference's multi-controller keys: with a coordinator a process
+#: joins a process group as one of its ranks (``parallel/mesh.py``)
 MULTI_PROCESS_KEYS = ("coordinator.address", "num.processes", "process.id")
 
 
 @dataclass
 class ClassifierConfig:
+    #: ranks of the mesh the fixed point shards over (None = a single
+    #: device; ``parallel/mesh.py``)
+    mesh_devices: Optional[int] = None
+    #: a process group's rendezvous (``host:port``), its size and this
+    #: process's rank: with them the classifier joins the group and
+    #: shards over its ranks
+    coordinator_address: Optional[str] = None
+    num_processes: Optional[int] = None
+    process_id: Optional[int] = None
     #: concept-axis padding granularity of the packed state
     pad_multiple: int = 128
     max_iterations: int = 10_000
@@ -243,23 +250,15 @@ class ClassifierConfig:
 
         cfg = cls()
         if "mesh.devices" in raw:
-            mesh_key, devices = "mesh.devices", int(raw["mesh.devices"])
+            cfg.mesh_devices = int(raw["mesh.devices"])
         elif "NODES_LIST" in raw:  # reference spelling: count the nodes
-            mesh_key = "NODES_LIST"
-            devices = len([n for n in raw["NODES_LIST"].split(",") if n])
-        else:
-            mesh_key, devices = None, 0
-        if devices:
-            raise ValueError(
-                f"{mesh_key} = {raw[mesh_key]} asks for a mesh of {devices} "
-                "device(s); distel_tpu_torch has no mesh path"
-            )
-        for key in MULTI_PROCESS_KEYS:
-            if key in raw:
-                raise ValueError(
-                    f"{key} = {raw[key]} asks for a multi-process runtime; "
-                    "distel_tpu_torch runs one process on one device"
-                )
+            cfg.mesh_devices = len([n for n in raw["NODES_LIST"].split(",") if n])
+        if "coordinator.address" in raw:
+            cfg.coordinator_address = raw["coordinator.address"]
+        if "num.processes" in raw:
+            cfg.num_processes = int(raw["num.processes"])
+        if "process.id" in raw:
+            cfg.process_id = int(raw["process.id"])
         if "pad.multiple" in raw:
             cfg.pad_multiple = int(raw["pad.multiple"])
         elif "chunk.size" in raw:  # nearest reference analog

@@ -45,6 +45,10 @@ the state is the host-gated step's), pad chunk rows carry all-zero
 masks and target the dead row, and pad window slots and links contract
 nothing.
 
+On a mesh (``struct.n_shards`` > 1) the state pair is a rank's word
+window, the program's step exchanges the bit tables, CR5's mask and the
+fold through ``parallel/shard_compat.py``, and it runs uncaptured.
+
 A program is a function of its structure and its tables' shapes alone,
 so :func:`program_spec` writes it down as plain data and
 :meth:`BucketProgram.from_spec` rebuilds it (and on a card captures it)
@@ -74,6 +78,7 @@ from distel_tpu_torch.ops.bitpack import (
     or_into_rows,
     reduce_segments,
 )
+from distel_tpu_torch.parallel.shard_compat import por_, por_bits, shard_word_base
 
 
 def _pad_up(n: int, m: int) -> int:
@@ -114,6 +119,15 @@ class BucketStruct:
     lchunk_slots: int
     cr4: Optional[RuleStruct]
     cr6: Optional[RuleStruct]
+    #: the mesh the word axis is sharded over: its size and shape
+    #: (``((axis, size),)``; ``()`` off a mesh), as the reference's key
+    n_shards: int = 1
+    mesh_shape: tuple = ()
+
+    @property
+    def wl(self) -> int:
+        """The packed words a rank holds."""
+        return self.wc // self.n_shards
 
 
 # ------------------------------------------------------------ the plan
@@ -172,9 +186,10 @@ def bucket_plan(engine) -> Tuple[BucketStruct, Dict[str, np.ndarray]]:
     t3 = tabs["t3"]
     tabs["keep3"] = np.where(t3 == dead_l, 0, -1).astype(np.int32)
     emission = max(plans[0].k, 2 * plans[1].k, plans[2].k, 1)
-    bw = max(min(engine.temp_budget_bytes // (4 * emission), wc), 1)
-    n_blocks = -(-wc // bw)
-    bw = -(-wc // n_blocks)
+    wl = engine.wl
+    bw = max(min(engine.temp_budget_bytes // (4 * emission), wl), 1)
+    n_blocks = -(-wl // bw)
+    bw = -(-wl // n_blocks)
 
     # link tables; the factored masks' role axis widened to a rung (the
     # sentinel role, all-zero, moves to its end)
@@ -265,6 +280,9 @@ def bucket_plan(engine) -> Tuple[BucketStruct, Dict[str, np.ndarray]]:
         p1=plans[0].structure(), p2=plans[1].structure(),
         p3=plans[2].structure(),
         n_roles_pad=nr, lchunk_slots=nlc, cr4=cr4, cr6=cr6,
+        n_shards=engine.n_shards,
+        mesh_shape=(tuple(engine.mesh.shape.items())
+                    if engine.mesh is not None else ()),
     )
     return struct, tabs
 
@@ -319,8 +337,9 @@ def spec_parts(spec: dict) -> Tuple[BucketStruct, Dict[str, tuple]]:
     for key in ("cr4", "cr6"):
         if d[key] is not None:
             d[key] = RuleStruct(**d[key])
-    for key in ("p1", "p2", "p3"):
-        d[key] = _tuples(d[key])
+    for key in ("p1", "p2", "p3", "mesh_shape"):
+        if key in d:
+            d[key] = _tuples(d[key])
     shapes = {k: (tuple(int(x) for x in shape), str(np.dtype(dt)))
               for k, shape, dt in spec["tables"]}
     return BucketStruct(**d), shapes
@@ -377,7 +396,12 @@ def state_pair(device, nc: int, nl: int, wc: int, lanes: int = 0) -> StatePair:
 
 class _Step:
     """The bucketed superstep over a program's tables ``T``: a function
-    of the structure only."""
+    of the structure only.  On a mesh of several ranks (``struct.
+    n_shards`` > 1) the state is the rank's word window, and
+    :attr:`mesh` (set by :meth:`BucketProgram.run`) carries the three
+    exchanges of the exact engine: the CR4/CR6 bit tables (one a chunk's
+    slots, within the temporary budget), CR5's ⊥-filler mask and the
+    fold."""
 
     def __init__(self, struct: BucketStruct, T: dict, device):
         self.s, self.T = struct, T
@@ -387,16 +411,25 @@ class _Step:
         self.word_block = struct.word_block
         self.plans = {}
         self.pos = {}
+        #: the mesh of the run, and this rank's first word (None: no
+        #: window)
+        self.mesh = None
+        self.wbase = None
         self.bottom_idx = torch.full((1,), BOTTOM_ID, dtype=torch.int64,
                                      device=device)
         for key in ("4", "6"):
             rs = getattr(struct, "cr" + key)
             if rs is not None:
                 self.plans[key] = PackedColsMatmulPlan(
-                    rs.rows, rs.length, struct.wc,
+                    rs.rows, rs.length, struct.wl,
                     temp_budget_bytes=struct.temp_budget,
                 )
                 self.pos[key] = torch.arange(rs.rows, device=device)
+
+    def bind(self, mesh) -> None:
+        """Run on ``mesh`` (None off a mesh)."""
+        self.mesh = mesh
+        self.wbase = shard_word_base(mesh, self.s.wc) if self.s.n_shards > 1 else None
 
     def _reduce(self, rows, buckets):
         """The seg-OR of gathered ``rows`` [k, W] → [segments, W]."""
@@ -407,8 +440,8 @@ class _Step:
         block; each index table read flat."""
         s, T = self.s, self.T
         cv = [None, None, None]
-        for off in range(0, s.wc, self.word_block):
-            blk = slice(off, min(off + self.word_block, s.wc))
+        for off in range(0, s.wl, self.word_block):
+            blk = slice(off, min(off + self.word_block, s.wl))
             if s.p1[0]:
                 red = self._reduce(sp[T["src1"].view(-1), blk], s.p1[2])
                 c = or_into_rows(sp, T["t1"].view(-1), red, blk)
@@ -437,14 +470,29 @@ class _Step:
         live = (flags[:, None] | dl[T["wc0" + key]] | dl[T["wc1" + key]]) & wval
         n_rows = (live.to(torch.int32) * T["rk" + key][:, None]).contiguous()
         plan, pos = self.plans[key], self.pos[key]
+        # the slots whose bit tables one lookup (on a mesh, one exchange)
+        # covers: all of a chunk's that fit half the budget, or one
+        per = 1 if self.s.n_shards == 1 else max(min(
+            self.s.temp_budget // 2 // max(rs.length * rs.rows, 1), rs.slots), 1)
+        # on a mesh of several ranks the step runs uncaptured: the host
+        # reads which chunks have a live slot (the same on every rank), and
+        # a chunk with none exchanges and launches nothing
+        dead = (~live.any(dim=1)).tolist() if self.s.n_shards > 1 else None
         for c in range(rs.chunks):
-            subt = bits_state[T["src" + key][c]].T.contiguous()   # [wc, RK]
+            if dead is not None and dead[c]:
+                continue
+            subt = bits_state[T["src" + key][c]].T.contiguous()   # [wl, RK]
             mask = T["m" + key][c]
-            acc = torch.zeros((rs.rows, self.s.wc), dtype=torch.int32,
+            acc = torch.zeros((rs.rows, self.s.wl), dtype=torch.int32,
                               device=rp.device)
             for j in range(rs.slots):
                 ids = T["wlink" + key][c, j]
-                f = bit_lookup_from(subt, T["fillers"][ids], dtype=torch.int8)
+                if j % per == 0:
+                    group = T["wlink" + key][c, j : j + per].reshape(-1)
+                    fg = por_bits(bit_lookup_from(
+                        subt, T["fillers"][group], word_offset=self.wbase,
+                        dtype=torch.int8), self.mesh).view(-1, rs.length, rs.rows)
+                f = fg[j % per]
                 w = mask[:, T["link_roles"][ids]] * (
                     f.T * T["wlval" + key][c, j][None, :]
                 )
@@ -464,7 +512,8 @@ class _Step:
 
     def cr5(self, sp, rp, ms, dl, s_cvs):
         s, T = self.s, self.T
-        red = cr5_reduce(sp, rp, T["fillers"], self.bottom_idx, s.temp_budget)
+        red = cr5_reduce(sp, rp, T["fillers"], self.bottom_idx, s.temp_budget,
+                         self.mesh, self.wbase)
         if s.gate_cr5:
             run = dl.any() | ms[BOTTOM_ID]
             red = red * run.to(torch.int32)
@@ -485,7 +534,7 @@ class _Step:
         s, T, lead = self.s, self.T, self.lead
         lanes = lead[0] if lead else 1
         dev = sp.device
-        spf, rpf = sp.view(-1, s.wc), rp.view(-1, s.wc)
+        spf, rpf = sp.view(-1, s.wl), rp.view(-1, s.wl)
         msf, dlf = ms.reshape(-1), dl.reshape(-1)
         zero = torch.zeros(lead, dtype=torch.int64, device=dev)
         s_cvs, r_cvs = [], []
@@ -515,6 +564,10 @@ class _Step:
                            device=dev)
         dl_n.index_add_(0, T["lchunk"].view(-1), mask_r.view(-1).to(torch.int32))
         dl_n = (dl_n.view(*lead, s.lchunk_slots) > 0) & T["dl_valid"]
+        if s.n_shards > 1:
+            # one exchange a step: every rank takes the same gates
+            both = por_(torch.cat([mask_s, dl_n]), self.mesh)
+            mask_s, dl_n = both[: s.nc], both[s.nc :]
         changed = mask_s.any(dim=-1) | dl_n.any(dim=-1)
         return changed, mask_s, dl_n, torch.stack(counts, dim=-1)
 
@@ -536,7 +589,7 @@ class BucketProgram:
         self.struct = struct
         self.shapes = dict(shapes)
         self.device = dev
-        self.pair = state_pair(dev, struct.nc, struct.nl, struct.wc,
+        self.pair = state_pair(dev, struct.nc, struct.nl, struct.wl,
                                lanes=lanes)
         self.T = {
             k: torch.zeros((*lead, *shape), dtype=_TORCH[dt], device=dev)
@@ -615,9 +668,11 @@ class BucketProgram:
             if tuple(seg.get("segment_pool_id", ())) == pool
         )
 
-    def run(self) -> np.ndarray:
-        """One group from the carries; the flags on the host (the one
-        read a group)."""
+    def run(self, mesh=None) -> np.ndarray:
+        """One group from the carries, on ``mesh`` (a program of several
+        shards runs uncaptured: a graph cannot hold a collective); the
+        flags on the host (the one read a group)."""
+        self.step.bind(mesh)
         if self.graph is not None:
             self.graph.replay()
             bitmatmul.add_launches(self.launches)
@@ -648,7 +703,7 @@ def get_program(struct, tabs, sig: str, device):
             t0 = time.perf_counter()
             prog = BucketProgram(struct, table_shapes(tabs), device)
             t1 = time.perf_counter()
-            if prog.device.type == "cuda":
+            if prog.device.type == "cuda" and struct.n_shards == 1:
                 prog.capture()
             stats.trace_lower_s = t1 - t0
             stats.compile_s = time.perf_counter() - t1

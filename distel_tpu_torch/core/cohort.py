@@ -93,12 +93,14 @@ def cohort_ready(engine) -> bool:
     """Whether ``engine``'s programs can run under a cohort: a
     shape-bucketed row-packed engine (an exact engine's program holds
     its own ontology's plan, so stacking other tenants under it would
-    be unsound).  The port has no mesh, so every engine is
-    single-device."""
+    be unsound) on a single device: the cohort program has no sharded
+    form, as the reference's has none."""
     from distel_tpu_torch.core.rowpacked_engine import RowPackedSaturationEngine
 
-    return isinstance(engine, RowPackedSaturationEngine) and bool(
-        getattr(engine, "_bucket", False)
+    return (
+        isinstance(engine, RowPackedSaturationEngine)
+        and engine.mesh is None
+        and bool(getattr(engine, "_bucket", False))
     )
 
 

@@ -29,6 +29,13 @@ import numpy as np
 import torch
 
 from distel_tpu_torch.core.indexing import BOTTOM_ID, TOP_ID, IndexedOntology
+from distel_tpu_torch.parallel.shard_compat import (
+    all_gather_words,
+    mesh_size,
+    por_,
+    por_bits,
+    psum_,
+)
 from distel_tpu_torch.runtime.instrumentation import DISPATCH_EVENTS
 
 
@@ -223,7 +230,11 @@ class SaturationResult:
     tensors are subsumer-major ([a, xw] / [l, xw]); ``transposed=False``
     marks packed-engine results, which are x-major ([x, aw] / [x, lw]).
     ``s``/``r`` copy to the host, unpack lazily on first access, and
-    always present the x-major [x, a] / [x, l] view."""
+    always present the x-major [x, a] / [x, l] view.
+
+    A sharded run (``mesh=``) gathers the whole closure into
+    ``packed_s``/``packed_r`` on every rank and keeps the rank's own
+    shards of the state in ``shards``."""
 
     packed_s: torch.Tensor
     packed_r: torch.Tensor
@@ -232,6 +243,8 @@ class SaturationResult:
     idx: IndexedOntology
     converged: bool = True
     transposed: bool = True
+    #: ``(S shard, R shard)`` of this rank after a sharded run, else None
+    shards: Optional[tuple] = field(default=None, repr=False)
     _s: Optional[np.ndarray] = field(default=None, repr=False)
     _r: Optional[np.ndarray] = field(default=None, repr=False)
 
@@ -244,6 +257,28 @@ class SaturationResult:
             self.packed_s.detach().cpu().numpy().view(np.uint32),
             self.packed_r.detach().cpu().numpy().view(np.uint32),
         )
+
+    def live_digest(self) -> str:
+        """sha256 of the closure's live part in this result's packed
+        layout: the rows and words of the real concepts (and, for R, the
+        real links' rows or bits), the last word masked to them — equal
+        for equal closures whatever their padding (a mesh pads the
+        concept axis to its multiple)."""
+        import hashlib
+
+        n, nl = self.idx.n_concepts, self.idx.n_links
+        s, r = self.wire()
+        if self.transposed:
+            parts = ((s[:n], n), (r[:nl], n))
+        else:
+            parts = ((s[:n], n), (r[:n], nl))
+        h = hashlib.sha256()
+        for p, bits in parts:
+            words = p[:, : -(-bits // 32)].copy()
+            if bits % 32:
+                words[:, -1] &= np.uint32((1 << (bits % 32)) - 1)
+            h.update(np.ascontiguousarray(words).tobytes())
+        return h.hexdigest()
 
     def _x_major(self, p: np.ndarray) -> np.ndarray:
         u = _unpack_bits_host(p, p.shape[1] * 32)
@@ -299,19 +334,37 @@ class SaturationEngine:
     terms).  The result is packed in the row-packed engine's transposed
     layout.  Steps run in groups of ``unroll`` (the reference's default
     of 4) with one convergence read a group, so ``iterations`` and the
-    ``max_iters`` budget are the reference's."""
+    ``max_iters`` budget are the reference's.
+
+    On a mesh (``mesh=``) the concept axis x — the reference's sharded
+    rows, the columns here — is sharded, padded to the mesh multiple.
+    The reference leaves the collectives to GSPMD; here they are
+    written out: the rules read other ranks' columns only at the link
+    fillers (CR4's and CR6's bit tables, CR5's ⊥ mask), so those
+    columns are exchanged (:meth:`_filler_cols`), and the group's change
+    vote and the live bits are reduced.  The result is gathered on
+    every rank."""
 
     #: :meth:`embed_state` takes unpacked x-major bool state
     accepts_wire_state = False
 
     def __init__(self, idx: IndexedOntology, *, device="cuda",
-                 pad_multiple: int = 128, unroll: int = 4):
+                 pad_multiple: int = 128, unroll: int = 4, mesh=None):
         from distel_tpu_torch.ops.bitpack import SegmentedRowOr
+        from distel_tpu_torch.parallel.mesh import Mesh
 
+        if mesh is not None and not isinstance(mesh, Mesh):
+            raise TypeError(f"mesh must be a parallel.mesh.Mesh, not {mesh!r}")
+        self.mesh = mesh
+        self.n_shards = mesh_size(mesh)
         self.idx = idx
         self.unroll = max(int(unroll), 1)
         self.device = dev = torch.device(device)
-        self.nc = _pad_up(max(idx.n_concepts, 2), _pad_up(max(pad_multiple, 32), 32))
+        self.nc = _pad_up(max(idx.n_concepts, 2),
+                          _pad_up(max(pad_multiple, 32), 32) * self.n_shards)
+        #: the concept columns a rank holds, and its first
+        self.cols_per_shard = self.nc // self.n_shards
+        self.col0 = (mesh.rank if mesh is not None else 0) * self.cols_per_shard
         self.nl = max(_pad_up(idx.n_links, 32), 32)
         self._dtype = torch.bfloat16 if dev.type == "cuda" else torch.float32
 
@@ -355,10 +408,14 @@ class SaturationEngine:
     # ------------------------------------------------------------ state
 
     def initial_state(self) -> Tuple[torch.Tensor, torch.Tensor]:
-        """S(X) = {X, ⊤} for every concept; R empty."""
-        s = torch.eye(self.nc, dtype=torch.bool, device=self.device)
+        """S(X) = {X, ⊤} for every concept; R empty (on a mesh, the
+        rank's columns of them)."""
+        n, x0 = self.cols_per_shard, self.col0
+        s = torch.zeros((self.nc, n), dtype=torch.bool, device=self.device)
+        x = torch.arange(n, device=self.device)
+        s[x + x0, x] = True
         s[TOP_ID, :] = True
-        r = torch.zeros((self.nl, self.nc), dtype=torch.bool, device=self.device)
+        r = torch.zeros((self.nl, n), dtype=torch.bool, device=self.device)
         return s, r
 
     def embed_state(self, s_old, r_old, *, allow_shrink: bool = False):
@@ -387,9 +444,10 @@ class SaturationEngine:
         s[:nn, :na] |= s_old[:nn, :na].astype(bool)
         r = np.zeros((self.nc, self.nl), dtype=bool)
         r[:nn, : min(lo, self.nl)] = r_old[:nn, : min(lo, self.nl)]
+        x = slice(self.col0, self.col0 + self.cols_per_shard)
         return (
-            torch.as_tensor(np.ascontiguousarray(s.T)).to(self.device),
-            torch.as_tensor(np.ascontiguousarray(r.T)).to(self.device),
+            torch.as_tensor(np.ascontiguousarray(s[x].T)).to(self.device),
+            torch.as_tensor(np.ascontiguousarray(r[x].T)).to(self.device),
         )
 
     # ------------------------------------------------------------- rules
@@ -398,10 +456,21 @@ class SaturationEngine:
         """AND-OR semiring product of bool matrices: a matmul, ``> 0``."""
         return (a.to(self._dtype) @ b.to(self._dtype)) > 0
 
+    def _filler_cols(self, rows: torch.Tensor) -> torch.Tensor:
+        """``rows[:, filler(l)]`` for every link l [k, nl]: on a mesh each
+        rank reads the fillers in its columns and the parts are ORed
+        across the ranks (each column lives on one rank)."""
+        if self.n_shards == 1:
+            return rows[:, self._fillers]
+        local = self._fillers - self.col0
+        ok = (local >= 0) & (local < self.cols_per_shard)
+        part = rows[:, local.clamp(0, self.cols_per_shard - 1)] & ok[None, :]
+        return por_bits(part, self.mesh)
+
     def step(self, s: torch.Tensor, r: torch.Tensor):
         """One superstep in place: CR1, CR2, CR3, CR4, CR6, CR5.
         Returns ``(s, r, changed)`` with ``changed`` a 0-d bool tensor
-        on the device."""
+        on the device (this rank's columns' change on a mesh)."""
         ch = torch.zeros((), dtype=torch.bool, device=s.device)
         if self._p1.k:
             ch |= self._p1.write(s, self._p1.reduce(s[self._src1]))
@@ -411,21 +480,26 @@ class SaturationEngine:
         if self._p3.k:
             ch |= self._p3.write(r, self._p3.reduce(s[self._src3]))
         if self._has4:
-            w = self._m4 & s[self._a4][:, self._fillers]        # [k4, nl]
+            w = self._m4 & self._filler_cols(s[self._a4])       # [k4, nl]
             ch |= self._p4.write(s, self._p4.reduce(self._andor(w, r)))
         if self._has6:
-            d = self._m6 & r[self._l2][:, self._fillers]        # [p6, nl]
+            d = self._m6 & self._filler_cols(r[self._l2])       # [p6, nl]
             ch |= self._p6.write(r, self._p6.reduce(self._andor(d, r)))
         if self._bottom:
-            botf = s[BOTTOM_ID, self._fillers]                   # [nl]
+            botf = self._filler_cols(s[BOTTOM_ID][None])[0]      # [nl]
             new = self._andor(botf[None, :], r)[0]
             ch |= (new & ~s[BOTTOM_ID]).any()
             s[BOTTOM_ID] |= new
         return s, r, ch
 
+    def _live_bits(self, s, r) -> torch.Tensor:
+        """Live bits (columns x < n_concepts), a 1-element tensor on the
+        device, summed over the ranks on a mesh."""
+        n = min(max(self.idx.n_concepts - self.col0, 0), self.cols_per_shard)
+        return psum_((s[:, :n].sum() + r[:, :n].sum()).reshape(1), self.mesh)
+
     def count_live_bits(self, s, r) -> int:
-        n = self.idx.n_concepts
-        return int(s[:, :n].sum()) + int(r[:, :n].sum())
+        return int(self._live_bits(s, r).item())
 
     def _observe_round(self, s, r):
         """One round of :meth:`saturate_observed`: ``unroll`` supersteps
@@ -434,8 +508,23 @@ class SaturationEngine:
         for _ in range(self.unroll):
             s, r, ch = self.step(s, r)
             changed |= ch
-        n = self.idx.n_concepts
-        return s, r, changed, s[:, :n].sum() + r[:, :n].sum()
+        return s, r, por_(changed, self.mesh), self._live_bits(s, r)[0]
+
+    def _result(self, s, r, iterations, derivations, converged):
+        """The packed closure, gathered on every rank on a mesh (the
+        rank's packed columns in ``shards``)."""
+        from distel_tpu_torch.ops.bitpack import pack_bool_columns
+
+        ps, pr = pack_bool_columns(s), pack_bool_columns(r)
+        return SaturationResult(
+            packed_s=all_gather_words(ps, self.mesh),
+            packed_r=all_gather_words(pr, self.mesh),
+            iterations=iterations,
+            derivations=derivations,
+            idx=self.idx,
+            converged=converged,
+            shards=(ps, pr) if self.n_shards > 1 else None,
+        )
 
     def saturate_observed(
         self,
@@ -455,8 +544,6 @@ class SaturationEngine:
         rounds are in flight before their host folds retire (see
         :func:`observed_loop`).  The rounds are :meth:`saturate`'s, so
         the closure, ``iterations`` and ``derivations`` are too."""
-        from distel_tpu_torch.ops.bitpack import pack_bool_columns
-
         if initial is None:
             s, r = self.initial_state()
         else:
@@ -472,14 +559,7 @@ class SaturationEngine:
             raise RuntimeError(
                 f"saturation did not converge within {budget} iterations"
             )
-        return SaturationResult(
-            packed_s=pack_bool_columns(s),
-            packed_r=pack_bool_columns(r),
-            iterations=iteration,
-            derivations=total - init_total,
-            idx=self.idx,
-            converged=converged,
-        )
+        return self._result(s, r, iteration, total - init_total, converged)
 
     # -------------------------------------------------------- fixed point
 
@@ -494,8 +574,6 @@ class SaturationEngine:
         nothing (one host read a group) or the budget — ``max_iters``
         rounded up to ``unroll`` — is spent.  ``initial``: a previous
         closure for :meth:`embed_state`."""
-        from distel_tpu_torch.ops.bitpack import pack_bool_columns
-
         budget = _pad_up(max_iters, self.unroll)
         if initial is None:
             s, r = self.initial_state()
@@ -510,17 +588,10 @@ class SaturationEngine:
                 s, r, ch = self.step(s, r)
                 group |= ch
             it += self.unroll
-            changed = bool(group)
+            changed = bool(por_(group, self.mesh))
         if changed and not allow_incomplete:
             raise RuntimeError(
                 f"saturation did not converge within {budget} iterations"
             )
         total = self.count_live_bits(s, r)
-        return SaturationResult(
-            packed_s=pack_bool_columns(s),
-            packed_r=pack_bool_columns(r),
-            iterations=it,
-            derivations=total - init_total,
-            idx=self.idx,
-            converged=not changed,
-        )
+        return self._result(s, r, it, total - init_total, not changed)

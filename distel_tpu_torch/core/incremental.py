@@ -292,8 +292,13 @@ class IncrementalClassifier:
     _WINDOW_HEADROOM = 2
 
     def __init__(self, config: Optional[ClassifierConfig] = None, device=None):
+        from distel_tpu_torch.parallel.mesh import refuse_mesh
+
         self.config = config or ClassifierConfig()
         self.config.validate()
+        # the reference's calls parallel.setup here; its delta plane over
+        # a mesh is not ported yet
+        refuse_mesh(self.config, "the incremental plane (IncrementalClassifier)")
         self.device = resolve_device(device)
         self._FAST_PATH_MIN_CONCEPTS = int(self.config.fast_path_min_concepts)
         self.indexer = Indexer()

@@ -148,6 +148,26 @@ engine's.  What differs from the reference's bucket mode, and why:
 * The live-tile CR6 stays off (its schedule is not rung-canonical yet).
 * Fused windows are keyed by their content (the window body is this
   plan, unpadded), so they are shared by engines with equal tables.
+
+**Sharded execution** (``mesh=``, a :class:`~distel_tpu_torch.parallel.
+mesh.Mesh`; the reference's word-axis sharding): the packed word axis is
+sharded, each rank holding ``S_T [nc, wc/n]`` and ``R_T [nl, wc/n]``
+(the concept axis pads to ``32·n``), and every rank runs the same plan
+and host loop.  The row rules, the CR4/CR6 products and CR5's OR are
+rank-local; three things cross ranks, through
+``parallel/shard_compat.py``: each CR4/CR6 window's filler bit table
+(each rank looks up the fillers in its word window, the partials ORed
+eight entries a byte, :meth:`_bit_table`), CR5's ⊥-filler mask, and the
+step's fold (the changed-S rows and dirty L-chunks ORed once a step, so
+every rank takes the same gates and the same vote).  Live bits sum over
+the ranks; a run's result is gathered whole on every rank
+(:meth:`gather_state`) and keeps the rank's shards.  As in the
+reference, the size tiers read a shard's state and tip earlier on a
+mesh (a mesh of one too: ``unroll`` and the CR5 gate), and the live-tile
+CR6 is off (reason ``"mesh"``).  The bucketed program keys on the mesh
+and, on more than one rank, runs uncaptured (a CUDA graph cannot hold a
+gloo collective).  ``saturate_observed`` runs dense rounds only: the
+sparse tier and the fused window are not sharded yet.
 """
 
 from __future__ import annotations
@@ -184,6 +204,14 @@ from distel_tpu_torch.core.indexing import BOTTOM_ID, TOP_ID, IndexedOntology
 from distel_tpu_torch.core.program_cache import PROGRAMS, bucket_dim, signature_of
 from distel_tpu_torch.ops import bitmatmul, graph_if
 from distel_tpu_torch.ops.nosync import NoHostReads
+from distel_tpu_torch.parallel.shard_compat import (
+    all_gather_words,
+    mesh_size,
+    por_,
+    por_bits,
+    psum_,
+    shard_word_base,
+)
 from distel_tpu_torch.ops.bitmatmul import PackedColsMatmulPlan
 from distel_tpu_torch.runtime.instrumentation import (
     COHORT_EVENTS,
@@ -219,12 +247,21 @@ GATE_MAX_STATE_BYTES = 5 << 29
 #: up to this much packed state, 1 past it
 UNROLL2_MAX_STATE_BYTES = 9 << 29
 
+#: on a mesh (a mesh of one too), the reference's ``large`` tier: past
+#: this much state a shard, ``unroll`` drops to 1 and CR5 runs ungated
+MESH_LARGE_STATE_BYTES = 3 << 29
 
-def cr5_reduce(sp, rp, fillers, bottom_idx, temp_budget: int) -> torch.Tensor:
+
+def cr5_reduce(sp, rp, fillers, bottom_idx, temp_budget: int, mesh=None,
+               word_base=None) -> torch.Tensor:
     """The OR of the R rows whose filler is unsatisfiable [wc] (in row
-    blocks within ``temp_budget``, so the masked copy stays bounded)."""
+    blocks within ``temp_budget``, so the masked copy stays bounded).
+    On a mesh, ``sp``/``rp`` hold the word window at ``word_base``: the
+    ⊥-filler mask is exchanged (each filler's bit lives on one rank),
+    the OR is over the rank's own words."""
     wc = sp.shape[1]
-    botf = bit_lookup_from(sp[bottom_idx].T, fillers, dtype=torch.bool)[:, 0]
+    botf = por_(bit_lookup_from(sp[bottom_idx].T, fillers, word_offset=word_base,
+                                dtype=torch.uint8), mesh)[:, 0].bool()
     blk = max(temp_budget // (4 * wc), 1)
     red = torch.zeros(wc, dtype=torch.int32, device=sp.device)
     for i in range(0, rp.shape[0], blk):
@@ -489,6 +526,7 @@ class RowPackedSaturationEngine:
         bucket: bool = False,
         bucket_ratio: float = 1.25,
         state_dims: Optional[Tuple[int, int]] = None,
+        mesh=None,
     ):
         """``rules``: subset of {"CR1".."CR6"} this engine applies (None
         = all).  ``cr6_tiles``: live-tile CR6 config (None = off; keys
@@ -537,7 +575,18 @@ class RowPackedSaturationEngine:
         structure is not rung-canonical yet).  ``state_dims``: pin the
         layout ``(nc, nl)`` verbatim (the bucketed delta engines pin the
         base's; bucket mode needs the last row of each axis past the
-        corpus)."""
+        corpus).
+
+        ``mesh``: a :class:`~distel_tpu_torch.parallel.mesh.Mesh` to
+        shard the packed word axis over (see the module docstring); its
+        ranks must build their engines from the same index and config.
+        The concept axis pads to ``32 · mesh.size``."""
+        from distel_tpu_torch.parallel.mesh import Mesh
+
+        if mesh is not None and not isinstance(mesh, Mesh):
+            raise TypeError(f"mesh must be a parallel.mesh.Mesh, not {mesh!r}")
+        self.mesh = mesh
+        self.n_shards = mesh_size(mesh)
         self._sparse_cfg = self._normalize_sparse_cfg(sparse_tail)
         self._pipeline_cfg = self._normalize_pipeline_cfg(pipeline)
         self._fused_cfg = self._normalize_fused_cfg(fused_rounds)
@@ -571,8 +620,12 @@ class RowPackedSaturationEngine:
         if state_dims is not None:
             nc_pin, nl_pin = (int(d) for d in state_dims)
             reserve = 1 if self._bucket else 0
-            if nc_pin % 32 or nl_pin % 32:
-                raise ValueError(f"state_dims {state_dims} must be 32-aligned")
+            if nc_pin % (32 * self.n_shards) or nl_pin % 32:
+                raise ValueError(
+                    f"state_dims {state_dims} must be 32-aligned "
+                    f"({32 * self.n_shards} on the concept axis under "
+                    f"{self.n_shards} shards)"
+                )
             if nc_pin < max(idx.n_concepts + reserve, 2) or nl_pin < max(
                 idx.n_links + reserve, 32
             ):
@@ -588,12 +641,12 @@ class RowPackedSaturationEngine:
             # corpus, the dead row the quantized plans' pads aim at
             self.nc = _pad_up(_pad_up(
                 self._q(max(idx.n_concepts + 1, min_concepts, 2)),
-                pad_multiple), 32)
+                pad_multiple), 32 * self.n_shards)
             self.nl = _pad_up(
                 self._q(max(idx.n_links + 1, min_links_pad, 32)), 32
             )
         else:
-            self.nc, self.nl = nc_x, nl_x
+            self.nc, self.nl = _pad_up(nc_x, 32 * self.n_shards), nl_x
         self._dead_c, self._dead_l = self.nc - 1, self.nl - 1
         #: the link rows the plan's L-chunk grid covers
         self._nl_plan = nl_x
@@ -601,16 +654,26 @@ class RowPackedSaturationEngine:
         self._link_window = link_window
         self._window_headroom = int(window_headroom)
         self.wc = self.nc // 32
+        #: this rank's packed words (all of them off a mesh) and the
+        #: first of them; ``_wbase`` is None off a mesh (no window)
+        self.wl = self.wc // self.n_shards
+        self.word_base = shard_word_base(mesh, self.wc)
+        self._wbase = self.word_base if self.n_shards > 1 else None
         dev = self.device
-        state_bytes = (self.nc + self.nl) * self.wc * 4
+        # the reference's size tiers read the state a shard holds, and
+        # tip earlier on a mesh (a mesh of one included)
+        state_bytes = (self.nc + self.nl) * self.wc * 4 // self.n_shards
+        large = state_bytes > (
+            MESH_LARGE_STATE_BYTES if mesh is not None else GATE_MAX_STATE_BYTES
+        )
         if unroll is None:
-            unroll = 1 if state_bytes > UNROLL2_MAX_STATE_BYTES else 2
+            unroll = 1 if (
+                (mesh is not None and large)
+                or state_bytes > UNROLL2_MAX_STATE_BYTES
+            ) else 2
         self.unroll = max(int(unroll), 1)
         if gate_chunks is None:
-            gate_chunks = (
-                self.nc >= GATE_MIN_CONCEPTS
-                and state_bytes <= GATE_MAX_STATE_BYTES
-            )
+            gate_chunks = self.nc >= GATE_MIN_CONCEPTS and not large
         self._gate_cr5 = bool(gate_chunks)
 
         def on(rule: str) -> bool:
@@ -640,9 +703,9 @@ class RowPackedSaturationEngine:
         # target row depends only on word w of its sources), so blocks of
         # bw words bound the gathered [k, bw] temporaries
         emission_max = max(self._p1.k, 2 * self._p2.k, self._p3.k, 1)
-        bw = max(min(self.temp_budget_bytes // (4 * emission_max), self.wc), 1)
-        n_blocks = -(-self.wc // bw)
-        self._bw = -(-self.wc // n_blocks)          # even the blocks out
+        bw = max(min(self.temp_budget_bytes // (4 * emission_max), self.wl), 1)
+        n_blocks = -(-self.wl // bw)
+        self._bw = -(-self.wl // n_blocks)          # even the blocks out
 
         # ---- link tables: padded links get filler ⊤ (never ⊥, whose
         # CR5 mask bit is set) and the sentinel role (dead mask column)
@@ -811,6 +874,10 @@ class RowPackedSaturationEngine:
         self._tiles6 = None
         self.cr6_tiles_stats = {"active": False, "reason": "off"}
         tcfg = self._normalize_cr6_tiles_cfg(cr6_tiles)
+        if mesh is not None and tcfg is not None:
+            # as the reference's: the tile schedule is single-device
+            tcfg = None
+            self.cr6_tiles_stats = {"active": False, "reason": "mesh"}
         if self._bucket and tcfg is not None:
             tcfg = None
             self.cr6_tiles_stats = {"active": False, "reason": "bucket mode"}
@@ -887,7 +954,9 @@ class RowPackedSaturationEngine:
         if rem:
             wmask[full] = (1 << rem) - 1
         self._wmask_np = wmask
-        self._wmask = torch.as_tensor(wmask.view(np.int32)).to(dev)
+        self._wmask = torch.as_tensor(
+            wmask[self.word_base : self.word_base + self.wl].view(np.int32)
+        ).to(dev)
         self._m4_np, self._m6_np = m4, m6
         self._build_sparse_tables(m4, m6, kept4, kept6)
         #: per-round :class:`FrontierStats` of the last observed run
@@ -958,7 +1027,7 @@ class RowPackedSaturationEngine:
         key = (m, l)
         if key not in self._plans:
             self._plans[key] = PackedColsMatmulPlan(
-                m, l, self.wc, temp_budget_bytes=self.temp_budget_bytes
+                m, l, self.wl, temp_budget_bytes=self.temp_budget_bytes
             )
         return self._plans[key]
 
@@ -1035,6 +1104,7 @@ class RowPackedSaturationEngine:
             "nc": self.nc,
             "nl": self.nl,
             "wc": self.wc,
+            "n_shards": self.n_shards,
             "lc": self.lc,
             "lc4": self.lc4,
             "n_lchunks": self.n_lchunks,
@@ -1270,8 +1340,8 @@ class RowPackedSaturationEngine:
         padded x columns evolve inertly and are masked from counts.
         Built on the engine's device (:meth:`_fill_initial`)."""
         dev = self.device
-        sp = torch.empty((self.nc, self.wc), dtype=torch.int32, device=dev)
-        rp = torch.empty((self.nl, self.wc), dtype=torch.int32, device=dev)
+        sp = torch.empty((self.nc, self.wl), dtype=torch.int32, device=dev)
+        rp = torch.empty((self.nl, self.wl), dtype=torch.int32, device=dev)
         self._fill_initial(sp, rp)
         return sp, rp
 
@@ -1293,6 +1363,8 @@ class RowPackedSaturationEngine:
         ``s_wire``/``r_wire`` or a result's ``packed_s``/``packed_r``)
         or *unpacked x-major* bool arrays.  Rows and words past this
         engine's arrays must be empty padding unless ``allow_shrink``.
+        On a mesh the closure is the whole one, and each rank takes its
+        word window.
         Packed-row reuse is sound because concept ids are append-only.
         Int32 tensors on this engine's device embed on the device (the
         incremental plane's path: the closure never visits the host);
@@ -1353,26 +1425,27 @@ class RowPackedSaturationEngine:
                             f"embed_state: old {name} state {tuple(old.shape)} "
                             f"holds bits past this engine's [{nr}, {nw}] arrays"
                         )
-        dev = self.device
-        sp = torch.empty((self.nc, self.wc), dtype=torch.int32, device=dev)
-        rp = torch.empty((self.nl, self.wc), dtype=torch.int32, device=dev)
-        self._fill_initial(sp, rp)
-        na, nw = min(s_old.shape[0], self.nc), min(s_old.shape[1], self.wc)
+        sp, rp = self.initial_state()
+        w0 = self.word_base
+        s_old, r_old = s_old[:, w0 : w0 + self.wl], r_old[:, w0 : w0 + self.wl]
+        na, nw = min(s_old.shape[0], self.nc), s_old.shape[1]
         sp[:na, :nw] |= s_old[:na, :nw]
-        nlr, nwr = min(r_old.shape[0], self.nl), min(r_old.shape[1], self.wc)
+        nlr, nwr = min(r_old.shape[0], self.nl), r_old.shape[1]
         rp[:nlr, :nwr] = r_old[:nlr, :nwr]
         return sp, rp
 
     def _fill_initial(self, sp, rp) -> None:
         """:meth:`initial_state` written into ``sp`` / ``rp`` in place on
-        their device: the diagonal and a full ⊤ row, R empty."""
+        their device: the diagonal and a full ⊤ row, R empty (on a
+        mesh, the rank's word window of them)."""
         dev = sp.device
-        rows = torch.arange(self.nc, device=dev)
+        x0 = 32 * self.word_base
+        rows = torch.arange(x0, x0 + 32 * self.wl, device=dev)
         bit = torch.from_numpy(
             (np.uint32(1) << np.arange(32, dtype=np.uint32)).view(np.int32)
         ).to(dev)
         sp.zero_()
-        sp[rows, rows >> 5] = bit[rows & 31]
+        sp[rows, (rows >> 5) - self.word_base] = bit[rows & 31]
         sp[TOP_ID] = -1
         rp.zero_()
 
@@ -1408,8 +1481,8 @@ class RowPackedSaturationEngine:
         """CR1, CR2, CR3 swept over word blocks of the state; each
         rule's change vector is the OR over its blocks."""
         cv = [None, None, None]
-        for off in range(0, self.wc, self._bw):
-            blk = slice(off, min(off + self._bw, self.wc))
+        for off in range(0, self.wl, self._bw):
+            blk = slice(off, min(off + self._bw, self.wl))
             if self._p1.k:  # CR1: a ⊑ b
                 red = self._p1.reduce(sp[self._src1, blk])
                 c = self._p1.write(sp, red, blk, track="rows")
@@ -1442,13 +1515,18 @@ class RowPackedSaturationEngine:
             if not run:
                 continue
             if subt is None:
-                subt = bits_state[chunk.src].T.contiguous()   # [wc, rk]
-            f = bit_lookup_from(
-                subt, self._fillers[off:end], dtype=torch.int8
-            )                                              # [l, rk]
+                subt = bits_state[chunk.src].T.contiguous()   # [wl, rk]
+            f = self._bit_table(subt, self._fillers[off:end])   # [l, rk]
             w = chunk.mask[:, self._link_roles[off:end]] * f.T
             acc = self._plan(rk, end - off)(w.contiguous(), rp[off:end], out=acc)
         return acc
+
+    def _bit_table(self, subt, cols) -> torch.Tensor:
+        """``bit_lookup_from(subt, cols)`` as int8 0/1 [len(cols), R]; on
+        a mesh each rank looks up its word window and the partials are
+        exchanged (each bit lives on one rank: their OR is the table)."""
+        return por_bits(bit_lookup_from(subt, cols, word_offset=self._wbase,
+                                        dtype=torch.int8), self.mesh)
 
     def _window_live(self, chunk, f, fr):
         dl = fr.dirty_l
@@ -1526,7 +1604,7 @@ class RowPackedSaturationEngine:
 
     def _cr5_reduce(self, sp, rp) -> torch.Tensor:
         return cr5_reduce(sp, rp, self._fillers, self._bottom_idx,
-                          self.temp_budget_bytes)
+                          self.temp_budget_bytes, self.mesh, self._wbase)
 
     def _cr5(self, sp, rp, s_cvs):
         """⊥ back-propagation: OR of the R rows whose filler is
@@ -1555,8 +1633,12 @@ class RowPackedSaturationEngine:
             return m > 0
 
         mask_s = mask(s_cvs, self.nc)
-        mask_r = mask(r_cvs, self._grid_end)
-        return mask_s, mask_r.view(self.n_lchunks, self.lc).any(dim=1)
+        dirty_l = mask(r_cvs, self._grid_end).view(self.n_lchunks, self.lc).any(dim=1)
+        if self.n_shards > 1:
+            # one exchange a step: every rank takes the same gates
+            both = por_(torch.cat([mask_s, dirty_l]), self.mesh)
+            mask_s, dirty_l = both[: self.nc], both[self.nc :]
+        return mask_s, dirty_l
 
     def _chunk_flags(self, mask_s, dirty_l):
         """What a step's gates read of a frontier ``(mask_s, dirty_l)``,
@@ -2009,8 +2091,34 @@ class RowPackedSaturationEngine:
         return True
 
     def count_live_bits(self, sp, rp) -> int:
+        """Set bits of the live concepts' columns in ``sp`` and ``rp``
+        (on a mesh, summed over the ranks' windows)."""
         self.host_reads["bits"] += 1
-        return _host_bit_total(live_bits(sp, rp, self._wmask))
+        if self.n_shards == 1:
+            return _host_bit_total(live_bits(sp, rp, self._wmask))
+        return int(psum_(live_bits(sp, rp, self._wmask).sum().reshape(1),
+                         self.mesh).item())
+
+    def gather_state(self, sp, rp):
+        """The whole packed pair ``(S_T [nc, wc], R_T [nl, wc])`` on every
+        rank from the ranks' word windows (the reference's
+        ``fetch_global``; every rank must call it).  Off a mesh,
+        ``(sp, rp)``."""
+        return all_gather_words(sp, self.mesh), all_gather_words(rp, self.mesh)
+
+    def _result(self, sp, rp, iterations, derivations, converged):
+        """The run's :class:`SaturationResult`: the whole closure on every
+        rank, the rank's own windows in ``shards`` on a mesh."""
+        full_s, full_r = self.gather_state(sp, rp)
+        return SaturationResult(
+            packed_s=full_s,
+            packed_r=full_r,
+            iterations=iterations,
+            derivations=derivations,
+            idx=self.idx,
+            converged=converged,
+            shards=(sp, rp) if self.n_shards > 1 else None,
+        )
 
     # -------------------------------------------------------- fixed point
 
@@ -2069,14 +2177,7 @@ class RowPackedSaturationEngine:
             raise RuntimeError(
                 f"saturation did not converge within {budget} iterations"
             )
-        return SaturationResult(
-            packed_s=sp,
-            packed_r=rp,
-            iterations=it,
-            derivations=total - init_total,
-            idx=self.idx,
-            converged=converged,
-        )
+        return self._result(sp, rp, it, total - init_total, converged)
 
     # ------------------------------------------------ the bucketed program
 
@@ -2145,7 +2246,7 @@ class RowPackedSaturationEngine:
                 prog.dl.copy_(prog.T["dl_valid"])
                 it, changed = 0, True
                 while changed and it < budget:
-                    flags = self._timed("step", prog.run)
+                    flags = self._timed("step", prog.run, self.mesh)
                     self.host_reads["flags"] += 1
                     changed = bool(flags[0])
                     for u in range(self.unroll):
@@ -2166,14 +2267,7 @@ class RowPackedSaturationEngine:
             raise RuntimeError(
                 f"saturation did not converge within {budget} iterations"
             )
-        return SaturationResult(
-            packed_s=sp,
-            packed_r=rp,
-            iterations=it,
-            derivations=total - init_total,
-            idx=self.idx,
-            converged=converged,
-        )
+        return self._result(sp, rp, it, total - init_total, converged)
 
     def precompile(self, max_iters: int = 10_000, *,
                    programs: Tuple[str, ...] = ("run", "step", "fused"),
@@ -3536,6 +3630,13 @@ class RowPackedSaturationEngine:
             else self._normalize_fused_cfg(fused_rounds)
         )
         fk = int(kcfg["rounds"]) if kcfg else 1
+        if self.mesh is not None and (cfg is not None or fk > 1):
+            raise NotImplementedError(
+                "saturate_observed on a mesh runs dense rounds only: the "
+                "sparse tier, its pipelined controller and the fused "
+                "window are not sharded yet (pass sparse_tail=False and "
+                "fused_rounds=False)"
+            )
         self.gate_rounds = []
         if (
             fk > 1
@@ -3592,11 +3693,4 @@ class RowPackedSaturationEngine:
             raise RuntimeError(
                 f"saturation did not converge within {budget} iterations"
             )
-        return SaturationResult(
-            packed_s=sp,
-            packed_r=rp,
-            iterations=iteration,
-            derivations=total - init_total,
-            idx=self.idx,
-            converged=converged,
-        )
+        return self._result(sp, rp, iteration, total - init_total, converged)

@@ -80,26 +80,38 @@ def pack_planes(bits: torch.Tensor) -> torch.Tensor:
     return out
 
 
-def bit_lookup_from(subt: torch.Tensor, cols, *, dtype=torch.bool) -> torch.Tensor:
+def bit_lookup_from(subt: torch.Tensor, cols, *, word_offset=None,
+                    dtype=torch.bool) -> torch.Tensor:
     """``out[j, i] = bit(subt[cols[j] >> 5, i] >> (cols[j] & 31))`` —
     the column-lookup half of :func:`bit_lookup` over a precomputed
-    transposed row gather ``subt`` [W, R]."""
+    transposed row gather ``subt`` [W, R].  ``word_offset`` (a sharded
+    caller's): ``subt`` holds only the word window ``[word_offset,
+    word_offset + W)``, and columns outside it read 0, so the ranks'
+    partials OR into the whole table."""
     cols = torch.as_tensor(cols).to(device=subt.device, dtype=torch.int64)
-    words = subt[cols >> 5]                               # [C, R] row gather
+    w = cols >> 5
     shifts = (cols & 31).to(torch.int32)[:, None]
-    return ((words >> shifts) & _ONE).to(dtype)
+    if word_offset is None:
+        words = subt[w]                                   # [C, R] row gather
+        return ((words >> shifts) & _ONE).to(dtype)
+    w = w - word_offset
+    ok = (w >= 0) & (w < subt.shape[0])
+    words = subt[w.clamp(0, max(subt.shape[0] - 1, 0))]
+    return torch.where(ok[:, None], (words >> shifts) & _ONE, 0).to(dtype)
 
 
-def bit_lookup(p: torch.Tensor, rows, cols, *, dtype=torch.bool) -> torch.Tensor:
+def bit_lookup(p: torch.Tensor, rows, cols, *, word_offset=None,
+               dtype=torch.bool) -> torch.Tensor:
     """``out[j, i] = bit(p[rows[i], cols[j]])`` — TRANSPOSED output
     [len(cols), len(rows)] in ``dtype``: contiguous row gather →
     transpose → row gather on the word axis → per-row shift, linear in
-    the output size."""
+    the output size.  ``word_offset``: as :func:`bit_lookup_from`, for
+    a ``p`` that holds one rank's word window."""
     rows = torch.as_tensor(rows).to(device=p.device, dtype=torch.int64)
     n_cols = len(cols)
     if rows.numel() == 0 or n_cols == 0:
         return torch.zeros((n_cols, rows.numel()), dtype=dtype, device=p.device)
-    return bit_lookup_from(p[rows].T, cols, dtype=dtype)
+    return bit_lookup_from(p[rows].T, cols, word_offset=word_offset, dtype=dtype)
 
 
 def _index(ix, device) -> torch.Tensor:

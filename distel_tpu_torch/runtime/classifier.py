@@ -18,6 +18,12 @@ are on by default (``shape_buckets``): the row-packed engine's program
 is built (on a card captured) in a phase of its own, ``compile``, which
 a registry hit makes ~0, and the result carries its
 :class:`~distel_tpu_torch.runtime.instrumentation.CompileStats`.
+
+The classifier owns the mesh (``parallel/mesh.setup``): with
+``mesh.devices`` or the coordinator keys each rank of a process group
+builds the same index and plan, runs the fixed point on its shard, and
+holds the gathered closure and the taxonomy.  Mesh engines skip
+``precompile``, as the reference's classifier does.
 """
 
 from __future__ import annotations
@@ -100,7 +106,8 @@ class ClassificationResult:
 
 
 def make_engine(
-    config: ClassifierConfig, idx: IndexedOntology, device, **rowpacked_kw
+    config: ClassifierConfig, idx: IndexedOntology, device, mesh=None,
+    **rowpacked_kw
 ):
     """The engine ``config.engine`` names, on ``device``: the row-packed
     engine for "auto" and "rowpacked", the packed engine for "packed",
@@ -111,10 +118,18 @@ def make_engine(
     ``min_links_pad``, ``window_headroom``), which the other engines
     and the hybrid ignore, as the reference's do.  The row-packed
     engine also gets the config's ``sparse_tail``, ``pipeline`` and
-    ``fused_rounds`` (its observed runs' controller)."""
+    ``fused_rounds`` (its observed runs' controller).  ``mesh``: the
+    :class:`~distel_tpu_torch.parallel.mesh.Mesh` all three engines
+    shard over (the hybrid saturator has no sharded mode and refuses
+    one)."""
     config.validate()
     _, host_rules = split_backends(config.rule_backends)
     if host_rules:
+        if mesh is not None:
+            raise NotImplementedError(
+                "the hybrid saturator (backend.CRn = host) does not run "
+                "on a mesh"
+            )
         if config.engine not in ("auto", "rowpacked"):
             raise ValueError(
                 "rule_backends routing rules to the host requires the "
@@ -128,10 +143,11 @@ def make_engine(
         return PackedSaturationEngine(
             idx, device=device, pad_multiple=config.pad_multiple,
             bucket=config.shape_buckets, bucket_ratio=config.bucket_ratio,
+            mesh=mesh,
         )
     if config.engine == "dense":
         return SaturationEngine(
-            idx, device=device, pad_multiple=config.pad_multiple
+            idx, device=device, pad_multiple=config.pad_multiple, mesh=mesh
         )
     # the adaptive sparse tail and pipelined observation act in
     # observed runs only (saturate_observed), as in the reference
@@ -150,17 +166,22 @@ def make_engine(
         device=device,
         pad_multiple=config.pad_multiple,
         cr6_tiles=config.cr6_tiles_config(),
+        mesh=mesh,
         **rowpacked_kw,
     )
 
 
 class ELClassifier:
-    """One classifier instance per config and device."""
+    """One classifier instance per config and device; owns the mesh
+    (None off a mesh)."""
 
     def __init__(self, config: Optional[ClassifierConfig] = None, device=None):
+        from distel_tpu_torch.parallel.mesh import setup
+
         self.config = config or ClassifierConfig()
         self.config.validate()
         self.device = resolve_device(device)
+        self.mesh = setup(self.config, self.device)
 
     def classify_text(
         self, text: str, *, verify: bool = False,
@@ -204,10 +225,10 @@ class ELClassifier:
             with timer.phase("index"):
                 idx = Indexer().index(norm)
         with timer.phase("plan"):
-            engine = make_engine(cfg, idx, self.device)
+            engine = make_engine(cfg, idx, self.device, mesh=self.mesh)
         # the program build as its own phase: a warm bucket (a registry
         # hit) shows as compile ~0, apart from the saturation's time
-        if hasattr(engine, "precompile"):
+        if hasattr(engine, "precompile") and self.mesh is None:
             with timer.phase("compile"):
                 engine.precompile(cfg.max_iterations, programs=("run",))
         initial = None

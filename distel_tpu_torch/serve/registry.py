@@ -175,7 +175,10 @@ class OntologyRegistry:
         warm_budget_bytes: Optional[int] = None,
         query=None,
     ):
+        from distel_tpu_torch.parallel.mesh import refuse_mesh
+
         self.config = config or ClassifierConfig()
+        refuse_mesh(self.config, "the serve plane (OntologyRegistry)")
         #: the device every classifier of this registry runs on
         self.device = resolve_device(device)
         self.memory_budget_bytes = memory_budget_bytes

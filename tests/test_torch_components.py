@@ -601,9 +601,14 @@ def test_host_half_is_a_copy(name):
     ("process.id", "0"),
 ])
 def test_multi_process_keys_refused_by_name(key, value, tmp_path):
-    """The reference parses each multi-controller key; the port has no
-    multi-process runtime and refuses it by name (a reference config
-    naming a coordinator must not run alone on each process)."""
+    """Each multi-controller key parses to the reference's field (the
+    port joins a process group with them, ``parallel/mesh.py``).  The
+    component plane has no sharded mode: given a coordinator it refuses
+    by the key's name rather than run alone on each process; the other
+    two keys alone join nothing, in both packages."""
+    from distel_tpu_torch import cli
+    from distel_tpu_torch.parallel.mesh import setup
+
     props = tmp_path / "p.properties"
     props.write_text(f"{key} = {value}\n")
     ref = RefConfig.from_properties(str(props))
@@ -611,5 +616,13 @@ def test_multi_process_keys_refused_by_name(key, value, tmp_path):
             "num.processes": "num_processes", "process.id": "process_id"}[key]
     assert str(getattr(ref, attr)) == value
     assert key in MULTI_PROCESS_KEYS
-    with pytest.raises(ValueError, match=key.replace(".", r"\.")):
-        ClassifierConfig.from_properties(str(props))
+    cfg = ClassifierConfig.from_properties(str(props))
+    assert getattr(cfg, attr) == getattr(ref, attr)
+    if key == "coordinator.address":
+        onto = tmp_path / "o.ofn"
+        onto.write_text("SubClassOf(A B)\n")
+        with pytest.raises(NotImplementedError, match=key.replace(".", r"\.")):
+            cli.main(["partition", str(onto), "--device", "cpu",
+                      "--config", str(props)])
+    else:
+        assert setup(cfg) is None

@@ -1370,3 +1370,96 @@ def test_cohort_on_the_card_equals_the_cpu(card, size):
         assert torch.equal(g.packed_s.cpu(), w.packed_s)
         assert torch.equal(g.packed_r.cpu(), w.packed_r)
         assert (g.derivations, g.iterations) == (w.derivations, w.iterations)
+
+
+# ------------------------------------------------------------ the mesh plane
+
+#: the 64k run's word widths halved (exact 2,768 and bucketed 3,084
+#: words over two ranks), a quarter of them, and odd widths past them:
+#: no tile multiple among them
+SHARD_WIDTHS = [1384, 1542, 691, 771, 1543]
+
+
+@pytest.mark.parametrize("route", ["dense", "sparse", "dense_n", "list_n"])
+@pytest.mark.parametrize("w", SHARD_WIDTHS)
+def test_kernel_routes_at_shard_local_widths(card, route, w):
+    """Each packed-columns route at a rank's word window of the 64k mesh
+    run (a CR4-sized and a CR6-sized operand), ORed into a seeded C,
+    equal to the plain version word for word."""
+    sparse = route in ("sparse", "list_n")
+    m, l = (4046, 1056) if sparse else (223, 1056)
+    gen = torch.Generator(device="cuda").manual_seed(w)
+    a, b = _operands(gen, m, l, w, 0.01)
+    c0 = torch.randint(-2**31, 2**31, (m, w), generator=gen, device="cuda",
+                       dtype=torch.int64).to(torch.int32)
+    plan = PackedColsMatmulPlan(m, l, w, skip_zero_tiles=sparse)
+    if route.endswith("_n"):
+        nr = torch.full((1,), m - 3, dtype=torch.int32, device="cuda")
+        got = plan(a, b, out=c0.clone(), n_rows=nr)
+        want = bitmatmul.plain_packed_cols_rows(a.cpu(), b.cpu(), c0.cpu(),
+                                                nr.cpu())
+    else:
+        got = plan(a, b, out=c0.clone())
+        want = plain_packed_cols(a.cpu(), b.cpu(), c0.cpu())
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), want)
+
+
+def _cli_json(*args, timeout=900):
+    import subprocess
+    import sys
+
+    root = Path(__file__).resolve().parent.parent
+    out = subprocess.run([sys.executable, "-m", "distel_tpu_torch.cli", *args],
+                         capture_output=True, text=True, cwd=str(root),
+                         timeout=timeout)
+    assert out.returncode == 0, out.stderr[-4000:]
+    return out.stdout
+
+
+@pytest.mark.parametrize("engine", ["rowpacked", "packed", "dense"])
+def test_gloo_mesh_of_two_on_one_card_equals_the_solo_card_run(card, engine,
+                                                               tmp_path):
+    """``cli classify --mesh 2`` on one card (two gloo ranks on cuda:0,
+    their collectives on card tensors) equals the solo card classify:
+    both ranks' closure digests, derivations, iterations, taxonomy."""
+    text = snomed_shaped_ontology(n_classes=600)
+    onto = tmp_path / "s.ofn"
+    onto.write_text(text)
+    props = tmp_path / "c.properties"
+    props.write_text(f"engine = {engine}\n")
+    stdout = _cli_json("classify", str(onto), "--mesh", "2", "--config",
+                       str(props), "-o", str(tmp_path / "mesh.txt"))
+    got = json.loads(stdout[: stdout.rindex("}") + 1])
+    solo = ELClassifier(ClassifierConfig.from_properties(str(props))).classify_text(text)
+    solo.taxonomy.write(str(tmp_path / "solo.txt"))
+    ranks = got["mesh"]["ranks"]
+    assert [x["backend"] for x in ranks] == ["gloo", "gloo"]
+    assert all(x["device"] == "cuda:0" for x in ranks)
+    assert {x["closure_sha256"] for x in ranks} == {solo.result.live_digest()}
+    assert got["derivations"] == solo.result.derivations
+    assert got["iterations"] == solo.result.iterations
+    assert (tmp_path / "mesh.txt").read_text() == (tmp_path / "solo.txt").read_text()
+
+
+def test_nccl_mesh_of_one_equals_the_solo_card_run(card, tmp_path):
+    """The coordinator keys with one process: an NCCL group of one on
+    the card, a mesh of one (the reference's mesh-of-one posture), equal
+    to the solo classify in closure and derivations."""
+    import socket
+
+    text = snomed_shaped_ontology(n_classes=600)
+    onto = tmp_path / "s.ofn"
+    onto.write_text(text)
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    props = tmp_path / "c.properties"
+    props.write_text(f"coordinator.address = 127.0.0.1:{port}\n"
+                     "num.processes = 1\nprocess.id = 0\n")
+    stdout = _cli_json("classify", str(onto), "--config", str(props))
+    got = json.loads(stdout[: stdout.rindex("}") + 1])
+    solo = ELClassifier().classify_text(text)
+    assert got["mesh"]["size"] == 1
+    assert got["mesh"]["ranks"][0]["backend"] == "nccl"
+    assert got["derivations"] == solo.result.derivations

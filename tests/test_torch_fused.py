@@ -13,7 +13,9 @@ per-round run: the observer's ``(iteration, derivations, changed)``
 sequence, every ``FrontierStats`` less its walls (``rounds_in_window``
 included), and S, R, iterations and derivations.  These are the
 reference's ``tests/test_fused_rounds.py`` cases that run on one
-device; its two mesh tests wait for the port's mesh.  Then the pieces:
+device; its two mesh tests (``:309-340``) wait for the sharded sparse
+tier and the fused window's mesh mode (the mesh plane itself is
+ported, ``tests/test_torch_mesh.py``).  Then the pieces:
 the exact density cutoff, the card round plan against the host
 selection, the compaction against the host's workspaces, and the
 window's refusal of a host sync.

@@ -142,17 +142,25 @@ def test_backend_keys_are_parsed(tmp_path):
      ("NODES_LIST = node1", "NODES_LIST")],
 )
 def test_mesh_keys_are_refused(tmp_path, line, key):
-    """Any mesh the reference would build is refused, a mesh of one
-    device too (it moves the reference's unroll and gating thresholds);
-    a key naming no device builds none there and is accepted."""
+    """The mesh plane is ported (``parallel/mesh.py``): each line the
+    port once refused now builds the reference's mesh size — in process
+    a mesh of one, and a larger one only with the ranks to hold it (so
+    a single process refuses it, naming the launchers); a key naming no
+    device builds none, in both packages."""
     from distel_tpu.config import ClassifierConfig as RefConfig
-    from distel_tpu.parallel.mesh import setup
+    from distel_tpu.parallel.mesh import setup as ref_setup
+    from distel_tpu_torch.parallel.mesh import setup
 
     props = tmp_path / "c.properties"
     props.write_text(line + "\n")
-    assert RefConfig.from_properties(str(props)).mesh_devices
-    with pytest.raises(ValueError, match=key):
-        ClassifierConfig.from_properties(str(props))
+    want = RefConfig.from_properties(str(props)).mesh_devices
+    cfg = ClassifierConfig.from_properties(str(props))
+    assert cfg.mesh_devices == want
+    if want == 1:
+        assert setup(cfg).size == 1
+    else:
+        with pytest.raises(ValueError, match="launch_local"):
+            setup(cfg)
     props.write_text("mesh.devices = 0\nNODES_LIST = \n")
-    assert setup(RefConfig.from_properties(str(props))) is None
-    assert ClassifierConfig.from_properties(str(props)).engine == "auto"
+    assert ref_setup(RefConfig.from_properties(str(props))) is None
+    assert setup(ClassifierConfig.from_properties(str(props))) is None

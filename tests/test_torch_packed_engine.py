@@ -179,7 +179,8 @@ def test_refusals(indexes):
     big = np.zeros((eng.nc + 32, eng.nc + 32), bool)
     with pytest.raises(ValueError, match="exceeds"):
         eng.embed_state(big, np.zeros((eng.nc, eng.nl), bool))
-    with pytest.raises(NotImplementedError, match="mesh"):
+    # the row-sharded mode takes a parallel.mesh.Mesh, nothing else
+    with pytest.raises(TypeError, match="mesh"):
         PackedSaturationEngine(idx, device="cpu", mesh=object())
     # bucket=True is the reference's shape-only bucketing now (no refusal)
     bucketed = PackedSaturationEngine(idx, device="cpu", bucket=True)

@@ -388,10 +388,12 @@ def test_snapshot_is_a_copy_of_the_state():
 
 # --------------------------------------------------------------- refusals
 
-#: keys of paths the port does not have (``fused.rounds.k`` > 1 runs the
-#: fused window since it was ported: ``tests/test_torch_fused.py``;
+#: keys of paths the serve plane does not have (``fused.rounds.k`` > 1
+#: runs the fused window since it was ported: ``tests/test_torch_fused.py``;
 #: ``artifacts.dir`` parses since the farm was ported:
-#: ``tests/test_torch_artifacts.py``)
+#: ``tests/test_torch_artifacts.py``; the mesh keys parse since the mesh
+#: plane was ported, ``tests/test_torch_mesh.py``, and the serve plane,
+#: which has no sharded mode, refuses them)
 REFUSED_KEYS = {"mesh.devices": "2", "coordinator.address": "host:1234"}
 
 
@@ -399,8 +401,9 @@ REFUSED_KEYS = {"mesh.devices": "2", "coordinator.address": "host:1234"}
 def test_refused_config_keys_raise(tmp_path, key):
     p = tmp_path / "c.properties"
     p.write_text(f"{key} = {REFUSED_KEYS[key]}\n")
-    with pytest.raises(ValueError, match=re.escape(key)):
-        ClassifierConfig.from_properties(str(p))
+    cfg = ClassifierConfig.from_properties(str(p))
+    with pytest.raises(NotImplementedError, match=re.escape(key)):
+        ServeApp(cfg, device="cpu")
 
 
 def test_serve_config_keys_parse(tmp_path):
