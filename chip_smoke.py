@@ -95,20 +95,44 @@ Phases, each of which raises on failure:
    started after the build, beside the first phases, each its own
    process tree: the 64k corpus at ``--mesh 2``, two gloo ranks sharing
    the card (default config: bucketed, gated, native plane; the step
-   program runs uncaptured, a graph cannot hold a gloo collective), and
-   again with ``engine = packed`` in exact layout; on the cut corpus the
-   dense engine at ``--mesh 2``, a mesh of one over NCCL (the
-   coordinator keys, one process) and the CPU port's mesh of one.
-   Every rank of a run must gather one closure; the dense run is held
-   to the solo dense card run, the NCCL mesh of one to the CPU's; once
-   phases 5 and 7 have run, the 64k runs are held to them (the solo
-   card classify of the same text, and the packed run: closure digest
-   on every rank, derivations, iterations, taxonomy).  Each rank's
-   wall, phases, peak memory, collectives (calls, bytes, seconds),
-   windows, launches and shard-local product shapes are printed; then
-   the bucketed step's heaviest operands at each rank's word window go
-   through both row-count routes against the plain version (the
-   ``(mesh 2, rank window)`` rows of the kernel line);
+   program runs uncaptured, a graph cannot hold a gloo collective); on
+   the cut corpus ``engine = packed`` in exact layout and the dense
+   engine at ``--mesh 2``, a mesh of one over NCCL (the coordinator
+   keys, one process) and the CPU port's mesh of one.  Every rank of a
+   run must gather one closure; the dense and packed runs are held to
+   the solo dense and packed card runs, the NCCL mesh of one to the
+   CPU's; once phase 5 has run, the 64k run is held to it (the solo
+   card classify of the same text: closure digest on every rank,
+   derivations, iterations, taxonomy).  Each rank's wall, phases, peak
+   memory, collectives (calls, bytes, seconds), windows, launches and
+   shard-local product shapes are printed; then the bucketed step's
+   heaviest operands at each rank's word window go through both
+   row-count routes against the plain version (the ``(mesh 2, rank
+   window)`` rows of the kernel line);
+7c. the observed, fused and incremental paths on a mesh
+   (``mesh_observed_full_width``), one background process tree started
+   beside 7b's, its runs in turn: (c) ``cli stream`` with ``mesh.devices
+   = 2`` (two gloo ranks on the card, exact layout) over the 64k corpus
+   without its range axiom, the bench's deltas and ``--retract`` of the
+   class-only one; (a) the forced 64k observed run (threshold 1.1,
+   hysteresis 1, 12 capacity rungs, ``unroll=1``) and (b) the
+   chain-tailed 64k corpus with the fused window, K = 8, on two gloo
+   ranks (``parallel.mesh.launch_local``; the window uncaptured, its
+   rounds folded across the ranks), the sparse tier's operands captured
+   in (a); on the cut corpus (a) and (b) forced, K = 8, on an NCCL mesh
+   of one (windows captured) and on the CPU port's.  Held, once phases
+   9, 10 and 10b have run: every rank of (a) round for round (tier,
+   rows touched, derivations, overflow, occupancy) and in closure
+   digest, iterations, derivations and taxonomy to the solo forced run
+   of phase 10, every rank of (b) round for round and in closure to
+   phase 10b's synchronous per-round run, every rank's every step of (c) in closure
+   and taxonomy digest (and path, iterations) to phase 9's range-free
+   steps, the NCCL runs record for record to the CPU's.  Per rank:
+   wall, phases, per-round records, host reads, collectives (calls,
+   bytes, seconds), launches, peak memory; the sparse tier's heaviest
+   operand per site and kernel at each rank's word window through both
+   routes against the plain version (the ``(sparse tier, mesh 2, rank
+   window)`` rows of the kernel line);
 8. the weak-scaling corpus at full width: the OpenGALEN module read
    through the RDF/XML reader, multiplied into 600 crossed copies
    (88,802 concepts), written as OFN and classified by the default
@@ -179,8 +203,11 @@ Phases, each of which raises on failure:
    CR4 and CR6 windows of the forced run's final state (both routes,
    row counts 0, 1, half and all) and the IF node against a Python
    ``if``, for the kernel line.
-10c. the artifact farm (``core/artifacts.py``) across fresh processes:
-   ``cli farm-build`` of the serve tenant's 64k text with the class-only
+10c. the artifact farm (``core/artifacts.py``) across fresh processes
+   (the phase itself a child process, :func:`start_phase`, started after
+   phase 10 and read after phase 12, beside 10b, 10d, 11 and 12):
+   ``cli farm-build`` of the serve tenant's text (:data:`SERVE_CLASSES`,
+   24k; 64k until PR 17 needed the time) with the class-only
    delta (the rebuild's and the delta plane's program specs, the kernel
    libraries), and again, writing nothing; a ``cli serve`` process with
    no ``nvcc`` on ``PATH``, no ``CUDA_HOME`` and an empty build
@@ -189,7 +216,7 @@ Phases, each of which raises on failure:
    equal to this process's classify, the farm's five ``/metrics``
    series, its own launches (a ``sitecustomize`` count) of the step's
    kernels; each kernel of the path from the farm's library in a child
-   of the same environment at the heaviest bucketed 64k operand of each
+   of the same environment at the heaviest bucketed operand of each
    route, against the plain version (the kernel line's ``farm`` rows);
    a copy with one spec byte flipped refused under
    ``--artifacts-require`` before binding and served without it, built
@@ -222,10 +249,12 @@ Phases, each of which raises on failure:
    both, with the row-packed and with the packed engine, every answer
    equal; the cut corpus and the class-only delta served by the packed
    engine on the card, its answers equal to the row-packed engine's.
-12. the resident server at full width: ``ServeApp(device="cuda")``
+12. the resident server (:data:`SERVE_CLASSES`, 24k; 64k until PR 17
+   needed the time): ``ServeApp(device="cuda")``
    behind ``make_server``, two workers, a card-memory budget (once the
-   64k tenant's state is known) that holds that tenant alone, driven
-   over HTTP by ``ServeClient`` under the capture: the 64k corpus without its range axiom, the three deltas and
+   big tenant's state is known) that holds that tenant alone, driven
+   over HTTP by ``ServeClient`` under the capture: the big corpus
+   without its range axiom, the three deltas and
    the retraction, every served taxonomy held by name to a from-scratch
    card classify; an 8k tenant evicting it to the warm tier (the card
    must get its state's bytes back), a read promoting it; without the
@@ -233,27 +262,31 @@ Phases, each of which raises on failure:
    serial answers; the graceful close with its final spill.  The
    captured operand pairs are checked as in phase 6 and join the kernel
    line.
-13. the serve fleet at full width: two replica processes on the card
+13. the serve fleet (a child process, :func:`start_phase`, started
+   after phase 8 and read at the end): two replica processes on the card
    (``ReplicaSupervisor``: ``cli serve --replica-id ... --device cuda``,
-   each checked to run this tree) behind a ``RouterApp`` in this
-   process: the 64k and 8k corpora (without their range axiom) loaded
-   through the router onto different replicas, the class-only delta;
-   the 64k tenant migrated live under reader threads and an 8k writer
-   (no request may fail, its taxonomy byte-identical across the move)
-   and moved back to its source; a read replica of the 8k tenant; the 64k tenant's replica SIGKILLed
-   and its tenant recovered by journal replay, then a retraction on the
-   8k tenant and its replica killed (the replay with the retract
-   marker); the tracked trace through the router with its ``migrate``
-   op, equal to an in-process CPU fleet's replay; the router's
-   aggregated ``/metrics``, a stitched ``/debug/trace``, ``/fleet/status``;
-   the graceful stop.  Every 64k and 8k taxonomy is held to a
-   from-scratch card classify.  The replicas' launches happen in their
-   own processes, out of this one's counts: a ``sitecustomize`` the
-   smoke puts ahead of the tree on their ``PYTHONPATH`` writes each
-   process's launches and allocator bytes to a file, and every replica
-   process must have launched the path's kernels.  After the 64k
-   tenant moves out, its source replica's reserved bytes must be below
-   1 GiB (the registry returns a departed tenant's blocks).
+   each checked to run this tree) behind a ``RouterApp`` in the
+   phase's process: the :data:`SERVE_CLASSES` corpus (24k; 64k until
+   PR 17, then 16k, before the phase left the smoke's process) and the 8k corpus
+   (without their range axiom) loaded through the router onto
+   different replicas, the class-only delta; the big tenant migrated
+   live under reader threads and an 8k writer (no request may fail, its
+   taxonomy byte-identical across the move) and moved back to its
+   source; a read replica of the 8k tenant; the big tenant's replica
+   SIGKILLed and its tenant recovered by journal replay, then a
+   retraction on the 8k tenant and its replica killed (the replay with
+   the retract marker); the tracked trace through the router with its
+   ``migrate`` op, equal to an in-process CPU fleet's replay; the
+   router's aggregated ``/metrics``, a stitched ``/debug/trace``,
+   ``/fleet/status``; the graceful stop.  Every big and 8k taxonomy is
+   held to a from-scratch card classify.  The replicas' launches happen
+   in their own processes, out of this one's counts: a
+   ``sitecustomize`` the smoke puts ahead of the tree on their
+   ``PYTHONPATH`` writes each process's launches and allocator bytes to
+   a file, and every replica process must have launched the path's
+   kernels.  After the big tenant moves out, its source replica's
+   reserved bytes must be below 1 GiB (the registry returns a departed
+   tenant's blocks).
 
 Kernel times are CUDA-event times per call over back-to-back calls;
 the packed-contraction route's are also taken from CUDA-graph replays
@@ -328,6 +361,7 @@ import subprocess
 import sys
 import time
 from pathlib import Path
+from typing import Optional
 
 import numpy as np
 import torch
@@ -2346,7 +2380,7 @@ def phase_incremental_card_vs_cpu(n_classes: int = CUT_CLASSES) -> dict:
     return out
 
 
-def phase_incremental_full_width(cap: Capture):
+def phase_incremental_full_width(cap: Capture, refs: Optional[dict] = None):
     """The incremental plane at full width: the bench's traffic over the
     64k corpus with the default config and nothing hooked in — base
     (rebuild), class-only delta (fast), role delta (fast, with a cross
@@ -2357,7 +2391,9 @@ def phase_incremental_full_width(cap: Capture):
     closure); a second classifier's forced rebuild of the class-only
     delta.  Then the delta, cross and rebound-base engines rerun under
     the capture; the heaviest operand pair per site, engine and kernel
-    is checked bit for bit and returned for the kernel line."""
+    is checked bit for bit and returned for the kernel line.  ``refs``
+    gets ``"stream"``: each range-free step's path, iterations, closure
+    and taxonomy digests (what 7c's stream on a mesh is held to)."""
     from distel_tpu_torch.core.incremental import IncrementalClassifier
     from distel_tpu_torch.frontend.ontology_tools import snomed_shaped_ontology
     from distel_tpu_torch.ops.bitmatmul import LAUNCHES, reset_launches
@@ -2440,13 +2476,25 @@ def phase_incremental_full_width(cap: Capture):
     # the same traffic over the corpus without its range axiom, retracted
     text_nr = without_ranges(text)
     inc = IncrementalClassifier(EXACT(), device="cuda")
+    stream_ref = []
+
+    def stream_step(res):
+        stream_ref.append({
+            "path": inc.history[-1]["path"],
+            "iterations": inc.history[-1]["iterations"],
+            "digests": digests_later(res, extract_taxonomy(res)),
+        })
+
     for name, t in (("base", text_nr), ("class_only", INC_CLASS_DELTA),
                     ("role", INC_ROLE_DELTA), ("closure", INC_CLOSURE_DELTA)):
-        step(f"{name}:no_range", lambda t=t: (inc.add_text(t), inc),
-             {"rebuild"} if name == "base" else {"fast", "rebuild"})
+        stream_step(step(f"{name}:no_range", lambda t=t: (inc.add_text(t), inc),
+                         {"rebuild"} if name == "base" else {"fast", "rebuild"}))
     survivors = [text_nr, INC_ROLE_DELTA, INC_CLOSURE_DELTA]
     r4 = step("retract:no_range", lambda: (inc.retract(INC_CLASS_DELTA), inc),
               {"retract"})
+    stream_step(r4)
+    if refs is not None:
+        refs["stream"] = stream_ref
     check(r4, survivors, "retraction")
     SNAPSHOT_DIR.mkdir(parents=True, exist_ok=True)
     path = str(SNAPSHOT_DIR / "inc64k.npz")
@@ -2621,7 +2669,7 @@ def same_closure(a, b) -> bool:
 def phase_observed_full_width(cap: Capture, device: str = "cuda",
                               n_chain: int = 64000, chain_depth: int = 64,
                               n_big: int = 64000, n_small: int = CUT_CLASSES,
-                              min_sparse: int = 20):
+                              min_sparse: int = 20, refs: Optional[dict] = None):
     """The observed fixed point (``saturate_observed``: the adaptive
     dense/sparse controller, pipelined dense rounds) at full width:
 
@@ -2649,7 +2697,10 @@ def phase_observed_full_width(cap: Capture, device: str = "cuda",
        CPU: every round's record, the observer's sequence, S and R
        equal.
 
-    Returns the checked sparse-tier pairs for the kernel line."""
+    Returns the checked sparse-tier pairs for the kernel line.  ``refs``
+    gets ``"forced_64k"``: the forced run's round records, observer
+    sequence, iterations, derivations, closure and taxonomy digests
+    (what 7c's forced run on a mesh is held to)."""
     import io
 
     from distel_tpu_torch import cli
@@ -2763,8 +2814,16 @@ def phase_observed_full_width(cap: Capture, device: str = "cuda",
     if fo[2].derivations != classified.result.derivations \
             or not same_closure(fo[2], classified.result):
         raise AssertionError("64k forced: closure or derivations differ from the classify")
-    if taxonomy_key(extract_taxonomy(fo[2])) != want_key:
+    fo_tax = extract_taxonomy(fo[2])
+    if taxonomy_key(fo_tax) != want_key:
         raise AssertionError("64k forced: taxonomy differs from the classify")
+    if refs is not None:
+        refs["forced_64k"] = {
+            "records": round_records(fo[1]), "events": observer_events(fo[0]),
+            "iterations": fo[2].iterations, "derivations": fo[2].derivations,
+            "digests": digests_later(fo[2], fo_tax),
+        }
+    del fo_tax
     out["forced_64k"] = {
         "concepts": idx.n_concepts, "iterations": fo[2].iterations,
         "derivations": fo[2].derivations, "tiers": tier_string(fo[1]),
@@ -3041,7 +3100,7 @@ def graph_if_check() -> dict:
 
 def phase_fused_full_width(device: str = "cuda", n_chain: int = 64000,
                            chain_depth: int = 64, n_big: int = 64000,
-                           n_small: int = CUT_CLASSES):
+                           n_small: int = CUT_CLASSES, refs: Optional[dict] = None):
     """The fused K-round window (``fused_rounds``: K rounds of the
     adaptive controller a captured CUDA graph, one host read a window)
     at full width, each run held round for round and in closure to the
@@ -3068,7 +3127,10 @@ def phase_fused_full_width(device: str = "cuda", n_chain: int = 64000,
        and occupancy included), the observer's sequence, S and R equal.
 
     Returns the kernel line's rows of the row-count variants and the IF
-    setter."""
+    setter.  ``refs`` gets ``"chain_per_round"``: the synchronous
+    per-round run's records, observer sequence, iterations, derivations,
+    closure and taxonomy digests (what 7c's fused run on a mesh is held
+    to)."""
     from distel_tpu_torch.config import ClassifierConfig
     from distel_tpu_torch.core.incremental import IncrementalClassifier
     from distel_tpu_torch.core.rowpacked_engine import RowPackedSaturationEngine
@@ -3077,6 +3139,7 @@ def phase_fused_full_width(device: str = "cuda", n_chain: int = 64000,
     )
     from distel_tpu_torch.obs import ledger as ledger_mod
     from distel_tpu_torch.owl import native_loader
+    from distel_tpu_torch.runtime.taxonomy import extract_taxonomy
 
     on_card = device == "cuda"
     out = {}
@@ -3117,6 +3180,12 @@ def phase_fused_full_width(device: str = "cuda", n_chain: int = 64000,
     # depth - 1 rounds late); and pipelined, the default, for its wall
     base_engine = chain_engine()
     base = observed_run(base_engine, sparse_tail=True, pipeline=False)
+    if refs is not None:
+        refs["chain_per_round"] = {
+            "records": fused_records(base[1]), "events": observer_events(base[0]),
+            "iterations": base[2].iterations, "derivations": base[2].derivations,
+            "digests": digests_later(base[2], extract_taxonomy(base[2])),
+        }
     piped = observed_run(chain_engine(), sparse_tail=True)
     chain = {"concepts": idx.n_concepts, "per_round": {
         "wall_s": base[3], "rounds": len(base[1]), "tiers": tier_string(base[1]),
@@ -3522,21 +3591,23 @@ def publish_seconds(app) -> float:
     return 0.0
 
 
-def phase_serve_full_width(cap: Capture):
-    """The resident server at full width: ``ServeApp(device="cuda")``
+def phase_serve_full_width(cap: Capture, n_big: int = 64000):
+    """The resident server: ``ServeApp(device="cuda")``
     behind ``make_server`` on a loopback port, two workers and a spill
     directory, driven over HTTP by ``ServeClient`` under the capture; once
-    the 64k tenant's state is known, the card-memory budget is set to its
-    bytes (it holds that tenant, not it and a second one together).  The 64k corpus without its range axiom is loaded,
-    takes the three deltas and the retraction of the class-only delta;
-    after each write every served taxonomy is held, by name, to a
+    the big tenant's state is known, the card-memory budget is set to its
+    bytes (it holds that tenant, not it and a second one together).  The
+    big corpus (``n_big`` classes of the 64k corpus's generator, the
+    records' ``tag``) without its range axiom is loaded, takes the three
+    deltas and the retraction of the class-only delta; after each write
+    every served taxonomy is held, by name, to a
     from-scratch card classify of the accumulated text (and the
     tenant's closure by ``named_closure_equal``), and ``query/subsumers``
     of sampled classes to that taxonomy's subsumers.  The 8k corpus as
-    a second tenant evicts the 64k one to the warm tier (it must give
+    a second tenant evicts the big one to the warm tier (it must give
     the card back at least its state's bytes); a scheduled read
     promotes it.  With the warm tier turned off, a read of the 8k tenant
-    spills the 64k one cold, and a read of it restores it from the
+    spills the big one cold, and a read of it restores it from the
     spill.  Then one concurrent burst (a delta to one tenant, reads of
     both, one client thread a request; the reads held to the same reads
     served one at a time), and the graceful close with its final spill.
@@ -3555,13 +3626,14 @@ def phase_serve_full_width(cap: Capture):
     from distel_tpu_torch.serve.registry import _state_bytes
     from distel_tpu_torch.serve.server import ServeApp
 
-    big = without_ranges(snomed_shaped_ontology(n_classes=64000, seed=42))
+    tag = f"{n_big // 1000}k"
+    big = without_ranges(snomed_shaped_ontology(n_classes=n_big, seed=42))
     small = snomed_shaped_ontology(n_classes=8000, seed=42)
     shutil.rmtree(SERVE_DIR, ignore_errors=True)
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     memory = {"before_load": torch.cuda.memory_allocated()}
-    # the warm tier holds the whole 64k state on the host (about 1.9 GB)
+    # the warm tier holds the whole big state on the host (about 1.9 GB at 64k)
     cfg = EXACT(storage_warm_budget_mb=16384)
     app = ServeApp(cfg, device="cuda", workers=2, spill_dir=str(SERVE_DIR),
                    memory_budget_bytes=1 << 40)
@@ -3600,7 +3672,7 @@ def phase_serve_full_width(cap: Capture):
                            phases_s=inc.last_phases)
             if isinstance(doc, dict) and "version" in doc:
                 rec["version"] = doc["version"]
-            log(f"[serve 64k] {json.dumps(rec)}")
+            log(f"[serve {tag}] {json.dumps(rec)}")
             records.append(rec)
             return doc
 
@@ -3614,17 +3686,17 @@ def phase_serve_full_width(cap: Capture):
             tax = batch.taxonomy
             if (served["parents"], served["equivalents"],
                     sorted(served["unsatisfiable"])) != taxonomy_key(tax):
-                raise AssertionError(f"serve 64k {what}: taxonomy differs from a classify")
+                raise AssertionError(f"serve {tag} {what}: taxonomy differs from a classify")
             inc = app.registry._entries[oid].inc
             if not named_closure_equal(inc.last_result, batch.result):
-                raise AssertionError(f"serve 64k {what}: named subsumers differ")
+                raise AssertionError(f"serve {tag} {what}: named subsumers differ")
             names = sorted(tax.subsumers)
             for cls in rng.choice(names, 24, replace=False).tolist():
                 got = client.query_subsumers(oid, cls)["subsumers"]
                 if got != tax.subsumers[cls]:
-                    raise AssertionError(f"serve 64k {what}: query/subsumers {cls}")
+                    raise AssertionError(f"serve {tag} {what}: query/subsumers {cls}")
             del batch
-            log(f"[serve 64k] {what}: equal to a from-scratch classify "
+            log(f"[serve {tag}] {what}: equal to a from-scratch classify "
                 f"({time.perf_counter() - t0:.1f} s)")
             return names
 
@@ -3632,7 +3704,7 @@ def phase_serve_full_width(cap: Capture):
             return [client.subsumers(oid, cls), client.query_subsumers(oid, cls),
                     client.taxonomy_slice(oid, cls), client.snapshot_version(oid)]
 
-        a = request("load:64k", None, lambda: client.load(big))["id"]
+        a = request(f"load:{tag}", None, lambda: client.load(big))["id"]
         memory["after_load"] = torch.cuda.memory_allocated()
         texts = [big]
         check(a, texts, "load")
@@ -3651,50 +3723,50 @@ def phase_serve_full_width(cap: Capture):
             ("load", "delta", "retract"))]
         if paths[:3] != ["rebuild", "fast", "fast"] or paths[4] != "retract" or \
                 paths[3] not in ("fast", "rebuild"):
-            raise AssertionError(f"serve 64k: write paths {paths}")
+            raise AssertionError(f"serve {tag}: write paths {paths}")
         # the writes ran every kernel of the routes the tenant's plans chose
         for k in chosen_kernels(app.registry._entries[a].inc._base_engine):
             if not any(r["launches"][k] for r in records):
-                raise AssertionError(f"serve 64k: {k} was never launched")
-        # from here the card budget holds the 64k tenant alone
+                raise AssertionError(f"serve {tag}: {k} was never launched")
+        # from here the card budget holds the big tenant alone
         state_a = _state_bytes(app.registry._entries[a].inc)
         # the programs earlier phases left idle go now, not inside the
         # evictions measured here (the budget would drop them first)
         bucketing.drop_idle_programs("cuda")
         app.registry.memory_budget_bytes = state_a
         memory["before_evict"] = torch.cuda.memory_allocated()
-        # round 1: the second tenant evicts the 64k one to the warm tier
+        # round 1: the second tenant evicts the big one to the warm tier
         b = request("load:8k", None, lambda: client.load(small))["id"]
         entry_a, entry_b = app.registry._entries[a], app.registry._entries[b]
         if entry_a.inc is not None or entry_a.warm_inc is None:
-            raise AssertionError("serve 64k: the 8k load did not demote the 64k tenant")
+            raise AssertionError(f"serve {tag}: the 8k load did not demote the {tag} tenant")
         sync()
         held_b = sum(device_bytes(entry_b.inc).values())
         memory["after_evict_warm"] = torch.cuda.memory_allocated()
         freed_warm = memory["before_evict"] + held_b - memory["after_evict_warm"]
         if freed_warm < state_a:
-            raise AssertionError(f"serve 64k: the warm eviction freed {freed_warm} B "
+            raise AssertionError(f"serve {tag}: the warm eviction freed {freed_warm} B "
                                  f"of a {state_a} B state")
-        request("promote:64k", a, lambda: client.taxonomy(a))
+        request(f"promote:{tag}", a, lambda: client.taxonomy(a))
         memory["after_promote"] = torch.cuda.memory_allocated()
         if entry_a.inc is None or entry_b.inc is not None:
-            raise AssertionError("serve 64k: the read did not promote the 64k tenant")
-        # round 2: no warm tier; the 8k tenant's read spills the 64k one cold
+            raise AssertionError(f"serve {tag}: the read did not promote the {tag} tenant")
+        # round 2: no warm tier; the 8k tenant's read spills the big one cold
         app.registry.warm_budget_bytes = 0
         request("promote:8k", b, lambda: client.taxonomy(b))
         sync()
         memory["after_evict_cold"] = torch.cuda.memory_allocated()
         if entry_a.inc is not None or entry_a.warm_inc is not None or not entry_a.spill_path:
-            raise AssertionError("serve 64k: the 64k tenant was not spilled cold")
+            raise AssertionError(f"serve {tag}: the {tag} tenant was not spilled cold")
         held_b = sum(device_bytes(entry_b.inc).values())
         freed_cold = memory["after_promote"] + held_b - memory["after_evict_cold"]
         if freed_cold < state_a:
-            raise AssertionError(f"serve 64k: the cold spill freed {freed_cold} B "
+            raise AssertionError(f"serve {tag}: the cold spill freed {freed_cold} B "
                                  f"of a {state_a} B state")
-        request("restore:64k", a, lambda: client.taxonomy(a))
+        request(f"restore:{tag}", a, lambda: client.taxonomy(a))
         memory["after_restore"] = torch.cuda.memory_allocated()
         if records[-1].get("path") != "restore":
-            raise AssertionError("serve 64k: the read did not restore the 64k tenant")
+            raise AssertionError(f"serve {tag}: the read did not restore the {tag} tenant")
         names = check(a, texts, "restore")
         # the burst: both tenants resident, a delta to the 8k one, reads
         app.registry.memory_budget_bytes = 1 << 40
@@ -3723,21 +3795,21 @@ def phase_serve_full_width(cap: Capture):
         for th in threads:
             th.join(timeout=900)
             if th.is_alive():
-                raise AssertionError("serve 64k: a burst request never returned")
+                raise AssertionError(f"serve {tag}: a burst request never returned")
         burst = {"requests": len(jobs), "wall_s": time.perf_counter() - t0,
                  "launches": dict(LAUNCHES), "delta": {k: got[0].get(k) for k in
                                                      ("path", "iterations", "version")}}
         if errors:
-            raise AssertionError(f"serve 64k: burst failures {errors}")
+            raise AssertionError(f"serve {tag}: burst failures {errors}")
         for i, (kind, oid, cls) in enumerate(jobs):
             if kind == "read" and oid == a:
                 if got[i] != [client.subsumers(oid, cls), client.query_subsumers(oid, cls)]:
-                    raise AssertionError(f"serve 64k: burst read {cls} differs from serial")
+                    raise AssertionError(f"serve {tag}: burst read {cls} differs from serial")
             elif kind == "taxonomy":
                 if got[i] != client.taxonomy(oid):
-                    raise AssertionError("serve 64k: burst taxonomy differs from serial")
+                    raise AssertionError(f"serve {tag}: burst taxonomy differs from serial")
         check(b, [small, burst_delta], "burst delta (8k)")
-        log(f"[serve 64k] burst {json.dumps(burst)}")
+        log(f"[serve {tag}] burst {json.dumps(burst)}")
     cap.run = ""
     t0 = time.perf_counter()
     spilled = app.close()
@@ -3749,17 +3821,17 @@ def phase_serve_full_width(cap: Capture):
     shutil.rmtree(SERVE_DIR, ignore_errors=True)
     torch.cuda.empty_cache()
     if len(spilled) != 2 or tiers["cold_ontologies"] != 2:
-        raise AssertionError(f"serve 64k: close spilled {spilled}, tiers {tiers}")
+        raise AssertionError(f"serve {tag}: close spilled {spilled}, tiers {tiers}")
     pairs = [check_pair(*key[:3], n, a_, b_)
              for key, (n, _nnz, a_, b_) in sorted(cap.pairs.items()) if key[0] == "serve"]
     for key in [k for k in cap.pairs if k[0] == "serve"]:
         del cap.pairs[key]
     if not pairs:
-        raise AssertionError("serve 64k: no operand pair was captured")
+        raise AssertionError(f"serve {tag}: no operand pair was captured")
     out = {
         "requests": records,
         "write_paths": paths,
-        "state_bytes_64k": state_a,
+        f"state_bytes_{tag}": state_a,
         "freed_warm": freed_warm,
         "freed_cold": freed_cold,
         "memory_allocated": memory,
@@ -3770,7 +3842,7 @@ def phase_serve_full_width(cap: Capture):
         "kernel_checks": [{k: p[k] for k in ("run", "site", "main_path_kernel", "shape",
                                              "launches", "max_abs_err")} for p in pairs],
     }
-    log(f"[serve 64k] {json.dumps(out)}")
+    log(f"[serve {tag}] {json.dumps(out)}")
     print(json.dumps({"serve_full_width": out}), flush=True)
     return pairs
 
@@ -3778,6 +3850,13 @@ def phase_serve_full_width(cap: Capture):
 # ------------------------------------------------------- the serve fleet
 
 FLEET_DIR = ROOT / "build" / "smoke_fleet"
+#: the big tenant of the farm, serve and fleet phases (10c, 12, 13): the
+#: 64k corpus's generator at 24,000 classes (cut from 64,000 to keep the
+#: smoke within its time limit on a slower machine; every check kept).
+#: Not below: at 16k the bucketed step's CR6 takes the dense route, so
+#: the farm's consumer would launch no listing kernel.  The cohort phase
+#: (10d) stays at 64k
+SERVE_CLASSES = 24000
 #: the router's probe timeout (``RouterApp(heartbeat_probe_timeout_s=)``,
 #: its default): the smoke's own probes use the same
 PROBE_TIMEOUT_S = 5.0
@@ -3944,11 +4023,13 @@ def card_memory() -> dict:
 
 def kill_and_measure(pid: int, on_card: bool):
     """SIGKILL a replica process; with a card, the card memory it held
-    when it died: the card's memory in use just before, less once the
-    process is gone (the supervisor reaps it later)."""
+    when it died: its own ``nvidia-smi`` row where the row has its pid
+    (other processes may share the card), else the card's memory in use
+    just before, less once the process is gone (the supervisor reaps it
+    later)."""
     import signal
 
-    before = card_memory()["used"] if on_card else None
+    before = card_memory() if on_card else None
     os.kill(pid, signal.SIGKILL)
     while True:
         try:
@@ -3960,8 +4041,10 @@ def kill_and_measure(pid: int, on_card: bool):
         time.sleep(0.02)
     if not on_card:
         return None
+    if pid in before["apps"]:
+        return before["apps"][pid]
     time.sleep(1.0)    # the CUDA context is torn down at exit
-    return before - card_memory()["used"]
+    return before["used"] - card_memory()["used"]
 
 
 class FleetProbe:
@@ -4057,19 +4140,20 @@ def cpu_fleet_replay(tmp: Path):
 
 def phase_fleet_full_width(device: str = "cuda", n_big: int = 64000,
                            n_small: int = 8000) -> dict:
-    """The serve fleet at full width: two replica processes on one card,
+    """The serve fleet: two replica processes on one card,
     started by the port's ``ReplicaSupervisor`` (``cli serve
     --replica-id ... --device cuda``, ``PYTHONPATH`` set to this tree,
     each checked to import it), behind a ``RouterApp`` in this process
-    over loopback HTTP.  The 64k corpus without its range axiom and the
-    8k corpus are loaded through the router (affinity must place them
-    apart) and the 64k tenant takes the class-only delta (its taxonomy
-    held to a from-scratch card classify).  The 64k tenant is migrated
+    over loopback HTTP.  The big corpus (``n_big`` classes, the records'
+    ``tag``) without its range axiom and the 8k corpus are loaded
+    through the router (affinity must place them apart) and the big
+    tenant takes the class-only delta (its taxonomy held to a
+    from-scratch card classify).  The big tenant is migrated
     live while reader threads read both tenants and a writer sends
-    deltas to the 8k one: no request may fail, the 64k taxonomy must be
+    deltas to the 8k one: no request may fail, the big taxonomy must be
     byte-identical before and after, the 8k answers equal the serial
     ones.  The 8k tenant is replicated and its fanned-out reads equal
-    the primary's.  The 64k tenant's replica is SIGKILLed: the router
+    the primary's.  The big tenant's replica is SIGKILLed: the router
     ejects it, the supervisor respawns it, the journal replays the
     tenant, whose taxonomy must equal the classify; then a retraction on
     the 8k tenant and a kill of its replica, whose journal replay (with
@@ -4083,7 +4167,7 @@ def phase_fleet_full_width(device: str = "cuda", n_big: int = 64000,
     heartbeat latencies are printed.  Each replica process counts its
     own kernel launches and allocator bytes (the smoke's
     ``sitecustomize``, :data:`REPLICA_HOOK`): every process must have
-    launched the path's kernels, and the replica that replays the 64k
+    launched the path's kernels, and the replica that replays the big
     journal must launch them in the replay."""
     import threading
 
@@ -4096,6 +4180,7 @@ def phase_fleet_full_width(device: str = "cuda", n_big: int = 64000,
     from distel_tpu_torch.serve.traces import load_trace, replay_trace
 
     # both without their range axiom, under which retraction is refused
+    tag = f"{n_big // 1000}k"
     big = without_ranges(snomed_shaped_ontology(n_classes=n_big, seed=42))
     small = without_ranges(snomed_shaped_ontology(n_classes=n_small, seed=42))
     shutil.rmtree(FLEET_DIR, ignore_errors=True)
@@ -4203,9 +4288,9 @@ def phase_fleet_full_width(device: str = "cuda", n_big: int = 64000,
             probe.step = "load"
             t0 = time.perf_counter()
             a = client.load(big)["id"]
-            walls["load_64k"] = time.perf_counter() - t0
+            walls[f"load_{tag}"] = time.perf_counter() - t0
             # placement reads the load the last heartbeat saw: one taken
-            # while the 64k load was in flight counts no tenant there yet
+            # while the big load was in flight counts no tenant there yet
             first = router.table.lookup(a)
             t_loaded = time.monotonic()
             while first.last_seen <= t_loaded:
@@ -4219,14 +4304,14 @@ def phase_fleet_full_width(device: str = "cuda", n_big: int = 64000,
             out["placement_after_load"] = dict(place)
             t0 = time.perf_counter()
             client.delta(a, INC_CLASS_DELTA)
-            walls["delta_64k"] = time.perf_counter() - t0
+            walls[f"delta_{tag}"] = time.perf_counter() - t0
             memory("loaded")
             want_a = classify_key([big, INC_CLASS_DELTA])
             if served_key(client.taxonomy(a)) != want_a:
-                raise AssertionError("fleet: the 64k taxonomy differs from a classify")
+                raise AssertionError(f"fleet: the {tag} taxonomy differs from a classify")
             log(f"[fleet] loaded: {json.dumps(walls)}")
 
-            # 3. live migration of the 64k tenant under load
+            # 3. live migration of the big tenant under load
             probe.step = "migrate"
             tax_url = f"{url}/v1/ontologies/{a}/taxonomy"
             before = raw_get(tax_url)
@@ -4255,9 +4340,9 @@ def phase_fleet_full_width(device: str = "cuda", n_big: int = 64000,
                         else:
                             c = sample[i % len(sample)]
                             ok = client.subsumers(a, c) == serial_a[c]
-                        note("64k", t_s, ok)
+                        note(tag, t_s, ok)
                     except Exception as e:  # noqa: BLE001 — the check below
-                        failures.append(f"64k read: {type(e).__name__}: {e}")
+                        failures.append(f"{tag} read: {type(e).__name__}: {e}")
                     i += 1
 
             def read_small():
@@ -4324,13 +4409,13 @@ def phase_fleet_full_width(device: str = "cuda", n_big: int = 64000,
                                  "migrate_commit") and e.get("oid") == a:
                     walls[e["kind"]] = e.get("wall_s")
             overlapping = [t1 - t0_ for who, t0_, t1, _ in timeline
-                           if who == "64k" and t0_ < t_end and t1 > t_mig]
+                           if who == tag and t0_ < t_end and t1 > t_mig]
             out["migration"] = {
                 "record": {k: v for k, v in rec.items() if k != "wall_s"},
                 "requests": len(timeline), "failed": len(failures),
                 "wrong": sum(1 for *_r, ok in timeline if not ok),
                 "requests_by_tenant": {t: sum(1 for x in timeline if x[0] == t)
-                                       for t in ("64k", "8k", "8k write")},
+                                       for t in (tag, "8k", "8k write")},
                 "client_hold_s": max(overlapping, default=None),
                 "requests_in_move": len(overlapping),
                 "writes": [w.get("path") for w in writes],
@@ -4339,12 +4424,12 @@ def phase_fleet_full_width(device: str = "cuda", n_big: int = 64000,
                 raise AssertionError(f"fleet: migration under load: {out['migration']} "
                                      f"{failures[:5]}")
             if raw_get(tax_url) != before:
-                raise AssertionError("fleet: the 64k taxonomy changed across the move")
+                raise AssertionError(f"fleet: the {tag} taxonomy changed across the move")
             want_b = classify_key([small] + w_texts)
             if served_key(client.taxonomy(b)) != want_b:
                 raise AssertionError("fleet: the 8k tenant differs from its serial classify")
             log(f"[fleet] migrated: {json.dumps(out['migration'])}")
-            # the 64k tenant back where it came from: does the source's
+            # the big tenant back where it came from: does the source's
             # allocator take it into the blocks it kept?
             seq0 = max((e["seq"] for e in router.flight.events()), default=0)
             t0 = time.perf_counter()
@@ -4356,7 +4441,7 @@ def phase_fleet_full_width(device: str = "cuda", n_big: int = 64000,
                         and e.get("oid") == a:
                     walls[e["kind"] + "_back"] = e.get("wall_s")
             if raw_get(tax_url) != before:
-                raise AssertionError("fleet: the 64k taxonomy changed across the move back")
+                raise AssertionError(f"fleet: the {tag} taxonomy changed across the move back")
             memory("after_migrate_back")
 
             # 4. read replica of the 8k tenant
@@ -4376,7 +4461,7 @@ def phase_fleet_full_width(device: str = "cuda", n_big: int = 64000,
                 raise AssertionError(f"fleet: no read went to the read replica: {reads}")
             out["read_replica"] = {"record": rep, "reads": reads}
 
-            # 5. crash and recovery of the 64k tenant's replica
+            # 5. crash and recovery of the big tenant's replica
             def await_taxonomy(oid, t_kill, budget_s):
                 """Poll the tenant's taxonomy through the router until it
                 answers: the answer, and each poll's start and end (s after
@@ -4404,7 +4489,7 @@ def phase_fleet_full_width(device: str = "cuda", n_big: int = 64000,
                                               "wall_s", "path") if k in e}}
                         for e in events if e["ts"] >= t_kill]
 
-            probe.step = "recover_64k"
+            probe.step = f"recover_{tag}"
             holder = router.table.lookup(a).rid
             memory("before_kill")
             killed = replica_pids()[holder]
@@ -4412,7 +4497,7 @@ def phase_fleet_full_width(device: str = "cuda", n_big: int = 64000,
             held = kill_and_measure(killed, on_card)
             doc, polls = await_taxonomy(a, t_kill, 900)
             if served_key(doc) != want_a:
-                raise AssertionError("fleet: the recovered 64k taxonomy differs")
+                raise AssertionError(f"fleet: the recovered {tag} taxonomy differs")
 
             def since_kill(kind, **match):
                 ev = [e for e in router.flight.events(kind=kind)
@@ -4456,8 +4541,8 @@ def phase_fleet_full_width(device: str = "cuda", n_big: int = 64000,
                 prior["launches"] if prior and prior["pid"] == after["pid"] else 0)
             if on_card and recovery["replay_launches"] <= 0:
                 raise AssertionError(f"fleet: the journal replay launched no kernel: {recovery}")
-            out["recovery_64k"] = recovery
-            log(f"[fleet] recovered 64k: {json.dumps(recovery)}")
+            out[f"recovery_{tag}"] = recovery
+            log(f"[fleet] recovered {tag}: {json.dumps(recovery)}")
 
             # the 8k tenant: a retraction, then its replica killed
             probe.step = "recover_8k"
@@ -4969,11 +5054,12 @@ FARM_SERIES = ("distel_artifact_exe_hits_total", "distel_artifact_hlo_hits_total
 
 
 def phase_farm_full_width(n_classes: int = 64000):
-    """The artifact farm (``core/artifacts.py``) at full width, across
-    fresh processes on the card:
+    """The artifact farm (``core/artifacts.py``) across fresh processes
+    on the card, over ``n_classes`` classes of the 64k corpus's
+    generator (the records' ``tag``):
 
     1. bake: ``cli farm-build --profile serve --delta <the 100-axiom
-       class-only delta>`` on the 64k corpus without its range axiom (the
+       class-only delta>`` on that corpus without its range axiom (the
        serve tenant's text), so the farm holds the rebuild's and the
        delta plane's program specs and the kernel libraries; its records,
        the manifest's stats and its wall; the same command again must
@@ -4990,7 +5076,7 @@ def phase_farm_full_width(n_classes: int = 64000):
        ``sitecustomize`` counts) of the step's kernels > 0;
     3. in a ``python -c`` child with the same environment, each kernel
        of the path (both row-count variants) on the heaviest bucketed
-       64k operand of each route against its plain version, loaded from
+       operand of each route against its plain version, loaded from
        the farm's library: 0 differing words (the kernel line's ``farm``
        rows);
     4. refuse: one byte of the load's program spec flipped in a copy of
@@ -5025,7 +5111,8 @@ def phase_farm_full_width(n_classes: int = 64000):
     shutil.rmtree(FARM_WORK, ignore_errors=True)
     FARM_WORK.mkdir(parents=True)
     text = without_ranges(snomed_shaped_ontology(n_classes=n_classes, seed=42))
-    corpus, delta = FARM_WORK / "serve64k.ofn", FARM_WORK / "class_delta.ofn"
+    tag = f"{n_classes // 1000}k"
+    corpus, delta = FARM_WORK / f"serve{tag}.ofn", FARM_WORK / "class_delta.ofn"
     corpus.write_text(text)
     delta.write_text(INC_CLASS_DELTA + "\n")
     bake_cmd = [sys.executable, "-m", "distel_tpu_torch.cli", "farm-build",
@@ -5284,7 +5371,7 @@ def phase_farm_full_width(n_classes: int = 64000):
             "max_abs_err": max(x["max_abs_err"] for x in check["checks"]),
             "ms": c["ms"], "plain_ms": c["plain_ms"], "bound_ms": c["bound_ms"],
             "bound_by": c["bound_by"], "library_ms": None, "dead_ms": c["dead_ms"],
-            "library": "farm", "at": {"run": "64k-bucketed", "site": c["rule"],
+            "library": "farm", "at": {"run": f"{tag}-bucketed", "site": c["rule"],
                                       "shape": c["shape"]},
         }
         if variant == "packed_cols_list_n":
@@ -5940,10 +6027,11 @@ def closure_ref(res, name: str) -> dict:
 def start_mesh_runs(n_classes: int = 64000, device: str = "cuda") -> dict:
     """Start the mesh phase's five ``cli classify`` runs (the module
     docstring's 7b), each its own process tree: the 64k corpus at
-    ``--mesh 2`` (the default config, and ``engine = packed`` in exact
-    layout), and on the cut corpus the dense engine at ``--mesh 2``, an
-    NCCL mesh of one (the coordinator keys, one process) and the CPU's
-    mesh of one.  They run beside the smoke's first phases (their
+    ``--mesh 2`` (the default config), and on the cut corpus
+    ``engine = packed`` in exact layout and the dense engine at ``--mesh
+    2``, an NCCL mesh of one (the coordinator keys, one process) and the
+    CPU's mesh of one (the packed run was at 64k until the sparse tier's
+    mesh runs took its share of the budget).  They run beside the smoke's first phases (their
     start-up — each process imports torch and reaches the card — and
     their exchanges are host work), so a rank's wall here is under that
     load; PERF.md gives each run's wall alone."""
@@ -5970,8 +6058,7 @@ def start_mesh_runs(n_classes: int = 64000, device: str = "cuda") -> dict:
     procs = {
         "row": mesh_cli([str(big), "--mesh", "2",
                          "-o", str(MESH_DIR / "tax_mesh.txt")], device),
-        "packed": mesh_cli([str(big), "--mesh", "2", "--config", packed,
-                            "-o", str(MESH_DIR / "tax_packed_mesh.txt")], device),
+        "packed": mesh_cli([str(cut), "--mesh", "2", "--config", packed], device),
         "dense": mesh_cli([str(cut), "--mesh", "2", "--config", dense], device),
         "nccl": mesh_cli([str(cut), "--config", nccl], device),
         "cpu": mesh_cli([str(cut), "--mesh", "1"], "cpu", env=cpu_env),
@@ -5983,15 +6070,16 @@ def start_mesh_runs(n_classes: int = 64000, device: str = "cuda") -> dict:
 
 def finish_mesh_runs(runs: dict, device: str = "cuda") -> dict:
     """Wait for the mesh runs and hold the cut corpus's to their
-    references: the dense mesh of two to the solo dense card run (here),
-    the NCCL mesh of one to the CPU's mesh of one.  Returns the runs'
-    records; every process is stopped whatever happens."""
+    references: the dense and packed meshes of two to the solo dense and
+    packed card runs (here), the NCCL mesh of one to the CPU's mesh of
+    one.  Returns the runs' records; every process is stopped whatever
+    happens."""
     from distel_tpu_torch.config import ClassifierConfig
     from distel_tpu_torch.runtime.classifier import ELClassifier
 
     procs, out = runs["procs"], {}
     try:
-        for key, what in (("row", "64k row-packed"), ("packed", "64k packed"),
+        for key, what in (("row", "64k row-packed"), ("packed", "cut packed"),
                           ("dense", "cut dense"), ("nccl", "cut NCCL mesh of one"),
                           ("cpu", "cut CPU mesh of one")):
             out[key] = mesh_result(procs[key], what)
@@ -6001,14 +6089,15 @@ def finish_mesh_runs(runs: dict, device: str = "cuda") -> dict:
                 proc.kill()
                 proc.wait()
     out["runs_wall_s"] = time.perf_counter() - runs["t0"]
-    solo = ELClassifier(ClassifierConfig(engine="dense"), device=device) \
-        .classify_text(runs["cut"].read_text())
-    dense = out["dense"]
-    mesh_ranks_agree(dense, "cut dense", closure_digest(solo.result))
-    if (dense["derivations"], dense["iterations"]) != (solo.result.derivations,
+    for key, cfg in (("dense", ClassifierConfig(engine="dense")),
+                     ("packed", ClassifierConfig(engine="packed", shape_buckets=False))):
+        solo = ELClassifier(cfg, device=device).classify_text(runs["cut"].read_text())
+        run = out[key]
+        mesh_ranks_agree(run, f"cut {key}", closure_digest(solo.result))
+        if (run["derivations"], run["iterations"]) != (solo.result.derivations,
                                                        solo.result.iterations):
-        raise AssertionError("mesh cut dense: derivations or iterations differ")
-    dense["equal_to_solo"] = True
+            raise AssertionError(f"mesh cut {key}: derivations or iterations differ")
+        run["equal_to_solo"] = True
     nccl, cpu = out["nccl"], out.pop("cpu")
     if nccl["mesh"]["ranks"][0]["backend"] != ("nccl" if device == "cuda" else "gloo"):
         raise AssertionError(f"mesh of one: backend {nccl['mesh']['ranks'][0]['backend']}")
@@ -6027,18 +6116,17 @@ def finish_mesh_runs(runs: dict, device: str = "cuda") -> dict:
     return out
 
 
-def phase_mesh_full_width(mesh: dict, solo_ref: dict, packed_ref: dict,
-                          heaviest: dict, device: str = "cuda") -> list:
-    """The 64k mesh runs held to the solo card classify of the same text
-    (``solo_ref``: phase 5's default classify) and to phase 7's packed
-    run (``packed_ref``) — the gathered closure's digest on every rank,
-    derivations, iterations, the taxonomy rank 0 wrote; then the
+def phase_mesh_full_width(mesh: dict, solo_ref: dict, heaviest: dict,
+                          device: str = "cuda") -> list:
+    """The 64k mesh run held to the solo card classify of the same text
+    (``solo_ref``: phase 5's default classify) — the gathered closure's
+    digest on every rank, derivations, iterations, the taxonomy rank 0
+    wrote; then the
     bucketed step's heaviest operands (``heaviest``) at each rank's word
     window through both row-count routes against the plain version (the
     kernel line's ``(mesh 2, rank window)`` rows, their launches the
     mesh run's).  Prints the phase's line; returns the rows."""
-    for key, ref, tax in (("row", solo_ref, "tax_mesh.txt"),
-                          ("packed", packed_ref, "tax_packed_mesh.txt")):
+    for key, ref, tax in (("row", solo_ref, "tax_mesh.txt"),):
         ref.pop("done").result()
         run = mesh[key]
         mesh_ranks_agree(run, f"64k {key}", ref["closure_sha256"])
@@ -6081,6 +6169,422 @@ def phase_mesh_full_width(mesh: dict, solo_ref: dict, packed_ref: dict,
     return rows
 
 
+# ------------------------------------- the observed paths on a mesh (7c)
+
+MESH_OBS_DIR = ROOT / "build" / "smoke_mesh_observed"
+
+
+def digests_later(res, taxonomy):
+    """A future of ``{"closure_sha256", "taxonomy_sha256"}`` of a result
+    and its taxonomy: the closure is copied to the host now, and a
+    background thread hashes both (``SaturationResult.live_digest``,
+    ``Taxonomy.digest``) beside the phases that follow."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from distel_tpu_torch.core.engine import SaturationResult
+
+    s, r = res.wire()
+    host = SaturationResult(
+        packed_s=torch.from_numpy(s.view(np.int32)),
+        packed_r=torch.from_numpy(r.view(np.int32)), iterations=res.iterations,
+        derivations=res.derivations, idx=res.idx, transposed=res.transposed)
+
+    def work():
+        return {"closure_sha256": host.live_digest(),
+                "taxonomy_sha256": taxonomy.digest()}
+
+    pool = ThreadPoolExecutor(max_workers=1)
+    done = pool.submit(work)
+    pool.shutdown(wait=False)
+    return done
+
+
+def observer_events(obs) -> list:
+    """An observer's ``(iteration, derivations, changed)`` sequence as
+    plain JSON values."""
+    return [[int(it), int(d), bool(ch)] for it, d, ch in obs]
+
+
+def _observed_record(engine, run, info=None) -> dict:
+    """What one observed run on a rank reports: the round records (with
+    each round's wall and launches), the observer's sequence, iterations,
+    derivations, the closure's and the taxonomy's digests, the wall."""
+    from distel_tpu_torch.runtime.taxonomy import extract_taxonomy
+
+    obs, rounds, res, wall, launches = run
+    rec = {
+        "records": round_records(rounds), "events": observer_events(obs),
+        "iterations": res.iterations, "derivations": res.derivations,
+        "closure_sha256": res.live_digest(),
+        "taxonomy_sha256": extract_taxonomy(res).digest(),
+        "tiers": tier_string(rounds), "wall_s": wall, "launches": launches,
+        "sparse_round_launches": sparse_launches(rounds),
+        "rounds": [{k: r[k] for k in ("iteration", "tier", "rows_touched",
+                                       "derivations", "wall_s", "launches")}
+                   for r in rounds],
+        "host_reads": dict(engine.host_reads),
+    }
+    if info is not None:
+        rec["fused"] = {k: info[k] for k in ("windows", "fallouts", "dropped",
+                                             "dispatch", "captured")}
+        rec["launches"] = info["launches"]
+    return rec
+
+
+def mesh_observed_rank(device, jobs) -> dict:
+    """One rank of 7c's (a) and (b) (or of their cut runs): per job the
+    engine on this rank's mesh (the group's, or a mesh of one), one
+    observed run (``fused_run`` with a K, else ``observed_run``), the
+    counts set to 0 just before it; with ``capture`` the sparse tier's
+    heaviest operand per site and kernel at this rank's word window
+    (moved to the host, for the parent to check).  Returns the rank's
+    records."""
+    from distel_tpu_torch.core.rowpacked_engine import RowPackedSaturationEngine
+    from distel_tpu_torch.owl import native_loader
+    from distel_tpu_torch.parallel.mesh import build_mesh
+    from distel_tpu_torch.parallel.shard_compat import COLLECTIVES
+
+    mesh = build_mesh(device=device)
+    out = {"rank": mesh.rank, "size": mesh.size, "backend": mesh.backend,
+           "device": str(device), "jobs": {}, "pairs": []}
+    on_card = device.type == "cuda"
+    for job in jobs:
+        t0 = time.perf_counter()
+        idx = native_loader.load_indexed(Path(job["text"]).read_text())
+        engine = RowPackedSaturationEngine(idx, device=device, unroll=1, mesh=mesh)
+        plan_s = time.perf_counter() - t0
+        if on_card:
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats(device)
+        COLLECTIVES.reset()
+        cap = Capture() if job.get("capture") else contextlib.nullcontext()
+        if job.get("capture"):
+            cap.run = job["name"]
+        with cap:
+            if "fused_rounds" in job["kw"]:
+                run, info = fused_run(engine, **job["kw"])
+            else:
+                run, info = observed_run(engine, **job["kw"]), None
+        rec = _observed_record(engine, run, info)
+        rec.update(
+            plan_s=plan_s, concepts=idx.n_concepts,
+            window=[engine.wl, engine.word_base],
+            shard_shapes=([list(t.shape) for t in run[2].shards]
+                          if run[2].shards is not None else None),
+            collectives=COLLECTIVES.snapshot(),
+            max_memory_allocated=(torch.cuda.max_memory_allocated(device)
+                                  if on_card else None),
+        )
+        out["jobs"][job["name"]] = rec
+        if job.get("capture"):
+            heaviest = {}
+            for key, (n, nnz, a, b) in cap.pairs.items():
+                if key[1].startswith("sparse"):
+                    got = heaviest.setdefault(key[1:3], [0, -1, None, None])
+                    got[0] += n
+                    if nnz > got[1]:
+                        got[1:] = [nnz, a, b]
+            out["pairs"] += [(job["name"], site, kern, n, a, b)
+                             for (site, kern), (n, _nnz, a, b) in sorted(heaviest.items())]
+        del engine, run, info, idx
+        if on_card:
+            torch.cuda.empty_cache()
+    return out
+
+
+def mesh_observed_main(spec_path: str) -> None:
+    """7c's background process (``start_mesh_observed``): (c), then (a)
+    and (b) on two gloo ranks, then the cut runs on an NCCL mesh of one
+    and on the CPU, in turn; every record to ``result.json``, the
+    captured operands to ``pairs.pt``.  Every process it starts is
+    stopped before it returns (``launch_local`` terminates its ranks)."""
+    from distel_tpu_torch.parallel.mesh import launch_local
+
+    spec = json.loads(Path(spec_path).read_text())
+    out = {"t0_unix": time.time()}
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "distel_tpu_torch.cli", "stream", *spec["stream"],
+         "--retract", spec["stream"][1], "--config", spec["stream_props"],
+         "--device", spec["device"]],
+        capture_output=True, text=True, cwd=str(ROOT), timeout=900)
+    if proc.returncode != 0:
+        raise AssertionError(f"mesh stream exited {proc.returncode}:\n{proc.stderr[-6000:]}")
+    out["stream"] = {"lines": [json.loads(ln) for ln in proc.stdout.splitlines()
+                               if ln.startswith("{")],
+                     "process_wall_s": time.perf_counter() - t0}
+    log(f"[mesh observed] stream {out['stream']['process_wall_s']:.1f} s")
+    pairs = []
+    for key, n, jobs, device in (("mesh2", 2, spec["jobs"], spec["device"]),
+                                 ("nccl1", 1, spec["cut_jobs"], spec["device"])):
+        t1 = time.perf_counter()
+        ranks = launch_local(n, mesh_observed_rank, jobs, device=device)
+        for r in ranks:
+            pairs += [(r["rank"], *p) for p in r.pop("pairs")]
+        out[key] = {"ranks": ranks, "process_wall_s": time.perf_counter() - t1}
+        log(f"[mesh observed] {key} {out[key]['process_wall_s']:.1f} s")
+    torch.set_num_threads(2)
+    t1 = time.perf_counter()
+    cpu = mesh_observed_rank(torch.device("cpu"), spec["cut_jobs"])
+    cpu.pop("pairs")
+    out["cpu1"] = {"ranks": [cpu], "process_wall_s": time.perf_counter() - t1}
+    out["wall_s"] = time.perf_counter() - t0
+    torch.save(pairs, MESH_OBS_DIR / "pairs.pt")
+    (MESH_OBS_DIR / "result.json").write_text(json.dumps(out, default=str))
+
+
+def start_mesh_observed(n_classes: int = 64000, chain_depth: int = 64,
+                        device: str = "cuda") -> dict:
+    """Start 7c's background process tree (at a lower scheduling
+    priority, as 7b's): it writes the corpora and deltas, then runs
+    :func:`mesh_observed_main`.  :func:`phase_mesh_observed_full_width`
+    reads it."""
+    from distel_tpu_torch.frontend.ontology_tools import (
+        chain_tailed_ontology, snomed_shaped_ontology,
+    )
+
+    shutil.rmtree(MESH_OBS_DIR, ignore_errors=True)
+    MESH_OBS_DIR.mkdir(parents=True)
+    d = MESH_OBS_DIR
+    text = snomed_shaped_ontology(n_classes=n_classes, seed=42)
+    files = {"forced.ofn": text,
+             "chain.ofn": chain_tailed_ontology(n_classes, chain_depth),
+             "cut.ofn": snomed_shaped_ontology(n_classes=CUT_CLASSES, seed=42),
+             "base.ofn": without_ranges(text),
+             "d1.ofn": INC_CLASS_DELTA, "d2.ofn": INC_ROLE_DELTA,
+             "d3.ofn": INC_CLOSURE_DELTA}
+    for name, body in files.items():
+        (d / name).write_text(body)
+    forced = dict(sparse_tail=FORCED_WIDE)
+    spec = {
+        "device": device,
+        "stream": [str(d / n) for n in ("base.ofn", "d1.ofn", "d2.ofn", "d3.ofn")],
+        "stream_props": _props(d / "stream.properties",
+                               **{"mesh.devices": 2, "shape.buckets": "false"}),
+        "jobs": [
+            {"name": "forced_64k", "text": str(d / "forced.ofn"), "kw": forced,
+             "capture": True},
+            {"name": "chain_K8", "text": str(d / "chain.ofn"),
+             "kw": dict(sparse_tail=True, fused_rounds={"rounds": 8})},
+        ],
+        "cut_jobs": [
+            {"name": "forced_cut", "text": str(d / "cut.ofn"), "kw": forced},
+            {"name": "forced_cut_K8", "text": str(d / "cut.ofn"),
+             "kw": dict(forced, fused_rounds={"rounds": 8})},
+        ],
+    }
+    (d / "spec.json").write_text(json.dumps(spec))
+    err = open(d / "stderr.txt", "w")
+
+    def lower():
+        os.setsid()        # its own process group: stopped as a whole
+        os.nice(10)
+
+    proc = subprocess.Popen(
+        [sys.executable, "-c",
+         "import sys, chip_smoke as cs; cs.mesh_observed_main(sys.argv[1])",
+         str(d / "spec.json")],
+        stdout=err, stderr=subprocess.STDOUT, text=True, cwd=str(ROOT),
+        preexec_fn=lower)
+    # a smoke that fails before reading it still stops the tree
+    import atexit
+
+    atexit.register(_stop_tree, proc)
+    return {"proc": proc, "t0": time.perf_counter(), "err": err}
+
+
+def _stop_tree(proc) -> None:
+    """Kill ``proc``'s process group (it and the ranks it spawned) if it
+    is still running."""
+    import signal
+
+    if proc.poll() is None:
+        try:
+            os.killpg(proc.pid, signal.SIGKILL)
+        except ProcessLookupError:
+            pass
+        proc.wait()
+
+
+def _hold(what: str, got, want) -> None:
+    if got != want:
+        raise AssertionError(f"mesh observed {what}: {got!r} != {want!r}")
+
+
+def phase_mesh_observed_full_width(runs: dict, refs: dict,
+                                   device: str = "cuda") -> list:
+    """Wait for 7c's process tree, hold every run to its reference
+    (``refs``: what phases 9, 10 and 10b kept; the NCCL runs to the
+    CPU's) and check the sparse tier's captured operands at each rank's
+    window; print the phase's line and return the kernel line's rows."""
+    proc = runs["proc"]
+    try:
+        proc.wait(timeout=1200)
+    finally:
+        _stop_tree(proc)
+        runs["err"].close()
+    if proc.returncode != 0:
+        raise AssertionError(f"mesh observed: the runs exited {proc.returncode}:\n"
+                             f"{(MESH_OBS_DIR / 'stderr.txt').read_text()[-8000:]}")
+    out = json.loads((MESH_OBS_DIR / "result.json").read_text())
+    out["read_after_s"] = time.perf_counter() - runs["t0"]
+    for ref in [refs["forced_64k"], refs["chain_per_round"], *refs["stream"]]:
+        ref.update(ref.pop("digests").result())
+    # (a) and (b): every rank against the solo runs
+    for rank in out["mesh2"]["ranks"]:
+        _hold("rank size", (rank["size"], rank["backend"]), (2, "gloo"))
+        for name, ref_key, rec_key in (("forced_64k", "forced_64k", "records"),
+                                       ("chain_K8", "chain_per_round", "fused")):
+            got, want = rank["jobs"][name], refs[ref_key]
+            recs = got["records"] if rec_key == "records" else \
+                [r[:5] for r in got["records"]]
+            _hold(f"{name} rank {rank['rank']} rounds", [list(r) for r in recs],
+                  [list(r) for r in want["records"]])
+            _hold(f"{name} rank {rank['rank']} events", got["events"], want["events"])
+            for k in ("iterations", "derivations", "closure_sha256", "taxonomy_sha256"):
+                _hold(f"{name} rank {rank['rank']} {k}", got[k], want[k])
+            if not got["collectives"]["total"]["calls"]:
+                raise AssertionError(f"mesh observed {name}: no collective ran")
+        sparse = rank["jobs"]["forced_64k"]["sparse_round_launches"]
+        if device == "cuda" and not any(v for k, v in sparse.items()
+                                        if k.startswith("packed_cols")):
+            raise AssertionError(f"mesh observed forced: the sparse rounds launched "
+                                 f"no kernel: {sparse}")
+        fl = rank["jobs"]["chain_K8"]["launches"]
+        if device == "cuda" and not (fl.get("packed_cols_dense_n", 0)
+                                     + fl.get("packed_cols_list_n", 0)):
+            raise AssertionError(f"mesh observed chain K8: the window's kernels "
+                                 f"were not launched: {fl}")
+    # the cut runs: the NCCL mesh of one (windows captured) against the CPU's
+    (nccl,), (cpu,) = out["nccl1"]["ranks"], out["cpu1"]["ranks"]
+    _hold("cut backend", nccl["backend"], "nccl" if device == "cuda" else "gloo")
+    for name in ("forced_cut", "forced_cut_K8"):
+        for k in ("records", "events", "iterations", "derivations",
+                  "closure_sha256", "taxonomy_sha256"):
+            _hold(f"{name} card vs CPU {k}", nccl["jobs"][name][k], cpu["jobs"][name][k])
+    if device == "cuda" and not any(w["captured_ops"] for w in
+                                    nccl["jobs"]["forced_cut_K8"]["fused"]["captured"]):
+        raise AssertionError("mesh observed: the NCCL mesh of one captured no window")
+    for rank in out["mesh2"]["ranks"]:
+        if any(w["captured_ops"] for w in rank["jobs"]["chain_K8"]["fused"]["captured"]):
+            raise AssertionError("mesh observed: a window of two ranks was captured")
+    # (c): every rank's every step against the solo stream's
+    lines = out["stream"]["lines"]
+    totals = lines[-1]
+    want = refs["stream"]
+    _hold("stream paths", [ln["path"] for ln in lines[:-1]], [w["path"] for w in want])
+    _hold("stream iterations", [ln["iterations"] for ln in lines[:-1]],
+          [w["iterations"] for w in want])
+    for rank in totals["mesh"]["ranks"]:
+        for k in ("closure_sha256", "taxonomy_sha256", "path", "iterations"):
+            _hold(f"stream rank {rank['rank']} {k}", [s[k] for s in rank["steps"]],
+                  [w[k] for w in want])
+        for kern in ("packed_cols_list", "packed_cols_sparse"):
+            if device == "cuda" and not rank["launches"].get(kern):
+                raise AssertionError(f"mesh stream rank {rank['rank']}: {kern} "
+                                     "never launched")
+    out["equal_to_solo"] = True
+    # the sparse tier's operands at each rank's window
+    rows, checks = [], []
+    launches = {}
+    for rank in out["mesh2"]["ranks"]:
+        for k, v in rank["jobs"]["forced_64k"]["sparse_round_launches"].items():
+            launches[k] = launches.get(k, 0) + v
+    pairs = (torch.load(MESH_OBS_DIR / "pairs.pt", weights_only=False)
+             if device == "cuda" else [])
+    by_kern = {}
+    for rank, run, site, kern, n, a, b in pairs:
+        chk = check_pair(f"{run}:mesh2:rank{rank}", site, kern, n, a, b)
+        checks.append({k: chk[k] for k in ("run", "site", "main_path_kernel", "shape",
+                                           "launches", "max_abs_err", "dense_ms",
+                                           "sparse_ms", "plain_ms", "bound_ms",
+                                           "bound_by")})
+        by_kern.setdefault(kern, []).append(chk)
+    for kern, mine in sorted(by_kern.items()):
+        # the site that launched the kernel most, its heavier rank
+        top = max(mine, key=lambda c: (c["launches"], c["shape"][0] * c["shape"][2]))
+        sparse_k = kern == "packed_cols_sparse"
+        rows.append({
+            "name": f"{kern} (sparse tier, mesh 2, rank window)", "route": "cuda",
+            "source": SOURCE, "replaces": REPLACES[kern],
+            "launches": launches.get(kern, 0),
+            "max_abs_err": max(c["max_abs_err"] for c in mine),
+            "ms": top["sparse_ms"] if sparse_k else top["dense_ms"],
+            "plain_ms": top["plain_ms"], "bound_ms": top["bound_ms"],
+            "bound_by": top["bound_by"], "library_ms": None,
+            "at": {"run": "forced_64k-mesh2", "site": top["site"],
+                   "shape": top["shape"], "ranks": [c["run"] for c in mine]},
+            "main_path": True,
+        })
+    out["rank_window_checks"] = checks
+    shutil.rmtree(MESH_OBS_DIR, ignore_errors=True)
+    print(json.dumps({"mesh_observed_full_width": out}, default=str), flush=True)
+    return rows
+
+
+PHASE_DIR = ROOT / "build" / "smoke_phases"
+
+
+def phase_child_main(name: str, call: str) -> None:
+    """A phase in a child process (:func:`start_phase`): ``call`` is the
+    JSON ``[function name, keyword arguments]``; its return value goes
+    as JSON to ``<name>.json``."""
+    fn, kw = json.loads(call)
+    # the smoke's own process keeps most of the cores
+    torch.set_num_threads(2)
+    t0 = time.perf_counter()
+    res = globals()[fn](**kw)
+    (PHASE_DIR / f"{name}.json").write_text(json.dumps(
+        {"result": res, "wall_s": time.perf_counter() - t0}, default=str))
+
+
+def start_phase(name: str, fn, **kw) -> dict:
+    """Run ``fn(**kw)`` in a child process beside the smoke's own phases,
+    in its own process group (stopped with every process it started if
+    the smoke exits first); its standard output and error go to files
+    that :func:`finish_phase` copies into the smoke's."""
+    import atexit
+
+    PHASE_DIR.mkdir(parents=True, exist_ok=True)
+    files = {k: PHASE_DIR / f"{name}.{k}" for k in ("json", "out", "err")}
+    for p in files.values():
+        p.unlink(missing_ok=True)
+    out, err = open(files["out"], "w"), open(files["err"], "w")
+    proc = subprocess.Popen(
+        [sys.executable, "-c",
+         "import sys, chip_smoke as cs; cs.phase_child_main(*sys.argv[1:])",
+         name, json.dumps([fn.__name__, kw])],
+        stdout=out, stderr=err, text=True, cwd=str(ROOT), preexec_fn=os.setsid)
+    out.close()
+    err.close()
+    atexit.register(_stop_tree, proc)
+    return {"name": name, "proc": proc, "files": files, "t0": time.perf_counter()}
+
+
+def finish_phase(run: dict, timeout_s: float = 1200):
+    """Wait for a :func:`start_phase` child, copy its output into the
+    smoke's (standard error first, then standard output) and return the
+    phase's return value; raise if it failed."""
+    proc, files = run["proc"], run["files"]
+    try:
+        proc.wait(timeout=timeout_s)
+    finally:
+        _stop_tree(proc)
+    sys.stderr.write(files["err"].read_text())
+    sys.stderr.flush()
+    if proc.returncode != 0:
+        raise AssertionError(f"{run['name']}: the phase's process exited "
+                             f"{proc.returncode}")
+    sys.stdout.write(files["out"].read_text())
+    sys.stdout.flush()
+    doc = json.loads(files["json"].read_text())
+    log(f"[{run['name']}] the phase's wall in its process {doc['wall_s']:.1f} s, "
+        f"read {time.perf_counter() - run['t0']:.1f} s after its start")
+    for p in files.values():
+        p.unlink(missing_ok=True)
+    return doc["result"]
+
+
 def main() -> int:
     # the port first: in a directory without it this fails before any
     # result is printed
@@ -6102,9 +6606,12 @@ def main() -> int:
         log(f"[clock] {what} {time.perf_counter() - t_start:.1f} s")
 
     name = phase_probe()
-    # the mesh plane's runs, beside the first phases (7b; they load the
-    # kernels the probe built)
+    # the mesh plane's runs, beside the first phases (7b and 7c; they
+    # load the kernels the probe built)
     mesh_runs = start_mesh_runs()
+    mesh_observed = start_mesh_observed()
+    #: what 7c is held to, kept by phases 9, 10 and 10b
+    mesh_refs = {}
     phase_kernels()
     andor_checks = phase_andor_kernel()
     phase_golden()
@@ -6142,10 +6649,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase_packed_breakdown(packed)
     andor_row = phase_andor_operands(packed, packed_launches, andor_checks)
-    packed_ref = closure_ref(packed, "packed")
     del packed
     torch.cuda.empty_cache()
-    mesh_rows = phase_mesh_full_width(mesh, solo_ref, packed_ref, heaviest)
+    mesh_rows = phase_mesh_full_width(mesh, solo_ref, heaviest)
     del heaviest
     mark("64k exact and packed")
     checked = phase_multiplied_full_width(cap)
@@ -6154,29 +6660,34 @@ def main() -> int:
     batched_row = phase_partition_full_width()
     torch.cuda.empty_cache()
     mark("partition")
-    checked += phase_incremental_full_width(cap)
+    # from here three phases run in processes of their own beside this
+    # one's (7c's tree is done by now): the fleet (its replicas are
+    # processes anyway), the cohort phase's CPU half (no card) and the
+    # farm (its bake and consumers are processes anyway)
+    fleet = start_phase("fleet", phase_fleet_full_width, n_big=SERVE_CLASSES)
+    checked += phase_incremental_full_width(cap, mesh_refs)
     torch.cuda.empty_cache()
     mark("incremental")
-    checked += phase_observed_full_width(cap)
+    cohort_cpu = start_cohort_cpu()
+    checked += phase_observed_full_width(cap, refs=mesh_refs)
     torch.cuda.empty_cache()
     mark("observed")
-    fused_rows = phase_fused_full_width()
+    farm = start_phase("farm", phase_farm_full_width, n_classes=SERVE_CLASSES)
+    fused_rows = phase_fused_full_width(refs=mesh_refs)
     torch.cuda.empty_cache()
     mark("fused")
-    # the cohort phase's CPU half, a child process with no card, runs
-    # beside the farm phase and the cohort phase's card half
-    cohort_cpu = start_cohort_cpu()
-    farm_rows = phase_farm_full_width()
-    torch.cuda.empty_cache()
-    mark("farm")
+    mesh_observed_rows = phase_mesh_observed_full_width(mesh_observed, mesh_refs)
+    mark("mesh observed")
     cohort_rows = phase_cohort_full_width(cpu=cohort_cpu)
     torch.cuda.empty_cache()
     mark("cohort")
     phase_serve_card_vs_cpu()
-    checked += phase_serve_full_width(cap)
+    checked += phase_serve_full_width(cap, n_big=SERVE_CLASSES)
     torch.cuda.empty_cache()
     mark("serve")
-    phase_fleet_full_width()
+    farm_rows = finish_phase(farm)
+    mark("farm")
+    finish_phase(fleet)
     mark("fleet")
     rows, pairs = phase_kernel_line(launches, exact_launches, cap, checked)
     rows.extend(bucket_rows)
@@ -6186,6 +6697,7 @@ def main() -> int:
     rows.extend(farm_rows)
     rows.extend(cohort_rows)
     rows.extend(mesh_rows)
+    rows.extend(mesh_observed_rows)
     (out / "kernel_pairs.json").write_text(json.dumps(pairs, indent=1))
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": rows}), flush=True)

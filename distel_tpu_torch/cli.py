@@ -9,8 +9,10 @@
              with the coordinator keys in ``--config`` the process is
              one rank of an external group
   stream     classify a base ontology, then add each delta file on top
-             of the running closure (``core/incremental.py``): one JSON
-             record per file, then the totals
+             of the running closure (``core/incremental.py``), then
+             retract each ``--retract`` file: one JSON record per step,
+             then the totals; ``mesh.devices = N`` in ``--config`` runs
+             the stream on N local ranks (rank 0 prints and writes)
   diff       the dense engine's closure against the CPU oracle; exit 1
              on a difference
   normalize  dump the NF1-NF6 normal forms
@@ -20,7 +22,8 @@
              neighbouring copies), written as OFN
   partition  component-partitioned classification
              (``core/components.py``): isomorphic components run as one
-             batched fixed point; prints the counters as JSON
+             batched fixed point; prints the counters as JSON (the mesh
+             keys are ignored, as in the reference)
   serve      the resident classification service (``serve/``): HTTP
              on ``--host``/``--port``, one incremental classifier per
              loaded ontology on the card, graceful SIGTERM with a final
@@ -48,7 +51,7 @@
 Every command reads OWL functional syntax, RDF/XML or OWL/XML.
 
 Usage: python -m distel_tpu_torch.cli classify FILE [--device cpu] [--mesh N] ...
-       python -m distel_tpu_torch.cli stream BASE [DELTA ...] [--device cpu]
+       python -m distel_tpu_torch.cli stream BASE [DELTA ...] [--retract F] [--device cpu]
        python -m distel_tpu_torch.cli diff FILE [--device cpu]
        python -m distel_tpu_torch.cli multiply FILE N -o OUT [--crossed]
        python -m distel_tpu_torch.cli partition FILE [--device cpu] [--config P]
@@ -251,35 +254,113 @@ def _product_shapes(engine) -> list:
 def cmd_stream(args) -> int:
     """Incremental streaming: classify a base ontology, then add each
     delta file on top of the running closure (the reference's
-    ``traffic-data-load-classify.sh`` loop)."""
-    from distel_tpu_torch.core.incremental import IncrementalClassifier
-    from distel_tpu_torch.runtime.checkpoint import Snapshotter
+    ``traffic-data-load-classify.sh`` loop), then retract each
+    ``--retract`` file's text.  With ``mesh.devices = N > 1`` in
+    ``--config`` (and no coordinator keys) N local ranks run the same
+    stream (``parallel/mesh.launch_local``), as ``classify --mesh``
+    does; with the coordinator keys the process is one rank of an
+    external group.  Rank 0 prints the lines and writes the snapshots;
+    on a mesh the totals line carries ``mesh``, each rank's record."""
+    cfg = _load_cfg(args)
+    if (cfg.mesh_devices or 0) > 1 and not cfg.coordinator_address:
+        from distel_tpu_torch.parallel.mesh import launch_local
 
-    inc = IncrementalClassifier(_load_cfg(args), device=args.device)
+        t0 = time.perf_counter()
+        ranks = launch_local(cfg.mesh_devices, _stream_rank, cfg, args,
+                             device=args.device)
+        totals = dict(ranks[0]["totals"])
+        totals["mesh"] = {"size": cfg.mesh_devices,
+                          "launch_s": time.perf_counter() - t0,
+                          "ranks": [r["rank"] for r in ranks]}
+        print(json.dumps(totals), flush=True)
+        return 0
+    out = _stream_rank(args.device, cfg, args)
+    if out["rank"] is not None:
+        totals = dict(out["totals"])
+        if out["rank"]["rank"] == 0:
+            totals["mesh"] = {"size": out["rank"]["size"],
+                              "ranks": [out["rank"]]}
+            print(json.dumps(totals), flush=True)
+        else:
+            print(json.dumps({"mesh_rank": out["rank"]}), flush=True)
+    else:
+        print(json.dumps(out["totals"]), flush=True)
+    return 0
+
+
+def _stream_rank(device, cfg, args) -> dict:
+    """One stream (every rank of a mesh runs it): the files in order,
+    then the retractions.  Rank 0 (or the process off a mesh) prints one
+    record a step and writes the snapshots.  On a mesh each rank also
+    returns what it saw, ``rank``: per step the path, iterations, wall
+    and phases, the gathered closure's digest
+    (``SaturationResult.live_digest``) and its taxonomy's; its wall,
+    peak card memory, collectives (calls, bytes, seconds) and kernel
+    launches.  Returns ``{"totals", "rank"}`` (``rank`` None off a
+    mesh)."""
+    import torch
+
+    from distel_tpu_torch.core.incremental import IncrementalClassifier
+    from distel_tpu_torch.ops import bitmatmul
+    from distel_tpu_torch.parallel.shard_compat import COLLECTIVES
+    from distel_tpu_torch.runtime.checkpoint import Snapshotter
+    from distel_tpu_torch.runtime.taxonomy import extract_taxonomy
+
+    COLLECTIVES.reset()
+    before = dict(bitmatmul.LAUNCHES)
+    t_rank = time.perf_counter()
+    inc = IncrementalClassifier(cfg, device=device)
+    mesh = inc._mesh
+    lead = mesh is None or mesh.rank == 0
+    dev = inc.device
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
     snap = (
         Snapshotter(args.snapshot_prefix, args.snapshot_interval)
-        if args.snapshot_prefix
+        if args.snapshot_prefix and lead
         else None
     )
-    for path in [args.base] + args.deltas:
+    steps = []
+    ops = [(inc.add_text, p) for p in [args.base] + args.deltas]
+    ops += [(inc.retract, p) for p in args.retract]
+    for fn, path in ops:
         t0 = time.time()
         with open(path, "r", encoding="utf-8") as f:
-            inc.add_text(f.read())
+            fn(f.read())
         rec = dict(inc.history[-1], file=path, wall_s=round(time.time() - t0, 3))
-        print(json.dumps(rec), flush=True)
+        if lead:
+            print(json.dumps(rec), flush=True)
         if snap is not None:
             snap.maybe_snapshot(inc.last_result)
-    print(
-        json.dumps(
-            {
-                "increments": inc.increment,
-                "total_derivations": sum(
-                    h["new_derivations"] for h in inc.history
-                ),
-            }
-        )
-    )
-    return 0
+        if mesh is not None:
+            steps.append({
+                "file": path, "path": rec["path"],
+                "iterations": rec["iterations"], "wall_s": rec["wall_s"],
+                "phases_s": inc.last_phases,
+                "closure_sha256": inc.last_result.live_digest(),
+                "taxonomy_sha256": extract_taxonomy(inc.last_result).digest(),
+            })
+    totals = {
+        "increments": inc.increment,
+        "total_derivations": sum(h["new_derivations"] for h in inc.history),
+    }
+    if mesh is None:
+        return {"totals": totals, "rank": None}
+    rank = {
+        "rank": mesh.rank,
+        "size": mesh.size,
+        "device": str(dev),
+        "backend": mesh.backend,
+        "wall_s": time.perf_counter() - t_rank,
+        "steps": steps,
+        "max_memory_allocated": (torch.cuda.max_memory_allocated(dev)
+                                 if dev.type == "cuda" else None),
+        "collectives": COLLECTIVES.snapshot(),
+        "launches": {k: v - before.get(k, 0)
+                     for k, v in bitmatmul.LAUNCHES.items()
+                     if v - before.get(k, 0)},
+    }
+    return {"totals": totals, "rank": rank}
 
 
 def _render_curve(curve, width: int = 48, height: int = 8) -> str:
@@ -469,10 +550,9 @@ def cmd_partition(args) -> int:
     from distel_tpu_torch.owl import loader as owl_loader
     from distel_tpu_torch.runtime.classifier import resolve_device
 
-    from distel_tpu_torch.parallel.mesh import refuse_mesh
-
+    # the mesh keys are not threaded here, as in the reference: a batched
+    # group is one program over its copies, single-device by design
     cfg = _load_cfg(args)
-    refuse_mesh(cfg, "the component plane (cli partition)")
     device = resolve_device(args.device)
 
     def ingest(text):
@@ -1049,6 +1129,11 @@ def main(argv=None) -> int:
         "--snapshot-prefix", help="timed state snapshots (ResultSnapshotter)"
     )
     st.add_argument("--snapshot-interval", type=float, default=120.0)
+    st.add_argument(
+        "--retract", action="append", default=[], metavar="FILE",
+        help="after the files, retract this earlier file's text (DRed "
+             "delete-and-rederive; repeatable, in order)",
+    )
     st.set_defaults(fn=cmd_stream)
     d = sub.add_parser("diff", help="verify against the CPU oracle")
     d.add_argument("ontology")

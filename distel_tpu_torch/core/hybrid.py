@@ -16,6 +16,12 @@ through the engine's ``embed_state``; convergence is reached when a
 host pass derives nothing new.  ``iterations`` and ``derivations`` sum
 over the rounds, as in the reference.
 
+On a mesh (``engine_kw={"mesh": ...}``, as the reference's classifier
+passes it) the row-packed engine runs the device rules on each rank's
+word window; its result is the gathered closure on every rank, so each
+rank runs the same host pass over it, and the embed hands every rank
+its window of the outcome.
+
 This path exists for the plugin boundary and cross-backend
 verification, not speed — routed rules run at host numpy rates.
 """
@@ -94,7 +100,8 @@ class HybridSaturator:
     """Saturates with the row-packed engine on ``device`` applying the
     device rules and the host applying ``host_rules``, alternating to a
     global fixed point.  API matches the engines' ``saturate``;
-    ``engine_kw``: extra row-packed engine kwargs (``pad_multiple``)."""
+    ``engine_kw``: extra row-packed engine kwargs (``pad_multiple``,
+    ``mesh``)."""
 
     #: delegates embedding to the row-packed engine
     accepts_wire_state = True

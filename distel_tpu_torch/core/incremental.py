@@ -58,12 +58,16 @@ import os
 from typing import List, Optional
 
 import numpy as np
+import torch
 
 from distel_tpu_torch.config import ClassifierConfig
 from distel_tpu_torch.core import retract as retract_mod
 from distel_tpu_torch.core.engine import SaturationResult
 from distel_tpu_torch.core.indexing import Indexer
-from distel_tpu_torch.core.rowpacked_engine import RowPackedSaturationEngine
+from distel_tpu_torch.core.rowpacked_engine import (
+    RankWindows,
+    RowPackedSaturationEngine,
+)
 from distel_tpu_torch.frontend.normalizer import NormalizedOntology, Normalizer
 from distel_tpu_torch.owl import loader as owl_loader
 from distel_tpu_torch.runtime.classifier import (
@@ -88,6 +92,7 @@ def rebuild_engine(
     config: ClassifierConfig,
     idx,
     device,
+    mesh=None,
     *,
     capacity_pad: Optional[int] = None,
     link_pad: Optional[int] = None,
@@ -95,7 +100,8 @@ def rebuild_engine(
 ):
     """The engine of the incremental full rebuild: the config's engine
     with concept-lane and link-row headroom and rebind window slots
-    (the row-packed engine takes them; the others ignore them)."""
+    (the row-packed engine takes them; the others ignore them), sharded
+    over ``mesh`` (None off a mesh)."""
     if capacity_pad is None:
         capacity_pad = IncrementalClassifier._CAPACITY_PAD
     if link_pad is None:
@@ -109,6 +115,7 @@ def rebuild_engine(
         cfg,
         idx,
         device,
+        mesh=mesh,
         min_concepts=idx.n_concepts + capacity_pad,
         min_links_pad=idx.n_links + link_pad,
         window_headroom=window_headroom,
@@ -118,8 +125,8 @@ def rebuild_engine(
 def delta_program_kwargs(config: ClassifierConfig, base, *, bucket: bool) -> dict:
     """The shape interlock of a delta or cross engine against the base:
     the base's state layout ``(nc, nl)`` exactly (the engines round-robin
-    over ONE packed state) and its L-chunk length, on its device, with
-    the CR6 formulation the config selects.  Shared by the fast path and
+    over ONE packed state) and its L-chunk length, on its device and its
+    mesh, with the CR6 formulation the config selects.  Shared by the fast path and
     :func:`warm_delta_programs`: a warmed program pays off only when it
     is the one live traffic asks for.  ``bucket=True`` (the reference's
     steady-state posture) also makes the delta engines shape-bucketed
@@ -130,6 +137,7 @@ def delta_program_kwargs(config: ClassifierConfig, base, *, bucket: bool) -> dic
         min_links_pad=base.nl,
         l_chunk=base.lc,
         device=base.device,
+        mesh=base.mesh,
         cr6_tiles=config.cr6_tiles_config(),
     )
     if bucket:
@@ -181,8 +189,10 @@ def warm_delta_programs(
     ``config.cohort_warm_size_list()``): also build the cohort programs
     (``core/cohort.py``) of the canonical roster — the mixed delta
     program, the cross program and the base program — at those sizes'
-    rungs, so a warmed process's first cohort builds nothing.  (The
-    reference's ``mesh`` waits for the mesh plane.)"""
+    rungs, so a warmed process's first cohort builds nothing.  The delta
+    programs are built on the base engine's mesh; on a mesh no cohort
+    program is (the cohort refuses a mesh engine, as the reference's
+    ``cohort_ready`` does)."""
     if not config.shape_buckets or base_engine is None:
         return []
     if not isinstance(base_engine, RowPackedSaturationEngine):
@@ -252,7 +262,7 @@ def warm_delta_programs(
         engines.append((name, eng))
     if cohort_sizes is None:
         cohort_sizes = config.cohort_warm_size_list()
-    if cohort_sizes and config.cohort_enable:
+    if cohort_sizes and config.cohort_enable and base_engine.mesh is None:
         from distel_tpu_torch.core.cohort import warm_cohort_programs
 
         # cohort traffic asks for the CANONICAL roster (the planner's
@@ -272,7 +282,19 @@ class IncrementalClassifier:
     """Owns the persistent Normalizer cache (the reference's
     NORMALIZE_CACHE role), the persistent Indexer (stable ids), and the
     running closure, on ``device`` (None = the first card; raises when
-    there is none)."""
+    there is none).
+
+    With ``mesh.devices`` or the coordinator keys it owns the mesh too
+    (``parallel/mesh.setup``, as the classifier does) and every engine
+    it builds shards over it: every rank of the group runs the same
+    increments.  The running closure is the whole one on every rank (a
+    run's result gathers it), so the retraction's host overdeletion
+    reads it and the next rebuild embeds the survivors into each rank's
+    window; the round-robin of a delta hands each rank's windows from
+    engine to engine (:class:`~distel_tpu_torch.core.rowpacked_engine.
+    RankWindows`) and gathers once at its end.  Rank 0 writes the
+    snapshots, of the whole closure: a snapshot taken on a mesh restores
+    on a mesh of any size, or on none."""
 
     #: extra concept-id headroom built into the rebuild's engine so later
     #: class-only deltas fit its concept lanes
@@ -292,14 +314,13 @@ class IncrementalClassifier:
     _WINDOW_HEADROOM = 2
 
     def __init__(self, config: Optional[ClassifierConfig] = None, device=None):
-        from distel_tpu_torch.parallel.mesh import refuse_mesh
+        from distel_tpu_torch.parallel.mesh import setup
 
         self.config = config or ClassifierConfig()
         self.config.validate()
-        # the reference's calls parallel.setup here; its delta plane over
-        # a mesh is not ported yet
-        refuse_mesh(self.config, "the incremental plane (IncrementalClassifier)")
         self.device = resolve_device(device)
+        #: the mesh every engine shards over (None off a mesh)
+        self._mesh = setup(self.config, self.device)
         self._FAST_PATH_MIN_CONCEPTS = int(self.config.fast_path_min_concepts)
         self.indexer = Indexer()
         self.accumulated = NormalizedOntology()
@@ -540,12 +561,20 @@ class IncrementalClassifier:
 
     def snapshot(self, path: str, compressed: bool = True) -> None:
         """Spill the running closure (``runtime/checkpoint``'s ``.npz``
-        forms, which either package restores)."""
+        forms, which either package restores).  On a mesh every rank
+        calls it: rank 0 writes the whole closure, and no rank returns
+        before the file is there."""
         from distel_tpu_torch.runtime.checkpoint import save_snapshot
 
         if self.last_result is None:
             raise ValueError("nothing to snapshot: no increment has completed")
-        save_snapshot(path, self.last_result, compressed=compressed)
+        mesh = self._mesh
+        if mesh is None or mesh.rank == 0:
+            save_snapshot(path, self.last_result, compressed=compressed)
+        if mesh is not None and mesh.size > 1:
+            from distel_tpu_torch.parallel.shard_compat import psum_
+
+            psum_(torch.zeros(1, device=self.device), mesh)   # the barrier
 
     @classmethod
     def restore(
@@ -614,6 +643,7 @@ class IncrementalClassifier:
                 self.config,
                 idx,
                 self.device,
+                self._mesh,
                 capacity_pad=self._CAPACITY_PAD,
                 link_pad=self._LINK_PAD,
                 window_headroom=self._WINDOW_HEADROOM,
@@ -674,7 +704,9 @@ class IncrementalClassifier:
                     "n_classes": int(len(idx.original_classes)),
                     "n_concepts": idx.n_concepts,
                     "n_links": idx.n_links,
-                    "n_shards": 1,
+                    # the mesh keys the cost-model fit's shards: 1-shard
+                    # and N-shard seconds a round must not mix
+                    "n_shards": int(getattr(engine, "n_shards", 1) or 1),
                 },
             )
         if not (traced_rounds or ledger_obs is not None):
@@ -934,12 +966,16 @@ class IncrementalClassifier:
 
     def _execute_delta_plan(self, plan: DeltaPlan) -> SaturationResult:
         """The round-robin joint fixed point over the delta/cross engines
-        and the base engine, on one state that stays on the device."""
+        and the base engine, on one state that stays on the device (on a
+        mesh, each rank's windows, gathered once at the end)."""
         engines = plan.engines
+        sharded = plan.base.n_shards > 1
         self.last_result = None
         # a one-slot box keeps this frame from pinning a state through a
         # saturate call (a held reference would add a full state)
         box = [engines[0].embed_state(*self._pop_state())]
+        if sharded:
+            box = [RankWindows(*box[0])]
         # engines[0] was built from the full index: its live mask covers
         # the whole universe (the base's masks lanes past its own)
         count = engines[0].count_live_bits
@@ -954,11 +990,13 @@ class IncrementalClassifier:
             eng = engines[ei % len(engines)]
             ei += 1
             r = eng.saturate(
-                self.config.max_iterations, initial=box.pop(), init_total=0
+                self.config.max_iterations, initial=box.pop(), init_total=0,
+                gather=not sharded,
             )
             iters += r.iterations
             unproductive = r.iterations <= eng.unroll
-            box.append((r.packed_s, r.packed_r))
+            box.append(RankWindows(*r.shards) if sharded
+                       else (r.packed_s, r.packed_r))
             del r
             streak = streak + 1 if unproductive else 0
         final_total = count(*box[0])
@@ -986,12 +1024,16 @@ class IncrementalClassifier:
             "delta_program_hits": hits,
             "delta_signature": delta_sig,
         }
+        sp, rp = box.pop()
+        shards = (sp, rp) if sharded else None
+        sp, rp = base.gather_state(sp, rp)
         return SaturationResult(
-            packed_s=box[0][0],
-            packed_r=box[0][1],
+            packed_s=sp,
+            packed_r=rp,
             iterations=iters,
             derivations=final_total - start_total,
             idx=plan.idx,
             converged=True,
             transposed=True,
+            shards=shards,
         )

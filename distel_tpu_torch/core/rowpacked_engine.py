@@ -166,8 +166,21 @@ reference, the size tiers read a shard's state and tip earlier on a
 mesh (a mesh of one too: ``unroll`` and the CR5 gate), and the live-tile
 CR6 is off (reason ``"mesh"``).  The bucketed program keys on the mesh
 and, on more than one rank, runs uncaptured (a CUDA graph cannot hold a
-gloo collective).  ``saturate_observed`` runs dense rounds only: the
-sparse tier and the fused window are not sharded yet.
+gloo collective).
+
+``saturate_observed`` runs sharded on every path, as the reference's
+does: the host controller is mesh-agnostic, because every rank takes
+every branch on values reduced across the ranks.  A sparse round
+(:meth:`_sparse_exec`) runs each rule over the replicated selection on
+the rank's words, with the dense step's bit-table exchanges, and ends
+with one fold (changed rows ORed, gained bits summed); a dense round's
+fold is the step's.  The fused window folds each of its rounds the same
+way, on the card; on a mesh of one it stays one captured graph, on more
+than one rank it runs uncaptured like the bucketed step: its IF
+predicates are read by the host (4 a round), where the reference's
+window reads the host once a window, and every exchange inside it
+waits for the peers.  ``host_reads`` keeps counting the controller's
+own reads; the exchanges are counted in ``shard_compat.COLLECTIVES``.
 """
 
 from __future__ import annotations
@@ -307,6 +320,16 @@ def _tile_group_bounds(tab_roles: np.ndarray, tile_m: int,
                 tiles = 0
             tiles += 1
     return bounds + [n]
+
+
+class RankWindows(NamedTuple):
+    """A rank's word windows ``(sp [nc, wl], rp [nl, wl])`` of a sharded
+    state, as ``initial=`` of a run of an engine of the same layout on
+    the same mesh: it embeds without a gather (the incremental plane's
+    hand-over between the engines of one round-robin)."""
+
+    sp: torch.Tensor
+    rp: torch.Tensor
 
 
 class _Chunk(NamedTuple):
@@ -1397,6 +1420,19 @@ class RowPackedSaturationEngine:
         return self._embed_device(*self._to_state(s_old, r_old),
                                   allow_shrink=True)
 
+    def _embed_initial(self, initial):
+        """The state a run starts from: :class:`RankWindows` taken as this
+        rank's windows, anything else through :meth:`embed_state`."""
+        if isinstance(initial, RankWindows):
+            if self.n_shards == 1 or tuple(initial.sp.shape[1:]) != (self.wl,):
+                raise ValueError(
+                    f"RankWindows of width {tuple(initial.sp.shape)} given to "
+                    f"an engine whose rank holds {self.wl} of {self.wc} words"
+                )
+            return self._embed_device(initial.sp, initial.rp, True,
+                                      windowed=True)
+        return self.embed_state(*initial)
+
     def _on_device(self, t: torch.Tensor) -> bool:
         """Whether ``t`` lies on this engine's device (an engine built
         for ``"cuda"`` runs on the current card, and its tensors report
@@ -1409,11 +1445,13 @@ class RowPackedSaturationEngine:
             want = torch.cuda.current_device()
         return want is None or dev.index in (want, None)
 
-    def _embed_device(self, s_old, r_old, allow_shrink: bool):
+    def _embed_device(self, s_old, r_old, allow_shrink: bool,
+                      windowed: bool = False):
         """:meth:`embed_state` for device tensors: the S(X)={X,⊤} init
         built on the device, the old words ORed (S) or copied (R) in.
         Bits past this engine's arrays are checked only when the old
-        arrays are larger (one scalar read)."""
+        arrays are larger (one scalar read).  ``windowed``: the old
+        arrays are already this rank's word window."""
         if not allow_shrink:
             for name, old, (nr, nw) in (
                 ("S", s_old, (self.nc, self.wc)),
@@ -1426,8 +1464,10 @@ class RowPackedSaturationEngine:
                             f"holds bits past this engine's [{nr}, {nw}] arrays"
                         )
         sp, rp = self.initial_state()
-        w0 = self.word_base
-        s_old, r_old = s_old[:, w0 : w0 + self.wl], r_old[:, w0 : w0 + self.wl]
+        if not windowed:
+            w0 = self.word_base
+            s_old = s_old[:, w0 : w0 + self.wl]
+            r_old = r_old[:, w0 : w0 + self.wl]
         na, nw = min(s_old.shape[0], self.nc), s_old.shape[1]
         sp[:na, :nw] |= s_old[:na, :nw]
         nlr, nwr = min(r_old.shape[0], self.nl), r_old.shape[1]
@@ -1846,7 +1886,10 @@ class RowPackedSaturationEngine:
         over the windows, through the packed-columns plans.  A window
         is live for every row when an L-chunk it overlaps is dirty, else
         only for the rows whose source changed (``fd_rows``), the
-        reference's per-row liveness.  None when no window is live."""
+        reference's per-row liveness.  None when no window is live.  On a
+        mesh the products are the rank's word window, and each window's
+        bit table is exchanged (:meth:`_bit_table`); the host's skips
+        read replicated values, so every rank runs the same exchanges."""
         tab = d["tab"]
         k = len(rows)
         dev = self.device
@@ -1857,13 +1900,11 @@ class RowPackedSaturationEngine:
                 continue
             if subt is None:
                 src = torch.as_tensor(tab[rows, 1]).to(dev)
-                subt = bits_state[src].T.contiguous()      # [wc, k]
+                subt = bits_state[src].T.contiguous()      # [wl, k]
                 mask = torch.as_tensor(
                     mask_tab[rows].view(np.int8)
                 ).to(dev)                                  # [k, roles+1]
-            f = bit_lookup_from(
-                subt, self._fillers[off:end], dtype=torch.int8
-            )                                              # [l, k]
+            f = self._bit_table(subt, self._fillers[off:end])   # [l, k]
             w = mask[:, self._link_roles[off:end]] * f.T
             if not all_live:
                 if live_dev is None:
@@ -1874,7 +1915,7 @@ class RowPackedSaturationEngine:
             key = (k, end - off)
             if key not in plans:
                 plans[key] = PackedColsMatmulPlan(
-                    k, end - off, self.wc,
+                    k, end - off, self.wl,
                     temp_budget_bytes=self.temp_budget_bytes,
                 )
             acc = plans[key](w.contiguous(), rp[off:end], out=acc)
@@ -1929,7 +1970,14 @@ class RowPackedSaturationEngine:
         (``run5``).  Returns ``(changed, delta_bits, mask_s, any_r,
         dirty_l_next)`` on the host, from one read of the round's fold;
         ``delta_bits`` counts new live-column bits, so sparse rounds
-        skip the full live-bits sweep."""
+        skip the full live-bits sweep.
+
+        On a mesh (the reference's ``_sparse_exec(axis_name=)``) each
+        rank runs every rule on its own word window with the selection
+        replicated, the bit tables exchanged as in :meth:`step`, and the
+        round ends with one fold: the changed-row masks ORed and the
+        gained bits summed across the ranks, so the host controller
+        reads the same values on every rank."""
         dev = self.device
         mask_s = torch.zeros(self.nc, dtype=torch.bool, device=dev)
         mask_r = torch.zeros(self._grid_end, dtype=torch.bool, device=dev)
@@ -1950,9 +1998,9 @@ class RowPackedSaturationEngine:
                 row_rules.append((plan, srcs, state, mvec))
         if row_rules:
             emission = max(p.k * len(srcs) for p, srcs, _s, _m in row_rules)
-            bw = max(min(self.temp_budget_bytes // (4 * emission), self.wc), 1)
-            for off in range(0, self.wc, bw):
-                blk = slice(off, min(off + bw, self.wc))
+            bw = max(min(self.temp_budget_bytes // (4 * emission), self.wl), 1)
+            for off in range(0, self.wl, bw):
+                blk = slice(off, min(off + bw, self.wl))
                 for plan, srcs, state, mvec in row_rules:
                     g = sp[srcs[0], blk]
                     if len(srcs) == 2:
@@ -1981,13 +2029,24 @@ class RowPackedSaturationEngine:
             else torch.zeros((), dtype=torch.int64, device=dev)
         )
         dirty_next = mask_r.view(self.n_lchunks, self.lc).any(dim=1)
-        flags = torch.cat([mask_s, dirty_next]).cpu().numpy()
+        flags, delta = self._fold_round(mask_s, dirty_next, delta)
+        flags = flags.cpu().numpy()
         self.host_reads["flags"] += 1
         s_chg, dl_next = flags[: self.nc], flags[self.nc:]
         any_r = bool(dl_next.any())
         changed = bool(s_chg.any()) or any_r
         return changed, int(delta), s_chg, any_r, dl_next
 
+
+    def _fold_round(self, mask_s, dirty_l, delta):
+        """A sparse round's fold: ``(cat([mask_s, dirty_l]), delta)``, on
+        a mesh the masks ORed and the gained bits summed across the
+        ranks (one exchange each)."""
+        both = torch.cat([mask_s, dirty_l])
+        if self.n_shards > 1:
+            both = por_(both, self.mesh)
+            delta = psum_(delta.reshape(1), self.mesh)[0]
+        return both, delta
 
     def rebind_role_closure(self, new_closure) -> bool:
         """Swap in a grown role closure: the factored masks, each
@@ -2106,10 +2165,16 @@ class RowPackedSaturationEngine:
         ``(sp, rp)``."""
         return all_gather_words(sp, self.mesh), all_gather_words(rp, self.mesh)
 
-    def _result(self, sp, rp, iterations, derivations, converged):
+    def _result(self, sp, rp, iterations, derivations, converged,
+                gather: bool = True):
         """The run's :class:`SaturationResult`: the whole closure on every
-        rank, the rank's own windows in ``shards`` on a mesh."""
-        full_s, full_r = self.gather_state(sp, rp)
+        rank, the rank's own windows in ``shards`` on a mesh (with
+        ``gather`` False, the windows only: ``packed_s``/``packed_r``
+        None)."""
+        if gather or self.n_shards == 1:
+            full_s, full_r = self.gather_state(sp, rp)
+        else:
+            full_s = full_r = None
         return SaturationResult(
             packed_s=full_s,
             packed_r=full_r,
@@ -2130,6 +2195,7 @@ class RowPackedSaturationEngine:
         allow_incomplete: bool = False,
         profile: bool = False,
         init_total: Optional[int] = None,
+        gather: bool = True,
     ) -> SaturationResult:
         """Groups of ``unroll`` supersteps (one host read of the
         device's frontier flags a step) until a group changes nothing or
@@ -2142,11 +2208,16 @@ class RowPackedSaturationEngine:
         ``init_total``: with ``initial``, skip the initial live-bit
         count and take this value (the incremental round-robin, which
         recounts under the full universe at the end); the result's
-        ``derivations`` then means something only to that caller."""
+        ``derivations`` then means something only to that caller.
+        ``initial`` may be a :class:`RankWindows` on a mesh; ``gather``
+        False leaves the result's closure as the rank's windows
+        (:meth:`_result`) — both for the incremental round-robin, which
+        gathers once at its end."""
         budget = _pad_up(max_iters, self.unroll)
         if self._bucket:
             return self._saturate_bucketed(
-                budget, initial, allow_incomplete, profile, init_total
+                budget, initial, allow_incomplete, profile, init_total,
+                gather,
             )
         self._profile = bool(profile)
         self.gate_rounds = []
@@ -2155,7 +2226,7 @@ class RowPackedSaturationEngine:
                 sp, rp = self._timed("init", self.initial_state)
                 init_total = fresh_init_total(self.idx)
             else:
-                sp, rp = self._timed("init", self.embed_state, *initial)
+                sp, rp = self._timed("init", self._embed_initial, initial)
                 initial = None  # the embed copied it
                 if init_total is None:
                     init_total = self.count_live_bits(sp, rp)
@@ -2177,7 +2248,8 @@ class RowPackedSaturationEngine:
             raise RuntimeError(
                 f"saturation did not converge within {budget} iterations"
             )
-        return self._result(sp, rp, it, total - init_total, converged)
+        return self._result(sp, rp, it, total - init_total, converged,
+                            gather)
 
     # ------------------------------------------------ the bucketed program
 
@@ -2217,7 +2289,7 @@ class RowPackedSaturationEngine:
         return self._btables
 
     def _saturate_bucketed(self, budget, initial, allow_incomplete, profile,
-                           init_total) -> SaturationResult:
+                           init_total, gather=True) -> SaturationResult:
         """:meth:`saturate` through the bucketed program: under the state
         pair's lock the tables and the state are copied in, groups run
         (one flag read each: the change flag and each step's gate
@@ -2234,7 +2306,7 @@ class RowPackedSaturationEngine:
                     self._timed("init", self._fill_initial, pair.sp, pair.rp)
                     init_total = fresh_init_total(self.idx)
                 else:
-                    sp, rp = self._timed("init", self.embed_state, *initial)
+                    sp, rp = self._timed("init", self._embed_initial, initial)
                     initial = None
                     pair.sp.copy_(sp)
                     pair.rp.copy_(rp)
@@ -2267,7 +2339,8 @@ class RowPackedSaturationEngine:
             raise RuntimeError(
                 f"saturation did not converge within {budget} iterations"
             )
-        return self._result(sp, rp, it, total - init_total, converged)
+        return self._result(sp, rp, it, total - init_total, converged,
+                            gather)
 
     def precompile(self, max_iters: int = 10_000, *,
                    programs: Tuple[str, ...] = ("run", "step", "fused"),
@@ -2323,7 +2396,7 @@ class RowPackedSaturationEngine:
     def _fused_pair(self):
         from distel_tpu_torch.core import bucketing
 
-        return bucketing.state_pair(self.device, self.nc, self.nl, self.wc)
+        return bucketing.state_pair(self.device, self.nc, self.nl, self.wl)
 
     # ------------------------------------------- the fused K-round window
     #
@@ -2644,13 +2717,11 @@ class RowPackedSaturationEngine:
             rk = chunk.src.shape[0]
             live = flags[i] | dl_ext[c0] | dl_ext[c1]
             n_rows = live.to(torch.int32) * rk
-            subt = bits_state[chunk.src].T.contiguous()       # [wc, rk]
-            acc = torch.zeros((rk, self.wc), dtype=torch.int32,
+            subt = bits_state[chunk.src].T.contiguous()       # [wl, rk]
+            acc = torch.zeros((rk, self.wl), dtype=torch.int32,
                               device=rp.device)
             for j, (off, end, _c0, _c1) in enumerate(chunk.windows):
-                f = bit_lookup_from(
-                    subt, self._fillers[off:end], dtype=torch.int8
-                )                                              # [l, rk]
+                f = self._bit_table(subt, self._fillers[off:end])  # [l, rk]
                 w = chunk.mask[:, self._link_roles[off:end]] * f.T
                 self._plan(rk, end - off)(
                     w.contiguous(), rp[off:end], out=acc,
@@ -2758,9 +2829,9 @@ class RowPackedSaturationEngine:
             cap = rules[0][1].shape[0]
             # the gathers, the scan's rows and the write: about 8 row
             # copies of a block alive at once
-            bw = max(min(self.temp_budget_bytes // (32 * cap), self.wc), 1)
-            for off in range(0, self.wc, bw):
-                blk = slice(off, min(off + bw, self.wc))
+            bw = max(min(self.temp_budget_bytes // (32 * cap), self.wl), 1)
+            for off in range(0, self.wl, bw):
+                blk = slice(off, min(off + bw, self.wl))
                 for srcs, val, seg, state, mvec, most in rules:
                     g = sp[srcs[0], blk]
                     if len(srcs) == 2:
@@ -2789,6 +2860,10 @@ class RowPackedSaturationEngine:
             else torch.zeros((), dtype=torch.int64, device=dev)
         )
         dirty_next = mask_r.view(self.n_lchunks, self.lc).any(dim=1)
+        # the round's fold (the reference's per-round psums inside the
+        # window): every rank carries the same frontier
+        both, delta = self._fold_round(mask_s, dirty_next, delta)
+        mask_s, dirty_next = both[: self.nc], both[self.nc :]
         return mask_s.any() | dirty_next.any(), delta, mask_s, dirty_next
 
     def _sparse_pieces_dev(self, key, d, sa, bits_state, rp, target, mvec,
@@ -2813,14 +2888,12 @@ class RowPackedSaturationEngine:
                 rows = sel[ws]
                 fd = fdw[ws] & valid
                 n_sel = cnt[pi].to(torch.int32).reshape(1)
-                subt = bits_state[tab[rows, 1]].T.contiguous()   # [wc, m]
+                subt = bits_state[tab[rows, 1]].T.contiguous()   # [wl, m]
                 mask = ft["m" + key][rows].view(torch.int8)       # [m, roles+1]
-                acc = torch.zeros((m, self.wc), dtype=torch.int32, device=dev)
+                acc = torch.zeros((m, self.wl), dtype=torch.int32, device=dev)
                 for off, end, c0, c1 in wins:
                     row_live = valid & (dl_ext[c0] | dl_ext[c1] | fd)
-                    f = bit_lookup_from(
-                        subt, self._fillers[off:end], dtype=torch.int8
-                    )                                              # [l, m]
+                    f = self._bit_table(subt, self._fillers[off:end])  # [l, m]
                     w = (mask[:, self._link_roles[off:end]] * f.T
                          * row_live.to(torch.int8)[:, None])
                     self._plan(m, end - off)(
@@ -2919,7 +2992,10 @@ class RowPackedSaturationEngine:
             for _ in range(self.unroll):
                 ch, ms, dl = self._step_dev(sp, rp, ms, dl)
                 changed = changed | ch
-            win.bits.copy_(live_bits(sp, rp, self._wmask).sum())
+            bits = live_bits(sp, rp, self._wmask).sum()
+            if self.n_shards > 1:
+                bits = psum_(bits.reshape(1), self.mesh)[0]
+            win.bits.copy_(bits)
         else:
             sa = self._fused_sparse_args_dev(win.plan, win.caps)
             changed, delta, ms, dl = self._sparse_exec_dev(sp, rp, sa, win.dl)
@@ -2969,7 +3045,7 @@ class RowPackedSaturationEngine:
             return win
         self._fused_tables()
         win = _FusedWindow(self, key[0], key[1], state)
-        if self.device.type == "cuda":
+        if self._capture_windows():
             self._capture_window(win)
         self._fused_windows[key] = win
         while len(self._fused_windows) > self.FUSED_CACHE_SIZE:
@@ -3004,7 +3080,7 @@ class RowPackedSaturationEngine:
                         if k not in ("_bucket_windows", "_fused_windows",
                                      "_prog_ref")}
             stats.trace_lower_s = time.perf_counter() - t0
-            if self.device.type == "cuda":
+            if self._capture_windows():
                 self._capture_window(win)
                 stats.compile_s = win.capture_s
             return win
@@ -3016,6 +3092,14 @@ class RowPackedSaturationEngine:
             raise RuntimeError("a fused window runs on its own state pair")
         self._bucket_windows[(int(K), caps)] = weakref.ref(win)
         return win
+
+    def _capture_windows(self) -> bool:
+        """Whether windows are captured: on a card off a mesh or on a
+        mesh of one.  On more than one rank a window runs uncaptured, as
+        the bucketed step does (a CUDA graph cannot hold a gloo
+        collective): its IF predicates are read by the host, and each
+        exchange inside it is a host sync."""
+        return self.device.type == "cuda" and self.n_shards == 1
 
     def _capture_window(self, win) -> None:
         """Capture ``win``'s body into one CUDA graph on this engine's
@@ -3241,7 +3325,10 @@ class RowPackedSaturationEngine:
                         delta = 0
                     run_total += delta
                     total = run_total
-                    if self.device.type == "cuda" and tier != 2:
+                    if win.graph is not None and tier != 2:
+                        # a replay launches what the capture recorded
+                        # (an uncaptured window's wrappers count
+                        # themselves)
                         bitmatmul.add_launches(
                             win.launches[r][self._FUSED_TIERS[tier]]
                         )
@@ -3604,12 +3691,13 @@ class RowPackedSaturationEngine:
         — the reference's routing.  The closure and ``derivations`` are
         :meth:`saturate`'s; ``iterations`` count ``unroll`` a dense round
         and one a sparse or idle round, as the reference's controller
-        counts them."""
+        counts them.  On a mesh every path runs sharded (see the module
+        docstring) and retires the solo run's rounds."""
         self.host_reads = {"flags": 0, "bits": 0}
         if initial is None:
             sp, rp = self.initial_state()
         else:
-            sp, rp = self.embed_state(*initial)
+            sp, rp = self._embed_initial(initial)
             initial = None  # the embed copied it
         init_total = self.count_live_bits(sp, rp)
         budget = _pad_up(max_iters, self.unroll)
@@ -3630,13 +3718,6 @@ class RowPackedSaturationEngine:
             else self._normalize_fused_cfg(fused_rounds)
         )
         fk = int(kcfg["rounds"]) if kcfg else 1
-        if self.mesh is not None and (cfg is not None or fk > 1):
-            raise NotImplementedError(
-                "saturate_observed on a mesh runs dense rounds only: the "
-                "sparse tier, its pipelined controller and the fused "
-                "window are not sharded yet (pass sparse_tail=False and "
-                "fused_rounds=False)"
-            )
         self.gate_rounds = []
         if (
             fk > 1

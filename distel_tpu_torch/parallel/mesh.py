@@ -121,11 +121,26 @@ def init_distributed(
     return True
 
 
-def setup(config, device="cpu") -> Optional[Mesh]:
+def _rank_device(device) -> torch.device:
+    """``device`` as the port's entry points take it: None means the
+    card, and raises when there is none."""
+    from distel_tpu_torch.runtime.classifier import resolve_device
+
+    return resolve_device(device)
+
+
+def setup(config, device=None) -> Optional[Mesh]:
     """The classifier's bootstrap: join the group the config names,
     then build the mesh — the world under a coordinator, ``mesh.devices``
     otherwise, or None for a single device.  The order matters:
-    :func:`build_mesh` reads the group."""
+    :func:`build_mesh` reads the group.  ``device``: this rank's (None =
+    the card; raises when there is none).  Outside a group, a config that
+    names neither a mesh nor a coordinator builds nothing and reads no
+    device."""
+    if not (config.coordinator_address or config.mesh_devices
+            or dist.is_initialized()):
+        return None
+    device = _rank_device(device)
     joined = init_distributed(
         config.coordinator_address, config.num_processes, config.process_id,
         device=device,
@@ -136,10 +151,12 @@ def setup(config, device="cpu") -> Optional[Mesh]:
 
 
 def build_mesh(n_devices: Optional[int] = None, axis: str = "c",
-               device="cpu") -> Mesh:
+               device=None) -> Mesh:
     """A 1-D mesh of ``n_devices`` ranks (None = the whole group).
-    Inside a group it is the group itself; outside one, a mesh of one."""
-    dev = torch.device(device)
+    Inside a group it is the group itself; outside one, a mesh of one.
+    ``device``: this rank's (None = the card; raises when there is
+    none)."""
+    dev = _rank_device(device)
     if dist.is_initialized():
         world, rank = dist.get_world_size(), dist.get_rank()
         n = world if n_devices is None else int(n_devices)
@@ -294,5 +311,6 @@ def refuse_mesh(config, plane: str) -> None:
     if keys:
         raise NotImplementedError(
             f"{plane} does not run on a mesh ({', '.join(keys)} is set); "
-            "only classify shards its fixed point"
+            "classify, stream (the incremental plane) and the hybrid "
+            "shard their fixed points"
         )

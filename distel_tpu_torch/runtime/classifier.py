@@ -120,16 +120,11 @@ def make_engine(
     engine also gets the config's ``sparse_tail``, ``pipeline`` and
     ``fused_rounds`` (its observed runs' controller).  ``mesh``: the
     :class:`~distel_tpu_torch.parallel.mesh.Mesh` all three engines
-    shard over (the hybrid saturator has no sharded mode and refuses
-    one)."""
+    shard over (the hybrid's row-packed engine too, as the reference
+    passes it through ``engine_kw``)."""
     config.validate()
     _, host_rules = split_backends(config.rule_backends)
     if host_rules:
-        if mesh is not None:
-            raise NotImplementedError(
-                "the hybrid saturator (backend.CRn = host) does not run "
-                "on a mesh"
-            )
         if config.engine not in ("auto", "rowpacked"):
             raise ValueError(
                 "rule_backends routing rules to the host requires the "
@@ -137,7 +132,7 @@ def make_engine(
             )
         return HybridSaturator(
             idx, config.rule_backends, device=device,
-            engine_kw={"pad_multiple": config.pad_multiple},
+            engine_kw={"pad_multiple": config.pad_multiple, "mesh": mesh},
         )
     if config.engine == "packed":
         return PackedSaturationEngine(

@@ -116,6 +116,17 @@ class Taxonomy:
             out[name] = sorted(ups)
         return out
 
+    def digest(self) -> str:
+        """sha256 of the taxonomy (direct parents, equivalents, the
+        unsatisfiable classes), equal for equal taxonomies: what the
+        ranks of a mesh compare (``cli stream`` on a mesh)."""
+        import hashlib
+        import json
+
+        text = json.dumps([self.parents, self.equivalents,
+                           sorted(self.unsatisfiable)], sort_keys=True)
+        return hashlib.sha256(text.encode()).hexdigest()
+
     def write(self, path: str) -> None:
         """Dump as functional-syntax axioms."""
         with open(path, "w") as f:

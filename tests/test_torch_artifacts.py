@@ -45,6 +45,7 @@ from distel_tpu_torch.ops import build
 from distel_tpu_torch.runtime.classifier import ELClassifier
 from distel_tpu_torch.runtime.taxonomy import extract_taxonomy
 from distel_tpu_torch.runtime.warmup import warmup_texts
+from torch_ref_registry import reference_registry_as_found  # noqa: F401 (a fixture)
 
 torch.set_num_threads(2)
 

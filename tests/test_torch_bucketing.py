@@ -54,6 +54,7 @@ from test_bucketing import _same_bucket_pair
 from test_delta_bucketing import _DELTAS, _mk_base
 from test_packed_engine import BOTTOM_ONTO
 from test_rowpacked_engine import _REBIND_BASE
+from torch_ref_registry import reference_registry_as_found  # noqa: F401 (a fixture)
 
 torch.set_num_threads(2)
 sys.setrecursionlimit(10_000)
@@ -135,6 +136,8 @@ def test_bucketed_resume_from_snapshot_state():
     )
     assert resumed.derivations == 0
     _assert_real_rows_equal(idx, resumed, first, derivations=False)
+
+
 
 
 # ------------------------------------------- cross-ontology program reuse

@@ -31,6 +31,7 @@ from distel_tpu_torch.runtime import checkpoint
 from distel_tpu_torch.runtime.classifier import ELClassifier
 from distel_tpu_torch.runtime.taxonomy import extract_taxonomy
 from test_golden import _load_expected, _named_closure
+from torch_ref_registry import reference_registry_as_found  # noqa: F401 (a fixture)
 
 GOLDEN = sorted((Path(__file__).parent / "golden").glob("*.ofn"))
 

@@ -18,6 +18,7 @@ from distel_tpu import cli as ref_cli
 from distel_tpu.config import ClassifierConfig as RefConfig
 from distel_tpu.runtime.classifier import ELClassifier as RefClassifier
 from distel_tpu_torch import cli
+from torch_ref_registry import reference_registry_as_found  # noqa: F401 (a fixture)
 
 # six xdist workers share the host's cores: without a cap each would
 # start one torch thread per core

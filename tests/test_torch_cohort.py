@@ -35,6 +35,7 @@ from distel_tpu_torch.core.program_cache import PROGRAMS
 from distel_tpu_torch.owl import loader
 from distel_tpu_torch.runtime.instrumentation import COHORT_EVENTS
 from distel_tpu_torch.runtime.taxonomy import extract_taxonomy
+from torch_ref_registry import reference_registry_as_found  # noqa: F401 (a fixture)
 
 # six xdist workers share the host's cores
 torch.set_num_threads(2)

@@ -63,6 +63,7 @@ from distel_tpu_torch.ops.bitmatmul import (
 from distel_tpu_torch.owl import parser
 from distel_tpu_torch.owl import syntax as S
 from distel_tpu_torch.owl.writer import axiom_to_str
+from torch_ref_registry import reference_registry_as_found  # noqa: F401 (a fixture)
 
 # six xdist workers share the host's cores: without a cap each would
 # start one torch thread per core
@@ -600,12 +601,14 @@ def test_host_half_is_a_copy(name):
     ("num.processes", "2"),
     ("process.id", "0"),
 ])
-def test_multi_process_keys_refused_by_name(key, value, tmp_path):
+def test_multi_process_keys_refused_by_name(key, value, tmp_path, capsys):
     """Each multi-controller key parses to the reference's field (the
     port joins a process group with them, ``parallel/mesh.py``).  The
-    component plane has no sharded mode: given a coordinator it refuses
-    by the key's name rather than run alone on each process; the other
-    two keys alone join nothing, in both packages."""
+    component plane has no sharded mode and, as the reference's ``cli
+    partition``, does not thread the mesh keys: given a coordinator it
+    runs as it does without one (it refused it by name before; the
+    test keeps its name); the other two keys alone join nothing, in
+    both packages."""
     from distel_tpu_torch import cli
     from distel_tpu_torch.parallel.mesh import setup
 
@@ -621,8 +624,13 @@ def test_multi_process_keys_refused_by_name(key, value, tmp_path):
     if key == "coordinator.address":
         onto = tmp_path / "o.ofn"
         onto.write_text("SubClassOf(A B)\n")
-        with pytest.raises(NotImplementedError, match=key.replace(".", r"\.")):
-            cli.main(["partition", str(onto), "--device", "cpu",
-                      "--config", str(props)])
+        docs = []
+        for extra in (["--config", str(props)], []):
+            assert cli.main(["partition", str(onto), "--device", "cpu",
+                             *extra]) == 0
+            doc = json.loads(capsys.readouterr().out)
+            doc.pop("wall_s")
+            docs.append(doc)
+        assert docs[0] == docs[1]
     else:
         assert setup(cfg) is None

@@ -1463,3 +1463,83 @@ def test_nccl_mesh_of_one_equals_the_solo_card_run(card, tmp_path):
     assert got["mesh"]["size"] == 1
     assert got["mesh"]["ranks"][0]["backend"] == "nccl"
     assert got["derivations"] == solo.result.derivations
+
+
+def _mesh_jobs():
+    """The sparse tier forced and the fused window (K = 4) on the
+    chain-tailed corpus with CR5 (``tests/torch_mesh_ranks.py``)."""
+    text = chain_tailed_ontology(400, 12) + "\nDisjointClasses(TailChain3 TailChain7)"
+    forced = {"density_threshold": 1.1, "hysteresis_rounds": 1}
+    return [{"name": name, "kind": "adaptive", "text": text, "kw": {"unroll": 1},
+             "observe": dict(sparse_tail=forced, pipeline={"enable": False}, **extra)}
+            for name, extra in (("sparse", {}), ("fused", {"fused_rounds": {"rounds": 4}}))]
+
+
+def test_sparse_tier_and_fused_window_on_a_gloo_mesh_of_two(card):
+    """Two gloo ranks on cuda:0: the sparse tier's kernels at each rank's
+    word window and the uncaptured fused window retire the solo card
+    run's rounds and closure on both ranks."""
+    import torch_mesh_ranks as ranks
+    from distel_tpu_torch.parallel.mesh import launch_local
+
+    jobs = _mesh_jobs()
+    solo = ranks.run_jobs(card, jobs)
+    outs = launch_local(2, ranks.run_jobs, jobs, device="cuda")
+    for out in outs:
+        for job in jobs:
+            got, want = out[job["name"]], solo[job["name"]]
+            for k in ("events", "stats", "iterations", "derivations"):
+                assert got[k] == want[k], (job["name"], k)
+            assert np.array_equal(got["s"], want["s"])
+            assert np.array_equal(got["r"], want["r"])
+            assert got["collectives"] > 0 and got["captured"] == 0
+        assert out["sparse"]["launches"].get("packed_cols_list", 0) + \
+            out["sparse"]["launches"].get("packed_cols_dense", 0) > 0
+        assert out["fused"]["launches"].get("packed_cols_dense_n", 0) + \
+            out["fused"]["launches"].get("packed_cols_list_n", 0) > 0
+
+
+def test_fused_window_on_an_nccl_mesh_of_one_is_captured(card):
+    """An NCCL mesh of one keeps the window one captured graph, and its
+    runs equal the CPU port's on a mesh of one, record for record."""
+    import torch_mesh_ranks as ranks
+    from distel_tpu_torch.parallel.mesh import launch_local
+
+    jobs = _mesh_jobs()
+    (got,) = launch_local(1, ranks.run_jobs, jobs, device="cuda")
+    cpu = ranks.run_jobs(torch.device("cpu"), jobs)
+    assert got["fused"]["captured"] > 0
+    for job in jobs:
+        g, c = got[job["name"]], cpu[job["name"]]
+        for k in ("events", "stats", "iterations", "derivations"):
+            assert g[k] == c[k], (job["name"], k)
+        assert np.array_equal(g["s"], c["s"]) and np.array_equal(g["r"], c["r"])
+
+
+def test_gloo_mesh_stream_on_one_card_equals_the_solo_stream(card, tmp_path):
+    """``cli stream`` with ``mesh.devices = 2`` on the card (two gloo
+    ranks on cuda:0): the solo stream's records, the retraction
+    included, and every rank's closure and taxonomy at every step."""
+    text = "\n".join(ln for ln in snomed_shaped_ontology(n_classes=600).splitlines()
+                     if not ln.startswith("ObjectPropertyRange(")) + "\n"
+    files = []
+    for name, body in (("base", text), ("d1", "SubClassOf(StreamA Find1)\n"),
+                       ("d2", "SubObjectPropertyOf(attr2 attr3)\n")):
+        path = tmp_path / f"{name}.ofn"
+        path.write_text(body)
+        files.append(str(path))
+    runs = []
+    for extra in ("", "mesh.devices = 2\n"):
+        props = tmp_path / f"p{len(runs)}.properties"
+        props.write_text("fast.path.min.concepts = 0\n" + extra)
+        stdout = _cli_json("stream", *files, "--retract", files[1],
+                           "--config", str(props))
+        runs.append([json.loads(ln) for ln in stdout.splitlines() if ln.startswith("{")])
+    solo, mesh = runs
+    unstable = COMPILE_KEYS | {"wall_s"}
+    assert [{k: v for k, v in r.items() if k not in unstable} for r in solo[:-1]] == \
+        [{k: v for k, v in r.items() if k not in unstable} for r in mesh[:-1]]
+    ranks = mesh[-1]["mesh"]["ranks"]
+    assert [r["backend"] for r in ranks] == ["gloo", "gloo"]
+    for k in ("closure_sha256", "taxonomy_sha256"):
+        assert [s[k] for s in ranks[0]["steps"]] == [s[k] for s in ranks[1]["steps"]]

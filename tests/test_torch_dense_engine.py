@@ -36,6 +36,7 @@ from distel_tpu_torch.testing.differential import (
     diff_engine_vs_oracle,
 )
 from test_engine_dense import _random_ontology
+from torch_ref_registry import reference_registry_as_found  # noqa: F401 (a fixture)
 
 # six xdist workers share the host's cores: without a cap each would
 # start one torch thread per core

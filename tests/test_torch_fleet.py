@@ -66,6 +66,7 @@ from distel_tpu_torch.serve.metrics import aggregate_expositions, relabel_sample
 from distel_tpu_torch.serve.server import make_server
 from distel_tpu_torch.serve.traces import load_trace, replay_trace
 from distel_tpu_torch.testing import lockdep
+from torch_ref_registry import reference_registry_as_found  # noqa: F401 (a fixture)
 
 # six xdist workers share the host's cores
 torch.set_num_threads(2)

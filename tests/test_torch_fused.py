@@ -12,13 +12,17 @@ reference's run of the same configuration and to the port's own
 per-round run: the observer's ``(iteration, derivations, changed)``
 sequence, every ``FrontierStats`` less its walls (``rounds_in_window``
 included), and S, R, iterations and derivations.  These are the
-reference's ``tests/test_fused_rounds.py`` cases that run on one
-device; its two mesh tests (``:309-340``) wait for the sharded sparse
-tier and the fused window's mesh mode (the mesh plane itself is
-ported, ``tests/test_torch_mesh.py``).  Then the pieces:
-the exact density cutoff, the card round plan against the host
-selection, the compaction against the host's workspaces, and the
-window's refusal of a host sync.
+reference's ``tests/test_fused_rounds.py`` cases; its two mesh tests
+(``:309-340``) are ``test_fused_mesh_matches_reference`` and
+``test_fused_mesh_pipelined``: the reference on its virtual CPU mesh of
+1, 2 and 4 devices, the port on as many gloo ranks
+(``tests/torch_mesh_ranks.py``, one launch a size, bounded by
+``MESH_TIMEOUT_S``), every rank held to the reference's run on the mesh
+and to the port's per-round run (the sharded sparse tier itself is
+``tests/test_torch_sharded_adaptive.py``).  Then the pieces: the exact
+density cutoff, the card round plan against the host selection, the
+compaction against the host's workspaces, and the window's refusal of a
+host sync.
 """
 
 import types
@@ -42,6 +46,10 @@ from distel_tpu_torch.core.rowpacked_engine import RowPackedSaturationEngine
 from distel_tpu_torch.ops.nosync import NoHostReads
 from distel_tpu_torch.runtime.classifier import make_engine
 from distel_tpu_torch.runtime.instrumentation import DISPATCH_EVENTS
+from distel_tpu_torch.testing.cpumesh import cpu_mesh_run
+
+import torch_mesh_ranks as ranks
+from torch_ref_registry import reference_registry_as_found  # noqa: F401 (a fixture)
 
 torch.set_num_threads(2)
 
@@ -253,6 +261,111 @@ def test_k_adaptive_shrinks_windows_byte_identically(galen_idx, ref,
     _assert_same(got, _run(ref, ALL_SPARSE, {"rounds": 8, "adaptive": True}))
     assert got[0] == base[0] and _per_round(got[1]) == _per_round(base[1])
     assert max(st.rounds_in_window for st in eng.frontier_rounds) <= 2
+
+
+# ------------------------------------------------------- on a mesh
+
+#: a hang in a collective fails the launch well inside the suite's clock
+MESH_TIMEOUT_S = 120.0
+GALEN_TEXT = chain_tailed_ontology(400, 12) + "\nDisjointClasses(TailChain3 TailChain7)"
+
+
+def _mesh_cases(n):
+    """name -> (engine kwargs, saturate_observed kwargs) of the mesh of
+    ``n``: K = 2 and 4 at depth 1; at two shards K = 4 at depth 2 and
+    K = 4 on a bucketed engine (its windows come from the registry)."""
+    cases = {f"k{k}": ({}, dict(sparse_tail=ALL_SPARSE, fused_rounds={"rounds": k},
+                                pipeline={"enable": False}))
+             for k in (2, 4)}
+    if n == 2:
+        cases["k4-depth2"] = ({}, dict(sparse_tail=ALL_SPARSE,
+                                       fused_rounds={"rounds": 4},
+                                       pipeline={"enable": True, "depth": 2}))
+        cases["k4-bucketed"] = ({"bucket": True}, cases["k4"][1])
+    return cases
+
+
+_MESH = {}
+
+
+def mesh_run(n):
+    """Every rank's fused runs on the mesh of ``n`` (one launch)."""
+    if n not in _MESH:
+        jobs = [{"name": name, "kind": "adaptive", "text": GALEN_TEXT,
+                 "kw": {"unroll": 1, **kw}, "observe": obs}
+                for name, (kw, obs) in _mesh_cases(n).items()]
+        if n == 1:
+            _MESH[n] = [ranks.run_jobs(torch.device("cpu"), jobs)]
+        else:
+            _MESH[n] = cpu_mesh_run(n, ranks.run_jobs, jobs,
+                                    timeout_s=MESH_TIMEOUT_S)
+    return _MESH[n]
+
+
+def _ref_mesh_run(idx, n, obs):
+    import jax
+
+    mesh = jax.sharding.Mesh(np.array(jax.devices()[:n]), ("c",))
+    return _run(RefEngine(idx, unroll=1, mesh=mesh, **REF_KW), obs["sparse_tail"],
+                obs["fused_rounds"], obs["pipeline"].get("depth", 1)
+                if obs["pipeline"]["enable"] else 1)
+
+
+def _assert_rank(got, want, base):
+    """One rank's run against the reference's on the mesh (``want``)
+    and the port's per-round run (``base``)."""
+    wobs, wst, wres = want
+    assert got["events"] == wobs
+    assert got["stats"] == wst
+    assert (got["iterations"], got["derivations"], got["converged"]) == \
+        (wres.iterations, wres.derivations, wres.converged)
+    ws, wr = _closure(wres)
+    assert np.array_equal(got["s"], ws) and np.array_equal(got["r"], wr)
+    assert got["events"] == base[0]
+    assert [s[:7] for s in got["stats"]] == _per_round(base[1])
+
+
+@pytest.mark.parametrize("k", (2, 4))
+@pytest.mark.parametrize("shards", (1, 2, 4))
+def test_fused_mesh_matches_reference(galen_idx, shards, k):
+    """Sharded fused windows (each round's fold inside the window) retire
+    the per-round controller's rounds and closure on every rank, record
+    for record the reference's sharded fused run, at 1, 2 and 4 shards;
+    more than one rank runs the window uncaptured."""
+    name = f"k{k}"
+    obs = _mesh_cases(shards)[name][1]
+    want = _ref_mesh_run(galen_idx, shards, obs)
+    base = _port(galen_idx, ALL_SPARSE)
+    for out in mesh_run(shards):
+        got = out[name]
+        _assert_rank(got, want, base)
+        assert got["fused"]["windows"] and max(got["fused"]["windows"]) == k
+        # one flag read a window, as off a mesh
+        assert got["host_reads"]["flags"] == len(got["fused"]["windows"])
+        if shards > 1:
+            assert got["collectives"] > 0
+
+
+def test_fused_mesh_pipelined(galen_idx):
+    """Two shards, K = 4, windows under speculative dispatch (depth 2)."""
+    obs = _mesh_cases(2)["k4-depth2"][1]
+    want = _ref_mesh_run(galen_idx, 2, obs)
+    base = _port(galen_idx, ALL_SPARSE)
+    for out in mesh_run(2):
+        _assert_rank(out["k4-depth2"], want, base)
+
+
+def test_fused_mesh_bucketed_engine(galen_idx):
+    """Two shards, K = 4, on bucketed engines (windows from the program
+    registry, keyed by the sharded signature): the exact engine's
+    rounds, and its closure over the real rows."""
+    for out in mesh_run(2):
+        got, exact = out["k4-bucketed"], out["k4"]
+        assert got["events"] == exact["events"]
+        assert got["stats"] == exact["stats"]
+        n, nl = galen_idx.n_concepts, galen_idx.n_links
+        assert np.array_equal(got["s"][:n, : exact["s"].shape[1]], exact["s"][:n])
+        assert np.array_equal(got["r"][:nl, : exact["r"].shape[1]], exact["r"][:nl])
 
 
 def test_fused_snomed_matches_reference():

@@ -31,6 +31,7 @@ from distel_tpu.owl import parser
 from distel_tpu_torch.core.rowpacked_engine import RowPackedSaturationEngine
 from distel_tpu_torch.ops import bitmatmul
 from test_engine_dense import _random_ontology
+from torch_ref_registry import reference_registry_as_found  # noqa: F401 (a fixture)
 
 # six xdist workers share the host's cores: without a cap each would
 # start one torch thread per core

@@ -29,6 +29,7 @@ from distel_tpu_torch.core.hybrid import HybridSaturator, split_backends
 from distel_tpu_torch.core.rowpacked_engine import RowPackedSaturationEngine
 from distel_tpu_torch.runtime.classifier import ELClassifier, make_engine
 from test_packed_engine import BOTTOM_ONTO
+from torch_ref_registry import reference_registry_as_found  # noqa: F401 (a fixture)
 
 # six xdist workers share the host's cores: without a cap each would
 # start one torch thread per core
@@ -157,10 +158,10 @@ def test_mesh_keys_are_refused(tmp_path, line, key):
     cfg = ClassifierConfig.from_properties(str(props))
     assert cfg.mesh_devices == want
     if want == 1:
-        assert setup(cfg).size == 1
+        assert setup(cfg, device="cpu").size == 1
     else:
         with pytest.raises(ValueError, match="launch_local"):
-            setup(cfg)
+            setup(cfg, device="cpu")
     props.write_text("mesh.devices = 0\nNODES_LIST = \n")
     assert ref_setup(RefConfig.from_properties(str(props))) is None
     assert setup(ClassifierConfig.from_properties(str(props))) is None

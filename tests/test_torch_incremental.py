@@ -40,6 +40,7 @@ from distel_tpu_torch.frontend.ontology_tools import snomed_shaped_ontology
 from distel_tpu_torch.owl import loader
 from distel_tpu_torch.runtime.classifier import ELClassifier
 from distel_tpu_torch.runtime.taxonomy import extract_taxonomy
+from torch_ref_registry import reference_registry_as_found  # noqa: F401 (a fixture)
 
 # six xdist workers share the host's cores
 torch.set_num_threads(2)

@@ -14,11 +14,19 @@ on a mesh of the same size: the packed S and R (both gathered whole),
 taxonomy — for the row-packed engine exact and bucketed, the packed and
 the dense engine; the public step round by round; the observed dense
 rounds, observer events included; gated chunks with their per-round
-gate counts.  Then the rest of the plane: each rank holds its shard
-only, the config keys parse to the reference's fields, ``build_mesh``
-refuses what the reference refuses, a failing rank fails the launch,
-``cli classify --mesh 2`` equals ``cli classify``, and two processes
-joined by the coordinator keys over TCP loopback report one closure.
+gate counts; the hybrid saturator (CR5, and CR1 with CR6, on the host)
+against the reference's with a mesh.  Then the rest of the plane: each
+rank holds its shard only, the config keys parse to the reference's
+fields, ``build_mesh`` refuses what the reference refuses and runs on
+the card unless given ``device="cpu"``, a failing rank fails the launch,
+``cli classify --mesh 2`` equals ``cli classify``, ``cli partition``
+ignores the mesh keys as the reference does, and two processes joined
+by the coordinator keys over TCP loopback report one closure.  Serve
+and the cohort refuse a mesh; the incremental plane and the hybrid run
+on one.  The sharded sparse tier and fused window have their own files
+(``tests/test_torch_sharded_adaptive.py``, ``tests/test_torch_fused.py``),
+and so does the incremental plane on a mesh
+(``tests/test_torch_incremental_mesh.py``).
 """
 
 import json
@@ -37,6 +45,7 @@ from distel_tpu.config import ClassifierConfig as RefConfig
 from distel_tpu.core.engine import SaturationEngine as RefDense
 from distel_tpu.core.indexing import index_ontology
 from distel_tpu.core.packed_engine import PackedSaturationEngine as RefPacked
+from distel_tpu.runtime.classifier import make_engine as ref_make_engine
 from distel_tpu.core.rowpacked_engine import RowPackedSaturationEngine as RefEngine
 from distel_tpu.frontend.normalizer import normalize
 from distel_tpu.frontend.ontology_tools import snomed_shaped_ontology
@@ -48,6 +57,7 @@ from distel_tpu_torch.testing.cpumesh import cpu_mesh_run
 
 import torch_mesh_ranks as ranks
 from test_packed_engine import BOTTOM_ONTO
+from torch_ref_registry import reference_registry_as_found  # noqa: F401 (a fixture)
 
 torch.set_num_threads(2)
 
@@ -74,6 +84,9 @@ SATURATE = {
 }
 STEP_ROUNDS = 3
 
+#: the hybrid's cases: corpus -> the rules routed to the host
+HYBRID = {"bottom": {"CR5": "host"}, "snomed": {"CR1": "host", "CR6": "host"}}
+
 
 def _index(text):
     return index_ontology(normalize(parser.parse(text)))
@@ -95,6 +108,10 @@ def _jobs(n):
                  "rounds": STEP_ROUNDS})
     jobs.append({"name": "observed", "kind": "observed",
                  "text": CORPORA["snomed"]})
+    if n <= 2:
+        jobs += [{"name": f"hybrid/{corpus}", "kind": "hybrid",
+                  "text": CORPORA[corpus], "backends": backends}
+                 for corpus, backends in HYBRID.items()]
     if n > 1:
         jobs += [{"name": f"refusal/{k}", "kind": "refusal", "n": k}
                  for k in (n - 1, n + 1)]
@@ -260,11 +277,27 @@ def test_build_mesh_refuses_partial_and_oversized(n):
 def test_build_mesh_outside_a_group():
     """A mesh of one is in-process; a larger one needs ranks and says
     how to get them."""
-    m = build_mesh(1)
+    m = build_mesh(1, device="cpu")
     assert (m.size, m.rank, m.group) == (1, 0, None)
     assert m.shape == {"c": 1}
     with pytest.raises(ValueError, match="launch_local"):
-        build_mesh(2)
+        build_mesh(2, device="cpu")
+
+
+@pytest.mark.skipif(torch.cuda.is_available(), reason="checks the host without a card")
+def test_mesh_defaults_to_the_card():
+    """``build_mesh`` and ``setup`` run on the card unless given
+    ``device="cpu"``: with no card and no device they raise, as the
+    engines do (a CPU mesh would also join gloo where NCCL was meant)."""
+    from distel_tpu_torch.parallel.mesh import setup
+
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        build_mesh(1)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        setup(ClassifierConfig(mesh_devices=1))
+    assert setup(ClassifierConfig(mesh_devices=1), device="cpu").device.type == "cpu"
+    # a config that names no mesh builds nothing and reads no device
+    assert setup(ClassifierConfig()) is None
 
 
 @pytest.mark.parametrize(
@@ -367,15 +400,27 @@ def test_coordinator_keys_join_two_processes(tmp_path):
 
 @pytest.mark.parametrize("plane", ["incremental", "serve", "hybrid", "cohort"])
 def test_planes_without_a_sharded_mode_refuse_a_mesh(plane):
-    """The planes with no sharded mode refuse a mesh config by name
-    rather than run each rank alone (the reference's cohort refuses a
-    mesh engine too: ``cohort_ready``)."""
+    """Serve and the cohort have no sharded mode: they refuse a mesh
+    config by name rather than run each rank alone (the reference's
+    cohort refuses a mesh engine too: ``cohort_ready``).  The
+    incremental plane and the hybrid run on a mesh (of one here) and
+    equal their solo runs."""
     cfg = ClassifierConfig(mesh_devices=1)
     if plane == "incremental":
         from distel_tpu_torch.core.incremental import IncrementalClassifier
 
-        with pytest.raises(NotImplementedError, match="incremental plane"):
-            IncrementalClassifier(cfg, device="cpu")
+        text = CORPORA["snomed"]
+        runs = []
+        for c in (cfg, ClassifierConfig()):
+            inc = IncrementalClassifier(c, device="cpu")
+            res = inc.add_text(text)
+            runs.append((inc, res))
+        (mesh_inc, mesh_res), (solo_inc, solo_res) = runs
+        assert mesh_inc._mesh.size == 1 and solo_inc._mesh is None
+        assert mesh_inc._base_engine.mesh is mesh_inc._mesh
+        assert mesh_res.live_digest() == solo_res.live_digest()
+        assert (mesh_res.iterations, mesh_res.derivations) == \
+            (solo_res.iterations, solo_res.derivations)
     elif plane == "serve":
         from distel_tpu_torch.serve.registry import OntologyRegistry
 
@@ -385,8 +430,13 @@ def test_planes_without_a_sharded_mode_refuse_a_mesh(plane):
         from distel_tpu_torch.runtime.classifier import make_engine
 
         cfg.rule_backends = {"CR5": "host"}
-        with pytest.raises(NotImplementedError, match="hybrid"):
-            make_engine(cfg, _index(BOTTOM_ONTO), "cpu", mesh=build_mesh(1))
+        idx = _index(BOTTOM_ONTO)
+        hyb = make_engine(cfg, idx, "cpu", mesh=build_mesh(1, device="cpu"))
+        assert hyb.engine.mesh is not None
+        got = hyb.saturate()
+        want = make_engine(cfg, idx, "cpu").saturate()
+        assert got.live_digest() == want.live_digest()
+        assert (got.iterations, got.derivations) == (want.iterations, want.derivations)
     else:
         from distel_tpu_torch.core.cohort import cohort_ready
         from distel_tpu_torch.core.rowpacked_engine import RowPackedSaturationEngine
@@ -394,20 +444,70 @@ def test_planes_without_a_sharded_mode_refuse_a_mesh(plane):
         idx = _index(BOTTOM_ONTO)
         assert cohort_ready(RowPackedSaturationEngine(idx, device="cpu", bucket=True))
         assert not cohort_ready(RowPackedSaturationEngine(
-            idx, device="cpu", bucket=True, mesh=build_mesh(1)))
+            idx, device="cpu", bucket=True, mesh=build_mesh(1, device="cpu")))
 
 
 def test_observed_mesh_refuses_the_sparse_tier():
-    """The sparse tier and the fused window are not sharded: on a mesh
-    ``saturate_observed`` refuses them instead of running them alone;
-    the live-tile CR6 is off, with the reference's reason."""
+    """On a mesh the live-tile CR6 is off, with the reference's reason;
+    the sparse tier and the fused window run (they refused a mesh before
+    they were sharded) and retire the solo run's rounds."""
     from distel_tpu_torch.core.rowpacked_engine import RowPackedSaturationEngine
 
-    eng = RowPackedSaturationEngine(_index(BOTTOM_ONTO), device="cpu",
-                                    mesh=build_mesh(1), cr6_tiles={"enable": True})
+    idx = _index(BOTTOM_ONTO)
+    eng = RowPackedSaturationEngine(idx, device="cpu", unroll=1,
+                                    mesh=build_mesh(1, device="cpu"),
+                                    cr6_tiles={"enable": True})
     # the live-tile CR6 stays off on a mesh, as the reference's
     assert eng.cr6_tiles_stats == {"active": False, "reason": "mesh"}
-    with pytest.raises(NotImplementedError, match="sparse tier"):
-        eng.saturate_observed(sparse_tail=True)
-    with pytest.raises(NotImplementedError, match="fused"):
-        eng.saturate_observed(fused_rounds={"rounds": 4})
+    solo = RowPackedSaturationEngine(idx, device="cpu", unroll=1)
+    forced = {"density_threshold": 1.1, "hysteresis_rounds": 1}
+    for kw in (dict(sparse_tail=forced), dict(sparse_tail=forced,
+                                               fused_rounds={"rounds": 4})):
+        got = eng.saturate_observed(**kw)
+        tiers = [st.tier for st in eng.frontier_rounds]
+        want = solo.saturate_observed(**kw)
+        assert tiers == [st.tier for st in solo.frontier_rounds]
+        assert "sparse" in tiers
+        assert got.live_digest() == want.live_digest()
+        assert (got.iterations, got.derivations) == (want.iterations, want.derivations)
+    assert eng.fused_run_stats["windows"]
+
+
+@pytest.mark.parametrize("corpus", list(HYBRID))
+@pytest.mark.parametrize("n", (1, 2))
+def test_hybrid_on_a_mesh_matches_reference(corpus, n):
+    """The hybrid saturator on a mesh: the row-packed engine runs the
+    device rules on each rank's window, the host pass runs on the
+    gathered closure; S, R, iterations, derivations and the taxonomy
+    equal the reference's ``HybridSaturator`` with a mesh, on every
+    rank."""
+    outs = port_run(n)
+    name = f"hybrid/{corpus}"
+    _same_on_every_rank(outs, name, ("s", "r", "derivations", "iterations", "tax"))
+    ref = ref_make_engine(RefConfig(rule_backends=dict(HYBRID[corpus])),
+                          _index(CORPORA[corpus]), mesh=_ref_mesh(n))
+    res = ref.saturate()
+    got = outs[0][name]
+    _assert_closure(got, res)
+    assert got["tax"] == ranks.tax_key(ref_taxonomy(res))
+    if n > 1:
+        assert got["shards"][0][1] == got["s"].shape[1] // n
+
+
+def test_cli_partition_ignores_the_mesh_keys(tmp_path):
+    """``cli partition`` does not thread the mesh keys, as the
+    reference's (its batched group is one program): with ``mesh.devices
+    = 2`` in its config it prints what it prints without them."""
+    onto = tmp_path / "s.ofn"
+    onto.write_text(CORPORA["snomed"])
+    props = tmp_path / "m.properties"
+    props.write_text("mesh.devices = 2\n")
+    runs = [_cli("partition", str(onto), "--device", "cpu", *extra)
+            for extra in ((), ("--config", str(props)))]
+    docs = []
+    for run in runs:
+        assert run.returncode == 0, run.stderr
+        doc = json.loads(run.stdout[run.stdout.index("{"):])
+        doc.pop("wall_s", None)
+        docs.append(doc)
+    assert docs[0] == docs[1]

@@ -32,6 +32,7 @@ from distel_tpu_torch.obs import costmodel as cm
 from distel_tpu_torch.obs import ledger as lg
 from distel_tpu_torch.obs.trace import SpanRecorder
 from distel_tpu_torch.serve.server import ServeApp
+from torch_ref_registry import reference_registry_as_found  # noqa: F401 (a fixture)
 
 torch.set_num_threads(2)
 

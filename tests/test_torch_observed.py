@@ -44,6 +44,7 @@ from distel_tpu.owl import parser
 from distel_tpu_torch.core.engine import SaturationEngine
 from distel_tpu_torch.core.rowpacked_engine import RowPackedSaturationEngine
 from distel_tpu_torch.runtime.instrumentation import DISPATCH_EVENTS
+from torch_ref_registry import reference_registry_as_found  # noqa: F401 (a fixture)
 
 torch.set_num_threads(2)
 

@@ -31,6 +31,7 @@ from distel_tpu_torch.core.rowpacked_engine import RowPackedSaturationEngine
 from distel_tpu_torch.ops.bitmatmul import LAUNCHES
 from distel_tpu_torch.runtime.checkpoint import state_from_reference
 from test_packed_engine import BOTTOM_ONTO
+from torch_ref_registry import reference_registry_as_found  # noqa: F401 (a fixture)
 
 # six xdist workers share the host's cores: without a cap each would
 # start one torch thread per core

@@ -29,6 +29,7 @@ from distel_tpu_torch.core import retract
 from distel_tpu_torch.core.incremental import IncrementalClassifier
 from distel_tpu_torch.runtime.taxonomy import extract_taxonomy
 from test_torch_incremental import _assert_same_closure
+from torch_ref_registry import reference_registry_as_found  # noqa: F401 (a fixture)
 
 torch.set_num_threads(2)
 

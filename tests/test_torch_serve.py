@@ -57,6 +57,7 @@ from distel_tpu_torch.serve.query import OntologySnapshot, SnapshotStore
 from distel_tpu_torch.serve.registry import OntologyRegistry
 from distel_tpu_torch.serve.server import ServeApp, make_server
 from distel_tpu_torch.serve.traces import load_trace, replay_trace
+from torch_ref_registry import reference_registry_as_found  # noqa: F401 (a fixture)
 
 # six xdist workers share the host's cores
 torch.set_num_threads(2)

@@ -27,6 +27,7 @@ from distel_tpu_torch.runtime.classifier import ELClassifier
 from distel_tpu_torch.serve import server as serve_server
 from distel_tpu_torch.serve.server import ServeApp
 from test_bucketing import _same_bucket_pair
+from torch_ref_registry import reference_registry_as_found  # noqa: F401 (a fixture)
 
 torch.set_num_threads(2)
 

@@ -28,6 +28,7 @@ from distel_tpu_torch.frontend.profile_checker import check_profile
 from distel_tpu_torch.owl import loader, owlxml, rdfxml
 from distel_tpu_torch.runtime.classifier import ELClassifier
 from test_torch_frontend import _assert_same_index
+from torch_ref_registry import reference_registry_as_found  # noqa: F401 (a fixture)
 
 # six xdist workers share the host's cores: without a cap each would
 # start one torch thread per core

@@ -19,6 +19,7 @@ from distel_tpu_torch.core.packed_engine import PackedSaturationEngine
 from distel_tpu_torch.core.rowpacked_engine import RowPackedSaturationEngine
 from distel_tpu_torch.frontend.normalizer import normalize
 from distel_tpu_torch.owl import parser
+from distel_tpu_torch.ops import bitmatmul
 from distel_tpu_torch.parallel.mesh import build_mesh
 from distel_tpu_torch.runtime.taxonomy import extract_taxonomy
 
@@ -86,6 +87,109 @@ def _observed(mesh, device, job) -> dict:
     return out
 
 
+def frontier_stat(st) -> tuple:
+    """A round's :class:`FrontierStats` less its host walls."""
+    return (st.iteration, st.tier, st.density, st.rows_touched,
+            st.total_rows, st.derivations, st.overflow, st.inflight,
+            st.rounds_in_window)
+
+
+def _adaptive(mesh, device, job) -> dict:
+    """``saturate_observed`` with ``job["observe"]`` (the sparse tier, the
+    pipeline, the fused window): the observer's events, each round's
+    :class:`FrontierStats` less its walls, the closure, the rank's
+    shard shapes, its collectives and the fused run's windows."""
+    from distel_tpu_torch.parallel.shard_compat import COLLECTIVES
+
+    eng = RowPackedSaturationEngine(_index(job["text"]), device=device,
+                                    mesh=mesh, **job.get("kw", {}))
+    events = []
+    COLLECTIVES.reset()
+    bitmatmul.reset_launches()
+    res = eng.saturate_observed(
+        observer=lambda it, d, ch: events.append((it, d, bool(ch))),
+        **job["observe"])
+    out = _closure(res)
+    out.update(
+        events=events,
+        stats=[frontier_stat(st) for st in eng.frontier_rounds],
+        shard_shapes=([list(t.shape) for t in res.shards]
+                      if res.shards is not None else None),
+        window=(eng.wl, eng.word_base),
+        collectives=COLLECTIVES.snapshot()["total"]["calls"],
+        fused=dict(eng.fused_run_stats),
+        captured=sum(1 for w in eng.fused_window_stats() if w["captured_ops"]),
+        host_reads=dict(eng.host_reads),
+        launches={k: v for k, v in bitmatmul.LAUNCHES.items() if v},
+    )
+    return out
+
+
+def _incremental(mesh, device, job) -> dict:
+    """``job["steps"]`` (``("add" | "retract", text)``) through an
+    ``IncrementalClassifier`` on the mesh (``mesh.devices`` of the
+    group's size), then a snapshot (rank 0 writes ``job["snapshot"]``)
+    and a restore from it on the mesh: per step the history record, the
+    live closure (S and R over the live rows, x-major) and the taxonomy,
+    and whether the engine in use holds the rank's window only."""
+    from distel_tpu_torch.config import ClassifierConfig
+    from distel_tpu_torch.core.incremental import IncrementalClassifier
+
+    cfg = ClassifierConfig(mesh_devices=mesh.size, **job.get("config", {}))
+    inc = IncrementalClassifier(cfg, device=device)
+    inc._FAST_PATH_MIN_CONCEPTS = 0
+    steps = []
+
+    def record(res, rec):
+        n, nl = res.idx.n_concepts, res.idx.n_links
+        eng = inc._base_engine
+        return {
+            "history": {k: rec[k] for k in INC_KEYS if k in rec},
+            "s": res.s[:n, :n].copy(), "r": res.r[:n, :nl].copy(),
+            "tax": tax_key(extract_taxonomy(res)),
+            "window": ((eng.wl, eng.word_base, eng.n_shards)
+                       if eng is not None else None),
+            "shards": ([list(t.shape) for t in res.shards]
+                       if res.shards is not None else None),
+        }
+
+    for op, text in job["steps"]:
+        res = inc.add_text(text) if op == "add" else inc.retract(text)
+        steps.append(record(res, inc.history[-1]))
+    inc.snapshot(job["snapshot"])
+    texts = [t if op == "add" else {"op": "retract", "text": t}
+             for op, t in job["steps"]]
+    back = IncrementalClassifier.restore(texts, job["snapshot"], cfg,
+                                         device=device)
+    return {"steps": steps,
+            "restore": record(back.last_result, back.history[-1]),
+            "mesh_size": inc._mesh.size}
+
+
+#: history keys held equal across runs (the build records' signatures
+#: key on the mesh)
+INC_KEYS = ("path", "iterations", "new_derivations", "batch_axioms",
+            "retracted_rows", "affected_concepts", "delta_bucketed",
+            "delta_programs")
+
+
+def _hybrid(mesh, device, job) -> dict:
+    """The hybrid saturator (``backend.CRn = host``) through
+    ``make_engine`` on the mesh: the closure, iterations, derivations and
+    the taxonomy."""
+    from distel_tpu_torch.config import ClassifierConfig
+    from distel_tpu_torch.runtime.classifier import make_engine
+
+    cfg = ClassifierConfig(rule_backends=dict(job["backends"]))
+    eng = make_engine(cfg, _index(job["text"]), device, mesh=mesh)
+    res = eng.saturate()
+    out = _closure(res)
+    out.update(tax=tax_key(extract_taxonomy(res)),
+               shards=([list(t.shape) for t in res.shards]
+                       if res.shards is not None else None))
+    return out
+
+
 def _refusal(mesh, device, job) -> dict:
     """The error a call inside the group raises (None if it does not)."""
     try:
@@ -96,7 +200,8 @@ def _refusal(mesh, device, job) -> dict:
 
 
 KINDS = {"saturate": _saturate, "steps": _steps, "observed": _observed,
-         "refusal": _refusal}
+         "adaptive": _adaptive, "incremental": _incremental,
+         "hybrid": _hybrid, "refusal": _refusal}
 
 
 def run_jobs(device, jobs) -> dict:
