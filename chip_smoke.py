@@ -2897,6 +2897,17 @@ def phase_observed_full_width(cap: Capture, device: str = "cuda",
         raise AssertionError(f"ledgered rebuild: ledger files {files}")
     recs = ledger_mod.read_ledger(str(files[0]))
     n_round_recs = sum(1 for r in recs if r["ev"] == "round")
+    # the launch guard's basis records of this card (obs/h100_basis.jsonl
+    # holds such records, from obs/card_basis.py's runs of this rebuild)
+    from distel_tpu_torch.obs.card_basis import stamp
+    from distel_tpu_torch.runtime.profiling import device_record
+
+    card = device_record(device)
+    (ROOT / "chiprun_out").mkdir(exist_ok=True)
+    (ROOT / "chiprun_out" / "basis_64k_ledgered_rebuild.jsonl").write_text("".join(
+        json.dumps(r, sort_keys=True) + "\n" for r in stamp(
+            recs, {"name": card.get("name", "cpu"), "power_limit": card.get("power_limit")},
+            {"generator": "snomed_shaped_ontology", "n_classes": 64000, "seed": 42})))
     buf = io.StringIO()
     with contextlib.redirect_stdout(buf):
         rc = cli.main(["runs", "report", str(files[0]), "--json"])
@@ -6525,6 +6536,215 @@ def phase_mesh_observed_full_width(runs: dict, refs: dict,
 PHASE_DIR = ROOT / "build" / "smoke_phases"
 
 
+MEASURE_DIR = ROOT / "build" / "smoke_measure"
+
+
+def _cli(*args, timeout_s: float = 600):
+    """``python -m distel_tpu_torch.cli ARGS`` as a fresh process from
+    the tree's root: ``(returncode, stdout, stderr, wall seconds)``."""
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, "-m", "distel_tpu_torch.cli", *map(str, args)],
+                       cwd=str(ROOT), capture_output=True, text=True,
+                       timeout=timeout_s)
+    return r.returncode, r.stdout, r.stderr, time.perf_counter() - t0
+
+
+def _last_json(text: str) -> dict:
+    return json.loads(text.strip().splitlines()[-1])
+
+
+def phase_measure_full_width(ref: dict, device: str = "cuda",
+                             n_classes: int = 64000,
+                             cut_classes: int = CUT_CLASSES) -> dict:
+    """13. The measurement plane (PR 18), each step a fresh process of
+    the port's CLI on a quiet card: ``cli profile --warm`` of the 64k
+    corpus bucketed (the default config) and exact (``shape.buckets =
+    false``); ``cli bench --engines rowpacked --repeats 3`` of the same
+    text; the cut corpus's bake-off ``--engines all,oracle --repeats
+    1``; ``cli classify --budget-s`` of the 64k text against the card's
+    basis (``obs/h100_basis.jsonl``), once with ten times the basis's
+    prediction (must run) and once with a tenth of it (must refuse,
+    before any load: it runs beside the first profile).  Each profile
+    and bench equals ``ref`` (the 64k classify's iterations and
+    derivations in this call); each split sums to its device total, and
+    ``0 < device_total_s <= wall_s``; the bench's process starts beside
+    the exact profile's host work on its trace, and the bake-off beside
+    the passing classify (its card work is a few seconds); the bucketed
+    profile replays its
+    captured groups, split by their labels, and both name the hand
+    kernels; the bake-off's derivations are equal; an in-process
+    profile of the cut corpus records ``STEP_RULE_EVENTS``.  The idle
+    share (``host_gap_s / wall_s``) of each profile on its own line."""
+    from distel_tpu_torch.frontend.ontology_tools import snomed_shaped_ontology
+    from distel_tpu_torch.obs import costmodel
+    from distel_tpu_torch.runtime.stats import ontology_stats
+
+    t_phase = time.perf_counter()
+    shutil.rmtree(MEASURE_DIR, ignore_errors=True)
+    MEASURE_DIR.mkdir(parents=True)
+    big = MEASURE_DIR / f"x{n_classes // 1000}k.ofn"
+    big.write_text(snomed_shaped_ontology(n_classes=n_classes, seed=42))
+    cut_text = snomed_shaped_ontology(n_classes=cut_classes, seed=42)
+    cut = MEASURE_DIR / "cut.ofn"
+    cut.write_text(cut_text)
+    exact_cfg = MEASURE_DIR / "exact.properties"
+    exact_cfg.write_text("shape.buckets = false\n")
+    dev = ["--device", device]
+    out: dict = {"corpus": big.name, "ref": ref}
+
+    # the guard's budgets from the card's basis, as cli classify fits it
+    model = costmodel.fit_from_paths(costmodel.default_basis_paths(str(ROOT)), shards=1)
+    if model is None:
+        raise AssertionError("the card's basis fits no cost model")
+    n = ontology_stats(str(big))["classes"]
+    predicted = costmodel.guard_launch(model, n, 0.0)["predicted_total_s"]
+    small, enough = predicted / 10, predicted * 10 + 60
+    started = []
+
+    def spawn(*args):
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "distel_tpu_torch.cli", *map(str, args)],
+            cwd=str(ROOT), stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        started.append(proc)
+        return proc
+
+    try:
+        return _measure_steps(ref, device, big, cut, cut_text, exact_cfg, dev, out,
+                              small, enough, n, predicted, spawn, t_phase)
+    finally:
+        # every process this phase started ends with it
+        for proc in started:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+
+
+def _measure_steps(ref, device, big, cut, cut_text, exact_cfg, dev, out, small,
+                   enough, n, predicted, spawn, t_phase):
+    """The steps of :func:`phase_measure_full_width`."""
+    from distel_tpu_torch.owl import parser as owl_parser
+    from distel_tpu_torch.frontend.normalizer import normalize
+    from distel_tpu_torch.core.indexing import index_ontology
+    from distel_tpu_torch.core.rowpacked_engine import RowPackedSaturationEngine
+    from distel_tpu_torch.runtime.instrumentation import STEP_RULE_EVENTS
+    from distel_tpu_torch.runtime.profiling import PHASES, profile_saturation
+
+    refuse = spawn("classify", big, "--budget-s", small, *dev)
+
+    def check_run(name, rec):
+        if (rec["iterations"], rec["derivations"]) != (ref["iterations"], ref["derivations"]):
+            raise AssertionError(f"{name}: iterations/derivations "
+                                 f"{rec['iterations']}/{rec['derivations']} against the "
+                                 f"classify's {ref['iterations']}/{ref['derivations']}")
+
+    profiles = {}
+    bench_proc = None
+    for label, extra in (("bucketed", []), ("exact", ["--config", exact_cfg])):
+        t0 = time.perf_counter()
+        proc = spawn("profile", big, "--warm", *extra, *dev)
+        err = []
+        if label == "exact":
+            # the exact run's trace handling is host work alone (no
+            # captured group to label on the card): the 64k bench's
+            # process starts and loads beside it
+            for line in proc.stderr:
+                err.append(line)
+                if line.startswith("profile: traced saturate done"):
+                    break
+            bench_proc = spawn("bench", big, "--engines", "rowpacked", "--repeats", 3, *dev)
+            t_bench = time.perf_counter()
+        so, se = proc.communicate(timeout=600)
+        rc, se, wall = proc.returncode, "".join(err) + se, time.perf_counter() - t0
+        if rc != 0:
+            sys.stderr.write(se[-4000:])
+            raise AssertionError(f"cli profile ({label}) exited {rc}")
+        prof = json.loads(so)
+        check_run(f"profile {label}", prof)
+        total, phases = prof["device_total_s"], prof["phases_s"]
+        if abs(sum(phases.values()) - total) > 1e-3 + 1e-4 * len(phases):
+            raise AssertionError(f"profile {label}: phases {phases} do not sum to {total}")
+        if not 0 < total <= prof["wall_s"]:
+            raise AssertionError(f"profile {label}: device {total} s, wall {prof['wall_s']} s")
+        if set(phases) - set(PHASES):
+            raise AssertionError(f"profile {label}: phases {sorted(phases)}")
+        on_card = device == "cuda"
+        if on_card and not any("packed_cols" in k for k in prof["kernels_s"]):
+            raise AssertionError(f"profile {label}: no hand kernel in kernels_s")
+        if on_card and label == "bucketed" and not (
+                prof["captured"] and prof["graph_replays"] > 0):
+            raise AssertionError("profile bucketed: the run replayed no captured group")
+        prof["kernels_s"] = dict(list(prof["kernels_s"].items())[:12])
+        prof["process_wall_s"] = wall
+        profiles[label] = prof
+        log(f"[measure profile {label}] {json.dumps(prof)}")
+    out["profiles"] = profiles
+    print(json.dumps({"idle_share": {
+        k: {"host_gap_s": p["host_gap_s"], "wall_s": p["wall_s"],
+            "idle_share": p["host_gap_s"] / p["wall_s"]}
+        for k, p in profiles.items()}}), flush=True)
+
+    so, se = bench_proc.communicate(timeout=600)
+    if bench_proc.returncode != 0:
+        sys.stderr.write(se[-4000:])
+        raise AssertionError(f"cli bench 64k exited {bench_proc.returncode}")
+    bench = _last_json(so)
+    check_run("bench rowpacked", bench["engines"]["rowpacked"])
+    out["bench_64k"] = dict(bench, process_wall_s=time.perf_counter() - t_bench)
+
+    # the cut bake-off (a few card seconds) beside the passing classify
+    bake_proc = spawn("bench", cut, "--engines", "all,oracle", "--repeats", 1, *dev)
+    t_bake = time.perf_counter()
+    rc, so_c, se_c, wall_c = _cli("classify", big, "--budget-s", enough, *dev)
+    so, se = bake_proc.communicate(timeout=600)
+    if bake_proc.returncode != 0:
+        sys.stderr.write(se[-4000:])
+        raise AssertionError(f"cli bench cut exited {bake_proc.returncode}")
+    wall = time.perf_counter() - t_bake
+    bake = _last_json(so)
+    derivs = {bake["engines"][e]["derivations"] for e in ("rowpacked", "packed", "dense")}
+    if set(bake["engines"]) != {"rowpacked", "packed", "dense", "oracle"} or len(derivs) != 1:
+        raise AssertionError(f"bake-off: {bake}")
+    out["bakeoff_cut"] = dict(bake, process_wall_s=wall)
+
+    so, se = refuse.communicate(timeout=600)
+    guard = json.loads(next(ln for ln in so.splitlines() if "launch_guard" in ln))["launch_guard"]
+    if refuse.returncode != 3 or guard["allowed"] or "refusing launch" not in se:
+        raise AssertionError(f"the guard let a budget of {small} s through: {guard}")
+    passed = json.loads(next(ln for ln in so_c.splitlines() if "launch_guard" in ln))["launch_guard"]
+    if rc != 0 or not passed["allowed"]:
+        sys.stderr.write(se_c[-4000:])
+        raise AssertionError(f"the guard refused a budget of {enough} s: {passed}")
+    summary = json.loads(so_c[so_c.index("\n{") + 1:])
+    check_run("classify --budget-s", summary)
+    out["guard"] = {
+        "n_classes": n, "predicted_total_s": predicted,
+        "refused": {k: guard.get(k) for k in ("budget_s", "allowed", "fits",
+                                               "predicted_total_s", "reason")},
+        "passed": {k: passed.get(k) for k in ("budget_s", "allowed", "fits",
+                                              "predicted_total_s")},
+        "classify_wall_s": wall_c,
+        "classify_saturate_ms": summary.get("phases_ms", {}).get("saturate"),
+        "basis": [b["source"] for b in passed.get("basis", [])],
+    }
+
+    # STEP_RULE_EVENTS is recorded by a profile in this process
+    idx = index_ontology(normalize(owl_parser.parse(cut_text)))
+    before = STEP_RULE_EVENTS.snapshot()["captures"]
+    cut_prof = profile_saturation(RowPackedSaturationEngine(idx, device=device))
+    snap = STEP_RULE_EVENTS.snapshot()
+    if snap["captures"] != before + 1 or snap["source"] != "profile_saturation" \
+            or not snap["per_rule"]:
+        raise AssertionError(f"STEP_RULE_EVENTS not recorded: {snap}")
+    out["step_rule_events"] = snap
+    out["cut_profile"] = {k: cut_prof[k] for k in (
+        "phases_s", "device_total_s", "wall_s", "host_gap_s", "iterations",
+        "derivations", "captured", "step_cost")}
+    out["phase_wall_s"] = time.perf_counter() - t_phase
+    shutil.rmtree(MEASURE_DIR, ignore_errors=True)
+    print(json.dumps({"measure_full_width": out}), flush=True)
+    return out
+
+
 def phase_child_main(name: str, call: str) -> None:
     """A phase in a child process (:func:`start_phase`): ``call`` is the
     JSON ``[function name, keyword arguments]``; its return value goes
@@ -6631,6 +6851,8 @@ def main() -> int:
     mesh = finish_mesh_runs(mesh_runs)
     mark("mesh runs")
     launches, res = phase_default_full_width()
+    measure_ref = {"iterations": int(res.result.iterations),
+                   "derivations": int(res.result.derivations)}
     solo_ref = closure_ref(res, "solo")
     phase_full_width(res)
     exact, exact_launches = phase_bucket_full_width(res)
@@ -6660,6 +6882,10 @@ def main() -> int:
     batched_row = phase_partition_full_width()
     torch.cuda.empty_cache()
     mark("partition")
+    # on a quiet card (7c's tree is done, no child phase yet)
+    phase_measure_full_width(measure_ref)
+    torch.cuda.empty_cache()
+    mark("measure")
     # from here three phases run in processes of their own beside this
     # one's (7c's tree is done by now): the fleet (its replicas are
     # processes anyway), the cohort phase's CPU half (no card) and the

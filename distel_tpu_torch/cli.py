@@ -47,6 +47,13 @@
              manifest that ``--artifacts-dir`` installs in a fresh
              process (no ``nvcc``, ``compile_s == 0.0`` on its first
              load and delta)
+  profile    trace one saturate() under torch.profiler: the device time
+             split by rule (``runtime/profiling.py``), the host gap, the
+             time by kernel and the engine's per-step cost model
+  bench      timing loop of the fixed point; ``--engines all,oracle``
+             is the engine bake-off with the CPU oracle
+  lint       distel-lint over the port's tree (``analysis/``) under its
+             committed baseline
 
 Every command reads OWL functional syntax, RDF/XML or OWL/XML.
 
@@ -61,6 +68,9 @@ Usage: python -m distel_tpu_torch.cli classify FILE [--device cpu] [--mesh N] ..
        python -m distel_tpu_torch.cli trace [TRACE_ID] [--format chrome]
        python -m distel_tpu_torch.cli runs list|report|watch LEDGER ...
        python -m distel_tpu_torch.cli farm-build FILE --out DIR [--delta D]
+       python -m distel_tpu_torch.cli profile FILE [--warm] [--trace-dir D] [--device cpu]
+       python -m distel_tpu_torch.cli bench FILE [--engines all,oracle] [--repeats N] [--device cpu]
+       python -m distel_tpu_torch.cli lint [--baseline B] [--json OUT]
 """
 
 from __future__ import annotations
@@ -1073,6 +1083,145 @@ def cmd_query(args) -> int:
     return 0
 
 
+def _load_index(path):
+    """The reference's load path of ``bench`` and ``profile``: the
+    Python plane (reader, normalizer, index)."""
+    from distel_tpu_torch.core.indexing import index_ontology
+    from distel_tpu_torch.frontend.normalizer import normalize
+    from distel_tpu_torch.owl import loader
+
+    norm = normalize(loader.load_file(path))
+    return norm, index_ontology(norm)
+
+
+def cmd_bench(args) -> int:
+    """Timing loop; with ``--engines`` a bake-off across the saturation
+    backends — the analog of the reference's reasoner-runtime comparison
+    (ELK/Pellet/jCEL/Snorocket, ``test/ELClassifierTest.java:167-280``),
+    with the CPU oracle playing the external-reasoner role.  Each timed
+    run ends in a device synchronise before the host clock is read."""
+    import torch
+
+    from distel_tpu_torch.config import ClassifierConfig, enable_compile_cache
+    from distel_tpu_torch.runtime.classifier import make_engine, resolve_device
+
+    enable_compile_cache()
+    device = resolve_device(args.device)
+    norm, idx = _load_index(args.ontology)
+    engines = (
+        [e.strip() for e in args.engines.split(",")] if args.engines else ["auto"]
+    )
+    if "all" in engines:
+        i = engines.index("all")
+        engines[i : i + 1] = ["rowpacked", "packed", "dense"]
+    engines = list(dict.fromkeys(engines))  # dedup, order-preserving
+    known = {"auto", "rowpacked", "packed", "dense", "oracle"}
+    bad = [e for e in engines if e not in known]
+    if bad:
+        print(f"unknown engine(s) {bad}: expected {sorted(known)}", file=sys.stderr)
+        return 2
+
+    def sync():
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+
+    report = {}
+    for name in engines:
+        if name == "oracle":
+            from distel_tpu_torch.core import oracle as cpu_oracle
+
+            t0 = time.time()
+            o = cpu_oracle.saturate(norm)
+            # one cold run; closure_size counts the whole closure incl.
+            # init seeds (not comparable to the engines' derivation delta)
+            report["oracle"] = {
+                "wall_s": round(time.time() - t0, 4),
+                "closure_size": o.derivation_count(),
+            }
+            continue
+        engine = make_engine(ClassifierConfig(engine=name), idx, device)
+        times = []
+        for i in range(args.repeats + 1):
+            sync()
+            t0 = time.time()
+            result = engine.saturate()
+            sync()
+            dt = time.time() - t0
+            times.append(dt)
+            print(
+                f"{name} run {i}: {dt:.3f}s {'(cold)' if i == 0 else ''} "
+                f"iters={result.iterations} derivations={result.derivations}",
+                file=sys.stderr,
+            )
+        warm = times[1:] or times
+        report[name] = {
+            "warm_s": round(min(warm), 4),
+            "cold_s": round(times[0], 4),
+            "derivations": result.derivations,
+            "iterations": result.iterations,
+        }
+    best = min(
+        (v["warm_s"] for v in report.values() if "warm_s" in v),
+        default=report.get("oracle", {}).get("wall_s"),
+    )
+    print(
+        json.dumps(
+            {
+                "metric": "wall_s_to_fixed_point",
+                "value": best,
+                "unit": "s",
+                "engines": report,
+            }
+        )
+    )
+    return 0
+
+
+def cmd_profile(args) -> int:
+    """Step profiling: trace one full ``saturate()`` under
+    ``torch.profiler`` and print the per-phase device-time split
+    (``runtime/profiling.profile_saturation``).  ``--trace-dir`` keeps
+    the chrome traces (``saturate.trace.json``, and for a run of
+    captured graphs ``group.trace.json``, the eager group its replays
+    are labelled from); without it they are aggregated and discarded.
+    A config naming a mesh is refused: profile on a mesh is not
+    ported."""
+    from distel_tpu_torch.config import enable_compile_cache
+    from distel_tpu_torch.parallel.mesh import refuse_mesh
+    from distel_tpu_torch.runtime.classifier import make_engine, resolve_device
+    from distel_tpu_torch.runtime.profiling import profile_saturation
+
+    cfg = _load_cfg(args)
+    refuse_mesh(cfg, "profile")
+    enable_compile_cache(cfg.compile_cache_dir)
+    device = resolve_device(args.device)
+    _norm, idx = _load_index(args.ontology)
+    engine = make_engine(cfg, idx, device)
+    if args.warm:
+        # one untraced run first: the profiled fixed point then
+        # measures execution, not its first build and capture
+        engine.saturate(cfg.max_iterations)
+    prof = profile_saturation(
+        engine,
+        trace_dir=args.trace_dir,
+        max_iters=cfg.max_iterations,
+    )
+    if args.trace_dir:
+        prof["trace_dir"] = args.trace_dir
+    print(json.dumps(prof, indent=2))
+    return 0
+
+
+def cmd_lint(args) -> int:
+    """distel-lint over the port's tree: the AST-based invariant checker
+    (``distel_tpu_torch/analysis/``, no torch import), under the
+    port's committed baseline (``.distel-torch-lint-baseline.json``),
+    each entry with a one-line justification."""
+    from distel_tpu_torch.analysis.runner import lint_main
+
+    return lint_main(args)
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(prog="distel_tpu_torch", description=__doc__)
     sub = p.add_subparsers(dest="cmd", required=True)
@@ -1382,6 +1531,59 @@ def main(argv=None) -> int:
     rn.add_argument("--iterations", type=int, default=None,
                     help="watch: stop after N polls (default: forever)")
     rn.set_defaults(fn=cmd_runs)
+
+    pr = sub.add_parser(
+        "profile",
+        help="per-phase device-time split of one saturate() "
+             "(torch.profiler trace, aggregated by rule scope)",
+    )
+    pr.add_argument("ontology")
+    pr.add_argument("--config", help="properties/config file")
+    pr.add_argument("--trace-dir", default=None,
+                    help="keep the chrome traces here (for Perfetto or "
+                         "chrome://tracing); default: aggregate and "
+                         "discard a temp capture")
+    pr.add_argument("--warm", action="store_true",
+                    help="run one untraced fixed point first so the "
+                         "profiled run measures execution, not the "
+                         "first build and capture")
+    pr.add_argument("--device", default=None,
+                    help="torch device (default: the first CUDA card)")
+    pr.set_defaults(fn=cmd_profile)
+
+    li = sub.add_parser(
+        "lint",
+        help="distel-lint static analysis (lock order, captured "
+             "purity, shared state, config/metric drift)",
+    )
+    li.add_argument("--baseline", default=None,
+                    help="baseline JSON of justified pre-existing "
+                         "findings (default: .distel-torch-lint-baseline"
+                         ".json at the repo root when present)")
+    li.add_argument("--json", default=None,
+                    help="write the full findings report here")
+    li.add_argument("--rules", default=None,
+                    help="comma list to run a subset (lock-order, "
+                         "traced-purity, shared-state, knobs, "
+                         "metric-names)")
+    li.add_argument("--write-baseline", default=None,
+                    help="write current findings as a baseline "
+                         "CANDIDATE (justify each entry by hand, "
+                         "then commit)")
+    li.add_argument("--root", default=None,
+                    help="tree to analyze (default: this checkout)")
+    li.set_defaults(fn=cmd_lint)
+
+    b = sub.add_parser("bench", help="timing loop on one ontology")
+    b.add_argument("ontology")
+    b.add_argument("--repeats", type=int, default=3)
+    b.add_argument(
+        "--engines",
+        help="comma list or 'all' (+ 'oracle') — engine bake-off",
+    )
+    b.add_argument("--device", default=None,
+                   help="torch device (default: the first CUDA card)")
+    b.set_defaults(fn=cmd_bench)
     args = p.parse_args(argv)
     return args.fn(args)
 

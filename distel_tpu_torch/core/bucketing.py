@@ -79,6 +79,7 @@ from distel_tpu_torch.ops.bitpack import (
     reduce_segments,
 )
 from distel_tpu_torch.parallel.shard_compat import por_, por_bits, shard_word_base
+from distel_tpu_torch.runtime.instrumentation import rule_scope
 
 
 def _pad_up(n: int, m: int) -> int:
@@ -443,18 +444,21 @@ class _Step:
         for off in range(0, s.wl, self.word_block):
             blk = slice(off, min(off + self.word_block, s.wl))
             if s.p1[0]:
-                red = self._reduce(sp[T["src1"].view(-1), blk], s.p1[2])
-                c = or_into_rows(sp, T["t1"].view(-1), red, blk)
+                with rule_scope("cr1"):
+                    red = self._reduce(sp[T["src1"].view(-1), blk], s.p1[2])
+                    c = or_into_rows(sp, T["t1"].view(-1), red, blk)
                 cv[0] = c if cv[0] is None else cv[0] | c
             if s.p2[0]:
-                red = self._reduce(sp[T["src2a"].view(-1), blk]
-                                   & sp[T["src2b"].view(-1), blk], s.p2[2])
-                c = or_into_rows(sp, T["t2"].view(-1), red, blk)
+                with rule_scope("cr2"):
+                    red = self._reduce(sp[T["src2a"].view(-1), blk]
+                                       & sp[T["src2b"].view(-1), blk], s.p2[2])
+                    c = or_into_rows(sp, T["t2"].view(-1), red, blk)
                 cv[1] = c if cv[1] is None else cv[1] | c
             if s.p3[0]:
-                red = self._reduce(sp[T["src3"].view(-1), blk], s.p3[2]) \
-                    & T["keep3"].view(-1)[:, None]
-                c = or_into_rows(rp, T["t3"].view(-1), red, blk)
+                with rule_scope("cr3"):
+                    red = self._reduce(sp[T["src3"].view(-1), blk], s.p3[2]) \
+                        & T["keep3"].view(-1)[:, None]
+                    c = or_into_rows(rp, T["t3"].view(-1), red, blk)
                 cv[2] = c if cv[2] is None else cv[2] | c
         for key, c, out in (("1", cv[0], s_cvs), ("2", cv[1], s_cvs),
                             ("3", cv[2], r_cvs)):
@@ -489,9 +493,10 @@ class _Step:
                 ids = T["wlink" + key][c, j]
                 if j % per == 0:
                     group = T["wlink" + key][c, j : j + per].reshape(-1)
-                    fg = por_bits(bit_lookup_from(
-                        subt, T["fillers"][group], word_offset=self.wbase,
-                        dtype=torch.int8), self.mesh).view(-1, rs.length, rs.rows)
+                    with rule_scope("bit_table"):
+                        fg = por_bits(bit_lookup_from(
+                            subt, T["fillers"][group], word_offset=self.wbase,
+                            dtype=torch.int8), self.mesh).view(-1, rs.length, rs.rows)
                 f = fg[j % per]
                 w = mask[:, T["link_roles"][ids]] * (
                     f.T * T["wlval" + key][c, j][None, :]
@@ -541,15 +546,26 @@ class _Step:
         self.row_rules(spf, rpf, s_cvs, r_cvs)
         counts = [zero, zero, zero, zero, zero]
         if s.cr4 is not None:
-            f4 = msf[T["src4"]].any(dim=-1)
-            run, valid = self.contract("4", s.cr4, spf, rpf, spf, f4, dlf, s_cvs)
+            with rule_scope("cr4"):
+                f4 = msf[T["src4"]].any(dim=-1)
+                run, valid = self.contract("4", s.cr4, spf, rpf, spf, f4, dlf, s_cvs)
             counts[0], counts[1] = run, valid - run
         if s.cr6 is not None:
-            f6 = dlf[T["lch6"]].any(dim=-1)
-            run, valid = self.contract("6", s.cr6, rpf, rpf, rpf, f6, dlf, r_cvs)
+            with rule_scope("cr6"):
+                f6 = dlf[T["lch6"]].any(dim=-1)
+                run, valid = self.contract("6", s.cr6, rpf, rpf, rpf, f6, dlf, r_cvs)
             counts[2], counts[3] = run, valid - run
         if s.bottom:
-            counts[4] = self.cr5(sp, rp, ms, dl, s_cvs).to(torch.int64)
+            with rule_scope("cr5"):
+                counts[4] = self.cr5(sp, rp, ms, dl, s_cvs).to(torch.int64)
+        with rule_scope("frontier"):
+            return self._frontier(s_cvs, r_cvs, lanes, lead, dev, counts)
+
+    def _frontier(self, s_cvs, r_cvs, lanes, lead, dev, counts):
+        """The step's end: the changed-S row mask and the dirty L-chunks
+        from its change vectors (on a mesh, one exchange), the change
+        flag and the gate counts."""
+        s, T = self.s, self.T
 
         def fold(cvs, n):
             m = torch.zeros(lanes * n, dtype=torch.int32, device=dev)

@@ -75,6 +75,7 @@ from distel_tpu_torch.core.engine import (
 )
 from distel_tpu_torch.core.indexing import BOTTOM_ID, TOP_ID, IndexedOntology
 from distel_tpu_torch.ops.bitmatmul import PackedMatmulPlan
+from distel_tpu_torch.runtime.instrumentation import rule_scope
 from distel_tpu_torch.parallel.shard_compat import (
     all_gather_rows,
     mesh_size,
@@ -249,14 +250,18 @@ class PackedSaturationEngine:
     _profile = False
 
     def _timed(self, name, fn, *args):
-        if not self._profile:
-            return fn(*args)
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
-        t0 = time.perf_counter()
-        out = fn(*args)
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+        """``fn(*args)`` under the profiler scope of ``name``; with
+        ``profile=True`` also its synchronised wall in
+        :attr:`rule_seconds`."""
+        with rule_scope(name):
+            if not self._profile:
+                return fn(*args)
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+            t0 = time.perf_counter()
+            out = fn(*args)
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
         self.rule_seconds[name] = (
             self.rule_seconds.get(name, 0.0) + time.perf_counter() - t0
         )
@@ -433,12 +438,13 @@ class PackedSaturationEngine:
 
     def _row_sources(self, spc):
         """CR1 and CR2's S sources and CR3's R source of one chunk."""
-        s_src = [
-            gather_bit_columns(spc, self._c1),                              # CR1
-            gather_bit_columns(spc, self._c2a)
-            & gather_bit_columns(spc, self._c2b),                           # CR2
-        ]
-        return s_src, [gather_bit_columns(spc, self._c3)]                   # CR3
+        with rule_scope("cr1"):
+            s1 = gather_bit_columns(spc, self._c1)
+        with rule_scope("cr2"):
+            s2 = gather_bit_columns(spc, self._c2a) & gather_bit_columns(spc, self._c2b)
+        with rule_scope("cr3"):
+            r3 = gather_bit_columns(spc, self._c3)
+        return [s1, s2], [r3]
 
     @staticmethod
     def _cr5(rpc, botf):

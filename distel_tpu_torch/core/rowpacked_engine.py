@@ -233,6 +233,7 @@ from distel_tpu_torch.runtime.instrumentation import (
     FRONTIER_EVENTS,
     FrontierStats,
     library_loads,
+    rule_scope,
 )
 from distel_tpu_torch.ops.bitpack import (
     SegmentedRowOr,
@@ -1119,6 +1120,85 @@ class RowPackedSaturationEngine:
             "mm": mm or make_tile_matmul(t.tile_m, t.tile_l, self.wc),
         }
 
+    def step_cost_model(self) -> dict:
+        """Analytic per-superstep cost from the static plan shapes, for
+        roofline reporting (the reference's, ``distel_tpu/core/
+        rowpacked_engine.py`` ``step_cost_model``, over this engine's
+        plan):
+
+        * ``hbm_bytes`` — packed-state card traffic of one ungated
+          superstep: per rule, source-row gathers + target-row
+          read-modify-writes (CR1-CR3), each chunk's live R windows +
+          bit-table source gather + target RMW (CR4/CR6; live-tile CR6:
+          its link-tile rows, source gathers and write groups), and the
+          CR5 OR-reduce sweep.  Gating only reduces this, so the figure
+          is an upper bound per step.
+        * ``mm_dense_equiv_macs`` — the CR4/CR6 contraction size as a
+          DENSE product ([Σrk, nl] @ [nl, nc]).
+        * ``mm_live_macs`` — the part the plan schedules: live windows
+          (live-tile CR6: occupied tile slots) only.
+
+        In exact layout the plan is the reference's window plan, and
+        the figures are its.  A bucketed engine's step runs the plan
+        padded to its rungs (``core/bucketing.BucketStruct``): every
+        chunk launches every window slot of ``length`` links over
+        ``rows`` rows, so its figures charge that padded plane, as the
+        reference charges its scanned formulation's padded slots."""
+        w4 = 4 * self.wc  # bytes per packed row
+        rw = 0
+        for p in (self._p1, self._p3):
+            rw += p.k * w4                               # gathered sources
+            rw += 2 * p.n_targets * w4                   # target RMW
+        rw += 2 * self._p2.k * w4
+        rw += 2 * self._p2.n_targets * w4
+        if -(-self.wl // self._bw) > 1:
+            # block slice + write-back traffic of the word sweep
+            rw += 2 * (self.nc + self.nl) * w4
+        macs = 0
+        live_macs = 0
+        bstruct = self._bstruct if self._bucket else None
+        for key, chunks, lcn in (("4", self._chunks4, self.lc4),
+                                 ("6", self._chunks6, self.lc)):
+            rs = getattr(bstruct, "cr" + key) if bstruct is not None else None
+            if rs is not None:
+                # the padded plane: chunks × slots windows of `length`
+                # links over `rows` rows, every slot launched
+                rw += rs.chunks * rs.slots * rs.length * w4
+                rw += rs.chunks * rs.rows * w4
+                rw += 2 * rs.chunks * rs.rows * w4
+                macs += rs.chunks * rs.rows * self.nl * self.nc
+                live_macs += rs.chunks * rs.slots * rs.rows * rs.length * self.nc
+                continue
+            for chunk in chunks:
+                n_t = len(chunk.windows)
+                rk = int(chunk.src.shape[0])
+                rw += n_t * lcn * w4                     # live R windows
+                rw += rk * w4                            # subt gather
+                rw += 2 * chunk.piece.n_targets * w4     # target RMW
+                macs += rk * self.nl * self.nc
+                live_macs += rk * n_t * lcn * self.nc
+        t6 = self._tiles6
+        if t6 is not None:
+            # live-tile CR6: the contraction touches the packed live-link
+            # tiles only — gathered rows, subt gathers, and the tile
+            # write plans' RMW + re-gather traffic
+            rw += t6.n_rt * t6.nt * t6.tile_l * w4       # link-tile rows
+            rw += t6.n_rt * t6.tile_m * w4               # subt gathers
+            for _rt0, _rt1, plan, _o, _t in t6.groups:
+                rw += 2 * plan.n_targets * w4
+                rw += 2 * plan.k * w4
+            macs += len(self.idx.chain_pairs) * self.nl * self.nc
+            live_macs += t6.stats["occupied_slots"] * t6.tile_m * self.nc
+        if self._bottom:
+            rw += (self.nl + 2) * w4
+        return {
+            "hbm_bytes": rw,
+            "mm_dense_equiv_macs": macs,
+            # the statically-scheduled portion actually contracted (live
+            # role windows only) — what the card really has to beat
+            "mm_live_macs": live_macs,
+        }
+
     def plan_stats(self) -> dict:
         """Static plan sizes: state layout, rule table sizes, and the
         CR4/CR6 contraction structure (chunks, windows, tiles)."""
@@ -1504,14 +1584,19 @@ class RowPackedSaturationEngine:
     # ------------------------------------------------------------- rules
 
     def _timed(self, name, fn, *args):
-        if not self._profile:
-            return fn(*args)
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
-        t0 = time.perf_counter()
-        out = fn(*args)
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+        """``fn(*args)`` under the profiler scope of ``name`` (the fold
+        and its read are the reference's ``frontier``); with
+        ``profile=True`` also its synchronised wall in
+        :attr:`rule_seconds`."""
+        with rule_scope("frontier" if name == "read" else name):
+            if not self._profile:
+                return fn(*args)
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+            t0 = time.perf_counter()
+            out = fn(*args)
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
         self.rule_seconds[name] = (
             self.rule_seconds.get(name, 0.0) + time.perf_counter() - t0
         )
@@ -1524,16 +1609,19 @@ class RowPackedSaturationEngine:
         for off in range(0, self.wl, self._bw):
             blk = slice(off, min(off + self._bw, self.wl))
             if self._p1.k:  # CR1: a ⊑ b
-                red = self._p1.reduce(sp[self._src1, blk])
-                c = self._p1.write(sp, red, blk, track="rows")
+                with rule_scope("cr1"):
+                    red = self._p1.reduce(sp[self._src1, blk])
+                    c = self._p1.write(sp, red, blk, track="rows")
                 cv[0] = c if cv[0] is None else cv[0] | c
             if self._p2.k:  # CR2: a1 ⊓ a2 ⊑ b
-                red = self._p2.reduce(sp[self._src2a, blk] & sp[self._src2b, blk])
-                c = self._p2.write(sp, red, blk, track="rows")
+                with rule_scope("cr2"):
+                    red = self._p2.reduce(sp[self._src2a, blk] & sp[self._src2b, blk])
+                    c = self._p2.write(sp, red, blk, track="rows")
                 cv[1] = c if cv[1] is None else cv[1] | c
             if self._p3.k:  # CR3: a ⊑ ∃link — reads S, writes R
-                red = self._p3.reduce(sp[self._src3, blk])
-                c = self._p3.write(rp, red, blk, track="rows")
+                with rule_scope("cr3"):
+                    red = self._p3.reduce(sp[self._src3, blk])
+                    c = self._p3.write(rp, red, blk, track="rows")
                 cv[2] = c if cv[2] is None else cv[2] | c
         for plan, c, out in (
             (self._p1, cv[0], s_cvs), (self._p2, cv[1], s_cvs),
@@ -1565,8 +1653,9 @@ class RowPackedSaturationEngine:
         """``bit_lookup_from(subt, cols)`` as int8 0/1 [len(cols), R]; on
         a mesh each rank looks up its word window and the partials are
         exchanged (each bit lives on one rank: their OR is the table)."""
-        return por_bits(bit_lookup_from(subt, cols, word_offset=self._wbase,
-                                        dtype=torch.int8), self.mesh)
+        with rule_scope("bit_table"):
+            return por_bits(bit_lookup_from(subt, cols, word_offset=self._wbase,
+                                            dtype=torch.int8), self.mesh)
 
     def _window_live(self, chunk, f, fr):
         dl = fr.dirty_l

@@ -303,16 +303,19 @@ def gather_observations(paths: Sequence[str]) -> List[ProbeObs]:
 
 def default_basis_paths(root: str = ".") -> List[str]:
     """The calibration basis a launch guard fits from when none is
-    given: every ledger under ``runs/`` — the port's own observed runs
-    (``DISTEL_COSTMODEL_BASIS`` overrides, colon-separated).  The
-    port's adaptation: the reference also reads its tracked
-    ``SCALE_r04/r05_probes.jsonl``, which are the JAX package's runs,
-    not the card's.  With no ledger the basis is empty and
-    :func:`guard_launch` allows the launch and says so."""
+    given: the tracked ledger records of the card's own observed
+    rebuilds, ``obs/h100_basis.jsonl`` beside this module (the
+    counterpart of the reference's ``SCALE_r04/r05_probes.jsonl``, which
+    are the JAX package's runs; written by ``python -m
+    distel_tpu_torch.obs.card_basis``, each record stamped with the
+    card's name and power limit), plus every ledger under ``runs/``
+    (``DISTEL_COSTMODEL_BASIS`` overrides, colon-separated)."""
     env = os.environ.get("DISTEL_COSTMODEL_BASIS")
     if env:
         return [p for p in env.split(":") if p]
-    paths = sorted(glob.glob(os.path.join(root, "runs", "*.ledger.jsonl")))
+    paths = [os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                          "h100_basis.jsonl")]
+    paths += sorted(glob.glob(os.path.join(root, "runs", "*.ledger.jsonl")))
     return [p for p in paths if os.path.exists(p)]
 
 

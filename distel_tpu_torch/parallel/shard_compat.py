@@ -46,7 +46,7 @@ class CollectiveStats:
         self._lock = threading.Lock()
         self.ops: dict = {}
 
-    def add(self, op: str, nbytes: int, seconds: float) -> None:
+    def tally(self, op: str, nbytes: int, seconds: float) -> None:
         with self._lock:
             rec = self.ops.setdefault(op, [0, 0, 0.0])
             rec[0] += 1
@@ -81,7 +81,7 @@ def psum_(t: torch.Tensor, mesh) -> torch.Tensor:
         return t
     t0 = time.perf_counter()
     dist.all_reduce(t, op=dist.ReduceOp.SUM, group=mesh.group)
-    COLLECTIVES.add("psum", t.numel() * t.element_size(), time.perf_counter() - t0)
+    COLLECTIVES.tally("psum", t.numel() * t.element_size(), time.perf_counter() - t0)
     return t
 
 
@@ -94,7 +94,7 @@ def por_(t: torch.Tensor, mesh) -> torch.Tensor:
     t0 = time.perf_counter()
     buf = t.view(torch.uint8) if t.dtype == torch.bool else t
     dist.all_reduce(buf, op=dist.ReduceOp.MAX, group=mesh.group)
-    COLLECTIVES.add("por", buf.numel(), time.perf_counter() - t0)
+    COLLECTIVES.tally("por", buf.numel(), time.perf_counter() - t0)
     return buf.view(torch.bool) if t.dtype == torch.bool else buf
 
 
@@ -117,7 +117,7 @@ def por_bits(t: torch.Tensor, mesh) -> torch.Tensor:
     packed = (x.view(-1, 8, *rest) << shifts).sum(1, dtype=torch.uint8)
     dist.all_reduce(packed, op=dist.ReduceOp.SUM, group=mesh.group)
     out = ((packed.unsqueeze(1) >> shifts) & 1).view(-1, *rest)[:n].to(t.dtype)
-    COLLECTIVES.add("por_bits", packed.numel(), time.perf_counter() - t0)
+    COLLECTIVES.tally("por_bits", packed.numel(), time.perf_counter() - t0)
     return out
 
 
@@ -140,7 +140,7 @@ def _gather(t: torch.Tensor, mesh, dim: int) -> torch.Tensor:
     out = torch.cat(parts, dim=dim)
     if staged:
         out = out.to(t.device)
-    COLLECTIVES.add("gather", src.numel() * src.element_size(),
+    COLLECTIVES.tally("gather", src.numel() * src.element_size(),
                     time.perf_counter() - t0)
     return out
 

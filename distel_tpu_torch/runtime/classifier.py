@@ -264,3 +264,14 @@ class ELClassifier:
     def classify_file(self, path: str, **kw) -> ClassificationResult:
         with open(path, "r", encoding="utf-8-sig") as f:
             return self.classify_text(f.read(), **kw)
+
+
+def classify(path_or_text: str, config: Optional[ClassifierConfig] = None,
+             device=None, **kw):
+    """Convenience one-shot entry (the ``scripts/classifier.sh`` analog):
+    ontology text or a path, as the reference's rule tells them apart,
+    classified on ``device`` (the first card unless given ``"cpu"``)."""
+    clf = ELClassifier(config, device=device)
+    if "\n" in path_or_text or path_or_text.lstrip().startswith(("Prefix", "Ontology", "SubClassOf")):
+        return clf.classify_text(path_or_text, **kw)
+    return clf.classify_file(path_or_text, **kw)

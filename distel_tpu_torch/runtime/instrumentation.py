@@ -16,10 +16,12 @@ What differs from the reference, and why:
   (:data:`FRONTIER_EVENTS`, :data:`STEP_RULE_EVENTS`,
   :data:`COHORT_EVENTS`, :data:`DISPATCH_EVENTS`) are the reference's.
   The observed loops (``core/engine.py``, ``core/rowpacked_engine.py``)
-  record into :data:`FRONTIER_EVENTS` and :data:`DISPATCH_EVENTS`;
-  nothing in the port records into the other two yet (a profiled
-  capture and the cohort plane), so the serve plane's gauges over them
-  read zeros, as they do in the reference's runs without those.
+  record into :data:`FRONTIER_EVENTS` and :data:`DISPATCH_EVENTS`, the
+  cohort plane into :data:`COHORT_EVENTS`, and a profiled saturation
+  (``runtime/profiling.py``) into :data:`STEP_RULE_EVENTS`.
+* :func:`rule_scope` is the port's counterpart of the reference's
+  ``jax.named_scope`` around each rule: a ``torch.profiler`` scope
+  while a profiler records, nothing otherwise.
 * :class:`CompileStats` keeps the reference's fields for the port's
   program builds; its persistent-cache counters count the kernel
   libraries a build loaded — found built (an artifact farm's, or an
@@ -303,6 +305,16 @@ class FrontierAggregate:
 
 
 FRONTIER_EVENTS = FrontierAggregate()
+
+
+def rule_scope(name: str):
+    """A ``torch.profiler.record_function`` scope named ``name`` while a
+    profiler records (``runtime/profiling.py`` attributes the device
+    time launched inside it to ``name``), else a no-op.  It never
+    synchronises the device."""
+    if torch.autograd._profiler_enabled():
+        return torch.profiler.record_function(name)
+    return contextlib.nullcontext()
 
 
 class StepRuleAggregate:

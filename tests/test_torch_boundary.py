@@ -112,6 +112,37 @@ def test_entry_points_raise_without_a_card(monkeypatch, tmp_path):
     assert classifier.ELClassifier(device="cpu").device.type == "cpu"
 
 
+@pytest.mark.parametrize("rel", [
+    "runtime/profiling.py", "obs/card_basis.py", "analysis/__init__.py",
+    "analysis/findings.py", "analysis/project.py", "analysis/lockorder.py",
+    "analysis/sharedstate.py", "analysis/knobs.py", "analysis/metricnames.py",
+    "analysis/purity.py", "analysis/runner.py",
+])
+def test_measurement_plane_is_inside_the_boundary(rel):
+    """The measurement plane and the port's distel-lint are among the
+    files the checks above read and import; the lint's modules import
+    the standard library and their own package only (no torch)."""
+    path = ROOT / "distel_tpu_torch" / rel
+    assert path in PORT_FILES
+    if rel.startswith("analysis/"):
+        assert set(_imported_roots(path)) <= set(sys.stdlib_module_names) | {
+            "distel_tpu_torch", "__future__"}
+
+
+def test_measurement_entry_points_raise_without_a_card(monkeypatch, tmp_path):
+    """``cli profile``, ``cli bench`` and the one-shot ``classify()`` run
+    on the card unless asked for the CPU, and raise without one."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    src = tmp_path / "a.ofn"
+    src.write_text("SubClassOf(A B)\n")
+    for argv in (["profile", str(src)], ["bench", str(src)]):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            cli.main(argv)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        classifier.classify(str(src))
+    assert classifier.classify(str(src), device="cpu").result.derivations >= 1
+
+
 def test_serve_and_obs_are_checked():
     """The serve plane and its observability modules are among the files
     the checks above read and import."""

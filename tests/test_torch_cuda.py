@@ -1543,3 +1543,46 @@ def test_gloo_mesh_stream_on_one_card_equals_the_solo_stream(card, tmp_path):
     assert [r["backend"] for r in ranks] == ["gloo", "gloo"]
     for k in ("closure_sha256", "taxonomy_sha256"):
         assert [s[k] for s in ranks[0]["steps"]] == [s[k] for s in ranks[1]["steps"]]
+
+
+# ------------------------------------------------ the measurement plane
+
+
+@pytest.mark.parametrize("bucket", [True, False])
+def test_profile_saturation_on_the_card_splits_device_time(card, bucket):
+    """``profile_saturation`` on a card: device time > 0, the split sums
+    to it, the hand kernels by name in ``kernels_s``; a bucketed engine
+    replays its captured groups, split by the eager group's labels."""
+    from distel_tpu_torch.core.indexing import index_ontology
+    from distel_tpu_torch.core.rowpacked_engine import RowPackedSaturationEngine
+    from distel_tpu_torch.frontend.normalizer import normalize
+    from distel_tpu_torch.owl import parser
+    from distel_tpu_torch.runtime.profiling import profile_saturation
+
+    idx = index_ontology(normalize(parser.parse(
+        snomed_shaped_ontology(n_classes=8000, seed=42))))
+    engine = RowPackedSaturationEngine(idx, device=card, bucket=bucket)
+    want = engine.saturate()
+    prof = profile_saturation(engine)
+    assert (prof["iterations"], prof["derivations"]) == (want.iterations, want.derivations)
+    assert 0 < prof["device_total_s"] <= prof["wall_s"]
+    assert abs(sum(prof["phases_s"].values()) - prof["device_total_s"]) <= 2e-3
+    assert any("packed_cols" in k for k in prof["kernels_s"])
+    assert prof["captured"] is bucket and (prof["graph_replays"] > 0) is bucket
+    assert {"cr1", "cr4", "cr6"} <= set(prof["phases_s"])
+    assert prof["device"]["platform"] == "gpu"
+
+
+def test_cli_bench_on_the_card_equals_the_cpu(card, tmp_path, capsys):
+    from distel_tpu_torch import cli
+
+    onto = tmp_path / "o.ofn"
+    onto.write_text(snomed_shaped_ontology(n_classes=1500, seed=42))
+    got = {}
+    for dev in ("cuda", "cpu"):
+        assert cli.main(["bench", str(onto), "--engines", "all", "--repeats", "1",
+                         "--device", dev]) == 0
+        got[dev] = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    for e in ("rowpacked", "packed", "dense"):
+        assert got["cuda"]["engines"][e]["derivations"] == \
+            got["cpu"]["engines"][e]["derivations"]

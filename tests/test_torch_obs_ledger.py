@@ -77,10 +77,14 @@ def test_module_is_a_copy_but_for_its_adaptation(rel):
 def test_adapted_functions():
     """The two adaptations: the card's peak reads torch's allocator
     (None without a card, as the reference's CPU backend answers), and
-    the default basis is the port's own ledgers under ``runs/``."""
+    the default basis is the port's own: the tracked records of the
+    card's observed rebuilds (``obs/h100_basis.jsonl``, where the
+    reference reads its TPU probe files) and the ledgers under
+    ``runs/``."""
     if not torch.cuda.is_available():
         assert lg.device_peak_mb() is None
-    assert cm.default_basis_paths(str(ROOT / "no-such-root")) == []
+    assert cm.default_basis_paths(str(ROOT / "no-such-root")) == [
+        str(ROOT / "distel_tpu_torch" / "obs" / "h100_basis.jsonl")]
 
 
 # ------------------------------------------------------ writer / reader
