@@ -2,6 +2,7 @@
 """Drive the PyTorch/CUDA port (``distel_tpu_torch``) on one CUDA card.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --cr6-ab   # the CR6 formulation's findings alone
 
 Phases, each of which raises on failure:
 
@@ -136,13 +137,18 @@ Phases, each of which raises on failure:
 8. the weak-scaling corpus at full width: the OpenGALEN module read
    through the RDF/XML reader, multiplied into 600 crossed copies
    (88,802 concepts), written as OFN and classified by the default
-   path with nothing hooked in (launch counts zeroed just before, read
-   just after; every kernel of the engine's routes must be > 0), held
-   to the Python-plane run of the same text (derivations, taxonomy);
-   how each plane's peak memory splits (plan tables, state, a rerun's
+   path (bucketed, CR6 by the density rule) with nothing hooked in
+   (launch counts zeroed just before, read just after; every kernel of
+   the program's routes must be > 0), held to the Python-plane exact
+   run of the same text (closure, derivations, iterations, taxonomy),
+   beside the same index with the other CR6 formulation forced (the
+   same closure; walls, launches a step, capture, graph bytes); how
+   each plane's peak memory splits (plan tables, state, a rerun's
    temporaries); then a captured saturate-and-taxonomy rerun of each
-   plane's engine, whose operand pairs (one per call site and work
-   bucket) are checked as in phase 6 and join the kernel line.  Then
+   plane's engine and an eager group of each bucketed program, whose
+   operand pairs (one per call site and work bucket) are checked as in
+   phase 6 and join the kernel line, and the tile group launch's
+   heaviest operand through its batched kernels.  Then
    the component plane at the reference's weak-scaling size: 16,384
    disjoint GALEN copies (2.52M axioms) as OFN text, split by
    ``partition_ofn_text`` into one group, its representative ingested
@@ -1066,26 +1072,42 @@ def phase_multiplied_full_width(cap: Capture):
     """The reference's weak-scaling pipeline at full width: the GALEN
     module read through the RDF/XML reader, ``multiply_ontology(600,
     crossed=True)``, written as OFN, then the default classify on the
-    card (the native load plane, the gated row-packed engine) with
-    nothing hooked in; held against the Python-plane card run of the
-    same text (taxonomy by name, derivations).  Then how each plane's
-    peak memory splits, and a captured saturate-and-taxonomy rerun of
-    each plane's engine: every operand pair captured there is checked
-    (both routes and the listing against the plain versions, bit for
-    bit); the pairs are returned for the kernel line."""
+    card (the native load plane, the gated row-packed engine, shape
+    buckets; its CR6 formulation by the density rule against the
+    bucketed window plane) with nothing hooked in; held against the
+    Python-plane exact run of the same text: closure and taxonomy by
+    name, derivations and iterations.  Beside it the same index through
+    the same config with the other CR6 formulation forced (the live-tile
+    CR6 under buckets with ``cr6.tiles.density_threshold`` raised, or the
+    window plane with ``cr6.tiles.enable = false``): the same closure,
+    and for both its launches a step by kernel, its capture seconds, its
+    graph's card bytes and its saturate walls.  Then how each plane's
+    peak memory splits, a captured saturate-and-taxonomy rerun of each
+    plane's engine and one eager group of each bucketed program at the
+    fixed point (:func:`bucket_operands`): every operand pair captured
+    there is checked (both routes and the listing against the plain
+    versions, bit for bit; each program's CR4 and window CR6 sites must
+    have sent one), and the tile group launch's heaviest operand through
+    its batched kernels.  Returns the pairs and the tile group's kernel
+    rows."""
     from distel_tpu_torch.config import ClassifierConfig
     from distel_tpu_torch.frontend.ontology_tools import multiply_ontology
     from distel_tpu_torch.ops.bitmatmul import LAUNCHES, reset_launches
     from distel_tpu_torch.owl import rdfxml, writer
-    from distel_tpu_torch.runtime.classifier import ELClassifier
+    from distel_tpu_torch.runtime.classifier import ELClassifier, make_engine
     from distel_tpu_torch.runtime.taxonomy import extract_taxonomy
 
-    t0 = time.perf_counter()
+    t0 = t_phase = time.perf_counter()
+    clock = {}
+
+    def mark(what):
+        clock[what] = time.perf_counter() - t_phase
+
     galen = rdfxml.parse_file(str(ROOT / "tests" / "corpora" / "galen_module_jia.owl"))
     onto = multiply_ontology(galen, MULTIPLY_COPIES, crossed=True)
     text = writer.ontology_to_str(onto)
     build_s = time.perf_counter() - t0
-    clf = ELClassifier(EXACT(), device="cuda")
+    clf = ELClassifier(ClassifierConfig(), device="cuda")
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     reset_launches()
@@ -1098,6 +1120,75 @@ def phase_multiplied_full_width(cap: Capture):
     eng = res.engine
     got = {"concepts": res.idx.n_concepts, "links": res.idx.n_links,
            "classes": len(res.idx.original_classes)}
+
+    def reruns(engine, want):
+        walls = []
+        for _ in range(2):
+            sync()
+            t1 = time.perf_counter()
+            again = engine.saturate()
+            sync()
+            walls.append(time.perf_counter() - t1)
+            if not same_state(again, want):
+                raise AssertionError("multiplied: a rerun gave another closure")
+            del again
+        return walls
+
+    def record(engine, walls, **extra):
+        prog = engine._bucket_program()
+        return {"cr6_tiles": tile_stats(engine), "program": program_stats(engine),
+                "launches_per_step": {k: v / engine.unroll
+                                      for k, v in sorted(prog.launches.items())},
+                "saturate_reruns_s": walls, **extra}
+
+    mark("default")
+    default_tiled = eng._bstruct.cr6t is not None
+    default = record(eng, reruns(eng, res.result))
+    sigs = [eng.bucket_signature]
+    log(f"[multiplied] default ({'tiles' if default_tiled else 'windows'}): "
+        f"{json.dumps(default)}")
+    # the default program's own operands, at the shapes the main path
+    # gives its kernels (its replays are unseen)
+    tops = {"multiplied": bucket_operands(eng, res.result, cap, run="multiplied")}
+    want_sites = {"multiplied": {"taxonomy"} | program_sites(eng)}
+    mark("default operands")
+    # the same index, the same config with the other CR6 formulation
+    other_cfg = (ClassifierConfig(cr6_tiles=False) if default_tiled else
+                 ClassifierConfig(cr6_tiles_density_threshold=100.0))
+    t0 = time.perf_counter()
+    other = make_engine(other_cfg, res.idx, "cuda")
+    plan_s = time.perf_counter() - t0
+    sigs.append(other.bucket_signature)
+    reset_launches()
+    sync()
+    t0 = time.perf_counter()
+    ores = other.saturate()
+    sync()
+    other_sat = time.perf_counter() - t0
+    other_launches = dict(LAUNCHES)
+    if ores.iterations != res.result.iterations or \
+            ores.derivations != res.result.derivations:
+        raise AssertionError("multiplied: windows and tiles iterate apart")
+    if not same_state(ores, res.result):
+        raise AssertionError("multiplied: windows and tiles give other closures")
+    forced = record(other, reruns(other, ores), plan_s=plan_s,
+                    saturate_s=other_sat, launches=other_launches)
+    log(f"[multiplied] forced ({'windows' if default_tiled else 'tiles'}): "
+        f"{json.dumps(forced)}")
+    other_run = "multiplied:windows" if default_tiled else "multiplied:tiles"
+    if default_tiled:
+        tiles_run, tile_launches = "multiplied", launches
+        bucketed = {"tiles": default, "windows": forced}
+    else:
+        tiles_run, tile_launches = other_run, other_launches
+        bucketed = {"windows": default, "tiles": forced}
+    if (other._bstruct.cr6t is None) != default_tiled:
+        raise AssertionError("multiplied: the other CR6 formulation was not taken")
+    tops[other_run] = bucket_operands(other, ores, cap, run=other_run)
+    want_sites[other_run] = program_sites(other)
+    del other, ores
+    torch.cuda.empty_cache()
+    mark("forced")
     py_clf = ELClassifier(EXACT(use_native_loader=False), device="cuda")
     torch.cuda.reset_peak_memory_stats()
     sync()
@@ -1105,6 +1196,7 @@ def phase_multiplied_full_width(cap: Capture):
     py = py_clf.classify_text(text)
     py_wall = time.perf_counter() - t0
     py_peak = torch.cuda.max_memory_allocated()
+    mark("python")
     split = {"native": memory_split(eng, res.result),
              "python": memory_split(py.engine, py.result)}
     for run, r in (("multiplied", res), ("multiplied:python", py)):
@@ -1118,10 +1210,15 @@ def phase_multiplied_full_width(cap: Capture):
         if taxonomy_key(tax) != taxonomy_key(r.taxonomy):
             raise AssertionError(f"{run}: the captured rerun gave another taxonomy")
         del again, tax
+    mark("captured reruns")
     pairs = []
     for key in sorted(k for k in cap.pairs if k[0].startswith("multiplied")):
         n, _nnz, a, b = cap.pairs.pop(key)
         pairs.append(check_pair(*key[:3], n, a, b))
+    mark("pairs")
+    tile_rows = tile_group_rows(tops[tiles_run], tile_launches, tiles_run)
+    del tops
+    mark("tile group")
     stats = {
         **res.summary(),
         "copies": MULTIPLY_COPIES,
@@ -1139,6 +1236,9 @@ def phase_multiplied_full_width(cap: Capture):
         "plan": eng.plan_stats(),
         "index": got,
         "classes_in_taxonomy": len(res.taxonomy.parents),
+        "mode": "bucketed",
+        "cr6_tiles": tile_stats(eng),
+        "bucketed": bucketed,
         "python_plane": {
             "wall_s": py_wall, "phases_ms": py.summary()["phases_ms"],
             "max_memory_allocated": py_peak,
@@ -1152,6 +1252,10 @@ def phase_multiplied_full_width(cap: Capture):
                                "shape", "max_abs_err")}
             for p in pairs
         ],
+        "clock_s": clock,
+        "tile_group_checks": [{k: r[k] for k in ("name", "max_abs_err", "ms",
+                                                  "plain_ms", "bound_ms", "at")}
+                              for r in tile_rows],
     }
     log(f"[multiplied] {json.dumps(stats)}")
     print(json.dumps({"multiplied_full_width": stats}), flush=True)
@@ -1159,24 +1263,187 @@ def phase_multiplied_full_width(cap: Capture):
         raise AssertionError(f"multiplied: index {got}, expected {MULTIPLIED_EXPECT}")
     if "load(native)" not in res.timer.phases:
         raise AssertionError("multiplied: the default classify did not run the native plane")
+    if not eng._bucket or "compile" not in res.timer.phases:
+        raise AssertionError("multiplied: the default classify did not run bucketed")
+    st = eng.cr6_tiles_stats
+    if st["active"] != (st["density"] <= ClassifierConfig().cr6_tiles_density_threshold) \
+            or st["active"] != default_tiled:
+        raise AssertionError(f"multiplied: the default classify's CR6 is not "
+                             f"its density rule's: {tile_stats(eng)}")
     if not res.result.converged:
         raise AssertionError("multiplied: did not converge")
-    for k in path_kernels(eng._plans.values()):
+    for k in bucket_path_kernels(eng):
         if launches[k] == 0:
             raise AssertionError(f"multiplied: {k} was never launched")
-    for run, e in (("multiplied", eng), ("multiplied:python", py.engine)):
+    for k in ("packed_cols_dense_n_batched", "packed_cols_list_n_batched"):
+        if tile_launches[k] and k not in [r["name"].split()[0] for r in tile_rows]:
+            raise AssertionError(f"multiplied: {k} launched, no operand checked")
+    e = py.engine
+    want_sites["multiplied:python"] = (
+        {"taxonomy", "cr6_tiles" if e._t6 is not None else "cr6_windows"}
+        | ({"cr4"} if e._chunks4 else set()))
+    for run, want in want_sites.items():
         sites = {p["site"] for p in pairs if p["run"] == run}
-        want = {"taxonomy", "cr6_tiles" if e._t6 is not None else "cr6_windows"}
-        if e._chunks4:
-            want.add("cr4")
         if not want <= sites:
             raise AssertionError(f"{run}: no operand captured at {sorted(want - sites)}")
-    if py.result.derivations != res.result.derivations:
-        raise AssertionError("multiplied: the load planes give other derivation counts")
+    if py.result.derivations != res.result.derivations or \
+            py.result.iterations != res.result.iterations:
+        raise AssertionError("multiplied: the load planes give other derivations "
+                             "or iterations")
     if taxonomy_key(py.taxonomy) != taxonomy_key(res.taxonomy):
         raise AssertionError("multiplied: the load planes give other taxonomies")
-    log("[multiplied] native and python load planes: same derivations and taxonomy")
-    return pairs
+    if not named_closure_equal(py.result, res.result):
+        raise AssertionError("multiplied: the load planes give other closures")
+    log("[multiplied] bucketed default = exact python plane (closure, derivations, "
+        "iterations, taxonomy) = bucketed, the other CR6 formulation")
+    del eng, res
+    drop_programs(sigs)
+    return pairs, tile_rows
+
+
+#: the size at which the port's and the reference's tile decisions part
+#: (``tests/test_torch_cr6_tiles_bucket.py``: exact 1.1911 against
+#: 0.3433, bucketed 0.8679 against 0.3833)
+DECISION_CLASSES = 16000
+
+
+def phase_tile_decision(n_classes: int = DECISION_CLASSES) -> dict:
+    """The CR6 decision that differs from the reference's, on the card:
+    the corpus's saturate three ways from one index (the native load
+    plane's, as the default classify's) — exact windows (the
+    port's density decision), exact with the tiles forced (the
+    reference's decision) and bucketed (the default config) — each
+    engine built, saturated once cold (a bucketed engine captures its
+    program there), then twice more timed; the three closures equal by
+    name with equal derivations."""
+    from distel_tpu_torch.config import ClassifierConfig
+    from distel_tpu_torch.frontend.ontology_tools import snomed_shaped_ontology
+    from distel_tpu_torch.owl import native_loader
+    from distel_tpu_torch.runtime.classifier import make_engine
+
+    idx = native_loader.load_indexed(snomed_shaped_ontology(n_classes=n_classes,
+                                                            seed=42))
+    out, first = {}, None
+    for name, cfg in (("exact_windows", EXACT()),
+                      ("exact_tiles", EXACT(cr6_tiles_density_threshold=100.0)),
+                      ("bucketed", ClassifierConfig())):
+        t0 = time.perf_counter()
+        eng = make_engine(cfg, idx, "cuda")
+        plan_s = time.perf_counter() - t0
+        sync()
+        t0 = time.perf_counter()
+        res = eng.saturate()
+        sync()
+        cold = time.perf_counter() - t0
+        walls = []
+        for _ in range(2):
+            sync()
+            t0 = time.perf_counter()
+            eng.saturate()
+            sync()
+            walls.append(time.perf_counter() - t0)
+        out[name] = {"cr6_tiles": tile_stats(eng), "plan_s": plan_s,
+                     "first_saturate_s": cold, "saturate_s": walls,
+                     "iterations": res.iterations, "derivations": res.derivations}
+        drop_programs([eng.bucket_signature])
+        if first is None:
+            first = res
+        elif res.derivations != first.derivations or \
+                not named_closure_equal(res, first):
+            raise AssertionError(f"tile decision {n_classes}: {name} differs "
+                                 f"from exact windows")
+        del eng
+    torch.cuda.empty_cache()
+    want = {"exact_windows": False, "exact_tiles": True, "bucketed": False}
+    got = {k: v["cr6_tiles"]["active"] for k, v in out.items()}
+    print(json.dumps({"tile_decision": {"classes": n_classes, **out}}), flush=True)
+    if got != want:
+        raise AssertionError(f"tile decision {n_classes}: {got}, expected {want}")
+    return out
+
+
+def phase_cr6_delta_ab(sizes=None, device: str = "cuda") -> dict:
+    """The bucketed delta plane (what ``cli stream`` and every serve
+    tenant run) with the live-tile CR6 under buckets (the default: every
+    cross program tiled, a one-shot engine by the density rule) against
+    the window plane (``cr6.tiles.enable = false``: the CR6 of every
+    bucketed program before the tiles ran under buckets).  Per size: the
+    range-free corpus as the base, then the bench's class-only, role and
+    closure deltas, through a fresh ``IncrementalClassifier`` of each
+    config in the order tiles, windows, windows, tiles (a config's first
+    run builds its programs, its second finds them in the registry);
+    each step's path, wall, phases, ``compile_s``, and the CR6 of the
+    delta engines (a fast step) or of the base (a rebuild); every run's
+    closure equal by name to the first's, with equal derivations."""
+    from distel_tpu_torch.config import ClassifierConfig
+    from distel_tpu_torch.core.incremental import IncrementalClassifier
+    from distel_tpu_torch.core.program_cache import PROGRAMS
+    from distel_tpu_torch.frontend.ontology_tools import snomed_shaped_ontology
+
+    sizes = (SERVE_CLASSES, 64000) if sizes is None else sizes
+    configs = {"tiles": ClassifierConfig(), "windows": ClassifierConfig(cr6_tiles=False)}
+    steps = (("class_only", INC_CLASS_DELTA), ("role", INC_ROLE_DELTA),
+             ("closure", INC_CLOSURE_DELTA))
+    out = {}
+    for n in sizes:
+        base = without_ranges(snomed_shaped_ontology(n_classes=n, seed=42))
+        runs, first = [], None
+        for name in ("tiles", "windows", "windows", "tiles"):
+            inc = IncrementalClassifier(configs[name], device=device)
+            recs = []
+            for step, text in (("base", base),) + steps:
+                sync()
+                t0 = time.perf_counter()
+                res = inc.add_text(text)
+                sync()
+                h = inc.history[-1]
+                recs.append({
+                    "step": step, "path": h["path"], "wall_s": time.perf_counter() - t0,
+                    "phases_s": inc.last_phases, "compile_s": h.get("compile_s"),
+                    "iterations": h["iterations"],
+                    "delta_tiles": inc.last_delta_tiles if h["path"] == "fast" else None,
+                    # a rebuild's base (with the deltas' window headroom)
+                    "base_tiles": (tile_stats(inc._base_engine)
+                                   if h["path"] == "rebuild" else None),
+                })
+            runs.append({"cr6": name, "steps": recs})
+            log(f"[cr6 delta a/b] {n} {name}: {json.dumps(recs)}")
+            if first is None:
+                first = res
+            elif res.derivations != first.derivations or \
+                    not named_closure_equal(res, first):
+                raise AssertionError(f"cr6 delta a/b {n}: {name} gave another closure")
+            if name == "tiles" and not any(
+                    t["cross"] and t["active"] for r in recs if r["delta_tiles"]
+                    for t in r["delta_tiles"]):
+                raise AssertionError(f"cr6 delta a/b {n}: no tiled cross program ran")
+            del inc, res
+            torch.cuda.empty_cache()
+        out[str(n)] = runs
+        del first
+        PROGRAMS.clear()
+        torch.cuda.empty_cache()
+    print(json.dumps({"cr6_delta_ab": out}), flush=True)
+    return out
+
+
+def cr6_ab_main() -> int:
+    """``chip_smoke.py --cr6-ab``: the CR6 formulation's findings run
+    once, outside the smoke: :func:`phase_tile_decision` and
+    :func:`phase_cr6_delta_ab`."""
+    import distel_tpu_torch  # noqa: F401
+
+    if not torch.cuda.is_available():
+        log("no CUDA device: chip_smoke.py needs one card")
+        return 2
+    torch.backends.cuda.matmul.allow_tf32 = False
+    name = phase_probe()
+    phase_tile_decision()
+    phase_cr6_delta_ab()
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
+                                             "count": torch.cuda.device_count()}}),
+          flush=True)
+    return 0
 
 
 #: the weak-scaling regime of the component plane: this many disjoint
@@ -1580,13 +1847,47 @@ def bucket_path_kernels(engine) -> list:
     program's row-count routes (the dense kernel's ``_n`` form, or the
     ``_n`` listing and the sparse kernel) and the taxonomy's listing and
     sparse kernel."""
-    plans = engine._bucket_program().step.plans.values()
+    return program_kernels(engine._bucket_program().step)
+
+
+def program_kernels(step) -> list:
+    """:func:`bucket_path_kernels` of a step (``bucketing._Step``)."""
+    plans = step.plans.values()
     kernels = ["packed_cols_list", "packed_cols_sparse"]
     if any(not p.skip_zero_tiles for p in plans):
         kernels.append("packed_cols_dense_n")
     if any(p.skip_zero_tiles for p in plans):
         kernels.append("packed_cols_list_n")
+    tile = getattr(step, "tile_plan", None)
+    if tile is not None:
+        kernels += (["packed_cols_list_n_batched", "packed_cols_sparse_batched"]
+                    if tile.skip_zero_tiles else ["packed_cols_dense_n_batched"])
     return kernels
+
+
+def same_state(a, b) -> bool:
+    """Whether two results of one layout hold the same packed S and R,
+    compared on the card."""
+    return (torch.equal(a.packed_s, b.packed_s)
+            and torch.equal(a.packed_r, b.packed_r))
+
+
+def drop_programs(sigs) -> None:
+    """Take the step programs of the bucket signatures ``sigs`` out of
+    the registry: a full-width phase's programs must not hold the card
+    for the phases after it."""
+    from distel_tpu_torch.core.program_cache import PROGRAMS
+
+    with PROGRAMS._lock:
+        for k in [k for k in PROGRAMS._programs if k[0] in set(sigs)]:
+            del PROGRAMS._programs[k]
+
+
+def tile_stats(engine) -> dict:
+    """A row-packed engine's CR6 formulation record (``cr6_tiles_stats``
+    without its histogram)."""
+    return {k: v for k, v in engine.cr6_tiles_stats.items()
+            if k != "occupancy_histogram"}
 
 
 def program_stats(engine) -> dict:
@@ -1977,24 +2278,69 @@ def rows_equal(bucketed, exact, n_c: int, n_l: int) -> bool:
             and torch.equal(bucketed.packed_r[:n_l, :wc], exact.packed_r[:n_l, :wc]))
 
 
-def bucket_operands(engine, res, cap: "Capture") -> None:
+def bucket_operands(engine, res, cap: "Capture", run: str = "64k-bucketed") -> dict:
     """One step group of ``engine``'s bucketed program run eagerly (not
-    replayed) from ``res``'s closure with every window live, under the
-    capture (run ``64k-bucketed``): the operands the program's kernels
-    get at the real rung shapes.  The closure must not move."""
+    replayed) from ``res``'s closure with every window and tile slot
+    live, under the capture (run ``run``): the operands the program's
+    kernels get at the real rung shapes.  The closure must not move.
+    Returns the live-tile CR6's group launches' heaviest operand per
+    route (:class:`BatchedRowsCapture`; empty without tiles)."""
     prog = engine._bucket_program()
-    with prog.pair.lock:
-        prog.load(engine._btables)
+    with prog.pair.lock, BatchedRowsCapture() as bcap:
+        prog.load(engine.bucket_tables())
         prog.pair.sp.copy_(res.packed_s)
         prog.pair.rp.copy_(res.packed_r)
         prog.ms.fill_(True)
         prog.dl.copy_(prog.T["dl_valid"])
-        cap.run = "64k-bucketed"
+        cap.run = run
         with cap:
             prog._group()
         sync()
         if bool(prog.flags[0]) or not torch.equal(prog.pair.sp, res.packed_s):
-            raise AssertionError("64k bucketed: a step on the fixed point changed it")
+            raise AssertionError(f"{run}: a step on the fixed point changed it")
+    return dict(bcap.top)
+
+
+def program_sites(engine) -> set:
+    """The call sites a bucketed program's eager group
+    (:func:`bucket_operands`) must send an operand from: its CR4 slot
+    and its window CR6 slot (a tiled CR6 goes through the group launch,
+    :func:`tile_group_rows`)."""
+    bs = engine._bstruct
+    return ({"bucket_cr4"} if bs.cr4 is not None else set()) | \
+        ({"bucket_cr6"} if bs.cr6 is not None else set())
+
+
+def tile_group_rows(top: dict, launches: dict, run: str) -> list:
+    """The live-tile CR6 group launch's heaviest operand of each route
+    (:func:`bucket_operands`) through its batched kernels against the
+    plain version (0 differing words) and timed: one kernel row a
+    route, with the launches of ``run``'s classify."""
+    rows = []
+    for route, (_work, a, b, out, n_rows) in sorted(top.items()):
+        rec = check_batched_rows(route, a, b, out, n_rows, what=run)
+        names = (("packed_cols_list_n_batched", "packed_cols_sparse_batched")
+                 if route == "list" else ("packed_cols_dense_n_batched",))
+        row = {
+            "name": f"{names[0]} (tile group)", "route": "cuda", "source": SOURCE,
+            "replaces": REPLACES["packed_cols_sparse" if route == "list"
+                                 else "packed_cols_dense"],
+            "launches": launches[names[0]],
+            "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
+            "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
+            "bound_by": rec["bound_by"], "library_ms": None,
+            "dead_ms": rec["dead_ms"], "rung_diffs": rec["rung_diffs"],
+            "at": {"run": run, "shape": rec["shape"],
+                   "rows": int(n_rows.sum()), "live_row_tiles": int((n_rows > 0).sum())},
+            "main_path": False,
+        }
+        if route == "list":
+            row.update(sparse_launches=launches["packed_cols_sparse_batched"],
+                       list_ms=rec["list_ms"], sparse_kernel_ms=rec["sparse_kernel_ms"])
+        rows.append(row)
+    if not rows:
+        raise AssertionError(f"{run}: the tiled step sent no operand to a group launch")
+    return rows
 
 
 def bucket_heaviest(cap: "Capture") -> dict:
@@ -2421,6 +2767,13 @@ def phase_incremental_full_width(cap: Capture, refs: Optional[dict] = None):
                "wall_s": wall, "phases_s": who.last_phases,
                "launches": dict(LAUNCHES), "host_peak_rss": hp.peak,
                "max_memory_allocated": torch.cuda.max_memory_allocated()}
+        if h["path"] == "fast":
+            # the delta engines' CR6: a cross program takes tiles always
+            rec["delta_tiles"] = who.last_delta_tiles
+            for t in who.last_delta_tiles:
+                if t["cross"] and t["active"] is False and t["reason"] != "off":
+                    raise AssertionError(f"incremental 64k {name}: an untiled "
+                                         f"cross program: {t}")
         log(f"[incremental 64k] {json.dumps(rec)}")
         records.append(rec)
         if h["path"] not in paths:
@@ -4975,11 +5328,14 @@ for name in libraries:
 after = build.CACHE_EVENTS.snapshot()
 ops = torch.load(sys.argv[3])
 checks = S.check_variants([(o["site"], o["a"].cuda(), o["b"].cuda(),
-                            o["sparse"]) for o in ops])
+                            o["sparse"]) for o in ops["windows"]])
+tiles = [S.check_batched_rows(o["route"], o["a"].cuda(), o["b"].cuda(),
+                              o["out"].cuda(), o["n_rows"].cuda(), what="farm")
+         for o in ops["tiles"]]
 print(json.dumps({"libraries": libraries,
                   "nvcc_runs": after["misses"] - before["misses"],
                   "persistent_cache_hits": after["hits"] - before["hits"],
-                  "checks": checks}))
+                  "checks": checks, "tile_checks": tiles}))
 '''
 
 
@@ -5141,12 +5497,23 @@ def phase_farm_full_width(n_classes: int = 64000):
         ref = ELClassifier(device="cuda").classify_text(
             text + "\n" + INC_CLASS_DELTA + "\n")
         want = taxonomy_key(ref.taxonomy)
+        del ref
+        # the operands of a base program as the consumer's (the serve
+        # plane's rebuild of the same text: a tiled base sends its CR6
+        # through the tile group's batched forms)
+        from distel_tpu_torch.core.incremental import IncrementalClassifier
+
+        ref = IncrementalClassifier(device="cuda")
+        ref.add_text(text)
         ops_cap = Capture()
-        bucket_operands(ref.engine, ref.result, ops_cap)
-        ops = [{"site": site, "a": a.cpu(), "b": b.cpu(), "sparse": sparse}
-               for _variant, (site, a, b, sparse) in
-               sorted(bucket_heaviest(ops_cap).items())]
-        del ref, ops_cap
+        top = bucket_operands(ref._base_engine, ref.last_result, ops_cap)
+        ops = {"windows": [{"site": site, "a": a.cpu(), "b": b.cpu(), "sparse": sparse}
+                           for _variant, (site, a, b, sparse) in
+                           sorted(bucket_heaviest(ops_cap).items())],
+               "tiles": [{"route": route, "a": a.cpu(), "b": b.cpu(), "out": c.cpu(),
+                          "n_rows": n.cpu()}
+                         for route, (_w, a, b, c, n) in sorted(top.items())]}
+        del ref, ops_cap, top
         torch.cuda.empty_cache()
         ops_path = FARM_WORK / "operands.pt"
         torch.save(ops, ops_path)
@@ -5166,6 +5533,18 @@ def phase_farm_full_width(n_classes: int = 64000):
         out["clock_s"] = {"bake": time.perf_counter() - t_phase}
         if stats["exe"] < 2 or stats["kernels"] != 2 or not stats["nvcc"]:
             raise AssertionError(f"farm: the bake shipped {stats}")
+        # the warmed cross program's spec carries the live-tile CR6
+        tiled = []
+        for f in sorted((FARM_DIR / "exe").glob("*.json")):
+            spec = json.loads(f.read_text())
+            t = spec["struct"].get("cr6t")
+            if t is not None:
+                tiled.append({k: t[k] for k in ("tile_m", "tile_l", "n_rt", "nt")}
+                             | {"groups": len(t["groups"])})
+        out["tiled_specs"] = tiled
+        log(f"[farm bake] tiled specs {json.dumps(tiled)}")
+        if not tiled:
+            raise AssertionError("farm: no program spec carries the tile structure")
 
         # 2. a fresh serve process with no toolkit consumes it
         install_replica_hook()
@@ -5265,7 +5644,17 @@ def phase_farm_full_width(n_classes: int = 64000):
         if None in met.values() or not met["distel_artifact_exe_hits_total"] or \
                 met["distel_artifact_rejected_total"] != 0:
             raise AssertionError(f"farm: the consumer's /metrics {met}")
-        for k in ("packed_cols_dense_n", "packed_cols_list_n", "packed_cols_sparse"):
+        # the kernels the consumer's load program launches, from its spec
+        from distel_tpu_torch.core import bucketing
+
+        manifest = json.loads((FARM_DIR / artifacts.MANIFEST_NAME).read_text())
+        spec = next(e["file"] for e in manifest["artifacts"].values()
+                    if e.get("kind") == "step"
+                    and e.get("bucket_signature") == load["bucket_signature"])
+        struct, _shapes = bucketing.spec_parts(json.loads((FARM_DIR / spec).read_text()))
+        load_kernels = program_kernels(bucketing._Step(struct, {}, "cpu"))
+        out["consumer"]["load_kernels"] = load_kernels
+        for k in load_kernels:
             if not out["consumer"]["launches"].get(k):
                 raise AssertionError(f"farm: the consumer never launched {k}")
 
@@ -5278,7 +5667,8 @@ def phase_farm_full_width(n_classes: int = 64000):
         out["check"] = {"wall_s": time.perf_counter() - t_check,
                         **{k: check[k] for k in ("libraries", "nvcc_runs",
                                                  "persistent_cache_hits")}}
-        if check["nvcc_runs"] != 0 or any(c["max_abs_err"] for c in check["checks"]):
+        if check["nvcc_runs"] != 0 or any(c["max_abs_err"] for c in
+                                          check["checks"] + check["tile_checks"]):
             raise AssertionError(f"farm: the kernel check {check}")
         out["clock_s"]["check"] = time.perf_counter() - t_phase
 
@@ -5371,7 +5761,26 @@ def phase_farm_full_width(n_classes: int = 64000):
 
     rows = []
     by_kernel = {c["kernel"]: c for c in check["checks"] if c["main_path"]}
+    for rec in check.get("tile_checks", []):
+        names = (("packed_cols_list_n_batched", "packed_cols_sparse_batched")
+                 if rec["route"] == "list" else ("packed_cols_dense_n_batched",))
+        row = {
+            "name": f"{names[0]} (farm consumer, tile group)", "route": "cuda",
+            "source": SOURCE,
+            "replaces": REPLACES["packed_cols_sparse" if rec["route"] == "list"
+                                 else "packed_cols_dense"],
+            "launches": out["consumer"]["launches"].get(names[0], 0),
+            "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
+            "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
+            "bound_by": rec["bound_by"], "library_ms": None, "dead_ms": rec["dead_ms"],
+            "library": "farm", "at": {"run": f"{tag}-bucketed", "shape": rec["shape"]},
+        }
+        if rec["route"] == "list":
+            row["sparse_launches"] = out["consumer"]["launches"].get(names[1], 0)
+        rows.append(row)
     for variant in ("packed_cols_dense_n", "packed_cols_list_n"):
+        if variant not in by_kernel:
+            continue          # a tiled base has no CR6 window operand
         c = by_kernel[variant]
         base = "packed_cols_dense" if variant == "packed_cols_dense_n" \
             else "packed_cols_sparse"
@@ -5379,7 +5788,8 @@ def phase_farm_full_width(n_classes: int = 64000):
             "name": f"{variant} (farm consumer)", "route": "cuda", "source": SOURCE,
             "replaces": REPLACES[base],
             "launches": out["consumer"]["launches"].get(variant, 0),
-            "max_abs_err": max(x["max_abs_err"] for x in check["checks"]),
+            "max_abs_err": max(x["max_abs_err"] for x in check["checks"]
+                               + check["tile_checks"]),
             "ms": c["ms"], "plain_ms": c["plain_ms"], "bound_ms": c["bound_ms"],
             "bound_by": c["bound_by"], "library_ms": None, "dead_ms": c["dead_ms"],
             "library": "farm", "at": {"run": f"{tag}-bucketed", "site": c["rule"],
@@ -5566,7 +5976,7 @@ def batched_rows_bound_ms(a, b, n_rows):
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
-def check_batched_rows(route: str, a, b, out, n_rows) -> dict:
+def check_batched_rows(route: str, a, b, out, n_rows, what: str = "cohort") -> dict:
     """One captured batched operand through its route's kernels at its
     rung and, re-stacked, at rungs 2 and 8 with mixed row counts (0,
     all, half, the captured ones): 0 differing words against
@@ -5593,7 +6003,7 @@ def check_batched_rows(route: str, a, b, out, n_rows) -> dict:
         err = max(err, diff)
         del aa, bb, oo, got, want
     if err:
-        raise AssertionError(f"cohort: {route} batched kernels differ from plain "
+        raise AssertionError(f"{what}: {route} batched kernels differ from plain "
                              f"by {rungs} words")
     c = out.clone()
     rec = {
@@ -5612,7 +6022,7 @@ def check_batched_rows(route: str, a, b, out, n_rows) -> dict:
     dead = torch.zeros_like(n_rows)
     rec["dead_ms"] = time_ms(lambda: plan.batched_rows(a, b, c, dead))
     rec["bound_ms"], rec["bound_by"] = batched_rows_bound_ms(a, b, n_rows)
-    log(f"[cohort] batched {json.dumps(rec)}")
+    log(f"[{what}] batched {json.dumps(rec)}")
     return rec
 
 
@@ -5778,9 +6188,14 @@ def _cohort_phase(device, n_classes, cut_classes, rows, child, cpu_out,
         # states take 4 lanes of it)
         "free_bytes_before": free_before,
         "phases_s": {w: reg.classifier(ids[w]).last_phases for w in "abcd"},
+        # the roster's CR6 formulations (a cross program takes tiles)
+        "roster_tiles": run["members"][0][1].tile_stats(),
     }
     if device == "cuda":
         full["max_memory_allocated"] = torch.cuda.max_memory_allocated()
+    for t in full["roster_tiles"]:
+        if t["cross"] and t["active"] is False and t["reason"] != "off":
+            raise AssertionError(f"cohort: an untiled cross program: {t}")
     if set("abc") - set(in_cohort):
         raise AssertionError(f"cohort: a, b, c must share one cohort, got {in_cohort}")
     if stats["rung"] != cohort_mod.cohort_rung(len(in_cohort)):
@@ -6876,7 +7291,7 @@ def main() -> int:
     mesh_rows = phase_mesh_full_width(mesh, solo_ref, heaviest)
     del heaviest
     mark("64k exact and packed")
-    checked = phase_multiplied_full_width(cap)
+    checked, tile_rows = phase_multiplied_full_width(cap)
     torch.cuda.empty_cache()
     mark("multiplied")
     batched_row = phase_partition_full_width()
@@ -6917,6 +7332,7 @@ def main() -> int:
     mark("fleet")
     rows, pairs = phase_kernel_line(launches, exact_launches, cap, checked)
     rows.extend(bucket_rows)
+    rows.extend(tile_rows)
     rows.append(andor_row)
     rows.append(batched_row)
     rows.extend(fused_rows)
@@ -6936,4 +7352,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(cr6_ab_main() if sys.argv[1:] == ["--cr6-ab"] else main())

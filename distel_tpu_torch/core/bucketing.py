@@ -16,13 +16,17 @@ What the step reads, and where it lives:
   on the corpus ladder, the CR1-CR3 seg-OR plans' quantized structures
   (``SegmentedRowOr.quantized``), and per CR4/CR6 table the chunk count,
   the rows a chunk, the window slots a chunk and the slot length, each
-  on a ladder rung.  It is the signature; nothing else decides a launch;
+  on a ladder rung — or, when the engine's CR6 is the live-tile
+  schedule, its :class:`TileStruct` in place of CR6's (the schedule's
+  ``signature_parts``: tile sizes, row-tile and link-tile rungs, write
+  groups).  It is the signature; nothing else decides a launch;
 * the argument tables (:func:`bucket_plan`) — every ontology-derived
   array at those rung shapes: rule gather indices and seg-OR targets,
   fillers and link roles, the factored masks (their role axis widened
   to a rung), each chunk's source rows, targets and their segment
   tables, each window slot's links and L-chunks, the L-chunk of every
-  link.  The program owns card buffers of
+  link; the live-tile schedule's row tiles, link tiles, mask table and
+  write groups.  The program owns card buffers of
   these shapes; an engine copies its content in before a run;
 * the state pair (:class:`StatePair`), one per layout and device,
   shared by every program of that layout (a graph keeps the addresses
@@ -36,8 +40,12 @@ the same row chunks, live windows and L-chunk grid, each chunk written
 before the next reads — with the gates on the card: every window slot
 launches its kernel, which reads its row count (the chunk's rows when
 the window is live, 0 when its inputs are clean or the slot is a pad)
-from card memory.  So per round the state, and the gate counts over the
-real windows, are those of the host-gated step.  Padding is
+from card memory.  A live-tile CR6 runs write group by write group,
+one batched row-count launch per block of a group's row tiles (each
+row tile's link tiles end to end along the contraction, its row count
+its real rows when a slot is live, else 0; :meth:`_Step.tiles`).  So per
+round the state, and the gate counts over the real windows and link
+tiles, are those of the host-gated step.  Padding is
 closure-invisible: pad seg-OR segments OR the dead row into itself
 (CR3's, which would OR the dead concept row's one bit into the dead
 link row as the reference's do, are masked to nothing, so every row of
@@ -101,6 +109,21 @@ class RuleStruct:
 
 
 @dataclass(frozen=True)
+class TileStruct:
+    """The live-tile CR6's structure, its schedule's ``signature_parts``
+    (``core/cr6_tiles.py``): ``n_rt`` row tiles of ``tile_m`` rows, each
+    ``nt`` link tiles of ``tile_l`` slots, and the write groups
+    ``(rt0, rt1, seg-OR structure)`` over row-tile ranges, each written
+    over its real rows."""
+
+    tile_m: int
+    tile_l: int
+    n_rt: int
+    nt: int
+    groups: tuple
+
+
+@dataclass(frozen=True)
 class BucketStruct:
     """Everything that decides a bucketed step's launches."""
 
@@ -124,6 +147,9 @@ class BucketStruct:
     #: (``((axis, size),)``; ``()`` off a mesh), as the reference's key
     n_shards: int = 1
     mesh_shape: tuple = ()
+    #: the live-tile CR6 in place of ``cr6`` when the engine's CR6 is
+    #: tiled (then ``cr6`` is None)
+    cr6t: Optional[TileStruct] = None
 
     @property
     def wl(self) -> int:
@@ -152,6 +178,52 @@ def _seg_tables(targets: np.ndarray, n_real: int):
     ends = np.r_[starts[1:], n] - 1
     longest = int(np.diff(np.r_[starts, n]).max()) if n else 1
     return perm, t, starts[seg], ends[seg], longest
+
+
+def rule_rungs(engine, spans, slots, lcn) -> Tuple[int, int, int, int]:
+    """A CR4/CR6 table's window plan on rungs: ``(chunks, rows a chunk,
+    window slots a chunk, slot length)`` of ``engine``'s ``spans`` and
+    ``slots`` (its kept spans' window slots)."""
+    q, q1 = engine._q, engine._q1
+    return (
+        q1(len(spans)),
+        q(max(a1 - a0 for a0, a1 in spans)),
+        q1(max([n for _a0, _a1, n in slots[0]]
+               + [1 + engine._window_headroom])),
+        _pad_up(q(lcn), 32),
+    )
+
+
+def _tile_tables(engine, tabs: Dict[str, np.ndarray], nr: int) -> TileStruct:
+    """The live-tile CR6's tables at its schedule's rung shapes: per row
+    tile its R rows, mask-table rows and source L-chunks, per link tile
+    its links and their validity; the factored mask table over the
+    quantized row grid (its role axis widened to ``nr``; rows past the
+    real table, the pad slots' row among them, all zero); per write
+    group its seg-OR order (into the group's output with one all-zero
+    row appended) and targets."""
+    t = engine._tiles6
+    m6 = engine._m6_np
+    n_roles = engine.idx.role_closure.shape[0]
+    mask = np.zeros((engine._tile_rows() + 1, nr), np.int8)
+    mask[: len(m6), :n_roles] = m6[:, :n_roles]
+    # real rows a row tile (its pad rows contract nothing)
+    nrow = np.zeros(t.n_rt, np.int32)
+    for i, (a0, a1, _r) in enumerate(t.spans):
+        nrow[i] = max(min(a1, len(m6)) - a0, 0)
+    tabs.update({
+        "t6nrow": nrow,
+        "t6rows": t.rows.astype(np.int64),
+        "t6mrow": t.mrow_ids.astype(np.int64),
+        "t6mask": mask,
+        "t6fdx": t.fdx.astype(np.int64),
+        "t6tids": t.tids.astype(np.int64),
+        "t6tval": t.tval,
+    })
+    for g, (_rt0, _rt1, _plan, order, targets) in enumerate(t.groups):
+        tabs[f"t6o{g}"] = order.astype(np.int64)
+        tabs[f"t6t{g}"] = targets.astype(np.int64)
+    return TileStruct(*t.signature_parts())
 
 
 def bucket_plan(engine) -> Tuple[BucketStruct, Dict[str, np.ndarray]]:
@@ -215,11 +287,7 @@ def bucket_plan(engine) -> Tuple[BucketStruct, Dict[str, np.ndarray]]:
             return None
         # kept spans carry their chunk's live windows; the others none
         kept = {(a0, a1): c for c, (a0, a1, _n) in enumerate(slots[0])}
-        C = q1(len(spans))
-        RK = q(max(a1 - a0 for a0, a1 in spans))
-        NW = q1(max([n for _a0, _a1, n in slots[0]]
-                    + [1 + engine._window_headroom]))
-        LW = _pad_up(q(lcn), 32)
+        C, RK, NW, LW = rule_rungs(engine, spans, slots, lcn)
         src = np.full((C, RK), pad_src, np.int64)
         lch = np.full((C, RK), nlc - 1, np.int64)
         mask = np.zeros((C, RK, nr), np.int8)
@@ -270,9 +338,13 @@ def bucket_plan(engine) -> Tuple[BucketStruct, Dict[str, np.ndarray]]:
 
     cr4 = rule("4", engine._spans4, engine._chunks4, engine._slots4, idx.nf4,
                1, engine.lc4, engine._m4_np, dead_c, dead_c, False)
-    cr6 = rule("6", engine._spans6, engine._chunks6, engine._slots6,
-               idx.chain_pairs, 1, engine.lc, engine._m6_np, dead_l, dead_l,
-               True)
+    cr6 = cr6t = None
+    if engine._tiles6 is not None:
+        cr6t = _tile_tables(engine, tabs, nr)
+    else:
+        cr6 = rule("6", engine._spans6, engine._chunks6, engine._slots6,
+                   idx.chain_pairs, 1, engine.lc, engine._m6_np, dead_l,
+                   dead_l, True)
     struct = BucketStruct(
         device_type=engine.device.type,
         nc=nc, nl=nl, wc=wc, unroll=engine.unroll,
@@ -284,6 +356,7 @@ def bucket_plan(engine) -> Tuple[BucketStruct, Dict[str, np.ndarray]]:
         n_shards=engine.n_shards,
         mesh_shape=(tuple(engine.mesh.shape.items())
                     if engine.mesh is not None else ()),
+        cr6t=cr6t,
     )
     return struct, tabs
 
@@ -338,6 +411,8 @@ def spec_parts(spec: dict) -> Tuple[BucketStruct, Dict[str, tuple]]:
     for key in ("cr4", "cr6"):
         if d[key] is not None:
             d[key] = RuleStruct(**d[key])
+    if d.get("cr6t") is not None:
+        d["cr6t"] = TileStruct(**{k: _tuples(v) for k, v in d["cr6t"].items()})
     for key in ("p1", "p2", "p3", "mesh_shape"):
         if key in d:
             d[key] = _tuples(d[key])
@@ -426,6 +501,15 @@ class _Step:
                     temp_budget_bytes=struct.temp_budget,
                 )
                 self.pos[key] = torch.arange(rs.rows, device=device)
+        ts = struct.cr6t
+        if ts is not None:
+            self.tile_plan = bitmatmul.tile_group_plan(
+                ts.tile_m, ts.tile_l, ts.nt, struct.wl,
+                temp_budget_bytes=struct.temp_budget,
+            )
+            #: row tiles a group launch takes (a cohort's: all lanes')
+            self.tile_block = bitmatmul.tile_group_block(
+                ts.tile_m, ts.nt * ts.tile_l, struct.wl, struct.temp_budget)
 
     def bind(self, mesh) -> None:
         """Run on ``mesh`` (None off a mesh)."""
@@ -515,6 +599,76 @@ class _Step:
             cvs.append((t, or_into_rows(target, t, x[T["send" + key][c]])))
         return live.sum(), wval.sum()
 
+    def tiles(self, rp, dl, cvs):
+        """The live-tile CR6 (``core/cr6_tiles.py``) over every lane,
+        write group by write group (each written before the next reads),
+        with its gates on the card: a slot is live when its link's
+        L-chunk or an L-chunk of its row tile's source rows is dirty,
+        and a row tile with a live slot contracts its real rows, else
+        none.  One batched row-count launch a block of a group's row tiles
+        (:func:`~distel_tpu_torch.ops.bitmatmul.tile_group_plan`): the
+        row tiles (of every lane) are the batch, their link tiles lie end
+        to end along the contraction, A is (factored mask ∧ bit table ∧
+        slot liveness) [tile_m, nt·tile_l] and B the gathered R rows of
+        the slots' links.  ``rp`` and ``dl`` are flattened over the
+        lanes (index tables offset into their lane).  Returns each
+        lane's live and valid link-tile counts."""
+        ts, T = self.s.cr6t, self.T
+        R = self.lead[0] if self.lead else 1
+        n_rt, tm, L = ts.n_rt, ts.tile_m, ts.nt * ts.tile_l
+        wl = self.s.wl
+        lead = self.lead
+        tids = T["t6tids"].view(R, n_rt, ts.nt, ts.tile_l)
+        tval = T["t6tval"].view(R, n_rt, ts.nt, ts.tile_l)
+        fd = dl[T["t6fdx"].view(R, n_rt, tm)].any(dim=-1)            # [R, n_rt]
+        slot = tval & (fd[:, :, None, None] | dl[T["lchunk"].view(-1)[tids]])
+        tile_live = slot.any(dim=-1)                                  # [R, n_rt, nt]
+        n_rows = (tile_live.any(dim=-1).to(torch.int32)
+                  * T["t6nrow"].view(R, n_rt))                        # [R, n_rt]
+        slot = slot.view(R, n_rt, 1, L).to(torch.int8)
+        ids = tids.reshape(R, n_rt, L)
+        rows = T["t6rows"].view(R, n_rt, tm)
+        mrow = T["t6mrow"].view(R, n_rt, tm)
+        mask = T["t6mask"].view(-1, self.s.n_roles_pad)
+        fillers, roles = T["fillers"].view(-1), T["link_roles"].view(-1)
+        for g, (rt0, rt1, seg) in enumerate(ts.groups):
+            if not seg[0]:
+                continue                   # a group of pad row tiles only
+            # the group's output rows, one all-zero row past them (the
+            # quantized write plan's pad segments gather it)
+            out = torch.zeros((R, (rt1 - rt0) * tm + 1, wl), dtype=torch.int32,
+                              device=rp.device)
+            for b0 in range(rt0, rt1, self.tile_block):
+                b1 = min(b0 + self.tile_block, rt1)
+                n = b1 - b0
+                o0, o1 = (b0 - rt0) * tm, (b1 - rt0) * tm
+                bid = ids[:, b0:b1]                                   # [R, n, L]
+                cols = fillers[bid]
+                with rule_scope("bit_table"):
+                    words = rp[rows[:, b0:b1, :, None],
+                               (cols >> 5)[:, :, None, :]]            # [R, n, tm, L]
+                    f = ((words >> (cols & 31).to(torch.int32)[:, :, None, :])
+                         & 1).to(torch.int8)
+                a = mask[mrow[:, b0:b1, :, None], roles[bid][:, :, None, :]] \
+                    * f * slot[:, b0:b1]
+                # one lane ORs into its output rows in place; a cohort's
+                # lanes' rows are not contiguous, so they go through one
+                # accumulator
+                acc = (out[0, o0:o1].view(n, tm, wl) if R == 1 else
+                       torch.zeros((R * n, tm, wl), dtype=torch.int32,
+                                   device=rp.device))
+                self.tile_plan.batched_rows(
+                    a.view(R * n, tm, L), rp[bid.reshape(-1)].view(R * n, L, wl),
+                    acc, n_rows[:, b0:b1].reshape(-1).contiguous())
+                if R > 1:
+                    out[:, o0:o1] = acc.view(R, n * tm, wl)
+            x = self._reduce(out.view(-1, wl)[T[f"t6o{g}"].view(-1)], seg[2])
+            t = T[f"t6t{g}"].view(-1)
+            cvs.append((t, or_into_rows(rp, t, x)))
+        valid = tval.any(dim=-1)
+        return (tile_live.view(R, -1).sum(1).view(lead),
+                valid.view(R, -1).sum(1).view(lead))
+
     def cr5(self, sp, rp, ms, dl, s_cvs):
         s, T = self.s, self.T
         red = cr5_reduce(sp, rp, T["fillers"], self.bottom_idx, s.temp_budget,
@@ -554,6 +708,10 @@ class _Step:
             with rule_scope("cr6"):
                 f6 = dlf[T["lch6"]].any(dim=-1)
                 run, valid = self.contract("6", s.cr6, rpf, rpf, rpf, f6, dlf, r_cvs)
+            counts[2], counts[3] = run, valid - run
+        elif s.cr6t is not None:
+            with rule_scope("cr6"):
+                run, valid = self.tiles(rpf, dlf, r_cvs)
             counts[2], counts[3] = run, valid - run
         if s.bottom:
             with rule_scope("cr5"):

@@ -106,10 +106,10 @@ def cohort_ready(engine) -> bool:
 
 # ------------------------------------------------------ the cohort step
 
-def _offsets(struct: bucketing.BucketStruct) -> dict:
+def _offsets(struct: bucketing.BucketStruct, shapes: dict) -> dict:
     """Per index table, the lane stride its entries are offset by (the
     rows of the axis it indexes), so lanes index their own rows of the
-    flattened state, frontier and accumulators."""
+    flattened state, frontier, accumulators and mask tables."""
     nc, nl, nlc = struct.nc, struct.nl, struct.lchunk_slots
     off = {"src1": nc, "src2a": nc, "src2b": nc, "src3": nc, "t1": nc,
            "t2": nc, "t3": nl, "lchunk": nlc}
@@ -121,6 +121,13 @@ def _offsets(struct: bucketing.BucketStruct) -> dict:
                     f"wlink{key}": nl, f"wc0{key}": nlc, f"wc1{key}": nlc})
     if struct.cr6 is not None:
         off["lch6"] = nlc
+    ts = struct.cr6t
+    if ts is not None:
+        off.update({"t6rows": nl, "t6tids": nl, "t6fdx": nlc,
+                    "t6mrow": shapes["t6mask"][0][0]})
+        for g, (rt0, rt1, _parts) in enumerate(ts.groups):
+            off[f"t6o{g}"] = (rt1 - rt0) * ts.tile_m + 1
+            off[f"t6t{g}"] = nl
     return off
 
 
@@ -160,6 +167,8 @@ class _CohortStep(bucketing._Step):
         self.bottom_lanes = (
             torch.arange(lanes, device=device) * struct.nc + BOTTOM_ID
         )
+        if struct.cr6t is not None:
+            self.tile_block = max(self.tile_block // lanes, 1)
 
     def _reduce(self, rows, buckets):
         return _reduce_lanes(rows.view(self.R, -1, rows.shape[-1]), buckets)
@@ -246,7 +255,7 @@ class CohortProgram(bucketing.BucketProgram):
                  rung: int, device):
         self.rung = int(rung)
         super().__init__(struct, shapes, device, lanes=self.rung)
-        self.offsets = _offsets(struct)
+        self.offsets = _offsets(struct, self.shapes)
 
     def _new_step(self) -> _CohortStep:
         return _CohortStep(self.struct, self.T, self.device, self.rung)

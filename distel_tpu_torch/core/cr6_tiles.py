@@ -10,16 +10,26 @@ the contraction runs ``[tile_m, tile_l] ⊙ [tile_l, W]`` only over
 occupied tiles.  The outputs flow into deferred segmented-OR write
 groups over row-tile ranges.
 
-A copy of ``distel_tpu/core/cr6_tiles.py``'s exact-mode schedule
-builder (numpy), apart from the factored mask: the reference copies
-each row tile's mask rows into a padded [n_rt, tile_m, n_roles + 1]
-table, the port keeps only each slot's row id into the unpadded mask
-table (short role runs pad most slots, and the padded copy grows with
-roles × row tiles).  The closure re-fit (``h_override`` with
-``fit_schedule``) is the reference's; the shape-bucketed variant is not
-part of the port yet.  :func:`make_tile_matmul` forces the tile-skipping
-kernel on, as the reference does: the per-slot liveness zeroes whole
-dead tiles, and skipping them is the point of the formulation.
+A copy of ``distel_tpu/core/cr6_tiles.py``'s schedule builder (numpy),
+apart from the factored mask: the reference copies each row tile's mask
+rows into a padded [n_rt, tile_m, n_roles + 1] table, the port keeps
+only each slot's row id into the unpadded mask table (short role runs
+pad most slots, and the padded copy grows with roles × row tiles).  The
+closure re-fit (``h_override`` with ``fit_schedule``) is the
+reference's, and so is the shape-bucketed half: with ``n_rows`` (the
+rung-quantized row grid), ``q1`` and ``qn`` the row-tile and link-tile
+counts sit on ladder rungs, rows past the real table become inert pad
+tiles folded into the last write group, and each group's segmented
+write is ``SegmentedRowOr.quantized``, so :meth:`Cr6TileSchedule.
+signature_parts` — what the bucket signature records — is a function
+of the rungs and the role-run structure, not of the table's content.
+One difference there: a bucketed group's write gathers its real rows
+only.  The reference's gathers every slot of the group's row tiles, pad
+slots aimed at the pad target included; a pad slot's output is all
+zero, a no-op under OR, and at few rows a role run the pad slots are
+most of a group (GALEN × 600: 2.1M gathered rows a group for about
+1,800 real ones).  The tile arrays, spans and group ranges are the
+reference's; the groups' seg-OR structures are the port's own.
 """
 
 from __future__ import annotations
@@ -50,7 +60,8 @@ class Cr6TileSchedule:
     """One engine's static live-tile schedule (host arrays).
 
     Shapes: ``n_rt`` row tiles of ``tile_m`` rows; ``nt`` link tiles of
-    ``tile_l`` slots per row tile (padded entries inert)."""
+    ``tile_l`` slots per row tile (both counts on rungs in bucket mode,
+    padded entries inert)."""
 
     tile_m: int
     tile_l: int
@@ -69,7 +80,9 @@ class Cr6TileSchedule:
     #: [n_rt, nt, tile_l] bool — slot validity (False = padding)
     tval: np.ndarray
     #: [(rt0, rt1, SegmentedRowOr, order_np, targets_np)] — deferred
-    #: write groups over row-tile ranges
+    #: write groups over row-tile ranges; ``order`` indexes the group's
+    #: output rows (row tile ``rt`` at ``(rt - rt0) · tile_m``; in bucket
+    #: mode one all-zero row appended at ``(rt1 - rt0) · tile_m``)
     groups: List[tuple]
     #: row spans [(a0, a1, roles)] per row tile
     spans: List[tuple]
@@ -77,6 +90,21 @@ class Cr6TileSchedule:
     live_per_span: List[np.ndarray]
     #: schedule statistics (occupancy histogram, MAC volumes)
     stats: dict = field(default_factory=dict)
+
+    def signature_parts(self) -> tuple:
+        """What shapes a program of this schedule: the tile sizes and
+        counts and each write group's row-tile range and seg-OR
+        structure; nothing that is table content."""
+        return (
+            self.tile_m,
+            self.tile_l,
+            self.n_rt,
+            self.nt,
+            tuple(
+                (rt0, rt1, plan.structure())
+                for rt0, rt1, plan, _o, _t in self.groups
+            ),
+        )
 
 
 def _role_run_spans(
@@ -133,26 +161,34 @@ def build_cr6_tile_schedule(
     tile_l: int,
     group_bounds: List[int],
     link_window: Optional[Tuple[int, int]] = None,
+    n_rows: Optional[int] = None,
     dead_link: int,
     pad_target: int = 0,
     tile_headroom: int = 0,
+    q1=None,
+    qn=None,
     h_override: Optional[np.ndarray] = None,
     fit_schedule: Optional["Cr6TileSchedule"] = None,
 ) -> Optional[Cr6TileSchedule]:
     """Build (or re-fit) the live-tile schedule for one CR6 table.
 
     ``group_bounds``: ROW indices of the deferred write-group boundaries
-    (``[0, ..., n_rows]``) — row tiles never straddle one.  An all-inert
-    schedule (zero live links anywhere) comes back with ``nt`` slots all
-    invalid.  ``h_override``: recompute liveness under a GROWN role
-    closure (``rebind_role_closure``); with ``fit_schedule`` (the
-    schedule being re-bound) its spans, slot counts and write groups are
-    kept, and None comes back when a row tile needs more link tiles than
-    the schedule has."""
+    (``[0, ..., n_rows]``) — row tiles never straddle one.  ``n_rows``:
+    the quantized row grid of a bucketed engine (rows past the real
+    table become inert pad tiles, so the tile counts follow the rungs);
+    ``q1`` / ``qn``: the engine's structure-count and segment-histogram
+    quantizers (None = exact mode).  An all-inert schedule (zero live
+    links anywhere) comes back with ``nt`` slots all invalid.
+    ``h_override``: recompute liveness under a GROWN role closure
+    (``rebind_role_closure``); with ``fit_schedule`` (the schedule being
+    re-bound) its spans, slot counts and write groups are kept, and None
+    comes back when a row tile needs more link tiles than the schedule
+    has."""
     h = np.asarray(
         role_closure if h_override is None else h_override
     ).astype(bool)
-    n_real = n_grid = len(tab_roles)
+    n_real = len(tab_roles)
+    n_grid = n_real if n_rows is None else int(n_rows)
     link_roles = np.asarray(link_roles)
 
     def live_links(roles) -> np.ndarray:
@@ -169,13 +205,31 @@ def build_cr6_tile_schedule(
 
     bounds = sorted({0, n_grid, *(min(b, n_grid) for b in group_bounds)})
     if fit_schedule is None:
+        # a link-window engine (a delta's cross program) merges runs by a
+        # constant live count: its windowed live counts are per-delta
+        # content, which must not reach the span grid (the signature)
         live_count = (
             (lambda r: 0)
             if link_window is not None
             else (lambda r: len(live_links(r)))
         )
-        spans = _role_run_spans(tab_roles, bounds, tile_m, live_count)
-        spans = [(a0, a1, np.unique(tab_roles[a0:a1])) for a0, a1 in spans]
+        spans = _role_run_spans(
+            tab_roles, [b for b in bounds if b <= n_real] + [n_real],
+            tile_m, live_count,
+        )
+        # rows past the real table (a bound inside the quantization pad)
+        # become inert pad spans, so the row-tile count is the grid's
+        pad_bounds = [b for b in bounds if b >= n_real]
+        if pad_bounds and pad_bounds[0] < n_grid:
+            lo = n_real
+            for b in pad_bounds[1:] + [n_grid]:
+                for o in range(lo, b, tile_m):
+                    spans.append((o, min(o + tile_m, b)))
+                lo = b
+        spans = [
+            (a0, a1, np.unique(tab_roles[a0:min(a1, n_real)]))
+            for a0, a1 in spans
+        ]
     else:
         spans = fit_schedule.spans
 
@@ -187,9 +241,14 @@ def build_cr6_tile_schedule(
         nt = fit_schedule.nt
         if max_tiles > nt:
             return None  # the grown closure overflows the schedule's slots
+        n_rt = fit_schedule.n_rt
     else:
         nt = max_tiles + int(tile_headroom)
-    n_rt = len(spans)
+        if q1 is not None:
+            nt = q1(nt) if nt else 0
+        n_rt = len(spans)
+        if q1 is not None:
+            n_rt = q1(max(n_rt, 1))
 
     rows = np.full((n_rt, tile_m), dead_link, np.int32)
     mrow_ids = np.full((n_rt, tile_m), n_real, np.int32)
@@ -199,12 +258,13 @@ def build_cr6_tile_schedule(
     tval = np.zeros((n_rt, nt, tile_l), bool)
     occupancy = []
     for i, ((a0, a1, _roles), lv) in enumerate(zip(spans, live_per_span)):
-        k = a1 - a0
+        a1r = min(a1, n_real)
+        k = a1r - a0
         if k > 0:
-            rows[i, :k] = l2_rows[a0:a1]
-            mrow_ids[i, :k] = np.arange(a0, a1)
-            fdx[i, :k] = l2_rows[a0:a1] // lc
-            tgt[i, :k] = targets[a0:a1]
+            rows[i, :k] = l2_rows[a0:a1r]
+            mrow_ids[i, :k] = np.arange(a0, a1r)
+            fdx[i, :k] = l2_rows[a0:a1r] // lc
+            tgt[i, :k] = targets[a0:a1r]
         for t in range(-(-len(lv) // tile_l)):
             seg = lv[t * tile_l : (t + 1) * tile_l]
             tids[i, t, : len(seg)] = seg
@@ -235,10 +295,31 @@ def build_cr6_tile_schedule(
         ),
     }
 
-    # deferred write groups over the group-bound row ranges; pad
-    # row-tile slots target ``pad_target`` with all-zero outputs (a
-    # no-op under OR).  A re-fit keeps the schedule's groups: the
-    # closure changes liveness and masks, never rows or targets
+    # deferred write groups over the group-bound row ranges.  Exact
+    # mode writes every slot of the group's row tiles (pad slots target
+    # ``pad_target`` with all-zero outputs, a no-op under OR); bucket
+    # mode writes the real rows only, its quantized plan's pad segments
+    # gathering the all-zero row appended past the group's output.  A
+    # re-fit keeps the schedule's groups: the closure changes liveness
+    # and masks, never rows or targets
+    def group(rt0, rt1):
+        if qn is None:
+            plan = SegmentedRowOr(tgt[rt0:rt1].reshape(-1))
+            return (rt0, rt1, plan, plan.order.astype(np.int32),
+                    plan.targets.astype(np.int32))
+        pos, tg = [], []
+        for rt in range(rt0, min(rt1, len(spans))):
+            a0, a1, _r = spans[rt]
+            k = max(min(a1, n_real) - a0, 0)
+            pos.append((rt - rt0) * tile_m + np.arange(k))
+            tg.append(np.asarray(targets[a0:a0 + k], np.int64))
+        pos.append(np.asarray([(rt1 - rt0) * tile_m]))
+        pos = np.concatenate(pos)
+        tg = np.concatenate(tg) if tg else np.zeros(0, np.int64)
+        plan = SegmentedRowOr.quantized(tg, qn, pad_target, len(tg))
+        return (rt0, rt1, plan, pos[plan.order].astype(np.int32),
+                plan.targets.astype(np.int32))
+
     groups = fit_schedule.groups if fit_schedule is not None else []
     span_starts = [a0 for a0, _a1, _r in spans] + [n_grid]
     for b0, b1 in zip(bounds[:-1], bounds[1:]) if fit_schedule is None else ():
@@ -246,15 +327,12 @@ def build_cr6_tile_schedule(
         rt1 = max(int(np.searchsorted(span_starts, b1)), rt0)
         if rt1 == rt0 and b1 > b0:
             continue  # bound past every span (no tiles)
-        rt1 = min(rt1, n_rt)
-        plan = SegmentedRowOr(tgt[rt0:rt1].reshape(-1))
-        groups.append(
-            (
-                rt0, rt1, plan,
-                plan.order.astype(np.int32),
-                plan.targets.astype(np.int32),
-            )
-        )
+        groups.append(group(rt0, min(rt1, n_rt)))
+    if fit_schedule is None and n_rt > len(spans):
+        # the quantization's pad row tiles fold into the LAST group
+        # (inert rows aimed at the pad target), so every row tile is
+        # covered by exactly one write
+        groups[-1] = group(groups[-1][0], n_rt)
     return Cr6TileSchedule(
         tile_m=tile_m,
         tile_l=tile_l,

@@ -168,6 +168,23 @@ class DeltaPlan:
         at every round-robin position)."""
         return tuple(e.bucket_signature for e in self.engines)
 
+    def tile_stats(self) -> List[dict]:
+        """Each delta engine's CR6 formulation (the base's is its
+        rebuild's): whether it is the cross program, whether it runs the
+        live-tile schedule, and the schedule's density and rungs."""
+        out = []
+        for e in self.engines:
+            st = getattr(e, "cr6_tiles_stats", None)
+            if e is self.base or st is None:
+                continue
+            out.append({
+                "cross": getattr(e, "_link_window", None) is not None,
+                **{k: st.get(k) for k in ("active", "reason", "density",
+                                           "n_row_tiles", "n_link_tiles",
+                                           "live_links")},
+            })
+        return out
+
 
 def warm_delta_programs(
     config: ClassifierConfig,
@@ -342,6 +359,9 @@ class IncrementalClassifier:
         self._base_idx = None
         #: fast-path accounting of the last increment (None on a rebuild)
         self.last_delta_stats: Optional[dict] = None
+        #: the last fast-path plan's delta engines' CR6 formulations
+        #: (:meth:`DeltaPlan.tile_stats`; reports only, not the history)
+        self.last_delta_tiles: List[dict] = []
         #: the record of the cohort the last increment ran in
         #: (``core/cohort.execute_delta_cohort``; None when it ran solo)
         self.last_cohort: Optional[dict] = None
@@ -961,8 +981,10 @@ class IncrementalClassifier:
                 b, role_closure=np.asarray(clo_new)
             )
         engines.append(base)
-        return DeltaPlan(engines=engines, base=base, bucketed=bucket_delta,
+        plan = DeltaPlan(engines=engines, base=base, bucketed=bucket_delta,
                          idx=idx)
+        self.last_delta_tiles = plan.tile_stats()
+        return plan
 
     def _execute_delta_plan(self, plan: DeltaPlan) -> SaturationResult:
         """The round-robin joint fixed point over the delta/cross engines

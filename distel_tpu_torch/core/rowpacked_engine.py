@@ -24,7 +24,28 @@ link through its role), and each CR4/CR6 row chunk contracts only the
 link windows whose roles can satisfy it (static live windows; chunks
 cut at role runs once the tables are big enough for that to pay, as in
 the reference).  CR6 runs the live-tile schedule (``core/cr6_tiles.py``)
-when its live structure is sparse enough.
+when its live structure is sparse enough: the schedule's occupied slots
+× ``tile_m`` at most ``density_threshold`` (0.5) times the window
+volume the step would otherwise contract (a ``link_window`` engine, a
+delta's cross program, takes tiles whatever the density, as the
+reference's does).  The window volume is the port's own, and differs
+from the reference's:
+
+* in exact mode it is the rows each kept window really holds — per row
+  chunk, its windows × ``lc`` × its rows — where the reference charges
+  every window the height of its scanned slab (``rk`` rows, the last
+  slab padded).  At 16,000 classes of ``snomed_shaped_ontology`` (seed
+  42) both count 15,788,544 tile slot rows, but the port counts
+  13,254,912 window slot rows (density 1.1911: windows) and the
+  reference 45,990,432 (0.3433: tiles).  The closures are the same
+  either way; the rule changes when a benchmark can judge it;
+* under buckets it is the window plane the bucketed step would launch:
+  rung chunks × rung window slots × slot length × rung rows
+  (``bucketing.rule_rungs``), against the schedule at its rungs, where
+  the reference's is its bucketed scanned slabs' windows × ``lc`` ×
+  slab height.  At 16,000 classes the port counts 18,192,000 (density
+  0.8679: windows), the reference 41,187,840 (0.3833: tiles); at 3,500
+  both count 9,665,792 (0.1259: tiles).
 
 **Frontier gating** (the reference's two-sided semi-naive join): every
 writer returns its per-target change vector, and after each step one
@@ -145,7 +166,20 @@ engine's.  What differs from the reference's bucket mode, and why:
   chunk count, rows a chunk, window slots a chunk and slot length on
   ladder rungs.  Its CR3 pad segments write nothing, where the
   reference's OR the dead concept row's bit into the dead link row.
-* The live-tile CR6 stays off (its schedule is not rung-canonical yet).
+* The live-tile CR6 runs under buckets as the reference's does: its
+  schedule's row grid is the chain table's length on the corpus ladder
+  (``tile_m`` clamps against it), its row-tile and link-tile counts sit
+  on rungs, pad row tiles fold into the last write group, each group's
+  write is a quantized seg-OR plan over the group's real rows (the
+  reference's also gathers every pad slot, all zero under OR), and
+  ``signature_parts()`` is the bucket structure's tile part.  Its write groups are the bucketed step's CR6
+  write groups, the role chunks (the last run to the grid's end), so
+  every round equals the window step's, as the reference's tiled
+  rounds equal its window formulation's.  The density rule's
+  denominator is the bucketed window plane (above); a ``link_window``
+  engine takes tiles always.  In the program a group's row tiles run
+  as batched launches, a block of row tiles each (``core/bucketing.py``),
+  where the reference scans them one by one.
 * Fused windows are keyed by their content (the window body is this
   plan, unpadded), so they are shared by engines with equal tables.
 
@@ -290,13 +324,15 @@ def _factored_closure_tables(h, nf4_roles, chain_roles):
     gathered per table row: ``m4[j, ρ] = H[ρ, s_j]``, ``m6[p, ρ] =
     H[ρ, r_p]``.  None roles (rule off) give an empty table."""
     n_roles = h.shape[0]
-    h2 = np.zeros((n_roles + 1, n_roles), np.int8)
-    h2[:n_roles] = h
+    # H transposed once, so each table row is a contiguous row gather (a
+    # column gather of H is strided: ~10 s at GALEN × 600's 27,600 roles)
+    h2t = np.zeros((n_roles, n_roles + 1), np.int8)
+    h2t[:, :n_roles] = np.asarray(h).T
 
     def tab(roles):
         if roles is None:
             return np.zeros((0, n_roles + 1), np.int8)
-        return np.ascontiguousarray(h2[:, roles].T)
+        return h2t[roles]
 
     return tab(nf4_roles), tab(chain_roles)
 
@@ -594,9 +630,12 @@ class RowPackedSaturationEngine:
         launches are a pure function of :attr:`bucket_signature`, so
         ontologies of one bucket share it (on a card one CUDA graph).
         The plan itself — row chunks, live windows, the L-chunk grid —
-        is the one this corpus gives in exact mode, so every round
-        equals the exact-mode engine's; the live-tile CR6 is off (its
-        structure is not rung-canonical yet).  ``state_dims``: pin the
+        is the one this corpus gives in exact mode, padded to rungs, so
+        every round equals the exact-mode engine's; the live-tile CR6,
+        taken by the density rule against the bucketed window plane
+        (always by a ``link_window`` engine), writes in the window
+        plan's chunks and so leaves every round as the windows do.
+        ``state_dims``: pin the
         layout ``(nc, nl)`` verbatim (the bucketed delta engines pin the
         base's; bucket mode needs the last row of each axis past the
         corpus).
@@ -785,17 +824,28 @@ class RowPackedSaturationEngine:
                 for o in range(s, e, mm_rows):
                     pieces.append((o, min(o + mm_rows, e), rho))
 
+            # each piece's role set (its role's closure column) and live
+            # links, once for every waste level: one gather of H's
+            # columns, the roles' (a column at a time is strided)
+            uniq, inv = np.unique([rho for _s, _e, rho in pieces],
+                                  return_inverse=True)
+            cols = (h[:, uniq] > 0).T                 # [roles, n_roles]
+            col_links = np.concatenate([
+                cols[j : j + 256].astype(np.int64) @ link_cnt
+                for j in range(0, len(uniq), 256)
+            ])
+            psets = [(s, e, cols[j], (e - s) * int(col_links[j]))
+                     for (s, e, _rho), j in zip(pieces, inv)]
+
             def greedy(waste):
                 out, cur = [], None
-                for s, e, rho in pieces:
-                    rset = h[:, rho] > 0
-                    rmacs = (e - s) * int(link_cnt[rset].sum())
+                for s, e, rset, rmacs in psets:
                     if cur is None:
                         cur = [s, e, rset.copy(), rmacs]
                         continue
                     nrows = e - cur[0]
                     nset = cur[2] | rset
-                    nmacs = nrows * int(link_cnt[nset].sum())
+                    nmacs = nrows * int(link_cnt @ nset)
                     if nrows <= mm_rows and nmacs <= waste * (cur[3] + rmacs):
                         cur[1], cur[2], cur[3] = e, nset, cur[3] + rmacs
                     else:
@@ -902,9 +952,6 @@ class RowPackedSaturationEngine:
             # as the reference's: the tile schedule is single-device
             tcfg = None
             self.cr6_tiles_stats = {"active": False, "reason": "mesh"}
-        if self._bucket and tcfg is not None:
-            tcfg = None
-            self.cr6_tiles_stats = {"active": False, "reason": "bucket mode"}
         self._chunks6 = []
         kept6, dropped6 = (
             window_spans(spans6, idx.chain_pairs, lc) if self._has6 else ([], [])
@@ -913,33 +960,9 @@ class RowPackedSaturationEngine:
         if self._has6:
             cp = idx.chain_pairs
             if tcfg is not None:
-                tm_eff = max(min(tcfg["tile_m"], _pad_up(len(cp), 8)), 8)
-                sched = build_cr6_tile_schedule(
-                    cp[:, 0], cp[:, 1], cp[:, 2], link_roles, h,
-                    lc=lc, n_lchunks=self.n_lchunks,
-                    tile_m=tm_eff, tile_l=tcfg["tile_l"],
-                    group_bounds=_tile_group_bounds(
-                        cp[:, 0], tm_eff, max(mm_rows // tm_eff, 1)
-                    ),
-                    link_window=link_window,
-                    dead_link=self.nl - 1,
-                    tile_headroom=self._window_headroom,
+                self._tiles6 = self._build_tiles(
+                    tcfg, cp, link_roles, h, mm_rows, kept6,
                 )
-                window_macs = sum(len(w) * lc * (a1 - a0) for a0, a1, w in kept6)
-                tile_macs = sched.stats["occupied_slots"] * sched.tile_m
-                density = tile_macs / max(float(window_macs), 1.0)
-                self.cr6_tiles_stats = {
-                    "active": (density <= tcfg["density_threshold"]
-                               or link_window is not None),
-                    "density": round(density, 4),
-                    "window_slot_rows": window_macs,
-                    "tile_slot_rows": tile_macs,
-                    **sched.stats,
-                }
-                if self.cr6_tiles_stats["active"]:
-                    self._tiles6 = sched
-                else:
-                    self.cr6_tiles_stats["reason"] = "density above threshold"
             if self._tiles6 is None:
                 self._chunks6 = build_chunks(kept6, cp, 1, m6)
         self._t6 = None
@@ -1085,6 +1108,76 @@ class RowPackedSaturationEngine:
             i = int(np.searchsorted(live, off + lcn))
         return wins
 
+    def _tile_rows(self) -> Optional[int]:
+        """The row grid of the live-tile schedule: the chain table's
+        length quantized onto the corpus ladder in bucket mode (the
+        reference's ``_k6_rows``), None (the table itself) in exact
+        mode."""
+        if not self._bucket:
+            return None
+        return self._q(len(self.idx.chain_pairs))
+
+    def _build_tiles(self, tcfg, cp, link_roles, h, mm_rows, kept6):
+        """The live-tile schedule and the density decision (see the
+        class docstring): the schedule when it is taken, else None, with
+        :attr:`cr6_tiles_stats` either way."""
+        bucket = self._bucket
+        n_grid = self._tile_rows()
+        # tile_m clamps to the table's height (in bucket mode its rung):
+        # a tiny chain table under a 512-row tile would charge the
+        # density for pad rows that outnumber the real ones
+        tm_eff = max(min(tcfg["tile_m"],
+                         _pad_up(max(n_grid or len(cp), 1), 8)), 8)
+        if bucket:
+            # the bucketed step's CR6 write groups: its role chunks (each
+            # within the temporary budget), so every round equals the
+            # window step's; the last runs to the end of the grid, where
+            # the pad row tiles fold into it
+            bounds = [a0 for a0, _a1 in self._spans6] + [n_grid]
+        else:
+            bounds = _tile_group_bounds(cp[:, 0], tm_eff,
+                                        max(mm_rows // tm_eff, 1))
+        sched = build_cr6_tile_schedule(
+            cp[:, 0], cp[:, 1], cp[:, 2], link_roles, h,
+            lc=self.lc, n_lchunks=self.n_lchunks,
+            tile_m=tm_eff, tile_l=tcfg["tile_l"],
+            group_bounds=bounds,
+            link_window=self._link_window,
+            n_rows=n_grid,
+            dead_link=self.nl - 1,
+            pad_target=self._dead_l if bucket else 0,
+            tile_headroom=self._window_headroom,
+            q1=self._q1 if bucket else None,
+            qn=self._qn if bucket else None,
+        )
+        if bucket:
+            # the window volume the bucketed step would launch: every
+            # slot of every rung chunk, at the rungs' rows and length
+            from distel_tpu_torch.core import bucketing
+
+            c, rk, nw, lw = bucketing.rule_rungs(
+                self, self._spans6, self._slots6, self.lc
+            )
+            window_macs = c * nw * lw * rk
+        else:
+            window_macs = int(sum(len(w) * self.lc * (a1 - a0)
+                                  for a0, a1, w in kept6))
+        tile_macs = sched.stats["occupied_slots"] * sched.tile_m
+        density = tile_macs / max(float(window_macs), 1.0)
+        active = (density <= tcfg["density_threshold"]
+                  or self._link_window is not None)
+        self.cr6_tiles_stats = {
+            "active": active,
+            "density": round(density, 4),
+            "window_slot_rows": window_macs,
+            "tile_slot_rows": tile_macs,
+            **sched.stats,
+        }
+        if not active:
+            self.cr6_tiles_stats["reason"] = "density above threshold"
+            return None
+        return sched
+
     def _tile_tables(self, t, m6: np.ndarray, mm=None) -> dict:
         """The live-tile CR6 schedule ``t`` as device tables, over the
         factored mask table ``m6``."""
@@ -1093,7 +1186,9 @@ class RowPackedSaturationEngine:
         def i64(a):
             return torch.as_tensor(np.asarray(a, np.int64)).to(dev)
 
+        # a bucketed schedule's pad row tiles (past its spans) hold none
         n_tiles = [-(-len(lv) // t.tile_l) for lv in t.live_per_span]
+        n_tiles += [0] * (t.n_rt - len(n_tiles))
         # per (row tile, link tile): the L-chunks its valid slots read,
         # for the host's launch decision
         tile_lchunks = [
@@ -1115,7 +1210,8 @@ class RowPackedSaturationEngine:
             "n_tiles": n_tiles,
             "lchunks": tile_lchunks,
             "groups": [
-                (rt0, rt1, p, i64(order)) for rt0, rt1, p, order, _tg in t.groups
+                (rt0, rt1, p, i64(order))
+                for rt0, rt1, p, order, _tg in t.groups
             ],
             "mm": mm or make_tile_matmul(t.tile_m, t.tile_l, self.wc),
         }
@@ -1181,13 +1277,25 @@ class RowPackedSaturationEngine:
         if t6 is not None:
             # live-tile CR6: the contraction touches the packed live-link
             # tiles only — gathered rows, subt gathers, and the tile
-            # write plans' RMW + re-gather traffic
+            # write plans' RMW + re-gather traffic, over the schedule's
+            # row tiles and link-tile slots (at a bucketed engine's rungs:
+            # the padded tile plane its group launches gather).  The live
+            # MACs are the occupied slots', as the reference counts them;
+            # a bucketed engine's dense equivalent is the padded window
+            # plane's, as its window formulation's is
             rw += t6.n_rt * t6.nt * t6.tile_l * w4       # link-tile rows
             rw += t6.n_rt * t6.tile_m * w4               # subt gathers
             for _rt0, _rt1, plan, _o, _t in t6.groups:
                 rw += 2 * plan.n_targets * w4
                 rw += 2 * plan.k * w4
-            macs += len(self.idx.chain_pairs) * self.nl * self.nc
+            if bstruct is not None:
+                from distel_tpu_torch.core import bucketing
+
+                c, rk, _nw, _lw = bucketing.rule_rungs(
+                    self, self._spans6, self._slots6, self.lc)
+                macs += c * rk * self.nl * self.nc
+            else:
+                macs += len(self.idx.chain_pairs) * self.nl * self.nc
             live_macs += t6.stats["occupied_slots"] * t6.tile_m * self.nc
         if self._bottom:
             rw += (self.nl + 2) * w4
@@ -1220,6 +1328,12 @@ class RowPackedSaturationEngine:
             "cr6_row_tiles": len(t6),
             "cr6_link_tiles": sum(t6),
             "cr6_tiles": self.cr6_tiles_stats.get("active", False),
+            # the schedule's rungs: row tiles and link-tile slots a row
+            # tile (in exact mode the counts themselves)
+            "cr6_tile_rungs": (
+                [self._tiles6.n_rt, self._tiles6.nt]
+                if self._tiles6 is not None else None
+            ),
             "cr5_gate": self._gate_cr5,
             "temp_budget_bytes": self.temp_budget_bytes,
         }
@@ -1727,9 +1841,16 @@ class RowPackedSaturationEngine:
                 outs.append(acc)
             if not any_live:
                 continue
-            out = torch.cat(outs) if len(outs) > 1 else outs[0]
+            out = self._tile_group_out(outs)
             cv = plan.write(rp, plan.reduce(out[order]), track="rows")
             r_cvs.append((plan.device_targets(rp.device), cv))
+
+    def _tile_group_out(self, outs):
+        """A tile write group's output rows; in bucket mode with the
+        all-zero row its quantized write plan's pad segments gather."""
+        if self._bucket:
+            outs = [*outs, outs[0].new_zeros((1, outs[0].shape[1]))]
+        return torch.cat(outs) if len(outs) > 1 else outs[0]
 
     def _cr5_reduce(self, sp, rp) -> torch.Tensor:
         return cr5_reduce(sp, rp, self._fillers, self._bottom_idx,
@@ -1762,7 +1883,10 @@ class RowPackedSaturationEngine:
             return m > 0
 
         mask_s = mask(s_cvs, self.nc)
-        dirty_l = mask(r_cvs, self._grid_end).view(self.n_lchunks, self.lc).any(dim=1)
+        # a bucketed tile schedule's pad rows aim at the dead link row,
+        # past the grid (they never change it)
+        dirty_l = mask(r_cvs, max(self._grid_end, self.nl))[: self._grid_end] \
+            .view(self.n_lchunks, self.lc).any(dim=1)
         if self.n_shards > 1:
             # one exchange a step: every rank takes the same gates
             both = por_(torch.cat([mask_s, dirty_l]), self.mesh)
@@ -2194,7 +2318,9 @@ class RowPackedSaturationEngine:
                 cp[:, 0], cp[:, 1], cp[:, 2], self._link_roles_np, h_old,
                 lc=self.lc, n_lchunks=self.n_lchunks,
                 tile_m=t.tile_m, tile_l=t.tile_l, group_bounds=[],
-                link_window=self._link_window, dead_link=self.nl - 1,
+                link_window=self._link_window, n_rows=self._tile_rows(),
+                dead_link=self.nl - 1,
+                pad_target=self._dead_l if self._bucket else 0,
                 h_override=h_new, fit_schedule=t,
             )
             if tiles6 is None:
@@ -2214,7 +2340,14 @@ class RowPackedSaturationEngine:
         if tiles6 is not None:
             self._tiles6 = tiles6
             self._t6 = self._tile_tables(tiles6, m6, mm=self._t6["mm"])
-            self.cr6_tiles_stats = dict(self.cr6_tiles_stats, **tiles6.stats)
+            # the density too: it must describe the grown closure
+            tile_macs = tiles6.stats["occupied_slots"] * tiles6.tile_m
+            win_macs = self.cr6_tiles_stats.get("window_slot_rows")
+            self.cr6_tiles_stats = dict(
+                self.cr6_tiles_stats, **tiles6.stats, tile_slot_rows=tile_macs,
+                **({"density": round(tile_macs / float(win_macs), 4)}
+                   if win_macs else {}),
+            )
         # the sparse tier's host selection reads the factored masks and
         # each chunk's live windows: refresh them under the grown closure
         # (chunk -> role coverage is closure-independent and stays put)
@@ -2410,11 +2543,14 @@ class RowPackedSaturationEngine:
                     flags = self._timed("step", prog.run, self.mesh)
                     self.host_reads["flags"] += 1
                     changed = bool(flags[0])
+                    tiled = prog.struct.cr6t is not None
                     for u in range(self.unroll):
                         c = [int(x) for x in flags[1 + 5 * u : 6 + 5 * u]]
+                        c6 = [c[2], c[3]]
                         self.gate_rounds.append({
-                            "cr4": [c[0], c[1]], "cr6": [c[2], c[3]],
-                            "cr6_tiles": [0, 0],
+                            "cr4": [c[0], c[1]],
+                            "cr6": [0, 0] if tiled else c6,
+                            "cr6_tiles": c6 if tiled else [0, 0],
                             "cr5": bool(c[4]) if self._bottom else None,
                         })
                     it += self.unroll
@@ -2853,7 +2989,7 @@ class RowPackedSaturationEngine:
                     n_rows = (live.any().to(torch.int32) * mm.m).reshape(1)
                     mm(w.contiguous(), rp[ids], out=acc, n_rows=n_rows)
                 outs.append(acc)
-            out = torch.cat(outs) if len(outs) > 1 else outs[0]
+            out = self._tile_group_out(outs)
             cv = plan.write(rp, plan.reduce(out[order]), track="rows")
             r_cvs.append((plan.device_targets(rp.device), cv))
 

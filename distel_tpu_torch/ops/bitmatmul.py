@@ -687,6 +687,30 @@ class PackedColsMatmulPlan:
         return c
 
 
+def tile_group_plan(tile_m: int, tile_l: int, nt: int, w: int, *,
+                    temp_budget_bytes: Optional[int] = None
+                    ) -> PackedColsMatmulPlan:
+    """The plan of the live-tile CR6's group launch (the bucketed step's,
+    ``core/bucketing.py``): a row tile's ``nt`` link tiles of ``tile_l``
+    slots laid end to end along the contraction, ``[tile_m, nt·tile_l]
+    ⊙ [nt·tile_l, w]``, run by :meth:`PackedColsMatmulPlan.batched_rows`
+    over a block of row tiles, each with its row count on the card.  The
+    route is picked for one row tile by :data:`SKIP_TILES_MIN_WORK`, as
+    for every plan: ``packed_cols_dense_n_batched``, or
+    ``packed_cols_list_n_batched`` + ``packed_cols_sparse_batched``."""
+    return PackedColsMatmulPlan(tile_m, nt * tile_l, w,
+                                temp_budget_bytes=temp_budget_bytes)
+
+
+def tile_group_block(tile_m: int, l: int, w: int, temp_budget: int) -> int:
+    """Row tiles a group launch takes at once: their gathered B rows
+    ([l, w] int32 each), their accumulators ([tile_m, w] int32) and
+    operand temporaries (the [tile_m, l] word gather of the bit table
+    and its int8 products) within half the temporary budget."""
+    per_tile = l * (4 * w + 10 * tile_m) + 4 * tile_m * w
+    return max(int(temp_budget) // 2 // max(per_tile, 1), 1)
+
+
 def packed_cols_dense_batched(a: torch.Tensor, b: torch.Tensor,
                               out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """``C[k] (|)= A[k] ⊙ B[k]`` for every copy k of a batch: a [nb, m, l]

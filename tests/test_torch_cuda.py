@@ -1586,3 +1586,63 @@ def test_cli_bench_on_the_card_equals_the_cpu(card, tmp_path, capsys):
     for e in ("rowpacked", "packed", "dense"):
         assert got["cuda"]["engines"][e]["derivations"] == \
             got["cpu"]["engines"][e]["derivations"]
+
+
+@pytest.mark.parametrize("n_classes", [600, 3500])
+def test_bucketed_tiled_step_on_the_card_equals_the_cpu(card, n_classes):
+    """The live-tile CR6 under buckets on the card: the captured step
+    (its group launches through the batched row-count kernels) gives
+    the CPU's closure, iterations, derivations and gate counts; a
+    profile of it stays ``captured`` with its replays split by labels."""
+    from distel_tpu_torch.core.indexing import index_ontology
+    from distel_tpu_torch.core.program_cache import PROGRAMS
+    from distel_tpu_torch.core.rowpacked_engine import RowPackedSaturationEngine
+    from distel_tpu_torch.frontend.normalizer import normalize
+    from distel_tpu_torch.owl import parser
+    from distel_tpu_torch.runtime.profiling import profile_saturation
+
+    PROGRAMS.clear()
+    idx = index_ontology(normalize(parser.parse(
+        snomed_shaped_ontology(n_classes=n_classes, seed=42))))
+    tiles = {"density_threshold": 100.0, "tile_m": 64}
+    eng = RowPackedSaturationEngine(idx, device=card, bucket=True, cr6_tiles=tiles)
+    assert eng._bstruct.cr6t is not None
+    before = {k: LAUNCHES[k] for k in ("packed_cols_dense_n_batched",
+                                       "packed_cols_list_n_batched")}
+    got = eng.saturate()
+    torch.cuda.synchronize()
+    assert sum(LAUNCHES[k] - v for k, v in before.items()) > 0
+    assert eng._bucket_program().graph is not None
+    cpu = RowPackedSaturationEngine(idx, device="cpu", bucket=True, cr6_tiles=tiles)
+    want = cpu.saturate()
+    assert (got.iterations, got.derivations) == (want.iterations, want.derivations)
+    assert torch.equal(got.packed_s.cpu(), want.packed_s)
+    assert torch.equal(got.packed_r.cpu(), want.packed_r)
+    assert eng.gate_rounds == cpu.gate_rounds
+    prof = profile_saturation(eng)
+    assert prof["captured"] and "cr6" in prof["phases_s"]
+    assert prof["derivations"] == want.derivations
+
+
+def test_tiled_cross_program_delta_on_the_card_equals_the_cpu(card):
+    """A link-creating delta through the bucketed fast path on the card:
+    its cross program is tiled and captured, and the closure equals the
+    CPU's fast path."""
+    from distel_tpu_torch.core.incremental import IncrementalClassifier
+
+    base = snomed_shaped_ontology(n_classes=1500, seed=42)
+    delta = "\n".join(f"SubClassOf(DD{i} ObjectSomeValuesFrom(attr1 Find{i}))"
+                      for i in range(6)) + "\n"
+    got = {}
+    for dev in ("cuda", "cpu"):
+        inc = IncrementalClassifier(ClassifierConfig(fast_path_min_concepts=0),
+                                    device=dev)
+        inc.add_text(base)
+        inc.add_text(delta)
+        assert inc.history[-1]["path"] == "fast"
+        assert any(t["cross"] and t["active"] for t in inc.last_delta_tiles)
+        res = inc.last_result
+        got[dev] = (res.packed_s.cpu(), res.packed_r.cpu(), res.derivations)
+    assert torch.equal(got["cuda"][0], got["cpu"][0])
+    assert torch.equal(got["cuda"][1], got["cpu"][1])
+    assert got["cuda"][2] == got["cpu"][2]
