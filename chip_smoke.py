@@ -113,9 +113,10 @@ Phases, each of which raises on failure:
 7c. the observed, fused and incremental paths on a mesh
    (``mesh_observed_full_width``), one background process tree started
    beside 7b's, its runs in turn: (c) ``cli stream`` with ``mesh.devices
-   = 2`` (two gloo ranks on the card, exact layout) over the 64k corpus
-   without its range axiom, the bench's deltas and ``--retract`` of the
-   class-only one; (a) the forced 64k observed run (threshold 1.1,
+   = 2`` (two gloo ranks on the card, exact layout) over the cut corpus
+   (once the 64k corpus; the serve mesh, 7d, carries the same traffic
+   at 64k) without its range axiom, the bench's deltas and
+   ``--retract`` of the class-only one; (a) the forced 64k observed run (threshold 1.1,
    hysteresis 1, 12 capacity rungs, ``unroll=1``) and (b) the
    chain-tailed 64k corpus with the fused window, K = 8, on two gloo
    ranks (``parallel.mesh.launch_local``; the window uncaptured, its
@@ -127,13 +128,36 @@ Phases, each of which raises on failure:
    digest, iterations, derivations and taxonomy to the solo forced run
    of phase 10, every rank of (b) round for round and in closure to
    phase 10b's synchronous per-round run, every rank's every step of (c) in closure
-   and taxonomy digest (and path, iterations) to phase 9's range-free
-   steps, the NCCL runs record for record to the CPU's.  Per rank:
+   and taxonomy digest (and path, iterations) to the card's range-free
+   steps of the cut corpus in phase 9's card-vs-CPU part, the NCCL runs
+   record for record to the CPU's.  Per rank:
    wall, phases, per-round records, host reads, collectives (calls,
    bytes, seconds), launches, peak memory; the sparse tier's heaviest
    operand per site and kernel at each rank's word window through both
    routes against the plain version (the ``(sparse tier, mesh 2, rank
    window)`` rows of the kernel line);
+7d. the serve plane on a mesh (``serve_mesh_full_width``, a child
+   process, :func:`start_phase`, started after 7b and read before the
+   measure phase):
+   ``cli serve`` with ``mesh.devices = 2`` (two gloo ranks on the card,
+   default bucketed config; rank 0 publishes every card-touching op to
+   rank 1, ``serve/mesh_ops.py``) over loopback HTTP: the 64k corpus
+   without its range axiom, the bench's three deltas and the retraction
+   of the class-only one, the scheduled and snapshot reads after every
+   write; the 8k corpus (range-free) as a second tenant under a card
+   budget below either tenant and a warm budget that holds the 8k state
+   only: the 64k tenant demoted and shed to cold, a read restoring it,
+   an 8k delta promoting the 8k tenant (the 64k one cold again), each
+   seen in ``/healthz``; the graceful SIGTERM (rank 1 exits 0, the
+   gathered snapshots in the spill dir).  Every committed op carries one
+   closure digest on both ranks; once phase 9 has run, every 64k write's
+   closure and served taxonomy (and the restore) are held to its
+   range-free solo steps; the 8k taxonomies to solo card classifies.
+   Per rank: each op's wall, collectives (calls, bytes, seconds), launches
+   (the row-count kernels must launch on both), peak memory; each rank's
+   heaviest operand of each row-count variant (a ``sitecustomize`` on
+   the tree's ``PYTHONPATH`` keeps it) through both variants against the
+   plain version (the ``(serve mesh 2, rank window)`` rows);
 8. the weak-scaling corpus at full width: the OpenGALEN module read
    through the RDF/XML reader, multiplied into 600 crossed copies
    (88,802 concepts), written as OFN and classified by the default
@@ -330,6 +354,10 @@ install record, load and delta, ``/metrics`` series and launches, the
 kernel check, the refusal and the lenient consumer),
 ``{"mesh_full_width": ...}`` (each mesh run's summary and rank
 records, its comparisons, and the rank-window kernel checks),
+``{"serve_mesh_full_width": ...}`` (per request: route, status, client
+wall, path, iterations; ``/healthz`` at each tier step; the ops and
+every rank's wall of each; per rank collectives, launches, peak memory;
+the rank-window kernel checks; the 64k steps' digests),
 ``{"cohort_full_width": ...}`` (the 64k cohort's members, key, rung,
 votes, vote walls beside the solo walls, programs, events, launches,
 solo checks, batched kernel checks; the cut cohorts; the HTTP cohort),
@@ -2678,15 +2706,20 @@ def incremental_steps(text: str):
             ("add", INC_CLOSURE_DELTA), ("retract", INC_CLASS_DELTA)]
 
 
-def phase_incremental_card_vs_cpu(n_classes: int = CUT_CLASSES) -> dict:
+def phase_incremental_card_vs_cpu(n_classes: int = CUT_CLASSES,
+                                  refs: Optional[dict] = None) -> dict:
     """The bench's incremental traffic over the cut corpus (without its
     one range axiom, so that the retraction is not refused), the default
     config (the fast path engages above 2,048 concepts), on the card and
     on the CPU: after every increment, the retraction and a restore from
     a snapshot (with the retraction marker in the op log), the packed S
-    and R byte-identical and the history records equal."""
+    and R byte-identical and the history records equal.  ``refs`` gets
+    ``"stream"``: the card run's path, iterations, closure and taxonomy
+    digests a step (what 7c's stream on a mesh, over the same text, is
+    held to)."""
     from distel_tpu_torch.core.incremental import IncrementalClassifier
     from distel_tpu_torch.frontend.ontology_tools import snomed_shaped_ontology
+    from distel_tpu_torch.runtime.taxonomy import extract_taxonomy
 
     text = without_ranges(snomed_shaped_ontology(n_classes=n_classes, seed=42))
     steps = incremental_steps(text)
@@ -2700,6 +2733,12 @@ def phase_incremental_card_vs_cpu(n_classes: int = CUT_CLASSES) -> dict:
         for op, t in steps:
             res = inc.add_text(t) if op == "add" else inc.retract(t)
             wires.append(res.wire())
+            if dev == "cuda" and refs is not None:
+                refs.setdefault("stream", []).append({
+                    "path": inc.history[-1]["path"],
+                    "iterations": inc.history[-1]["iterations"],
+                    "closure_sha256": res.live_digest(),
+                    "taxonomy_sha256": extract_taxonomy(res).digest()})
         path = str(SNAPSHOT_DIR / f"inc-cut-{dev}.npz")
         inc.snapshot(path, compressed=False)
         back = IncrementalClassifier.restore(log_ops, path, EXACT(), device=dev)
@@ -2738,8 +2777,8 @@ def phase_incremental_full_width(cap: Capture, refs: Optional[dict] = None):
     delta.  Then the delta, cross and rebound-base engines rerun under
     the capture; the heaviest operand pair per site, engine and kernel
     is checked bit for bit and returned for the kernel line.  ``refs``
-    gets ``"stream"``: each range-free step's path, iterations, closure
-    and taxonomy digests (what 7c's stream on a mesh is held to)."""
+    gets ``"stream_64k"``: each range-free step's path, iterations,
+    closure and taxonomy digests (what 7d's serve mesh is held to)."""
     from distel_tpu_torch.core.incremental import IncrementalClassifier
     from distel_tpu_torch.frontend.ontology_tools import snomed_shaped_ontology
     from distel_tpu_torch.ops.bitmatmul import LAUNCHES, reset_launches
@@ -2847,7 +2886,7 @@ def phase_incremental_full_width(cap: Capture, refs: Optional[dict] = None):
               {"retract"})
     stream_step(r4)
     if refs is not None:
-        refs["stream"] = stream_ref
+        refs["stream_64k"] = stream_ref
     check(r4, survivors, "retraction")
     SNAPSHOT_DIR.mkdir(parents=True, exist_ok=True)
     path = str(SNAPSHOT_DIR / "inc64k.npz")
@@ -6776,9 +6815,9 @@ def start_mesh_observed(n_classes: int = 64000, chain_depth: int = 64,
     files = {"forced.ofn": text,
              "chain.ofn": chain_tailed_ontology(n_classes, chain_depth),
              "cut.ofn": snomed_shaped_ontology(n_classes=CUT_CLASSES, seed=42),
-             "base.ofn": without_ranges(text),
              "d1.ofn": INC_CLASS_DELTA, "d2.ofn": INC_ROLE_DELTA,
              "d3.ofn": INC_CLOSURE_DELTA}
+    files["base.ofn"] = without_ranges(files["cut.ofn"])
     for name, body in files.items():
         (d / name).write_text(body)
     forced = dict(sparse_tail=FORCED_WIDE)
@@ -6854,7 +6893,7 @@ def phase_mesh_observed_full_width(runs: dict, refs: dict,
                              f"{(MESH_OBS_DIR / 'stderr.txt').read_text()[-8000:]}")
     out = json.loads((MESH_OBS_DIR / "result.json").read_text())
     out["read_after_s"] = time.perf_counter() - runs["t0"]
-    for ref in [refs["forced_64k"], refs["chain_per_round"], *refs["stream"]]:
+    for ref in [refs["forced_64k"], refs["chain_per_round"]]:
         ref.update(ref.pop("digests").result())
     # (a) and (b): every rank against the solo runs
     for rank in out["mesh2"]["ranks"]:
@@ -6946,6 +6985,377 @@ def phase_mesh_observed_full_width(runs: dict, refs: dict,
     shutil.rmtree(MESH_OBS_DIR, ignore_errors=True)
     print(json.dumps({"mesh_observed_full_width": out}, default=str), flush=True)
     return rows
+
+
+# ------------------------------------------------- the serve plane on a mesh (7d)
+
+SERVE_MESH_DIR = ROOT / "build" / "smoke_serve_mesh"
+
+#: The serve mesh's ``sitecustomize`` (put ahead of the tree on the
+#: ``PYTHONPATH`` of ``cli serve``, so that rank 0 and the ranks it
+#: spawns run it): when ``distel_tpu_torch.ops.bitmatmul`` is imported,
+#: its packed-columns launch is wrapped to keep, per row-count variant,
+#: the operand pair of the most work (rows × links × words, then A's set
+#: bits) this process launched, written to ``<OPERANDS>/<pid>_<variant>.pt``
+#: each time a heavier one comes (its nonzero count is a read of the
+#: card, which the serve walls of this phase then carry).  It changes
+#: nothing in the program; the interpreter's own ``sitecustomize``,
+#: which it shadows, still runs.
+SERVE_MESH_HOOK = '''\
+import importlib.abc
+import importlib.machinery
+import importlib.util
+import os
+import sys
+
+_HERE = os.path.dirname(os.path.abspath(__file__))
+_spec = importlib.machinery.PathFinder.find_spec(
+    "sitecustomize",
+    [p for p in sys.path if os.path.abspath(p or os.curdir) != _HERE])
+if _spec is not None and _spec.loader is not None:
+    _spec.loader.exec_module(importlib.util.module_from_spec(_spec))
+
+_TOP = {}
+
+
+def _patch(mod):
+    import torch
+
+    orig = mod.PackedColsMatmulPlan._launch
+
+    def launch(plan, a, b, out, n_rows=None):
+        if n_rows is None or torch.cuda.is_current_stream_capturing():
+            return orig(plan, a, b, out) if n_rows is None else \\
+                orig(plan, a, b, out, n_rows)
+        variant = "packed_cols_list_n" if plan.skip_zero_tiles else "packed_cols_dense_n"
+        key = (plan.m * plan.l * plan.w, int(torch.count_nonzero(a)))
+        if key > _TOP.get(variant, (-1, -1)):
+            _TOP[variant] = key
+            path = os.path.join(OPERANDS, "%d_%s.pt" % (os.getpid(), variant))
+            torch.save({"a": a.cpu(), "b": b.cpu(), "n_rows": int(n_rows[0]),
+                        "work": key[0], "nnz": key[1]}, path + ".tmp")
+            os.replace(path + ".tmp", path)
+        return orig(plan, a, b, out, n_rows)
+
+    mod.PackedColsMatmulPlan._launch = launch
+
+
+class _Finder(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path, target=None):
+        if name != "distel_tpu_torch.ops.bitmatmul":
+            return None
+        spec = importlib.machinery.PathFinder.find_spec(name, path)
+        if spec is None or spec.loader is None:
+            return spec
+        run = spec.loader.exec_module
+
+        def exec_module(module):
+            run(module)
+            _patch(module)
+
+        spec.loader.exec_module = exec_module
+        return spec
+
+
+sys.meta_path.insert(0, _Finder())
+'''
+
+#: the serve mesh's budgets: a card budget below either tenant (every
+#: write or promotion evicts the other one), a warm budget that holds
+#: the 8k tenant's state and not the 64k one's (about 2.2 GB)
+SERVE_MESH_BUDGET_MB = 1
+SERVE_MESH_WARM_MB = 512
+
+
+def _http(method: str, url: str, text=None, timeout: float = 1800):
+    """``(status, answer, client wall)`` of one request (an error's
+    status and body)."""
+    import urllib.error
+    import urllib.request
+
+    data = json.dumps({"text": text}).encode() if text is not None else None
+    req = urllib.request.Request(url, data=data, method=method)
+    t0 = time.perf_counter()
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as r:
+            status, body = r.status, r.read()
+    except urllib.error.HTTPError as e:
+        status, body = e.code, e.read()
+    wall = time.perf_counter() - t0
+    try:
+        doc = json.loads(body)
+    except ValueError:
+        doc = body.decode(errors="replace")
+    return status, doc, wall
+
+
+def taxonomy_digest(doc: dict) -> str:
+    """A served taxonomy's ``Taxonomy.digest``."""
+    from distel_tpu_torch.runtime.taxonomy import Taxonomy
+
+    return Taxonomy(None, doc["equivalents"], doc["parents"],
+                    doc["unsatisfiable"]).digest()
+
+
+def phase_serve_mesh_full_width(n_big: int = 64000, n_small: int = 8000,
+                                device: str = "cuda",
+                                warm_mb: float = SERVE_MESH_WARM_MB) -> dict:
+    """``cli serve`` with ``mesh.devices = 2`` (two gloo ranks sharing
+    the card, the default bucketed config), over loopback HTTP: the
+    ``n_big``-class corpus without its range axiom, the bench's
+    class-only, role and closure deltas and the retraction of the
+    class-only one, the scheduled and snapshot reads after every write
+    (a taxonomy's digest, subsumers of ``Find7`` on both planes); then
+    the 8k corpus (range-free) as a second tenant under a card budget
+    below either tenant and a warm budget that holds the 8k state only:
+    the big tenant demoted to warm and shed to cold, a read restoring
+    it (8k to warm), a delta promoting the 8k tenant (the big one to
+    cold again), each seen in ``/healthz``; the graceful SIGTERM (both
+    ranks exit 0, the gathered snapshots in the spill dir).  Every rank's
+    every committed op carries rank 0's closure digest.  The 8k tenant's
+    taxonomies are held to solo card classifies of the same texts; the
+    big tenant's records (closure and taxonomy digests a write) are
+    returned for :func:`hold_serve_mesh`.  Each rank's heaviest operand
+    of each row-count variant (``SERVE_MESH_HOOK``) goes through both
+    variants against the plain version (0 differing words); the kernel
+    line's ``(serve mesh 2, rank window)`` rows.  Prints the phase's
+    line; returns the records and the rows."""
+    from distel_tpu_torch.frontend.ontology_tools import snomed_shaped_ontology
+    from distel_tpu_torch.runtime.classifier import ELClassifier
+
+    shutil.rmtree(SERVE_MESH_DIR, ignore_errors=True)
+    site, ops_dir, spill = (SERVE_MESH_DIR / n for n in ("site", "operands", "spill"))
+    for d in (site, ops_dir):
+        d.mkdir(parents=True)
+    (site / "sitecustomize.py").write_text(
+        f"OPERANDS = {str(ops_dir)!r}\n" + SERVE_MESH_HOOK)
+    props = _props(SERVE_MESH_DIR / "mesh.properties",
+                   **{"mesh.devices": 2, "storage.compress.spills": "false",
+                      "storage.prefetch.interval_s": 0})
+    tag = f"{n_big // 1000}k"
+    big = without_ranges(snomed_shaped_ontology(n_classes=n_big, seed=42))
+    small = without_ranges(snomed_shaped_ontology(n_classes=n_small, seed=42))
+    small_delta = "SubClassOf(MeshTier8k ObjectSomeValuesFrom(attr1 Find5))"
+    env = {**os.environ, "PYTHONPATH": os.pathsep.join([str(site), str(ROOT)])}
+    log_path = SERVE_MESH_DIR / "serve.log"
+    t0 = time.perf_counter()
+    with open(log_path, "w") as logf:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "distel_tpu_torch.cli", "serve", "--port", "0",
+             "--device", device, "--spill-dir", str(spill), "--config", props,
+             "--memory-budget-mb", str(SERVE_MESH_BUDGET_MB),
+             "--warm-budget-mb", str(warm_mb),
+             "--mesh-report", "digest", "--deadline-s", "1800"],
+            stdout=logf, stderr=subprocess.STDOUT, env=env, cwd=str(ROOT),
+            # a lower priority, as 7b's and 7c's trees: the smoke's own
+            # phases keep the host's cores first
+            preexec_fn=lambda: os.nice(10))
+    # the phase's own process group holds cli serve and its ranks: a smoke
+    # that stops the phase stops them (start_phase)
+    line = None
+    while line is None and proc.poll() is None and time.perf_counter() - t0 < 600:
+        for ln in log_path.read_text().splitlines():
+            if ln.startswith('{"serving"'):
+                line = json.loads(ln)
+        time.sleep(0.1)
+    if line is None:
+        raise AssertionError(f"serve mesh: no serving line:\n{log_path.read_text()[-6000:]}")
+    out = {"start_s": time.perf_counter() - t0, "serving": line, "requests": [],
+           "health": [], "tag": tag}
+    if line.get("mesh") != {"size": 2, "backend": "gloo"}:
+        raise AssertionError(f"serve mesh: serving line {line}")
+    url = f"http://127.0.0.1:{line['port']}"
+
+    def call(method, path, text=None):
+        status, doc, wall = _http(method, url + path, text)
+        want = 201 if path == "/v1/ontologies" else 200
+        if status != want:
+            raise AssertionError(f"serve mesh: {method} {path} answered {status}: "
+                                 f"{str(doc)[:2000]}")
+        rec = {"method": method, "route": path, "status": status, "wall_s": wall}
+        if isinstance(doc, dict):
+            rec.update({k: doc[k] for k in ("path", "iterations", "new_derivations",
+                                            "version", "increment") if k in doc})
+        out["requests"].append(rec)
+        log(f"[serve mesh] {json.dumps(rec)}")
+        return doc
+
+    def reads(oid):
+        """The reads after a write: the taxonomy's digest, and subsumers
+        of Find7 on the scheduler lane equal to the snapshot plane's."""
+        base = f"/v1/ontologies/{oid}"
+        tax = taxonomy_digest(call("GET", base + "/taxonomy"))
+        subs = call("GET", base + "/subsumers?class=Find7")["subsumers"]
+        snap = call("GET", base + "/query/subsumers?class=Find7")
+        if snap["subsumers"] != subs:
+            raise AssertionError(f"serve mesh {oid}: snapshot subsumers differ")
+        return tax, snap["version"]
+
+    def health(want: dict):
+        doc = call("GET", "/healthz")
+        got = {k: doc[k] for k in want}
+        out["health"].append({**got, "mesh": doc["mesh"]})
+        if got != want or doc["mesh"]["broken"] is not None:
+            raise AssertionError(f"serve mesh: /healthz {doc}, want {want}")
+
+    big_steps = []
+    try:
+        rec = call("POST", "/v1/ontologies", big)
+        a = rec["id"]
+        big_steps.append({"path": rec["path"], "iterations": rec["iterations"],
+                          "taxonomy_sha256": reads(a)[0]})
+        for op, t in incremental_steps(big)[1:]:
+            what = "deltas" if op == "add" else "retract"
+            rec = call("POST", f"/v1/ontologies/{a}/{what}", t)
+            big_steps.append({"path": rec["path"], "iterations": rec["iterations"],
+                              "taxonomy_sha256": reads(a)[0]})
+        b = call("POST", "/v1/ontologies", small)["id"]        # a: warm, then cold
+        small_taxes = [reads(b)[0]]
+        health({"ontologies": 2, "resident": 1, "warm": 0, "spilled": 1})
+        restored = taxonomy_digest(call("GET", f"/v1/ontologies/{a}/taxonomy"))
+        health({"ontologies": 2, "resident": 1, "warm": 1, "spilled": 1})
+        call("POST", f"/v1/ontologies/{b}/deltas", small_delta)  # b promoted, a cold
+        small_taxes.append(reads(b)[0])
+        health({"ontologies": 2, "resident": 1, "warm": 0, "spilled": 1})
+    except BaseException:
+        stop(proc, timeout_s=120)
+        raise
+    t1 = time.perf_counter()
+    import signal
+
+    proc.send_signal(signal.SIGTERM)
+    proc.wait(timeout=900)
+    out["close_s"] = time.perf_counter() - t1
+    lines = log_path.read_text().splitlines()
+    end = json.loads(next(ln for ln in reversed(lines) if ln.startswith('{"shutdown"')))
+    if proc.returncode != 0:
+        raise AssertionError(f"serve mesh: cli serve exited {proc.returncode}:\n"
+                             + "\n".join(lines[-60:]))
+    mesh = end["mesh"]
+    ranks, oplog = mesh.pop("ranks"), mesh.pop("log")
+    if mesh["broken"] is not None or [r["rank"] for r in ranks] != [0, 1] \
+            or ranks[1].get("exitcode") != 0:
+        raise AssertionError(f"serve mesh: the close {mesh} {ranks}")
+    if [os.path.basename(p) for p in end["spilled"]] != [f"{b}.snapshot.npz"]:
+        raise AssertionError(f"serve mesh: final spills {end['spilled']}")
+    for oid in (a, b):
+        if not (spill / f"{oid}.snapshot.npz").exists():
+            raise AssertionError(f"serve mesh: no gathered snapshot of {oid}")
+    # every rank ran every op, each committed one on rank 0's closure
+    for rec in oplog:
+        rs = rec["ranks"]
+        if [r["rank"] for r in rs] != [0, 1] or not all(r["ok"] for r in rs):
+            raise AssertionError(f"serve mesh: op {rec['seq']} {rec['op']}: {rs}")
+        if len({r.get("digest") for r in rs}) != 1:
+            raise AssertionError(f"serve mesh: op {rec['seq']} {rec['op']} "
+                                 "diverged between the ranks")
+    if [w[:3] for w in ranks[1]["walls"]] != [w[:3] for w in ranks[0]["walls"]]:
+        raise AssertionError("serve mesh: rank 1 did not run rank 0's ops")
+    ops = [(rec["op"], rec["oid"]) for rec in oplog]
+    for want in (("demote", a), ("spill", a), ("resident", a), ("demote", b),
+                 ("resident", b)):
+        if want not in ops:
+            raise AssertionError(f"serve mesh: no {want} op: {ops}")
+    writes = [rec for rec in oplog if rec["op"] in ("load", "delta", "retract")
+              and rec["oid"] == a]
+    for step, rec in zip(big_steps, writes):
+        step["closure_sha256"] = rec["ranks"][0]["digest"]
+    restore = next(rec for rec in oplog if rec["op"] == "resident" and rec["oid"] == a)
+    out.update(ops=ops, walls=[[w[1], w[2], [r["walls"][i][3] for r in ranks]]
+                               for i, w in enumerate(ranks[0]["walls"])])
+    for r in ranks:
+        for kern in ("packed_cols_dense_n", "packed_cols_list_n", "packed_cols_sparse"):
+            if device == "cuda" and not r["launches"].get(kern):
+                raise AssertionError(f"serve mesh rank {r['rank']}: {kern} never "
+                                     f"launched: {r['launches']}")
+        log(f"[serve mesh] rank {r['rank']}: collectives "
+            f"{json.dumps(r['collectives']['total'])}, peak "
+            f"{r['max_memory_allocated']} B, launches {json.dumps(r['launches'])}")
+    out["ranks"] = [{k: r[k] for k in ("rank", "pid", "collectives", "launches",
+                                       "max_memory_allocated")} for r in ranks]
+    # the 8k tenant against solo card classifies of the same texts
+    t2 = time.perf_counter()
+    for i, text in enumerate((small, small + small_delta + "\n")):
+        got = ELClassifier(device=device).classify_text(text).taxonomy.digest()
+        if got != small_taxes[i]:
+            raise AssertionError(f"serve mesh 8k step {i}: taxonomy differs from a "
+                                 "solo card classify")
+    out["small_check_s"] = time.perf_counter() - t2
+    # each rank's heaviest operand of each row-count variant
+    launches = {}
+    for r in ranks:
+        for k, v in r["launches"].items():
+            launches[k] = launches.get(k, 0) + v
+    rank_of = {r["pid"]: r["rank"] for r in ranks}
+    by_variant, rows, checks = {}, [], []
+    for path in sorted(ops_dir.glob("*.pt")):
+        pid, variant = path.stem.split("_", 1)
+        if int(pid) not in rank_of:
+            continue
+        op = torch.load(path, weights_only=False)
+        a_op, b_op = op["a"].cuda(), op["b"].cuda()
+        mine = [c for c in check_variants(
+            [(f"rank {rank_of[int(pid)]}", a_op, b_op, variant == "packed_cols_list_n")])
+            if c["kernel"] == variant]
+        for c in mine:
+            c.update(rank=rank_of[int(pid)], n_rows=op["n_rows"], nnz=op["nnz"])
+        checks += mine
+        by_variant.setdefault(variant, []).extend(mine)
+        del a_op, b_op, op
+    for variant in ("packed_cols_dense_n", "packed_cols_list_n"):
+        mine = by_variant.get(variant, [])
+        if device == "cuda" and sorted(c["rank"] for c in mine) != [0, 1]:
+            raise AssertionError(f"serve mesh: {variant} operands of ranks "
+                                 f"{[c['rank'] for c in mine]}")
+        if not mine:
+            continue
+        top = max(mine, key=lambda c: (c["shape"][0] * c["shape"][1] * c["shape"][2],
+                                       c["nnz"]))
+        row = {
+            "name": f"{variant} (serve mesh 2, rank window)", "route": "cuda",
+            "source": SOURCE,
+            "replaces": REPLACES["packed_cols_sparse" if variant.startswith("packed_cols_list")
+                                 else "packed_cols_dense"],
+            "launches": launches.get(variant, 0),
+            "max_abs_err": max(c["max_abs_err"] for c in mine),
+            "ms": top["ms"], "plain_ms": top["plain_ms"], "bound_ms": top["bound_ms"],
+            "bound_by": top["bound_by"], "library_ms": None, "dead_ms": top["dead_ms"],
+            "at": {"run": f"{tag}-serve-mesh2", "rank": top["rank"], "shape": top["shape"],
+                   "n_rows": top["n_rows"], "ranks_ms": [c["ms"] for c in mine]},
+            "main_path": True,
+        }
+        if variant == "packed_cols_list_n":
+            row["sparse_launches"] = launches.get("packed_cols_sparse", 0)
+        rows.append(row)
+    out["rank_window_checks"] = checks
+    out["big_steps"] = big_steps
+    out["big_restored_taxonomy_sha256"] = restored
+    out["big_restore_digest"] = restore["ranks"][0]["digest"]
+    out["small_taxonomies"] = small_taxes
+    out["wall_s"] = time.perf_counter() - t0
+    shutil.rmtree(SERVE_MESH_DIR, ignore_errors=True)
+    print(json.dumps({"serve_mesh_full_width": out}, default=str), flush=True)
+    return {"out": out, "rows": rows}
+
+
+def hold_serve_mesh(run: dict, refs: list) -> None:
+    """The serve mesh's big tenant held to phase 9's range-free steps
+    (``refs``: each step's closure and taxonomy digests): every write's
+    closure on every rank and its served taxonomy, and the restore."""
+    out = run["out"]
+    steps = out["big_steps"]
+    for ref in refs:
+        if "digests" in ref:       # phase 9's futures
+            ref.update(ref.pop("digests").result())
+    _hold("serve mesh steps", len(steps), len(refs))
+    for i, (got, want) in enumerate(zip(steps, refs)):
+        for k in ("closure_sha256", "taxonomy_sha256"):
+            _hold(f"serve mesh {out['tag']} step {i} {k}", got[k], want[k])
+    _hold("serve mesh restore closure", out["big_restore_digest"],
+          refs[-1]["closure_sha256"])
+    _hold("serve mesh restore taxonomy", out["big_restored_taxonomy_sha256"],
+          refs[-1]["taxonomy_sha256"])
+    log(f"[serve mesh] every {out['tag']} step equal to the solo steps")
 
 
 PHASE_DIR = ROOT / "build" / "smoke_phases"
@@ -7245,7 +7655,7 @@ def main() -> int:
     # load the kernels the probe built)
     mesh_runs = start_mesh_runs()
     mesh_observed = start_mesh_observed()
-    #: what 7c is held to, kept by phases 9, 10 and 10b
+    #: what 7c and 7d are held to, kept by phases 9, 10 and 10b
     mesh_refs = {}
     phase_kernels()
     andor_checks = phase_andor_kernel()
@@ -7261,10 +7671,14 @@ def main() -> int:
     del row8k
     phase_verify()
     phase_xml_corpora()
-    phase_incremental_card_vs_cpu()
+    phase_incremental_card_vs_cpu(refs=mesh_refs)
     mark("8k phases")
     mesh = finish_mesh_runs(mesh_runs)
     mark("mesh runs")
+    # the serve plane on a mesh (7d), a child process beside the phases
+    # that follow 7b, read before the measure phase (which wants a quiet
+    # card) and held once phase 9 has kept its references
+    serve_mesh = start_phase("serve_mesh", phase_serve_mesh_full_width)
     launches, res = phase_default_full_width()
     measure_ref = {"iterations": int(res.result.iterations),
                    "derivations": int(res.result.derivations)}
@@ -7297,6 +7711,8 @@ def main() -> int:
     batched_row = phase_partition_full_width()
     torch.cuda.empty_cache()
     mark("partition")
+    serve_mesh = finish_phase(serve_mesh)
+    mark("serve mesh")
     # on a quiet card (7c's tree is done, no child phase yet)
     phase_measure_full_width(measure_ref)
     torch.cuda.empty_cache()
@@ -7307,6 +7723,7 @@ def main() -> int:
     # farm (its bake and consumers are processes anyway)
     fleet = start_phase("fleet", phase_fleet_full_width, n_big=SERVE_CLASSES)
     checked += phase_incremental_full_width(cap, mesh_refs)
+    hold_serve_mesh(serve_mesh, mesh_refs["stream_64k"])
     torch.cuda.empty_cache()
     mark("incremental")
     cohort_cpu = start_cohort_cpu()
@@ -7340,6 +7757,7 @@ def main() -> int:
     rows.extend(cohort_rows)
     rows.extend(mesh_rows)
     rows.extend(mesh_observed_rows)
+    rows.extend(serve_mesh["rows"])
     (out / "kernel_pairs.json").write_text(json.dumps(pairs, indent=1))
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": rows}), flush=True)

@@ -839,15 +839,43 @@ def cmd_farm_build(args) -> int:
     return 0
 
 
+def _json_default(obj):
+    """numpy values (a mesh rank's report) as JSON."""
+    if hasattr(obj, "tolist"):
+        return obj.tolist()
+    return str(obj)
+
+
 def cmd_serve(args) -> int:
     """Resident classification service: one incremental classifier per
     loaded ontology, its closure resident on the card, behind a
-    bounded-queue scheduler; see ``distel_tpu_torch/serve/``."""
+    bounded-queue scheduler; see ``distel_tpu_torch/serve/``.
+
+    On a mesh: with ``mesh.devices = N`` in ``--config`` (no coordinator
+    keys) this process is rank 0 and spawns the N - 1 other ranks
+    (gloo when they share a card, NCCL when each has its own); it prints
+    the serving line once every rank has joined.  With the coordinator
+    keys each rank is a process of its own: ``process.id = 0`` serves
+    HTTP, every other one follows rank 0's op stream
+    (``serve/mesh_ops.follow``) and prints its close record.  The
+    shutdown line then carries each rank's record; the exit code is 1
+    when the mesh broke or a rank did not close cleanly."""
     from distel_tpu_torch.config import enable_compile_cache
+    from distel_tpu_torch.parallel.mesh import refuse_mesh
     from distel_tpu_torch.serve.server import ServeApp, serve_forever
 
     cfg = _load_cfg(args)
     enable_compile_cache(cfg.compile_cache_dir)
+    if args.replica_id:
+        refuse_mesh(cfg, "the serve fleet")
+    if cfg.coordinator_address and cfg.process_id:
+        from distel_tpu_torch.serve.mesh_ops import follow
+
+        if args.artifacts_dir:
+            cfg.artifacts_dir = args.artifacts_dir
+        rec = follow(cfg, args.device)
+        print(json.dumps({"mesh_rank": rec}), flush=True)
+        return 0
     if args.artifacts_dir:
         cfg.artifacts_dir = args.artifacts_dir
     if args.artifacts_require:
@@ -874,6 +902,8 @@ def cmd_serve(args) -> int:
         fast_path_min_concepts=args.fast_path_min_concepts,
         warmup_paths=args.warmup or None,
     )
+    if args.mesh_report:
+        kw["mesh_report"] = args.mesh_report
     if args.replica_id:
         # fleet worker: the same app plus the /fleet admin plane the
         # router drives (load-with-id, migrate-out, adopt)
@@ -890,11 +920,18 @@ def cmd_serve(args) -> int:
     else:
         app = ServeApp(cfg, **kw)
     spilled = serve_forever(app, args.host, args.port)
-    print(
-        json.dumps({"shutdown": "graceful", "spilled": spilled}),
-        flush=True,
-    )
-    return 0
+    doc = {"shutdown": "graceful", "spilled": spilled}
+    code = 0
+    if app.mesh_ranks is not None:
+        ops = app.registry.ops
+        doc["mesh"] = {"size": ops.mesh.size, "ops": ops.seq,
+                       "broken": ops.broken, "ranks": app.mesh_ranks,
+                       "log": ops.log}
+        if ops.broken or any(r.get("error") or r.get("exitcode") not in (None, 0)
+                             for r in app.mesh_ranks):
+            code = 1
+    print(json.dumps(doc, default=_json_default), flush=True)
+    return code
 
 
 def cmd_fleet(args) -> int:
@@ -906,11 +943,13 @@ def cmd_fleet(args) -> int:
     import signal as _signal
     import threading
 
+    from distel_tpu_torch.parallel.mesh import refuse_mesh
     from distel_tpu_torch.serve.fleet.router import RouterApp
     from distel_tpu_torch.serve.fleet.supervisor import ReplicaSupervisor
     from distel_tpu_torch.serve.server import make_server
 
     cfg = _load_cfg(args)
+    refuse_mesh(cfg, "the serve fleet")
     n = args.replicas if args.replicas is not None else cfg.fleet_replicas
     extra = []
     for flag, val in (
@@ -1184,15 +1223,13 @@ def cmd_profile(args) -> int:
     the chrome traces (``saturate.trace.json``, and for a run of
     captured graphs ``group.trace.json``, the eager group its replays
     are labelled from); without it they are aggregated and discarded.
-    A config naming a mesh is refused: profile on a mesh is not
-    ported."""
+    As the reference's, it profiles one device: ``mesh.devices`` and the
+    coordinator keys are ignored (no group is joined)."""
     from distel_tpu_torch.config import enable_compile_cache
-    from distel_tpu_torch.parallel.mesh import refuse_mesh
     from distel_tpu_torch.runtime.classifier import make_engine, resolve_device
     from distel_tpu_torch.runtime.profiling import profile_saturation
 
     cfg = _load_cfg(args)
-    refuse_mesh(cfg, "profile")
     enable_compile_cache(cfg.compile_cache_dir)
     device = resolve_device(args.device)
     _norm, idx = _load_index(args.ontology)
@@ -1349,6 +1386,10 @@ def main(argv=None) -> int:
     sv.add_argument("--fast-path-min-concepts", type=int, default=None,
                     help="override the delta fast path's base-size "
                          "cutoff (0 forces it everywhere)")
+    sv.add_argument("--mesh-report", choices=("digest", "state"), default=None,
+                    help="on a mesh, every rank also answers each write "
+                         "with its closure's digest (or live S and R); "
+                         "the shutdown line carries them")
     sv.add_argument("--replica-id", default=None,
                     help="run as a fleet replica with this id: adds "
                          "the /fleet admin plane (load-with-id, "

@@ -411,11 +411,17 @@ class IncrementalClassifier:
         """Drop the engine and every device tensor, keeping host state:
         the frontend caches, the retained index, and the closure as host
         arrays.  :meth:`promote` rebuilds from them without replaying
-        the frontend.  Returns the retained state's bytes."""
+        the frontend.  Returns the retained state's bytes.  On a mesh
+        each rank keeps its own word windows (:class:`RankWindows` of
+        host tensors), which :meth:`warm_closure` gathers; the bytes are
+        then the whole closure's (every rank holds one window of equal
+        width), which the serve registry's budgets count as off a mesh."""
         if self.last_result is None:
             raise ValueError("nothing to demote: no increment has completed")
         res = self.last_result
-        if res.transposed and self._wire_state():
+        if res.transposed and self._wire_state() and res.shards is not None:
+            state = RankWindows(*(t.detach().cpu() for t in res.shards))
+        elif res.transposed and self._wire_state():
             state = res.wire()
         else:
             state = (np.asarray(res.s), np.asarray(res.r))
@@ -424,13 +430,15 @@ class IncrementalClassifier:
         self._base_engine = self._base_idx = None
         self.last_result = None
         self.last_delta_stats = None
-        return int(state[0].nbytes + state[1].nbytes)
+        nbytes = int(state[0].nbytes + state[1].nbytes)
+        return nbytes * self._mesh.size if isinstance(state, RankWindows) else nbytes
 
     def promote(self) -> SaturationResult:
         """Rebuild the engine over the index :meth:`demote` kept and
         warm-start from the host state (one quiet pass)."""
         if self._warm_idx is None:
             raise ValueError("promote needs a prior demote")
+        self._state = self.warm_closure()
         idx, self._warm_idx = self._warm_idx, None
         self.timer = PhaseTimer(self.device)
         result = self._full_rebuild(idx)
@@ -445,6 +453,20 @@ class IncrementalClassifier:
         )
         self.last_result = result
         return result
+
+    def warm_closure(self):
+        """The demoted closure, whole, as host arrays.  On a mesh the
+        ranks' windows are gathered: every rank calls it."""
+        state = self._state
+        if not isinstance(state, RankWindows):
+            return state
+        from distel_tpu_torch.parallel.shard_compat import all_gather_words
+
+        return tuple(
+            all_gather_words(t.to(self.device), self._mesh)
+            .cpu().numpy().view(np.uint32)
+            for t in state
+        )
 
     def _ingest(self, onto, source_text: Optional[str] = None):
         """Frontend half of an increment: normalize the batch under the
@@ -579,18 +601,21 @@ class IncrementalClassifier:
 
     # --------------------------------------------------- spill / restore
 
-    def snapshot(self, path: str, compressed: bool = True) -> None:
+    def snapshot(self, path: str, compressed: bool = True,
+                 result: Optional[SaturationResult] = None) -> None:
         """Spill the running closure (``runtime/checkpoint``'s ``.npz``
-        forms, which either package restores).  On a mesh every rank
+        forms, which either package restores), or ``result`` (the serve
+        registry's view of a demoted closure).  On a mesh every rank
         calls it: rank 0 writes the whole closure, and no rank returns
         before the file is there."""
         from distel_tpu_torch.runtime.checkpoint import save_snapshot
 
-        if self.last_result is None:
+        result = result if result is not None else self.last_result
+        if result is None:
             raise ValueError("nothing to snapshot: no increment has completed")
         mesh = self._mesh
         if mesh is None or mesh.rank == 0:
-            save_snapshot(path, self.last_result, compressed=compressed)
+            save_snapshot(path, result, compressed=compressed)
         if mesh is not None and mesh.size > 1:
             from distel_tpu_torch.parallel.shard_compat import psum_
 

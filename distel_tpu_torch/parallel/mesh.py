@@ -100,12 +100,14 @@ def init_distributed(
     process_id: Optional[int] = None,
     *,
     device="cpu",
+    timeout_s: float = COLLECTIVE_TIMEOUT_S,
 ) -> bool:
     """Join the process group the reference's keys describe (idempotent:
     a process already in a group stays in it).  Returns whether a group
     is active.  With no coordinator this does nothing — the
     single-process path.  ``coordinator_address`` is ``host:port`` (or
-    a full ``tcp://`` / ``file://`` URL); ``device`` is this rank's."""
+    a full ``tcp://`` / ``file://`` URL); ``device`` is this rank's;
+    ``timeout_s`` bounds each collective of the group."""
     if dist.is_initialized():
         return True
     if coordinator_address is None:
@@ -117,7 +119,7 @@ def init_distributed(
         )
     url = (coordinator_address if "://" in coordinator_address
            else f"tcp://{coordinator_address}")
-    _join(url, int(num_processes), int(process_id), device)
+    _join(url, int(num_processes), int(process_id), device, timeout_s)
     return True
 
 
@@ -311,6 +313,7 @@ def refuse_mesh(config, plane: str) -> None:
     if keys:
         raise NotImplementedError(
             f"{plane} does not run on a mesh ({', '.join(keys)} is set); "
-            "classify, stream (the incremental plane) and the hybrid "
-            "shard their fixed points"
+            "classify, stream (the incremental plane), serve (one "
+            "registry mirrored on every rank) and the hybrid shard "
+            "their fixed points"
         )

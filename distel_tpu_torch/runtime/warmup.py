@@ -88,7 +88,8 @@ def warmup_text(
         raise ValueError(
             f"unknown warmup profile {profile!r}: 'serve' or 'classify'"
         )
-    if hasattr(engine, "precompile"):
+    # as the reference's classifier: a mesh's engine builds in its run
+    if hasattr(engine, "precompile") and getattr(engine, "mesh", None) is None:
         stats = engine.precompile(max_iters or config.max_iterations)
     else:
         from distel_tpu_torch.runtime.instrumentation import CompileStats

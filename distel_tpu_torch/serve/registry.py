@@ -66,10 +66,24 @@ why:
   (:meth:`OntologyRegistry._release_card`): other replica processes
   share the card, and PyTorch's caching allocator would otherwise keep
   them reserved for this one.
+* On a mesh (``mesh.devices`` or the coordinator keys) the registry is
+  rank 0's, and every tenant's classifier shards over the mesh.  Every
+  operation that touches the card or runs a collective — load, delta,
+  retract, the promotion or restore behind :meth:`_resident`, demotion,
+  spill, the idle-program drop — goes through the op stream
+  (``serve/mesh_ops.py``): published to every other rank, whose
+  follower registry (``follower=True``: no budget, no snapshot store)
+  applies it in order (:meth:`OntologyRegistry.apply`).  The decisions
+  (victims, prefetch targets, warm shedding) are rank 0's, from its own
+  bytes; the ranks hold symmetric windows.  The cold tier is the
+  gathered snapshot rank 0 writes; the warm tier keeps each rank's own
+  window in host memory.  Only rank 0 holds a snapshot store.  The
+  cohort lane and the fleet's migration plane do not run on a mesh.
 """
 
 from __future__ import annotations
 
+import contextlib
 import hashlib
 import os
 import threading
@@ -174,13 +188,35 @@ class OntologyRegistry:
         flight=None,
         warm_budget_bytes: Optional[int] = None,
         query=None,
+        follower: bool = False,
+        mesh_timeout_s: Optional[float] = None,
+        mesh_report: Optional[str] = None,
     ):
-        from distel_tpu_torch.parallel.mesh import refuse_mesh
-
         self.config = config or ClassifierConfig()
-        refuse_mesh(self.config, "the serve plane (OntologyRegistry)")
         #: the device every classifier of this registry runs on
         self.device = resolve_device(device)
+        if memory_budget_bytes is not None and spill_dir is None:
+            raise ValueError(
+                "a memory budget needs a spill_dir to evict into"
+            )
+        #: rank 0's op stream on a mesh (``serve/mesh_ops.OpStream``:
+        #: started here, spawning the other ranks under ``mesh.devices``
+        #: alone), None off a mesh and on a follower, which applies the
+        #: stream's records (:meth:`apply`).  ``mesh_timeout_s``: the
+        #: group's collective timeout; ``mesh_report``: what each rank
+        #: answers after a write (``mesh_ops.REPORTS``)
+        self.ops = None
+        self.follower = follower
+        if not follower and (self.config.mesh_devices
+                             or self.config.coordinator_address):
+            from distel_tpu_torch.serve.mesh_ops import OpStream
+
+            self.ops = OpStream.start(
+                self.config, self.device,
+                registry_kw={"spill_dir": spill_dir,
+                             "fast_path_min_concepts": fast_path_min_concepts},
+                timeout_s=mesh_timeout_s, report=mesh_report,
+            )
         self.memory_budget_bytes = memory_budget_bytes
         #: host-RAM warm-tier byte budget (0 = warm tier off: hot
         #: evictions spill straight to cold, the pre-tiering behavior);
@@ -212,10 +248,6 @@ class OntologyRegistry:
         self._lock = threading.Lock()
         self._entries: Dict[str, _Entry] = {}
         self._seq = 0
-        if memory_budget_bytes is not None and spill_dir is None:
-            raise ValueError(
-                "a memory budget needs a spill_dir to evict into"
-            )
         if spill_dir:
             os.makedirs(spill_dir, exist_ok=True)
 
@@ -251,6 +283,61 @@ class OntologyRegistry:
 
             with torch.cuda.device(self.device):
                 torch.cuda.empty_cache()
+
+    # ------------------------------------------------------------ mesh
+
+    def serial(self):
+        """The mesh lock (``OpStream.lock``): every public operation
+        takes it before any entry lock, so the ops it publishes run in
+        one order on every rank.  Nothing off a mesh."""
+        return self.ops.lock if self.ops is not None else contextlib.nullcontext()
+
+    def _card(self, op: str, oid: Optional[str], args: tuple, fn):
+        """``fn()`` — the card half of ``op`` — here, and on a mesh on
+        every rank too (published through the op stream; a follower's
+        :meth:`apply` runs the same code)."""
+        if self.ops is None:
+            return fn()
+        from distel_tpu_torch.serve.mesh_ops import op_report
+
+        return self.ops.run(
+            op, oid, args, fn,
+            report=lambda: op_report(self, op, oid, self.ops.report),
+        )
+
+    def apply(self, op: str, oid: Optional[str], args: tuple) -> None:
+        """A follower's half of an op rank 0 published: the same card
+        work, on this rank's windows (its budget logic never runs:
+        rank 0's decisions arrive as ops)."""
+        if op == "load":
+            self.load(oid, *args)
+        elif op == "delta":
+            self.delta(oid, *args)
+        elif op == "retract":
+            self.retract(oid, *args)
+        elif op == "drop_programs":
+            self._drop_idle_programs()
+        elif op in ("resident", "demote", "spill"):
+            entry = self._entry(oid)
+            with entry.lock:
+                if op == "resident":
+                    self._promote_or_restore(entry)
+                elif op == "demote":
+                    self._demote_warm(entry)
+                else:
+                    self._spill(entry)
+            self._release_card()
+        else:
+            raise ValueError(f"unknown op of the serve mesh: {op!r}")
+
+    def close(self) -> Optional[List[dict]]:
+        """Leave the mesh: publish ``close``, wait for every other rank
+        to exit (``OpStream.close``) and return each rank's record (its
+        collectives, launches, peak card bytes, op walls).  None off a
+        mesh."""
+        if self.ops is None:
+            return None
+        return self.ops.close(self.device)
 
     def _entry(self, oid: str) -> _Entry:
         with self._lock:
@@ -339,14 +426,19 @@ class OntologyRegistry:
                 raise ValueError(f"ontology id already loaded: {oid}")
             entry = self._entries[oid] = _Entry(oid)
         art = _artifact_window()
+
+        def card():
+            inc = self._new_inc()
+            result = inc.add_text(text)
+            entry.inc = inc
+            entry.texts.append(text)
+            entry.resident_bytes = _state_bytes(inc)
+            entry.last_used = time.monotonic()
+            return inc, result
+
         try:
-            with entry.lock:
-                inc = self._new_inc()
-                result = inc.add_text(text)
-                entry.inc = inc
-                entry.texts.append(text)
-                entry.resident_bytes = _state_bytes(inc)
-                entry.last_used = time.monotonic()
+            with self.serial(), entry.lock:
+                inc, result = self._card("load", oid, (text,), card)
                 version = self._publish(oid, inc)
         except BaseException:
             # a failed load must not leave a zombie id behind (listed by
@@ -379,21 +471,26 @@ class OntologyRegistry:
 
         entry = self._entry(oid)
         art = _artifact_window()
-        with entry.lock:
+        with self.serial(), entry.lock:
             self._check_live(entry)
             inc = self._resident(entry)
             text = "\n".join(texts)
-            # parse FIRST (the common failure, and it mutates nothing),
-            # then record the text BEFORE saturating: add_ontology
-            # merges the batch into the accumulated corpus up front, so
-            # if the saturation itself fails the classifier has still
-            # ingested the axioms (the next successful increment
-            # derives them) — texts must agree with the corpus or a
-            # later spill/restore would silently replay a smaller
-            # ontology than the one the closure answers for
-            onto = owl_loader.load(text)
-            entry.texts.append(text)
-            inc.add_ontology(onto, source_text=text)
+
+            def card():
+                # parse FIRST (the common failure, and it mutates
+                # nothing), then record the text BEFORE saturating:
+                # add_ontology merges the batch into the accumulated
+                # corpus up front, so if the saturation itself fails the
+                # classifier has still ingested the axioms (the next
+                # successful increment derives them) — texts must agree
+                # with the corpus or a later spill/restore would
+                # silently replay a smaller ontology than the one the
+                # closure answers for
+                onto = owl_loader.load(text)
+                entry.texts.append(text)
+                inc.add_ontology(onto, source_text=text)
+
+            self._card("delta", oid, (list(texts),), card)
             rec = self._commit_delta(oid, entry, inc, len(texts))
         self.traffic.note_write(oid)
         self._note_path(inc)
@@ -427,14 +524,18 @@ class OntologyRegistry:
 
         entry = self._entry(oid)
         t0 = time.monotonic()
-        with entry.lock:
+        with self.serial(), entry.lock:
             self._check_live(entry)
             inc = self._resident(entry)
-            try:
+
+            def card():
                 with obs_trace.child_span(
                     "registry.retract", {"oid": oid}
                 ):
                     inc.retract(text)
+
+            try:
+                self._card("retract", oid, (text,), card)
             except RetractionError as e:
                 self._count("distel_retract_refused_total")
                 self._event(
@@ -491,7 +592,11 @@ class OntologyRegistry:
         if inc is None:
             return None
         base = inc._base_engine
-        if base is None or not getattr(base, "_bucket", False):
+        if (
+            base is None
+            or base.mesh is not None
+            or not getattr(base, "_bucket", False)
+        ):
             return None
         return base.bucket_signature
 
@@ -515,6 +620,7 @@ class OntologyRegistry:
         from distel_tpu_torch.core import cohort as cohort_mod
         from distel_tpu_torch.owl import loader as owl_loader
 
+        self._refuse_mesh("the cohort lane")
         out: Dict[str, object] = {}
         entries = []
         for oid, texts in items:
@@ -659,7 +765,7 @@ class OntologyRegistry:
         evicted).  Caller must hold the scheduler's per-ontology
         serialization (queries ride the same lane as deltas)."""
         entry = self._entry(oid)
-        with entry.lock:
+        with self.serial(), entry.lock:
             self._check_live(entry)
             inc = self._resident(entry)
             entry.last_used = time.monotonic()
@@ -679,6 +785,7 @@ class OntologyRegistry:
         closure is the one those requests produced."""
         if not self.spill_dir:
             raise ValueError("export needs a spill_dir to snapshot into")
+        self._refuse_mesh("the serve fleet (export)")
         entry = self._entry(oid)
         with entry.lock:
             # same zombie guard as the writers: two concurrent exports
@@ -742,6 +849,7 @@ class OntologyRegistry:
         the shared spill dir."""
         if not texts:
             raise ValueError("adopt needs at least one ontology text")
+        self._refuse_mesh("the serve fleet (adopt)")
         if min_version and self.query is not None:
             self.query.seed_version(oid, int(min_version))
         with self._lock:
@@ -858,7 +966,20 @@ class OntologyRegistry:
         ``entry.lock``.  ``evict=False`` defers the promote-time
         budget sweep to the caller — the cohort path holds SEVERAL
         entry locks at once, and this thread's own RLocks re-acquire,
-        so an inline eviction could demote a co-held member."""
+        so an inline eviction could demote a co-held member.  On a mesh
+        the promotion or restore is one op of the stream, and the
+        eviction sweep publishes its own after it."""
+        if entry.inc is not None:
+            return entry.inc
+        inc = self._card("resident", entry.oid, (),
+                         lambda: self._promote_or_restore(entry))
+        if evict:
+            self._maybe_evict(keep=entry.oid)
+        return inc
+
+    def _promote_or_restore(self, entry: _Entry):
+        """The card half of :meth:`_resident`.  Caller holds
+        ``entry.lock``."""
         if entry.inc is not None:
             return entry.inc
         t0 = time.monotonic()
@@ -887,8 +1008,6 @@ class OntologyRegistry:
                 )
             self._note_compile(inc.last_compile)
             self._publish_if_missing(entry.oid, inc)
-            if evict:
-                self._maybe_evict(keep=entry.oid)
             return inc
         from distel_tpu_torch.core.incremental import IncrementalClassifier
 
@@ -920,8 +1039,6 @@ class OntologyRegistry:
         # with compile ≈ 0 (the whole point of the warmup precompile)
         self._note_compile(inc.last_compile)
         self._publish_if_missing(entry.oid, inc)
-        if evict:
-            self._maybe_evict(keep=entry.oid)
         return inc
 
     def _verify_spill(self, entry: _Entry) -> None:
@@ -969,7 +1086,7 @@ class OntologyRegistry:
 
         from distel_tpu_torch.core.engine import SaturationResult
 
-        s, r = inc._state
+        s, r = inc.warm_closure()
         transposed = s.dtype == np.uint32
         return SaturationResult(
             # the port's results hold the packed closure as int32 tensors
@@ -988,7 +1105,9 @@ class OntologyRegistry:
         (hot classifier or warm host state) to disk — compressed per
         ``storage.compress.spills`` — with a ``.sha256`` integrity
         sidecar, and drop every in-RAM copy.  Caller holds
-        ``entry.lock``."""
+        ``entry.lock``.  On a mesh every rank runs it: rank 0 writes the
+        gathered closure and its sidecar, and a follower keeps the path
+        (its restore verifies against the sidecar)."""
         if entry.inc is None and entry.warm_inc is None:
             return entry.spill_path
         path = self._spill_path(entry.oid)
@@ -997,18 +1116,18 @@ class OntologyRegistry:
         if entry.inc is not None:
             entry.inc.snapshot(path, compressed=compressed)
         else:
-            from distel_tpu_torch.runtime.checkpoint import save_snapshot
-
-            save_snapshot(
-                path, self._warm_result(entry.warm_inc),
-                compressed=compressed,
+            entry.warm_inc.snapshot(
+                path, compressed=compressed,
+                result=self._warm_result(entry.warm_inc),
             )
-        sha = _file_sha256(path)
-        with open(path + ".sha256", "w") as f:
-            f.write(sha + "\n")
+        sha = None
+        if not self.follower:
+            sha = _file_sha256(path)
+            with open(path + ".sha256", "w") as f:
+                f.write(sha + "\n")
+            entry.cold_bytes = os.path.getsize(path)
         entry.spill_path = path
         entry.spill_sha = sha
-        entry.cold_bytes = os.path.getsize(path)
         if entry.resident_bytes or entry.warm_bytes:
             entry.hot_bytes_estimate = (
                 entry.resident_bytes or entry.warm_bytes
@@ -1059,6 +1178,10 @@ class OntologyRegistry:
         concurrent request beats a byte target."""
         if self.memory_budget_bytes is None:
             return
+        with self.serial():
+            self._evict_to_budget(keep)
+
+    def _evict_to_budget(self, keep: Optional[str]) -> None:
         while True:
             with self._lock:
                 # total counts EVERY resident closure (keep included);
@@ -1087,9 +1210,11 @@ class OntologyRegistry:
                     continue  # raced with another evictor
                 bytes_freed = victim.resident_bytes
                 if self.warm_budget_bytes > 0:
-                    self._demote_warm(victim)
+                    self._card("demote", victim.oid, (),
+                               lambda: self._demote_warm(victim))
                 else:
-                    self._spill(victim)
+                    self._card("spill", victim.oid, (),
+                               lambda: self._spill(victim))
                 self._release_card()
                 self._count("distel_registry_evictions_total")
                 self._event(
@@ -1111,13 +1236,18 @@ class OntologyRegistry:
 
     def _drop_idle_programs(self) -> int:
         """Evict the registry's programs no live engine uses; their card
-        blocks go back at once."""
+        blocks go back at once (on a mesh, on every rank)."""
         from distel_tpu_torch.core.bucketing import drop_idle_programs
 
-        n = drop_idle_programs(self.device)
-        if n:
-            self._release_card()
-        return n
+        def card():
+            n = drop_idle_programs(self.device)
+            if n:
+                self._release_card()
+            return n
+
+        if self.ops is not None and self._program_bytes() == 0:
+            return 0  # the ranks hold the same programs: none to drop
+        return self._card("drop_programs", None, (), card)
 
     def _pick_victim(self, victims: List[_Entry]) -> _Entry:
         """Lowest-traffic entry (EWMA scored OUTSIDE the registry
@@ -1130,6 +1260,10 @@ class OntologyRegistry:
         fits."""
         if self.warm_budget_bytes <= 0:
             return
+        with self.serial():
+            self._shed_to_budget(keep)
+
+    def _shed_to_budget(self, keep: Optional[str]) -> None:
         while True:
             with self._lock:
                 warm = [
@@ -1147,7 +1281,8 @@ class OntologyRegistry:
             try:
                 if victim.warm_inc is None:
                     continue  # raced: promoted or already spilled
-                self._spill(victim)
+                self._card("spill", victim.oid, (),
+                           lambda: self._spill(victim))
                 self._count(
                     "distel_tier_demotions_total", tier="cold"
                 )
@@ -1164,6 +1299,10 @@ class OntologyRegistry:
         is busy."""
         if self.memory_budget_bytes is None:
             return None
+        with self.serial():
+            return self._prefetch()
+
+    def _prefetch(self) -> Optional[str]:
         with self._lock:
             hot_total = sum(
                 e.resident_bytes
@@ -1218,10 +1357,11 @@ class OntologyRegistry:
             entries = list(self._entries.values())
         paths = []
         for entry in entries:
-            with entry.lock:
+            with self.serial(), entry.lock:
                 if entry.inc is None and entry.warm_inc is None:
                     continue
-                paths.append(self._spill(entry))
+                paths.append(self._card("spill", entry.oid, (),
+                                        lambda: self._spill(entry)))
                 self._count("distel_registry_shutdown_spills_total")
                 self._event(
                     "registry_shutdown_spill",
@@ -1229,6 +1369,13 @@ class OntologyRegistry:
                     spill=entry.spill_path,
                 )
         return paths
+
+    def _refuse_mesh(self, plane: str) -> None:
+        """The planes that do not run on a mesh refuse it by name."""
+        if self.ops is not None or self.follower:
+            from distel_tpu_torch.parallel.mesh import refuse_mesh
+
+            refuse_mesh(self.config, plane)
 
     # ---------------------------------------------------------- metrics
 

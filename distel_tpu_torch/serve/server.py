@@ -53,6 +53,19 @@ why:
   background thread before traffic (``runtime/warmup.py``).  Every
   other route, metric and gauge keeps the reference's name and
   meaning.
+* On a mesh (``mesh.devices`` or the coordinator keys) this process is
+  rank 0: its registry publishes every card-touching operation to the
+  other ranks (``serve/mesh_ops.py``), and each request the scheduler
+  runs holds the mesh lock from publish to completion
+  (:meth:`_execute`, the scheduler's one executor), so two tenants'
+  collectives never interleave.  The cohort lane does not form and the
+  warmup thread builds nothing (the reference's classifier precompiles
+  off a mesh only).  A broken mesh (``mesh_ops.MeshBroken``: a rank
+  gone, a divergence, a timed-out collective) fails the write in flight
+  with 503 naming the mesh, and from then on ``/healthz`` answers 503
+  and every write 503; reads of published snapshots still answer.
+  :meth:`close` spills through the stream, then publishes ``close`` and
+  waits for every rank (:attr:`mesh_ranks`: each rank's record).
 """
 
 from __future__ import annotations
@@ -79,6 +92,7 @@ from distel_tpu_torch.serve.query import (
     SnapshotStore,
     StaleSnapshot,
 )
+from distel_tpu_torch.serve.mesh_ops import MeshBroken
 from distel_tpu_torch.serve.registry import OntologyRegistry, UnknownOntology
 from distel_tpu_torch.serve.scheduler import (
     Deadline,
@@ -243,6 +257,8 @@ class ServeApp:
         fast_path_min_concepts: Optional[int] = None,
         warmup_paths: Optional[List[str]] = None,
         warm_budget_bytes: Optional[int] = None,
+        mesh_timeout_s: Optional[float] = None,
+        mesh_report: Optional[str] = None,
     ):
         self.config = config or ClassifierConfig()
         # ---- artifact farm: install the kernel libraries and build the
@@ -288,11 +304,17 @@ class ServeApp:
             flight=self.flight,
             warm_budget_bytes=warm_budget_bytes,
             query=self.query,
+            mesh_timeout_s=mesh_timeout_s,
+            mesh_report=mesh_report,
         )
+        #: each rank's record at :meth:`close` on a mesh (None off one)
+        self.mesh_ranks: Optional[List[dict]] = None
         # ---- cohort-formation lane: pending deltas on
         # distinct lanes group by base bucket signature under a bounded
         # wait and advance under ONE vmapped device dispatch per vote
-        cohort_on = self.config.cohort_enable and self.config.cohort_max_size >= 2
+        cohort_on = (self.config.cohort_enable
+                     and self.config.cohort_max_size >= 2
+                     and self.registry.ops is None)
         self.scheduler = RequestScheduler(
             self._execute,
             workers=workers,
@@ -678,6 +700,12 @@ class ServeApp:
         # into the registry before traffic; a failure leaves them cold
         # (the error counter says so) and never blocks serving
         self._warmup_done = threading.Event()
+        if warmup_paths and self.registry.ops is not None:
+            # a warmed program is a solo engine's: no tenant on the mesh
+            # would ask for it
+            self.flight.record("warmup_skipped", reason="mesh",
+                               paths=len(warmup_paths))
+            warmup_paths = None
         if warmup_paths:
             self.metrics.gauge_set("distel_warmup_done", 0)
             threading.Thread(
@@ -728,24 +756,28 @@ class ServeApp:
         has length > 1 only for coalesced delta batches."""
         timer = PhaseTimer(self.registry.device)
         try:
-            if kind == "load":
-                with timer.phase("load"):
-                    return self.registry.load(key, payloads[0])
-            if kind == "delta":
-                with timer.phase("delta"):
-                    return self.registry.delta(key, payloads)
-            if kind == "retract":
-                with timer.phase("retract"):
-                    return self.registry.retract(key, payloads[0])
-            if kind == "subsumers":
-                with timer.phase("query"):
-                    return self._subsumers(key, payloads[0])
-            if kind == "taxonomy":
-                with timer.phase("query"):
-                    return self._taxonomy(key)
-            raise ValueError(f"unknown request kind {kind!r}")
+            with self.registry.serial():
+                return self._run(key, kind, payloads, timer)
         finally:
             self.phases.absorb(timer)
+
+    def _run(self, key: str, kind: str, payloads: List, timer):
+        if kind == "load":
+            with timer.phase("load"):
+                return self.registry.load(key, payloads[0])
+        if kind == "delta":
+            with timer.phase("delta"):
+                return self.registry.delta(key, payloads)
+        if kind == "retract":
+            with timer.phase("retract"):
+                return self.registry.retract(key, payloads[0])
+        if kind == "subsumers":
+            with timer.phase("query"):
+                return self._subsumers(key, payloads[0])
+        if kind == "taxonomy":
+            with timer.phase("query"):
+                return self._taxonomy(key)
+        raise ValueError(f"unknown request kind {kind!r}")
 
     def _execute_cohort(self, members):
         """Cohort executor behind the scheduler's formation lane:
@@ -807,6 +839,12 @@ class ServeApp:
         return handler(*groups, query=query, body=body,
                        deadline_s=deadline_s)
 
+    def _check_mesh(self) -> None:
+        """A broken mesh answers every write 503, naming the mesh."""
+        if self.registry.ops is not None and self.registry.ops.broken:
+            raise HTTPError(503, f"the serve mesh is broken: "
+                                 f"{self.registry.ops.broken}")
+
     def _schedule(self, key: str, kind: str, payload,
                   deadline_s: Optional[float], batchable=False):
         deadline = (
@@ -828,6 +866,8 @@ class ServeApp:
             raise HTTPError(503, str(e))
         except UnknownOntology as e:
             raise HTTPError(404, f"unknown ontology {e.args[0]!r}")
+        except MeshBroken as e:
+            raise HTTPError(503, str(e))
         except UnknownRetraction as e:
             raise HTTPError(404, str(e))
         except RetractionError as e:
@@ -849,12 +889,14 @@ class ServeApp:
 
     def _ep_load(self, *, query, body, deadline_s):
         text = self._json_text(body)
+        self._check_mesh()
         oid = self.registry.new_id()
         rec = self._schedule(oid, "load", text, deadline_s)
         return 201, "application/json", _dumps(rec)
 
     def _ep_delta(self, oid, *, query, body, deadline_s):
         text = self._json_text(body)
+        self._check_mesh()
         rec = self._schedule(oid, "delta", text, deadline_s, batchable=True)
         return 200, "application/json", _dumps(rec)
 
@@ -864,6 +906,7 @@ class ServeApp:
         # and the cohort lane only forms over batchable deltas — so a
         # retract always executes solo on its ontology's lane
         text = self._json_text(body)
+        self._check_mesh()
         rec = self._schedule(oid, "retract", text, deadline_s)
         return 200, "application/json", _dumps(rec)
 
@@ -986,6 +1029,13 @@ class ServeApp:
             qs = self.query.stats()
             doc["snapshots"] = qs["snapshots"]
             doc["snapshot_bytes"] = qs["snapshot_bytes"]
+        ops = self.registry.ops
+        if ops is not None:
+            doc["mesh"] = {"size": ops.mesh.size, "ops": ops.seq,
+                           "broken": ops.broken}
+            if ops.broken:
+                doc["status"] = "mesh-broken"
+                return 503, "application/json", _dumps(doc)
         return 200, "application/json", _dumps(doc)
 
     def _ep_metrics(self, *, query, body, deadline_s):
@@ -1024,7 +1074,15 @@ class ServeApp:
         self._stop_promoter.set()
         self.flight.record("shutdown", final_spill=final_spill)
         self.scheduler.close()
-        spilled = self.registry.spill_all() if final_spill else []
+        spilled = []
+        if final_spill:
+            try:
+                spilled = self.registry.spill_all()
+            except MeshBroken:
+                # rank 0 writes nothing alone: the last committed spills
+                # and snapshots stand
+                spilled = []
+        self.mesh_ranks = self.registry.close()
         self._dump_flight()
         return spilled
 
@@ -1202,6 +1260,9 @@ def serve_forever(app: ServeApp, host: str, port: int) -> List[str]:
                 "port": bound,
                 "spill_dir": app.registry.spill_dir,
                 "artifacts": app.artifacts_install,
+                **({"mesh": {"size": app.registry.ops.mesh.size,
+                             "backend": app.registry.ops.mesh.backend}}
+                   if app.registry.ops is not None else {}),
             }
         ),
         flush=True,

@@ -1646,3 +1646,40 @@ def test_tiled_cross_program_delta_on_the_card_equals_the_cpu(card):
     assert torch.equal(got["cuda"][0], got["cpu"][0])
     assert torch.equal(got["cuda"][1], got["cpu"][1])
     assert got["cuda"][2] == got["cpu"][2]
+
+
+# ------------------------------------------------------- the serve mesh
+
+
+def test_serve_mesh_of_two_on_one_card_equals_the_cpu(card):
+    """``cli serve`` with ``mesh.devices = 2`` on the card (two gloo
+    ranks on cuda:0) through ``chip_smoke.py``'s serve-mesh phase at the
+    cut depth: the cut corpus (range-free) with the bench's deltas and
+    the retraction, a second tenant through the warm and cold tiers.
+    Every write's closure on both ranks and every served taxonomy equal
+    the CPU port's solo steps of the same traffic; each rank's heaviest
+    operand of each row-count variant equals its plain version."""
+    import sys
+
+    root = Path(__file__).resolve().parent.parent
+    sys.path.insert(0, str(root))
+    import chip_smoke as cs
+    from distel_tpu_torch.core.incremental import IncrementalClassifier
+
+    run = cs.phase_serve_mesh_full_width(n_big=cs.CUT_CLASSES, n_small=1000,
+                                         warm_mb=5)
+    text = cs.without_ranges(snomed_shaped_ontology(n_classes=cs.CUT_CLASSES, seed=42))
+    inc = IncrementalClassifier(ClassifierConfig(shape_buckets=False), device="cpu")
+    refs = []
+    for op, t in cs.incremental_steps(text):
+        res = inc.add_text(t) if op == "add" else inc.retract(t)
+        refs.append({"closure_sha256": res.live_digest(),
+                     "taxonomy_sha256": extract_taxonomy(res).digest()})
+    cs.hold_serve_mesh(run, refs)
+    rows = {r["name"]: r for r in run["rows"]}
+    assert set(rows) == {"packed_cols_dense_n (serve mesh 2, rank window)",
+                         "packed_cols_list_n (serve mesh 2, rank window)"}
+    for r in rows.values():
+        assert r["max_abs_err"] == 0 and r["launches"] > 0
+    assert sorted(c["rank"] for c in run["out"]["rank_window_checks"]
+                  if c["kernel"] == "packed_cols_dense_n") == [0, 1]

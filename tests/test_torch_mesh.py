@@ -400,11 +400,11 @@ def test_coordinator_keys_join_two_processes(tmp_path):
 
 @pytest.mark.parametrize("plane", ["incremental", "serve", "hybrid", "cohort"])
 def test_planes_without_a_sharded_mode_refuse_a_mesh(plane):
-    """Serve and the cohort have no sharded mode: they refuse a mesh
-    config by name rather than run each rank alone (the reference's
-    cohort refuses a mesh engine too: ``cohort_ready``).  The
-    incremental plane and the hybrid run on a mesh (of one here) and
-    equal their solo runs."""
+    """The cohort has no sharded mode: it refuses a mesh config by name
+    rather than run each rank alone (the reference's cohort refuses a
+    mesh engine too: ``cohort_ready``).  The incremental plane, serve
+    and the hybrid run on a mesh (of one here) and equal their solo
+    runs.  (The name is kept from when serve refused a mesh too.)"""
     cfg = ClassifierConfig(mesh_devices=1)
     if plane == "incremental":
         from distel_tpu_torch.core.incremental import IncrementalClassifier
@@ -422,10 +422,19 @@ def test_planes_without_a_sharded_mode_refuse_a_mesh(plane):
         assert (mesh_res.iterations, mesh_res.derivations) == \
             (solo_res.iterations, solo_res.derivations)
     elif plane == "serve":
+        # serve runs on a mesh since its op stream was ported
+        # (tests/test_torch_serve_mesh.py); a mesh of one needs no stream
         from distel_tpu_torch.serve.registry import OntologyRegistry
 
-        with pytest.raises(NotImplementedError, match="serve plane"):
-            OntologyRegistry(cfg, device="cpu")
+        digests = []
+        for c in (cfg, ClassifierConfig()):
+            reg = OntologyRegistry(c, device="cpu")
+            assert reg.ops is None and reg.close() is None
+            oid = reg.new_id()
+            reg.load(oid, CORPORA["snomed"])
+            digests.append(reg.classifier(oid).last_result.live_digest())
+        assert reg.classifier(oid)._mesh is None
+        assert digests[0] == digests[1]
     elif plane == "hybrid":
         from distel_tpu_torch.runtime.classifier import make_engine
 

@@ -233,13 +233,48 @@ def test_cli_profile_keys_cover_the_reference(tmp_path, capsys):
         (want_run.iterations, want_run.derivations)
 
 
-def test_cli_profile_refuses_a_mesh_config(tmp_path):
+def _profile(tmp_path, capsys, keys=""):
+    """``cli profile --device cpu --config`` with ``keys``: its record,
+    and whether a process group was left joined."""
+    import torch.distributed as dist
+
     onto = tmp_path / "o.ofn"
     onto.write_text(ONTO)
-    props = tmp_path / "mesh.properties"
-    props.write_text("mesh.devices = 2\n")
-    with pytest.raises(NotImplementedError, match="profile does not run on a mesh.*mesh.devices"):
-        cli.main(["profile", str(onto), "--config", str(props), "--device", "cpu"])
+    props = tmp_path / "c.properties"
+    props.write_text(keys)
+    assert cli.main(["profile", str(onto), "--config", str(props),
+                     "--device", "cpu"]) == 0
+    return json.loads(capsys.readouterr().out), dist.is_initialized()
+
+
+def test_cli_profile_refuses_a_mesh_config(tmp_path, capsys):
+    """As the reference's ``cmd_profile``, ``cli profile`` profiles one
+    device: the coordinator keys are ignored (no group is joined, the
+    coordinator is never dialled) and the profile is the solo one.  (The
+    name is kept from when the port refused a mesh config here.)"""
+    solo, _ = _profile(tmp_path, capsys)
+    got, joined = _profile(
+        tmp_path, capsys,
+        "coordinator.address = 127.0.0.1:1\nnum.processes = 2\nprocess.id = 0\n")
+    assert not joined
+    assert (got["iterations"], got["derivations"]) == \
+        (solo["iterations"], solo["derivations"])
+
+
+def test_cli_profile_with_mesh_devices_profiles_one_device(tmp_path, capsys):
+    """``mesh.devices = 2`` in ``cli profile``'s config gives the
+    iterations and derivations of the same call without the key (the
+    reference's ``make_engine(cfg, idx)`` builds no mesh), and starts no
+    process group."""
+    solo, _ = _profile(tmp_path, capsys)
+    got, joined = _profile(tmp_path, capsys, "mesh.devices = 2\n")
+    assert not joined
+    assert (got["iterations"], got["derivations"]) == \
+        (solo["iterations"], solo["derivations"])
+    ridx, _ = _both(ONTO)
+    want = RefEngine(ridx).saturate()
+    assert (got["iterations"], got["derivations"]) == \
+        (want.iterations, want.derivations)
 
 
 def test_cli_bench_engine_bakeoff_matches_reference(tmp_path, capsys):

@@ -392,9 +392,9 @@ def test_snapshot_is_a_copy_of_the_state():
 #: keys of paths the serve plane does not have (``fused.rounds.k`` > 1
 #: runs the fused window since it was ported: ``tests/test_torch_fused.py``;
 #: ``artifacts.dir`` parses since the farm was ported:
-#: ``tests/test_torch_artifacts.py``; the mesh keys parse since the mesh
-#: plane was ported, ``tests/test_torch_mesh.py``, and the serve plane,
-#: which has no sharded mode, refuses them)
+#: ``tests/test_torch_artifacts.py``; ``ServeApp`` serves on a mesh since
+#: the serve mesh was ported, ``tests/test_torch_serve_mesh.py``, and a
+#: serve fleet replica, which has no mesh mode, refuses the mesh keys)
 REFUSED_KEYS = {"mesh.devices": "2", "coordinator.address": "host:1234"}
 
 
@@ -402,9 +402,10 @@ REFUSED_KEYS = {"mesh.devices": "2", "coordinator.address": "host:1234"}
 def test_refused_config_keys_raise(tmp_path, key):
     p = tmp_path / "c.properties"
     p.write_text(f"{key} = {REFUSED_KEYS[key]}\n")
-    cfg = ClassifierConfig.from_properties(str(p))
-    with pytest.raises(NotImplementedError, match=re.escape(key)):
-        ServeApp(cfg, device="cpu")
+    with pytest.raises(NotImplementedError,
+                       match=f"the serve fleet does not run.*{re.escape(key)}"):
+        cli.main(["serve", "--device", "cpu", "--replica-id", "r0", "--spill-dir",
+                  str(tmp_path / "spill"), "--config", str(p)])
 
 
 def test_serve_config_keys_parse(tmp_path):
